@@ -6,20 +6,24 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
   1. card     — print the card's name and power limit (nvidia-smi).
-  2. build    — compile the three CUDA kernels from flexflow_tpu_torch/csrc
+  2. build    — compile the five CUDA sources from flexflow_tpu_torch/csrc
                 with nvcc (sm_90a) and print the build time.
   3. kernels  — hold each kernel against its plain PyTorch version on the
                 card, in bf16, at the shapes the Llama-3-8B serving path
-                gives it (max abs error: flash <= 2e-2, paged decode
-                <= 5e-3; prefill write bitwise);
-                time kernel, plain version and, for flash attention, torch's
-                scaled_dot_product_attention as a yardstick (the port never
-                calls it), each with CUDA events around single launches
-                after an L2 flush.
+                and the flagship training path give it (limits below);
+                time kernel, plain version and, where one exists, a torch
+                call computing the same function as a yardstick (the port
+                never calls it), each with CUDA events around single
+                launches after an L2 flush.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
                 same weights served on the CPU through the plain versions.
-  5. serve    — Llama-3-8B widths (hidden 4096, 32 heads over 8 kv heads,
+  5. train check — a small f32 flagship encoder classifier (hidden 512, 2
+                layers, 4 heads of 128, fused add + LayerNorm) takes 3 SGD
+                steps on the card through the kernels and on the CPU
+                through the plain branches from the same weights: losses
+                within 1e-4 relative, every weight within 1e-5.
+  6. serve    — Llama-3-8B widths (hidden 4096, 32 heads over 8 kv heads,
                 ffn 14336, vocab 128256, rope_theta 500000, 32 layers, bf16,
                 seeded random weights) serve 6 prompts (13..700 tokens, 32
                 new tokens each) through FFModel.serve with 4 slots and
@@ -27,6 +31,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 logits, each kernel's launch count must be its expected
                 count (layers x prefills, layers x decode steps), and a
                 second serve must return the same tokens.
+  7. train    — the flagship encoder classifier at the widths of the TPU
+                headline tier (batch 8, seq 512, hidden 4096, 6 layers, 32
+                heads, ffn 16384, 16 classes, bf16 weights and compute,
+                fused add + LayerNorm, SGD lr 0.01, seeded random weights
+                and data) takes one warm-up step, then FFModel.fit runs one
+                epoch of 4 steps: every loss finite, and per step exactly
+                6 flash forwards, 6 flash backwards and 12 add + LayerNorm
+                launches. Prints step time, samples/s, peak memory and a
+                torch.profiler breakdown of one more step.
 
 The last two lines of standard output are a JSON object describing each
 kernel and the result line {"ok": true, "device": {...}}.
@@ -34,6 +47,7 @@ kernel and the result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -43,11 +57,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense
+F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 # max abs error against the plain version: flash outputs are about 1 in
 # size (bf16 rounding ~4e-3); paged decode outputs average ~600 unit
 # values and are about 0.07 (bf16 rounding ~5e-4), so its limit is tighter
 FLASH_TOL = 2e-2
 PAGED_TOL = 5e-3
+# the training rows' errors are scaled to the output's largest magnitude
+# (max |kernel - plain| / max |plain|). bf16 keeps 8 significant bits, a
+# relative step of 2^-8 = 3.9e-3 at the top of a binade: the flash forward
+# and add + LayerNorm outputs are rounded once, so their limit is 1e-2
+# (2.5 steps); the backward rounds ds and p to bf16 before three of its
+# products, and a value near a rounding boundary may round the other way
+# in the two versions, so its limit is 2e-2. The lse is f32: 1e-3 absolute
+# on values ~7 (sums over 512 keys in other orders, then a log).
+SCALED_TOL = 1e-2
+BWD_TOL = 2e-2
+LSE_TOL = 1e-3
+# the f32 train check: card (kernels, cuBLAS without TF32) vs CPU (plain
+# branches) sum in other orders, ~1e-6 relative per product; three SGD
+# steps at lr 0.01 move weights by ~1e-3, so the weights agree far inside
+# 1e-5, the losses inside 1e-4 relative
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+
+#: the flagship at the widths of the TPU headline tier (bench.py xxl_scan)
+FLAGSHIP = dict(batch=8, seq=512, hidden=4096, layers=6, heads=32,
+                ffn_mult=4, num_classes=16)
+TRAIN_STEPS = 4
+TRAIN_LR = 0.01
 
 LLAMA3_8B = dict(hidden=4096, layers=32, heads=32, kv_heads=8,
                  ffn_hidden=14336, vocab_size=128256, rope_theta=500000.0)
@@ -95,10 +133,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_per_s: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scaled_err(out, ref) -> float:
+    """max |out - ref| over max |ref|."""
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def busy_ms(events) -> float:
+    """Union of the device kernels' [start, end) intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type.name == "CUDA")
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3   # us -> ms
 
 
 # ------------------------------------------------------------- phases
@@ -176,7 +237,7 @@ def phase_kernels(torch, kernels):
         ms=cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, True, scale)),
         plain_ms=cuda_ms(
             lambda: kernels.flash_attention_plain(q, k, v, True, scale)),
-        library_ms=cuda_ms(lib),
+        library_ms=cuda_ms(lib), library="F.scaled_dot_product_attention",
         bound=bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                     4 * pairs * h * d),
         shape=f"q (1,{s},{h},{d}) k/v (1,{s},{kvh},{d}) causal bf16")
@@ -208,7 +269,7 @@ def phase_kernels(torch, kernels):
         err=err,
         ms=cuda_ms(lambda: kernels.paged_attention_fwd(*args, scale)),
         plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*args, scale)),
-        library_ms=None,
+        library_ms=None, library=None,
         bound=bound(2 * (2 * qd.numel() + 2 * live * kvh * d)
                     + 4 * (table.numel() + wp.numel() + 2 * b),
                     4 * live * h * d),
@@ -235,17 +296,117 @@ def phase_kernels(torch, kernels):
                                                        pages)),
         plain_ms=cuda_ms(lambda: kernels.paged_prefill_write_plain(
             rk, rv, kh, vh, pages)),
-        library_ms=None,
+        library_ms=None, library=None,
         bound=bound(2 * (kh.numel() + vh.numel())
                     + 2 * 2 * n_pages * ps * kvh * d + 4 * n_pages, 0.0),
         shape=f"slab (1,{s},{kvh},{d}) into {n_pages} pages of {ps} bf16")
 
+    rows.update(training_kernel_rows(torch, kernels, g))
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}"
-            + (f", sdpa {r['library_ms']:.4f} ms" if r["library_ms"] else "")
-            + ")")
+            + (f", {r['library']} {r['library_ms']:.4f} ms"
+               if r["library_ms"] else "") + ")")
+    return rows
+
+
+def training_kernel_rows(torch, kernels, g):
+    """Flash forward with its lse, flash backward and add + LayerNorm at
+    the flagship's training shapes (bf16, non-causal attention); errors
+    scaled to the output's magnitude."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    b, s, h = FLAGSHIP["batch"], FLAGSHIP["seq"], FLAGSHIP["heads"]
+    d = FLAGSHIP["hidden"] // h
+    scale = d ** -0.5
+    rows = {}
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(bf16)
+                   for _ in range(4))
+    n_qkv = q.numel()
+    shape = f"q/k/v ({b},{s},{h},{d}) non-causal bf16"
+
+    o, lse = kernels.flash_attention_fwd(q, k, v, False, scale, need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, False, scale,
+                                             need_lse=True)
+    torch.cuda.synchronize()
+    err = scaled_err(o, ro)
+    lse_err = (lse - rlse).abs().max().item()
+    if not (err <= SCALED_TOL and lse_err <= LSE_TOL):
+        fail(f"flash_attention_fwd with lse disagrees with its plain "
+             f"version: scaled err {err} (limit {SCALED_TOL}), lse err "
+             f"{lse_err} (limit {LSE_TOL})")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["flash_attention_fwd_lse"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.flash_attention_fwd(
+            q, k, v, False, scale, need_lse=True)),
+        plain_ms=cuda_ms(lambda: kernels.flash_attention_plain(
+            q, k, v, False, scale, need_lse=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                  vt)),
+        library="F.scaled_dot_product_attention",
+        bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * s * s * d),
+        shape=shape + ", lse (B,H,S) f32")
+
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+                                             scale)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
+    if not err <= BWD_TOL:
+        fail(f"flash_attention_bwd disagrees with its plain version: "
+             f"scaled err {err} (limit {BWD_TOL})")
+    # the yardstick is SDPA's backward alone: its forward runs once here
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_do = do.transpose(1, 2).contiguous()
+    rows["flash_attention_bwd"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.flash_attention_bwd(
+            q, k, v, o, lse, do, False, scale)),
+        plain_ms=cuda_ms(lambda: kernels.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, False, scale)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, lib_do, retain_graph=True)),
+        library="F.scaled_dot_product_attention backward",
+        # q, k, v, o, dO read, dq, dk, dv written; the five products
+        bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
+                    10 * b * h * s * s * d),
+        shape=shape + ", o/dO/lse -> dq/dk/dv")
+    del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves, lib_out
+
+    n, dm = b * s, FLAGSHIP["hidden"]
+    x, r = (torch.randn(n, dm, device=dev, generator=g).to(bf16)
+            for _ in range(2))
+    sc = (torch.rand(dm, device=dev, generator=g) + 0.5).to(bf16)
+    bi = torch.randn(dm, device=dev, generator=g).to(bf16)
+    got = kernels.fused_add_layernorm_fwd(x, r, sc, bi, 1e-5)
+    ref = kernels.fused_add_layernorm_plain(x, r, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    err = scaled_err(got[1], ref[1])
+    stats_err = max(scaled_err(a, b) for a, b in zip(got[2:], ref[2:]))
+    if not (torch.equal(got[0], ref[0]) and err <= SCALED_TOL
+            and stats_err <= 1e-5):
+        fail(f"fused_add_layernorm_fwd disagrees with its plain version: "
+             f"sum bitwise {torch.equal(got[0], ref[0])}, scaled err {err} "
+             f"(limit {SCALED_TOL}), stats {stats_err} (limit 1e-5)")
+    rows["fused_add_layernorm_fwd"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.fused_add_layernorm_fwd(x, r, sc, bi,
+                                                           1e-5)),
+        plain_ms=cuda_ms(lambda: kernels.fused_add_layernorm_plain(
+            x, r, sc, bi, 1e-5)),
+        library_ms=cuda_ms(lambda: F.layer_norm(x + r, (dm,), sc, bi, 1e-5)),
+        library="x + r, then F.layer_norm (two calls)",
+        # x, r read, s, y written, scale/bias read, mean/rstd written;
+        # ~9 f32 operations an element on the CUDA cores
+        bound=bound(2 * 4 * n * dm + 2 * 2 * dm + 4 * 2 * n, 9 * n * dm,
+                    F32_FLOP_PER_S),
+        shape=f"x/r ({n},{dm}) bf16 with stats")
     return rows
 
 
@@ -291,6 +452,64 @@ def phase_check(torch, FFConfig, FFModel, llama_lm):
         f"versions on {len(prompts)} prompts x 8 tokens")
 
 
+def build_flagship(port, device, dtype: str, seed: int, batch, seq, hidden,
+                   layers, heads, ffn_mult, num_classes):
+    """The flagship encoder classifier (models/transformer.py), fused add +
+    LayerNorm, compiled for training with SGD, sparse cross-entropy and
+    accuracy as __graft_entry__.py compiles the JAX one."""
+    from flexflow_tpu_torch.models import build_encoder_classifier
+
+    ff = port.FFModel(port.FFConfig(batch_size=batch, seed=seed,
+                                    compute_dtype=dtype, master_dtype=dtype,
+                                    use_fused_ln=True), device=device)
+    x, out = build_encoder_classifier(ff, batch, seq, hidden, layers, heads,
+                                      ffn_mult, num_classes)
+    ff.compile(port.SGDOptimizer(lr=TRAIN_LR),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=out)
+    return ff, x
+
+
+def phase_train_check(torch, port, kernels):
+    """Small f32 flagship: 3 SGD steps on the card (kernels) vs the CPU
+    (plain branches) from the same weights."""
+    import numpy as np
+
+    arch = dict(batch=4, seq=128, hidden=512, layers=2, heads=4, ffn_mult=4,
+                num_classes=16)
+    cpu, _ = build_flagship(port, "cpu", "float32", 3, **arch)
+    gpu, _ = build_flagship(port, "cuda", "float32", 3, **arch)
+    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    gpu.opt_state = gpu.optimizer.init_state(gpu.params)
+    rs = np.random.RandomState(3)
+    kernels.reset_launch_counts()
+    worst = 0.0
+    for i in range(3):
+        batch = {"input": rs.randn(4, arch["seq"], arch["hidden"]).astype(
+                     np.float32),
+                 "label": rs.randint(0, 16, (4, 1)).astype(np.int32)}
+        lc = float(cpu._run_train_step(batch)[0])
+        lg = float(gpu._run_train_step(batch)[0])
+        if not (np.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)):
+            fail(f"train check: step {i} loss on the card {lg} vs the CPU "
+                 f"{lc} (limit {TRAIN_LOSS_RTOL} relative)")
+        worst = max(worst, abs(lg - lc) / abs(lc))
+    diff = max((gpu.params[op][w].detach().cpu() - t.detach()).abs().max()
+               .item() for op, ws in cpu.params.items() for w, t in ws.items())
+    if not diff <= TRAIN_PARAM_ATOL:
+        fail(f"train check: weights after 3 steps differ card vs CPU by "
+             f"{diff} (limit {TRAIN_PARAM_ATOL})")
+    launches = kernels.launch_counts()
+    want = dict(flash_attention_fwd=6, flash_attention_bwd=6,
+                fused_add_layernorm_fwd=12)
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"train check did not run through the kernels: {launches}")
+    say(f"train check: small f32 flagship, 3 SGD steps, card through the "
+        f"kernels vs CPU plain branches: losses within {worst:.2e} "
+        f"relative, weights within {diff:.2e}")
+
+
 def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     import numpy as np
 
@@ -317,7 +536,8 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
         fail(f"serve: not every request finished with finite logits: {st}")
     want = {"flash_attention_fwd": layers * len(prompts),
             "paged_prefill_write": layers * len(prompts),
-            "paged_attention_fwd": layers * st["decode_steps"]}
+            "paged_attention_fwd": layers * st["decode_steps"],
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
     if launches != want:
         fail(f"serve: kernel launches {launches} != expected {want}")
     for o, n in zip(outs, PROMPT_LENS):
@@ -344,6 +564,124 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     return launches
 
 
+def kernel_class(name: str) -> str:
+    """Where a device kernel of a training step belongs."""
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash forward"
+    if any(k in name for k in ("dq_kernel", "dkv_kernel", "delta_kernel")):
+        return "flash backward"
+    if "add_ln_fwd_kernel" in name:
+        return "add + LayerNorm forward"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "cuBLAS GEMM"
+    return "other (elementwise, reductions, copies)"
+
+
+def phase_train(torch, port, kernels, card: str):
+    """The flagship at full width: one warm-up step, then fit() over one
+    epoch of TRAIN_STEPS steps; then one step under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f = FLAGSHIP
+    t0 = time.perf_counter()
+    ff, x = build_flagship(port, "cuda", "bfloat16", 0, **f)
+    n = f["batch"] * TRAIN_STEPS
+    rs = np.random.RandomState(0)
+    port.SingleDataLoader(ff, x, rs.randn(n, f["seq"], f["hidden"]).astype(
+        np.float32))
+    port.SingleDataLoader(ff, ff.label_tensor, rs.randint(
+        0, f["num_classes"], (n, 1)).astype(np.int32))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    say(f"train: flagship encoder classifier, hidden {f['hidden']}, "
+        f"{f['layers']} layers, {f['heads']} heads, batch {f['batch']}, seq "
+        f"{f['seq']}, {n_params / 1e9:.3f} B params bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    losses = []
+    step = ff._run_train_step
+
+    def recording_step(batch):
+        loss, mets = step(batch)
+        losses.append(loss)
+        return loss, mets
+
+    ff._run_train_step = recording_step
+    recording_step(ff._stage_batch())     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ff.fit(epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    vals = [float(v) for v in losses]
+    if len(vals) != TRAIN_STEPS + 1 or not all(np.isfinite(vals)):
+        fail(f"train: losses {vals}")
+    layers = f["layers"]
+    want = {"flash_attention_fwd": layers * TRAIN_STEPS,
+            "flash_attention_bwd": layers * TRAIN_STEPS,
+            "fused_add_layernorm_fwd": 2 * layers * TRAIN_STEPS,
+            "paged_attention_fwd": 0, "paged_prefill_write": 0}
+    if launches != want:
+        fail(f"train: kernel launches {launches} != expected {want}")
+    step_ms = wall * 1e3 / TRAIN_STEPS
+    say(f"train: losses {[round(v, 4) for v in vals]} (warm-up first)")
+    say(f"train: fit of {TRAIN_STEPS} steps in {wall:.3f} s: step "
+        f"{step_ms:.1f} ms, {n / wall:.2f} samples/s [{card}]")
+    say(f"train: launches per step "
+        f"{ {k: v // TRAIN_STEPS for k, v in launches.items() if v} }")
+    say(f"train: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+
+    batch = ff._stage_batch()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = busy_ms(events)
+    by_class, by_name = {}, {}
+    for e in events:
+        us = e.time_range.end - e.time_range.start
+        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name),
+                                                      0) + us
+        by_name[e.name] = by_name.get(e.name, 0) + us
+    say(f"train profile: device busy {busy:.1f} ms of a {step_ms:.1f} ms "
+        f"step: idle share {max(1 - busy / step_ms, 0):.3f} [{card}]")
+    total = sum(by_class.values())
+    for k, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        say(f"train profile: {k}: {us / 1e3:.2f} ms "
+            f"({100 * us / total:.1f}%)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        say(f"train profile kernel: {us / 1e3:.3f} ms {name[:110]}")
+    return launches
+
+
+#: the JSON line's rows: name -> (source, line of the Pallas function
+#: replaced, the main path whose launch counts it reports, wrapper)
+KERNEL_ROWS = {
+    "flash_attention_fwd": ("flash_attention.cu", 180, "serve",
+                            "flash_attention_fwd"),
+    "paged_attention_fwd": ("paged_attention.cu", 689, "serve",
+                            "paged_attention_fwd"),
+    "paged_prefill_write": ("paged_prefill_write.cu", 779, "serve",
+                            "paged_prefill_write"),
+    "flash_attention_fwd_lse": ("flash_attention.cu", 180, "train",
+                                "flash_attention_fwd"),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", 335, "train",
+                            "flash_attention_bwd"),
+    "fused_add_layernorm_fwd": ("fused_add_layernorm.cu", 461, "train",
+                                "fused_add_layernorm_fwd"),
+}
+
+
 def main():
     try:
         import torch
@@ -354,6 +692,7 @@ def main():
     if not (ROOT / "flexflow_tpu_torch" / "__init__.py").is_file():
         fail(f"run from a checkout: {ROOT} holds no flexflow_tpu_torch/")
     sys.path.insert(0, str(ROOT))
+    import flexflow_tpu_torch as port
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models import llama_lm
     from flexflow_tpu_torch.ops import kernels
@@ -363,23 +702,23 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, kernels)
     phase_check(torch, FFConfig, FFModel, llama_lm)
-    launches = phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card)
+    phase_train_check(torch, port, kernels)
+    launches = {"serve": phase_serve(torch, FFConfig, FFModel, llama_lm,
+                                     kernels, card)}
+    launches["train"] = phase_train(torch, port, kernels, card)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    sources = {"flash_attention_fwd": ("flash_attention.cu", 180),
-               "paged_attention_fwd": ("paged_attention.cu", 689),
-               "paged_prefill_write": ("paged_prefill_write.cu", 779)}
     table = []
     for name, r in rows.items():
-        src, line = sources[name]
+        src, line, path, wrapper = KERNEL_ROWS[name]
         table.append({
             "name": name, "route": "cuda",
             "source": f"flexflow_tpu_torch/csrc/{src}",
             "replaces": f"flexflow_tpu/ops/pallas_kernels.py:{line}",
-            "launches": launches[name], "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "path": path, "launches": launches[path][wrapper],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "library": r["library"]})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,16 @@
 Hopper (H100).
 
 The JAX package ``flexflow_tpu`` stays the reference; this package grows
-beside it slice by slice and imports nothing of it (nor of JAX). The first
-slice is serving: ``FFModel`` builds a decoder LM (``models.llama_lm``),
-``compile`` initialises it on the card, and ``FFModel.serve`` runs it
-through the continuous-batching ``ServingEngine`` over a paged KV cache.
+beside it slice by slice and imports nothing of it (nor of JAX).
+
+  * Serving: ``FFModel`` builds a decoder LM (``models.llama_lm``),
+    ``compile(final_tensor=...)`` initialises it on the card, and
+    ``FFModel.serve`` runs it through the continuous-batching
+    ``ServingEngine`` over a paged KV cache.
+  * Training: ``models.build_encoder_classifier`` built on ``FFModel``,
+    ``compile(SGDOptimizer(...), loss, metrics)``, ``SingleDataLoader``s
+    for the input and ``ff.label_tensor``, then ``fit()`` / ``evaluate``.
+
 Where the JAX package ran a Pallas kernel, the port runs a CUDA C++ kernel
 written for ``sm_90a`` (``ops/kernels.py``, sources in ``csrc/``).
 
@@ -14,9 +20,13 @@ PyTorch versions of the kernels on the CPU.
 """
 
 from flexflow_tpu_torch.config import FFConfig
-from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, OperatorType
+from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
+                                        LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.model import FFModel
+from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
+from flexflow_tpu_torch.runtime.optimizer import SGDOptimizer
 from flexflow_tpu_torch.tensor import Tensor
 
-__all__ = ["ActiMode", "AggrMode", "DataType", "FFConfig", "FFModel",
-           "OperatorType", "Tensor"]
+__all__ = ["ActiMode", "AggrMode", "CompMode", "DataType", "FFConfig",
+           "FFModel", "LossType", "MetricsType", "OperatorType",
+           "SGDOptimizer", "SingleDataLoader", "Tensor"]

@@ -1,12 +1,13 @@
 """FFConfig: the subset of the JAX package's configuration that the serving
-slice reads.
+and training slices read.
 
 Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
 other. Knobs that select features of later slices are kept (a user who
-sets them must not be silently served something else): the serving engine
-rejects each non-default value with ``NotImplementedError`` naming the
-ROADMAP item that ports it (``not_ported``).
+sets them must not be silently served or trained something else): the
+serving engine and the training ``compile`` reject each non-default value
+with ``NotImplementedError`` naming the ROADMAP item that ports it
+(``not_ported``).
 """
 
 from __future__ import annotations
@@ -14,23 +15,45 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-#: where the serving features of later slices are queued
+#: where the features of later slices are queued
 ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
+ROADMAP_OPS = "ROADMAP.md queue 1, item 2 (the training op set)"
+ROADMAP_TRAIN_LOOP = "ROADMAP.md queue 1, item 3 (the train loop)"
+ROADMAP_TRAINING = "ROADMAP.md queue 1, item 4 (the training surface)"
+ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
 
 
-def not_ported(feature: str, hint: str = "") -> NotImplementedError:
+def not_ported(feature: str, hint: str = "",
+               where: str = ROADMAP_SERVING) -> NotImplementedError:
     """The error for a knob whose feature a later slice ports."""
-    msg = f"{feature} is not ported to flexflow_tpu_torch yet ({ROADMAP_SERVING})"
+    msg = f"{feature} is not ported to flexflow_tpu_torch yet ({where})"
     return NotImplementedError(msg + (f"; {hint}" if hint else ""))
 
 
 @dataclasses.dataclass
 class FFConfig:
     batch_size: int = 64
+    epochs: int = 1
     seed: int = 0
-    # "bfloat16" stores the weights and runs every op in bf16 (the serving
-    # default on the card); "float32" is what the CPU parity tests use
+    # "bfloat16" runs every op in bf16 (the serving default on the card);
+    # "float32" is what the CPU parity tests use. Serving stores its
+    # weights in this dtype.
     compute_dtype: str = "float32"
+
+    # ---- training (model.py compile/fit, runtime/executor.py) ----
+    # storage dtype of the trained weights (and the optimizer's state);
+    # the update's arithmetic is f32 either way
+    master_dtype: str = "float32"
+    # residual add + LayerNorm as one fused op (models/transformer.py) —
+    # the fused_add_layernorm kernel on the card
+    use_fused_ln: bool = False
+    # later-slice knobs, kept with the JAX defaults (see module docstring);
+    # the dense attention path always runs the flash kernels on the card
+    use_flash_attention: bool = True
+    grad_accum_steps: int = 1
+    scan_steps: int = 0
+    checkpoint_dir: str = ""
+    on_nonfinite: str = "none"
 
     # ---- serving (runtime/serving.py) ----
     # decode slots: the engine's batch; the host scheduler admits and
@@ -51,10 +74,21 @@ class FFConfig:
     paged_attention_impl: str = "auto"
 
     def __post_init__(self):
-        if self.compute_dtype not in ("float32", "bfloat16"):
+        for field in ("compute_dtype", "master_dtype"):
+            if getattr(self, field) not in ("float32", "bfloat16"):
+                raise ValueError(
+                    f"{field}={getattr(self, field)!r}: must be 'float32' "
+                    f"or 'bfloat16'")
+        if self.epochs < 1 or self.grad_accum_steps < 1 \
+                or self.scan_steps < 0:
             raise ValueError(
-                f"compute_dtype={self.compute_dtype!r}: must be 'float32' "
-                f"or 'bfloat16'")
+                f"epochs={self.epochs} (>= 1), grad_accum_steps="
+                f"{self.grad_accum_steps} (>= 1), scan_steps="
+                f"{self.scan_steps} (>= 0)")
+        if self.on_nonfinite not in ("none", "skip", "backoff"):
+            raise ValueError(
+                f"on_nonfinite={self.on_nonfinite!r}: must be 'none', "
+                f"'skip' or 'backoff'")
         if self.serve_slots < 1 or self.kv_page_size < 1 \
                 or self.kv_pages < 0:
             raise ValueError(
@@ -82,3 +116,22 @@ class FFConfig:
                 raise ValueError(
                     f"decode_buckets={self.decode_buckets!r}: must be a "
                     f"strictly ascending list of positive ints")
+
+
+def check_training_ported(cfg: FFConfig) -> None:
+    """Raise for a training knob set to a feature no slice has ported."""
+    if not cfg.use_flash_attention:
+        raise not_ported("the einsum attention path on the card "
+                         "(use_flash_attention=False)", where=ROADMAP_OPS)
+    if cfg.grad_accum_steps != 1:
+        raise not_ported("gradient accumulation (grad_accum_steps > 1)",
+                         where=ROADMAP_TRAINING)
+    if cfg.scan_steps:
+        raise not_ported("the scanned multi-step program (scan_steps > 0)",
+                         where=ROADMAP_TRAINING)
+    if cfg.on_nonfinite != "none":
+        raise not_ported(f"the divergence-guarded step (on_nonfinite="
+                         f"{cfg.on_nonfinite!r})", where=ROADMAP_TRAINING)
+    if cfg.checkpoint_dir:
+        raise not_ported("checkpointing and auto-resume (checkpoint_dir)",
+                         where=ROADMAP_RUNTIME)

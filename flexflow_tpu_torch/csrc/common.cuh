@@ -57,6 +57,27 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* o
   }
 }
 
+// The inverse of unpack16: 16 bytes of T from f32 values (rounded to
+// nearest even for bfloat16).
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* in);
+template <>
+__device__ __forceinline__ uint4 pack16<float>(const float* in) {
+  return make_uint4(__float_as_uint(in[0]), __float_as_uint(in[1]),
+                    __float_as_uint(in[2]), __float_as_uint(in[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* in) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(in[2 * i]));
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(in[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ float warp_max(float x, int width) {
   for (int off = width / 2; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));

@@ -1,8 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the JAX package's Pallas kernel flash_attention_fwd_pallas
-// (flexflow_tpu/ops/pallas_kernels.py:180, kernel _flash_fwd_kernel :124),
-// inference half: no logsumexp residual.
+// (flexflow_tpu/ops/pallas_kernels.py:180, kernel _flash_fwd_kernel :124).
+// With a non-null lse pointer it also writes the logsumexp residual the
+// backward needs (flash_attention_bwd.cu), one f32 per (b, h, q row) in a
+// plain (B, H, Sq) layout — not the Pallas kernel's 8-lane padded one. The
+// serving prefill passes null and does no extra work.
 //
 // Computes o = softmax(scale * q k^T + mask) v on (B, S, H, D) tensors,
 // with the causal mask aligned bottom-right (query row i attends keys
@@ -22,12 +25,15 @@
 // the score tile, key columns tx + 16 j (j < 2), in the output tile head-dim
 // columns tx + 16 j (j < D / 16). Row reductions are 16-lane shuffles.
 //
-// Bound on the H100: at the serving prefill shape (S = 512, H = 32, KVH = 8,
-// D = 128, causal) the function moves ~10.5 MB (q, k, v read once, o
-// written once), ~3.1 us at 3.35 TB/s, and does ~2.2 GFLOP, ~2.2 us at
-// 989 TFLOP/s bf16 — bytes bound. This first kernel runs its products on
-// the CUDA cores from shared memory (no wgmma, no TMA), so it sits far from
-// that bound; its measured time is in PERF.md.
+// Bound on the H100: at the training shape (B = 8, S = 512, H = 32, D = 128,
+// non-causal, bf16) the function does 4 B H S^2 D = 34.4 GFLOP, ~35 us at
+// 989 TFLOP/s, and moves ~135 MB (q, k, v read once, o and lse written
+// once), ~40 us at 3.35 TB/s; at the serving prefill shape (B = 1, S = 512,
+// H = 32, KVH = 8, D = 128, causal) it moves ~10.5 MB, ~3.1 us, and does
+// ~2.2 GFLOP, ~2.2 us. Both are bytes bound by a small margin. This first
+// kernel runs its products on the CUDA cores from shared memory (no wgmma,
+// no TMA), so it sits far from that bound; its measured times are in
+// PERF.md.
 #include "common.cuh"
 
 using namespace ffk;
@@ -49,8 +55,9 @@ constexpr size_t flash_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int h, int kvh, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                 float scale, int causal) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D + 1]
   float* kt = qs + kBQ * (D + 1);     // [D][kBK + 1]  (k transposed)
@@ -181,32 +188,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + ((static_cast<size_t>(b) * sq + qp) * h + hh) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l[i]);
+    // m is the running max of the scaled logits, l their shifted sum
+    if (lse != nullptr && tx == 0)
+      lse[static_cast<size_t>(blockIdx.y) * sq + qp] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int h, int kvh, float scale,
-                   int causal, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int h, int kvh,
+                   float scale, int causal, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<D>();
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, kvh,
+      scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     void* o, int b, int sq, int sk, int h, int kvh,
-                     float scale, int causal, cudaStream_t stream) {
+                     void* o, float* lse, int b, int sq, int sk, int h,
+                     int kvh, float scale, int causal, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, h, kvh, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -214,16 +224,17 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, KVH, D), o (B, Sq, H, D); all contiguous,
-// one dtype. Returns a cudaError_t.
+// one dtype. lse: (B, H, Sq) f32, or null to skip it. Returns a cudaError_t.
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int b, int sq, int sk, int h, int kvh,
-                                      int d, float scale, int causal,
+                                      const void* v, void* o, void* lse,
+                                      int dtype, int b, int sq, int sk, int h,
+                                      int kvh, int d, float scale, int causal,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kF32)
-    return launch_d<float>(d, q, k, v, o, b, sq, sk, h, kvh, scale, causal, st);
+    return launch_d<float>(d, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, st);
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, b, sq, sk, h, kvh, scale, causal, st);
+    return launch_d<__nv_bfloat16>(d, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -1,27 +1,36 @@
-"""FFModel: the graph builder and serving entry points (the JAX package's
-``model.py``, the inference subset the serving slice runs).
+"""FFModel: the graph builder, the training and the serving entry points
+(the JAX package's ``model.py``, the subsets the ported slices run).
 
 The builder verbs append ops to a graph exactly as in the JAX package, so
-model builders (``models/llama.py``) read the same. ``compile`` initialises
-the parameters on the model's device from a seeded ``torch.Generator``;
-``make_serving_engine`` / ``serve`` drive the continuous-batching engine.
-The model runs on the card unless it is built with ``device="cpu"``.
+model builders (``models/llama.py``, ``models/transformer.py``) read the
+same. ``compile`` initialises the parameters on the model's device from a
+seeded ``torch.Generator``: with an optimizer for training (``fit``,
+``evaluate``), without one for serving (``make_serving_engine`` /
+``serve`` drive the continuous-batching engine). The model runs on the
+card unless it is built with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from flexflow_tpu_torch._device import resolve_device
-from flexflow_tpu_torch.config import FFConfig
-from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, OperatorType
+from flexflow_tpu_torch.config import FFConfig, check_training_ported
+from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
+                                        LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
 from flexflow_tpu_torch.ops.base import InputOp, Op
 from flexflow_tpu_torch.ops.dense import Embedding, Linear
-from flexflow_tpu_torch.ops.elementwise import ElementBinary, ElementUnary
-from flexflow_tpu_torch.ops.norm import RMSNorm
+from flexflow_tpu_torch.ops.elementwise import (ElementBinary, ElementUnary,
+                                                Mean)
+from flexflow_tpu_torch.ops.norm import AddLayerNorm, LayerNorm, RMSNorm
+from flexflow_tpu_torch.runtime.executor import GraphExecutor
+from flexflow_tpu_torch.runtime.loss import loss_type_from_name
+from flexflow_tpu_torch.runtime.metrics import PerfMetrics, metrics_from_names
 from flexflow_tpu_torch.tensor import Tensor
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -36,6 +45,19 @@ class FFModel:
         self._op_counters: Dict[str, int] = {}
         self.params: Optional[Params] = None
         self._final_tensor: Optional[Tensor] = None
+        # training state (compile with an optimizer)
+        self.executor: Optional[GraphExecutor] = None
+        self.optimizer = None
+        self.opt_state = None
+        self.loss_type: Optional[LossType] = None
+        self.metric_types: List[MetricsType] = []
+        self.comp_mode = CompMode.COMP_MODE_TRAINING
+        self.label_tensor: Optional[Tensor] = None
+        self._dataloaders: List = []
+        self._step_count = 0
+        self._last_loss: Optional[torch.Tensor] = None
+        self._last_metrics: Dict[str, torch.Tensor] = {}
+        self._perf = PerfMetrics()
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -51,12 +73,12 @@ class FFModel:
         self._op_counters[kind] = n + 1
         return f"{kind}_{n}" if n else kind
 
-    def _add(self, op: Op) -> Tensor:
+    def _add(self, op: Op) -> Union[Tensor, List[Tensor]]:
         if self.get_op_by_name(op.name) is not None:
             raise ValueError(f"duplicate op name {op.name!r} (params key by "
                              f"name)")
         self.ops.append(op)
-        return op.outputs[0]
+        return op.outputs[0] if len(op.outputs) == 1 else op.outputs
 
     def get_op_by_name(self, name: str) -> Optional[Op]:
         for op in self.ops:
@@ -86,6 +108,25 @@ class FFModel:
                   name: Optional[str] = None) -> Tensor:
         return self._add(Embedding(self, self._name("embedding", name),
                                    [input], num_entries, out_dim, aggr))
+
+    def layer_norm(self, input: Tensor, eps: float = 1e-5,
+                   elementwise_affine: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add(LayerNorm(self, self._name("layer_norm", name),
+                                   [input], eps, elementwise_affine))
+
+    def add_layer_norm(self, input: Tensor, residual: Tensor,
+                       eps: float = 1e-5,
+                       name: Optional[str] = None) -> List[Tensor]:
+        """Fused (input + residual, LN(input + residual)); returns
+        [sum, normed]."""
+        return self._add(AddLayerNorm(self, self._name("add_ln", name),
+                                      [input, residual], eps))
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name: Optional[str] = None) -> Tensor:
+        return self._add(Mean(self, self._name("mean", name), [input], dims,
+                              keepdims))
 
     def rms_norm(self, input: Tensor, eps: float = 1e-6,
                  name: Optional[str] = None) -> Tensor:
@@ -126,25 +167,140 @@ class FFModel:
         return {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()}
                 for op in self.ops if op.weight_specs()}
 
-    def compile(self, optimizer=None, final_tensor: Optional[Tensor] = None):
-        """Inference compile: fix the output tensor and initialise every
-        weight on the model's device in the compute dtype, drawn from a
-        ``torch.Generator`` seeded with ``config.seed``. No strategy search
-        and no optimizer in this slice."""
-        if optimizer is not None:
-            raise NotImplementedError(
-                "training (an optimizer) is not ported yet (ROADMAP.md "
-                "queue 1, items 2-4); compile(final_tensor=...) serves")
+    def compile(self, optimizer=None,
+                loss_type: Union[LossType, str] =
+                LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence = (MetricsType.METRICS_ACCURACY,),
+                comp_mode: CompMode = CompMode.COMP_MODE_TRAINING,
+                final_tensor: Optional[Tensor] = None):
+        """Fix the output tensor and initialise every weight on the model's
+        device, drawn from a ``torch.Generator`` seeded with
+        ``config.seed``. No strategy search and no lint in the port yet.
+
+        With an optimizer (training): weights in ``config.master_dtype``,
+        the loss, the metrics, the label tensor (shaped like the output's
+        sample dims; (..., 1) int32 for sparse cross-entropy) and the
+        optimizer's state. Without one (serving): weights in the compute
+        dtype."""
         if not self.ops:
             raise ValueError("compile() on an empty graph")
         self._final_tensor = final_tensor or self.ops[-1].outputs[0]
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed)
-        dtype = self.compute_dtype
-        self.params = {
-            op.name: {w.name: w.initialize(dtype, self.device, gen)
-                      for w in op.weight_specs()}
-            for op in self.ops if op.weight_specs()}
+        if optimizer is None:
+            dtype = self.compute_dtype
+            self.params = {
+                op.name: {w.name: w.initialize(dtype, self.device, gen)
+                          for w in op.weight_specs()}
+                for op in self.ops if op.weight_specs()}
+            return
+        check_training_ported(self.config)
+        self.optimizer = optimizer
+        self.loss_type = loss_type_from_name(loss_type)
+        self.metric_types = metrics_from_names(metrics)
+        self.comp_mode = comp_mode
+        fdims = self._final_tensor.dims
+        if self.loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+            self.label_tensor = Tensor(dims=tuple(fdims[:-1]) + (1,),
+                                       dtype=DataType.DT_INT32, name="label")
+        else:
+            self.label_tensor = Tensor(dims=fdims, dtype=DataType.DT_FLOAT,
+                                       name="label")
+        self.executor = GraphExecutor(self)
+        self.params = self.executor.init_params(gen)
+        self.opt_state = optimizer.init_state(self.params)
+
+    # ------------------------------------------------------------- training
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(
+                    v, torch.Tensor) else v).to(self.device)
+                for k, v in batch.items()}
+
+    def _stage_batch(self) -> Dict[str, torch.Tensor]:
+        return {dl.name: dl.next_batch() for dl in self._dataloaders}
+
+    def _reset_dataloaders(self):
+        for dl in self._dataloaders:
+            dl.reset()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_train_step(self, batch):
+        """One forward + backward + update on ``batch`` ({input name or
+        "label": array or tensor}); returns (loss, metrics) as device
+        scalars."""
+        if self.optimizer is None:
+            raise RuntimeError("compile() with an optimizer first")
+        loss, mets = self.executor.train_step(
+            self.params, self.opt_state, self._to_device(batch),
+            self.optimizer, self.loss_type, self.metric_types,
+            self._final_tensor)
+        self._step_count += 1
+        self._last_loss = loss
+        self._last_metrics = mets
+        return loss, mets
+
+    def fit(self, epochs: Optional[int] = None,
+            batch_size: Optional[int] = None, verbose: bool = True):
+        """Training loop over the attached ``SingleDataLoader``s, one step
+        per batch (the JAX ``fit``'s per-step path): an ``epoch N:
+        loss=...`` line per epoch and a final ``THROUGHPUT = ... samples/s``
+        line. The first step (and any kernel build it triggers) is kept out
+        of the throughput window, as in the JAX package."""
+        if self.optimizer is None:
+            raise RuntimeError("compile() with an optimizer first")
+        if not self._dataloaders:
+            raise RuntimeError("no dataloaders attached; create "
+                               "SingleDataLoader(ff, tensor, data)")
+        epochs = epochs or self.config.epochs
+        bs = batch_size or self.config.batch_size
+        if batch_size is not None:
+            for dl in self._dataloaders:
+                dl.batch_size = batch_size
+        num_batches = min(dl.num_batches for dl in self._dataloaders)
+        if num_batches <= 0:
+            raise ValueError(
+                f"dataset smaller than batch_size ("
+                f"{min(dl.num_samples for dl in self._dataloaders)} samples "
+                f"< {bs}); no full batch to train on")
+        t0 = time.time()
+        warm = None
+        total = 0
+        for epoch in range(epochs):
+            self._perf = PerfMetrics()
+            self._reset_dataloaders()
+            epoch_mets = []   # device scalars, converted once per epoch
+            for _ in range(num_batches):
+                loss, mets = self._run_train_step(self._stage_batch())
+                epoch_mets.append(mets)
+                total += bs
+                if warm is None:
+                    float(loss)   # waits for the first step
+                    warm = time.time()
+                    total = 0
+            for mets in epoch_mets:
+                self._perf.update({k: float(v) for k, v in mets.items()}, bs)
+            if verbose:
+                print(f"epoch {epoch}: loss={float(self._last_loss):.4f} "
+                      + self._perf.report(self.loss_type, self.metric_types))
+        self._sync()
+        elapsed = time.time() - (warm or t0)
+        if total and elapsed > 0 and verbose:
+            print(f"epochs {epochs}, ELAPSED TIME = {elapsed:.4f}s, "
+                  f"THROUGHPUT = {total / elapsed:.2f} samples/s")
+        return self._perf
+
+    def evaluate(self, batch):
+        """(loss, metrics, logits) of one batch without a gradient."""
+        if self.executor is None:
+            raise RuntimeError("compile() with an optimizer first")
+        loss, mets, logits = self.executor.eval_step(
+            self.params, self._to_device(batch), self.loss_type,
+            self.metric_types, self._final_tensor)
+        return float(loss), {k: float(v) for k, v in mets.items()}, logits
 
     # -------------------------------------------------------------- serving
 

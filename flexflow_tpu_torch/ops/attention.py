@@ -1,11 +1,13 @@
-"""MultiHeadAttention, the serving half (the JAX package's
-``ops/attention.py``).
+"""MultiHeadAttention: the dense training path and the serving half (the
+JAX package's ``ops/attention.py``).
 
 Layouts are the JAX package's: weights ``wq`` (D, H, Hd), ``wk``/``wv``
 (D, KVH, Hd), ``wo`` (H, Hd, D); activations (B, S, H, Hd); the paged pool
-(pages, page_size, KVH, Hd). The three places where the JAX package runs a
-Pallas kernel on the serving path call the wrappers of ``ops/kernels.py``:
+(pages, page_size, KVH, Hd). The places where the JAX package runs a
+Pallas kernel call the wrappers of ``ops/kernels.py``:
 
+  * ``forward`` -> ``flash_attention`` (the dense path; forward kernel
+    with the lse, backward kernel under autograd),
   * ``prefill_forward`` -> ``flash_attention_fwd`` (the dense prompt pass),
   * ``paged_prefill_write`` -> ``paged_prefill_write`` (prompt k/v into
     the pool),
@@ -21,6 +23,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
+from flexflow_tpu_torch.config import ROADMAP_OPS, not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
@@ -108,8 +111,8 @@ class MultiHeadAttention(Op):
         self.rope_theta = rope_theta
         self.kdim = kdim if kdim > 0 else embed_dim
         self.vdim = vdim if vdim > 0 else embed_dim
-        # attention dropout is the identity at inference, the only mode
-        # this slice runs
+        # attention dropout is the identity at inference; in training a rate
+        # above 0 is refused (not ported)
         self.dropout = dropout
         self.bias = bias
         self.causal = causal
@@ -171,6 +174,16 @@ class MultiHeadAttention(Op):
             kh = _apply_rope(kh, self.rope_theta, tables=rope)
         return qh, kh, vh
 
+    def _broadcast_kv(self, kh, vh):
+        """GQA: repeat each kv head over its query group, so the dense
+        paths (and the flash backward) see plain multi-head shapes, as in
+        the JAX package."""
+        if self.num_kv_heads != self.num_heads:
+            rep = self.num_heads // self.num_kv_heads
+            kh = kh.repeat_interleave(rep, dim=2)
+            vh = vh.repeat_interleave(rep, dim=2)
+        return kh, vh
+
     def _out_proj(self, params, ctx):
         """(B, S, H, Hd) x (H, Hd, D) -> (B, S, D) (the einsum
         "bqhk,hkd->bqd")."""
@@ -180,6 +193,27 @@ class MultiHeadAttention(Op):
         if self.bias:
             out = out + params["bias_o"]
         return out
+
+    # ---- dense path (training, evaluation) --------------------------------
+
+    def forward(self, params, xs, *, training=False):
+        qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2])
+        kh, vh = self._broadcast_kv(kh, vh)
+        return [self._out_proj(params,
+                               self._dense_attention(qh, kh, vh, training))]
+
+    def _dense_attention(self, qh, kh, vh, training):
+        """Always the flash wrapper: on the card its kernels, which raise
+        for a shape they do not take (a head dim they are not built for,
+        unequal q/v head dims, causal with more queries than keys); on the
+        CPU its plain version, the einsum-softmax branch of the JAX dense
+        path (attention.py:795-806)."""
+        if training and self.dropout > 0.0:
+            raise not_ported(f"{self.name}: attention dropout in training "
+                             f"(dropout={self.dropout})", where=ROADMAP_OPS)
+        return kernels.flash_attention(qh.contiguous(), kh.contiguous(),
+                                       vh.contiguous(), self.causal,
+                                       self.scale)
 
     # ---- contiguous per-request cache (prefill) ---------------------------
 

@@ -73,8 +73,10 @@ class Op:
             self._weight_specs = self.weights()
         return self._weight_specs
 
-    def forward(self, params: Dict[str, Any],
-                xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, params: Dict[str, Any], xs: List[torch.Tensor], *,
+                training: bool = False) -> List[torch.Tensor]:
+        """Output values of ``xs``; ``training`` selects the training
+        behaviour where an op has one (the JAX package's flag)."""
         raise NotImplementedError
 
     def __repr__(self):
@@ -95,5 +97,5 @@ class InputOp(Op):
     def output_shapes(self):
         return [self._dims], [self._dtype]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         raise RuntimeError("InputOp is fed by the graph walk, never executed")

@@ -54,7 +54,7 @@ class Linear(Op):
             ws.append(WeightSpec("bias", (self.out_dim,), init="zero"))
         return ws
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         y = torch.matmul(xs[0], params["kernel"])
         if self.use_bias:
             y = y + params["bias"]
@@ -84,5 +84,5 @@ class Embedding(Op):
         return [WeightSpec("kernel", (self.num_entries, self.out_dim),
                            init="glorot", fan=(self.num_entries, self.out_dim))]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         return [F.embedding(xs[0].long(), params["kernel"])]

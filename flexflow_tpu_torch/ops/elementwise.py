@@ -1,7 +1,8 @@
-"""Elementwise unary and binary ops (the JAX package's
+"""Elementwise unary and binary ops and Mean (the JAX package's
 ``ops/elementwise.py``): single torch calls, graph nodes only so the
-builder and the graph walk can name them. This slice ports the ones the
-Llama decoder uses (sigmoid, add, multiply)."""
+builder and the graph walk can name them. The ported ones are those the
+Llama decoder and the encoder classifier use (sigmoid, add, multiply,
+mean)."""
 
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ class ElementUnary(Op):
     def output_shapes(self):
         return [self.inputs[0].dims], [self.inputs[0].dtype]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         return [_UNARY_FNS[self.op_type](xs[0])]
 
 
@@ -53,5 +54,28 @@ class ElementBinary(Op):
                                        self.inputs[1].dims)
         return [tuple(shape)], [self.inputs[0].dtype]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         return [_BINARY_FNS[self.op_type](xs[0], xs[1])]
+
+
+class Mean(Op):
+    op_type = OperatorType.OP_MEAN
+
+    def __init__(self, model, name, inputs, dims, keepdims=False):
+        super().__init__(model, name, inputs)
+        self.reduce_dims = tuple(dims)
+        self.keepdims = keepdims
+        self.finalize()
+
+    def output_shapes(self):
+        d = list(self.inputs[0].dims)
+        if self.keepdims:
+            for i in self.reduce_dims:
+                d[i] = 1
+        else:
+            d = [v for i, v in enumerate(d) if i not in self.reduce_dims]
+        return [tuple(d)], [self.inputs[0].dtype]
+
+    def forward(self, params, xs, *, training=False):
+        return [torch.mean(xs[0], dim=self.reduce_dims,
+                           keepdim=self.keepdims)]

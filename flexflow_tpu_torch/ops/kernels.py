@@ -1,32 +1,41 @@
-"""The serving slice's hand-written Hopper kernels, their plain PyTorch
-versions, and the build that compiles them (the counterpart of the JAX
-package's ``ops/pallas_kernels.py``).
+"""The port's hand-written Hopper kernels, their plain PyTorch versions,
+the autograd Functions around them, and the build that compiles them (the
+counterpart of the JAX package's ``ops/pallas_kernels.py``).
 
-Three CUDA C++ kernels under ``flexflow_tpu_torch/csrc/`` replace the
-three Pallas kernels the serving path runs:
+Five CUDA C++ kernels under ``flexflow_tpu_torch/csrc/`` replace the
+Pallas kernels the serving and training paths run:
 
   ============================  =========================================
   wrapper                       replaces (flexflow_tpu/ops/pallas_kernels.py)
   ============================  =========================================
   ``flash_attention_fwd``       ``flash_attention_fwd_pallas`` :180
+  ``flash_attention_bwd``       ``flash_attention_bwd_pallas`` :335
+  ``fused_add_layernorm_fwd``   ``fused_add_layernorm_fwd_pallas`` :461
   ``paged_attention_fwd``       ``paged_attention_fwd_pallas`` :689
   ``paged_prefill_write``       ``paged_prefill_write_pallas`` :779
   ============================  =========================================
+
+``flash_attention`` and ``fused_add_layernorm`` are the
+``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
+(:538 and :502): the forward kernel saves its residuals, and the backward
+is the flash backward kernel, or torch arithmetic for add + LayerNorm (as
+the JAX package's backward there is plain JAX).
 
 The library is built at first use with ``nvcc`` (one process per source,
 all started together, then one link) into ``build/`` at the root of the
 checkout, keyed by a hash of the sources and flags, and loaded with
 ``ctypes``. Each wrapper takes its plain version when its tensors lie on
 the CPU — and only then: on a CUDA tensor it launches its kernel or
-raises. Each wrapper counts its launches in a plain integer attribute,
-``wrapper.launches``, so a run can show that its main path went through
-the kernels.
+raises. Each wrapper counts its calls that launch in a plain integer
+attribute, ``wrapper.launches``, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -40,7 +49,9 @@ import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("flash_attention.cu", "paged_attention.cu", "paged_prefill_write.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "fused_add_layernorm.cu", "paged_attention.cu",
+           "paged_prefill_write.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -132,12 +143,18 @@ class _Library:
                 lib = ctypes.CDLL(str(self.path))
                 p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 lib.ff_flash_attention_fwd.argtypes = [
-                    p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+                    p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+                lib.ff_flash_attention_bwd.argtypes = [
+                    p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+                lib.ff_fused_add_layernorm_fwd.argtypes = [
+                    p, p, p, p, p, p, p, p, i, i, i, f, p]
                 lib.ff_paged_attention_fwd.argtypes = [
                     p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
                 lib.ff_paged_prefill_write.argtypes = [
                     p, p, p, p, p, i, i, i, i, i, p]
                 for fn in (lib.ff_flash_attention_fwd,
+                           lib.ff_flash_attention_bwd,
+                           lib.ff_fused_add_layernorm_fwd,
                            lib.ff_paged_attention_fwd,
                            lib.ff_paged_prefill_write):
                     fn.restype = ctypes.c_int
@@ -176,40 +193,39 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
 # ------------------------------------------------------- flash attention
 
 
-def flash_attention_plain(q, k, v, causal: bool, scale: float):
+def _causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool, True where query i may attend key j: j <= i + sk - sq
+    (bottom-right alignment, the JAX ``_causal_mask`` rule)."""
+    return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+        diagonal=sk - sq)
+
+
+def flash_attention_plain(q, k, v, causal: bool, scale: float,
+                          need_lse: bool = False):
     """Plain version of ``flash_attention_fwd``: the einsum-softmax branch
     of the JAX dense path (flexflow_tpu/ops/attention.py:795-806), with
     GQA's kv heads repeated to the query heads first (``_broadcast_kv``).
     Scores and softmax in f32; probabilities enter the P.V product in the
-    value dtype."""
+    value dtype. With ``need_lse`` also the logsumexp of the scaled, masked
+    f32 logits, (B, H, Sq)."""
     h, kvh = q.shape[2], k.shape[2]
     if kvh != h:
         k = k.repeat_interleave(h // kvh, dim=2)
         v = v.repeat_interleave(h // kvh, dim=2)
     logits = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float()) * scale
     if causal:
-        sq, sk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones(sq, sk, dtype=torch.bool,
-                          device=q.device).tril(diagonal=sk - sq)
+        mask = _causal_mask(logits.shape[-2], logits.shape[-1], q.device)
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+    out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    if need_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
-def flash_attention_fwd(q, k, v, causal: bool, scale: float):
-    """Attention forward on q (B, Sq, H, D), k/v (B, Sk, KVH, D) ->
-    (B, Sq, H, D) in q's dtype; causal masking aligned bottom-right.
-
-    Replaces ``flash_attention_fwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:180) with ``csrc/flash_attention.cu``: one block per
-    (batch*head, 64-row q tile) streams 32-row K/V tiles with an f32
-    online softmax and skips the tiles past the causal diagonal. Bound on
-    the H100: bytes (q, k, v, o once each) at the serving prefill shape.
-    """
-    if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal, scale)
-    name = "flash_attention_fwd"
-    _require_cuda(name, q, k, v)
+def _check_attention(name, q, k, v):
+    """Dtypes, shapes and head dims the flash kernels take; raise on the
+    rest."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
@@ -222,21 +238,264 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float):
     if d not in HEAD_DIMS or h % kvh:
         raise ValueError(f"{name}: head dim {d} (supported {HEAD_DIMS}) or "
                          f"heads {h} not a multiple of kv heads {kvh}")
+
+
+def flash_attention_fwd(q, k, v, causal: bool, scale: float,
+                        need_lse: bool = False):
+    """Attention forward on q (B, Sq, H, D), k/v (B, Sk, KVH, D) ->
+    (B, Sq, H, D) in q's dtype; causal masking aligned bottom-right. With
+    ``need_lse`` returns (out, lse), lse the (B, H, Sq) f32 logsumexp the
+    backward needs.
+
+    Replaces ``flash_attention_fwd_pallas`` (flexflow_tpu/ops/
+    pallas_kernels.py:180) with ``csrc/flash_attention.cu``: one block per
+    (batch*head, 64-row q tile) streams 32-row K/V tiles with an f32
+    online softmax, skips the tiles past the causal diagonal, and writes
+    the lse from its final max and sum. Bound on the H100: bytes (q, k, v,
+    o once each), by a small margin over the operations.
+    """
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, causal, scale, need_lse)
+    name = "flash_attention_fwd"
+    _require_cuda(name, q, k, v)
+    _check_attention(name, q, k, v)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     if causal and sq > sk:
         raise ValueError(f"{name}: causal attention needs sq <= sk "
                          f"(got {sq} > {sk})")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if need_lse else None)
     with torch.cuda.device(q.device):
         _check(lib.ff_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, sq, sk, h, kvh, d, float(scale),
-            int(bool(causal)), _stream(q)), name)
+            lse.data_ptr() if need_lse else None, _DTYPE_CODES[q.dtype], b,
+            sq, sk, h, kvh, d, float(scale), int(bool(causal)), _stream(q)),
+            name)
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if need_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
+                              scale: float):
+    """Plain version of ``flash_attention_bwd``: the FlashAttention-2
+    arithmetic of the Pallas backward in einsums, f32 sums, with ds and p
+    rounded to the input dtype before the products that consume them (as
+    the Pallas kernels round them): p = exp(s - lse), dp = dO.V^T,
+    delta = rowsum(dO * O), ds = p (dp - delta), dq = scale ds.K,
+    dk = scale ds^T.Q, dv = p^T.dO."""
+    f = torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f)) * scale
+    if causal:
+        # the plain forward's mask value, so a row with no live key (causal
+        # with sq > sk) gets the gradient of its uniform softmax
+        s = torch.where(_causal_mask(s.shape[-2], s.shape[-1], q.device), s,
+                        torch.finfo(f).min)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f), v.to(f))
+    delta = (do.to(f) * o.to(f)).sum(-1).transpose(1, 2)      # (B, H, Sq)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).to(f)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(f), do.to(f))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Attention backward: q, o, dO (B, Sq, H, D), k/v (B, Sk, H, D), lse
+    (B, H, Sq) f32 from ``flash_attention_fwd`` -> (dq, dk, dv) in q's
+    dtype. Kv heads must equal heads (the dense path broadcasts GQA's kv
+    heads first); the reduction of dk/dv over a query group is not ported.
+
+    Replaces ``flash_attention_bwd_pallas`` (flexflow_tpu/ops/
+    pallas_kernels.py:335) with ``csrc/flash_attention_bwd.cu``: a delta
+    kernel (rowsum(dO * O)), a dq kernel (one block per (batch*head, 64-row
+    q tile) streaming 32-row K/V tiles) and a dk/dv kernel (one block per
+    (batch*head, 64-row k tile) streaming 32-row q/dO tiles), f32
+    accumulators in registers, causal dead tiles skipped. One call counts
+    as one launch. Bound on the H100: operations.
+    """
+    name = "flash_attention_bwd"
+    if k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"{name}: kv heads {k.shape[2]} != heads {q.shape[2]}: the "
+            f"grouped-query backward is not ported (ROADMAP.md queue 2, "
+            f"kernel 2); broadcast kv heads before attention")
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    _require_cuda(name, q, k, v, o, lse, do)
+    _check_attention(name, q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"{name}: o and dO must match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be (B, H, Sq) f32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if causal and sq > sk:
+        raise ValueError(f"{name}: causal attention needs sq <= sk "
+                         f"(got {sq} > {sk})")
+    lib = LIBRARY.get()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        _check(lib.ff_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk,
+            h, d, float(scale), int(bool(causal)), _stream(q)), name)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of the JAX ``flash_attention`` (pallas_kernels.py:
+    538-565): the forward keeps q, k, v, o and the lse; the backward is
+    ``flash_attention_bwd``. Without a gradient to take the forward skips
+    the lse, as the JAX primal does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_fwd(q, k, v, causal, scale)
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, need_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None):
+    """Differentiable flash attention on (B, S, H, D) q/k/v (kv heads ==
+    heads for a gradient): ``flash_attention_fwd`` forward,
+    ``flash_attention_bwd`` backward. ``scale`` defaults to 1/sqrt(D)."""
+    s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, causal, s)
+
+
+# ------------------------------------------------- fused add + layernorm
+
+
+def fused_add_layernorm_plain(x, r, scale, bias, eps: float):
+    """Plain version of ``fused_add_layernorm_fwd``: the f32-stats branch of
+    the JAX ``AddLayerNorm`` (flexflow_tpu/ops/norm.py:189-197) with the
+    kernel's stats: s = x + r in x's dtype; mean and the two-pass variance
+    of s in f32; y in x's dtype. Returns (s, y, mean, rstd), stats (N,)."""
+    s = x + r
+    sf = s.float()
+    mean = sf.mean(dim=-1)
+    centered = sf - mean[:, None]
+    rstd = torch.rsqrt((centered * centered).mean(dim=-1) + eps)
+    y = centered * rstd[:, None] * scale.float() + bias.float()
+    return s, y.to(s.dtype), mean, rstd
+
+
+def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
+                            need_stats: bool = True):
+    """(N, D) rows: (s, y, mean, rstd) with s = x + r and y = LayerNorm(s)
+    * scale + bias, both in x's dtype; mean and rstd (N,) f32, or None
+    without ``need_stats``.
+
+    Replaces ``fused_add_layernorm_fwd_pallas`` (flexflow_tpu/ops/
+    pallas_kernels.py:461) with ``csrc/fused_add_layernorm.cu``: one block
+    per row, 16-byte loads, the row held in registers as f32 between the
+    mean, variance and normalise passes, so x and r are read once and s
+    and y written once. Bound on the H100: bytes.
+    """
+    if _on_cpu(x, r, scale, bias):
+        s, y, mean, rstd = fused_add_layernorm_plain(x, r, scale, bias, eps)
+        return (s, y, mean, rstd) if need_stats else (s, y, None, None)
+    name = "fused_add_layernorm_fwd"
+    _require_cuda(name, x, r, scale, bias)
+    n, d = x.shape
+    if x.dtype not in _DTYPE_CODES or any(
+            t.dtype != x.dtype for t in (r, scale, bias)):
+        raise ValueError(f"{name}: x, r, scale and bias must share a dtype "
+                         f"in {list(_DTYPE_CODES)}")
+    if r.shape != x.shape or scale.shape != (d,) or bias.shape != (d,):
+        raise ValueError(f"{name}: r {tuple(r.shape)} must match x "
+                         f"{tuple(x.shape)}, scale/bias must be ({d},)")
+    if d % 8 or any(t.data_ptr() % 16 for t in (x, r, scale, bias)):
+        raise ValueError(f"{name}: the row width ({d}) must be a multiple "
+                         f"of 8 and every tensor 16-byte aligned")
+    if d * x.element_size() > 4096 * 16:
+        raise ValueError(f"{name}: a row of {d} values exceeds the 4096 "
+                         f"16-byte vectors one block holds")
+    lib = LIBRARY.get()
+    s = torch.empty_like(x)
+    y = torch.empty_like(x)
+    mean = rstd = None
+    if need_stats:
+        mean = torch.empty(n, dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        _check(lib.ff_fused_add_layernorm_fwd(
+            x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            s.data_ptr(), y.data_ptr(),
+            mean.data_ptr() if need_stats else None,
+            rstd.data_ptr() if need_stats else None,
+            _DTYPE_CODES[x.dtype], n, d, float(eps), _stream(x)), name)
+    fused_add_layernorm_fwd.launches += 1
+    return s, y, mean, rstd
+
+
+fused_add_layernorm_fwd.launches = 0
+
+
+class _FusedAddLayerNorm(torch.autograd.Function):
+    """The custom VJP of the JAX ``fused_add_layernorm`` (pallas_kernels.py:
+    502-532): the forward kernel keeps s and its mean and rstd; the
+    backward is ``_add_ln_bwd_rule`` (:517) in torch arithmetic, f32."""
+
+    @staticmethod
+    def forward(ctx, x, r, scale, bias, eps):
+        need = any(ctx.needs_input_grad[:4])
+        s, y, mean, rstd = fused_add_layernorm_fwd(x, r, scale, bias, eps,
+                                                   need_stats=need)
+        if need:
+            ctx.save_for_backward(s, mean, rstd, scale)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, gs, gy):
+        s, mean, rstd, scale = ctx.saved_tensors
+        f = torch.float32
+        gyf = gy.to(f)
+        xhat = (s.to(f) - mean[:, None]) * rstd[:, None]
+        dbias = gyf.sum(dim=0).to(scale.dtype)
+        dscale = (gyf * xhat).sum(dim=0).to(scale.dtype)
+        t = gyf * scale.to(f)
+        dsn = (t - t.mean(dim=-1, keepdim=True)
+               - xhat * (t * xhat).mean(dim=-1, keepdim=True)) * rstd[:, None]
+        d = (dsn + gs.to(f)).to(s.dtype)
+        # x and r get equal gradients; separate tensors, so accumulating
+        # into one never writes through to the other
+        return d, d.clone(), dscale, dbias, None
+
+
+def fused_add_layernorm(x, r, scale, bias, eps: float = 1e-5):
+    """Differentiable (x + r, LayerNorm(x + r) * scale + bias) on (N, D)
+    rows: ``fused_add_layernorm_fwd`` forward, torch backward."""
+    return _FusedAddLayerNorm.apply(x, r, scale, bias, eps)
 
 
 # ------------------------------------------------------- paged attention
@@ -397,7 +656,8 @@ def paged_prefill_write(pool_k, pool_v, kh, vh, pages):
 paged_prefill_write.launches = 0
 
 
-KERNELS = (flash_attention_fwd, paged_attention_fwd, paged_prefill_write)
+KERNELS = (flash_attention_fwd, flash_attention_bwd, fused_add_layernorm_fwd,
+           paged_attention_fwd, paged_prefill_write)
 
 
 def launch_counts() -> Dict[str, int]:

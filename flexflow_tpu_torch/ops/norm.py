@@ -1,11 +1,84 @@
-"""RMSNorm (the JAX package's ``ops/norm.py`` RMSNorm)."""
+"""LayerNorm, AddLayerNorm and RMSNorm (the JAX package's ``ops/norm.py``).
+
+``AddLayerNorm`` runs the ``fused_add_layernorm`` kernel (ops/kernels.py)
+on the card, where the JAX package ran its Pallas kernel on the TPU.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from flexflow_tpu_torch.ffconst import OperatorType
+from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+
+
+class LayerNorm(Op):
+    op_type = OperatorType.OP_LAYERNORM
+
+    def __init__(self, model, name, inputs, eps: float = 1e-5,
+                 elementwise_affine: bool = True):
+        super().__init__(model, name, inputs)
+        self.eps = eps
+        self.affine = elementwise_affine
+        self.dim = inputs[0].dims[-1]
+        self.finalize()
+
+    def output_shapes(self):
+        return [self.inputs[0].dims], [self.inputs[0].dtype]
+
+    def weights(self):
+        if not self.affine:
+            return []
+        return [WeightSpec("scale", (self.dim,), init="one"),
+                WeightSpec("bias", (self.dim,), init="zero")]
+
+    def forward(self, params, xs, *, training=False):
+        # the JAX formula, statistics in the input's dtype
+        x = xs[0]
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.var(x, dim=-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * params["scale"] + params["bias"]
+        return [y]
+
+
+class AddLayerNorm(Op):
+    """Fused residual add + LayerNorm: (s, y) = (x + r, LN(x + r)), two
+    outputs, through the ``fused_add_layernorm`` wrapper: on the card its
+    kernel (one pass: the sum never round-trips device memory before the
+    norm reads it), which raises for a row it does not take; on the CPU
+    its plain version, the JAX f32-stats branch (norm.py:189-197)."""
+
+    op_type = OperatorType.OP_LAYERNORM
+
+    def __init__(self, model, name, inputs, eps: float = 1e-5):
+        super().__init__(model, name, inputs)
+        self.eps = eps
+        self.dim = inputs[0].dims[-1]
+        if inputs[0].dims != inputs[1].dims:
+            raise ValueError(f"{name}: add_layer_norm inputs must agree, got "
+                             f"{inputs[0].dims} vs {inputs[1].dims}")
+        self.finalize()
+
+    def output_shapes(self):
+        d = self.inputs[0].dims
+        t = self.inputs[0].dtype
+        return [d, d], [t, t]
+
+    def weights(self):
+        return [WeightSpec("scale", (self.dim,), init="one"),
+                WeightSpec("bias", (self.dim,), init="zero")]
+
+    def forward(self, params, xs, *, training=False):
+        x, r = xs[0], xs[1]
+        shape = x.shape
+        s2, y2 = kernels.fused_add_layernorm(
+            x.reshape(-1, self.dim).contiguous(),
+            r.reshape(-1, self.dim).contiguous(), params["scale"],
+            params["bias"], self.eps)
+        return [s2.reshape(shape), y2.reshape(shape)]
 
 
 class RMSNorm(Op):
@@ -23,7 +96,7 @@ class RMSNorm(Op):
     def weights(self):
         return [WeightSpec("scale", (self.dim,), init="one")]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False):
         # the JAX formula: mean(square(x)) in the compute dtype (a bf16
         # input keeps a bf16 mean, accumulated in f32 by both frameworks)
         x = xs[0]

@@ -37,23 +37,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 
-def busy_ms(events) -> float:
-    """Union of the device kernels' [start, end) intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type.name == "CUDA")
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3   # us -> ms
-
-
 def per_layer_tables():
     """Every attention op derives its own RoPE tables and write slot: the
     graph walk hands each op None for both."""
@@ -135,7 +118,7 @@ def main():
         t0 = time.perf_counter()
         serve()
         wall_prof = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof.events())
+    busy = chip_smoke.busy_ms(prof.events())
     print(f"layers {args.layers}: serve {wall:.1f} ms wall (decode step "
           f"{st['decode_step_ms']:.2f} ms over {st['decode_steps']} steps); "
           f"under the profiler {wall_prof:.1f} ms wall, device busy "

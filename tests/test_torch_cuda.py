@@ -11,13 +11,19 @@ plain PyTorch version on the same CUDA tensors — f32 within 2e-5 (the
 online and the one-shot softmax sum in different orders), bf16 within 2e-2
 (bf16 output rounding of unit-scale values), the prefill write bitwise —
 at ragged and edge shapes beyond the serving path's, and each launch is
-counted. The plain versions are held against the JAX package's Pallas
+counted. The flash backward is held to 1e-4 of the gradients' largest
+magnitude in f32 (sums over up to 512 keys in other orders) and to 2e-2 of
+it in bf16 (bf16 rounds ds and p before three of the products, and a value
+near a rounding boundary may round the other way); add + LayerNorm's sum
+is bitwise, its output within 1e-4 (f32: the rows' mean of ~30 carries
+sum-order error ~3e-5) or one bf16 step (2e-2 + 1e-2 relative). The plain versions are held against the JAX package's Pallas
 kernels by tests/test_torch_kernels.py.
 """
 
 import pytest
 import torch
 
+from flexflow_tpu_torch import FFConfig, FFModel
 from flexflow_tpu_torch.ops import kernels
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -137,3 +143,198 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     q = torch.zeros(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         kernels.flash_attention_fwd(q, q, q, True, 0.125)
+
+
+def _rel_err(out, ref):
+    """max |out - ref| scaled to ref's largest magnitude."""
+    ref = ref.float()
+    return ((out.float() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def _qkvo(cuda, dtype, shape, seed):
+    b, sq, sk, h, d, causal = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, d, device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+GPU_FLASH_BWD = [
+    # (B, Sq, Sk, H, D, causal)
+    (2, 100, 100, 4, 64, True),      # ragged tiles
+    (1, 37, 129, 8, 128, True),      # sk > sq: bottom-right offset
+    (2, 65, 65, 4, 32, False),       # non-causal, ragged
+    (8, 512, 512, 32, 128, False),   # the flagship training shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GPU_FLASH_BWD,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_lse_and_bwd_kernels_match_plain(cuda, dtype, shape):
+    causal, d = shape[-1], shape[-2]
+    q, k, v, do = _qkvo(cuda, dtype, shape, 3)
+    scale = d ** -0.5
+    n_fwd = kernels.flash_attention_fwd.launches
+    n_bwd = kernels.flash_attention_bwd.launches
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal, scale,
+                                         need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, causal, scale,
+                                             need_lse=True)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    _close(o, ro, dtype)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention_fwd.launches == n_fwd + 1
+    assert kernels.flash_attention_bwd.launches == n_bwd + 1
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, r) <= limit, (name, _rel_err(g, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_autograd_on_card_matches_plain_autograd(cuda, causal):
+    """The autograd Function through both kernels against torch autograd
+    of the plain forward, f32."""
+    q, k, v, do = _qkvo(cuda, torch.float32, (2, 70, 70, 4, 64, causal), 4)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(kernels.flash_attention(*leaves, causal),
+                              leaves, do)
+    ref = torch.autograd.grad(
+        kernels.flash_attention_plain(*leaves, causal, 64 ** -0.5), leaves,
+        do)
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_grouped_query(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    lse = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="grouped-query"):
+        kernels.flash_attention_bwd(q, kv, kv, q, lse, q, True, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("nd", [(37, 128), (5, 392), (4096, 4096),
+                                (3, 16384)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_add_layernorm_kernel_matches_plain(cuda, dtype, nd):
+    """Row widths that launch blocks of 32 threads up to 1024 (f32 at
+    16384: 4096 vectors of 16 bytes)."""
+    n, d = nd
+    g = torch.Generator(device=cuda).manual_seed(5)
+    # a residual stream whose mean dwarfs its spread: the two-pass variance
+    x = (torch.randn(n, d, device=cuda, generator=g) + 30.0).to(dtype)
+    r = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    scale = (torch.rand(d, device=cuda, generator=g) + 0.5).to(dtype)
+    bias = torch.randn(d, device=cuda, generator=g).to(dtype)
+    n0 = kernels.fused_add_layernorm_fwd.launches
+    s, y, mean, rstd = kernels.fused_add_layernorm_fwd(x, r, scale, bias,
+                                                       1e-5)
+    rs, ry, rmean, rrstd = kernels.fused_add_layernorm_plain(x, r, scale,
+                                                             bias, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.fused_add_layernorm_fwd.launches == n0 + 1
+    assert torch.equal(_bits(s), _bits(rs))
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-4, atol=0)
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=2e-2))
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+    _, y2, m2, r2 = kernels.fused_add_layernorm_fwd(x, r, scale, bias, 1e-5,
+                                                    need_stats=False)
+    assert m2 is None and r2 is None and torch.equal(_bits(y2), _bits(y))
+
+
+@pytest.mark.cuda
+def test_add_layernorm_autograd_on_card_matches_plain_autograd(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(64, 256, device=cuda, generator=g) for _ in range(2)]
+    ws = [torch.rand(256, device=cuda, generator=g) + 0.5,
+          torch.randn(256, device=cuda, generator=g)]
+    leaves = [t.requires_grad_() for t in xs + ws]
+
+    def loss(s, y):
+        return torch.sin(y).sum() + torch.cos(s).sum()
+
+    got = torch.autograd.grad(loss(*kernels.fused_add_layernorm(*leaves)),
+                              leaves)
+    s, y, _, _ = kernels.fused_add_layernorm_plain(*leaves, 1e-5)
+    ref = torch.autograd.grad(loss(s, y), leaves)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_add_layernorm_refuses_unsupported_rows(cuda):
+    x = torch.zeros(4, 12, device=cuda)
+    w = torch.zeros(12, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.fused_add_layernorm_fwd(x, x, w, w, 1e-5)
+    x = torch.zeros(2, 16392, device=cuda)
+    w = torch.zeros(16392, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        kernels.fused_add_layernorm_fwd(x, x, w, w, 1e-5)
+    x = torch.zeros(4, 16, device=cuda, dtype=torch.float16)
+    w = torch.zeros(16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.fused_add_layernorm_fwd(x, x, w, w, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,runs", [(1000, True), (1004, False)],
+                         ids=["d1000_unaligned_kernel", "d1004_refused"])
+def test_add_layernorm_op_on_card_never_runs_plain(cuda, dim, runs):
+    """The op sends every CUDA row to the kernel: a width that is no
+    multiple of 128 launches it, one the kernel does not take raises."""
+    ff = FFModel(FFConfig(batch_size=2), device="cuda")
+    t = ff.create_tensor((2, 5, dim))
+    ff.add_layer_norm(t, t)
+    ff.compile(final_tensor=ff.ops[-1].outputs[0])
+    op = ff.ops[-1]
+    params = ff.params[op.name]
+    x = torch.randn(2, 5, dim, device=cuda)
+    n0 = kernels.fused_add_layernorm_fwd.launches
+    if not runs:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            op.forward(params, [x, x])
+        return
+    s, y = op.forward(params, [x, x])
+    assert kernels.fused_add_layernorm_fwd.launches == n0 + 1
+    rs, ry, _, _ = kernels.fused_add_layernorm_plain(
+        x.reshape(-1, dim), x.reshape(-1, dim), params["scale"],
+        params["bias"], op.eps)
+    torch.testing.assert_close(y.reshape(-1, dim), ry, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,causal,sk", [(2, False, 6), (1, True, 3)],
+                         ids=["head_dim_48", "causal_sq_gt_sk"])
+def test_attention_op_on_card_refuses_unsupported_shapes(cuda, heads, causal,
+                                                         sk):
+    """A head dim the flash kernels are not built for (96 / 2 = 48), or
+    causal attention with more queries than keys, raises on the card
+    instead of running the einsum path."""
+    ff = FFModel(FFConfig(batch_size=2), device="cuda")
+    q = ff.create_tensor((2, 6, 96 if heads == 2 else 64))
+    kv = ff.create_tensor((2, sk, q.dims[-1]))
+    ff.multihead_attention(q, kv, kv, q.dims[-1], heads, causal=causal)
+    ff.compile(final_tensor=ff.ops[-1].outputs[0])
+    op = ff.ops[-1]
+    xs = [torch.randn(*t.dims, device=cuda) for t in (q, kv, kv)]
+    n0 = kernels.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head dim|sq <= sk"):
+        op.forward(ff.params[op.name], xs)
+    assert kernels.flash_attention_fwd.launches == n0

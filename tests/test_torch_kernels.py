@@ -1,20 +1,27 @@
-"""The port's three kernels (flexflow_tpu_torch/ops/kernels.py).
+"""The port's five kernels (flexflow_tpu_torch/ops/kernels.py).
 
 On the CPU (every test not marked ``cuda``): each kernel's plain PyTorch
 version — what a wrapper runs for CPU tensors — is held against the JAX
 package's Pallas kernel, run in interpret mode as tests/test_pallas_paged.py
-runs it. Inputs are made once with numpy and handed to both. Tolerances:
-attention 2e-5 (f32; the online and the one-shot softmax sum in different
-orders), the prefill write bitwise. The CUDA kernels themselves are held
+runs it, and the autograd Functions against the JAX custom VJPs. Inputs
+are made once with numpy and handed to both. Tolerances (f32): attention
+and its lse 2e-5 (the online and the one-shot softmax sum in different
+orders); the attention backward 1e-5 (sums over at most 48 keys or 32
+queries in other orders); add + LayerNorm 1e-5 and its gradients 1e-5
+relative; the prefill write bitwise. The CUDA kernels themselves are held
 against these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from flexflow_tpu.ops.pallas_kernels import (flash_attention_fwd_pallas,
+from flexflow_tpu.ops.pallas_kernels import (flash_attention_bwd_pallas,
+                                             flash_attention_fwd_pallas,
+                                             fused_add_layernorm,
+                                             fused_add_layernorm_fwd_pallas,
                                              paged_attention_fwd_pallas,
                                              paged_prefill_write_pallas)
 from flexflow_tpu_torch.ops import kernels
@@ -56,6 +63,112 @@ def test_flash_plain_matches_pallas(case):
         block_q=16, block_k=16, need_lse=False)
     ref = np.asarray(ref).reshape(b, h, sq, d).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+MHA_CASES = {k: v for k, v in FLASH_CASES.items() if v[3] == v[4]}
+
+
+def _mha_inputs(case):
+    b, sq, sk, h, _, d, causal = FLASH_CASES[case]
+    rs = np.random.RandomState(2)
+    q, do = (rs.randn(b, sq, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(b, sk, h, d).astype(np.float32) for _ in range(2))
+    return q, k, v, do, causal, d ** -0.5
+
+
+@pytest.mark.parametrize("case", list(MHA_CASES))
+def test_flash_plain_lse_and_bwd_match_pallas(case):
+    """The forward's lse and the backward's dq, dk, dv against the Pallas
+    kernels (16-row blocks, so causal dead tiles are skipped there)."""
+    q, k, v, do, causal, scale = _mha_inputs(case)
+    b, sq, h, d = q.shape
+    out, lse = kernels.flash_attention_fwd(_t(q), _t(k), _t(v), causal,
+                                           scale, need_lse=True)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jout, jlse = flash_attention_fwd_pallas(jq, jk, jv, causal, scale,
+                                            block_q=16, block_k=16)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(jlse)[..., 0].reshape(b, h, sq), **TOL)
+    jo = jout.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo), **TOL)
+    grads = kernels.flash_attention_bwd(_t(q), _t(k), _t(v), out, lse,
+                                        _t(do), causal, scale)
+    refs = flash_attention_bwd_pallas(jq, jk, jv, jo, jlse, jdo, causal,
+                                      scale, block_q=16, block_k=16)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(MHA_CASES))
+def test_flash_autograd_matches_plain_autograd(case):
+    """The autograd Function (plain forward with lse, plain backward) gives
+    torch autograd's gradients of the plain forward."""
+    q, k, v, do, causal, scale = _mha_inputs(case)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    got = torch.autograd.grad(kernels.flash_attention(*leaves, causal,
+                                                      scale), leaves, _t(do))
+    ref = torch.autograd.grad(kernels.flash_attention_plain(
+        *leaves, causal, scale), leaves, _t(do))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_flash_bwd_refuses_grouped_query():
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="grouped-query"):
+        kernels.flash_attention_bwd(q, kv, kv, q, torch.zeros(1, 4, 8), q,
+                                    True, 0.25)
+
+
+# ------------------------------------------------- fused add + layernorm
+
+def _add_ln_inputs(n=24, d=128):
+    rs = np.random.RandomState(4)
+    # a residual stream whose mean dwarfs its spread (the two-pass variance)
+    x = (rs.randn(n, d) + 20.0).astype(np.float32)
+    r = rs.randn(n, d).astype(np.float32)
+    scale = (rs.rand(d) + 0.5).astype(np.float32)
+    bias = rs.randn(d).astype(np.float32)
+    return x, r, scale, bias
+
+
+def test_add_layernorm_plain_matches_pallas():
+    args = _add_ln_inputs()
+    s, y, mean, rstd = kernels.fused_add_layernorm_fwd(*map(_t, args), 1e-5)
+    js, jy, jmean, jrstd = fused_add_layernorm_fwd_pallas(
+        *map(jnp.asarray, args), 1e-5, block_n=8)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    for got, ref in ((y, jy), (mean, np.asarray(jmean)[:, 0]),
+                     (rstd, np.asarray(jrstd)[:, 0])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+    _, _, m2, r2 = kernels.fused_add_layernorm_fwd(*map(_t, args), 1e-5,
+                                                   need_stats=False)
+    assert m2 is None and r2 is None
+
+
+def test_add_layernorm_autograd_matches_jax_grad():
+    """Gradients of sum(sin(y)) + sum(cos(s)) through the autograd Function
+    against jax.grad of the JAX fused_add_layernorm (its custom VJP), as
+    tests/test_mfu_levers.py checks the JAX op."""
+    args = _add_ln_inputs()
+
+    def jloss(x, r, scale, bias):
+        s, y = fused_add_layernorm(x, r, scale, bias)
+        return jnp.sum(jnp.sin(y)) + jnp.sum(jnp.cos(s))
+
+    refs = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    leaves = [_t(a).requires_grad_() for a in args]
+    s, y = kernels.fused_add_layernorm(*leaves)
+    grads = torch.autograd.grad(torch.sin(y).sum() + torch.cos(s).sum(),
+                                leaves)
+    for name, g, r in zip(("x", "r", "scale", "bias"), grads, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
 
 
 # ------------------------------------------------------- paged attention
@@ -116,5 +229,6 @@ def test_prefill_write_plain_bitwise_pallas(s):
 def test_launch_counters_are_plain_integers():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
-        "flash_attention_fwd": 0, "paged_attention_fwd": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "fused_add_layernorm_fwd": 0, "paged_attention_fwd": 0,
         "paged_prefill_write": 0}

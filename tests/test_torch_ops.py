@@ -1,13 +1,18 @@
 """The port's ops against the JAX package's, op by op.
 
 One small Llama (hidden 64, 2 layers, 4 heads over 2 kv heads, vocab 89,
-f32) is built in both packages, so the ops share names; JAX's initialised
-weights are carried into the port. Each op runs on the same numpy inputs
-in both. Tolerance 1e-5 (f32; matrix products sum in different orders).
-The attention paths run their kernels' plain versions here — the JAX side
-its einsum paths, which the JAX tests pin to its Pallas kernels.
+f32) and one small encoder classifier with fused add + LayerNorm (hidden
+128, 1 layer, 4 heads) are built in both packages, so the ops share names;
+JAX's initialised weights are carried into the port. Each op runs on the
+same numpy inputs in both. Tolerance 1e-5 (f32; matrix products sum in
+different orders); gradients (the training ops, through jax.vjp and torch
+autograd with one numpy cotangent) 1e-4 relative and 1e-5 absolute. The
+attention paths run their kernels' plain versions here — the JAX side its
+einsum paths, or its Pallas kernels in interpret mode where a test forces
+them (FF_FORCE_FLASH_ATTENTION=1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,20 +21,30 @@ import torch
 from flexflow_tpu import FFConfig as JConfig
 from flexflow_tpu import FFModel as JModel
 from flexflow_tpu.models.llama import llama_lm as j_llama_lm
+from flexflow_tpu.models.transformer import \
+    build_encoder_classifier as j_build_encoder
 from flexflow_tpu.ops.attention import _apply_rope as j_apply_rope
 from flexflow_tpu.ops.sampling import sample_tokens as j_sample_tokens
 from flexflow_tpu.ops.sampling import validate_sampling as j_validate
-from flexflow_tpu_torch import FFConfig, FFModel
+from flexflow_tpu.runtime.loss import compute_loss as j_compute_loss
+from flexflow_tpu.runtime.metrics import batch_metrics as j_batch_metrics
+from flexflow_tpu.ffconst import LossType as JLoss
+from flexflow_tpu.ffconst import MetricsType as JMetrics
+from flexflow_tpu_torch import FFConfig, FFModel, LossType, MetricsType
 from flexflow_tpu_torch.convert import params_from_jax
-from flexflow_tpu_torch.models import llama_lm
+from flexflow_tpu_torch.models import build_encoder_classifier, llama_lm
 from flexflow_tpu_torch.ops.attention import _apply_rope
 from flexflow_tpu_torch.ops.sampling import sample_tokens, validate_sampling
+from flexflow_tpu_torch.runtime.loss import compute_loss
+from flexflow_tpu_torch.runtime.metrics import batch_metrics
 
 VOCAB = 89
 HIDDEN = 64
 ARCH = dict(seq_len=16, hidden=HIDDEN, layers=2, heads=4, kv_heads=2,
             vocab_size=VOCAB)
 TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+ENC = dict(seq_len=12, hidden=128, layers=1, heads=4, num_classes=16)
 
 
 @pytest.fixture(scope="module")
@@ -40,6 +55,21 @@ def models():
     tff = FFModel(FFConfig(batch_size=2), device="cpu")
     _, logits = llama_lm(tff, 2, **ARCH)
     tff.compile(final_tensor=logits)
+    tff.params = params_from_jax(
+        {op: {w: np.asarray(a) for w, a in ws.items()}
+         for op, ws in jff.params.items()}, "cpu", torch.float32, model=tff)
+    return jff, tff
+
+
+@pytest.fixture(scope="module")
+def enc_models():
+    jff = JModel(JConfig(batch_size=2, mesh_shape={"data": 1},
+                         use_fused_ln=True))
+    _, out = j_build_encoder(jff, 2, **ENC)
+    jff.compile(final_tensor=out)
+    tff = FFModel(FFConfig(batch_size=2, use_fused_ln=True), device="cpu")
+    _, out = build_encoder_classifier(tff, 2, **ENC)
+    tff.compile(final_tensor=out)
     tff.params = params_from_jax(
         {op: {w: np.asarray(a) for w, a in ws.items()}
          for op, ws in jff.params.items()}, "cpu", torch.float32, model=tff)
@@ -171,3 +201,123 @@ def test_validate_sampling_rejects_like_jax(args):
         j_validate(*args)
     with pytest.raises(ValueError):
         validate_sampling(*args)
+
+
+def _vjp_both(models, name, xs_np, seed):
+    """Outputs and the gradients of every weight and input of one op under
+    training, in both packages, for the same random cotangents."""
+    jop, jp, top, tp = _pair(models, name)
+    jxs = [jnp.asarray(x) for x in xs_np]
+    jouts, vjp = jax.vjp(lambda p, xs: tuple(jop.forward(p, xs,
+                                                         training=True)),
+                         jp, jxs)
+    rs = np.random.RandomState(seed)
+    cots = [rs.randn(*o.shape).astype(np.float32) for o in jouts]
+    jgp, jgx = vjp(tuple(jnp.asarray(c) for c in cots))
+    tp = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    txs = [torch.tensor(x, requires_grad=True) for x in xs_np]
+    touts = top.forward(tp, txs, training=True)
+    grads = torch.autograd.grad(touts, list(tp.values()) + txs,
+                                [torch.as_tensor(c) for c in cots])
+    for jo, to in zip(jouts, touts):
+        np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
+                                   **TOL)
+    want = [jgp[k] for k in tp] + list(jgx)
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_layernorm_forward_and_grads(enc_models):
+    x = np.random.RandomState(9).randn(2, 12, 128).astype(np.float32)
+    _vjp_both(enc_models, "ln1_0", [x], 10)
+
+
+@pytest.mark.parametrize("force", [False, True], ids=["plain", "pallas"])
+def test_add_layernorm_forward_and_grads(enc_models, monkeypatch, force):
+    """Both outputs and all four gradients; the JAX side through its
+    plain branch or, forced, its Pallas kernel and custom VJP."""
+    if force:
+        monkeypatch.setenv("FF_FORCE_FLASH_ATTENTION", "1")
+    rs = np.random.RandomState(11)
+    xs = [(rs.randn(2, 12, 128) + 5.0).astype(np.float32),
+          rs.randn(2, 12, 128).astype(np.float32)]
+    _vjp_both(enc_models, "res1_ln2_0", xs, 12)
+
+
+def test_mean_forward_and_grads(enc_models):
+    x = np.random.RandomState(13).randn(2, 12, 128).astype(np.float32)
+    _vjp_both(enc_models, "pool", [x], 14)
+
+
+@pytest.mark.parametrize("route", ["einsum", "flash_function"])
+@pytest.mark.parametrize("which", ["encoder", "llama_gqa"])
+def test_mha_forward_and_grads(models, enc_models, monkeypatch, route,
+                               which):
+    """The dense training path: the encoder's non-causal attention and the
+    Llama's causal GQA + RoPE attention. The port always runs the flash
+    autograd Function (its plain versions on the CPU); the route picks
+    the JAX side: its einsum path, or ("flash_function") its Pallas flash
+    kernels in interpret mode."""
+    pair, name, width = ((enc_models, "attn_0", 128) if which == "encoder"
+                         else (models, "attn_0", HIDDEN))
+    if route == "flash_function":
+        monkeypatch.setenv("FF_FORCE_FLASH_ATTENTION", "1")
+    rs = np.random.RandomState(15)
+    xs = [rs.randn(2, 16, width).astype(np.float32) for _ in range(3)]
+    _vjp_both(pair, name, xs, 16)
+
+
+def test_mha_training_dropout_is_refused(enc_models):
+    top = enc_models[1].get_op_by_name("attn_0")
+    top.dropout = 0.1
+    try:
+        x = torch.zeros(1, 4, 128)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            top.forward(enc_models[1].params["attn_0"], [x] * 3,
+                        training=True)
+        top.forward(enc_models[1].params["attn_0"], [x] * 3)  # inference
+    finally:
+        top.dropout = 0.0
+
+
+def _loss_inputs(loss: LossType):
+    """(logits, labels) for one loss: class ids (one per position, with the
+    trailing singleton dim) for sparse CE, probabilities for dense CE,
+    targets for the rest."""
+    rs = np.random.RandomState(17)
+    logits = rs.randn(4, 3, 10).astype(np.float32)
+    if loss == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+        return logits, rs.randint(0, 10, (4, 3, 1)).astype(np.int32)
+    if loss == LossType.LOSS_CATEGORICAL_CROSSENTROPY:
+        p = rs.rand(4, 3, 10).astype(np.float32)
+        return logits, p / p.sum(-1, keepdims=True)
+    return logits, (logits + 0.4 * rs.randn(4, 3, 10)).astype(np.float32)
+
+
+@pytest.mark.parametrize("loss", list(LossType), ids=lambda t: t.name)
+def test_compute_loss_and_metrics_match_jax(loss):
+    """Every loss, and the metrics that take its labels, against the JAX
+    functions on the same logits and labels."""
+    logits, labels = _loss_inputs(loss)
+    jl = j_compute_loss(JLoss[loss.name], jnp.asarray(logits),
+                        jnp.asarray(labels))
+    tl = compute_loss(loss, torch.as_tensor(logits), torch.as_tensor(labels))
+    np.testing.assert_allclose(tl.item(), float(jl), **TOL)
+    M = MetricsType
+    metrics = {
+        LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+            [M.METRICS_ACCURACY, M.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY],
+        LossType.LOSS_CATEGORICAL_CROSSENTROPY:
+            [M.METRICS_ACCURACY, M.METRICS_CATEGORICAL_CROSSENTROPY],
+    }.get(loss, [M.METRICS_ACCURACY, M.METRICS_MEAN_SQUARED_ERROR,
+                 M.METRICS_ROOT_MEAN_SQUARED_ERROR,
+                 M.METRICS_MEAN_ABSOLUTE_ERROR])
+    jm = j_batch_metrics(JLoss[loss.name], [JMetrics[m.name] for m in metrics],
+                         jnp.asarray(logits), jnp.asarray(labels))
+    tm = batch_metrics(loss, metrics, torch.as_tensor(logits),
+                       torch.as_tensor(labels))
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), **TOL,
+                                   err_msg=k)

@@ -127,11 +127,17 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the
-    JAX package (flexflow_tpu_torch itself is fine)."""
+    """No module of the port, not chip_smoke.py and not the port's profile
+    script imports jax or the JAX package (flexflow_tpu_torch itself is
+    fine)."""
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_serve_profile.py"]
+    names = {str(f.relative_to(REPO)) for f in files}
+    # the training slice's modules are among those scanned
+    assert {f"flexflow_tpu_torch/{m}.py" for m in (
+        "runtime/executor", "runtime/optimizer", "runtime/loss",
+        "runtime/metrics", "runtime/dataloader", "models/transformer",
+        "ops/norm", "ops/kernels")} <= names
     bad = []
     for f in files:
         for mod in _imports(f):
