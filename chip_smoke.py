@@ -10,14 +10,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 with nvcc (sm_90a) and print the build time.
   3. kernels  — hold each kernel against its plain PyTorch version on the
                 card, in bf16, at the shapes the Llama-3-8B serving path
-                and the flagship training path give it (limits below);
+                and the flagship training path give it (limits below),
+                the quantized variants too (paged attention over an int8 /
+                fp8 pool with scales and over a bf16 pool under f32
+                queries; the prefill write into int8 / fp8 pages, bitwise);
                 time kernel, plain version and, where one exists, a torch
                 call computing the same function as a yardstick (the port
                 never calls it), each with CUDA events around single
                 launches after an L2 flush.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
-                same weights served on the CPU through the plain versions.
+                same weights served on the CPU through the plain versions:
+                native pool; int8 pool with the prefix cache, prompts
+                sharing a 2-page prefix run twice on one engine (prefix
+                hits); bf16 pool under f32 compute (the mixed-width
+                kernel).
   5. train check — a small f32 flagship encoder classifier (hidden 512, 2
                 layers, 4 heads of 128, fused add + LayerNorm) takes 3 SGD
                 steps on the card through the kernels and on the CPU
@@ -30,7 +37,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 128-token pages; every request must finish with finite
                 logits, each kernel's launch count must be its expected
                 count (layers x prefills, layers x decode steps), and a
-                second serve must return the same tokens.
+                second serve must return the same tokens. The prefix cache
+                is on (the default); these prompts share no prefix.
+  6b. serve quantized — the same model serves 8 prompts (a 384-token
+                shared prefix + tails of 16..300 tokens) twice on one
+                engine for each of: int8 KV pool, fp8 KV pool, int8 KV pool
+                with int8 weights; prefix hits (>= 7, then all 8), exact
+                launch counts, no leaked page; tokens/s, TTFT, decode step,
+                KV bytes per token, peak memory, and the token agreement
+                with the native pool (printed, not gated).
   7. train    — the flagship encoder classifier at the widths of the TPU
                 headline tier (batch 8, seq 512, hidden 4096, 6 layers, 32
                 heads, ffn 16384, 16 classes, bf16 weights and compute,
@@ -63,6 +78,14 @@ F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 # values and are about 0.07 (bf16 rounding ~5e-4), so its limit is tighter
 FLASH_TOL = 2e-2
 PAGED_TOL = 5e-3
+# the quantized paged-attention rows, scaled to the output's largest
+# magnitude: the kernel keeps dequantized K/V and the probabilities in f32
+# (the Pallas kernel's arithmetic), the plain version casts them to bf16
+# (the JAX einsum oracle), and the output is rounded to bf16 once: 1e-2 is
+# 2.5 bf16 steps. The mixed-width row (bf16 pool, f32 queries) computes in
+# f32 in both versions: sums in other orders, 1e-4.
+QUANT_TOL = 1e-2
+MIXED_TOL = 1e-4
 # the training rows' errors are scaled to the output's largest magnitude
 # (max |kernel - plain| / max |plain|). bf16 keeps 8 significant bits, a
 # relative step of 2^-8 = 3.9e-3 at the top of a binade: the flash forward
@@ -95,7 +118,13 @@ MAX_NEW = 32
 # plus 32 new tokens would not fit max_seq_len 1024
 BUCKETS = [16, 32, 64, 128, 256, 512, 768]
 ENGINE = dict(serve_slots=4, max_seq_len=1024, kv_page_size=128,
-              prefix_cache=False, decode_buckets=BUCKETS)
+              decode_buckets=BUCKETS)
+#: phase 6b: the quantized pools (and weights) serve these prompts twice
+QUANT_CONFIGS = (("int8", dict(kv_cache_dtype="int8")),
+                 ("fp8", dict(kv_cache_dtype="fp8")),
+                 ("int8_w8", dict(kv_cache_dtype="int8", weight_dtype="int8")))
+QUANT_PREFIX = 384
+QUANT_TAILS = (16, 57, 98, 139, 180, 221, 262, 300)
 
 
 def fail(msg: str):
@@ -301,6 +330,7 @@ def phase_kernels(torch, kernels):
                     + 2 * 2 * n_pages * ps * kvh * d + 4 * n_pages, 0.0),
         shape=f"slab (1,{s},{kvh},{d}) into {n_pages} pages of {ps} bf16")
 
+    rows.update(quantized_kernel_rows(torch, kernels, g, args, kh, vh, pages))
     rows.update(training_kernel_rows(torch, kernels, g))
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
@@ -308,6 +338,109 @@ def phase_kernels(torch, kernels):
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}"
             + (f", {r['library']} {r['library_ms']:.4f} ms"
                if r["library_ms"] else "") + ")")
+    return rows
+
+
+def quantized_kernel_rows(torch, kernels, g, args, kh, vh, pages):
+    """Paged attention over int8 / fp8 pools (random positive scales) and
+    over a bf16 pool under f32 queries at the decode shape above; the
+    prefill write of the 512-token bf16 slab into int8 / fp8 pages,
+    payload and scales bitwise."""
+    dev = torch.device("cuda")
+    qd, kp, _, table, wp, row_len, pad = args
+    b, _, h, d = qd.shape
+    n_pool, ps, kvh = kp.shape[:3]
+    scale = d ** -0.5
+    rows = {}
+    # live keys and the pages they lie in, per slot (the scale reads)
+    live, pages_read = 0, 0
+    for i in range(b):
+        pos = list(range(int(row_len[i]))) + list(
+            range(int(pad[i]), int(wp[i, 0]) + 1))
+        live += len(pos)
+        pages_read += len({j // ps for j in pos})
+    ints = 4 * (table.numel() + wp.numel() + 2 * b)
+    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        if dt == torch.int8:
+            kq, vq = (torch.randint(-127, 128, kp.shape, device=dev,
+                                    generator=g, dtype=dt) for _ in range(2))
+        else:
+            kq, vq = ((torch.randn(kp.shape, device=dev, generator=g) * 100)
+                      .clamp(-448, 448).to(dt) for _ in range(2))
+        ks, vs = ((torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1)
+                  / 127.0 for _ in range(2))
+        qargs = (qd, kq, vq, table, wp, row_len, pad, scale)
+        sc = dict(k_scales=ks, v_scales=vs)
+        out = kernels.paged_attention_fwd(*qargs, **sc)
+        ref = kernels.paged_attention_plain(*qargs, **sc)
+        torch.cuda.synchronize()
+        err = scaled_err(out, ref)
+        if not err <= QUANT_TOL:
+            fail(f"paged_attention_fwd over an {name} pool disagrees with "
+                 f"its plain version: scaled err {err} (limit {QUANT_TOL})")
+        rows[f"paged_attention_fwd_{name}"] = dict(
+            err=err,
+            ms=cuda_ms(lambda: kernels.paged_attention_fwd(*qargs, **sc)),
+            plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*qargs,
+                                                                   **sc)),
+            library_ms=None, library=None,
+            # q read and out written in bf16, live K/V at one byte, one f32
+            # scale per (page read, kv head) for k and for v
+            bound=bound(2 * 2 * qd.numel() + 2 * live * kvh * d
+                        + 4 * 2 * pages_read * kvh + ints,
+                        4 * live * h * d),
+            shape=f"q ({b},1,{h},{d}) bf16, {name} pool ({n_pool},{ps},"
+                  f"{kvh},{d}) + scales, {live} live positions")
+
+        pk, pv = kq.clone(), vq.clone()
+        rk, rv = kq.clone(), vq.clone()
+        sk, sv = ks.clone(), vs.clone()
+        tk, tv = ks.clone(), vs.clone()
+        kernels.paged_prefill_write(pk, pv, kh, vh, pages, sk, sv)
+        kernels.paged_prefill_write_plain(rk, rv, kh, vh, pages, tk, tv)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                      for x, y in ((pk, rk), (pv, rv), (sk, tk), (sv, tv)))
+        if not bitwise:
+            fail(f"paged_prefill_write into an {name} pool is not bitwise "
+                 f"its plain version (payload and scales)")
+        n_pages = pages.numel()
+        rows[f"paged_prefill_write_{name}"] = dict(
+            err=0.0,
+            ms=cuda_ms(lambda: kernels.paged_prefill_write(
+                pk, pv, kh, vh, pages, sk, sv)),
+            plain_ms=cuda_ms(lambda: kernels.paged_prefill_write_plain(
+                rk, rv, kh, vh, pages, tk, tv)),
+            library_ms=None, library=None,
+            # the bf16 slabs read, the pages written at one byte, their
+            # f32 scales written, the page list read
+            bound=bound(2 * (kh.numel() + vh.numel())
+                        + 2 * n_pages * ps * kvh * d
+                        + 4 * 2 * n_pages * kvh + 4 * n_pages, 0.0),
+            shape=f"slab (1,{kh.shape[1]},{kvh},{d}) bf16 into {n_pages} "
+                  f"{name} pages of {ps} + scales")
+
+    # the mixed-width pool: bf16 pages under f32 queries
+    kp16, vp16 = args[1], args[2]
+    q32 = qd.float()
+    margs = (q32, kp16, vp16, table, wp, row_len, pad, scale)
+    out = kernels.paged_attention_fwd(*margs)
+    ref = kernels.paged_attention_plain(*margs)
+    torch.cuda.synchronize()
+    err = scaled_err(out, ref)
+    if not err <= MIXED_TOL:
+        fail(f"paged_attention_fwd over a bf16 pool under f32 queries "
+             f"disagrees with its plain version: scaled err {err} (limit "
+             f"{MIXED_TOL})")
+    rows["paged_attention_fwd_mixed"] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.paged_attention_fwd(*margs)),
+        plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*margs)),
+        library_ms=None, library=None,
+        bound=bound(2 * 4 * q32.numel() + 2 * 2 * live * kvh * d + ints,
+                    4 * live * h * d, F32_FLOP_PER_S),
+        shape=f"q ({b},1,{h},{d}) f32, bf16 pool ({n_pool},{ps},{kvh},{d}),"
+              f" {live} live positions")
     return rows
 
 
@@ -420,8 +553,11 @@ def build_llama(FFConfig, FFModel, llama_lm, device, dtype: str, seed: int,
     return ff
 
 
-def phase_check(torch, FFConfig, FFModel, llama_lm):
-    """Small f32 model: card (kernels) vs CPU (plain versions)."""
+def phase_check(torch, FFConfig, FFModel, llama_lm, kernels):
+    """Small f32 model: card (kernels) vs CPU (plain versions) on a native
+    pool, on an int8 pool with the prefix cache (two rounds of prompts
+    sharing a 2-page prefix on one engine) and on a bf16 pool. Returns the
+    launches of the int8 and the bf16 serves."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch = dict(hidden=512, layers=2, heads=4, kv_heads=2, ffn_hidden=1024,
@@ -434,22 +570,56 @@ def phase_check(torch, FFConfig, FFModel, llama_lm):
                   for op, ws in cpu.params.items()}
     import numpy as np
 
+    def same(tag, ref, got):
+        if any(o is None for o in ref + got):
+            fail(f"small-model check ({tag}): a request failed")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            if not np.array_equal(a, b):
+                fail(f"small-model check ({tag}): prompt {i} tokens differ "
+                     f"card vs CPU: {b[-8:].tolist()} vs {a[-8:].tolist()}")
+
     rs = np.random.RandomState(1)
     prompts = [rs.randint(0, arch["vocab_size"], size=n).astype(np.int32)
                for n in (5, 30, 77, 130)]
     kw = dict(ENGINE, decode_buckets=None)
     ref, _ = cpu.serve(prompts, max_new_tokens=8, **kw)
     got, st = gpu.serve(prompts, max_new_tokens=8, **kw)
-    if any(o is None for o in ref + got):
-        fail("small-model check: a request failed")
     if st["kernel_launches"]["paged_attention_fwd"] == 0:
         fail("small-model check did not reach the kernels")
-    for i, (a, b) in enumerate(zip(ref, got)):
-        if not np.array_equal(a, b):
-            fail(f"small-model check: prompt {i} tokens differ card vs CPU:"
-                 f" {b[-8:].tolist()} vs {a[-8:].tolist()}")
+    same("native", ref, got)
+
+    # int8 pool under the prefix cache: one engine, two rounds
+    system = rs.randint(0, arch["vocab_size"], size=2 * kw["kv_page_size"])
+    shared = [np.concatenate([system, rs.randint(
+        0, arch["vocab_size"], size=n)]).astype(np.int32) for n in (5, 40, 99)]
+    engines = [m.make_serving_engine(kv_cache_dtype="int8", **kw)
+               for m in (cpu, gpu)]
+    kernels.reset_launch_counts()
+    for rnd in range(2):
+        outs = [[r.output for r in e.run(shared, max_new_tokens=8)]
+                for e in engines]
+        same(f"int8 pool, prefix cache, round {rnd + 1}", *outs)
+    launches = {"check_int8": kernels.launch_counts()}
+    sts = [e.stats() for e in engines]
+    if not (sts[1]["prefix_hits"] > 0
+            and sts[0]["prefix_hits"] == sts[1]["prefix_hits"]):
+        fail(f"small-model check (int8): prefix hits card "
+             f"{sts[1]['prefix_hits']}, CPU {sts[0]['prefix_hits']}")
+    if launches["check_int8"]["paged_prefill_write"] == 0:
+        fail("small-model check (int8) did not reach the kernels")
+
+    # bf16 pool under f32 compute: the mixed-width kernel
+    ref, _ = cpu.serve(shared, max_new_tokens=8, kv_cache_dtype="bf16", **kw)
+    kernels.reset_launch_counts()
+    got, _ = gpu.serve(shared, max_new_tokens=8, kv_cache_dtype="bf16", **kw)
+    launches["check_bf16"] = kernels.launch_counts()
+    same("bf16 pool", ref, got)
     say(f"check: small f32 Llama, card through the kernels == CPU plain "
-        f"versions on {len(prompts)} prompts x 8 tokens")
+        f"versions on {len(prompts)} prompts x 8 tokens (native pool), on "
+        f"{len(shared)} shared-prefix prompts x 8 tokens twice (int8 pool, "
+        f"prefix cache: {sts[1]['prefix_hits']} hits of "
+        f"{sts[1]['prefix_lookups']}) and once more (bf16 pool)")
+    return launches
 
 
 def build_flagship(port, device, dtype: str, seed: int, batch, seq, hidden,
@@ -561,6 +731,109 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     say(f"serve: launches {launches}")
     say(f"serve: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
+    return launches, ff
+
+
+def _serve_round(torch, kernels, eng, prompts, layers):
+    """One run() of ``prompts`` on ``eng`` with the launch counts set to 0
+    just before: its requests, wall time, stats deltas and launches; fails
+    unless each kernel ran exactly its expected count."""
+    import numpy as np
+
+    before = eng.stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in ("prefix_lookups", "prefix_hits",
+                                        "decode_steps", "tokens_generated")}
+    if any(r.state != "done" for r in reqs):
+        fail(f"serve quantized: not every request finished with finite "
+             f"logits: {[r.state for r in reqs]}")
+    cold = d["prefix_lookups"] - d["prefix_hits"]
+    want = {"flash_attention_fwd": layers * cold,
+            "paged_prefill_write": layers * d["prefix_lookups"],
+            "paged_attention_fwd": layers * d["decode_steps"],
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
+    if launches != want:
+        fail(f"serve quantized: kernel launches {launches} != expected "
+             f"{want}")
+    if st["prefix_refs_live"] != 0 \
+            or st["free_pages"] + st["kv_pages_cached"] != st["kv_pages"] - 1:
+        fail(f"serve quantized: pages leaked: refs {st['prefix_refs_live']},"
+             f" free {st['free_pages']} + cached {st['kv_pages_cached']} != "
+             f"{st['kv_pages']} - 1")
+    # decode step ms of this round: the engine's running mean, unwound
+    step_ms = ((st["decode_step_ms"] * st["decode_steps"]
+                - before["decode_step_ms"] * before["decode_steps"])
+               / max(1, d["decode_steps"]))
+    ttfts = sorted(r.ttft * 1e3 for r in reqs)
+    return dict(reqs=reqs, wall=wall, launches=launches, delta=d, st=st,
+                step_ms=step_ms, ttft_p50=ttfts[len(ttfts) // 2],
+                ttft_p99=ttfts[min(len(ttfts) - 1,
+                                   int(0.99 * len(ttfts)))],
+                tokens=[np.asarray(r.tokens) for r in reqs])
+
+
+def phase_serve_quantized(torch, ff, kernels, card: str):
+    """Phase 6b: the Llama-3-8B model of phase 6 serves shared-prefix
+    prompts twice on one engine per quantized configuration."""
+    import numpy as np
+
+    layers = LLAMA3_8B["layers"]
+    rs = np.random.RandomState(5)
+    vocab = LLAMA3_8B["vocab_size"]
+    prefix = rs.randint(0, vocab, size=QUANT_PREFIX)
+    prompts = [np.concatenate([prefix, rs.randint(0, vocab, size=n)])
+               .astype(np.int32) for n in QUANT_TAILS]
+    ref_eng = ff.make_serving_engine(**ENGINE)
+    ref = _serve_round(torch, kernels, ref_eng, prompts, layers)
+    say(f"serve quantized: native pool reference: {ref['delta']} in "
+        f"{ref['wall']:.3f} s, decode step {ref['step_ms']:.2f} ms "
+        f"[{card}]")
+    del ref_eng
+    launches = {}
+    for name, knobs in QUANT_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ff.make_serving_engine(**ENGINE, **knobs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        total = {}
+        for rnd in (1, 2):
+            r = _serve_round(torch, kernels, eng, prompts, layers)
+            hits = r["delta"]["prefix_hits"]
+            if hits < (len(prompts) - 1 if rnd == 1 else len(prompts)):
+                fail(f"serve quantized {name}: round {rnd} had {hits} "
+                     f"prefix hits of {len(prompts)}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+            agree = float(np.mean([np.mean(a == b) for a, b in
+                                   zip(r["tokens"], ref["tokens"])]))
+            st = r["st"]
+            n_tok = r["delta"]["tokens_generated"]
+            say(f"serve quantized {name} round {rnd}: {n_tok} tokens in "
+                f"{r['wall']:.3f} s = {n_tok / r['wall']:.2f} tokens/s, "
+                f"TTFT p50 {r['ttft_p50']:.1f} ms p99 {r['ttft_p99']:.1f} "
+                f"ms, decode step {r['step_ms']:.2f} ms over "
+                f"{r['delta']['decode_steps']} steps, {hits} hits "
+                f"[{card}]")
+            say(f"serve quantized {name} round {rnd}: token agreement with "
+                f"the native pool {agree:.3f} (positionwise, not gated)")
+        say(f"serve quantized {name}: kv {st['kv_cache_dtype']}, weights "
+            f"{st['weight_dtype']}, {st['kv_bytes_per_token']} KV bytes a "
+            f"token, {st['kv_capacity_vs_bf16']}x a bf16 pool's tokens, "
+            f"pool {st['kv_pool_bytes'] / 2**20:.1f} MiB, engine built in "
+            f"{build_s:.2f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        say(f"serve quantized {name}: launches over both rounds {total}")
+        launches[f"serve_{name}"] = total
+        del eng
     return launches
 
 
@@ -673,6 +946,16 @@ KERNEL_ROWS = {
                             "paged_attention_fwd"),
     "paged_prefill_write": ("paged_prefill_write.cu", 779, "serve",
                             "paged_prefill_write"),
+    "paged_attention_fwd_int8": ("paged_attention.cu", 689, "serve_int8",
+                                 "paged_attention_fwd"),
+    "paged_prefill_write_int8": ("paged_prefill_write.cu", 779,
+                                 "serve_int8", "paged_prefill_write"),
+    "paged_attention_fwd_fp8": ("paged_attention.cu", 689, "serve_fp8",
+                                "paged_attention_fwd"),
+    "paged_prefill_write_fp8": ("paged_prefill_write.cu", 779, "serve_fp8",
+                                "paged_prefill_write"),
+    "paged_attention_fwd_mixed": ("paged_attention.cu", 689, "check_bf16",
+                                  "paged_attention_fwd"),
     "flash_attention_fwd_lse": ("flash_attention.cu", 180, "train",
                                 "flash_attention_fwd"),
     "flash_attention_bwd": ("flash_attention_bwd.cu", 335, "train",
@@ -701,16 +984,21 @@ def main():
     card = phase_card()
     phase_build(kernels)
     rows = phase_kernels(torch, kernels)
-    phase_check(torch, FFConfig, FFModel, llama_lm)
+    launches = phase_check(torch, FFConfig, FFModel, llama_lm, kernels)
     phase_train_check(torch, port, kernels)
-    launches = {"serve": phase_serve(torch, FFConfig, FFModel, llama_lm,
-                                     kernels, card)}
+    launches["serve"], ff = phase_serve(torch, FFConfig, FFModel, llama_lm,
+                                        kernels, card)
+    launches.update(phase_serve_quantized(torch, ff, kernels, card))
+    del ff
     launches["train"] = phase_train(torch, port, kernels, card)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     table = []
     for name, r in rows.items():
         src, line, path, wrapper = KERNEL_ROWS[name]
+        if launches[path][wrapper] == 0:
+            fail(f"{name}: its kernel was launched no time on its path "
+                 f"({path})")
         table.append({
             "name": name, "route": "cuda",
             "source": f"flexflow_tpu_torch/csrc/{src}",

@@ -7,7 +7,8 @@ other. Knobs that select features of later slices are kept (a user who
 sets them must not be silently served or trained something else): the
 serving engine and the training ``compile`` reject each non-default value
 with ``NotImplementedError`` naming the ROADMAP item that ports it
-(``not_ported``).
+(``not_ported``) — ``host_kv_pages > 0`` (the prefix cache's host tier)
+among them.
 """
 
 from __future__ import annotations
@@ -67,10 +68,17 @@ class FFConfig:
     # prompt-length admission buckets (ascending); None = powers of two
     # from 8
     decode_buckets: Optional[List[int]] = None
-    # later-slice knobs, kept with the JAX defaults (see module docstring)
+    # the radix prefix cache (HBM tier): prompts sharing page-aligned
+    # prefixes mount the cached pages read-only and prefill their tail
     serve_prefix_cache: bool = True
+    # KV-pool storage: native (the compute dtype), bf16, or int8 / fp8 with
+    # one f32 scale per (page, kv head); weight-only quantization of the
+    # served weights: native, int8 or fp8 (per-output-channel scales)
     kv_cache_dtype: str = "native"
     serve_weight_dtype: str = "native"
+    # later-slice knobs, kept with the JAX defaults (see module docstring):
+    # the prefix cache's host-memory tier, and the attention route
+    host_kv_pages: int = 0
     paged_attention_impl: str = "auto"
 
     def __post_init__(self):
@@ -95,6 +103,10 @@ class FFConfig:
                 f"serve_slots={self.serve_slots} (>= 1), "
                 f"kv_page_size={self.kv_page_size} (>= 1), "
                 f"kv_pages={self.kv_pages} (>= 0, 0 = derive)")
+        if self.host_kv_pages < 0:
+            raise ValueError(
+                f"host_kv_pages={self.host_kv_pages}: must be >= 0 "
+                f"(0 = no host tier)")
         if self.kv_page_size & (self.kv_page_size - 1):
             raise ValueError(
                 f"kv_page_size={self.kv_page_size}: must be a power of two")
@@ -105,7 +117,8 @@ class FFConfig:
         if self.kv_cache_dtype not in ("native", "bf16", "int8", "fp8"):
             raise ValueError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r}: must be "
-                f"'native', 'bf16', 'int8' or 'fp8'")
+                f"'native', 'bf16', 'int8' or 'fp8' (exact spelling — a "
+                f"typo here would silently serve the wrong KV precision)")
         if self.serve_weight_dtype not in ("native", "int8", "fp8"):
             raise ValueError(
                 f"serve_weight_dtype={self.serve_weight_dtype!r}: must "

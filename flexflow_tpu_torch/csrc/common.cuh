@@ -8,17 +8,21 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace ffk {
 
-// dtype codes, shared with ops/kernels.py (_DTYPE_CODES)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// dtype codes, shared with ops/kernels.py (_DTYPE_CODES); int8 and fp8
+// (e4m3fn) are quantized KV-pool storage only
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -54,6 +58,25 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* o
   for (int i = 0; i < 4; ++i) {
     out[2 * i] = __uint_as_float(w[i] << 16);
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 16 one-byte quantized values (int8, or fp8 e4m3fn: exact in f32)
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* out) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4& u, float* out) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    __nv_fp8_e4m3 v;
+    v.__x = static_cast<__nv_fp8_storage_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    out[i] = static_cast<float>(v);
   }
 }
 

@@ -2,7 +2,10 @@
 //
 // Replaces the JAX package's Pallas kernel paged_attention_fwd_pallas
 // (flexflow_tpu/ops/pallas_kernels.py:689, kernel _paged_attn_kernel :592)
-// for native (unquantized) pools.
+// for every pool it serves: native pools (the compute dtype), the
+// mixed-width pool (bf16 storage under f32 queries, :655-660) and quantized
+// pools (int8 or fp8 e4m3fn payload with one f32 scale per (pool page, kv
+// head), dequantized per tile, :650-654).
 //
 // q (B, S, H, D) attends the paged KV pool k/v (P, page_size, KVH, D)
 // through per-slot page tables (B, pages_per_slot): logical position j of
@@ -18,24 +21,35 @@
 // bucket padding [row_len, prompt_pad) is dead for every row: its positions
 // are not loaded, and a chunk that lies wholly inside it is skipped. It
 // loads its page-table row into shared memory itself (the TPU kernel had
-// it scalar-prefetched). K/V rows move as 16-byte vectors, and the next
-// chunk's loads are issued before the current chunk is scored, so memory
-// latency overlaps the arithmetic. Each chunk's K and V rows are staged once in shared
-// memory and shared by all S * (H / KVH) query rows of the group — the
-// point of the kernel: the group's K/V bytes cross HBM once per step. For
-// each query row a warp scores the 32 positions (lane = position), folds
-// them into the row's online softmax (running max / sum in shared memory,
-// f32), then all threads add P.V into the f32 accumulator.
+// it scalar-prefetched). K/V rows move as 16-byte vectors (4 f32, 8 bf16 or
+// 16 one-byte values), and the next chunk's loads are issued before the
+// current chunk is scored, so memory latency overlaps the arithmetic. Each
+// chunk's K and V rows are staged once in shared memory as f32 and shared
+// by all S * (H / KVH) query rows of the group — the point of the kernel:
+// the group's K/V bytes cross HBM once per step. Staging is where the pool
+// types differ: a quantized value is converted in registers and multiplied
+// by the scale of the pool page its position lies in (looked up per
+// position, so page_size need not be a multiple of 32), and the products
+// then run in f32, as the Pallas kernel's do. For each query row a warp
+// scores the 32 positions (lane = position), folds them into the row's
+// online softmax (running max / sum in shared memory, f32), then all
+// threads add P.V into the f32 accumulator. The probabilities enter P.V in
+// the value dtype of the Pallas kernel: rounded to bf16 for a native bf16
+// pool, f32 for the mixed-width and quantized pools (their tiles are f32
+// after the upcast or the dequantization).
 //
 // Inactive slots carry write_pos 0, row_len 0, prompt_pad 0 and an all-zero
 // page-table row: they read scratch page 0 position 0, which their live
 // rule admits (0 <= 0 <= 0), so every row has a live key and l > 0.
 //
 // Bound on the H100: decode with 4 slots holding ~620 live positions each
-// at KVH = 8, D = 128 moves ~10.2 MB of K/V per layer, ~3.0 us at 3.35 TB/s;
-// bytes bound (the products are ~0.02 GFLOP). One block per (slot, kv
-// head) puts only B * KVH blocks on 132 SMs, which caps the bandwidth this
-// first kernel can draw; its measured time is in PERF.md.
+// at KVH = 8, D = 128 moves ~10.2 MB of bf16 K/V per layer, ~3.0 us at
+// 3.35 TB/s, and half that from an int8 or fp8 pool; bytes bound (the
+// products are ~0.02 GFLOP). One block per (slot, kv head) puts only
+// B * KVH blocks on 132 SMs, which caps the bandwidth this first kernel can
+// draw; its measured times are in PERF.md.
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace ffk;
@@ -55,21 +69,28 @@ size_t paged_smem_bytes(int rows, int s, int pps) {
          sizeof(int) * (s + pps);
 }
 
-template <typename T, int D>
+// T: the query / output dtype; S: the pool's storage dtype (T, bf16 under
+// f32 queries, int8 or fp8). Quantized pools pass their (P, KVH) f32 scales.
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                  const T* __restrict__ vpool, const int* __restrict__ page_table,
+paged_attn_kernel(const T* __restrict__ q, const S* __restrict__ kpool,
+                  const S* __restrict__ vpool, const float* __restrict__ kscale,
+                  const float* __restrict__ vscale,
+                  const int* __restrict__ page_table,
                   const int* __restrict__ write_pos,
                   const int* __restrict__ row_len,
                   const int* __restrict__ prompt_pad, T* __restrict__ out,
                   int s, int h, int kvh, int ps, int pps, float scale) {
+  constexpr bool kQuant = sizeof(S) == 1;
+  constexpr bool kNative = std::is_same<T, S>::value;
   // K/V rows move as 16-byte vectors: each thread keeps kLoads of them per
   // chunk in registers, so the next chunk's loads are in flight while the
   // current chunk is scored
-  constexpr int kVec = 16 / sizeof(T);          // elements per vector
-  constexpr int kNV = D / kVec;                 // vectors per position row
-  constexpr int kLoads = kTK * kNV / kThreads;  // vectors per thread per chunk
-  static_assert(kTK * kNV % kThreads == 0, "chunk must split evenly");
+  constexpr int kVec = 16 / sizeof(S);            // elements per vector
+  constexpr int kNV = D / kVec;                   // vectors per position row
+  constexpr int kChunkVecs = kTK * kNV;           // vectors per chunk
+  constexpr int kLoads = (kChunkVecs + kThreads - 1) / kThreads;
+  static_assert(D % kVec == 0, "a position row splits into whole vectors");
 
   extern __shared__ float smem[];
   const int grp = h / kvh;
@@ -115,36 +136,42 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int n_pos = min(last + 1, pps * ps);
 
   uint4 kreg[kLoads], vreg[kLoads];
+  float ksc[kLoads], vsc[kLoads];  // the vectors' page scales (quantized)
   auto issue = [&](int j0) {  // start the loads of chunk [j0, j0 + kTK)
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
       const int j = j0 + i / kNV;
       const int c = (i % kNV) * kVec;
-      if (j < n_pos && (j < rl || j >= pp)) {  // not in the dead padding
-        const size_t row =
-            (static_cast<size_t>(tbl_s[j / ps]) * ps + j % ps) * kvh + kh;
+      kreg[u] = make_uint4(0u, 0u, 0u, 0u);
+      vreg[u] = make_uint4(0u, 0u, 0u, 0u);
+      ksc[u] = vsc[u] = 0.f;
+      if (i < kChunkVecs && j < n_pos && (j < rl || j >= pp)) {  // not dead padding
+        const int page = tbl_s[j / ps];
+        const size_t row = (static_cast<size_t>(page) * ps + j % ps) * kvh + kh;
         kreg[u] = *reinterpret_cast<const uint4*>(kpool + row * D + c);
         vreg[u] = *reinterpret_cast<const uint4*>(vpool + row * D + c);
-      } else {
-        kreg[u] = make_uint4(0u, 0u, 0u, 0u);
-        vreg[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (kQuant) {
+          ksc[u] = kscale[static_cast<size_t>(page) * kvh + kh];
+          vsc[u] = vscale[static_cast<size_t>(page) * kvh + kh];
+        }
       }
     }
   };
-  auto stage = [&]() {  // registers -> shared memory, as f32
+  auto stage = [&]() {  // registers -> shared memory, as f32 (dequantized)
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int i = tid + u * kThreads;
+      if (i >= kChunkVecs) continue;
       const int t = i / kNV;
       const int c = (i % kNV) * kVec;
       float kx[kVec], vx[kVec];
-      unpack16<T>(kreg[u], kx);
-      unpack16<T>(vreg[u], vx);
+      unpack16<S>(kreg[u], kx);
+      unpack16<S>(vreg[u], vx);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
-        ks[t * (D + 1) + c + e] = kx[e];
-        vs[t * D + c + e] = vx[e];
+        ks[t * (D + 1) + c + e] = kQuant ? kx[e] * ksc[u] : kx[e];
+        vs[t * D + c + e] = kQuant ? vx[e] * vsc[u] : vx[e];
       }
     }
   };
@@ -178,7 +205,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
       const float p = live ? expf(sc - m_new) : 0.f;
       const float psum = warp_sum(p, 32);
-      pw[r * kTK + lane] = round_to<T>(p);
+      pw[r * kTK + lane] = kNative ? round_to<T>(p) : p;
       if (lane == 0) {
         m_s[r] = m_new;
         l_s[r] = l_s[r] * alpha + psum;
@@ -207,55 +234,74 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* table, const int* wp, const int* rl,
-                   const int* pp, void* out, int b, int s, int h, int kvh,
-                   int ps, int pps, float scale, cudaStream_t stream) {
-  const size_t smem = paged_smem_bytes<D>(s * (h / kvh), s, pps);
-  cudaError_t err = allow_smem(paged_attn_kernel<T, D>, smem);
+struct Args {
+  const void *q, *k, *v;
+  const float *ksc, *vsc;
+  const int *table, *wp, *rl, *pp;
+  void* out;
+  int b, s, h, kvh, ps, pps;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename S, int D>
+cudaError_t launch(const Args& a) {
+  const size_t smem = paged_smem_bytes<D>(a.s * (a.h / a.kvh), a.s, a.pps);
+  cudaError_t err = allow_smem(paged_attn_kernel<T, S, D>, smem);
   if (err != cudaSuccess) return err;
-  paged_attn_kernel<T, D><<<b * kvh, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), table, wp, rl, pp, static_cast<T*>(out), s,
-      h, kvh, ps, pps, scale);
+  paged_attn_kernel<T, S, D><<<a.b * a.kvh, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.k),
+      static_cast<const S*>(a.v), a.ksc, a.vsc, a.table, a.wp, a.rl, a.pp,
+      static_cast<T*>(a.out), a.s, a.h, a.kvh, a.ps, a.pps, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     const int* table, const int* wp, const int* rl,
-                     const int* pp, void* out, int b, int s, int h, int kvh,
-                     int ps, int pps, float scale, cudaStream_t stream) {
+template <typename T, typename S>
+cudaError_t launch_d(int d, const Args& a) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, table, wp, rl, pp, out, b, s, h, kvh, ps, pps, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, table, wp, rl, pp, out, b, s, h, kvh, ps, pps, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, table, wp, rl, pp, out, b, s, h, kvh, ps, pps, scale, stream);
+    case 32: return launch<T, S, 32>(a);
+    case 64: return launch<T, S, 64>(a);
+    case 128: return launch<T, S, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_pool(int pool_dtype, int d, const Args& a) {
+  switch (pool_dtype) {
+    case kBF16: return launch_d<T, __nv_bfloat16>(d, a);
+    case kI8: return launch_d<T, int8_t>(d, a);
+    case kFP8: return launch_d<T, __nv_fp8_e4m3>(d, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (B, S, H, D); k/v pools (P, page_size, KVH, D); page_table
+// q (B, S, H, D); k/v pools (P, page_size, KVH, D) of pool_dtype; k/v
+// scales (P, KVH) f32 for an int8 / fp8 pool, else null; page_table
 // (B, pages_per_slot) int32; write_pos (B, S) int32; row_len, prompt_pad
-// (B,) int32; out (B, S, H, D). All contiguous. Returns a cudaError_t.
-extern "C" int ff_paged_attention_fwd(const void* q, const void* k,
-                                      const void* v, const void* page_table,
-                                      const void* write_pos,
-                                      const void* row_len,
-                                      const void* prompt_pad, void* out,
-                                      int dtype, int b, int s, int h, int kvh,
-                                      int d, int ps, int pps, float scale,
-                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* table = static_cast<const int*>(page_table);
-  const int* wp = static_cast<const int*>(write_pos);
-  const int* rl = static_cast<const int*>(row_len);
-  const int* pp = static_cast<const int*>(prompt_pad);
-  if (dtype == kF32)
-    return launch_d<float>(d, q, k, v, table, wp, rl, pp, out, b, s, h, kvh, ps, pps, scale, st);
-  if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, table, wp, rl, pp, out, b, s, h, kvh, ps, pps, scale, st);
+// (B,) int32; out (B, S, H, D) of q_dtype. All contiguous. Pools: q_dtype,
+// bf16 under f32 q, int8 or fp8 (with scales). Returns a cudaError_t.
+extern "C" int ff_paged_attention_fwd(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* page_table, const void* write_pos,
+    const void* row_len, const void* prompt_pad, void* out, int q_dtype,
+    int pool_dtype, int b, int s, int h, int kvh, int d, int ps, int pps,
+    float scale, void* stream) {
+  const bool quant = pool_dtype == kI8 || pool_dtype == kFP8;
+  if (quant != (k_scale != nullptr && v_scale != nullptr)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(write_pos),
+               static_cast<const int*>(row_len),
+               static_cast<const int*>(prompt_pad), out, b, s, h, kvh, ps, pps,
+               scale, static_cast<cudaStream_t>(stream)};
+  if (q_dtype == kF32)
+    return pool_dtype == kF32 ? launch_d<float, float>(d, a)
+                              : launch_pool<float>(pool_dtype, d, a);
+  if (q_dtype == kBF16 && pool_dtype != kF32)
+    return launch_pool<__nv_bfloat16>(pool_dtype, d, a);
   return cudaErrorInvalidValue;
 }

@@ -306,10 +306,13 @@ class FFModel:
 
     def make_serving_engine(self, **kwargs):
         """Continuous-batching serving engine (runtime/serving.py): a paged
-        KV pool shared by ``serve_slots`` decode slots; the host scheduler
-        admits queued prompts into free slots and retires rows on eos or
-        length. Knobs default to this model's FFConfig; kwargs override
-        them per engine (see ServingEngine)."""
+        KV pool shared by ``serve_slots`` decode slots under the radix
+        prefix cache; the host scheduler admits queued prompts into free
+        slots and retires rows on eos or length. Knobs default to this
+        model's FFConfig; kwargs override them per engine (see
+        ServingEngine), among them ``prefix_cache``, ``kv_cache_dtype``
+        ('native', 'bf16', 'int8', 'fp8') and ``weight_dtype`` ('native',
+        'int8', 'fp8')."""
         from flexflow_tpu_torch.runtime.serving import ServingEngine
 
         return ServingEngine(self, **kwargs)

@@ -10,10 +10,14 @@ Pallas kernel call the wrappers of ``ops/kernels.py``:
     with the lse, backward kernel under autograd),
   * ``prefill_forward`` -> ``flash_attention_fwd`` (the dense prompt pass),
   * ``paged_prefill_write`` -> ``paged_prefill_write`` (prompt k/v into
-    the pool),
-  * ``_paged_attention_ctx`` -> ``paged_attention_fwd`` (decode).
+    the pool, quantized into an int8 / fp8 pool),
+  * ``_paged_attention_ctx`` -> ``paged_attention_fwd`` (decode, over any
+    pool: native, bf16 under f32, int8 / fp8 with scales).
 
-The pool is updated in place (the JAX package returned new arrays).
+A prefix-cache hit prefills its tail with ``chunk_forward`` and scores its
+last token with ``query_forward``: the grouped einsum attention, as in the
+JAX package (no kernel there either). The pool is updated in place (the
+JAX package returned new arrays); so are the contiguous prefill caches.
 """
 
 from __future__ import annotations
@@ -27,6 +31,75 @@ from flexflow_tpu_torch.config import ROADMAP_OPS, not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+
+
+# ---- quantized KV-page storage (the JAX package's attention.py:67-134) ---
+#
+# An int8 / fp8 pool stores the payload with one f32 scale per (page, kv
+# head) beside it, so a page holds 2-4x more tokens per byte; the
+# allocator, the copy-on-write rule and the radix trie are page-granular
+# and never look inside a page. Dequantization happens where the data is
+# consumed: inside the paged-attention kernel's staging, or after the
+# gather of the plain version and of a prefix hit.
+
+
+def kv_storage_dtype(kv_dtype) -> Tuple[Optional[torch.dtype],
+                                         Optional[float]]:
+    """An FFConfig.kv_cache_dtype value -> ``(storage dtype, qmax)``:
+    ``(None, None)`` is native (the compute dtype), bf16 is a plain cast
+    (no scales), int8 / fp8 are symmetric per-(page, kv head) scale
+    quantization with ceiling ``qmax``. Raises on other values."""
+    if kv_dtype in (None, "", "native"):
+        return None, None
+    if kv_dtype in ("bf16", "bfloat16"):
+        return torch.bfloat16, None
+    if kv_dtype in ("int8", "fp8"):
+        dtype = torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn
+        return dtype, storage_qmax(dtype)
+    raise ValueError(
+        f"kv_cache_dtype={kv_dtype!r}: must be 'native', 'bf16', "
+        f"'int8' or 'fp8'")
+
+
+def storage_qmax(dtype: torch.dtype) -> float:
+    """The symmetric quantization ceiling of a storage dtype (127 for
+    int8, 448 for fp8 e4m3fn)."""
+    if dtype.is_floating_point:
+        return float(torch.finfo(dtype).max)
+    return float(torch.iinfo(dtype).max)
+
+
+def _divide(x: torch.Tensor, qmax: float) -> torch.Tensor:
+    """x / qmax as an IEEE division: torch's CUDA path multiplies by the
+    reciprocal when the divisor is a python number, which is not bitwise
+    the JAX division (nor the CUDA kernel's)."""
+    return x / torch.full_like(x, qmax)
+
+
+def page_scale(pf: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Per-(page, kv-head) scale of a (..., page_size, KVH, D) float slab:
+    amax over the page's positions and head dim, over qmax."""
+    return _divide(pf.float().abs().amax(dim=(-3, -1)), qmax)
+
+
+def page_quantize(pf: torch.Tensor, scale: torch.Tensor, qmax: float,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Quantize (..., page_size, KVH, D) float against per-(page, head)
+    ``scale`` (..., KVH): divide by max(scale, 1e-12), clip to +-qmax
+    BEFORE the cast (an fp8 overflow cast gives nan, not saturation), round
+    half to even for int8 (``torch.round``, as ``jnp.round``); fp8 rounds
+    in the cast. Requantization at an unchanged scale is exact, which makes
+    the append path's unconditional page requantization safe."""
+    s = torch.clamp_min(scale, 1e-12)[..., None, :, None]
+    q = torch.clamp(pf.float() / s, -qmax, qmax)
+    if not dtype.is_floating_point:
+        q = torch.round(q)
+    return q.to(dtype)
+
+
+def page_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(..., page_size, KVH, D) payload x (..., KVH) scales -> f32."""
+    return q.float() * scale[..., None, :, None]
 
 
 def rope_tables(theta: float, s: int, d: int,
@@ -241,33 +314,120 @@ class MultiHeadAttention(Op):
             self.scale)
         return self._out_proj(params, ctx), cache
 
+    def chunk_forward(self, params, xs, cache, start: int, rope=None):
+        """Prefill a (B, C) slab of prompt positions [start, start + C):
+        write its k/v into the contiguous ``cache`` (in place) and attend
+        the prefix [0, start + C) under the causal rule (position j sees
+        idx <= start + j) — the JAX ``chunk_forward`` (attention.py:352),
+        the grouped einsum attention. A prefix-cache hit prefills its tail
+        this way behind the gathered prefix. ``rope``: the
+        ``rope_tables`` of positions start .. start + C - 1."""
+        qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
+                                       rope_offset=start, rope=rope)
+        c = qh.shape[1]
+        end = start + c
+        cache["k"][:, start:end] = kh
+        cache["v"][:, start:end] = vh
+        dev = qh.device
+        live = (torch.arange(end, device=dev)[None, :]
+                <= (start + torch.arange(c, device=dev))[:, None])
+        ctx = kernels.grouped_cache_attention(
+            qh, cache["k"][:, :end], cache["v"][:, :end],
+            live[None, None, None], self.scale)
+        return self._out_proj(params, ctx), cache
+
+    def query_forward(self, params, xs, cache, rope_pos, row_lengths,
+                      rope=None):
+        """Read-only cache query (the JAX ``query_forward``,
+        attention.py:394): a (B, 1) slab holding each row's last prompt
+        token, whose k/v the chunk passes already wrote — q at ``rope_pos``
+        ((B,) positions) attends the row's live prefix idx < row_lengths.
+        The cache is returned untouched."""
+        qh, _, _ = self._project_qkv(params, xs[0], xs[1], xs[2],
+                                     rope_offset=rope_pos, rope=rope)
+        idx = torch.arange(cache["k"].shape[1], device=qh.device)
+        live = idx[None, :] < row_lengths[:, None]
+        ctx = kernels.grouped_cache_attention(
+            qh, cache["k"], cache["v"], live[:, None, None, None, :],
+            self.scale)
+        return self._out_proj(params, ctx), cache
+
     # ---- paged KV pool (runtime/serving.py) --------------------------------
 
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         dtype: torch.dtype, device: torch.device):
-        """A pool of ``num_pages`` KV pages in the compute dtype (native
-        storage only in this slice). Page 0 is the serving engine's
-        scratch page."""
-        return {
+                         dtype: torch.dtype, device: torch.device,
+                         kv_dtype: Optional[str] = None):
+        """A pool of ``num_pages`` KV pages. Page 0 is the serving engine's
+        scratch page. ``kv_dtype`` (FFConfig.kv_cache_dtype) picks the
+        storage: None / 'native' stores ``dtype``, 'bf16' bfloat16, 'int8'
+        / 'fp8' the quantized payload plus ``k_scale`` / ``v_scale``
+        (num_pages, KVH) f32 planes riding the same page ids."""
+        sdtype, qmax = kv_storage_dtype(kv_dtype)
+        store = sdtype if sdtype is not None else dtype
+        pool = {
             "k": torch.zeros((num_pages, page_size, self.num_kv_heads,
-                              self.qk_head_dim), dtype=dtype, device=device),
+                              self.qk_head_dim), dtype=store, device=device),
             "v": torch.zeros((num_pages, page_size, self.num_kv_heads,
-                              self.v_head_dim), dtype=dtype, device=device),
+                              self.v_head_dim), dtype=store, device=device),
         }
+        if qmax is not None:
+            for name in ("k_scale", "v_scale"):
+                pool[name] = torch.zeros((num_pages, self.num_kv_heads),
+                                         dtype=torch.float32, device=device)
+        return pool
 
     def paged_prefill_write(self, cache, kh, vh, pages):
         """Scatter a slot's contiguous prefill k/v (1, L, KVH, Hd) into pool
         pages ``pages`` ((ceil(L / page_size),) int32), in place; the last
-        page's tail past L is zeroed."""
-        kernels.paged_prefill_write(cache["k"], cache["v"], kh, vh, pages)
+        page's tail past L is zeroed. A quantized pool gets each page's
+        fresh per-(page, head) scale and its quantized payload (prefill
+        only targets the request's own fresh pages)."""
+        kernels.paged_prefill_write(cache["k"], cache["v"], kh, vh, pages,
+                                    cache.get("k_scale"),
+                                    cache.get("v_scale"))
         return cache
 
     def _paged_append(self, cache, kh, vh, page_ids, offs):
         """Write one token per slot at ``(page_ids[b], offs[b])``, in place
-        (the native-pool branch of the JAX ``_paged_append``)."""
-        cache["k"][page_ids, offs] = kh.to(cache["k"].dtype)
-        cache["v"][page_ids, offs] = vh.to(cache["v"].dtype)
+        (the JAX ``_paged_append``, attention.py:519-552). Native pools
+        scatter the position. Quantized pools requantize the target page
+        against a running-max scale: gather the page, dequantize at its
+        scale, insert the token, grow the scale to cover it, requantize,
+        scatter back — in torch ops, as the JAX package does it in XLA.
+        Appends only land in a request's own private pages, so published
+        prefix pages are never touched; inactive slots all target scratch
+        page 0, whose contents are garbage by design."""
+        if "k_scale" not in cache:
+            cache["k"][page_ids, offs] = kh.to(cache["k"].dtype)
+            cache["v"][page_ids, offs] = vh.to(cache["v"].dtype)
+            return cache
+        rows = torch.arange(page_ids.shape[0], device=page_ids.device)
+        for name, x in (("k", kh), ("v", vh)):
+            pool = cache[name]
+            sc = cache[name + "_scale"]
+            qmax = storage_qmax(pool.dtype)
+            cur = sc[page_ids]                              # (B, KVH)
+            pf = page_dequantize(kernels.take_pages(pool, page_ids), cur)
+            pf[rows, offs] = x.float()
+            amax = x.float().abs().amax(dim=-1)
+            new = torch.maximum(cur, _divide(amax, qmax))
+            kernels.put_pages(pool, page_ids,
+                              page_quantize(pf, new, qmax, pool.dtype))
+            sc[page_ids] = new
         return cache
+
+    def gather_paged_kv(self, cache, pages):
+        """Read ``pages`` ((n,) int) out of the pool as a full-width
+        (1, n * page_size, KVH, Hd) k/v view, f32 from a quantized pool
+        (dequantized against the pages' scales, so a prefix-cache borrower
+        attends exactly the values the donor's decode sees)."""
+        out = {}
+        for name in ("k", "v"):
+            x = kernels.take_pages(cache[name], pages)      # (n,ps,KVH,D)
+            if name + "_scale" in cache:
+                x = page_dequantize(x, cache[name + "_scale"][pages])
+            out[name] = x.reshape(1, -1, *x.shape[2:])
+        return out
 
     def _paged_attention_ctx(self, qh, cache, page_table, write_pos,
                              row_len, prompt_pad):
@@ -275,7 +435,8 @@ class MultiHeadAttention(Op):
         tables; write_pos (B, S) per-position frontiers."""
         return kernels.paged_attention_fwd(
             qh.contiguous(), cache["k"], cache["v"], page_table, write_pos,
-            row_len, prompt_pad, self.scale)
+            row_len, prompt_pad, self.scale, k_scales=cache.get("k_scale"),
+            v_scales=cache.get("v_scale"))
 
     def paged_decode_forward(self, params, xs, cache, page_table, write_pos,
                              rope_pos, row_len, prompt_pad, rope=None,

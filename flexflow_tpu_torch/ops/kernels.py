@@ -15,6 +15,12 @@ Pallas kernels the serving and training paths run:
   ``paged_prefill_write``       ``paged_prefill_write_pallas`` :779
   ============================  =========================================
 
+The two paged kernels serve every KV pool of the serving engine: a native
+pool (the compute dtype), a bf16 pool under f32 compute, and an int8 / fp8
+pool with one f32 scale per (page, kv head) — attention dequantizes each
+tile as it stages it, the prefill write quantizes each page against a
+fresh scale (the Pallas kernels' quantized bodies, :650-654 and :843-852).
+
 ``flash_attention`` and ``fused_add_layernorm`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
 (:538 and :502): the forward kernel saves its residuals, and the backward
@@ -59,8 +65,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: .gitignore), one directory per source hash
 BUILD_ROOT = _PKG.parent / "build" / "flexflow_tpu_torch_kernels"
 
-# kernel dtype codes (csrc/common.cuh ffk::DType)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel dtype codes (csrc/common.cuh ffk::DType); int8 and fp8 are
+# quantized KV-pool storage only, the kernels compute in f32 or bf16
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 # head dims the kernels are instantiated for (csrc launch_d switches)
 HEAD_DIMS = (32, 64, 128)
 
@@ -149,14 +159,18 @@ class _Library:
                 lib.ff_fused_add_layernorm_fwd.argtypes = [
                     p, p, p, p, p, p, p, p, i, i, i, f, p]
                 lib.ff_paged_attention_fwd.argtypes = [
-                    p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, p]
+                    p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                    f, p]
                 lib.ff_paged_prefill_write.argtypes = [
                     p, p, p, p, p, i, i, i, i, i, p]
+                lib.ff_paged_prefill_write_quant.argtypes = [
+                    p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
                 for fn in (lib.ff_flash_attention_fwd,
                            lib.ff_flash_attention_bwd,
                            lib.ff_fused_add_layernorm_fwd,
                            lib.ff_paged_attention_fwd,
-                           lib.ff_paged_prefill_write):
+                           lib.ff_paged_prefill_write,
+                           lib.ff_paged_prefill_write_quant):
                     fn.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
@@ -228,10 +242,10 @@ def _check_attention(name, q, k, v):
     rest."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in COMPUTE_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"{name}: q/k/v must share a dtype in "
-                         f"{list(_DTYPE_CODES)}")
+                         f"{list(COMPUTE_DTYPES)}")
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
         raise ValueError(f"{name}: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -427,10 +441,10 @@ def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
     name = "fused_add_layernorm_fwd"
     _require_cuda(name, x, r, scale, bias)
     n, d = x.shape
-    if x.dtype not in _DTYPE_CODES or any(
+    if x.dtype not in COMPUTE_DTYPES or any(
             t.dtype != x.dtype for t in (r, scale, bias)):
         raise ValueError(f"{name}: x, r, scale and bias must share a dtype "
-                         f"in {list(_DTYPE_CODES)}")
+                         f"in {list(COMPUTE_DTYPES)}")
     if r.shape != x.shape or scale.shape != (d,) or bias.shape != (d,):
         raise ValueError(f"{name}: r {tuple(r.shape)} must match x "
                          f"{tuple(x.shape)}, scale/bias must be ({d},)")
@@ -517,17 +531,45 @@ def grouped_cache_attention(qh, ck, cv, live, scale: float):
     return ctx.reshape(b, c, h, cv.shape[-1])
 
 
+def take_pages(pool, idx):
+    """``pool[idx]`` along the page axis, through a byte view for one-byte
+    (int8 / fp8) pools: advanced indexing of float8 tensors is not
+    implemented on every device and version."""
+    if pool.element_size() == 1:
+        return pool.view(torch.uint8)[idx].view(pool.dtype)
+    return pool[idx]
+
+
+def put_pages(pool, idx, x):
+    """``pool[idx] = x`` (x already in the pool's dtype), in place, through
+    a byte view for one-byte pools."""
+    if pool.element_size() == 1:
+        pool.view(torch.uint8)[idx] = x.view(torch.uint8)
+    else:
+        pool[idx] = x
+
+
 def paged_attention_plain(q, k_pages, v_pages, page_table, write_pos,
-                          row_len, prompt_pad, scale: float):
+                          row_len, prompt_pad, scale: float, k_scales=None,
+                          v_scales=None):
     """Plain version of ``paged_attention_fwd``: the page-gather branch of
     the JAX ``_paged_attention_ctx`` (attention.py:638-651) — gather each
-    slot's pages into a logical (B, L, KVH, D) cache, then the grouped
-    einsum attention under the live rule."""
+    slot's pages into a logical (B, L, KVH, D) cache (dequantized against
+    the pages' scales for a quantized pool, ``page_dequantize``), then the
+    grouped einsum attention under the live rule, which casts the cache to
+    q's dtype (the JAX einsum oracle's cast)."""
+    from flexflow_tpu_torch.ops.attention import page_dequantize
+
     b = q.shape[0]
     max_len = page_table.shape[1] * k_pages.shape[1]
     table = page_table.long()
-    gk = k_pages[table].reshape(b, max_len, *k_pages.shape[2:])
-    gv = v_pages[table].reshape(b, max_len, *v_pages.shape[2:])
+    gk = take_pages(k_pages, table)                 # (B, P, ps, KVH, D)
+    gv = take_pages(v_pages, table)
+    if k_scales is not None:
+        gk = page_dequantize(gk, k_scales[table])
+        gv = page_dequantize(gv, v_scales[table])
+    gk = gk.reshape(b, max_len, *k_pages.shape[2:])
+    gv = gv.reshape(b, max_len, *v_pages.shape[2:])
     idx = torch.arange(max_len, device=q.device)
     live = (idx[None, None, :] < row_len[:, None, None]) \
         | ((idx[None, None, :] >= prompt_pad[:, None, None])
@@ -536,33 +578,64 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, write_pos,
                                    scale)
 
 
+def _check_scales(name, pool_k, pool_v, k_scales, v_scales):
+    """A quantized (int8 / fp8) pool comes with both (P, KVH) f32 scale
+    planes, and only a quantized pool does; raise otherwise."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: a quantized pool carries both k and v "
+                         f"scales")
+    quant = pool_k.dtype in QUANT_DTYPES
+    if quant != (k_scales is not None):
+        raise ValueError(
+            f"{name}: scales go with an int8 / fp8 pool and only with one "
+            f"(pool {pool_k.dtype}, scales "
+            f"{'given' if k_scales is not None else 'missing'})")
+    if quant:
+        want = (pool_k.shape[0], pool_k.shape[2])
+        for t in (k_scales, v_scales):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: scales must be {want} f32, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+    if pool_v.dtype != pool_k.dtype:
+        raise ValueError(f"{name}: k and v pools differ in dtype")
+
+
 def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
-                        prompt_pad, scale: float):
+                        prompt_pad, scale: float, k_scales=None,
+                        v_scales=None):
     """Decode attention over the paged pool: q (B, S, H, D), k/v pools
     (P, page_size, KVH, D), page_table (B, pages_per_slot), write_pos
     (B, S), row_len / prompt_pad (B,) int32 -> (B, S, H, D) in q's dtype.
+    The pool stores q's dtype, bf16 under f32 q (the mixed-width pool), or
+    int8 / fp8 with (P, KVH) f32 ``k_scales`` / ``v_scales``, one per
+    (pool page, kv head).
 
     Replaces ``paged_attention_fwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:689) with ``csrc/paged_attention.cu`` for native
-    pools: one block per (slot, kv head) walks the slot's live positions
-    through its page table in 32-position chunks; each chunk's K/V is
-    staged once and shared by the whole query-head group. Bound on the
-    H100: bytes (the live K/V).
+    pallas_kernels.py:689) with ``csrc/paged_attention.cu``: one block per
+    (slot, kv head) walks the slot's live positions through its page table
+    in 32-position chunks; each chunk's K/V is staged once as f32
+    (dequantized against its page's scale for a quantized pool) and shared
+    by the whole query-head group. Bound on the H100: bytes (the live K/V).
     """
     ints = (page_table, write_pos, row_len, prompt_pad)
-    if _on_cpu(q, k_pages, v_pages, *ints):
+    scales = tuple(t for t in (k_scales, v_scales) if t is not None)
+    if _on_cpu(q, k_pages, v_pages, *ints, *scales):
         return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     write_pos, row_len, prompt_pad, scale)
+                                     write_pos, row_len, prompt_pad, scale,
+                                     k_scales, v_scales)
     name = "paged_attention_fwd"
-    _require_cuda(name, q, k_pages, v_pages, *ints)
+    _require_cuda(name, q, k_pages, v_pages, *ints, *scales)
+    _check_scales(name, k_pages, v_pages, k_scales, v_scales)
     b, s, h, d = q.shape
     n_pool, ps, kvh = k_pages.shape[:3]
     pps = page_table.shape[1]
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise ValueError(f"{name}: q and the pools must share a dtype in "
-                         f"{list(_DTYPE_CODES)} (quantized pools are not "
-                         f"ported yet)")
+    pool = k_pages.dtype
+    if q.dtype not in COMPUTE_DTYPES or not (
+            pool == q.dtype or pool in QUANT_DTYPES
+            or (pool == torch.bfloat16 and q.dtype == torch.float32)):
+        raise ValueError(f"{name}: a {q.dtype} query takes a pool of its own "
+                         f"dtype, int8 / fp8 with scales, or bf16 under f32 "
+                         f"(got {pool})")
     if k_pages.shape != (n_pool, ps, kvh, d) or v_pages.shape != k_pages.shape:
         raise ValueError(f"{name}: pool shapes {tuple(k_pages.shape)}, "
                          f"{tuple(v_pages.shape)} do not match q "
@@ -577,12 +650,14 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
                          f"row_len and prompt_pad (B,) must be int32")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(q.device):
         _check(lib.ff_paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), write_pos.data_ptr(), row_len.data_ptr(),
-            prompt_pad.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, s, h, kvh, d, ps, pps, float(scale), _stream(q)), name)
+            ptr(k_scales), ptr(v_scales), page_table.data_ptr(),
+            write_pos.data_ptr(), row_len.data_ptr(), prompt_pad.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool], b, s,
+            h, kvh, d, ps, pps, float(scale), _stream(q)), name)
     paged_attention_fwd.launches += 1
     return out
 
@@ -593,44 +668,65 @@ paged_attention_fwd.launches = 0
 # --------------------------------------------------- paged prefill write
 
 
-def paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages):
+def paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages, k_scale=None,
+                              v_scale=None):
     """Plain version of ``paged_prefill_write``: the scatter branch of the
     JAX ``paged_prefill_write`` (attention.py:493-517) — pad the slab to
     whole pages with zeros, reshape page-major, assign the listed pool
-    pages (in place here)."""
+    pages (in place here): a cast into a native pool, or, with scales, each
+    page quantized against its own per-kv-head scale (``page_scale``,
+    ``page_quantize``), payload and scale both written."""
+    from flexflow_tpu_torch.ops.attention import (page_quantize, page_scale,
+                                                  storage_qmax)
+
     n_pages = pages.shape[0]
     ps = pool_k.shape[1]
     idx = pages.long()
-    for pool, x in ((pool_k, kh), (pool_v, vh)):
+    for pool, sc, x in ((pool_k, k_scale, kh), (pool_v, v_scale, vh)):
         x = x[0]                                        # (S, KVH, D)
         pad = n_pages * ps - x.shape[0]
         if pad:
             x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        pool[idx] = x.reshape(n_pages, ps, *x.shape[1:]).to(pool.dtype)
+        x = x.reshape(n_pages, ps, *x.shape[1:])
+        if sc is None:
+            put_pages(pool, idx, x.to(pool.dtype))
+            continue
+        qmax = storage_qmax(pool.dtype)
+        pf = x.float()
+        scale = page_scale(pf, qmax)                    # (n_pages, KVH)
+        put_pages(pool, idx, page_quantize(pf, scale, qmax, pool.dtype))
+        sc[idx] = scale
 
 
-def paged_prefill_write(pool_k, pool_v, kh, vh, pages):
+def paged_prefill_write(pool_k, pool_v, kh, vh, pages, k_scale=None,
+                        v_scale=None):
     """Write a prefilled (1, S, KVH, D) k/v slab into pool pages ``pages``
     ((n,) int32, n = ceil(S / page_size)), IN PLACE; rows past S in the
-    last page become zeros.
+    last page become zeros. A native pool takes the slab's dtype (a copy);
+    a bf16 pool takes an f32 slab (a cast); an int8 / fp8 pool takes an f32
+    or bf16 slab with its (P, KVH) f32 ``k_scale`` / ``v_scale`` planes,
+    and each listed page gets a fresh per-kv-head scale (amax / qmax over
+    the page) and its quantized payload.
 
     Replaces ``paged_prefill_write_pallas`` (flexflow_tpu/ops/
     pallas_kernels.py:779) with ``csrc/paged_prefill_write.cu``: one block
-    per (page, k-or-v) copies a page tile. The JAX kernel aliased the
-    whole pool to its output; updating in place saves a pool copy per
-    prefill. Bound on the H100: bytes (slab read, pages written).
+    per (page, k-or-v) copies a page tile, or, quantizing, reduces the
+    page's amax per kv head and then quantizes it 16 values a thread. The
+    JAX kernel aliased the whole pool (and scale planes) to its output;
+    updating in place saves a pool copy per prefill. Bound on the H100:
+    bytes (slab read, pages written).
     """
-    tensors = (pool_k, pool_v, kh, vh, pages)
+    scales = tuple(t for t in (k_scale, v_scale) if t is not None)
+    tensors = (pool_k, pool_v, kh, vh, pages) + scales
     if _on_cpu(*tensors):
-        return paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages)
+        return paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages,
+                                         k_scale, v_scale)
     name = "paged_prefill_write"
     _require_cuda(name, *tensors)
+    _check_scales(name, pool_k, pool_v, k_scale, v_scale)
     ps = pool_k.shape[1]
     s = kh.shape[1]
     n_pages = pages.shape[0]
-    if kh.dtype != pool_k.dtype or vh.dtype != pool_v.dtype:
-        raise ValueError(f"{name}: slab and pool dtypes differ (quantized "
-                         f"pools are not ported yet)")
     if kh.shape[0] != 1 or kh.shape[2:] != pool_k.shape[2:] \
             or vh.shape[:2] != kh.shape[:2] \
             or vh.shape[2:] != pool_v.shape[2:] \
@@ -643,13 +739,39 @@ def paged_prefill_write(pool_k, pool_v, kh, vh, pages):
         raise ValueError(f"{name}: pages must be (ceil(S / page_size),) "
                          f"int32 (S={s}, page_size={ps}, got "
                          f"{tuple(pages.shape)} {pages.dtype})")
+    if vh.dtype != kh.dtype:
+        raise ValueError(f"{name}: k and v slabs differ in dtype")
     lib = LIBRARY.get()
-    row = lambda t: t.shape[2] * t.shape[3] * t.element_size()  # noqa: E731
+    if kh.dtype == pool_k.dtype and k_scale is None:
+        row = lambda t: t.shape[2] * t.shape[3] * t.element_size()  # noqa: E731
+        with torch.cuda.device(pool_k.device):
+            _check(lib.ff_paged_prefill_write(
+                kh.data_ptr(), vh.data_ptr(), pool_k.data_ptr(),
+                pool_v.data_ptr(), pages.data_ptr(), n_pages, s, ps,
+                row(pool_k), row(pool_v), _stream(pool_k)), name)
+        paged_prefill_write.launches += 1
+        return
+    kvh, d = pool_k.shape[2], pool_k.shape[3]
+    cast = pool_k.dtype == torch.bfloat16 and kh.dtype == torch.float32
+    if kh.dtype not in COMPUTE_DTYPES or not (
+            cast or pool_k.dtype in QUANT_DTYPES):
+        raise ValueError(f"{name}: a {kh.dtype} slab cannot be written into "
+                         f"a {pool_k.dtype} pool (copy: same dtype; cast: "
+                         f"f32 into bf16; quantize: f32 / bf16 into int8 / "
+                         f"fp8 with scales)")
+    if pool_v.shape != pool_k.shape or d % 16 or any(
+            t.data_ptr() % 16 for t in (kh, vh, pool_k, pool_v)):
+        raise ValueError(f"{name}: a quantizing or casting write needs equal "
+                         f"k/v head dims that are multiples of 16 and "
+                         f"16-byte aligned tensors (pools "
+                         f"{tuple(pool_k.shape)} / {tuple(pool_v.shape)})")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(pool_k.device):
-        _check(lib.ff_paged_prefill_write(
+        _check(lib.ff_paged_prefill_write_quant(
             kh.data_ptr(), vh.data_ptr(), pool_k.data_ptr(),
-            pool_v.data_ptr(), pages.data_ptr(), n_pages, s, ps,
-            row(pool_k), row(pool_v), _stream(pool_k)), name)
+            pool_v.data_ptr(), ptr(k_scale), ptr(v_scale), pages.data_ptr(),
+            n_pages, s, ps, kvh, d, _DTYPE_CODES[kh.dtype],
+            _DTYPE_CODES[pool_k.dtype], _stream(pool_k)), name)
     paged_prefill_write.launches += 1
 
 

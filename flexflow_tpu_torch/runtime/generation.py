@@ -3,8 +3,16 @@
 
 The JAX package jits one program per shape; the port runs the same walk
 eagerly. ``_walk`` interprets the op graph on a (B, S) token slab:
-whole-prompt prefill into a contiguous per-request cache, or one
-continuous-batching decode step over the paged pool (``paged=``).
+whole-prompt prefill into a contiguous per-request cache, a prompt chunk
+behind a cached prefix (``chunk_start=``) and the read-only query of the
+prompt's last token (``gather_last=``) — a prefix-cache hit's two passes —
+or one continuous-batching decode step over the paged pool (``paged=``).
+
+Weight-only quantization (``quantize='int8'`` / ``'fp8'``): every float
+weight with two or more dims is stored once as a quantized payload with
+per-output-channel f32 scales (``_quantized_params``) and dequantized per
+use (``_deq``), as the JAX package does; the matrix products stay
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -14,8 +22,10 @@ from typing import Dict, Optional
 import torch
 
 from flexflow_tpu_torch.ffconst import DataType, OperatorType
-from flexflow_tpu_torch.ops.attention import (MultiHeadAttention,
-                                              paged_slot, rope_tables)
+from flexflow_tpu_torch.ops import kernels
+from flexflow_tpu_torch.ops.attention import (MultiHeadAttention, _divide,
+                                              paged_slot, rope_tables,
+                                              storage_qmax)
 from flexflow_tpu_torch.ops.base import InputOp
 
 # ops whose forward treats every (batch, position) independently — safe to
@@ -34,8 +44,14 @@ class Generator:
     """Graph walks of a decoder-only LM built on FFModel (after
     compile()): validation of the graph, prefill and paged decode."""
 
-    def __init__(self, model):
+    def __init__(self, model, quantize: Optional[str] = None):
+        if quantize not in (None, "int8", "fp8"):
+            raise ValueError(f"quantize={quantize!r}: must be 'int8' or "
+                             f"'fp8' (or None)")
         self.model = model
+        self.quantize = quantize
+        self._qparams = None
+        self._qparams_key = None
         input_ops = [op for op in model.ops if isinstance(op, InputOp)]
         tok_inputs = [op for op in input_ops
                       if op.outputs[0].dtype in (DataType.DT_INT32,
@@ -76,33 +92,113 @@ class Generator:
             return torch.bfloat16
         return torch.float32
 
+    # ---- weight-only quantization (int8 / fp8) -----------------------------
+
+    def _quantized_params(self):
+        """The JAX ``Generator._quantized_params`` (generation.py:169-235):
+        every float weight with >= 2 dims becomes {"q": int8 | float8_e4m3fn
+        payload, "s": f32 scale per OUTPUT channel} — amax over the leading
+        (contraction) axis only, over qmax, floored at 1e-12; the quotient
+        is clipped to +-qmax before the cast and rounded half to even for
+        int8. 1-D weights (norm scales, biases) stay exact. Built once per
+        params tree (keyed by the identity of its tensors)."""
+        src = self.model.params
+        key = tuple(id(t) for ws in src.values() for t in ws.values())
+        if self._qparams is not None and self._qparams_key == key:
+            return self._qparams
+        qdtype = torch.float8_e4m3fn if self.quantize == "fp8" else torch.int8
+        qmax = storage_qmax(qdtype)
+        out = {}
+        for op_name, ws in src.items():
+            q_ws = {}
+            for w_name, w in ws.items():
+                if w.dim() >= 2 and w.dtype.is_floating_point:
+                    wf = w.float()
+                    scale = torch.clamp_min(_divide(
+                        wf.abs().amax(dim=0, keepdim=True), qmax), 1e-12)
+                    q = torch.clamp(wf / scale, -qmax, qmax)
+                    if qdtype == torch.int8:
+                        q = torch.round(q)
+                    q_ws[w_name] = {"q": q.to(qdtype), "s": scale}
+                else:
+                    q_ws[w_name] = w
+            out[op_name] = q_ws
+        self._qparams, self._qparams_key = out, key
+        return out
+
+    @staticmethod
+    def _deq(v, cdtype: torch.dtype):
+        """A quantized weight back in the compute dtype (f32 product, then
+        the cast: the JAX ``_deq``); anything else as it is."""
+        if isinstance(v, dict) and "q" in v:
+            return (v["q"].float() * v["s"]).to(cdtype)
+        return v
+
+    def params(self):
+        """The tree the walks read: the model's weights, or their quantized
+        form."""
+        return self._quantized_params() if self.quantize \
+            else self.model.params
+
+    def _op_params(self, op, params, xs, cdtype):
+        """``op``'s weights for one use, dequantized where quantized. An
+        embedding lookup gathers the quantized rows first and dequantizes
+        only those (elementwise, so the values are those of the dequantized
+        table) instead of the whole table: the walk then computes it here,
+        and the op is skipped (the second value is its output)."""
+        p = params.get(op.name, {})
+        if not self.quantize:
+            return p, None
+        w = p.get("kernel")
+        if op.op_type == OperatorType.OP_EMBEDDING and isinstance(w, dict):
+            rows = kernels.take_pages(w["q"], xs[0].long())
+            return p, (rows.float() * w["s"][0]).to(cdtype)
+        return {k: self._deq(v, cdtype) for k, v in p.items()}, None
+
+    # ---- graph walks -------------------------------------------------------
+
     def _walk(self, params, tokens, caches, last_only=False,
-              row_lengths=None, paged: Optional[Dict] = None):
-        """Interpret the graph on a (B, S) token slab. Without ``paged``
-        this is the whole-prompt prefill (positions 0..S-1, fills
-        ``caches``); with it, a (B, 1) decode step over the paged pool.
-        ``last_only`` narrows the prefill tail: past the last attention op
-        only each row's last valid position (``row_lengths`` - 1, or column
-        -1) flows through, so the lm_head never sees the pad positions and
-        no (B, S, V) logits are made."""
+              row_lengths=None, paged: Optional[Dict] = None,
+              chunk_start: Optional[int] = None, skip_tail: bool = False,
+              gather_last: bool = False):
+        """Interpret the graph on a (B, S) token slab. By default this is
+        the whole-prompt prefill (positions 0..S-1, fills ``caches``);
+        ``chunk_start`` prefills positions chunk_start.. behind what the
+        caches already hold; ``gather_last`` queries each row's last prompt
+        token (a (B, 1) slab at position ``row_lengths`` - 1) read-only
+        against the caches; with ``paged``, a (B, 1) decode step over the
+        paged pool. ``skip_tail`` stops after the last attention op (a
+        cache-only pass; no logits). ``last_only`` narrows the prefill
+        tail: past the last attention op only each row's last valid
+        position (``row_lengths`` - 1, or column -1) flows through, so the
+        lm_head never sees the pad positions and no (B, S, V) logits are
+        made."""
         s_full = tokens.shape[1]
         vals = {self.token_input.outputs[0]: tokens}
         new_caches = {}
+        cdtype = self._compute_dtype()
         # every attention op of one walk rotates the same positions and
         # (decoding) writes the same pool rows: derive those once, here
         first = self.attn_ops[0]
         rope_key = (first.rope_theta, first.qk_head_dim)
         rope = slot = None
+        if paged is not None:
+            offset = paged["rope_pos"]
+        elif gather_last:
+            offset = row_lengths - 1
+        else:
+            offset = chunk_start or 0
         if first.rope:
             rope = rope_tables(first.rope_theta, s_full, first.qk_head_dim,
-                               0 if paged is None else paged["rope_pos"],
-                               tokens.device)
+                               offset, tokens.device)
         if paged is not None:
             slot = paged_slot(paged["page_table"], paged["write_pos"],
                               caches[first.name]["k"].shape[1])
         for idx, op in enumerate(self.model.ops):
             if isinstance(op, InputOp):
                 continue
+            if skip_tail and idx > self._last_attn_idx:
+                return None, new_caches
             xs = [vals[t] for t in op.inputs]
             if (last_only and paged is None and idx > self._last_attn_idx
                     and s_full > 1):
@@ -120,7 +216,7 @@ class Generator:
                                  last][:, None]
 
                     xs = [take_last(x) for x in xs]
-            p = params.get(op.name, {})
+            p, looked_up = self._op_params(op, params, xs, cdtype)
             if isinstance(op, MultiHeadAttention):
                 cache = caches[op.name]
                 # an op rotating other angles derives its own tables
@@ -132,10 +228,18 @@ class Generator:
                         paged["write_pos"], paged["rope_pos"],
                         paged["row_len"], paged["prompt_pad"], rope=r,
                         slot=slot)
+                elif gather_last:
+                    out, nc = op.query_forward(p, xs, cache, row_lengths - 1,
+                                               row_lengths, rope=r)
+                elif chunk_start is not None:
+                    out, nc = op.chunk_forward(p, xs, cache, chunk_start,
+                                               rope=r)
                 else:
                     out, nc = op.prefill_forward(p, xs, cache, rope=r)
                 new_caches[op.name] = nc
                 outs = [out]
+            elif looked_up is not None:
+                outs = [looked_up]
             else:
                 outs = op.forward(p, xs)
             for i, t in enumerate(op.outputs):

@@ -2,11 +2,13 @@
 """Where a serve of the PyTorch port spends its time on the card.
 
     python3 scripts/torch_serve_profile.py [--layers 32] [--ab ROUNDS]
+        [--kv-cache-dtype native|bf16|int8|fp8] [--weight-dtype native|int8|fp8]
 
 Builds the Llama-3-8B-width decoder of chip_smoke.py (bf16, seeded random
-weights) and serves its six prompts three times: once to warm up, once
-timed without the profiler, once under torch.profiler (CPU and CUDA
-activities). Prints:
+weights) and serves its six prompts three times, on chip_smoke.py's engine
+with the given KV-pool and weight storage: once to warm up, once timed
+without the profiler, once under torch.profiler (CPU and CUDA activities).
+Prints:
 
   * the timed serve's wall time, the device's busy time in the profiled
     serve (the union of kernel intervals on the card), and from the two
@@ -77,6 +79,10 @@ def main():
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--ab", type=int, default=0, metavar="ROUNDS",
                     help="A/B the walk's shared tables instead of profiling")
+    ap.add_argument("--kv-cache-dtype", default="native",
+                    choices=("native", "bf16", "int8", "fp8"))
+    ap.add_argument("--weight-dtype", default="native",
+                    choices=("native", "int8", "fp8"))
     args = ap.parse_args()
 
     import numpy as np
@@ -100,7 +106,9 @@ def main():
     rs = np.random.RandomState(0)
     prompts = [rs.randint(0, arch["vocab_size"], size=n).astype(np.int32)
                for n in chip_smoke.PROMPT_LENS]
-    kw = dict(chip_smoke.ENGINE)
+    kw = dict(chip_smoke.ENGINE, kv_cache_dtype=args.kv_cache_dtype,
+              weight_dtype=args.weight_dtype)
+
     def serve():
         _, st = ff.serve(prompts, max_new_tokens=chip_smoke.MAX_NEW, **kw)
         torch.cuda.synchronize()
@@ -119,7 +127,8 @@ def main():
         serve()
         wall_prof = (time.perf_counter() - t0) * 1e3
     busy = chip_smoke.busy_ms(prof.events())
-    print(f"layers {args.layers}: serve {wall:.1f} ms wall (decode step "
+    print(f"layers {args.layers}, kv {args.kv_cache_dtype}, weights "
+          f"{args.weight_dtype}: serve {wall:.1f} ms wall (decode step "
           f"{st['decode_step_ms']:.2f} ms over {st['decode_steps']} steps); "
           f"under the profiler {wall_prof:.1f} ms wall, device busy "
           f"{busy:.1f} ms; idle share {1 - busy / wall:.3f} [{card}]")

@@ -16,8 +16,14 @@ magnitude in f32 (sums over up to 512 keys in other orders) and to 2e-2 of
 it in bf16 (bf16 rounds ds and p before three of the products, and a value
 near a rounding boundary may round the other way); add + LayerNorm's sum
 is bitwise, its output within 1e-4 (f32: the rows' mean of ~30 carries
-sum-order error ~3e-5) or one bf16 step (2e-2 + 1e-2 relative). The plain versions are held against the JAX package's Pallas
-kernels by tests/test_torch_kernels.py.
+sum-order error ~3e-5) or one bf16 step (2e-2 + 1e-2 relative). Paged
+attention over int8 / fp8 pools is held to 2e-5 in f32 and to 1e-2 of the
+output's largest magnitude in bf16 (the kernel keeps dequantized K/V and
+the probabilities in f32, the plain version casts them to bf16, as the
+JAX einsum oracle does); the quantizing prefill write is bitwise, payload
+and scales. The plain versions are held against the JAX package's Pallas
+kernels by tests/test_torch_kernels.py and
+tests/test_torch_quantized_serving.py.
 """
 
 import pytest
@@ -338,3 +344,169 @@ def test_attention_op_on_card_refuses_unsupported_shapes(cuda, heads, causal,
     with pytest.raises(ValueError, match="head dim|sq <= sk"):
         op.forward(ff.params[op.name], xs)
     assert kernels.flash_attention_fwd.launches == n0
+
+
+# ---- quantized and mixed-width pools ---------------------------------------
+
+
+def _quant_pool(cuda, g, shape, dtype):
+    """A random int8 / fp8 (or bf16) payload of ``shape`` on the card."""
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, device=cuda, generator=g,
+                             dtype=torch.int8)
+    x = torch.randn(shape, device=cuda, generator=g) * 100.0
+    return x.clamp(-448, 448).to(dtype)
+
+
+POOLS = [torch.int8, torch.float8_e4m3fn]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", POOLS, ids=["int8", "fp8"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [8, 128])
+@pytest.mark.parametrize("s", [1, 3], ids=["decode", "slab3"])
+def test_quantized_paged_kernel_matches_plain(cuda, qdtype, pool, d, ps, s):
+    """Int8 / fp8 pools with random positive per-(page, kv head) scales,
+    ragged prompts, a scrambled table and an inactive slot. The kernel
+    keeps the dequantized K/V and the probabilities in f32 (the Pallas
+    kernel's arithmetic); the plain version casts them to q's dtype (the
+    JAX einsum oracle), so bf16 is held to 1e-2 of the output's largest
+    magnitude (2.5 bf16 steps) and f32 to 2e-5."""
+    b, h, kvh, max_len = 4, 8, 2, 128
+    pps = max_len // ps
+    n_pool = b * pps + 3
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(qdtype)
+    kp = _quant_pool(cuda, g, (n_pool, ps, kvh, d), pool)
+    vp = _quant_pool(cuda, g, (n_pool, ps, kvh, d), pool)
+    ks, vs = ((torch.rand(n_pool, kvh, device=cuda, generator=g) + 0.1)
+              / 127.0 for _ in range(2))
+    perm = torch.randperm(n_pool - 1, device=cuda, generator=g)[:b * pps] + 1
+    table = perm.reshape(b, pps).to(torch.int32)
+    table[3] = 0                                     # slot 3 inactive
+    wp = torch.minimum(torch.tensor([100, 45, 127 - s, 0])[:, None]
+                       + torch.arange(s)[None, :],
+                       torch.tensor([120, 60, 127, 0])[:, None])
+    row_len = torch.tensor([30, 3, 64, 0], dtype=torch.int32, device=cuda)
+    pad = torch.tensor([32, 16, 64, 0], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table.contiguous(), wp.to(torch.int32).to(cuda),
+            row_len, pad, d ** -0.5)
+    n0 = kernels.paged_attention_fwd.launches
+    out = kernels.paged_attention_fwd(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert kernels.paged_attention_fwd.launches == n0 + 1
+    assert out.dtype == qdtype and torch.isfinite(out.float()).all()
+    ref = kernels.paged_attention_plain(*args, k_scales=ks, v_scales=vs)
+    if qdtype == torch.float32:
+        torch.testing.assert_close(out, ref, **TOL)
+    else:
+        assert _rel_err(out, ref) <= 1e-2, _rel_err(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [8, 128])
+@pytest.mark.parametrize("s", [1, 3], ids=["decode", "slab3"])
+def test_mixed_width_paged_kernel_matches_plain(cuda, d, ps, s):
+    """A bf16 pool under f32 queries (kv_cache_dtype='bf16' with f32
+    compute): the kernel upcasts the tile, both versions compute in f32."""
+    b, h, kvh, max_len = 3, 4, 2, 128
+    pps = max_len // ps
+    n_pool = b * pps + 2
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g)
+    kp, vp = (torch.randn(n_pool, ps, kvh, d, device=cuda,
+                          generator=g).to(torch.bfloat16) for _ in range(2))
+    perm = torch.randperm(n_pool - 1, device=cuda, generator=g)[:b * pps] + 1
+    table = perm.reshape(b, pps).to(torch.int32).contiguous()
+    wp = (torch.tensor([90, 127 - s, 40])[:, None]
+          + torch.arange(s)[None, :]).clamp(max=127)
+    row_len = torch.tensor([7, 100, 33], dtype=torch.int32, device=cuda)
+    pad = torch.tensor([8, 128, 40], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, wp.to(torch.int32).to(cuda), row_len, pad,
+            d ** -0.5)
+    out = kernels.paged_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, kernels.paged_attention_plain(*args),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab,pool", [
+    (torch.float32, torch.int8), (torch.bfloat16, torch.int8),
+    (torch.float32, torch.float8_e4m3fn),
+    (torch.bfloat16, torch.float8_e4m3fn),
+    (torch.float32, torch.bfloat16),
+], ids=["f32_int8", "bf16_int8", "f32_fp8", "bf16_fp8", "f32_bf16_cast"])
+@pytest.mark.parametrize("geom", [(37, 16, 8, 128), (512, 128, 8, 128),
+                                  (10, 8, 2, 32), (9, 8, 1, 64)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_quantized_prefill_write_kernel_bitwise(cuda, slab, pool, geom):
+    """Payload and scales bitwise the plain version's: the page-tail zero
+    padding, a page that is all padding past its first rows, and slabs of
+    unit and of large magnitude. The bf16 pool takes an f32 slab (a cast;
+    a bf16 slab into it is the native copy, tested above)."""
+    s, ps, kvh, d = geom
+    n_pages = -(-s // ps)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    kh = (torch.randn(1, s, kvh, d, device=cuda, generator=g) * 3).to(slab)
+    vh = (torch.randn(1, s, kvh, d, device=cuda, generator=g) * 300).to(slab)
+    pool_k = _quant_pool(cuda, g, (n_pages + 5, ps, kvh, d), pool)
+    pool_v = _quant_pool(cuda, g, (n_pages + 5, ps, kvh, d), pool)
+    quant = pool in POOLS
+    ks = torch.rand(n_pages + 5, kvh, device=cuda, generator=g) \
+        if quant else None
+    vs = torch.rand_like(ks) if quant else None
+    pages = (torch.randperm(n_pages + 4, device=cuda, generator=g)[:n_pages]
+             + 1).to(torch.int32)
+    ref = [t.clone() if t is not None else None
+           for t in (pool_k, pool_v, ks, vs)]
+    kernels.paged_prefill_write_plain(ref[0], ref[1], kh, vh, pages,
+                                      ref[2], ref[3])
+    n0 = kernels.paged_prefill_write.launches
+    kernels.paged_prefill_write(pool_k, pool_v, kh, vh, pages, ks, vs)
+    torch.cuda.synchronize()
+    assert kernels.paged_prefill_write.launches == n0 + 1
+    for got, want in zip((pool_k, pool_v), ref[:2]):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    if quant:
+        assert torch.equal(ks.view(torch.int32), ref[2].view(torch.int32))
+        assert torch.equal(vs.view(torch.int32), ref[3].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_quantized_wrappers_refuse_mismatched_scales(cuda):
+    """Scales go with an int8 / fp8 pool and only with one; an fp8 pool
+    under a mismatched scale shape, and a bf16 slab into an f32 pool, are
+    refused too — none of them launches."""
+    q = torch.zeros(1, 1, 4, 64, device=cuda)
+    bf = torch.zeros(4, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    i8 = torch.zeros(4, 8, 2, 64, device=cuda, dtype=torch.int8)
+    sc = torch.ones(4, 2, device=cuda)
+    ints = (torch.zeros(1, 2, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 1, dtype=torch.int32, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.zeros(1, dtype=torch.int32, device=cuda))
+    n0 = (kernels.paged_attention_fwd.launches,
+          kernels.paged_prefill_write.launches)
+    with pytest.raises(ValueError, match="scales"):
+        kernels.paged_attention_fwd(q, bf, bf, *ints, 0.125, k_scales=sc,
+                                    v_scales=sc)
+    with pytest.raises(ValueError, match="scales"):
+        kernels.paged_attention_fwd(q, i8, i8, *ints, 0.125)
+    with pytest.raises(ValueError, match="scales must be"):
+        kernels.paged_attention_fwd(q, i8, i8, *ints, 0.125,
+                                    k_scales=sc[:, :1].contiguous(),
+                                    v_scales=sc[:, :1].contiguous())
+    slab = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    pages = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        kernels.paged_prefill_write(bf, bf, slab, slab, pages, sc, sc)
+    f32 = torch.zeros(4, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="cannot be written"):
+        kernels.paged_prefill_write(f32, f32, slab, slab, pages)
+    assert (kernels.paged_attention_fwd.launches,
+            kernels.paged_prefill_write.launches) == n0

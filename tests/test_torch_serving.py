@@ -11,8 +11,9 @@ run their plain versions — the CUDA kernels themselves are checked on the
 card (tests/test_torch_kernels.py, ``cuda`` marker, and chip_smoke.py).
 
 Also pinned here: the port imports nothing of JAX or the JAX package, its
-entry points refuse to run without a card unless asked for the CPU, and
-the knobs of later slices raise instead of being ignored.
+entry points refuse to run without a card unless asked for the CPU, the
+knobs of later slices raise instead of being ignored, and a default
+FFConfig (prefix cache on, as in the JAX package) serves.
 """
 
 import ast
@@ -157,28 +158,55 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(prefix_cache=True),
+    dict(host_kv_pages=4),
     dict(temperature=0.7),
-    dict(kv_cache_dtype="int8"),
-    dict(weight_dtype="int8"),
+    dict(prefill_interleave_chunks=2),
+    dict(draft_model="self"),
     dict(paged_attention_impl="pallas"),
     dict(adapter_pool_pages=4),
     dict(speculate_k=2),
     dict(prefill_chunk=8),
 ], ids=lambda k: next(iter(k)))
 def test_later_slice_knobs_raise(tff, knobs):
+    """The prefix cache and the quantized tier are ported; the prefix
+    cache's host tier, speculation (a draft model, here the model itself),
+    sampling, chunk-interleaved admission, other attention routes, LoRA and
+    chunked prefill still raise."""
     kw = dict(ENGINE)
     kw.update(knobs)
+    if kw.get("draft_model") == "self":
+        kw["draft_model"] = tff
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tff.make_serving_engine(**kw)
 
 
-def test_config_prefix_cache_default_raises(tff):
+def test_config_prefix_cache_default_raises():
     """FFConfig's serve_prefix_cache defaults to True, as in the JAX
-    package; the engine refuses it rather than serving without it."""
-    with pytest.raises(NotImplementedError, match="prefix_cache=False"):
-        tff.make_serving_engine(serve_slots=2, kv_page_size=4,
-                                max_seq_len=32)
+    package, and serves; the cache's host tier (FFConfig.host_kv_pages > 0)
+    is refused rather than served without it."""
+    model = FFModel(FFConfig(batch_size=2, host_kv_pages=4), device="cpu")
+    _, logits = llama_lm(model, 2, **ARCH)
+    model.compile(final_tensor=logits)
+    with pytest.raises(NotImplementedError, match="host_kv_pages=4"):
+        model.make_serving_engine(serve_slots=2, kv_page_size=4,
+                                  max_seq_len=32)
+
+
+def test_config_default_serves(jff, tff, prompts):
+    """A default FFConfig serves with the radix prefix cache on: the same
+    greedy tokens as the JAX engine's default, and the same cache ledger
+    (these prompts share no page-aligned prefix: no hit)."""
+    kw = dict(serve_slots=2, kv_page_size=4, max_seq_len=64)
+    j_eng = jff.make_serving_engine(paged_attention_impl="einsum", **kw)
+    eng = tff.make_serving_engine(**kw)
+    for jr, tr in zip(j_eng.run(prompts, max_new_tokens=4),
+                      eng.run(prompts, max_new_tokens=4)):
+        assert tr.state == "done" and tr.tokens == jr.tokens
+    st, jst = eng.stats(), j_eng.stats()
+    assert st["prefix_cache"] and st["kv_pages"] == jst["kv_pages"]
+    for key in ("prefix_lookups", "prefix_hits", "kv_pages_cached",
+                "free_pages", "prefix_refs_live"):
+        assert st[key] == jst[key], key
 
 
 def test_params_from_jax_rejects_mismatch(jff, tff):
