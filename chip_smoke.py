@@ -6,18 +6,31 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
   1. card     — print the card's name and power limit (nvidia-smi).
-  2. build    — compile the five CUDA sources from flexflow_tpu_torch/csrc
-                with nvcc (sm_90a) and print the build time.
+  2. build    — compile the seven CUDA sources from flexflow_tpu_torch/csrc
+                with nvcc (sm_90a), one process each, all started together,
+                and print the build time and ptxas's registers and spills;
+                count each flash kernel's HGMMA (tensor-core) and UTMALDG
+                (TMA load) instructions with cuobjdump -sass and fail
+                unless every tensor-core kernel holds both.
+                bf16 flash attention (forward and backward) runs on the
+                tensor cores (wgmma, tiles by TMA: flash_attention_wgmma.cu,
+                flash_attention_bwd_wgmma.cu), f32 on the CUDA-core kernels
+                (flash_attention.cu, flash_attention_bwd.cu); the dtype
+                alone chooses.
   3. kernels  — hold each kernel against its plain PyTorch version on the
-                card, in bf16, at the shapes the Llama-3-8B serving path
-                and the flagship training path give it (limits below),
+                card, in bf16 (so the flash rows run the tensor-core
+                kernels), at the shapes the Llama-3-8B serving path and the
+                flagship training path give it (limits below), the flash
+                backward also with a caller's delta and an lse cotangent
+                (dlse) at the training shape (a checked line, same kernel),
                 the quantized variants too (paged attention over an int8 /
                 fp8 pool with scales and over a bf16 pool under f32
                 queries; the prefill write into int8 / fp8 pages, bitwise);
                 time kernel, plain version and, where one exists, a torch
                 call computing the same function as a yardstick (the port
                 never calls it), each with CUDA events around single
-                launches after an L2 flush.
+                launches after an L2 flush; print each row's share of its
+                bound and its ratio to the torch call.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
                 same weights served on the CPU through the plain versions:
@@ -64,6 +77,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -219,8 +233,48 @@ def phase_build(kernels):
     log = (kernels.LIBRARY.path.parent / "build.log")
     if log.exists():
         for ln in log.read_text().splitlines():
-            if "registers" in ln or "spill" in ln or ln.startswith("=="):
+            if "Compiling entry" in ln:
+                say("  ptxas " + kernel_name(ln))
+            elif "registers" in ln or "spill" in ln or ln.startswith("=="):
                 say("  ptxas " + ln.strip())
+    sass_counts(kernels)
+
+
+def kernel_name(mangled: str) -> str:
+    """'flash_fwd_wgmma_kernel<Li128>' from a mangled symbol (or a line
+    holding one), for the build's and the profile's printouts."""
+    m = re.search(r"\d+([a-z][a-z_]*?_kernel)I(\w*?)EE", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled.strip()
+
+
+def sass_counts(kernels):
+    """Count the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions of
+    each flash kernel in the built library (cuobjdump -sass); fail unless
+    every tensor-core kernel holds both."""
+    tool = Path(kernels._find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(kernels.LIBRARY.path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump exited {out.returncode}: {out.stderr.strip()}")
+    counts, cur = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = kernel_name(m.group(1)) if "flash" in m.group(1) or \
+                "simt" in m.group(1) else None
+            if cur:
+                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
+        elif cur:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[cur][op] += op in ln
+    wgmma = [k for k in counts if "wgmma" in k]
+    if len(wgmma) != 9:
+        fail(f"expected 9 tensor-core flash kernels in the library, found "
+             f"{sorted(wgmma)}")
+    for name, c in sorted(counts.items()):
+        say(f"  sass {name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
+        if name in wgmma and not (c["HGMMA"] and c["UTMALDG"]):
+            fail(f"{name} holds no HGMMA or no UTMALDG instruction")
 
 
 def phase_kernels(torch, kernels):
@@ -335,8 +389,10 @@ def phase_kernels(torch, kernels):
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}"
-            + (f", {r['library']} {r['library_ms']:.4f} ms"
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}: "
+            f"{100 * r['bound'][0] / r['ms']:.1f}% of bound"
+            + (f", {r['library']} {r['library_ms']:.4f} ms: "
+               f"{r['ms'] / r['library_ms']:.2f}x its time"
                if r["library_ms"] else "") + ")")
     return rows
 
@@ -510,7 +566,24 @@ def training_kernel_rows(torch, kernels, g):
         bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
                     10 * b * h * s * s * d),
         shape=shape + ", o/dO/lse -> dq/dk/dv")
-    del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves, lib_out
+
+    # the Pallas backward's delta_precomputed / dlse entry: a caller's delta
+    # skips the delta kernel, an lse cotangent is folded into delta
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dlse = torch.randn(lse.shape, device=dev, generator=g)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale,
+                                        delta=delta, dlse=dlse)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+                                             scale, delta=delta, dlse=dlse)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
+    if not err <= BWD_TOL:
+        fail(f"flash_attention_bwd with delta and dlse disagrees with its "
+             f"plain version: scaled err {err} (limit {BWD_TOL})")
+    say(f"kernel flash_attention_bwd with a given delta and dlse: {shape}: "
+        f"scaled err {err:.3g} (limit {BWD_TOL})")
+    del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves, lib_out, delta
+    del dlse
 
     n, dm = b * s, FLAGSHIP["hidden"]
     x, r = (torch.randn(n, dm, device=dev, generator=g).to(bf16)
@@ -840,9 +913,13 @@ def phase_serve_quantized(torch, ff, kernels, card: str):
 def kernel_class(name: str) -> str:
     """Where a device kernel of a training step belongs."""
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    # flash_fwd_wgmma_kernel (bf16), flash_fwd_simt_kernel (f32)
+    if "flash_fwd_" in name:
         return "flash forward"
-    if any(k in name for k in ("dq_kernel", "dkv_kernel", "delta_kernel")):
+    # flash_bwd_dq/dkv_wgmma_kernel (bf16), dq/dkv_simt_kernel (f32), and
+    # the delta kernel of both
+    if any(k in name for k in ("flash_bwd_", "dq_simt_kernel",
+                               "dkv_simt_kernel", "delta_kernel")):
         return "flash backward"
     if "add_ln_fwd_kernel" in name:
         return "add + LayerNorm forward"
@@ -940,7 +1017,7 @@ def phase_train(torch, port, kernels, card: str):
 #: the JSON line's rows: name -> (source, line of the Pallas function
 #: replaced, the main path whose launch counts it reports, wrapper)
 KERNEL_ROWS = {
-    "flash_attention_fwd": ("flash_attention.cu", 180, "serve",
+    "flash_attention_fwd": ("flash_attention_wgmma.cu", 180, "serve",
                             "flash_attention_fwd"),
     "paged_attention_fwd": ("paged_attention.cu", 689, "serve",
                             "paged_attention_fwd"),
@@ -956,9 +1033,9 @@ KERNEL_ROWS = {
                                 "paged_prefill_write"),
     "paged_attention_fwd_mixed": ("paged_attention.cu", 689, "check_bf16",
                                   "paged_attention_fwd"),
-    "flash_attention_fwd_lse": ("flash_attention.cu", 180, "train",
+    "flash_attention_fwd_lse": ("flash_attention_wgmma.cu", 180, "train",
                                 "flash_attention_fwd"),
-    "flash_attention_bwd": ("flash_attention_bwd.cu", 335, "train",
+    "flash_attention_bwd": ("flash_attention_bwd_wgmma.cu", 335, "train",
                             "flash_attention_bwd"),
     "fused_add_layernorm_fwd": ("fused_add_layernorm.cu", 461, "train",
                                 "fused_add_layernorm_fwd"),

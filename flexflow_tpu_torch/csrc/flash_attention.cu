@@ -1,4 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++: the f32 route on
+// the CUDA cores. bf16 runs on the tensor cores (flash_attention_wgmma.cu);
+// the C entry point below chooses between the two by dtype alone. f32 stays
+// here because TF32 wgmma keeps ~10 mantissa bits, far outside the f32
+// checks that hold the port to the JAX package.
 //
 // Replaces the JAX package's Pallas kernel flash_attention_fwd_pallas
 // (flexflow_tpu/ops/pallas_kernels.py:180, kernel _flash_fwd_kernel :124).
@@ -30,11 +34,11 @@
 // 989 TFLOP/s, and moves ~135 MB (q, k, v read once, o and lse written
 // once), ~40 us at 3.35 TB/s; at the serving prefill shape (B = 1, S = 512,
 // H = 32, KVH = 8, D = 128, causal) it moves ~10.5 MB, ~3.1 us, and does
-// ~2.2 GFLOP, ~2.2 us. Both are bytes bound by a small margin. This first
-// kernel runs its products on the CUDA cores from shared memory (no wgmma,
+// ~2.2 GFLOP, ~2.2 us. Both are bytes bound by a small margin. This kernel
+// runs its products in f32 on the CUDA cores from shared memory (no wgmma,
 // no TMA), so it sits far from that bound; its measured times are in
 // PERF.md.
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace ffk;
 
@@ -54,7 +58,7 @@ constexpr size_t flash_smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int h, int kvh,
                  float scale, int causal) {
@@ -199,10 +203,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int sq, int sk, int h, int kvh,
                    float scale, int causal, cudaStream_t stream) {
   const size_t smem = flash_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_simt_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, kvh,
       scale, causal);
@@ -224,7 +228,10 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Sk, KVH, D), o (B, Sq, H, D); all contiguous,
-// one dtype. lse: (B, H, Sq) f32, or null to skip it. Returns a cudaError_t.
+// one dtype. lse: (B, H, Sq) f32, or null to skip it. f32 runs the CUDA-core
+// kernel above, bf16 the tensor-core kernel (16-byte aligned tensors); a
+// call either refuses returns an error, never the other route. Returns a
+// cudaError_t.
 extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int dtype, int b, int sq, int sk, int h,
@@ -235,6 +242,6 @@ extern "C" int ff_flash_attention_fwd(const void* q, const void* k,
   if (dtype == kF32)
     return launch_d<float>(d, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, st);
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, st);
+    return sm90::flash_fwd_wgmma(d, q, k, v, o, l, b, sq, sk, h, kvh, scale, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: the delta kernel
+// of both routes and the f32 route's dq and dk/dv kernels on the CUDA
+// cores. bf16 runs its dq and dk/dv on the tensor cores
+// (flash_attention_bwd_wgmma.cu); the C entry point chooses by dtype alone.
 //
 // Replaces the JAX package's Pallas backward flash_attention_bwd_pallas
 // (flexflow_tpu/ops/pallas_kernels.py:335): its delta term (:358-366, plain
@@ -8,7 +11,7 @@
 // before attention, as the JAX package does):
 //
 //   p  = exp(scale * q k^T + mask - lse)      recomputed per tile, f32
-//   dp = dO v^T,  delta = rowsum(dO * O),  ds = p * (dp - delta)
+//   dp = dO v^T,  delta = rowsum(dO * O) - dlse,  ds = p * (dp - delta)
 //   dq = scale * ds k,  dk = scale * ds^T q,  dv = p^T dO
 //
 // ds and p enter the last three products rounded to the input dtype, as in
@@ -16,11 +19,17 @@
 // f32. The causal mask is aligned bottom-right (key j is live for query i
 // when j <= i + sk - sq, the JAX _causal_mask rule), which needs sq <= sk.
 //
+// The entry point also takes the Pallas wrapper's dlse and
+// delta_precomputed arguments (:335-366): a caller's delta (B, H, Sq) skips
+// the delta kernel; an lse cotangent dlse (B, H, Sq) is subtracted from
+// delta where the dq and dk/dv kernels read it.
+//
 // Design. The Pallas kernels run sequential grids on one TPU core and carry
 // their accumulators in VMEM scratch across the inner grid axis. Here three
 // launches on one stream:
 //   1. delta: one warp per (b, q row, head) writes rowsum(dO * O) in f32
-//      into a (B, H, Sq) buffer beside the forward's lse.
+//      into a (B, H, Sq) buffer beside the forward's lse (unless the caller
+//      gave delta).
 //   2. dq: one block per (b * h, 64-row q tile) stages its q and dO rows
 //      once and loops over 32-row K/V tiles, dq in f32 registers.
 //   3. dk/dv: one block per (b * h, 64-row k tile) stages its K and V rows
@@ -39,9 +48,9 @@
 // 85.9 GFLOP, ~87 us at 989 TFLOP/s; the bytes (q, k, v, o, dO, lse read,
 // dq, dk, dv written) are ~269 MB, ~80 us — operations bound. This kernel
 // recomputes q k^T and dO v^T in both passes (seven products) and runs them
-// on the CUDA cores from shared memory (no mma/wgmma, no TMA): right first,
-// far from that bound. Its measured time is in PERF.md.
-#include "common.cuh"
+// in f32 on the CUDA cores from shared memory (no mma/wgmma, no TMA), far
+// from that bound. Its measured time is in PERF.md.
+#include "hopper.cuh"
 
 using namespace ffk;
 
@@ -87,10 +96,10 @@ constexpr size_t dq_smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int sq, int sk, int h, float scale,
+dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ dlse, T* __restrict__ dq, int sq, int sk, int h, float scale,
           int causal) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [kQ][D + 1]
@@ -126,7 +135,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
     row_lse[i] = qp < sq ? lse[static_cast<size_t>(bh) * sq + qp] : 0.f;
-    row_delta[i] = qp < sq ? delta[static_cast<size_t>(bh) * sq + qp] : 0.f;
+    const size_t at = static_cast<size_t>(bh) * sq + qp;
+    row_delta[i] = qp < sq ? delta[at] - (dlse ? dlse[at] : 0.f) : 0.f;
   }
 
   float acc[4][DJ];
@@ -234,10 +244,10 @@ constexpr size_t dkv_smem_bytes() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
+dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ dlse, T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
            float scale, int causal) {
   extern __shared__ float smem[];
   float* ks = smem;                    // [kKB][D + 1]
@@ -300,7 +310,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tid < kQB) {
       const int qp = q0 + tid;
       lses[tid] = qp < sq ? lse[static_cast<size_t>(bh) * sq + qp] : 0.f;
-      deltas[tid] = qp < sq ? delta[static_cast<size_t>(bh) * sq + qp] : 0.f;
+      const size_t at = static_cast<size_t>(bh) * sq + qp;
+      deltas[tid] = qp < sq ? delta[at] - (dlse ? dlse[at] : 0.f) : 0.f;
     }
     __syncthreads();
 
@@ -382,74 +393,83 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const float* lse, const void* dout,
-                   float* delta, void* dq, void* dk, void* dv, int b, int sq,
-                   int sk, int h, float scale, int causal,
-                   cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         int b, int sq, int h, int d, cudaStream_t stream) {
+  const int rows = b * sq * h;
+  delta_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
+                    stream>>>(static_cast<const T*>(o),
+                              static_cast<const T*>(dout), delta, rows, sq, h,
+                              d);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        const float* lse, const void* dout,
+                        const float* delta, const float* dlse, void* dq,
+                        void* dk, void* dv, int b, int sq, int sk, int h,
+                        float scale, int causal, cudaStream_t stream) {
+  using T = float;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const int rows = b * sq * h;
-  delta_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0,
-                    stream>>>(static_cast<const T*>(o), dot, delta, rows, sq,
-                              h, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
   const size_t smem_q = dq_smem_bytes<D>();
-  err = allow_smem(dq_kernel<T, D>, smem_q);
+  cudaError_t err = allow_smem(dq_simt_kernel<T, D>, smem_q);
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3((sq + kQ - 1) / kQ, b * h), kThreads, smem_q,
-                    stream>>>(qt, kt, vt, dot, lse, delta,
-                              static_cast<T*>(dq), sq, sk, h, scale, causal);
+  dq_simt_kernel<T, D><<<dim3((sq + kQ - 1) / kQ, b * h), kThreads, smem_q,
+                         stream>>>(qt, kt, vt, dot, lse, delta, dlse,
+                                   static_cast<T*>(dq), sq, sk, h, scale,
+                                   causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t smem_kv = dkv_smem_bytes<D>();
-  err = allow_smem(dkv_kernel<T, D>, smem_kv);
+  err = allow_smem(dkv_simt_kernel<T, D>, smem_kv);
   if (err != cudaSuccess) return err;
-  dkv_kernel<T, D><<<dim3((sk + kKB - 1) / kKB, b * h), kThreads, smem_kv,
-                     stream>>>(qt, kt, vt, dot, lse, delta,
-                               static_cast<T*>(dk), static_cast<T*>(dv), sq,
-                               sk, h, scale, causal);
+  dkv_simt_kernel<T, D><<<dim3((sk + kKB - 1) / kKB, b * h), kThreads,
+                          smem_kv, stream>>>(
+      qt, kt, vt, dot, lse, delta, dlse, static_cast<T*>(dk),
+      static_cast<T*>(dv), sq, sk, h, scale, causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     const void* o, const float* lse, const void* dout,
-                     float* delta, void* dq, void* dk, void* dv, int b,
-                     int sq, int sk, int h, float scale, int causal,
-                     cudaStream_t st) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, sq, sk, h, scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, sq, sk, h, scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, b, sq, sk, h, scale, causal, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, H, D); all contiguous,
-// one dtype. lse (the forward's) and delta (scratch, written here) are
-// (B, H, Sq) f32. Returns a cudaError_t.
+// one dtype. lse (the forward's) and delta are (B, H, Sq) f32: with
+// compute_delta the delta kernel writes rowsum(dO * O) into delta first,
+// without it delta is the caller's. dlse, (B, H, Sq) f32 or null, is
+// subtracted from delta. f32 runs the CUDA-core kernels above, bf16 the
+// tensor-core kernels (16-byte aligned tensors); a call either refuses
+// returns an error, never the other route. Returns a cudaError_t.
 extern "C" int ff_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* lse, const void* dout,
-                                      void* delta, void* dq, void* dk,
-                                      void* dv, int dtype, int b, int sq,
-                                      int sk, int h, int d, float scale,
-                                      int causal, void* stream) {
+                                      void* delta, const void* dlse,
+                                      void* dq, void* dk, void* dv, int dtype,
+                                      int b, int sq, int sk, int h, int d,
+                                      float scale, int causal,
+                                      int compute_delta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (dtype == kF32)
-    return launch_d<float>(d, q, k, v, o, l, dout, dl, dq, dk, dv, b, sq, sk, h, scale, causal, st);
+  const float* dls = static_cast<const float*>(dlse);
+  if ((dtype != kF32 && dtype != kBF16) || (d != 32 && d != 64 && d != 128))
+    return cudaErrorInvalidValue;
+  if (compute_delta) {
+    const cudaError_t err =
+        dtype == kF32 ? launch_delta<float>(o, dout, dl, b, sq, h, d, st)
+                      : launch_delta<__nv_bfloat16>(o, dout, dl, b, sq, h, d, st);
+    if (err != cudaSuccess) return err;
+  }
   if (dtype == kBF16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, l, dout, dl, dq, dk, dv, b, sq, sk, h, scale, causal, st);
-  return cudaErrorInvalidValue;
+    return sm90::flash_bwd_wgmma(d, q, k, v, dout, l, dl, dls, dq, dk, dv, b,
+                                 sq, sk, h, scale, causal, st);
+  switch (d) {
+    case 32: return launch_simt<32>(q, k, v, l, dout, dl, dls, dq, dk, dv, b, sq, sk, h, scale, causal, st);
+    case 64: return launch_simt<64>(q, k, v, l, dout, dl, dls, dq, dk, dv, b, sq, sk, h, scale, causal, st);
+    default: return launch_simt<128>(q, k, v, l, dout, dl, dls, dq, dk, dv, b, sq, sk, h, scale, causal, st);
+  }
 }

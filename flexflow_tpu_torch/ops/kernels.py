@@ -15,6 +15,12 @@ Pallas kernels the serving and training paths run:
   ``paged_prefill_write``       ``paged_prefill_write_pallas`` :779
   ============================  =========================================
 
+The two flash wrappers choose their kernels by dtype: bf16 runs on the
+tensor cores (``flash_attention_wgmma.cu``, ``flash_attention_bwd_wgmma.cu``:
+wgmma products, tiles brought in by TMA; helpers in ``hopper.cuh``), f32 on
+the CUDA cores (``flash_attention.cu``, ``flash_attention_bwd.cu``), which
+keep f32's precision where TF32 wgmma would not.
+
 The two paged kernels serve every KV pool of the serving engine: a native
 pool (the compute dtype), a bf16 pool under f32 compute, and an int8 / fp8
 pool with one f32 scale per (page, kv head) — attention dequantizes each
@@ -55,10 +61,11 @@ import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
+           "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
            "fused_add_layernorm.cu", "paged_attention.cu",
            "paged_prefill_write.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: where the library is built: ``build/`` beside the package (listed in
@@ -117,12 +124,14 @@ def build_kernels() -> Path:
             procs.append((name, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log = []
+        log, failed = [], []
         for name, _, proc in procs:
             out, _ = proc.communicate()
             log.append(f"== {name}\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+                failed.append(f"nvcc failed on {name}:\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
              "-o", str(tmp / lib.name), *[str(o) for _, o, _ in procs]],
@@ -155,7 +164,8 @@ class _Library:
                 lib.ff_flash_attention_fwd.argtypes = [
                     p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
                 lib.ff_flash_attention_bwd.argtypes = [
-                    p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+                    p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i,
+                    i, p]
                 lib.ff_fused_add_layernorm_fwd.argtypes = [
                     p, p, p, p, p, p, p, p, i, i, i, f, p]
                 lib.ff_paged_attention_fwd.argtypes = [
@@ -202,6 +212,14 @@ def _require_cuda(name: str, *tensors: torch.Tensor):
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _require_tma_aligned(name: str, *tensors: torch.Tensor):
+    """The tensor-core (bf16) flash kernels read their tiles by TMA, which
+    needs 16-byte aligned base addresses; raise otherwise."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned")
 
 
 # ------------------------------------------------------- flash attention
@@ -262,17 +280,23 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
     backward needs.
 
     Replaces ``flash_attention_fwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:180) with ``csrc/flash_attention.cu``: one block per
-    (batch*head, 64-row q tile) streams 32-row K/V tiles with an f32
-    online softmax, skips the tiles past the causal diagonal, and writes
-    the lse from its final max and sum. Bound on the H100: bytes (q, k, v,
-    o once each), by a small margin over the operations.
+    pallas_kernels.py:180). bf16 runs on the tensor cores
+    (``csrc/flash_attention_wgmma.cu``): one block per (batch*head, 128-row
+    q tile), a producer warp streaming 128-row K/V tiles by TMA, two
+    warpgroups running Q K^T and P V as wgmma with the online softmax in
+    registers between them. f32 runs on the CUDA cores
+    (``csrc/flash_attention.cu``: 64-row q tiles, 32-row K/V tiles, f32
+    products from shared memory). Both skip the tiles past the causal
+    diagonal and write the lse from their final max and sum; the dtype
+    alone chooses the kernel. Bound on the H100: bytes (q, k, v, o once
+    each), by a small margin over the operations.
     """
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal, scale, need_lse)
     name = "flash_attention_fwd"
     _require_cuda(name, q, k, v)
     _check_attention(name, q, k, v)
+    _require_tma_aligned(name, q, k, v)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if causal and sq > sk:
@@ -296,13 +320,13 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
-                              scale: float):
+                              scale: float, *, delta=None, dlse=None):
     """Plain version of ``flash_attention_bwd``: the FlashAttention-2
     arithmetic of the Pallas backward in einsums, f32 sums, with ds and p
     rounded to the input dtype before the products that consume them (as
     the Pallas kernels round them): p = exp(s - lse), dp = dO.V^T,
-    delta = rowsum(dO * O), ds = p (dp - delta), dq = scale ds.K,
-    dk = scale ds^T.Q, dv = p^T.dO."""
+    delta = rowsum(dO * O) (or the caller's) - dlse, ds = p (dp - delta),
+    dq = scale ds.K, dk = scale ds^T.Q, dv = p^T.dO."""
     f = torch.float32
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f)) * scale
     if causal:
@@ -312,7 +336,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
                         torch.finfo(f).min)
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f), v.to(f))
-    delta = (do.to(f) * o.to(f)).sum(-1).transpose(1, 2)      # (B, H, Sq)
+    if delta is None:
+        delta = (do.to(f) * o.to(f)).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    if dlse is not None:
+        delta = delta - dlse
     ds = (p * (dp - delta[..., None])).to(q.dtype).to(f)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f)) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f)) * scale
@@ -320,19 +347,26 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float, *,
+                        delta=None, dlse=None):
     """Attention backward: q, o, dO (B, Sq, H, D), k/v (B, Sk, H, D), lse
     (B, H, Sq) f32 from ``flash_attention_fwd`` -> (dq, dk, dv) in q's
     dtype. Kv heads must equal heads (the dense path broadcasts GQA's kv
     heads first); the reduction of dk/dv over a query group is not ported.
+    ``delta`` ((B, H, Sq) f32, rowsum(dO * O) computed by the caller) skips
+    the delta kernel; ``dlse`` ((B, H, Sq) f32, a cotangent of the lse) is
+    folded in as ds = p (dp - delta + dlse) — the ``delta_precomputed`` and
+    ``dlse`` arguments of the Pallas backward.
 
     Replaces ``flash_attention_bwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:335) with ``csrc/flash_attention_bwd.cu``: a delta
-    kernel (rowsum(dO * O)), a dq kernel (one block per (batch*head, 64-row
-    q tile) streaming 32-row K/V tiles) and a dk/dv kernel (one block per
-    (batch*head, 64-row k tile) streaming 32-row q/dO tiles), f32
-    accumulators in registers, causal dead tiles skipped. One call counts
-    as one launch. Bound on the H100: operations.
+    pallas_kernels.py:335): a delta kernel (rowsum(dO * O), unless delta is
+    given), then a dq kernel (one block per (batch*head, q tile) streaming
+    K/V tiles) and a dk/dv kernel (one block per (batch*head, k tile)
+    streaming q/dO tiles), each output written once, no atomics. bf16 runs
+    them on the tensor cores (``csrc/flash_attention_bwd_wgmma.cu``: TMA
+    rings, wgmma products, p and ds as register operands), f32 on the CUDA
+    cores (``csrc/flash_attention_bwd.cu``); the dtype alone chooses. One
+    call counts as one launch. Bound on the H100: operations.
     """
     name = "flash_attention_bwd"
     if k.shape[2] != q.shape[2]:
@@ -340,10 +374,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
             f"{name}: kv heads {k.shape[2]} != heads {q.shape[2]}: the "
             f"grouped-query backward is not ported (ROADMAP.md queue 2, "
             f"kernel 2); broadcast kv heads before attention")
-    if _on_cpu(q, k, v, o, lse, do):
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
-    _require_cuda(name, q, k, v, o, lse, do)
+    extra = tuple(t for t in (delta, dlse) if t is not None)
+    for tag, t in (("delta", delta), ("dlse", dlse)):
+        if t is not None and (t.shape != lse.shape
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name}: {tag} must be (B, H, Sq) f32 like lse "
+                             f"{tuple(lse.shape)}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if _on_cpu(q, k, v, o, lse, do, *extra):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         delta=delta, dlse=dlse)
+    _require_cuda(name, q, k, v, o, lse, do, *extra)
     _check_attention(name, q, k, v)
+    _require_tma_aligned(name, q, k, v, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -360,13 +403,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    compute = delta is None
+    delta = torch.empty_like(lse) if compute else delta.contiguous()
+    if dlse is not None:
+        dlse = dlse.contiguous()
     with torch.cuda.device(q.device):
         _check(lib.ff_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            dlse.data_ptr() if dlse is not None else None, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk,
-            h, d, float(scale), int(bool(causal)), _stream(q)), name)
+            h, d, float(scale), int(bool(causal)), int(compute), _stream(q)),
+            name)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -21,7 +21,12 @@ attention over int8 / fp8 pools is held to 2e-5 in f32 and to 1e-2 of the
 output's largest magnitude in bf16 (the kernel keeps dequantized K/V and
 the probabilities in f32, the plain version casts them to bf16, as the
 JAX einsum oracle does); the quantizing prefill write is bitwise, payload
-and scales. The plain versions are held against the JAX package's Pallas
+and scales. bf16 flash attention runs the tensor-core kernels (wgmma +
+TMA) and f32 the CUDA-core kernels, so the f32 cases pin the CUDA-core
+route; the bf16 route is also held at tile edges (S from 1 to 1000 around
+the 64- and 128-row tiles, causal offsets, GQA and MQA, head dims
+32 / 64 / 128) and with a caller's delta and an lse cotangent (dlse).
+The plain versions are held against the JAX package's Pallas
 kernels by tests/test_torch_kernels.py and
 tests/test_torch_quantized_serving.py.
 """
@@ -220,6 +225,164 @@ def test_flash_autograd_on_card_matches_plain_autograd(cuda, causal):
         do)
     for g, r in zip(got, ref):
         assert _rel_err(g, r) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_plain_autograd_bf16(cuda):
+    """The autograd Function through the tensor-core kernels against torch
+    autograd of the plain forward, bf16: each gradient within 2e-2 of its
+    largest magnitude (the backward's bf16 rounding of ds and p)."""
+    q, k, v, do = _qkvo(cuda, torch.bfloat16, (2, 200, 200, 4, 128, True), 4)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(kernels.flash_attention(*leaves, True),
+                              leaves, do)
+    ref = torch.autograd.grad(
+        kernels.flash_attention_plain(*leaves, True, 128 ** -0.5), leaves, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(g, r) <= 2e-2, _rel_err(g, r)
+
+
+# ---- the tensor-core (bf16) route at tile edges ----------------------------
+#
+# The bf16 kernels work on 128-row resident tiles and 32- to 128-row
+# streamed tiles; these shapes put the sequence just under, on and over
+# those edges, and below one tile (the serving buckets of 16). Gradients are
+# held to 2e-2 of max(largest magnitude, 1e-2): at S = 1 the softmax
+# gradient vanishes (p = 1, dp = delta), so dq and dk are rounding noise
+# around 0 in both versions, and a scale of their own would be noise too.
+
+EDGE_S = [1, 16, 63, 64, 65, 127, 128, 129, 1000]
+
+
+def _grad_err(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-2)).item()
+
+
+def _fwd_bwd_check(cuda, b, sq, sk, h, kvh, d, causal, seed, bwd=True):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn(b, sq, h, d, device=cuda, generator=g).to(bf)
+    k = torch.randn(b, sk, kvh, d, device=cuda, generator=g).to(bf)
+    v = torch.randn(b, sk, kvh, d, device=cuda, generator=g).to(bf)
+    scale = d ** -0.5
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal, scale,
+                                         need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, causal, scale,
+                                             need_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    _close(o, ro, bf)
+    if not bwd:
+        return
+    do = torch.randn(b, sq, h, d, device=cuda, generator=g).to(bf)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale)
+    torch.cuda.synchronize()
+    for name, gr, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert gr.dtype == bf and torch.isfinite(gr.float()).all(), name
+        assert _grad_err(gr, r) <= 2e-2, (name, _grad_err(gr, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", EDGE_S)
+def test_flash_bf16_tile_edges_match_plain(cuda, s, d, causal):
+    """Forward (with lse) and backward, sq = sk = s, MHA."""
+    _fwd_bwd_check(cuda, 2, s, s, 3, 3, d, causal, seed=s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(1, 16), (37, 129), (65, 200),
+                                   (100, 1000), (129, 300)],
+                         ids=lambda x: str(x))
+def test_flash_bf16_causal_offset_matches_plain(cuda, sq, sk, d):
+    """Causal with sk > sq by offsets that are no multiple of a tile: the
+    bottom-right diagonal crosses tiles at odd places."""
+    _fwd_bwd_check(cuda, 1, sq, sk, 2, 2, d, True, seed=sq + sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 200, 200, 8, 2, 128, True),    # GQA 4:1
+    (1, 1000, 1000, 8, 2, 64, False),  # GQA 4:1, long
+    (2, 65, 65, 4, 1, 64, True),       # MQA
+    (1, 129, 300, 4, 1, 32, True),     # MQA, causal offset
+    (1, 16, 16, 32, 8, 128, True),     # the serving path's smallest bucket
+], ids=lambda s: "x".join(map(str, s)))
+def test_flash_bf16_grouped_query_forward_matches_plain(cuda, shape):
+    b, sq, sk, h, kvh, d, causal = shape
+    _fwd_bwd_check(cuda, b, sq, sk, h, kvh, d, causal, seed=7, bwd=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["dlse", "delta", "delta_dlse"])
+@pytest.mark.parametrize("shape", [(2, 100, 100, 4, 64, True),
+                                   (1, 37, 129, 2, 128, True),
+                                   (2, 65, 65, 4, 32, False)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_bwd_delta_and_dlse_match_plain(cuda, dtype, mode, shape):
+    """The backward's caller-given delta (the delta kernel is skipped) and
+    lse cotangent dlse (subtracted where the kernels read delta), on both
+    routes, against the plain version given the same."""
+    causal, d = shape[-1], shape[-2]
+    q, k, v, do = _qkvo(cuda, dtype, shape, 11)
+    scale = d ** -0.5
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal, scale,
+                                         need_lse=True)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    delta = ((do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+             + 0.1 * torch.randn(lse.shape, device=cuda, generator=g))
+    dlse = torch.randn(lse.shape, device=cuda, generator=g)
+    kw = dict(delta=delta if "delta" in mode else None,
+              dlse=dlse if "dlse" in mode else None)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale,
+                                        **kw)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale, **kw)
+    torch.cuda.synchronize()
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, gr, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert _grad_err(gr, r) <= limit, (name, _grad_err(gr, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_bwd_lse_cotangent_alone_gives_zero_dv(cuda, dtype):
+    """do = 0, dlse = w: dv is exactly 0, dq / dk the plain version's."""
+    q, k, v, _ = _qkvo(cuda, dtype, (1, 64, 64, 2, 64, False), 13)
+    o, lse = kernels.flash_attention_fwd(q, k, v, False, 0.125,
+                                         need_lse=True)
+    w = torch.randn(lse.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(14))
+    zero = torch.zeros_like(q)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, zero, False, 0.125,
+                                        dlse=w)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, zero, False,
+                                             0.125, dlse=w)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(grads[2]) == 0
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for gr, r in zip(grads[:2], refs[:2]):
+        assert _grad_err(gr, r) <= limit
+
+
+@pytest.mark.cuda
+def test_flash_bf16_refuses_unaligned_tensors(cuda):
+    """TMA reads tiles from 16-byte aligned addresses: a bf16 view that
+    starts 2 bytes in is refused before any launch."""
+    buf = torch.zeros(1 + 1 * 8 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 8, 2, 64)
+    n0 = kernels.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_attention_fwd(q, q, q, True, 0.125)
+    assert kernels.flash_attention_fwd.launches == n0
 
 
 @pytest.mark.cuda

@@ -116,6 +116,80 @@ def test_flash_autograd_matches_plain_autograd(case):
                                    atol=1e-5)
 
 
+def _bwd_extras(q, do, jo, mode):
+    """The (delta, dlse) pair of a ``mode``: a caller's delta (the rowsum
+    of dO * O moved by noise, so a test sees whether it is used) and / or a
+    random lse cotangent, both (B, H, Sq) f32."""
+    b, sq, h, _ = q.shape
+    rs = np.random.RandomState(6)
+    delta = ((do * np.asarray(jo)).sum(-1).transpose(0, 2, 1)
+             + 0.1 * rs.randn(b, h, sq)).astype(np.float32)
+    dlse = rs.randn(b, h, sq).astype(np.float32)
+    return (delta if "delta" in mode else None,
+            dlse if "dlse" in mode else None)
+
+
+@pytest.mark.parametrize("mode", ["dlse", "delta", "delta_dlse"])
+@pytest.mark.parametrize("case", list(MHA_CASES))
+def test_flash_bwd_delta_and_dlse_match_pallas(case, mode):
+    """The backward's ``delta`` / ``dlse`` entry against the Pallas
+    backward's ``delta_precomputed`` / ``dlse`` (interpret mode)."""
+    q, k, v, do, causal, scale = _mha_inputs(case)
+    b, sq, h, d = q.shape
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jout, jlse = flash_attention_fwd_pallas(jq, jk, jv, causal, scale,
+                                            block_q=16, block_k=16)
+    jo = jout.reshape(b, h, sq, d).transpose(0, 2, 1, 3)
+    delta, dlse = _bwd_extras(q, do, jo, mode)
+    lse = _t(np.asarray(jlse)[..., 0].reshape(b, h, sq))
+    grads = kernels.flash_attention_bwd(
+        _t(q), _t(k), _t(v), _t(np.array(jo)), lse, _t(do), causal, scale,
+        delta=None if delta is None else _t(delta),
+        dlse=None if dlse is None else _t(dlse))
+    refs = flash_attention_bwd_pallas(
+        jq, jk, jv, jo, jlse, jdo, causal, scale, block_q=16, block_k=16,
+        delta_precomputed=None if delta is None else jnp.asarray(delta),
+        dlse=None if dlse is None else jnp.asarray(dlse))
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_flash_bwd_lse_cotangent_alone():
+    """do = 0, dlse = w (tests/test_recurrent_flash.py's dlse case): the
+    gradient flows through the lse alone, as the Pallas backward gives it,
+    and dv is exactly 0 (the lse does not depend on v)."""
+    b, s, h, d = 1, 64, 2, 16
+    rs = np.random.RandomState(9)
+    q, k, v = (rs.randn(b, s, h, d).astype(np.float32) for _ in range(3))
+    w = rs.randn(b, h, s).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    jout, jlse = flash_attention_fwd_pallas(jq, jk, jv, False, scale)
+    jo = jout.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    zero = np.zeros_like(q)
+    grads = kernels.flash_attention_bwd(
+        _t(q), _t(k), _t(v), _t(np.array(jo)),
+        _t(np.asarray(jlse)[..., 0].reshape(b, h, s)), _t(zero), False,
+        scale, dlse=_t(w))
+    refs = flash_attention_bwd_pallas(jq, jk, jv, jo, jlse,
+                                      jnp.asarray(zero), False, scale,
+                                      dlse=jnp.asarray(w))
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    assert np.abs(grads[2].numpy()).max() == 0
+
+
+def test_flash_bwd_refuses_malformed_delta_and_dlse():
+    q = torch.zeros(1, 8, 2, 16)
+    lse = torch.zeros(1, 2, 8)
+    for kw in (dict(delta=torch.zeros(1, 8, 2)),
+               dict(dlse=torch.zeros(1, 2, 8, dtype=torch.float64))):
+        with pytest.raises(ValueError, match="delta|dlse"):
+            kernels.flash_attention_bwd(q, q, q, q, lse, q, False, 0.25, **kw)
+
+
 def test_flash_bwd_refuses_grouped_query():
     q = torch.zeros(1, 8, 4, 16)
     kv = torch.zeros(1, 8, 2, 16)
