@@ -9,9 +9,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build    — compile the seven CUDA sources from flexflow_tpu_torch/csrc
                 with nvcc (sm_90a), one process each, all started together,
                 and print the build time and ptxas's registers and spills;
-                count each flash kernel's HGMMA (tensor-core) and UTMALDG
-                (TMA load) instructions with cuobjdump -sass and fail
-                unless every tensor-core kernel holds both.
+                count each flash and paged-attention kernel's HGMMA
+                (tensor-core), UTMALDG (TMA load) and LDGSTS (cp.async)
+                instructions with cuobjdump -sass and fail unless every
+                tensor-core flash kernel holds HGMMA and UTMALDG and every
+                paged-attention kernel LDGSTS or UTMALDG.
                 bf16 flash attention (forward and backward) runs on the
                 tensor cores (wgmma, tiles by TMA: flash_attention_wgmma.cu,
                 flash_attention_bwd_wgmma.cu), f32 on the CUDA-core kernels
@@ -25,12 +27,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 (dlse) at the training shape (a checked line, same kernel),
                 the quantized variants too (paged attention over an int8 /
                 fp8 pool with scales and over a bf16 pool under f32
-                queries; the prefill write into int8 / fp8 pages, bitwise);
-                time kernel, plain version and, where one exists, a torch
-                call computing the same function as a yardstick (the port
-                never calls it), each with CUDA events around single
-                launches after an L2 flush; print each row's share of its
-                bound and its ratio to the torch call.
+                queries; the prefill write into int8 / fp8 pages, bitwise),
+                and paged attention again at ~8000 live positions a slot
+                (native, int8 and fp8 pools; each paged row prints its
+                split-KV grid and split count); time kernel, plain version
+                and, where one exists, a torch call computing the same
+                function as a yardstick (the port never calls it), each
+                with CUDA events around single launches after an L2 flush
+                and a short device wait that hides the wrapper's host time
+                (cuda_ms); print each row's share of its bound and its
+                ratio to the torch call.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
                 same weights served on the CPU through the plain versions:
@@ -93,10 +99,11 @@ F32_FLOP_PER_S = 67e12         # H100 SXM data sheet, outside the tensor cores
 FLASH_TOL = 2e-2
 PAGED_TOL = 5e-3
 # the quantized paged-attention rows, scaled to the output's largest
-# magnitude: the kernel keeps dequantized K/V and the probabilities in f32
-# (the Pallas kernel's arithmetic), the plain version casts them to bf16
-# (the JAX einsum oracle), and the output is rounded to bf16 once: 1e-2 is
-# 2.5 bf16 steps. The mixed-width row (bf16 pool, f32 queries) computes in
+# magnitude: the kernel's products are exact with f32 sums (the raw payload
+# is exact in bf16; the probabilities enter P.V with 16 significant bits),
+# the Pallas kernel's arithmetic to ~1e-5; the plain version casts K/V and
+# the probabilities to bf16 (the JAX einsum oracle), and the output is
+# rounded to bf16 once: 1e-2 is 2.5 bf16 steps. The mixed-width row (bf16 pool, f32 queries) computes in
 # f32 in both versions: sums in other orders, 1e-4.
 QUANT_TOL = 1e-2
 MIXED_TOL = 1e-4
@@ -153,10 +160,19 @@ def say(msg: str):
 # ------------------------------------------------------------- timing
 
 
+#: device cycles (~0.5 ms on the H100) the card spins before each timed
+#: call, so the host's time in the wrapper lies behind it (cuda_ms)
+SLEEP_CYCLES = 1_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median time of one call of ``fn`` on the card, CUDA events around
-    each call, the 50 MB L2 flushed before each (the serving path meets
-    its inputs cold)."""
+    """Median device time of one call of ``fn``: the 50 MB L2 flushed before
+    each (the serving path meets its inputs cold), then a short device wait
+    (``torch.cuda._sleep``), then the start event, the call and the end
+    event. The wait keeps the card busy while the host runs the call's
+    Python (argument checks, allocation, the launch), so the events bracket
+    device time only: without it the card idles between the start event and
+    the launch, and that idle time counted as kernel time."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -165,6 +181,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -248,9 +265,13 @@ def kernel_name(mangled: str) -> str:
 
 
 def sass_counts(kernels):
-    """Count the tensor-core (HGMMA) and TMA-load (UTMALDG) instructions of
-    each flash kernel in the built library (cuobjdump -sass); fail unless
-    every tensor-core kernel holds both."""
+    """Count the tensor-core (HGMMA, HMMA), TMA-load (UTMALDG) and cp.async
+    (LDGSTS) instructions of each flash and paged-attention kernel in the
+    built library (cuobjdump -sass); fail unless every tensor-core flash
+    kernel holds HGMMA and UTMALDG, every paged-attention kernel streams
+    its K/V by cp.async or TMA, and every bf16-query paged kernel
+    (paged_attn_mma_kernel) holds HMMA."""
+    ops = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
     tool = Path(kernels._find_nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(kernels.LIBRARY.path)],
                          capture_output=True, text=True, timeout=300)
@@ -260,21 +281,30 @@ def sass_counts(kernels):
     for ln in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            cur = kernel_name(m.group(1)) if "flash" in m.group(1) or \
-                "simt" in m.group(1) else None
+            cur = kernel_name(m.group(1)) if any(
+                k in m.group(1) for k in ("flash", "simt", "paged_attn")) \
+                else None
             if cur:
-                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[cur] = dict.fromkeys(ops, 0)
         elif cur:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 counts[cur][op] += op in ln
     wgmma = [k for k in counts if "wgmma" in k]
+    paged = [k for k in counts if "paged_attn" in k]
     if len(wgmma) != 9:
         fail(f"expected 9 tensor-core flash kernels in the library, found "
              f"{sorted(wgmma)}")
+    if len(paged) != 21:
+        fail(f"expected 21 paged-attention kernels in the library, found "
+             f"{sorted(paged)}")
     for name, c in sorted(counts.items()):
-        say(f"  sass {name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG")
+        say(f"  sass {name}: " + ", ".join(f"{c[op]} {op}" for op in ops))
         if name in wgmma and not (c["HGMMA"] and c["UTMALDG"]):
             fail(f"{name} holds no HGMMA or no UTMALDG instruction")
+        if name in paged and not (c["LDGSTS"] or c["UTMALDG"]):
+            fail(f"{name} holds no cp.async (LDGSTS) or TMA (UTMALDG) load")
+        if "paged_attn_mma" in name and not c["HMMA"]:
+            fail(f"{name} holds no tensor-core (HMMA) instruction")
 
 
 def phase_kernels(torch, kernels):
@@ -325,66 +355,8 @@ def phase_kernels(torch, kernels):
                     4 * pairs * h * d),
         shape=f"q (1,{s},{h},{d}) k/v (1,{s},{kvh},{d}) causal bf16")
 
-    # paged attention: one decode step of 4 slots at ~600 live positions
-    ps, pps, n_pool, b = 128, 8, 33, 4
-    qd = torch.randn(b, 1, h, d, device=dev, generator=g).to(bf16)
-    kp = torch.randn(n_pool, ps, kvh, d, device=dev, generator=g).to(bf16)
-    vp = torch.randn(n_pool, ps, kvh, d, device=dev, generator=g).to(bf16)
-    table = (torch.randperm(n_pool - 1, device=dev, generator=g) + 1)
-    table = table[:b * pps].reshape(b, pps).to(torch.int32).contiguous()
-    row_len = torch.tensor([500, 620, 530, 690], dtype=torch.int32,
-                           device=dev)
-    pad = torch.tensor([512, 640, 544, 704], dtype=torch.int32, device=dev)
-    wp = torch.tensor([[600], [660], [560], [720]], dtype=torch.int32,
-                      device=dev)
-    args = (qd, kp, vp, table, wp, row_len, pad)
-    out = kernels.paged_attention_fwd(*args, scale)
-    ref = kernels.paged_attention_plain(*args, scale)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= PAGED_TOL:
-        fail(f"paged_attention_fwd disagrees with its plain version: "
-             f"max abs err {err}")
-    # live keys per slot: the prompt, then the decoded positions from the
-    # bucket's end to the write frontier (the padding between is dead)
-    live = int((row_len + (wp[:, 0] - pad + 1).clamp(min=0)).sum())
-    rows["paged_attention_fwd"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: kernels.paged_attention_fwd(*args, scale)),
-        plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*args, scale)),
-        library_ms=None, library=None,
-        bound=bound(2 * (2 * qd.numel() + 2 * live * kvh * d)
-                    + 4 * (table.numel() + wp.numel() + 2 * b),
-                    4 * live * h * d),
-        shape=f"q ({b},1,{h},{d}) pool ({n_pool},{ps},{kvh},{d}) "
-              f"{live} live positions bf16")
-
-    # paged prefill write: the 512-token slab into 4 pages
-    n_pages = s // ps
-    kh = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    vh = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    pages = table[0, :n_pages].contiguous()
-    pk, pv = kp.clone(), vp.clone()
-    rk, rv = kp.clone(), vp.clone()
-    kernels.paged_prefill_write(pk, pv, kh, vh, pages)
-    kernels.paged_prefill_write_plain(rk, rv, kh, vh, pages)
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                  for a, b in ((pk, rk), (pv, rv)))
-    if not bitwise:
-        fail("paged_prefill_write is not bitwise its plain version")
-    rows["paged_prefill_write"] = dict(
-        err=0.0,
-        ms=cuda_ms(lambda: kernels.paged_prefill_write(pk, pv, kh, vh,
-                                                       pages)),
-        plain_ms=cuda_ms(lambda: kernels.paged_prefill_write_plain(
-            rk, rv, kh, vh, pages)),
-        library_ms=None, library=None,
-        bound=bound(2 * (kh.numel() + vh.numel())
-                    + 2 * 2 * n_pages * ps * kvh * d + 4 * n_pages, 0.0),
-        shape=f"slab (1,{s},{kvh},{d}) into {n_pages} pages of {ps} bf16")
-
-    rows.update(quantized_kernel_rows(torch, kernels, g, args, kh, vh, pages))
+    rows.update(paged_attention_rows(torch, kernels, g))
+    rows.update(prefill_write_rows(torch, kernels, g))
     rows.update(training_kernel_rows(torch, kernels, g))
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
@@ -397,18 +369,63 @@ def phase_kernels(torch, kernels):
     return rows
 
 
-def quantized_kernel_rows(torch, kernels, g, args, kh, vh, pages):
-    """Paged attention over int8 / fp8 pools (random positive scales) and
-    over a bf16 pool under f32 queries at the decode shape above; the
-    prefill write of the 512-token bf16 slab into int8 / fp8 pages,
-    payload and scales bitwise."""
+#: paged-attention rows: (row name, pool, long context)
+PAGED_CASES = (("paged_attention_fwd", "bf16", False),
+              ("paged_attention_fwd_int8", "int8", False),
+              ("paged_attention_fwd_fp8", "fp8", False),
+              ("paged_attention_fwd_mixed", "mixed", False),
+              ("paged_attention_fwd_long", "bf16", True),
+              ("paged_attention_fwd_long_int8", "int8", True),
+              ("paged_attention_fwd_long_fp8", "fp8", True))
+
+
+def paged_case(torch, kernels, g, pool: str, long: bool) -> dict:
+    """One decode step of 4 slots at Llama-3-8B widths (32 heads over 8 kv
+    heads, D = 128, 128-token pages): ~620 live positions a slot (the
+    serving shape, 8 pages a slot) or ~8000 (``long``: Llama-3-8B's 8192
+    context, 64 pages a slot), with ragged prompts whose bucket padding is
+    dead. ``pool``: "bf16" (native), "int8" / "fp8" (random payload, random
+    positive per-(page, kv head) scales) under bf16 queries, or "mixed" (a
+    bf16 pool under f32 queries). Returns the wrapper's arguments, the
+    error and its limit, the bound, the launch plan and a description."""
     dev = torch.device("cuda")
-    qd, kp, _, table, wp, row_len, pad = args
-    b, _, h, d = qd.shape
-    n_pool, ps, kvh = kp.shape[:3]
-    scale = d ** -0.5
-    rows = {}
-    # live keys and the pages they lie in, per slot (the scale reads)
+    h, kvh, d = LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"], 128
+    b, ps = ENGINE["serve_slots"], ENGINE["kv_page_size"]
+    if long:
+        pps = 64
+        lens = ([7900, 8050, 7700, 8100], [7936, 8064, 7744, 8128],
+                [8000, 8150, 7900, 8180])
+    else:
+        pps = 8
+        lens = ([500, 620, 530, 690], [512, 640, 544, 704],
+                [600, 660, 560, 720])
+    n_pool = b * pps + 1
+    qdt = torch.float32 if pool == "mixed" else torch.bfloat16
+    q = torch.randn(b, 1, h, d, device=dev, generator=g).to(qdt)
+    table = (torch.randperm(n_pool - 1, device=dev, generator=g) + 1)
+    table = table[:b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    row_len, pad = (torch.tensor(x, dtype=torch.int32, device=dev)
+                    for x in lens[:2])
+    wp = torch.tensor(lens[2], dtype=torch.int32, device=dev)[:, None]
+    shape = (n_pool, ps, kvh, d)
+    kw = {}
+    if pool in ("bf16", "mixed"):
+        kp, vp = (torch.randn(shape, device=dev, generator=g)
+                  .to(torch.bfloat16) for _ in range(2))
+    else:
+        dt = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+        if dt == torch.int8:
+            kp, vp = (torch.randint(-127, 128, shape, device=dev, generator=g,
+                                    dtype=dt) for _ in range(2))
+        else:
+            kp, vp = ((torch.randn(shape, device=dev, generator=g) * 100)
+                      .clamp(-448, 448).to(dt) for _ in range(2))
+        kw = dict(zip(("k_scales", "v_scales"), (
+            (torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1) / 127.0
+            for _ in range(2))))
+    # live keys per slot: the prompt, then the decoded positions from the
+    # bucket's end to the write frontier (the padding between is dead), and
+    # the pages they lie in (the scale reads)
     live, pages_read = 0, 0
     for i in range(b):
         pos = list(range(int(row_len[i]))) + list(
@@ -416,87 +433,115 @@ def quantized_kernel_rows(torch, kernels, g, args, kh, vh, pages):
         live += len(pos)
         pages_read += len({j // ps for j in pos})
     ints = 4 * (table.numel() + wp.numel() + 2 * b)
-    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
-        if dt == torch.int8:
-            kq, vq = (torch.randint(-127, 128, kp.shape, device=dev,
-                                    generator=g, dtype=dt) for _ in range(2))
-        else:
-            kq, vq = ((torch.randn(kp.shape, device=dev, generator=g) * 100)
-                      .clamp(-448, 448).to(dt) for _ in range(2))
-        ks, vs = ((torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1)
-                  / 127.0 for _ in range(2))
-        qargs = (qd, kq, vq, table, wp, row_len, pad, scale)
-        sc = dict(k_scales=ks, v_scales=vs)
-        out = kernels.paged_attention_fwd(*qargs, **sc)
-        ref = kernels.paged_attention_plain(*qargs, **sc)
-        torch.cuda.synchronize()
-        err = scaled_err(out, ref)
-        if not err <= QUANT_TOL:
-            fail(f"paged_attention_fwd over an {name} pool disagrees with "
-                 f"its plain version: scaled err {err} (limit {QUANT_TOL})")
-        rows[f"paged_attention_fwd_{name}"] = dict(
-            err=err,
-            ms=cuda_ms(lambda: kernels.paged_attention_fwd(*qargs, **sc)),
-            plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*qargs,
-                                                                   **sc)),
-            library_ms=None, library=None,
-            # q read and out written in bf16, live K/V at one byte, one f32
-            # scale per (page read, kv head) for k and for v
-            bound=bound(2 * 2 * qd.numel() + 2 * live * kvh * d
-                        + 4 * 2 * pages_read * kvh + ints,
-                        4 * live * h * d),
-            shape=f"q ({b},1,{h},{d}) bf16, {name} pool ({n_pool},{ps},"
-                  f"{kvh},{d}) + scales, {live} live positions")
+    # q read and out written, the live K/V once, a quantized pool's scales
+    nbytes = (2 * q.element_size() * q.numel()
+              + 2 * live * kvh * d * kp.element_size() + ints
+              + (4 * 2 * pages_read * kvh if kw else 0))
+    peak = F32_FLOP_PER_S if pool == "mixed" else BF16_FLOP_PER_S
+    plan = kernels.paged_attention_plan(b, 1, h, kvh, ps, pps,
+                                        kernels.sm_count(dev))
+    limit, scaled = {"bf16": (PAGED_TOL, False), "int8": (QUANT_TOL, True),
+                     "fp8": (QUANT_TOL, True),
+                     "mixed": (MIXED_TOL, True)}[pool]
+    desc = (f"q ({b},1,{h},{d}) {'f32' if pool == 'mixed' else 'bf16'}, "
+            f"{'bf16' if pool == 'mixed' else pool} pool ({n_pool},{ps},"
+            f"{kvh},{d}){' + scales' if kw else ''}, {live} live positions; "
+            f"grid {plan.grid} = {plan.blocks} blocks of {plan.threads}, "
+            f"{plan.splits} splits of {plan.split_pages} page(s)")
+    return dict(args=(q, kp, vp, table, wp, row_len, pad, d ** -0.5), kw=kw,
+                limit=limit, scaled=scaled, bound=bound(nbytes, 4 * live * h
+                                                        * d, peak),
+                plan=plan, shape=desc)
 
-        pk, pv = kq.clone(), vq.clone()
-        rk, rv = kq.clone(), vq.clone()
-        sk, sv = ks.clone(), vs.clone()
-        tk, tv = ks.clone(), vs.clone()
-        kernels.paged_prefill_write(pk, pv, kh, vh, pages, sk, sv)
-        kernels.paged_prefill_write_plain(rk, rv, kh, vh, pages, tk, tv)
+
+def paged_err(case: dict, out, ref) -> float:
+    """The error a paged row is held to: max abs for a native bf16 pool
+    (its outputs are ~0.07, bf16 rounding ~5e-4), scaled to the output's
+    largest magnitude for the others."""
+    if case["scaled"]:
+        return scaled_err(out, ref)
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def paged_attention_rows(torch, kernels, g):
+    """Paged attention over every pool at the serving shape and at ~8000
+    live positions a slot, against its plain version."""
+    rows = {}
+    for name, pool, long in PAGED_CASES:
+        c = paged_case(torch, kernels, g, pool, long)
+        out = kernels.paged_attention_fwd(*c["args"], **c["kw"])
+        ref = kernels.paged_attention_plain(*c["args"], **c["kw"])
         torch.cuda.synchronize()
-        bitwise = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-                      for x, y in ((pk, rk), (pv, rv), (sk, tk), (sv, tv)))
-        if not bitwise:
-            fail(f"paged_prefill_write into an {name} pool is not bitwise "
-                 f"its plain version (payload and scales)")
-        n_pages = pages.numel()
-        rows[f"paged_prefill_write_{name}"] = dict(
+        err = paged_err(c, out, ref)
+        if not err <= c["limit"]:
+            fail(f"{name} disagrees with its plain version: err {err} "
+                 f"(limit {c['limit']}{', scaled' if c['scaled'] else ''})")
+        rows[name] = dict(
+            err=err,
+            ms=cuda_ms(lambda: kernels.paged_attention_fwd(*c["args"],
+                                                           **c["kw"])),
+            plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(
+                *c["args"], **c["kw"])),
+            library_ms=None, library=None, bound=c["bound"], shape=c["shape"])
+        del c, out, ref
+    return rows
+
+
+def prefill_write_rows(torch, kernels, g):
+    """The prefill write of a 512-token bf16 slab into 4 pages of a native,
+    an int8 and an fp8 pool: payload (and scales) bitwise the plain
+    version's."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    kvh, d, ps, s = LLAMA3_8B["kv_heads"], 128, ENGINE["kv_page_size"], 512
+    n_pool, n_pages = 33, s // ENGINE["kv_page_size"]
+    kh, vh = (torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
+              for _ in range(2))
+    pages = (torch.randperm(n_pool - 1, device=dev, generator=g)[:n_pages]
+             + 1).to(torch.int32)
+    shape = (n_pool, ps, kvh, d)
+    rows = {}
+    for name, dt in (("", bf16), ("_int8", torch.int8),
+                     ("_fp8", torch.float8_e4m3fn)):
+        if dt == bf16:
+            kq, vq = (torch.randn(shape, device=dev, generator=g).to(bf16)
+                      for _ in range(2))
+            ks = vs = None
+        elif dt == torch.int8:
+            kq, vq = (torch.randint(-127, 128, shape, device=dev, generator=g,
+                                    dtype=dt) for _ in range(2))
+        else:
+            kq, vq = ((torch.randn(shape, device=dev, generator=g) * 100)
+                      .clamp(-448, 448).to(dt) for _ in range(2))
+        if dt != bf16:
+            ks, vs = ((torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1)
+                      / 127.0 for _ in range(2))
+        got = [t.clone() if t is not None else None for t in (kq, vq, ks, vs)]
+        ref = [t.clone() if t is not None else None for t in (kq, vq, ks, vs)]
+        kernels.paged_prefill_write(got[0], got[1], kh, vh, pages, *got[2:])
+        kernels.paged_prefill_write_plain(ref[0], ref[1], kh, vh, pages,
+                                          *ref[2:])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in zip(got, ref) if x is not None):
+            fail(f"paged_prefill_write{name} is not bitwise its plain "
+                 f"version (payload and scales)")
+        out_bytes = kq.element_size() * 2 * n_pages * ps * kvh * d
+        rows[f"paged_prefill_write{name}"] = dict(
             err=0.0,
             ms=cuda_ms(lambda: kernels.paged_prefill_write(
-                pk, pv, kh, vh, pages, sk, sv)),
+                got[0], got[1], kh, vh, pages, *got[2:])),
             plain_ms=cuda_ms(lambda: kernels.paged_prefill_write_plain(
-                rk, rv, kh, vh, pages, tk, tv)),
+                ref[0], ref[1], kh, vh, pages, *ref[2:])),
             library_ms=None, library=None,
-            # the bf16 slabs read, the pages written at one byte, their
+            # the bf16 slabs read, the pages written, a quantized pool's
             # f32 scales written, the page list read
-            bound=bound(2 * (kh.numel() + vh.numel())
-                        + 2 * n_pages * ps * kvh * d
-                        + 4 * 2 * n_pages * kvh + 4 * n_pages, 0.0),
-            shape=f"slab (1,{kh.shape[1]},{kvh},{d}) bf16 into {n_pages} "
-                  f"{name} pages of {ps} + scales")
-
-    # the mixed-width pool: bf16 pages under f32 queries
-    kp16, vp16 = args[1], args[2]
-    q32 = qd.float()
-    margs = (q32, kp16, vp16, table, wp, row_len, pad, scale)
-    out = kernels.paged_attention_fwd(*margs)
-    ref = kernels.paged_attention_plain(*margs)
-    torch.cuda.synchronize()
-    err = scaled_err(out, ref)
-    if not err <= MIXED_TOL:
-        fail(f"paged_attention_fwd over a bf16 pool under f32 queries "
-             f"disagrees with its plain version: scaled err {err} (limit "
-             f"{MIXED_TOL})")
-    rows["paged_attention_fwd_mixed"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: kernels.paged_attention_fwd(*margs)),
-        plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(*margs)),
-        library_ms=None, library=None,
-        bound=bound(2 * 4 * q32.numel() + 2 * 2 * live * kvh * d + ints,
-                    4 * live * h * d, F32_FLOP_PER_S),
-        shape=f"q ({b},1,{h},{d}) f32, bf16 pool ({n_pool},{ps},{kvh},{d}),"
-              f" {live} live positions")
+            bound=bound(2 * (kh.numel() + vh.numel()) + out_bytes
+                        + (4 * 2 * n_pages * kvh if ks is not None else 0)
+                        + 4 * n_pages, 0.0),
+            shape=f"slab (1,{s},{kvh},{d}) bf16 into {n_pages} "
+                  f"{'bf16' if dt == bf16 else name[1:]} pages of {ps}"
+                  + (" + scales" if ks is not None else ""))
     return rows
 
 
@@ -1033,6 +1078,12 @@ KERNEL_ROWS = {
                                 "paged_prefill_write"),
     "paged_attention_fwd_mixed": ("paged_attention.cu", 689, "check_bf16",
                                   "paged_attention_fwd"),
+    "paged_attention_fwd_long": ("paged_attention.cu", 689, "serve",
+                                 "paged_attention_fwd"),
+    "paged_attention_fwd_long_int8": ("paged_attention.cu", 689,
+                                      "serve_int8", "paged_attention_fwd"),
+    "paged_attention_fwd_long_fp8": ("paged_attention.cu", 689, "serve_fp8",
+                                     "paged_attention_fwd"),
     "flash_attention_fwd_lse": ("flash_attention_wgmma.cu", 180, "train",
                                 "flash_attention_fwd"),
     "flash_attention_bwd": ("flash_attention_bwd_wgmma.cu", 335, "train",

@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace ffk {
 
 // dtype codes, shared with ops/kernels.py (_DTYPE_CODES); int8 and fp8
@@ -113,12 +115,39 @@ __device__ __forceinline__ float warp_sum(float x, int width) {
   return x;
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+// Dynamic shared memory above 48 KB needs an opt-in per kernel and device.
+// The opt-in persists, so it is made once per (kernel, device) and raised
+// only when a launch asks for more: making it on every launch costs host
+// time, which a host-bound decode step pays once per layer.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  struct Opted {
+    const void* fn;
+    int dev;
+    size_t bytes;
+  };
+  static std::mutex mu;
+  static Opted opted[256];
+  static int n_opted = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  Opted* o = nullptr;
+  for (int i = 0; i < n_opted; ++i)
+    if (opted[i].fn == fn && opted[i].dev == dev) o = &opted[i];
+  if (o != nullptr && o->bytes >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (o != nullptr) {
+    o->bytes = bytes;
+  } else if (n_opted < 256) {
+    opted[n_opted++] = {fn, dev, bytes};
+  }
+  return cudaSuccess;
 }
 
 }  // namespace ffk

@@ -23,9 +23,12 @@ keep f32's precision where TF32 wgmma would not.
 
 The two paged kernels serve every KV pool of the serving engine: a native
 pool (the compute dtype), a bf16 pool under f32 compute, and an int8 / fp8
-pool with one f32 scale per (page, kv head) — attention dequantizes each
-tile as it stages it, the prefill write quantizes each page against a
-fresh scale (the Pallas kernels' quantized bodies, :650-654 and :843-852).
+pool with one f32 scale per (page, kv head) — attention applies each
+page's k and v scales to its positions' scores and probabilities (the same
+as dequantizing each value), the prefill write quantizes each page against
+a fresh scale (the Pallas kernels' quantized bodies, :650-654 and
+:843-852). Paged attention splits the slots' positions across blocks
+(``paged_attention_plan``) and merges the splits in the same launch.
 
 ``flash_attention`` and ``fused_add_layernorm`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
@@ -46,6 +49,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -54,7 +58,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,8 +173,8 @@ class _Library:
                 lib.ff_fused_add_layernorm_fwd.argtypes = [
                     p, p, p, p, p, p, p, p, i, i, i, f, p]
                 lib.ff_paged_attention_fwd.argtypes = [
-                    p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                    f, p]
+                    p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                    i, i, i, i, f, p]
                 lib.ff_paged_prefill_write.argtypes = [
                     p, p, p, p, p, i, i, i, i, i, p]
                 lib.ff_paged_prefill_write_quant.argtypes = [
@@ -478,10 +482,13 @@ def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
     without ``need_stats``.
 
     Replaces ``fused_add_layernorm_fwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:461) with ``csrc/fused_add_layernorm.cu``: one block
-    per row, 16-byte loads, the row held in registers as f32 between the
-    mean, variance and normalise passes, so x and r are read once and s
-    and y written once. Bound on the H100: bytes.
+    pallas_kernels.py:461) with ``csrc/fused_add_layernorm.cu``: a
+    persistent grid (as many blocks as the card holds at once) strides over
+    the rows; each thread keeps its slices of scale and bias in registers
+    for every row, loads the next row's x and r while the current row
+    reduces, and keeps the rounded s in registers between the mean,
+    variance and normalise passes, so x and r are read once and s and y
+    written once (streaming stores). Bound on the H100: bytes.
     """
     if _on_cpu(x, r, scale, bias):
         s, y, mean, rstd = fused_add_layernorm_plain(x, r, scale, bias, eps)
@@ -648,6 +655,89 @@ def _check_scales(name, pool_k, pool_v, k_scales, v_scales):
         raise ValueError(f"{name}: k and v pools differ in dtype")
 
 
+#: query rows a paged-attention block holds (csrc/paged_attention.cu kRows)
+PAGED_ROWS = 16
+#: the split count aims at this many blocks an SM (as many as fit at once:
+#: the bf16 D = 128 kernel's tiles take 105 KB of shared memory)
+PAGED_BLOCKS_PER_SM = 2
+#: a split covers whole pages and at least this many positions
+PAGED_MIN_SPLIT = 64
+#: at most this many splits (csrc/paged_attention.cu kMaxSplits)
+PAGED_MAX_SPLITS = 32
+
+
+class PagedPlan(NamedTuple):
+    """The paged-attention kernel's launch: ``grid`` (slot x kv head x row
+    chunk, split), ``splits`` runs of ``split_pages`` pages each."""
+    grid: Tuple[int, int]
+    splits: int
+    split_pages: int
+    threads: int = 128
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=256)
+def paged_attention_plan(b: int, s: int, h: int, kvh: int, page_size: int,
+                         pages_per_slot: int, sms: int) -> PagedPlan:
+    """How ``paged_attention_fwd`` splits the slots' positions across
+    blocks, from the shapes and the card's SM count alone (never from
+    row_len or write_pos, which live on the device): enough whole-page
+    splits that the grid holds about ``PAGED_BLOCKS_PER_SM`` blocks on
+    each of the card's ``sms`` SMs, none shorter than ``PAGED_MIN_SPLIT``
+    positions, at most ``PAGED_MAX_SPLITS`` of them."""
+    row_chunks = -(-s * (h // kvh) // PAGED_ROWS)
+    base = b * kvh * row_chunks
+    want = max(1, -(-PAGED_BLOCKS_PER_SM * sms // base))
+    split_pages = min(pages_per_slot,
+                      max(-(-pages_per_slot // want),
+                          -(-PAGED_MIN_SPLIT // page_size),
+                          -(-pages_per_slot // PAGED_MAX_SPLITS)))
+    splits = -(-pages_per_slot // split_pages)
+    return PagedPlan((base, splits), splits, split_pages)
+
+
+_SM_COUNTS: Dict[int, int] = {}
+# per (device, stream): the int32 tickets the split kernel's blocks take to
+# find the last of each (slot, kv head, row chunk) — every launch leaves
+# them zero, so one zeroed buffer serves every launch on its stream — and
+# the f32 workspace of the splits' partials, which a launch uses only while
+# it runs, so launches on one stream share it (the decode step is
+# host-bound: no allocation a call)
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (cudaDevAttrMultiProcessorCount), cached."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def _workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _WORKSPACE.get(key)
+    if t is None or t.numel() < n:
+        t = torch.empty(n, dtype=torch.float32, device=device)
+        _WORKSPACE[key] = t
+    return t
+
+
 def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
                         prompt_pad, scale: float, k_scales=None,
                         v_scales=None):
@@ -659,11 +749,20 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
     (pool page, kv head).
 
     Replaces ``paged_attention_fwd_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:689) with ``csrc/paged_attention.cu``: one block per
-    (slot, kv head) walks the slot's live positions through its page table
-    in 32-position chunks; each chunk's K/V is staged once as f32
-    (dequantized against its page's scale for a quantized pool) and shared
-    by the whole query-head group. Bound on the H100: bytes (the live K/V).
+    pallas_kernels.py:689) with ``csrc/paged_attention.cu``, split-KV in
+    one launch: the grid is (slot x kv head x row chunk of up to 16 query
+    rows, split), the splits runs of whole pages chosen by
+    ``paged_attention_plan`` from the shapes and the SM count; each block
+    streams its split's live K/V tiles by ``cp.async`` and writes a
+    partial that the last block of its (slot, kv head, row chunk) merges
+    in split order (deterministic). bf16 queries (bf16, int8 and fp8
+    pools) run Q K^T and P V on the tensor cores (``mma.sync``, the raw
+    int8 / fp8 payload exact in bf16, each page's scales applied to its
+    positions' scores and probabilities); f32 queries (f32 and mixed-width
+    pools) on the CUDA cores in f32. The f32 workspace of the partials is
+    one buffer per (device, stream), kept between calls. ``launches``
+    counts wrapper calls: one a call,
+    whatever the grid. Bound on the H100: bytes (the live K/V).
     """
     ints = (page_table, write_pos, row_len, prompt_pad)
     scales = tuple(t for t in (k_scales, v_scales) if t is not None)
@@ -696,16 +795,27 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
             or row_len.shape != (b,) or prompt_pad.shape != (b,):
         raise ValueError(f"{name}: page_table (B, P), write_pos (B, S), "
                          f"row_len and prompt_pad (B,) must be int32")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
+    plan = paged_attention_plan(b, s, h, kvh, ps, pps, sm_count(q.device))
+    stream = _stream(q)
+    ws_acc = ws_ml = tickets = None
+    if plan.splits > 1:
+        n_part = plan.blocks * PAGED_ROWS
+        ws_acc = _workspace(q.device, stream, n_part * (d + 2)).data_ptr()
+        ws_ml = ws_acc + 4 * n_part * d
+        tickets = _tickets(q.device, stream, plan.grid[0]).data_ptr()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     with torch.cuda.device(q.device):
         _check(lib.ff_paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             ptr(k_scales), ptr(v_scales), page_table.data_ptr(),
             write_pos.data_ptr(), row_len.data_ptr(), prompt_pad.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool], b, s,
-            h, kvh, d, ps, pps, float(scale), _stream(q)), name)
+            out.data_ptr(), ws_acc, ws_ml, tickets, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[pool], b, s, h, kvh, d, ps, pps, plan.split_pages,
+            float(scale), stream), name)
     paged_attention_fwd.launches += 1
     return out
 

@@ -18,9 +18,11 @@ near a rounding boundary may round the other way); add + LayerNorm's sum
 is bitwise, its output within 1e-4 (f32: the rows' mean of ~30 carries
 sum-order error ~3e-5) or one bf16 step (2e-2 + 1e-2 relative). Paged
 attention over int8 / fp8 pools is held to 2e-5 in f32 and to 1e-2 of the
-output's largest magnitude in bf16 (the kernel keeps dequantized K/V and
-the probabilities in f32, the plain version casts them to bf16, as the
-JAX einsum oracle does); the quantizing prefill write is bitwise, payload
+output's largest magnitude in bf16 (the kernel's products are exact with
+f32 sums — bf16 queries run on the tensor cores, the raw payload exact in
+bf16 and the probabilities entering P.V with 16 significant bits — the
+plain version casts K/V and the probabilities to bf16, as the JAX einsum
+oracle does); the quantizing prefill write is bitwise, payload
 and scales. bf16 flash attention runs the tensor-core kernels (wgmma +
 TMA) and f32 the CUDA-core kernels, so the f32 cases pin the CUDA-core
 route; the bf16 route is also held at tile edges (S from 1 to 1000 around
@@ -532,10 +534,11 @@ POOLS = [torch.int8, torch.float8_e4m3fn]
 @pytest.mark.parametrize("s", [1, 3], ids=["decode", "slab3"])
 def test_quantized_paged_kernel_matches_plain(cuda, qdtype, pool, d, ps, s):
     """Int8 / fp8 pools with random positive per-(page, kv head) scales,
-    ragged prompts, a scrambled table and an inactive slot. The kernel
-    keeps the dequantized K/V and the probabilities in f32 (the Pallas
-    kernel's arithmetic); the plain version casts them to q's dtype (the
-    JAX einsum oracle), so bf16 is held to 1e-2 of the output's largest
+    ragged prompts, a scrambled table and an inactive slot. The kernel's
+    products are exact with f32 sums (the Pallas kernel's arithmetic; under
+    bf16 queries the probabilities enter P.V with 16 significant bits); the
+    plain version casts K/V and the probabilities to q's dtype (the JAX
+    einsum oracle), so bf16 is held to 1e-2 of the output's largest
     magnitude (2.5 bf16 steps) and f32 to 2e-5."""
     b, h, kvh, max_len = 4, 8, 2, 128
     pps = max_len // ps
@@ -673,3 +676,209 @@ def test_quantized_wrappers_refuse_mismatched_scales(cuda):
         kernels.paged_prefill_write(f32, f32, slab, slab, pages)
     assert (kernels.paged_attention_fwd.launches,
             kernels.paged_prefill_write.launches) == n0
+
+
+# ---- split-KV paged attention: split edges, long contexts, repeats --------
+
+PAGED_POOLS = [  # (query dtype, pool dtype)
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.int8),
+    (torch.bfloat16, torch.float8_e4m3fn)]
+PAGED_POOL_IDS = ["bf16", "f32", "mixed", "int8", "fp8"]
+
+
+def _paged_pool(cuda, g, shape, pool):
+    """K/V payloads of ``shape`` and, for an int8 / fp8 pool, random
+    positive per-(page, kv head) scales."""
+    if pool in POOLS:
+        kp, vp = (_quant_pool(cuda, g, shape, pool) for _ in range(2))
+        ks, vs = ((torch.rand(shape[0], shape[2], device=cuda, generator=g)
+                   + 0.1) / 127.0 for _ in range(2))
+        return kp, vp, dict(k_scales=ks, v_scales=vs)
+    kp, vp = (torch.randn(shape, device=cuda, generator=g).to(pool)
+              for _ in range(2))
+    return kp, vp, {}
+
+
+def _paged_run(cuda, seed, qdtype, pool, d, ps, pps, s, row_len, pad, wp0):
+    """Slots of 8 query heads over 2 kv heads with prompts ``row_len``,
+    buckets ``pad`` and slab frontiers wp0 + i (i < s, clamped to the
+    table's reach); a slot with row_len = pad = wp0 = 0 is inactive (an
+    all-zero table row). Returns (kernel output, plain output, args)."""
+    b, h, kvh = len(row_len), 8, 2
+    n_pool = b * pps + 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, s, h, d, device=cuda, generator=g).to(qdtype)
+    kp, vp, kw = _paged_pool(cuda, g, (n_pool, ps, kvh, d), pool)
+    table = (torch.randperm(n_pool - 1, device=cuda, generator=g)[:b * pps]
+             + 1).reshape(b, pps).to(torch.int32)
+    wp = torch.tensor(wp0)[:, None] + torch.arange(s)[None, :]
+    wp = wp.clamp(max=pps * ps - 1)
+    for i in range(b):
+        if row_len[i] == pad[i] == wp0[i] == 0:
+            table[i] = 0
+            wp[i] = 0
+    args = (q, kp, vp, table.contiguous(), wp.to(torch.int32).to(cuda),
+            torch.tensor(row_len, dtype=torch.int32, device=cuda),
+            torch.tensor(pad, dtype=torch.int32, device=cuda), d ** -0.5)
+    n0 = kernels.paged_attention_fwd.launches
+    out = kernels.paged_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.paged_attention_fwd.launches == n0 + 1
+    assert out.dtype == qdtype and torch.isfinite(out.float()).all()
+    return out, kernels.paged_attention_plain(*args, **kw), (args, kw)
+
+
+def _paged_close(out, ref, qdtype, pool):
+    """The limits of the paged card tests above: 2e-5 under f32 queries
+    (f32 and mixed-width pools, both versions in f32), one bf16 step (2e-2)
+    on a native bf16 pool, 1e-2 of the output's largest magnitude over an
+    int8 / fp8 pool under bf16 queries."""
+    if qdtype == torch.float32:
+        torch.testing.assert_close(out, ref, **TOL)
+    elif pool in POOLS:
+        assert _rel_err(out, ref) <= 1e-2, _rel_err(out, ref)
+    else:
+        _close(out, ref, qdtype)
+
+
+def _context(ctx, ps, s):
+    """Three slots holding ``ctx`` live positions each way: slot 0 a slab
+    right after its prompt, slot 1 a ragged prompt then a slab past three
+    pages of bucket padding, slot 2 inactive; and the table's pages."""
+    rl0 = max(ctx - s, 0)
+    rl1 = ctx // 2
+    pad1 = rl1 + 3 * ps
+    wp1 = max(pad1 + ctx - rl1 - s, pad1)
+    pps = -(-(wp1 + s) // ps) + 1
+    return pps, [rl0, rl1, 0], [rl0, pad1, 0], [max(ctx - s, 0), wp1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", PAGED_POOLS, ids=PAGED_POOL_IDS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ctx", ["1", "page-1", "page", "page+1", "8190"])
+@pytest.mark.parametrize("s", [1, 5], ids=["decode", "verify5"])
+def test_paged_split_kernel_contexts_match_plain(cuda, qdtype, pool, d, ctx,
+                                                 s):
+    """16-position pages (no multiple of 32): contexts of 1 position, a
+    page less one, a page, a page and one, and 8190 (where the plan splits
+    into the most blocks); S = 1 and the speculative-verify slab S = 5
+    (20 query rows: two row chunks of 16); an inactive slot in every case."""
+    ps = 16
+    n = {"1": 1, "page-1": ps - 1, "page": ps, "page+1": ps + 1,
+         "8190": 8190}[ctx]
+    pps, rl, pad, wp0 = _context(n, ps, s)
+    out, ref, _ = _paged_run(cuda, 11, qdtype, pool, d, ps, pps, s, rl, pad,
+                             wp0)
+    _paged_close(out, ref, qdtype, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", PAGED_POOLS, ids=PAGED_POOL_IDS)
+@pytest.mark.parametrize("ctx", ["1", "page-1", "page", "page+1", "8190"])
+def test_paged_split_kernel_contexts_page128_match_plain(cuda, qdtype, pool,
+                                                         ctx):
+    """The serving engine's 128-position pages at D = 128, S = 1."""
+    ps = 128
+    n = {"1": 1, "page-1": ps - 1, "page": ps, "page+1": ps + 1,
+         "8190": 8190}[ctx]
+    pps, rl, pad, wp0 = _context(n, ps, 1)
+    out, ref, _ = _paged_run(cuda, 12, qdtype, pool, 128, ps, pps, 1, rl,
+                             pad, wp0)
+    _paged_close(out, ref, qdtype, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", PAGED_POOLS, ids=PAGED_POOL_IDS)
+@pytest.mark.parametrize("s", [1, 5], ids=["decode", "verify5"])
+def test_paged_split_in_padding_and_live_end_inside_split(cuda, qdtype, pool,
+                                                          s):
+    """Slot 1's bucket padding holds whole splits (they find no live tile
+    and leave an empty partial) and its live range ends inside a split;
+    checked against the plan the wrapper launches."""
+    ps, pps, b, h, kvh = 16, 64, 3, 8, 2
+    plan = kernels.paged_attention_plan(b, s, h, kvh, ps, pps,
+                                        kernels.sm_count(cuda))
+    span = plan.split_pages * ps
+    pad1 = 3 * span
+    wp1 = pad1 + span // 2 + 3 - s
+    assert plan.splits >= 5 and wp1 + s <= pps * ps
+    assert 5 <= span and pad1 >= 2 * span       # split 1 is all padding
+    assert (wp1 + s) % span                      # the live end inside one
+    out, ref, _ = _paged_run(cuda, 13, qdtype, pool, 64, ps, pps, s,
+                             [40, 5, 0], [48, pad1, 0], [60, wp1, 0])
+    _paged_close(out, ref, qdtype, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,pool", PAGED_POOLS, ids=PAGED_POOL_IDS)
+def test_paged_split_kernel_repeat_launches_bitwise(cuda, qdtype, pool):
+    """The splits merge in split order, whichever block finishes last: two
+    launches at a long context give the same bits."""
+    pps, rl, pad, wp0 = _context(8000, 128, 1)
+    out, ref, (args, kw) = _paged_run(cuda, 14, qdtype, pool, 128, 128, pps,
+                                      1, rl, pad, wp0)
+    again = kernels.paged_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(again))
+    _paged_close(out, ref, qdtype, pool)
+
+
+@pytest.mark.cuda
+def test_paged_plan_fills_the_card_at_the_serving_shape(cuda):
+    """The Llama-3-8B decode step (4 slots, 32 heads over 8 kv heads,
+    8 pages of 128 a slot) launches well over one block an SM."""
+    sms = kernels.sm_count(cuda)
+    plan = kernels.paged_attention_plan(4, 1, 32, 8, 128, 8, sms)
+    assert plan.blocks >= 1.5 * sms, (plan, sms)
+
+
+# ---- add + LayerNorm on the persistent grid --------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 4097])
+@pytest.mark.parametrize("width", ["8", "768", "4096", "max"])
+def test_add_layernorm_persistent_grid_matches_plain(cuda, dtype, n, width):
+    """One row, and 4097 rows (no multiple of any grid the card holds);
+    widths 8, 768, 4096 and the widest the wrapper takes (4096 vectors of
+    16 bytes); s bitwise, mean and rstd checked."""
+    d = 4096 * 16 // (4 if dtype == torch.float32 else 2) \
+        if width == "max" else int(width)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = (torch.randn(n, d, device=cuda, generator=g) + 30.0).to(dtype)
+    r = torch.randn(n, d, device=cuda, generator=g).to(dtype)
+    scale = (torch.rand(d, device=cuda, generator=g) + 0.5).to(dtype)
+    bias = torch.randn(d, device=cuda, generator=g).to(dtype)
+    n0 = kernels.fused_add_layernorm_fwd.launches
+    s, y, mean, rstd = kernels.fused_add_layernorm_fwd(x, r, scale, bias,
+                                                       1e-5)
+    rs, ry, rmean, rrstd = kernels.fused_add_layernorm_plain(x, r, scale,
+                                                             bias, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.fused_add_layernorm_fwd.launches == n0 + 1
+    assert torch.equal(_bits(s), _bits(rs))
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-4, atol=0)
+    tol = (dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=2e-2))
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", POOLS, ids=["int8", "fp8"])
+@pytest.mark.parametrize("ctx", [130, 8190])
+def test_quantized_paged_kernel_keeps_f32_products(cuda, pool, ctx):
+    """Under bf16 queries the tensor-core kernel computes a quantized pool's
+    attention as the f32 reference does (the plain version fed the same
+    queries in f32): its only rounding of note is the bf16 output's, half
+    a bf16 step (2^-9 = 1.95e-3 of an element); 2.5e-3 of the output's
+    largest magnitude leaves room for the probabilities' 16 significant
+    bits and sums in other orders."""
+    pps, rl, pad, wp0 = _context(ctx, 128, 1)
+    out, _, (args, kw) = _paged_run(cuda, 16, torch.bfloat16, pool, 128,
+                                    128, pps, 1, rl, pad, wp0)
+    ref = kernels.paged_attention_plain(args[0].float(), *args[1:], **kw)
+    assert _rel_err(out, ref) <= 2.5e-3, _rel_err(out, ref)

@@ -277,6 +277,88 @@ def test_paged_plain_matches_pallas(s):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _many_page_inputs(rs, s: int, quant: bool):
+    """3 slots of 64 pages of 4 positions (256 positions), small widths: slot 0 a 200-position prompt then a slab,
+    slot 1 a ragged prompt, 40 pages of dead bucket padding and a slab,
+    slot 2 inactive. A quantized pool carries int8 payloads and random
+    positive per-(page, kv head) scales."""
+    b, h, kvh, d, ps, pps = 3, 4, 2, 16, 4, 64
+    n_pool = b * pps + 1
+    q = rs.randn(b, s, h, d).astype(np.float32)
+    if quant:
+        kp, vp = (rs.randint(-127, 128, (n_pool, ps, kvh, d)).astype(np.int8)
+                  for _ in range(2))
+        scales = tuple((rs.rand(n_pool, kvh) + 0.1).astype(np.float32)
+                       / 127.0 for _ in range(2))
+    else:
+        kp, vp = (rs.randn(n_pool, ps, kvh, d).astype(np.float32)
+                  for _ in range(2))
+        scales = ()
+    table = (rs.permutation(n_pool - 1)[:b * pps] + 1).reshape(b, pps)
+    table = table.astype(np.int32)
+    table[2] = 0
+    row_len = np.asarray([200, 9, 0], np.int32)
+    prompt_pad = np.asarray([200, 9 + 160, 0], np.int32)
+    wp = np.minimum(np.asarray([200, 240, 0])[:, None]
+                    + np.arange(s)[None, :], pps * ps - 1).astype(np.int32)
+    wp[2] = 0
+    return (q, kp, vp, table, wp, row_len, prompt_pad), scales
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("s", [1, 3], ids=["decode", "slab3"])
+def test_paged_plain_matches_pallas_many_pages(s, quant):
+    """The plain version the card holds the split-KV kernel to at long
+    contexts, against the Pallas kernel (interpret mode) at a 64-page
+    context with a long dead padding and an inactive slot."""
+    rs = np.random.RandomState(6)
+    args, scales = _many_page_inputs(rs, s, quant)
+    scale = 16 ** -0.5
+    kw = dict(zip(("k_scales", "v_scales"), map(_t, scales)))
+    out = kernels.paged_attention_fwd(*map(_t, args), scale, **kw)
+    jkw = dict(zip(("k_scales", "v_scales"), map(jnp.asarray, scales)))
+    ref = paged_attention_fwd_pallas(*map(jnp.asarray, args), scale,
+                                     interpret=True, **jkw)
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+PLAN_SHAPES = {
+    # name: (B, S, H, KVH, page_size, pages_per_slot)
+    "serving": (4, 1, 32, 8, 128, 8),
+    "long_context": (4, 1, 32, 8, 128, 64),
+    "verify5": (4, 5, 32, 8, 128, 8),
+    "small_pages": (3, 1, 8, 2, 16, 516),
+    "many_slots": (64, 1, 32, 8, 128, 8),
+    "one_page": (2, 1, 4, 4, 8, 1),
+    "huge_table": (1, 1, 8, 1, 16, 8192),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_SHAPES))
+def test_paged_attention_plan(case):
+    """The split plan depends on the shapes and the SM count alone: whole
+    pages a split, every page in exactly one split, no split shorter than
+    the minimum unless the table is, at most the cap, 16 query rows a row
+    chunk, and at the serving shape on a 132-SM H100 well over one block
+    an SM."""
+    b, s, h, kvh, ps, pps = PLAN_SHAPES[case]
+    plan = kernels.paged_attention_plan(b, s, h, kvh, ps, pps, 132)
+    chunks = -(-s * (h // kvh) // kernels.PAGED_ROWS)
+    assert plan.grid == (b * kvh * chunks, plan.splits)
+    assert 1 <= plan.split_pages <= pps
+    assert (plan.splits - 1) * plan.split_pages < pps \
+        <= plan.splits * plan.split_pages
+    assert plan.split_pages * ps >= min(kernels.PAGED_MIN_SPLIT, pps * ps)
+    assert plan.splits <= kernels.PAGED_MAX_SPLITS
+    if plan.splits > 1:   # no more splits than the card needs
+        assert b * kvh * chunks * (plan.splits - 1) \
+            < kernels.PAGED_BLOCKS_PER_SM * 132 or \
+            plan.split_pages * ps < 2 * kernels.PAGED_MIN_SPLIT
+    if case == "serving":
+        assert plan.blocks >= 1.5 * 132
+
+
 # --------------------------------------------------- paged prefill write
 
 @pytest.mark.parametrize("s", [8, 10], ids=["whole_pages", "padded_tail"])
