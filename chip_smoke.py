@@ -30,11 +30,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 queries; the prefill write into int8 / fp8 pages, bitwise),
                 and paged attention again at ~8000 live positions a slot
                 (native, int8 and fp8 pools; each paged row prints its
-                split-KV grid and split count); time kernel, plain version
-                and, where one exists, a torch call computing the same
-                function as a yardstick (the port never calls it), each
-                with CUDA events around single launches after an L2 flush
-                and a short device wait that hides the wrapper's host time
+                split-KV grid and split count); the prefill write also for
+                Llama-3-8B's 32 layers in one launch (native, int8, fp8;
+                bitwise); time kernel, plain version and, where one
+                exists, a torch call computing the same function as a
+                yardstick (the port never calls it; for the native
+                prefill writes index_copy_ of the page-reshaped slabs,
+                beside a device copy of the same bytes), each with CUDA
+                events around single launches after an L2 flush and a
+                short device wait that hides the wrapper's host time
                 (cuda_ms); print each row's share of its bound and its
                 ratio to the torch call.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
@@ -43,7 +47,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 native pool; int8 pool with the prefix cache, prompts
                 sharing a 2-page prefix run twice on one engine (prefix
                 hits); bf16 pool under f32 compute (the mixed-width
-                kernel).
+                kernel). Then one small f32 case of each torch route the
+                ops take for shapes a kernel does not (attention with head
+                dim 48, unequal q / v head dims, causal with more queries
+                than keys, use_flash_attention=False, the blockwise scan
+                past 4096 positions; add + LayerNorm at width 1004): card
+                vs CPU, forward and gradients, and no kernel launched.
   5. train check — a small f32 flagship encoder classifier (hidden 512, 2
                 layers, 4 heads of 128, fused add + LayerNorm) takes 3 SGD
                 steps on the card through the kernels and on the CPU
@@ -55,7 +64,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 new tokens each) through FFModel.serve with 4 slots and
                 128-token pages; every request must finish with finite
                 logits, each kernel's launch count must be its expected
-                count (layers x prefills, layers x decode steps), and a
+                count (layers x prefills for flash attention, one prefill
+                write a prefill for every layer, layers x decode steps),
+                and a
                 second serve must return the same tokens. The prefix cache
                 is on (the default); these prompts share no prefix.
   6b. serve quantized — the same model serves 8 prompts (a 384-token
@@ -163,16 +174,22 @@ def say(msg: str):
 #: device cycles (~0.5 ms on the H100) the card spins before each timed
 #: call, so the host's time in the wrapper lies behind it (cuda_ms)
 SLEEP_CYCLES = 1_000_000
+#: ~10 ms: the wait before a call that enqueues many launches (a loop over
+#: 32 layers), so their host time lies behind it too
+LONG_SLEEP_CYCLES = 20_000_000
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            sleep: int = SLEEP_CYCLES) -> float:
     """Median device time of one call of ``fn``: the 50 MB L2 flushed before
     each (the serving path meets its inputs cold), then a short device wait
     (``torch.cuda._sleep``), then the start event, the call and the end
     event. The wait keeps the card busy while the host runs the call's
     Python (argument checks, allocation, the launch), so the events bracket
     device time only: without it the card idles between the start event and
-    the launch, and that idle time counted as kernel time."""
+    the launch, and that idle time counted as kernel time. ``sleep``: the
+    wait in device cycles; a call whose host time passes the default needs
+    a longer one (``LONG_SLEEP_CYCLES``)."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -181,7 +198,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -365,7 +382,10 @@ def phase_kernels(torch, kernels):
             f"{100 * r['bound'][0] / r['ms']:.1f}% of bound"
             + (f", {r['library']} {r['library_ms']:.4f} ms: "
                f"{r['ms'] / r['library_ms']:.2f}x its time"
-               if r["library_ms"] else "") + ")")
+               if r["library_ms"] else "")
+            + (f", a device copy of the same bytes {r['copy_ms']:.4f} ms: "
+               f"{r['ms'] / r['copy_ms']:.2f}x its time"
+               if r.get("copy_ms") else "") + ")")
     return rows
 
 
@@ -487,61 +507,137 @@ def paged_attention_rows(torch, kernels, g):
     return rows
 
 
-def prefill_write_rows(torch, kernels, g):
-    """The prefill write of a 512-token bf16 slab into 4 pages of a native,
-    an int8 and an fp8 pool: payload (and scales) bitwise the plain
-    version's."""
+#: layers of the grouped prefill-write rows: Llama-3-8B's 32
+WRITE_LAYERS = LLAMA3_8B["layers"]
+#: the prefill-write rows: (name suffix, pool)
+WRITE_POOLS = (("", "bf16"), ("_int8", "int8"), ("_fp8", "fp8"))
+
+
+def prefill_write_case(torch, g, pool: str, n_layers: int) -> dict:
+    """The prefill write of a 512-token bf16 slab (Llama-3-8B's 8 kv heads,
+    D = 128) into 4 of 33 pool pages (128 rows, listed out of order) for
+    ``n_layers`` layers: a native bf16 pool, or int8 / fp8 with random
+    positive scales. Returns ``new()`` (fresh copies of the pools and
+    scales: the ``paged_prefill_write_layers`` arguments), the bound and
+    a description."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     kvh, d, ps, s = LLAMA3_8B["kv_heads"], 128, ENGINE["kv_page_size"], 512
-    n_pool, n_pages = 33, s // ENGINE["kv_page_size"]
-    kh, vh = (torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-              for _ in range(2))
+    n_pool, n_pages = 33, s // ps
+    dt = {"bf16": bf16, "int8": torch.int8,
+          "fp8": torch.float8_e4m3fn}[pool]
     pages = (torch.randperm(n_pool - 1, device=dev, generator=g)[:n_pages]
              + 1).to(torch.int32)
+    khs, vhs = ([torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
+                 for _ in range(n_layers)] for _ in range(2))
     shape = (n_pool, ps, kvh, d)
+    if dt == bf16:
+        pools = [torch.randn(shape, device=dev, generator=g).to(bf16)
+                 for _ in range(2 * n_layers)]
+    elif dt == torch.int8:
+        pools = [torch.randint(-127, 128, shape, device=dev, generator=g,
+                               dtype=dt) for _ in range(2 * n_layers)]
+    else:
+        pools = [(torch.randn(shape, device=dev, generator=g) * 100)
+                 .clamp(-448, 448).to(dt) for _ in range(2 * n_layers)]
+    scales = None
+    if dt != bf16:
+        scales = [(torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1)
+                  / 127.0 for _ in range(2 * n_layers)]
+
+    def new():
+        ts = [t.clone() for t in pools]
+        sc = [t.clone() for t in scales] if scales else None
+        return (ts[:n_layers], ts[n_layers:], khs, vhs, pages,
+                sc[:n_layers] if sc else None, sc[n_layers:] if sc else None)
+
+    # the bf16 slabs read, the pages written, a quantized pool's f32 scales
+    # written, the page list read once
+    out_bytes = dt.itemsize * 2 * n_pages * ps * kvh * d
+    nbytes = n_layers * (2 * 2 * s * kvh * d + out_bytes
+                         + (4 * 2 * n_pages * kvh if scales else 0)) \
+        + 4 * n_pages
+    return dict(new=new, bound=bound(nbytes, 0.0), shape=(
+        f"{n_layers} layer{'s' if n_layers > 1 else ''}: slab (1,{s},{kvh},"
+        f"{d}) bf16 into {n_pages} {pool} pages of {ps}"
+        + (" + scales" if scales else "")))
+
+
+def same_bytes(torch, a, b) -> bool:
+    """Two prefill-write argument tuples hold the same pool and scale
+    bytes."""
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for xs, ys in zip(a, b) if isinstance(xs, list)
+               for x, y in zip(xs, ys))
+
+
+def prefill_write_rows(torch, kernels, g):
+    """The prefill write of a 512-token bf16 slab into 4 pages of a native,
+    an int8 and an fp8 pool, for one layer (``paged_prefill_write``) and
+    for Llama-3-8B's 32 layers in one launch (``paged_prefill_write_layers``,
+    the serving engine's call): payload (and scales) bitwise the plain
+    version's. The native rows also time ``index_copy_`` of the
+    page-reshaped slabs (k and v, each layer) as the library call and a
+    device copy of the same bytes as a yardstick."""
     rows = {}
-    for name, dt in (("", bf16), ("_int8", torch.int8),
-                     ("_fp8", torch.float8_e4m3fn)):
-        if dt == bf16:
-            kq, vq = (torch.randn(shape, device=dev, generator=g).to(bf16)
-                      for _ in range(2))
-            ks = vs = None
-        elif dt == torch.int8:
-            kq, vq = (torch.randint(-127, 128, shape, device=dev, generator=g,
-                                    dtype=dt) for _ in range(2))
-        else:
-            kq, vq = ((torch.randn(shape, device=dev, generator=g) * 100)
-                      .clamp(-448, 448).to(dt) for _ in range(2))
-        if dt != bf16:
-            ks, vs = ((torch.rand(n_pool, kvh, device=dev, generator=g) + 0.1)
-                      / 127.0 for _ in range(2))
-        got = [t.clone() if t is not None else None for t in (kq, vq, ks, vs)]
-        ref = [t.clone() if t is not None else None for t in (kq, vq, ks, vs)]
-        kernels.paged_prefill_write(got[0], got[1], kh, vh, pages, *got[2:])
-        kernels.paged_prefill_write_plain(ref[0], ref[1], kh, vh, pages,
-                                          *ref[2:])
-        torch.cuda.synchronize()
-        if not all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-                   for x, y in zip(got, ref) if x is not None):
-            fail(f"paged_prefill_write{name} is not bitwise its plain "
-                 f"version (payload and scales)")
-        out_bytes = kq.element_size() * 2 * n_pages * ps * kvh * d
-        rows[f"paged_prefill_write{name}"] = dict(
-            err=0.0,
-            ms=cuda_ms(lambda: kernels.paged_prefill_write(
-                got[0], got[1], kh, vh, pages, *got[2:])),
-            plain_ms=cuda_ms(lambda: kernels.paged_prefill_write_plain(
-                ref[0], ref[1], kh, vh, pages, *ref[2:])),
-            library_ms=None, library=None,
-            # the bf16 slabs read, the pages written, a quantized pool's
-            # f32 scales written, the page list read
-            bound=bound(2 * (kh.numel() + vh.numel()) + out_bytes
-                        + (4 * 2 * n_pages * kvh if ks is not None else 0)
-                        + 4 * n_pages, 0.0),
-            shape=f"slab (1,{s},{kvh},{d}) bf16 into {n_pages} "
-                  f"{'bf16' if dt == bf16 else name[1:]} pages of {ps}"
-                  + (" + scales" if ks is not None else ""))
+    for suffix, pool in WRITE_POOLS:
+        for n_layers in (1, WRITE_LAYERS):
+            c = prefill_write_case(torch, g, pool, n_layers)
+            got, ref = c["new"](), c["new"]()
+            if n_layers == 1:
+                tag = f"paged_prefill_write{suffix}"
+
+                def fn(a=got):
+                    kernels.paged_prefill_write(
+                        a[0][0], a[1][0], a[2][0], a[3][0], a[4],
+                        *(x[0] if x else None for x in a[5:]))
+            else:
+                tag = f"paged_prefill_write_layers{n_layers}{suffix}"
+
+                def fn(a=got):
+                    kernels.paged_prefill_write_layers(*a)
+
+            def plain(a=ref):
+                kernels.paged_prefill_write_layers_plain(*a)
+
+            fn()
+            plain()
+            torch.cuda.synchronize()
+            if not same_bytes(torch, got, ref):
+                fail(f"{tag} is not bitwise its plain version (payload and "
+                     f"scales)")
+            # the grouped wrapper checks ~200 tensors a call: its host
+            # time can pass the default wait
+            row = dict(err=0.0, ms=cuda_ms(fn, sleep=LONG_SLEEP_CYCLES),
+                       plain_ms=cuda_ms(plain, sleep=LONG_SLEEP_CYCLES),
+                       library_ms=None, library=None, copy_ms=None,
+                       bound=c["bound"], shape=c["shape"])
+            if pool == "bf16":
+                lib_args = c["new"]()
+                pk, pv, khs, vhs, pages = lib_args[:5]
+                n_pages, ps = pages.shape[0], pk[0].shape[1]
+                idx = pages.long()
+                pairs = list(zip(pk, khs)) + list(zip(pv, vhs))
+
+                def lib(pairs=pairs):
+                    for dst, slab in pairs:
+                        dst.index_copy_(0, idx, slab.view(
+                            n_pages, ps, *slab.shape[2:]))
+                lib()
+                torch.cuda.synchronize()
+                if not same_bytes(torch, lib_args, ref):
+                    fail(f"{tag}: index_copy_ does not write what the plain "
+                         f"version does")
+                src = torch.empty(sum(t.numel() for t in khs + vhs),
+                                  dtype=khs[0].dtype, device=khs[0].device)
+                dst = torch.empty_like(src)
+                row.update(library_ms=cuda_ms(lib, sleep=LONG_SLEEP_CYCLES),
+                           library="index_copy_ of the page-reshaped slab, "
+                                   "k and v of each layer",
+                           copy_ms=cuda_ms(lambda: dst.copy_(src)))
+                del lib_args, pairs, src, dst
+            rows[tag] = row
+            del c, got, ref
     return rows
 
 
@@ -737,7 +833,87 @@ def phase_check(torch, FFConfig, FFModel, llama_lm, kernels):
         f"{len(shared)} shared-prefix prompts x 8 tokens twice (int8 pool, "
         f"prefix cache: {sts[1]['prefix_hits']} hits of "
         f"{sts[1]['prefix_lookups']}) and once more (bf16 pool)")
+    check_routes(torch, FFConfig, FFModel, kernels)
     return launches
+
+
+#: the attention op's torch routes (shapes the flash kernels do not take):
+#: (q seq, kv seq, embed, heads, kv heads, vdim, causal, use_flash_attention)
+ROUTE_CASES = {
+    "head dim 48, GQA": (10, 10, 96, 2, 1, 0, True, True),
+    "q / v head dims 32 / 16": (9, 9, 64, 2, 0, 32, False, True),
+    "causal, 6 queries over 3 keys": (6, 3, 64, 1, 0, 0, True, True),
+    "use_flash_attention=False": (12, 12, 64, 2, 0, 0, True, False),
+    "blockwise, 4160 positions": (4160, 4160, 16, 2, 0, 0, True, True),
+}
+
+
+def check_routes(torch, FFConfig, FFModel, kernels):
+    """One small f32 case of each torch route on the card — the attention
+    op on shapes the flash kernels do not take, or under
+    use_flash_attention=False, and add + LayerNorm on rows the kernel does
+    not take (width 1004) — against the same op on the CPU: outputs within
+    2e-5, each gradient within 1e-4 of its largest value (the key bias's,
+    zero in exact arithmetic, below 1e-5 of the op's largest gradient),
+    and no launch of the kernels it routes around."""
+    def build(kind, b, case):
+        ff = FFModel(FFConfig(batch_size=b, use_flash_attention=case[-1]),
+                     device="cuda")
+        if kind == "attention":
+            sq, sk, e, h, kvh, vdim, causal, _ = case
+            q, kv = ff.create_tensor((b, sq, e)), ff.create_tensor((b, sk, e))
+            ff.multihead_attention(q, kv, kv, e, h, vdim=vdim, causal=causal,
+                                   num_kv_heads=kvh)
+            dims = (q.dims, kv.dims, kv.dims)
+        else:
+            x = ff.create_tensor((b, 5, 1004))
+            ff.add_layer_norm(x, x)
+            dims = (x.dims, x.dims)
+        ff.compile(final_tensor=ff.ops[-1].outputs[0])
+        return ff.ops[-1], ff.params[ff.ops[-1].name], dims
+
+    cases = [("attention", n, c) for n, c in ROUTE_CASES.items()]
+    cases.append(("add + LayerNorm", "width 1004", (True,)))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for kind, name, case in cases:
+        b = 1 if name.startswith("blockwise") else 2
+        op, params, dims = build(kind, b, case)
+        outs, grads = [], []
+        for dev in ("cuda", "cpu"):
+            ps = {k: v.detach().to(dev).requires_grad_()
+                  for k, v in params.items()}
+            if dev == "cuda":
+                xs = [torch.randn(*dm, device="cuda", generator=g)
+                      for dm in dims]
+                kernels.reset_launch_counts()
+            xl = [x.to(dev).requires_grad_() for x in xs]
+            out = op.forward(ps, xl, training=True)
+            if dev == "cuda":
+                cots = [torch.randn(o.shape, device="cuda", generator=g)
+                        for o in out]
+                launches = kernels.launch_counts()
+            outs.append([o.detach().cpu() for o in out])
+            grads.append([t.cpu() for t in torch.autograd.grad(
+                out, list(ps.values()) + xl, [c.to(dev) for c in cots])])
+        if any(launches.values()):
+            fail(f"route check {kind} ({name}) launched kernels: {launches}")
+        err = max((a - b).abs().max().item() for a, b in zip(*outs))
+        top = max(w.abs().max().item() for w in grads[1])
+        gerr = 0.0
+        for pname, a, w in zip(list(params) + ["inputs"] * len(dims),
+                               *grads):
+            scale = w.abs().max().item()
+            if pname == "bias_k":
+                if max(a.abs().max().item(), scale) > 1e-5 * top:
+                    fail(f"route check {kind} ({name}): the key bias's "
+                         f"gradient is not round-off")
+                continue
+            gerr = max(gerr, (a - w).abs().max().item() / scale)
+        if not (err <= 2e-5 and gerr <= 1e-4):
+            fail(f"route check {kind} ({name}): card vs CPU output {err} "
+                 f"(limit 2e-5), gradients {gerr} relative (limit 1e-4)")
+        say(f"check: {kind} torch route ({name}) on the card == CPU: output "
+            f"{err:.2e}, gradients {gerr:.2e} relative, no kernel launch")
 
 
 def build_flagship(port, device, dtype: str, seed: int, batch, seq, hidden,
@@ -823,7 +999,7 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     if any(o is None for o in outs) or st["completed"] != len(prompts):
         fail(f"serve: not every request finished with finite logits: {st}")
     want = {"flash_attention_fwd": layers * len(prompts),
-            "paged_prefill_write": layers * len(prompts),
+            "paged_prefill_write": len(prompts),
             "paged_attention_fwd": layers * st["decode_steps"],
             "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
     if launches != want:
@@ -873,7 +1049,7 @@ def _serve_round(torch, kernels, eng, prompts, layers):
              f"logits: {[r.state for r in reqs]}")
     cold = d["prefix_lookups"] - d["prefix_hits"]
     want = {"flash_attention_fwd": layers * cold,
-            "paged_prefill_write": layers * d["prefix_lookups"],
+            "paged_prefill_write": d["prefix_lookups"],
             "paged_attention_fwd": layers * d["decode_steps"],
             "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
     if launches != want:
@@ -1076,6 +1252,12 @@ KERNEL_ROWS = {
                                 "paged_attention_fwd"),
     "paged_prefill_write_fp8": ("paged_prefill_write.cu", 779, "serve_fp8",
                                 "paged_prefill_write"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}": (
+        "paged_prefill_write.cu", 779, "serve", "paged_prefill_write"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}_int8": (
+        "paged_prefill_write.cu", 779, "serve_int8", "paged_prefill_write"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}_fp8": (
+        "paged_prefill_write.cu", 779, "serve_fp8", "paged_prefill_write"),
     "paged_attention_fwd_mixed": ("paged_attention.cu", 689, "check_bf16",
                                   "paged_attention_fwd"),
     "paged_attention_fwd_long": ("paged_attention.cu", 689, "serve",
@@ -1134,7 +1316,8 @@ def main():
             "path": path, "launches": launches[path][wrapper],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "library": r["library"]})
+            "library_ms": r["library_ms"], "library": r["library"],
+            "copy_ms": r.get("copy_ms")})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

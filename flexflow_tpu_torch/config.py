@@ -48,9 +48,11 @@ class FFConfig:
     # residual add + LayerNorm as one fused op (models/transformer.py) —
     # the fused_add_layernorm kernel on the card
     use_fused_ln: bool = False
-    # later-slice knobs, kept with the JAX defaults (see module docstring);
-    # the dense attention path always runs the flash kernels on the card
+    # False sends the dense attention path to its einsum (or, past 4096
+    # positions, blockwise) torch route instead of the flash kernels, as
+    # in the JAX package
     use_flash_attention: bool = True
+    # later-slice knobs, kept with the JAX defaults (see module docstring)
     grad_accum_steps: int = 1
     scan_steps: int = 0
     checkpoint_dir: str = ""
@@ -133,9 +135,6 @@ class FFConfig:
 
 def check_training_ported(cfg: FFConfig) -> None:
     """Raise for a training knob set to a feature no slice has ported."""
-    if not cfg.use_flash_attention:
-        raise not_ported("the einsum attention path on the card "
-                         "(use_flash_attention=False)", where=ROADMAP_OPS)
     if cfg.grad_accum_steps != 1:
         raise not_ported("gradient accumulation (grad_accum_steps > 1)",
                          where=ROADMAP_TRAINING)

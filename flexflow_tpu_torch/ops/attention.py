@@ -10,9 +10,20 @@ Pallas kernel call the wrappers of ``ops/kernels.py``:
     with the lse, backward kernel under autograd),
   * ``prefill_forward`` -> ``flash_attention_fwd`` (the dense prompt pass),
   * ``paged_prefill_write`` -> ``paged_prefill_write`` (prompt k/v into
-    the pool, quantized into an int8 / fp8 pool),
+    the pool, quantized into an int8 / fp8 pool; the serving engine writes
+    every layer's at once through ``paged_prefill_write_layers``),
   * ``_paged_attention_ctx`` -> ``paged_attention_fwd`` (decode, over any
     pool: native, bf16 under f32, int8 / fp8 with scales).
+
+The dense paths choose their route from the shapes before they call a
+wrapper, as the JAX op's ``_flash_ok`` does: a shape the flash kernels
+take (``kernels.flash_attention_takes``) always goes to them; one they do
+not take (a head dim they are not built for, unequal q and v head dims,
+causal attention with more queries than keys), or any shape under
+``use_flash_attention=False``, goes to the JAX package's fallback in torch
+ops with autograd: the einsum branch, or past ``BLOCKWISE_SEQ_THRESHOLD``
+positions with equal head dims the blockwise online-softmax scan
+(``blockwise_attention``).
 
 A prefix-cache hit prefills its tail with ``chunk_forward`` and scores its
 last token with ``query_forward``: the grouped einsum attention, as in the
@@ -26,6 +37,7 @@ import math
 from typing import List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from flexflow_tpu_torch.config import ROADMAP_OPS, not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
@@ -140,6 +152,77 @@ def _apply_rope(x: torch.Tensor, theta: float,
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---- the dense route off the flash kernels (the JAX package's
+# attention.py:771-806 and parallel/ring_attention.py:44-73, :333-387) -----
+
+#: past this many queries or keys the torch route scans key blocks instead
+#: of materialising the (Sq, Sk) scores (the JAX BLOCKWISE_SEQ_THRESHOLD)
+BLOCKWISE_SEQ_THRESHOLD = 4096
+#: the blockwise scan's mask value (the JAX ring_attention NEG_INF)
+NEG_INF = -1e30
+
+
+def einsum_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                     causal: bool, scale: float) -> torch.Tensor:
+    """The JAX dense path's einsum branch (attention.py:794-806) on
+    (B, Sq, H, Dk) q, (B, Sk, H, Dk) k and (B, Sk, H, Dv) v: f32 logits, a
+    bottom-right causal mask filled with the f32 minimum (not -inf, so a
+    query row with no live key comes out uniform, as in JAX), softmax in
+    f32, the probabilities cast to q's dtype for the product with v."""
+    logits = torch.einsum("bqhk,bshk->bhqs", qh.float(), kh.float()) * scale
+    if causal:
+        sq, sk = logits.shape[-2], logits.shape[-1]
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=qh.device).tril(diagonal=sk - sq)
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(qh.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, vh)
+
+
+def _block_attend(q, k, v, m, l, o, scale: float, mask):
+    """One online-softmax step over a key block (the JAX ``_block_attend``,
+    ring_attention.py:44): q (B, Sq, H, D), k/v (B, Sk, H, D), running
+    max m and sum l (B, H, Sq) and output o (B, Sq, H, D), all f32."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return m_new, l_new, o * alpha.transpose(1, 2)[..., None] + pv
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float,
+                        block_size: int) -> torch.Tensor:
+    """Attention as a scan over key blocks of ``block_size`` with an online
+    softmax (the JAX ``blockwise_attention``, ring_attention.py:333): the
+    working set is one (Sq, block) score tile, never the (Sq, Sk) one.
+    Causal masking aligns bottom-right; a key length that ``block_size``
+    does not divide is one block. f32 accumulation, output in q's dtype."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, sq, h, v.shape[-1]), dtype=torch.float32,
+                    device=dev)
+    if sk <= block_size or sk % block_size:
+        block_size = sk
+    q_pos = torch.arange(sq, device=dev) + (sk - sq)
+    for start in range(0, sk, block_size):
+        mask = None
+        if causal:
+            k_pos = start + torch.arange(block_size, device=dev)
+            mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+        m, l, o = _block_attend(q, k[:, start:start + block_size],
+                                v[:, start:start + block_size], m, l, o,
+                                scale, mask)
+    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
 def paged_slot(page_table: torch.Tensor, write_pos: torch.Tensor,
@@ -275,18 +358,44 @@ class MultiHeadAttention(Op):
         return [self._out_proj(params,
                                self._dense_attention(qh, kh, vh, training))]
 
+    def _flash_ok(self, qh, kh, vh) -> bool:
+        """The flash kernels take these q/k/v and the config does not turn
+        them off (``use_flash_attention``) — the JAX ``_flash_ok``
+        (attention.py:737), with the port's kernels' own limits."""
+        cfg = getattr(self.model, "config", None)
+        if cfg is not None and not getattr(cfg, "use_flash_attention", True):
+            return False
+        return kernels.flash_attention_takes(qh, kh, vh, self.causal)
+
+    def _fallback_attention(self, qh, kh, vh):
+        """The JAX dense path off its flash kernel (attention.py:771-806)
+        on broadcast kv heads, in torch ops with autograd: past
+        ``BLOCKWISE_SEQ_THRESHOLD`` positions with equal head dims the
+        blockwise scan (key blocks of the first of 512 ... 8 that divides
+        Sk), recomputed in the backward (``torch.utils.checkpoint``, as
+        ``jax.checkpoint``); otherwise the einsum branch."""
+        sq, sk = qh.shape[1], kh.shape[1]
+        if max(sq, sk) > BLOCKWISE_SEQ_THRESHOLD \
+                and self.qk_head_dim == self.v_head_dim:
+            block = next((b for b in (512, 256, 128, 64, 32, 16, 8)
+                          if sk % b == 0), sk)
+            return torch.utils.checkpoint.checkpoint(
+                blockwise_attention, qh, kh, vh, self.causal, self.scale,
+                block, use_reentrant=False)
+        return einsum_attention(qh, kh, vh, self.causal, self.scale)
+
     def _dense_attention(self, qh, kh, vh, training):
-        """Always the flash wrapper: on the card its kernels, which raise
-        for a shape they do not take (a head dim they are not built for,
-        unequal q/v head dims, causal with more queries than keys); on the
-        CPU its plain version, the einsum-softmax branch of the JAX dense
-        path (attention.py:795-806)."""
+        """The flash autograd Function for the shapes its kernels take (on
+        the CPU its plain versions); the JAX fallback in torch ops for the
+        rest, and for every shape under ``use_flash_attention=False``."""
         if training and self.dropout > 0.0:
             raise not_ported(f"{self.name}: attention dropout in training "
                              f"(dropout={self.dropout})", where=ROADMAP_OPS)
-        return kernels.flash_attention(qh.contiguous(), kh.contiguous(),
-                                       vh.contiguous(), self.causal,
-                                       self.scale)
+        qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
+        if self._flash_ok(qh, kh, vh):
+            return kernels.flash_attention(qh, kh, vh, self.causal,
+                                           self.scale)
+        return self._fallback_attention(qh, kh, vh)
 
     # ---- contiguous per-request cache (prefill) ---------------------------
 
@@ -301,17 +410,22 @@ class MultiHeadAttention(Op):
 
     def prefill_forward(self, params, xs, cache, rope=None):
         """Whole-prompt forward that also fills ``cache[:, :S]`` (in
-        place). The prompt attends itself through the flash kernel; grouped
-        kv heads go to the kernel un-broadcast. ``rope``: the
+        place). The prompt attends itself through the flash kernel, grouped
+        kv heads un-broadcast, or, for a shape the kernel does not take,
+        through the dense path's torch route on broadcast kv heads (the JAX
+        ``prefill_forward``, attention.py:330). ``rope``: the
         ``rope_tables`` of positions 0..S-1, if the caller holds them."""
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
                                        rope=rope)
         s = qh.shape[1]
         cache["k"][:, :s] = kh
         cache["v"][:, :s] = vh
-        ctx = kernels.flash_attention_fwd(
-            qh.contiguous(), kh.contiguous(), vh.contiguous(), self.causal,
-            self.scale)
+        qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
+        if self._flash_ok(qh, kh, vh):
+            ctx = kernels.flash_attention_fwd(qh, kh, vh, self.causal,
+                                              self.scale)
+        else:
+            ctx = self._fallback_attention(qh, *self._broadcast_kv(kh, vh))
         return self._out_proj(params, ctx), cache
 
     def chunk_forward(self, params, xs, cache, start: int, rope=None):

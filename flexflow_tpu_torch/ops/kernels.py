@@ -5,15 +5,15 @@ counterpart of the JAX package's ``ops/pallas_kernels.py``).
 Five CUDA C++ kernels under ``flexflow_tpu_torch/csrc/`` replace the
 Pallas kernels the serving and training paths run:
 
-  ============================  =========================================
-  wrapper                       replaces (flexflow_tpu/ops/pallas_kernels.py)
-  ============================  =========================================
-  ``flash_attention_fwd``       ``flash_attention_fwd_pallas`` :180
-  ``flash_attention_bwd``       ``flash_attention_bwd_pallas`` :335
-  ``fused_add_layernorm_fwd``   ``fused_add_layernorm_fwd_pallas`` :461
-  ``paged_attention_fwd``       ``paged_attention_fwd_pallas`` :689
-  ``paged_prefill_write``       ``paged_prefill_write_pallas`` :779
-  ============================  =========================================
+  ==============================  =============================================
+  wrapper                         replaces (flexflow_tpu/ops/pallas_kernels.py)
+  ==============================  =============================================
+  ``flash_attention_fwd``         ``flash_attention_fwd_pallas`` :180
+  ``flash_attention_bwd``         ``flash_attention_bwd_pallas`` :335
+  ``fused_add_layernorm_fwd``     ``fused_add_layernorm_fwd_pallas`` :461
+  ``paged_attention_fwd``         ``paged_attention_fwd_pallas`` :689
+  ``paged_prefill_write_layers``  ``paged_prefill_write_pallas`` :779
+  ==============================  =============================================
 
 The two flash wrappers choose their kernels by dtype: bf16 runs on the
 tensor cores (``flash_attention_wgmma.cu``, ``flash_attention_bwd_wgmma.cu``:
@@ -28,7 +28,15 @@ page's k and v scales to its positions' scores and probabilities (the same
 as dequantizing each value), the prefill write quantizes each page against
 a fresh scale (the Pallas kernels' quantized bodies, :650-654 and
 :843-852). Paged attention splits the slots' positions across blocks
-(``paged_attention_plan``) and merges the splits in the same launch.
+(``paged_attention_plan``) and merges the splits in the same launch. The
+prefill write takes every layer of a prefill in one launch
+(``paged_prefill_write_layers``; ``paged_prefill_write`` is its one-layer
+case), where the JAX package writes a layer a call.
+
+``flash_attention_takes`` and ``fused_add_layernorm_takes`` state what the
+flash and add + LayerNorm kernels take, from the checks their wrappers
+make; the ops route the shapes they refuse to their own torch code, as the
+JAX ops route them off their Pallas kernels.
 
 ``flash_attention`` and ``fused_add_layernorm`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
@@ -175,16 +183,15 @@ class _Library:
                 lib.ff_paged_attention_fwd.argtypes = [
                     p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                     i, i, i, i, f, p]
-                lib.ff_paged_prefill_write.argtypes = [
-                    p, p, p, p, p, i, i, i, i, i, p]
-                lib.ff_paged_prefill_write_quant.argtypes = [
-                    p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+                pp = ctypes.POINTER(ctypes.c_void_p)
+                lib.ff_paged_prefill_write_layers.argtypes = [
+                    pp, pp, pp, pp, pp, pp, i, p, i, i, i, i, i, i, i, i, i,
+                    i, p]
                 for fn in (lib.ff_flash_attention_fwd,
                            lib.ff_flash_attention_bwd,
                            lib.ff_fused_add_layernorm_fwd,
                            lib.ff_paged_attention_fwd,
-                           lib.ff_paged_prefill_write,
-                           lib.ff_paged_prefill_write_quant):
+                           lib.ff_paged_prefill_write_layers):
                     fn.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
@@ -203,10 +210,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor):
-    """Every tensor on one CUDA device and contiguous; raise otherwise."""
-    dev = tensors[0].device
+    """Every tensor on one CUDA device and contiguous; raise otherwise.
+    (``is_cuda`` and ``get_device`` rather than ``device``, which builds
+    an object: the prefill write checks ~200 tensors a call.)"""
+    idx = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != idx:
             raise ValueError(
                 f"{name}: all tensors must lie on one CUDA device (got "
                 f"{[str(x.device) for x in tensors]})")
@@ -215,15 +224,7 @@ def _require_cuda(name: str, *tensors: torch.Tensor):
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
-def _require_tma_aligned(name: str, *tensors: torch.Tensor):
-    """The tensor-core (bf16) flash kernels read their tiles by TMA, which
-    needs 16-byte aligned base addresses; raise otherwise."""
-    if tensors[0].dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: bf16 tensors must be 16-byte aligned")
+    return all(t.is_cpu for t in tensors)
 
 
 # ------------------------------------------------------- flash attention
@@ -259,21 +260,49 @@ def flash_attention_plain(q, k, v, causal: bool, scale: float,
     return out
 
 
-def _check_attention(name, q, k, v):
-    """Dtypes, shapes and head dims the flash kernels take; raise on the
-    rest."""
+def _attention_refusal(q, k, v, causal: bool, *aligned) -> Optional[str]:
+    """Why the flash kernels do not take q/k/v (None if they do): dtypes
+    other than f32 / bf16 or not shared, k/v shapes that do not match q
+    (unequal q and v head dims among them), head dims they are not built
+    for, heads not a multiple of kv heads, causal attention with more
+    queries than keys, or (bf16, read by TMA) a tensor of q, k, v and
+    ``aligned`` not 16-byte aligned."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        return "q/k/v must be (B, S, H, D)"
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if q.dtype not in COMPUTE_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise ValueError(f"{name}: q/k/v must share a dtype in "
-                         f"{list(COMPUTE_DTYPES)}")
+        return f"q/k/v must share a dtype in {list(COMPUTE_DTYPES)}"
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
-        raise ValueError(f"{name}: k/v shapes {tuple(k.shape)}, "
-                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+        return (f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not match "
+                f"q {tuple(q.shape)}")
     if d not in HEAD_DIMS or h % kvh:
-        raise ValueError(f"{name}: head dim {d} (supported {HEAD_DIMS}) or "
-                         f"heads {h} not a multiple of kv heads {kvh}")
+        return (f"head dim {d} (supported {HEAD_DIMS}) or heads {h} not a "
+                f"multiple of kv heads {kvh}")
+    if causal and sq > sk:
+        return f"causal attention needs sq <= sk (got {sq} > {sk})"
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v) + aligned):
+        return "bf16 tensors must be 16-byte aligned"
+    return None
+
+
+def _check_attention(name, q, k, v, causal: bool, *aligned):
+    """Raise ``ValueError`` for q/k/v the flash kernels do not take."""
+    why = _attention_refusal(q, k, v, causal, *aligned)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+
+
+def flash_attention_takes(q, k, v, causal: bool) -> bool:
+    """Whether ``flash_attention_fwd`` (and, with kv heads equal to heads,
+    ``flash_attention_bwd``) launches its kernel for these q/k/v rather
+    than raise: the checks the wrappers make, from shapes, dtypes and
+    alignment alone. The attention op routes the shapes it refuses to its
+    own torch code, as the JAX op's ``_flash_ok`` routes them off its
+    Pallas kernel."""
+    return _attention_refusal(q, k, v, causal) is None
 
 
 def flash_attention_fwd(q, k, v, causal: bool, scale: float,
@@ -299,13 +328,9 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
         return flash_attention_plain(q, k, v, causal, scale, need_lse)
     name = "flash_attention_fwd"
     _require_cuda(name, q, k, v)
-    _check_attention(name, q, k, v)
-    _require_tma_aligned(name, q, k, v)
+    _check_attention(name, q, k, v, causal)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    if causal and sq > sk:
-        raise ValueError(f"{name}: causal attention needs sq <= sk "
-                         f"(got {sq} > {sk})")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
@@ -389,8 +414,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float, *,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                          delta=delta, dlse=dlse)
     _require_cuda(name, q, k, v, o, lse, do, *extra)
-    _check_attention(name, q, k, v)
-    _require_tma_aligned(name, q, k, v, do)
+    _check_attention(name, q, k, v, causal, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -400,9 +424,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float, *,
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"{name}: lse must be (B, H, Sq) f32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if causal and sq > sk:
-        raise ValueError(f"{name}: causal attention needs sq <= sk "
-                         f"(got {sq} > {sk})")
     lib = LIBRARY.get()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -475,6 +496,39 @@ def fused_add_layernorm_plain(x, r, scale, bias, eps: float):
     return s, y.to(s.dtype), mean, rstd
 
 
+def _add_layernorm_refusal(x, r, scale, bias) -> Optional[str]:
+    """Why the add + LayerNorm kernel does not take these (N, D) rows
+    (None if it does): dtypes other than f32 / bf16 or not shared, shapes
+    that do not match, a row width not a multiple of 8 or wider than the
+    4096 16-byte vectors a block holds, a tensor not 16-byte aligned."""
+    if x.dim() != 2:
+        return f"x must be (N, D) rows, got {tuple(x.shape)}"
+    d = x.shape[1]
+    if x.dtype not in COMPUTE_DTYPES or any(
+            t.dtype != x.dtype for t in (r, scale, bias)):
+        return (f"x, r, scale and bias must share a dtype in "
+                f"{list(COMPUTE_DTYPES)}")
+    if r.shape != x.shape or scale.shape != (d,) or bias.shape != (d,):
+        return (f"r {tuple(r.shape)} must match x {tuple(x.shape)}, "
+                f"scale/bias must be ({d},)")
+    if d % 8 or any(t.data_ptr() % 16 for t in (x, r, scale, bias)):
+        return (f"the row width ({d}) must be a multiple of 8 and every "
+                f"tensor 16-byte aligned")
+    if d * x.element_size() > 4096 * 16:
+        return (f"a row of {d} values exceeds the 4096 16-byte vectors one "
+                f"block holds")
+    return None
+
+
+def fused_add_layernorm_takes(x, r, scale, bias) -> bool:
+    """Whether ``fused_add_layernorm_fwd`` launches its kernel for these
+    rows rather than raise: the wrapper's checks, from shapes, dtypes and
+    alignment alone. ``AddLayerNorm`` sends the rows it refuses through its
+    own torch code, as the JAX op's ``_fused_ok`` sends them off its
+    Pallas kernel."""
+    return _add_layernorm_refusal(x, r, scale, bias) is None
+
+
 def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
                             need_stats: bool = True):
     """(N, D) rows: (s, y, mean, rstd) with s = x + r and y = LayerNorm(s)
@@ -495,20 +549,10 @@ def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
         return (s, y, mean, rstd) if need_stats else (s, y, None, None)
     name = "fused_add_layernorm_fwd"
     _require_cuda(name, x, r, scale, bias)
+    why = _add_layernorm_refusal(x, r, scale, bias)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     n, d = x.shape
-    if x.dtype not in COMPUTE_DTYPES or any(
-            t.dtype != x.dtype for t in (r, scale, bias)):
-        raise ValueError(f"{name}: x, r, scale and bias must share a dtype "
-                         f"in {list(COMPUTE_DTYPES)}")
-    if r.shape != x.shape or scale.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"{name}: r {tuple(r.shape)} must match x "
-                         f"{tuple(x.shape)}, scale/bias must be ({d},)")
-    if d % 8 or any(t.data_ptr() % 16 for t in (x, r, scale, bias)):
-        raise ValueError(f"{name}: the row width ({d}) must be a multiple "
-                         f"of 8 and every tensor 16-byte aligned")
-    if d * x.element_size() > 4096 * 16:
-        raise ValueError(f"{name}: a row of {d} values exceeds the 4096 "
-                         f"16-byte vectors one block holds")
     lib = LIBRARY.get()
     s = torch.empty_like(x)
     y = torch.empty_like(x)
@@ -856,6 +900,45 @@ def paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages, k_scale=None,
         sc[idx] = scale
 
 
+def paged_prefill_write_layers_plain(pools_k, pools_v, khs, vhs, pages,
+                                     k_scales=None, v_scales=None):
+    """Plain version of ``paged_prefill_write_layers``: the plain write of
+    each layer in turn."""
+    for i in range(len(pools_k)):
+        paged_prefill_write_plain(
+            pools_k[i], pools_v[i], khs[i], vhs[i], pages,
+            k_scales[i] if k_scales is not None else None,
+            v_scales[i] if v_scales is not None else None)
+
+
+#: layers one launch writes (csrc/paged_prefill_write.cu kMaxLayers: six
+#: pointers a layer, 3 KB of the kernel's 4 KB of parameters); more layers
+#: go in several launches
+PREFILL_WRITE_MAX_LAYERS = 64
+#: a quantizing CTA holds at most this many 16-value units of its tile in
+#: registers (csrc kQThreads x kQUnits)
+PREFILL_WRITE_CTA_UNITS = 1024
+
+
+def prefill_write_cluster(page_size: int, d: int) -> int:
+    """CTAs of a thread block cluster that a quantizing or casting write
+    gives each tile (layer, listed page, kv head, k-or-v) of page_size x d
+    values: the fewest of 1, 2, 4 and 8 whose registers hold it (1 up to
+    16384 values: a 128-row page of D = 128). From the shapes alone.
+    Splitting a tile that one CTA holds, to fill the card when a launch has
+    few tiles, was slower on the H100 (``scripts/
+    torch_prefill_write_cluster_sweep.py``, PERF.md). Raises for a tile
+    that 8 CTAs cannot hold."""
+    c = 1
+    while -(-page_size // c) * (d // 16) > PREFILL_WRITE_CTA_UNITS:
+        c *= 2
+        if c > 8:
+            raise ValueError(
+                f"paged_prefill_write: a page of {page_size} x {d} values "
+                f"exceeds what a cluster of 8 CTAs holds")
+    return c
+
+
 def paged_prefill_write(pool_k, pool_v, kh, vh, pages, k_scale=None,
                         v_scale=None):
     """Write a prefilled (1, S, KVH, D) k/v slab into pool pages ``pages``
@@ -864,31 +947,27 @@ def paged_prefill_write(pool_k, pool_v, kh, vh, pages, k_scale=None,
     a bf16 pool takes an f32 slab (a cast); an int8 / fp8 pool takes an f32
     or bf16 slab with its (P, KVH) f32 ``k_scale`` / ``v_scale`` planes,
     and each listed page gets a fresh per-kv-head scale (amax / qmax over
-    the page) and its quantized payload.
+    the page) and its quantized payload. The one-layer case of
+    ``paged_prefill_write_layers`` (the same kernel, one launch)."""
+    paged_prefill_write_layers(
+        [pool_k], [pool_v], [kh], [vh], pages,
+        [k_scale] if k_scale is not None else None,
+        [v_scale] if v_scale is not None else None)
 
-    Replaces ``paged_prefill_write_pallas`` (flexflow_tpu/ops/
-    pallas_kernels.py:779) with ``csrc/paged_prefill_write.cu``: one block
-    per (page, k-or-v) copies a page tile, or, quantizing, reduces the
-    page's amax per kv head and then quantizes it 16 values a thread. The
-    JAX kernel aliased the whole pool (and scale planes) to its output;
-    updating in place saves a pool copy per prefill. Bound on the H100:
-    bytes (slab read, pages written).
-    """
-    scales = tuple(t for t in (k_scale, v_scale) if t is not None)
-    tensors = (pool_k, pool_v, kh, vh, pages) + scales
-    if _on_cpu(*tensors):
-        return paged_prefill_write_plain(pool_k, pool_v, kh, vh, pages,
-                                         k_scale, v_scale)
-    name = "paged_prefill_write"
-    _require_cuda(name, *tensors)
+
+def _check_prefill_layer(name, pool_k, pool_v, kh, vh, k_scale, v_scale,
+                         pages):
+    """One layer's pools, slabs and scales as the kernel takes them, with
+    ``pages``; raise otherwise."""
     _check_scales(name, pool_k, pool_v, k_scale, v_scale)
     ps = pool_k.shape[1]
     s = kh.shape[1]
     n_pages = pages.shape[0]
-    if kh.shape[0] != 1 or kh.shape[2:] != pool_k.shape[2:] \
+    if kh.dim() != 4 or kh.shape[0] != 1 \
+            or kh.shape[2:] != pool_k.shape[2:] \
             or vh.shape[:2] != kh.shape[:2] \
             or vh.shape[2:] != pool_v.shape[2:] \
-            or pool_v.shape[:2] != pool_k.shape[:2]:
+            or pool_v.shape[:3] != pool_k.shape[:3]:
         raise ValueError(f"{name}: slab {tuple(kh.shape)} / "
                          f"{tuple(vh.shape)} does not fit pools "
                          f"{tuple(pool_k.shape)} / {tuple(pool_v.shape)}")
@@ -899,17 +978,8 @@ def paged_prefill_write(pool_k, pool_v, kh, vh, pages, k_scale=None,
                          f"{tuple(pages.shape)} {pages.dtype})")
     if vh.dtype != kh.dtype:
         raise ValueError(f"{name}: k and v slabs differ in dtype")
-    lib = LIBRARY.get()
     if kh.dtype == pool_k.dtype and k_scale is None:
-        row = lambda t: t.shape[2] * t.shape[3] * t.element_size()  # noqa: E731
-        with torch.cuda.device(pool_k.device):
-            _check(lib.ff_paged_prefill_write(
-                kh.data_ptr(), vh.data_ptr(), pool_k.data_ptr(),
-                pool_v.data_ptr(), pages.data_ptr(), n_pages, s, ps,
-                row(pool_k), row(pool_v), _stream(pool_k)), name)
-        paged_prefill_write.launches += 1
-        return
-    kvh, d = pool_k.shape[2], pool_k.shape[3]
+        return  # the copy: any dtype, any row size
     cast = pool_k.dtype == torch.bfloat16 and kh.dtype == torch.float32
     if kh.dtype not in COMPUTE_DTYPES or not (
             cast or pool_k.dtype in QUANT_DTYPES):
@@ -917,20 +987,87 @@ def paged_prefill_write(pool_k, pool_v, kh, vh, pages, k_scale=None,
                          f"a {pool_k.dtype} pool (copy: same dtype; cast: "
                          f"f32 into bf16; quantize: f32 / bf16 into int8 / "
                          f"fp8 with scales)")
-    if pool_v.shape != pool_k.shape or d % 16 or any(
+    if pool_v.shape != pool_k.shape or pool_k.shape[3] % 16 or any(
             t.data_ptr() % 16 for t in (kh, vh, pool_k, pool_v)):
         raise ValueError(f"{name}: a quantizing or casting write needs equal "
                          f"k/v head dims that are multiples of 16 and "
                          f"16-byte aligned tensors (pools "
                          f"{tuple(pool_k.shape)} / {tuple(pool_v.shape)})")
-    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    with torch.cuda.device(pool_k.device):
-        _check(lib.ff_paged_prefill_write_quant(
-            kh.data_ptr(), vh.data_ptr(), pool_k.data_ptr(),
-            pool_v.data_ptr(), ptr(k_scale), ptr(v_scale), pages.data_ptr(),
-            n_pages, s, ps, kvh, d, _DTYPE_CODES[kh.dtype],
-            _DTYPE_CODES[pool_k.dtype], _stream(pool_k)), name)
-    paged_prefill_write.launches += 1
+
+
+def paged_prefill_write_layers(pools_k, pools_v, khs, vhs, pages,
+                               k_scales=None, v_scales=None):
+    """``paged_prefill_write`` for every layer of a prefill at once: equal-
+    length lists of each layer's k/v pools, (1, S, KVH, D) k/v slabs and,
+    for int8 / fp8 pools, (P, KVH) f32 k/v scale planes, all written into
+    the same listed pages, IN PLACE. Every layer shares S, the page size,
+    KVH, D, the dtypes and ``pages``; the wrapper checks it and raises
+    otherwise.
+
+    Replaces ``paged_prefill_write_pallas`` (flexflow_tpu/ops/
+    pallas_kernels.py:779), which the JAX package calls once a layer, with
+    ``csrc/paged_prefill_write.cu``: one launch writes up to
+    ``PREFILL_WRITE_MAX_LAYERS`` layers, their pointers passed by value in
+    the kernel's parameters (more layers take one launch a chunk, each
+    counted). A copy moves each (layer, k-or-v, page) in the widest unit
+    the alignment allows, all loads in flight before the stores; a
+    quantizing or casting write takes one pass a tile (layer, page, kv
+    head, k-or-v): loads in flight, the amax reduced in registers, warps
+    and (for a tile too large for one CTA, ``prefill_write_cluster``)
+    distributed shared memory, the scale computed once and the payload
+    stored from the registers. The JAX kernel aliased the whole pool (and
+    scale planes) to its output; updating in place saves a pool copy per
+    prefill. Bound on the H100: bytes (slabs read, pages written).
+    """
+    name = "paged_prefill_write"
+    n = len(pools_k)
+    if n == 0 or not (len(pools_v) == len(khs) == len(vhs) == n) or any(
+            sc is not None and len(sc) != n for sc in (k_scales, v_scales)):
+        raise ValueError(f"{name}: pools, slabs and scales must be equal-"
+                         f"length lists of at least one layer")
+    ks = list(k_scales) if k_scales is not None else [None] * n
+    vs = list(v_scales) if v_scales is not None else [None] * n
+    layers = list(zip(pools_k, pools_v, khs, vhs, ks, vs))
+    flat = [t for layer in layers for t in layer if t is not None]
+    if _on_cpu(pages, *flat):
+        return paged_prefill_write_layers_plain(pools_k, pools_v, khs, vhs,
+                                                pages, k_scales, v_scales)
+    _require_cuda(name, pages, *flat)
+    pk0, pv0, kh0, vh0 = layers[0][:4]
+    _check_prefill_layer(name, *layers[0], pages)
+    for i in range(1, n):
+        if any((a is None) != (b is None) or (a is not None and (
+                a.shape != b.shape or a.dtype != b.dtype))
+               for a, b in zip(layers[i], layers[0])):
+            raise ValueError(f"{name}: layer {i} differs from layer 0 in "
+                             f"shape, dtype or scales; every layer of one "
+                             f"call must match")
+    ps, kvh, dk = pk0.shape[1:]
+    dv = pv0.shape[3]
+    s, n_pages = kh0.shape[1], pages.shape[0]
+    copy = kh0.dtype == pk0.dtype and ks[0] is None
+    if not copy and any(t.data_ptr() % 16 for layer in layers[1:]
+                        for t in layer[:4]):
+        raise ValueError(f"{name}: a quantizing or casting write needs "
+                         f"16-byte aligned tensors")
+    lib = LIBRARY.get()
+    stream = _stream(pk0)
+    cluster = 1 if copy else prefill_write_cluster(ps, dk)
+    pool_code = -1 if copy else _DTYPE_CODES[pk0.dtype]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
+        *(t.data_ptr() for t in ts))
+    for lo in range(0, n, PREFILL_WRITE_MAX_LAYERS):
+        hi = min(n, lo + PREFILL_WRITE_MAX_LAYERS)
+        with torch.cuda.device(pk0.device):
+            _check(lib.ff_paged_prefill_write_layers(
+                ptrs(khs[lo:hi]), ptrs(vhs[lo:hi]), ptrs(pools_k[lo:hi]),
+                ptrs(pools_v[lo:hi]),
+                ptrs(ks[lo:hi]) if ks[0] is not None else None,
+                ptrs(vs[lo:hi]) if vs[0] is not None else None, hi - lo,
+                pages.data_ptr(), n_pages, s, ps, kvh, dk, dv,
+                kh0.element_size(), _DTYPE_CODES.get(kh0.dtype, -1),
+                pool_code, cluster, stream), name)
+        paged_prefill_write.launches += 1
 
 
 paged_prefill_write.launches = 0

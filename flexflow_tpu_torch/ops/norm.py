@@ -46,10 +46,13 @@ class LayerNorm(Op):
 
 class AddLayerNorm(Op):
     """Fused residual add + LayerNorm: (s, y) = (x + r, LN(x + r)), two
-    outputs, through the ``fused_add_layernorm`` wrapper: on the card its
-    kernel (one pass: the sum never round-trips device memory before the
-    norm reads it), which raises for a row it does not take; on the CPU
-    its plain version, the JAX f32-stats branch (norm.py:189-197)."""
+    outputs. Rows the kernel takes (``kernels.fused_add_layernorm_takes``)
+    go through the ``fused_add_layernorm`` wrapper: on the card its kernel
+    (one pass: the sum never round-trips device memory before the norm
+    reads it), on the CPU its plain version. Rows it does not take (a
+    width not a multiple of 8, or too wide for one block) run the JAX
+    op's plain branch (norm.py:189-197) in torch ops, as the JAX op routes
+    the rows its ``_fused_ok`` refuses."""
 
     op_type = OperatorType.OP_LAYERNORM
 
@@ -73,12 +76,21 @@ class AddLayerNorm(Op):
 
     def forward(self, params, xs, *, training=False):
         x, r = xs[0], xs[1]
-        shape = x.shape
-        s2, y2 = kernels.fused_add_layernorm(
-            x.reshape(-1, self.dim).contiguous(),
-            r.reshape(-1, self.dim).contiguous(), params["scale"],
-            params["bias"], self.eps)
-        return [s2.reshape(shape), y2.reshape(shape)]
+        scale, bias = params["scale"], params["bias"]
+        x2 = x.reshape(-1, self.dim).contiguous()
+        r2 = r.reshape(-1, self.dim).contiguous()
+        if kernels.fused_add_layernorm_takes(x2, r2, scale, bias):
+            s2, y2 = kernels.fused_add_layernorm(x2, r2, scale, bias,
+                                                 self.eps)
+            return [s2.reshape(x.shape), y2.reshape(x.shape)]
+        # the JAX plain branch: the sum in the input dtype, f32 statistics
+        s = x + r
+        sf = s.float()
+        mean = sf.mean(dim=-1, keepdim=True)
+        var = sf.var(dim=-1, keepdim=True, correction=0)
+        y = ((sf - mean) * torch.rsqrt(var + self.eps) * scale.float()
+             + bias.float())
+        return [s, y.to(s.dtype)]
 
 
 class RMSNorm(Op):

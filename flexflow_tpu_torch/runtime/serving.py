@@ -590,12 +590,18 @@ class ServingEngine:
     def _scatter_tail(self, caches, pages: torch.Tensor, p0: int = 0):
         """Copy-on-write scatter: write each attention op's contiguous
         cache past position ``p0`` into ``pages`` — the request's own fresh
-        pages, never shared ones (the prefill-write kernel). ``p0 = 0`` is
-        the cold (whole-bucket) case."""
-        for op in self.gen.attn_ops:
-            op.paged_prefill_write(self.pool[op.name],
-                                   caches[op.name]["k"][:, p0:],
-                                   caches[op.name]["v"][:, p0:], pages)
+        pages, never shared ones. Every layer's cache is ready, so one
+        prefill-write launch writes them all. ``p0 = 0`` is the cold
+        (whole-bucket) case."""
+        ops = self.gen.attn_ops
+        pools = [self.pool[op.name] for op in ops]
+        scales = {n: [p[n] for p in pools] if n in pools[0] else None
+                  for n in ("k_scale", "v_scale")}
+        kernels.paged_prefill_write_layers(
+            [p["k"] for p in pools], [p["v"] for p in pools],
+            [caches[op.name]["k"][:, p0:] for op in ops],
+            [caches[op.name]["v"][:, p0:] for op in ops], pages,
+            scales["k_scale"], scales["v_scale"])
 
     def _first_token(self, logits):
         logits = logits[:, -1]                             # (1, V)

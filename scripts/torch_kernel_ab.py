@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time this checkout's paged-attention and add + LayerNorm kernels beside
-another checkout's (the parent commit's, say) on one card, in turns.
+"""Time this checkout's paged-attention, add + LayerNorm and prefill-write
+kernels beside another checkout's (the parent commit's, say) on one card,
+in turns.
 
     python3 scripts/torch_kernel_ab.py --other DIR [--rounds 3] [--serve N]
         [--out FILE]
@@ -21,13 +22,18 @@ also prints each wrapper's host time a call (other, this, this, other; the
 card held busy meanwhile), which a host-bound decode step pays per layer.
 
 Cases: add + LayerNorm at the flagship's training shape ((4096, 4096) bf16
-rows with stats), and paged attention over the native, int8, fp8 and
+rows with stats), paged attention over the native, int8, fp8 and
 mixed-width pools at the serving shape and over the native, int8 and fp8
-pools at ~8000 live positions a slot (``chip_smoke.paged_case``). With
+pools at ~8000 live positions a slot (``chip_smoke.paged_case``), and the
+prefill write of a 512-token slab into native, int8 and fp8 pools for one
+layer and for 32 layers (``chip_smoke.prefill_write_case``): this
+checkout's ``paged_prefill_write_layers`` (one launch) against the other
+checkout's ``paged_prefill_write`` once a layer (32 launches, timed after
+a ~10 ms device wait so that their host time lies behind it too). With
 ``--serve N`` it also serves chip_smoke.py's Llama-3-8B-width model from a
-native and an int8 pool, swapping the two checkouts' paged-attention
-wrappers in one process, A B B A N times (``serve_ab``). Writes the
-numbers as JSON to FILE (default build/kernel_ab.json).
+native and an int8 pool, swapping the two checkouts' prefill writes in one
+process, A B B A N times (``serve_ab``: wall time, TTFT, decode step).
+Writes the numbers as JSON to FILE (default build/kernel_ab.json).
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ def main():
     ap.add_argument("--serve", type=int, default=0, metavar="ROUNDS",
                     help="also serve chip_smoke.py's Llama-3-8B-width model "
                          "ROUNDS times A B B A per KV pool, with this and "
-                         "the other checkout's paged-attention kernel")
+                         "the other checkout's prefill write")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_ab.json")
     args = ap.parse_args()
@@ -96,7 +102,8 @@ def main():
         torch.cuda.synchronize()
         return t
 
-    def run_case(name, fns, check, plain, library, bnd, shape):
+    def run_case(name, fns, check, plain, library, bnd, shape,
+                 library_name="x + r, F.layer_norm", sleep=cs.SLEEP_CYCLES):
         for tag, fn in (("other", fns[0]), ("this", fns[1])):
             err, limit = check(fn())
             if not err <= limit:
@@ -104,8 +111,8 @@ def main():
                         f"version: err {err} (limit {limit})")
         times = {"other": [], "this": []}
         for _ in range(args.rounds):
-            times["other"].append(cs.cuda_ms(fns[0]))
-            times["this"].append(cs.cuda_ms(fns[1]))
+            times["other"].append(cs.cuda_ms(fns[0], sleep=sleep))
+            times["this"].append(cs.cuda_ms(fns[1], sleep=sleep))
         med = {k: statistics.median(v) for k, v in times.items()}
         host = [host_us(fn) for fn in (fns[0], fns[1], fns[1], fns[0])]
         row = dict(name=name, shape=shape, card=card,
@@ -113,8 +120,9 @@ def main():
                    other_host_us=(host[0] + host[3]) / 2,
                    this_host_us=(host[1] + host[2]) / 2,
                    other_rounds=times["other"], this_rounds=times["this"],
-                   plain_ms=cs.cuda_ms(plain),
-                   library_ms=cs.cuda_ms(library) if library else None,
+                   plain_ms=cs.cuda_ms(plain, sleep=sleep),
+                   library_ms=(cs.cuda_ms(library, sleep=sleep) if library
+                               else None),
                    bound_ms=bnd[0], bound_by=bnd[1])
         results.append(row)
         cs.say(f"ab {name}: {shape}: this {row['this_ms']:.4f} ms "
@@ -122,7 +130,7 @@ def main():
                f"{row['other_ms']:.4f} ms ({100 * bnd[0] / row['other_ms']:.1f}"
                f"%), {row['other_ms'] / row['this_ms']:.2f}x; bound "
                f"{bnd[0]:.4f} ms by {bnd[1]}; plain {row['plain_ms']:.4f} ms"
-               + (f"; x + r, F.layer_norm {row['library_ms']:.4f} ms"
+               + (f"; {library_name} {row['library_ms']:.4f} ms"
                   if library else "")
                + f"; host a call: this {row['this_host_us']:.1f} us, other "
                f"{row['other_host_us']:.1f} us"
@@ -183,6 +191,7 @@ def main():
                  None, c["bound"], c["shape"])
         del c, pref
 
+    prefill_write_ab(torch, cs, this, other, g, run_case)
     if args.serve:
         results.extend(serve_ab(torch, cs, this, other, card, args.serve))
     args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -190,12 +199,61 @@ def main():
     cs.say(f"ab: {len(results)} cases -> {args.out}")
 
 
+def prefill_write_ab(torch, cs, this, other, g, run_case):
+    """The prefill write (kernel 5) at chip_smoke.py's phase-3 shapes, one
+    layer and 32: this checkout's grouped wrapper against the other's
+    single-layer wrapper called once a layer, both bitwise the plain
+    version; the native cases also time index_copy_ of the page-reshaped
+    slabs (k and v of each layer)."""
+    for suffix, pool in cs.WRITE_POOLS:
+        for n_layers in (1, cs.WRITE_LAYERS):
+            c = cs.prefill_write_case(torch, g, pool, n_layers)
+            ref = c["new"]()
+            this.paged_prefill_write_layers_plain(*ref)
+
+            def other_fn(a=c["new"](), n=n_layers):
+                for i in range(n):
+                    other.paged_prefill_write(
+                        a[0][i], a[1][i], a[2][i], a[3][i], a[4],
+                        *(x[i] if x else None for x in a[5:]))
+                return a
+
+            def this_fn(a=c["new"]()):
+                this.paged_prefill_write_layers(*a)
+                return a
+
+            def check(a, ref=ref):
+                torch.cuda.synchronize()
+                return (0.0 if cs.same_bytes(torch, a, ref)
+                        else float("inf")), 0.0
+
+            library = None
+            if pool == "bf16":
+                pk, pv, khs, vhs, pages = c["new"]()[:5]
+                shape = (pages.shape[0], pk[0].shape[1], *khs[0].shape[2:])
+                pairs = list(zip(pk, khs)) + list(zip(pv, vhs))
+
+                def library(pairs=pairs, idx=pages.long(), shape=shape):
+                    for dst, slab in pairs:
+                        dst.index_copy_(0, idx, slab.view(shape))
+
+            tag = "" if n_layers == 1 else f"_layers{n_layers}"
+            run_case(f"paged_prefill_write{tag}{suffix}", [other_fn, this_fn],
+                     check, lambda a=c["new"](): (
+                         this.paged_prefill_write_layers_plain(*a)),
+                     library, c["bound"], c["shape"],
+                     library_name="index_copy_ (k and v a layer)",
+                     sleep=cs.LONG_SLEEP_CYCLES)
+            del c, ref
+
+
 def serve_ab(torch, cs, this, other, card, rounds):
     """chip_smoke.py phase 6's model and prompts served from a native and
     an int8 pool, alternating (A B B A, ``rounds`` times) between this
-    checkout's paged-attention wrapper and the other's, swapped in one
-    process (so the host's speed, which varies between processes, is the
-    same for both): each serve's wall time and decode step."""
+    checkout's prefill write (one launch for every layer) and the other's
+    (one launch a layer), swapped in one process (so the host's speed,
+    which varies between processes, is the same for both): each serve's
+    wall time, TTFT p50 and decode step."""
     import numpy as np
 
     from flexflow_tpu_torch import FFConfig, FFModel
@@ -206,7 +264,16 @@ def serve_ab(torch, cs, this, other, card, rounds):
     rs = np.random.RandomState(0)
     prompts = [rs.randint(0, cs.LLAMA3_8B["vocab_size"], size=n)
                .astype(np.int32) for n in cs.PROMPT_LENS]
-    own = this.paged_attention_fwd
+    own = this.paged_prefill_write_layers
+
+    def per_layer(pools_k, pools_v, khs, vhs, pages, k_scales=None,
+                  v_scales=None):
+        for i in range(len(pools_k)):
+            other.paged_prefill_write(
+                pools_k[i], pools_v[i], khs[i], vhs[i], pages,
+                k_scales[i] if k_scales is not None else None,
+                v_scales[i] if v_scales is not None else None)
+
     out = []
     for kv in ("native", "int8"):
         knobs = {} if kv == "native" else dict(kv_cache_dtype="int8")
@@ -215,12 +282,12 @@ def serve_ab(torch, cs, this, other, card, rounds):
         times = {"this": [], "other": []}
         for _ in range(rounds):
             for tag in ("other", "this", "this", "other"):
-                this.paged_attention_fwd = (
-                    own if tag == "this" else other.paged_attention_fwd)
+                this.paged_prefill_write_layers = (
+                    own if tag == "this" else per_layer)
                 before = eng.stats()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                eng.run(prompts, max_new_tokens=cs.MAX_NEW)
+                reqs = eng.run(prompts, max_new_tokens=cs.MAX_NEW)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 st = eng.stats()
@@ -228,20 +295,24 @@ def serve_ab(torch, cs, this, other, card, rounds):
                 step_ms = (st["decode_step_ms"] * st["decode_steps"]
                            - before["decode_step_ms"]
                            * before["decode_steps"]) / max(1, steps)
-                times[tag].append((wall * 1e3, step_ms))
-        this.paged_attention_fwd = own
-        med = {k: (statistics.median(w for w, _ in v),
-                   statistics.median(d for _, d in v))
+                ttft = statistics.median(r.ttft * 1e3 for r in reqs)
+                times[tag].append((wall * 1e3, ttft, step_ms))
+        this.paged_prefill_write_layers = own
+        med = {k: [statistics.median(x[i] for x in v) for i in range(3)]
                for k, v in times.items()}
         out.append(dict(name=f"serve_{kv}", card=card, rounds=times,
                         this_wall_ms=med["this"][0],
                         other_wall_ms=med["other"][0],
-                        this_step_ms=med["this"][1],
-                        other_step_ms=med["other"][1]))
+                        this_ttft_p50_ms=med["this"][1],
+                        other_ttft_p50_ms=med["other"][1],
+                        this_step_ms=med["this"][2],
+                        other_step_ms=med["other"][2]))
         cs.say(f"ab serve {kv} pool: wall this {med['this'][0]:.1f} ms, "
-               f"other {med['other'][0]:.1f} ms; decode step this "
-               f"{med['this'][1]:.2f} ms, other {med['other'][1]:.2f} ms "
-               f"(medians of {2 * rounds}, A B B A) [{card}]")
+               f"other {med['other'][0]:.1f} ms; TTFT p50 this "
+               f"{med['this'][1]:.1f} ms, other {med['other'][1]:.1f} ms; "
+               f"decode step this {med['this'][2]:.2f} ms, other "
+               f"{med['other'][2]:.2f} ms (medians of {2 * rounds}, A B B A)"
+               f" [{card}]")
         del eng
     return out
 

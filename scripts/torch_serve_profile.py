@@ -10,9 +10,10 @@ with the given KV-pool and weight storage: once to warm up, once timed
 without the profiler, once under torch.profiler (CPU and CUDA activities).
 Prints:
 
-  * the timed serve's wall time, the device's busy time in the profiled
-    serve (the union of kernel intervals on the card), and from the two
-    the device's idle share;
+  * the timed serve's wall time and TTFT p50 / p99, the device's busy
+    time in the profiled serve (the union of kernel intervals on the
+    card), and from the two the device's idle share;
+  * the prefill write kernels' device time and launches;
   * the top operators by device time and by host time.
 
 With ``--ab ROUNDS`` it instead serves the prompts in ROUNDS of four,
@@ -128,11 +129,17 @@ def main():
         wall_prof = (time.perf_counter() - t0) * 1e3
     busy = chip_smoke.busy_ms(prof.events())
     print(f"layers {args.layers}, kv {args.kv_cache_dtype}, weights "
-          f"{args.weight_dtype}: serve {wall:.1f} ms wall (decode step "
-          f"{st['decode_step_ms']:.2f} ms over {st['decode_steps']} steps); "
+          f"{args.weight_dtype}: serve {wall:.1f} ms wall (TTFT p50 "
+          f"{st['ttft_p50_ms']:.1f} ms, p99 {st['ttft_p99_ms']:.1f} ms; "
+          f"decode step {st['decode_step_ms']:.2f} ms over "
+          f"{st['decode_steps']} steps); "
           f"under the profiler {wall_prof:.1f} ms wall, device busy "
           f"{busy:.1f} ms; idle share {1 - busy / wall:.3f} [{card}]")
     ka = prof.key_averages()
+    write = [e for e in ka if "prefill_" in e.key and e.device_time_total]
+    print(f"prefill write kernels: "
+          f"{sum(e.device_time_total for e in write) / 1e3:.3f} ms of device "
+          f"time over {sum(e.count for e in write)} launches [{card}]")
     print(ka.table(sort_by="cuda_time_total", row_limit=25))
     print(ka.table(sort_by="self_cpu_time_total", row_limit=25))
 

@@ -33,6 +33,9 @@ kernels by tests/test_torch_kernels.py and
 tests/test_torch_quantized_serving.py.
 """
 
+import ctypes
+import math
+
 import pytest
 import torch
 
@@ -466,49 +469,125 @@ def test_add_layernorm_refuses_unsupported_rows(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,runs", [(1000, True), (1004, False)],
-                         ids=["d1000_unaligned_kernel", "d1004_refused"])
+                         ids=["d1000_unaligned_kernel", "d1004_torch_route"])
 def test_add_layernorm_op_on_card_never_runs_plain(cuda, dim, runs):
-    """The op sends every CUDA row to the kernel: a width that is no
-    multiple of 128 launches it, one the kernel does not take raises."""
+    """The op sends every CUDA row the kernel takes to it (a width that is
+    no multiple of 128 launches it) and never to the plain version; a row
+    it does not take (1004, not a multiple of 8) launches nothing and runs
+    the op's torch route, the JAX plain branch: output and gradients as
+    the same op on the CPU."""
     ff = FFModel(FFConfig(batch_size=2), device="cuda")
     t = ff.create_tensor((2, 5, dim))
     ff.add_layer_norm(t, t)
     ff.compile(final_tensor=ff.ops[-1].outputs[0])
     op = ff.ops[-1]
     params = ff.params[op.name]
-    x = torch.randn(2, 5, dim, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 5, dim, device=cuda, generator=g)
+    r = torch.randn(2, 5, dim, device=cuda, generator=g)
+    assert kernels.fused_add_layernorm_takes(
+        x.reshape(-1, dim), r.reshape(-1, dim), params["scale"],
+        params["bias"]) == runs
     n0 = kernels.fused_add_layernorm_fwd.launches
-    if not runs:
-        with pytest.raises(ValueError, match="multiple of 8"):
-            op.forward(params, [x, x])
-        return
-    s, y = op.forward(params, [x, x])
-    assert kernels.fused_add_layernorm_fwd.launches == n0 + 1
-    rs, ry, _, _ = kernels.fused_add_layernorm_plain(
-        x.reshape(-1, dim), x.reshape(-1, dim), params["scale"],
-        params["bias"], op.eps)
-    torch.testing.assert_close(y.reshape(-1, dim), ry, rtol=1e-5, atol=1e-4)
+    leaves = [x.clone().requires_grad_(), r.clone().requires_grad_()]
+    s, y = op.forward(params, leaves)
+    assert kernels.fused_add_layernorm_fwd.launches == n0 + runs
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    rs, ry = op.forward(cpu_params, cpu)
+    torch.testing.assert_close(s.cpu(), rs.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(y.cpu(), ry.detach(), rtol=1e-5, atol=1e-4)
+    cot = torch.randn(2, 5, dim, generator=torch.Generator().manual_seed(5))
+    got = torch.autograd.grad((y * cot.to(cuda)).sum() + s.sum(), leaves)
+    want = torch.autograd.grad((ry * cot).sum() + rs.sum(), cpu)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+#: (q seq, kv seq, embed, heads, kv heads, vdim, causal, use_flash_attention)
+ROUTE_CASES = {
+    "head_dim_64_kernel": (100, 100, 128, 2, 1, 0, True, True),
+    "head_dim_48": (10, 10, 96, 2, 1, 0, True, True),
+    "kdim_ne_vdim": (9, 9, 64, 2, 0, 32, False, True),
+    "causal_sq_gt_sk": (6, 3, 64, 1, 0, 0, True, True),
+    "flash_off": (12, 12, 64, 2, 0, 0, True, False),
+    "blockwise": (4160, 4160, 16, 2, 0, 0, True, True),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,causal,sk", [(2, False, 6), (1, True, 3)],
-                         ids=["head_dim_48", "causal_sq_gt_sk"])
-def test_attention_op_on_card_refuses_unsupported_shapes(cuda, heads, causal,
-                                                         sk):
-    """A head dim the flash kernels are not built for (96 / 2 = 48), or
-    causal attention with more queries than keys, raises on the card
-    instead of running the einsum path."""
-    ff = FFModel(FFConfig(batch_size=2), device="cuda")
-    q = ff.create_tensor((2, 6, 96 if heads == 2 else 64))
-    kv = ff.create_tensor((2, sk, q.dims[-1]))
-    ff.multihead_attention(q, kv, kv, q.dims[-1], heads, causal=causal)
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_attention_op_on_card_refuses_unsupported_shapes(cuda, case):
+    """Route, not refusal: a shape the flash kernels take (head dim 64,
+    GQA) launches the forward and backward kernels; a shape they do not
+    take (head dim 96 / 2 = 48, q and v head dims 32 and 16, causal with
+    more queries than keys), any shape under use_flash_attention=False,
+    and the blockwise scan past 4096 positions launch nothing and run the
+    op's torch route. Output and every gradient as the same op on the CPU
+    (f32: 2e-5, sums in other orders)."""
+    sq, sk, e, h, kvh, vdim, causal, flash = ROUTE_CASES[case]
+    b = 1 if case == "blockwise" else 2
+    ff = FFModel(FFConfig(batch_size=b, use_flash_attention=flash),
+                 device="cuda")
+    q = ff.create_tensor((b, sq, e))
+    kv = ff.create_tensor((b, sk, e))
+    ff.multihead_attention(q, kv, kv, e, h, vdim=vdim, causal=causal,
+                           num_kv_heads=kvh)
     ff.compile(final_tensor=ff.ops[-1].outputs[0])
     op = ff.ops[-1]
-    xs = [torch.randn(*t.dims, device=cuda) for t in (q, kv, kv)]
-    n0 = kernels.flash_attention_fwd.launches
-    with pytest.raises(ValueError, match="head dim|sq <= sk"):
-        op.forward(ff.params[op.name], xs)
-    assert kernels.flash_attention_fwd.launches == n0
+    params = {k: v.clone().requires_grad_()
+              for k, v in ff.params[op.name].items()}
+    g = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn(*t.dims, device=cuda, generator=g).requires_grad_()
+          for t in (q, kv, kv)]
+    kernels.reset_launch_counts()
+    out = op.forward(params, xs, training=True)[0]
+    cot = torch.randn(out.shape, device=cuda, generator=g)
+    grads = torch.autograd.grad(out, list(params.values()) + xs, cot)
+    runs = case == "head_dim_64_kernel"
+    assert kernels.flash_attention_fwd.launches == runs
+    assert kernels.flash_attention_bwd.launches == runs
+    cparams = {k: v.detach().cpu().requires_grad_()
+               for k, v in params.items()}
+    cxs = [x.detach().cpu().requires_grad_() for x in xs]
+    ref = op.forward(cparams, cxs, training=True)[0]
+    want = torch.autograd.grad(ref, list(cparams.values()) + cxs, cot.cpu())
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), **TOL)
+    # the key bias's true gradient is zero (the softmax ignores a shift
+    # shared by every key): both devices return round-off for it
+    top = max(w.abs().max().item() for w in want)
+    for name, a, w in zip(list(params) + ["q", "k", "v"], grads, want):
+        err = (a.cpu() - w).abs().max().item()
+        if name == "bias_k":
+            assert max(a.abs().max().item(), w.abs().max().item()) \
+                <= 1e-5 * top
+        else:
+            assert err <= 1e-4 * w.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_predicate_agrees_with_the_wrapper(cuda, dtype):
+    """``flash_attention_takes`` is True exactly where the forward wrapper
+    launches rather than raise."""
+    shapes = [  # (Sq, Sk, H, KVH, Dq, Dv, causal)
+        (8, 8, 2, 2, 64, 64, True), (8, 8, 2, 1, 48, 48, False),
+        (8, 8, 2, 2, 64, 32, False), (9, 3, 2, 2, 64, 64, True),
+        (9, 3, 2, 2, 64, 64, False), (8, 8, 3, 2, 64, 64, False),
+        (1, 8, 4, 2, 128, 128, True)]
+    for sq, sk, h, kvh, dq, dv, causal in shapes:
+        q = torch.zeros(1, sq, h, dq, device=cuda, dtype=dtype)
+        k = torch.zeros(1, sk, kvh, dq, device=cuda, dtype=dtype)
+        v = torch.zeros(1, sk, kvh, dv, device=cuda, dtype=dtype)
+        takes = kernels.flash_attention_takes(q, k, v, causal)
+        n0 = kernels.flash_attention_fwd.launches
+        try:
+            kernels.flash_attention_fwd(q, k, v, causal, 0.125)
+            raised = False
+        except ValueError:
+            raised = True
+        assert takes != raised
+        assert kernels.flash_attention_fwd.launches == n0 + takes
 
 
 # ---- quantized and mixed-width pools ---------------------------------------
@@ -641,6 +720,194 @@ def test_quantized_prefill_write_kernel_bitwise(cuda, slab, pool, geom):
     if quant:
         assert torch.equal(ks.view(torch.int32), ref[2].view(torch.int32))
         assert torch.equal(vs.view(torch.int32), ref[3].view(torch.int32))
+
+
+# ---- the prefill write of every layer in one launch -----------------------
+
+#: (slab dtype, pool dtype): the copy (f32, bf16), the cast, the quantizing
+#: writes from f32 and bf16 slabs
+GROUP_POOLS = [(torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16),
+               (torch.float32, torch.int8), (torch.bfloat16, torch.int8),
+               (torch.float32, torch.float8_e4m3fn),
+               (torch.bfloat16, torch.float8_e4m3fn)]
+GROUP_IDS = ["f32", "bf16", "cast", "f32_int8", "bf16_int8", "f32_fp8",
+             "bf16_fp8"]
+
+
+def _poisoned_layers(cuda, seed, n_layers, slab, pool, s, ps=128, kvh=8,
+                     d=128, extra=5):
+    """``n_layers`` layers of pools (and scale planes) full of random
+    bytes — NaN and inf patterns included — and random slabs, with the
+    page list of an S-position prefill listed out of order: (pools_k,
+    pools_v, slabs_k, slabs_v, k_scales, v_scales, pages)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_pages = -(-s // ps)
+    n_pool = n_pages + extra
+    shape = (n_pool, ps, kvh, d)
+    nbytes = math.prod(shape) * torch.tensor([], dtype=pool).element_size()
+
+    def poison(shape_, dtype, n):
+        return torch.randint(0, 256, (n,), device=cuda, generator=g,
+                             dtype=torch.uint8).view(dtype).view(shape_)
+
+    pk = [poison(shape, pool, nbytes) for _ in range(n_layers)]
+    pv = [poison(shape, pool, nbytes) for _ in range(n_layers)]
+    kh = [(torch.randn(1, s, kvh, d, device=cuda, generator=g) * 3).to(slab)
+          for _ in range(n_layers)]
+    vh = [(torch.randn(1, s, kvh, d, device=cuda, generator=g) * 300)
+          .to(slab) for _ in range(n_layers)]
+    quant = pool in POOLS
+    ks = [poison((n_pool, kvh), torch.float32, 4 * n_pool * kvh)
+          for _ in range(n_layers)] if quant else None
+    vs = [poison((n_pool, kvh), torch.float32, 4 * n_pool * kvh)
+          for _ in range(n_layers)] if quant else None
+    pages = (torch.randperm(n_pool - 1, device=cuda, generator=g)[:n_pages]
+             + 1).to(torch.int32)
+    return pk, pv, kh, vh, ks, vs, pages
+
+
+def _clone_all(ts):
+    return [t.clone() for t in ts] if ts is not None else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_layers", [1, 2, 32,
+                                      kernels.PREFILL_WRITE_MAX_LAYERS + 1],
+                         ids=["L1", "L2", "L32", "Lcap+1"])
+@pytest.mark.parametrize("s", [1, 127, 128, 300, 512])
+@pytest.mark.parametrize("slab,pool", GROUP_POOLS, ids=GROUP_IDS)
+def test_prefill_write_layers_kernel_bitwise(cuda, slab, pool, s, n_layers):
+    """Every layer's pages (and scales) bitwise the plain version's, in one
+    launch (ceil(L / 64) past the cap), at Llama-3-8B widths (8 kv heads,
+    D = 128, 128-row pages listed out of order); the pool bytes of pages
+    not listed, and their scales, left as they were (poisoned with random
+    bytes, NaN patterns included, so a stray write or a read of them
+    shows)."""
+    pk, pv, kh, vh, ks, vs, pages = _poisoned_layers(
+        cuda, 11 + s + n_layers, n_layers, slab, pool, s)
+    before = [_clone_all(x) for x in (pk, pv, ks, vs)]
+    ref = [_clone_all(x) for x in (pk, pv, ks, vs)]
+    kernels.paged_prefill_write_layers_plain(ref[0], ref[1], kh, vh, pages,
+                                             ref[2], ref[3])
+    n0 = kernels.paged_prefill_write.launches
+    kernels.paged_prefill_write_layers(pk, pv, kh, vh, pages, ks, vs)
+    torch.cuda.synchronize()
+    cap = kernels.PREFILL_WRITE_MAX_LAYERS
+    assert kernels.paged_prefill_write.launches == n0 + -(-n_layers // cap)
+    listed = torch.zeros(pk[0].shape[0], dtype=torch.bool, device=cuda)
+    listed[pages.long()] = True
+    for got, want, old in zip((pk, pv, ks, vs), ref, before):
+        if got is None:
+            continue
+        for g_, w_, o_ in zip(got, want, old):
+            gb, wb, ob = (t.view(torch.uint8).view(t.shape[0], -1)
+                          for t in (g_, w_, o_))
+            assert torch.equal(gb, wb)
+            assert torch.equal(gb[~listed], ob[~listed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab,pool", GROUP_POOLS[2:], ids=GROUP_IDS[2:])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_prefill_write_every_cluster_size_bitwise(cuda, slab, pool, cluster):
+    """A quantizing or casting write with each tile's rows split over 1, 2,
+    4 or 8 CTAs of a cluster (the C entry called with each size), 3 layers
+    of a 300-position prefill: bitwise the plain version."""
+    pk, pv, kh, vh, ks, vs, pages = _poisoned_layers(cuda, 40 + cluster, 3,
+                                                     slab, pool, 300)
+    ref = [_clone_all(x) for x in (pk, pv, ks, vs)]
+    kernels.paged_prefill_write_layers_plain(ref[0], ref[1], kh, vh, pages,
+                                             ref[2], ref[3])
+    lib = kernels.LIBRARY.get()
+    arr = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
+        *(t.data_ptr() for t in ts))
+    kernels._check(lib.ff_paged_prefill_write_layers(
+        arr(kh), arr(vh), arr(pk), arr(pv), arr(ks) if ks else None,
+        arr(vs) if vs else None, 3, pages.data_ptr(), pages.shape[0], 300,
+        128, 8, 128, 128, kh[0].element_size(), kernels._DTYPE_CODES[slab],
+        kernels._DTYPE_CODES[pool], cluster,
+        torch.cuda.current_stream().cuda_stream), "cluster")
+    torch.cuda.synchronize()
+    for got, want in zip((pk, pv, ks, vs), ref):
+        for g_, w_ in zip(got or [], want or []):
+            assert torch.equal(g_.view(torch.uint8), w_.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab,pool", GROUP_POOLS[2:], ids=GROUP_IDS[2:])
+@pytest.mark.parametrize("ps,d", [(256, 128), (512, 128), (256, 256)],
+                         ids=["ps256_d128", "ps512_d128", "ps256_d256"])
+def test_prefill_write_large_pages_bitwise(cuda, slab, pool, ps, d):
+    """Pages too large for one CTA's registers (clusters of 2, 4 and 4
+    CTAs through the wrapper), 2 layers of a prefill that ends inside its
+    last page: bitwise the plain version, pages not listed untouched."""
+    s = ps + ps // 2 + 3
+    assert kernels.prefill_write_cluster(ps, d) > 1
+    pk, pv, kh, vh, ks, vs, pages = _poisoned_layers(
+        cuda, 50 + ps + d, 2, slab, pool, s, ps=ps, kvh=2, d=d, extra=2)
+    before = [_clone_all(x) for x in (pk, pv, ks, vs)]
+    ref = [_clone_all(x) for x in (pk, pv, ks, vs)]
+    kernels.paged_prefill_write_layers_plain(ref[0], ref[1], kh, vh, pages,
+                                             ref[2], ref[3])
+    kernels.paged_prefill_write_layers(pk, pv, kh, vh, pages, ks, vs)
+    torch.cuda.synchronize()
+    listed = torch.zeros(pk[0].shape[0], dtype=torch.bool, device=cuda)
+    listed[pages.long()] = True
+    for got, want, old in zip((pk, pv, ks, vs), ref, before):
+        for g_, w_, o_ in zip(got or [], want or [], old or []):
+            gb, wb, ob = (t.view(torch.uint8).view(t.shape[0], -1)
+                          for t in (g_, w_, o_))
+            assert torch.equal(gb, wb)
+            assert torch.equal(gb[~listed], ob[~listed])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", [(10, 4, 3, 2), (9, 4, 1, 3), (37, 16, 2, 8)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_prefill_write_layers_copy_units_bitwise(cuda, dtype, geom):
+    """The grouped copy in 4-, 2- and 16-byte units (row sizes of 12, 6
+    and 32 values) over 3 layers: bitwise the plain version."""
+    s, ps, kvh, d = geom
+    g = torch.Generator(device=cuda).manual_seed(12)
+    n_pages = -(-s // ps)
+    pk = [torch.randn(n_pages + 3, ps, kvh, d, device=cuda,
+                      generator=g).to(dtype) for _ in range(3)]
+    pv = [torch.randn_like(t) for t in pk]
+    kh = [torch.randn(1, s, kvh, d, device=cuda, generator=g).to(dtype)
+          for _ in range(3)]
+    vh = [torch.randn_like(t) for t in kh]
+    pages = (torch.randperm(n_pages + 2, device=cuda, generator=g)[:n_pages]
+             + 1).to(torch.int32)
+    rk, rv = _clone_all(pk), _clone_all(pv)
+    kernels.paged_prefill_write_layers_plain(rk, rv, kh, vh, pages)
+    n0 = kernels.paged_prefill_write.launches
+    kernels.paged_prefill_write_layers(pk, pv, kh, vh, pages)
+    torch.cuda.synchronize()
+    assert kernels.paged_prefill_write.launches == n0 + 1
+    for a, b in zip(pk + pv, rk + rv):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_prefill_write_layers_refuses_unlike_layers(cuda):
+    """Layers of one call must match in shape, dtype and scales; a
+    mismatch raises before anything launches."""
+    pk, pv, kh, vh, ks, vs, pages = _poisoned_layers(
+        cuda, 3, 2, torch.bfloat16, torch.int8, 128)
+    n0 = kernels.paged_prefill_write.launches
+    with pytest.raises(ValueError, match="layer 1 differs"):
+        kernels.paged_prefill_write_layers(pk, pv, [kh[0], kh[1][:, :64]],
+                                           vh, pages, ks, vs)
+    with pytest.raises(ValueError, match="layer 1 differs"):
+        kernels.paged_prefill_write_layers(pk, pv, [kh[0], kh[1].float()],
+                                           vh, pages, ks, vs)
+    with pytest.raises(ValueError, match="equal-length"):
+        kernels.paged_prefill_write_layers(pk, pv, kh, vh, pages, ks[:1],
+                                           vs)
+    assert kernels.paged_prefill_write.launches == n0
 
 
 @pytest.mark.cuda

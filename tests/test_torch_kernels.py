@@ -12,6 +12,8 @@ relative; the prefill write bitwise. The CUDA kernels themselves are held
 against these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -380,6 +382,149 @@ def test_prefill_write_plain_bitwise_pallas(s):
     # pages not listed are untouched
     keep = [p for p in range(9) if p not in pages]
     np.testing.assert_array_equal(tk.numpy()[keep], pool_k[keep])
+
+
+GROUP_POOLS = ("native", "cast", "int8", "fp8")
+
+
+def _np_pool(rs, kind, shape):
+    """A numpy pool of ``kind`` filled with random values: f32 (native),
+    bf16 (cast), int8 or fp8 e4m3fn payload."""
+    x = rs.randn(*shape).astype(np.float32)
+    if kind == "native":
+        return x
+    if kind == "cast":
+        return x.astype(jnp.bfloat16)
+    if kind == "int8":
+        return rs.randint(-127, 128, shape).astype(np.int8)
+    return (x * 100).clip(-448, 448).astype(jnp.float8_e4m3fn)
+
+
+def _torch_of(a):
+    """A numpy array (bf16 and fp8 through their bits) as a torch tensor."""
+    if a.dtype == jnp.bfloat16:
+        return _t(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype == jnp.float8_e4m3fn:
+        return _t(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return _t(a)
+
+
+def _bits_np(t):
+    """The raw bits of a torch tensor (or a jax array) as numpy."""
+    if isinstance(t, torch.Tensor):
+        return t.view({1: torch.uint8, 2: torch.int16,
+                       4: torch.int32}[t.element_size()]).numpy()
+    a = np.asarray(t)
+    return a.view({1: np.uint8, 2: np.int16, 4: np.int32}[a.itemsize])
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_write(pages: tuple):
+    """``paged_prefill_write_pallas`` in interpret mode over ``pages``,
+    jitted, so the layers of a test (and the tests of one shape) share one
+    compile; jitted, its scales may sit one f32 step from the eager
+    division (ROADMAP.md section 3 item 1)."""
+    return jax.jit(functools.partial(paged_prefill_write_pallas,
+                                     pages=np.asarray(pages, np.int32),
+                                     interpret=True))
+
+
+@pytest.mark.parametrize("layers", [1, 3], ids=["L1", "L3"])
+@pytest.mark.parametrize("s", [1, 127, 128, 300, 512])
+@pytest.mark.parametrize("kind", GROUP_POOLS)
+def test_prefill_write_layers_plain_matches_jax(kind, s, layers):
+    """``paged_prefill_write_layers`` (its plain version, on the CPU)
+    writing every layer of a prefill into 128-row pages listed out of
+    order, against the JAX package per layer: bitwise its eager scatter
+    branch (payload, scales, the zero tail of a part-filled last page);
+    against ``paged_prefill_write_pallas`` in interpret mode bitwise for
+    the copy and the cast, and for int8 / fp8 scales within one f32 step
+    (the compiled division, ROADMAP.md section 3 item 1) with the payload
+    bitwise once quantized against the kernel's own scales. Pages not
+    listed, and their scales, are untouched."""
+    from flexflow_tpu.ops.attention import MultiHeadAttention as JMHA
+    from flexflow_tpu.ops.attention import page_quantize as j_quantize
+    from flexflow_tpu.ops.attention import storage_qmax as j_qmax
+
+    rs = np.random.RandomState(s * 10 + layers)
+    ps, kvh, d, n_pool = 128, 2, 16, 6
+    n_pages = -(-s // ps)
+    pages = np.asarray([4, 1, 5, 2][:n_pages], np.int32)
+    quant = kind in ("int8", "fp8")
+    shape = (n_pool, ps, kvh, d)
+    init = [{n: _np_pool(rs, kind, shape) for n in ("k", "v")}
+            for _ in range(layers)]
+    if quant:
+        for pool in init:
+            for n in ("k_scale", "v_scale"):
+                pool[n] = rs.rand(n_pool, kvh).astype(np.float32)
+    slabs = [{n: (rs.randn(1, s, kvh, d) * (3.0 if n == "k" else 0.05))
+              .astype(np.float32) for n in ("k", "v")}
+             for _ in range(layers)]
+    tpools = [{n: _torch_of(a.copy()) for n, a in pool.items()}
+              for pool in init]
+    kernels.paged_prefill_write_layers(
+        [p["k"] for p in tpools], [p["v"] for p in tpools],
+        [_t(x["k"]) for x in slabs], [_t(x["v"]) for x in slabs],
+        _t(pages), [p["k_scale"] for p in tpools] if quant else None,
+        [p["v_scale"] for p in tpools] if quant else None)
+    keep = [p for p in range(n_pool) if p not in pages]
+    for pool, tpool, slab in zip(init, tpools, slabs):
+        jpool = {n: jnp.asarray(a) for n, a in pool.items()}
+        kh, vh = jnp.asarray(slab["k"]), jnp.asarray(slab["v"])
+        eager = JMHA.paged_prefill_write(None, jpool, kh, vh,
+                                         jnp.asarray(pages))
+        pallas = _pallas_write(tuple(pages))(jpool, kh, vh)
+        for name in pool:
+            got = _bits_np(tpool[name])
+            np.testing.assert_array_equal(got, _bits_np(eager[name]),
+                                          err_msg=name)
+            np.testing.assert_array_equal(got[keep], _bits_np(pool[name])
+                                          [keep], err_msg=name)
+            if not quant:
+                np.testing.assert_array_equal(got, _bits_np(pallas[name]),
+                                              err_msg=name)
+        if not quant:
+            continue
+        qmax = j_qmax(pool["k"].dtype)
+        for name in ("k", "v"):
+            ours = _bits_np(tpool[name + "_scale"])[pages].astype(np.int64)
+            theirs = np.asarray(pallas[name + "_scale"])[pages]
+            steps = np.abs(ours - theirs.view(np.int32).astype(np.int64))
+            assert steps.max() <= 1, name
+            pf = np.zeros((n_pages * ps, kvh, d), np.float32)
+            pf[:s] = slab[name][0]
+            want = j_quantize(jnp.asarray(pf.reshape(n_pages, ps, kvh, d)),
+                              jnp.asarray(theirs), qmax, pool[name].dtype)
+            np.testing.assert_array_equal(
+                _bits_np(want), _bits_np(pallas[name])[pages], err_msg=name)
+
+
+def test_prefill_write_layers_refuses_unequal_lists():
+    pool = torch.zeros(3, 4, 1, 16)
+    slab = torch.zeros(1, 4, 1, 16)
+    pages = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="equal-length"):
+        kernels.paged_prefill_write_layers([pool, pool], [pool], [slab],
+                                           [slab], pages)
+    with pytest.raises(ValueError, match="equal-length"):
+        kernels.paged_prefill_write_layers([], [], [], [], pages)
+
+
+@pytest.mark.parametrize("case", [(128, 128, 1), (16, 64, 1), (1, 16, 1),
+                                  (256, 128, 2), (128, 256, 2),
+                                  (512, 128, 4), (256, 512, 8)],
+                         ids=["ps128_d128", "ps16_d64", "ps1_d16",
+                              "ps256_d128", "ps128_d256", "ps512_d128",
+                              "ps256_d512"])
+def test_prefill_write_cluster(case):
+    """The CTAs a quantizing write gives a tile, from its page size and D:
+    one while a CTA's registers hold the tile (16384 values), else the
+    fewest of 2, 4, 8 that do; a tile 8 CTAs cannot hold is refused."""
+    ps, d, want = case
+    assert kernels.prefill_write_cluster(ps, d) == want
+    with pytest.raises(ValueError, match="cluster of 8"):
+        kernels.prefill_write_cluster(1024, 512)
 
 
 def test_launch_counters_are_plain_integers():

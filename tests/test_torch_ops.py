@@ -33,6 +33,7 @@ from flexflow_tpu.ffconst import MetricsType as JMetrics
 from flexflow_tpu_torch import FFConfig, FFModel, LossType, MetricsType
 from flexflow_tpu_torch.convert import params_from_jax
 from flexflow_tpu_torch.models import build_encoder_classifier, llama_lm
+from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.attention import _apply_rope
 from flexflow_tpu_torch.ops.sampling import sample_tokens, validate_sampling
 from flexflow_tpu_torch.runtime.loss import compute_loss
@@ -203,9 +204,10 @@ def test_validate_sampling_rejects_like_jax(args):
         validate_sampling(*args)
 
 
-def _vjp_both(models, name, xs_np, seed):
+def _vjp_pair(models, name, xs_np, seed):
     """Outputs and the gradients of every weight and input of one op under
-    training, in both packages, for the same random cotangents."""
+    training, in both packages, for the same random cotangents: (port
+    outputs, JAX outputs, port gradients, JAX gradients) as numpy."""
     jop, jp, top, tp = _pair(models, name)
     jxs = [jnp.asarray(x) for x in xs_np]
     jouts, vjp = jax.vjp(lambda p, xs: tuple(jop.forward(p, xs,
@@ -219,13 +221,21 @@ def _vjp_both(models, name, xs_np, seed):
     touts = top.forward(tp, txs, training=True)
     grads = torch.autograd.grad(touts, list(tp.values()) + txs,
                                 [torch.as_tensor(c) for c in cots])
-    for jo, to in zip(jouts, touts):
-        np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
-                                   **TOL)
     want = [jgp[k] for k in tp] + list(jgx)
-    assert len(grads) == len(want)
+    assert len(touts) == len(jouts) and len(grads) == len(want)
+    return ([o.detach().numpy() for o in touts],
+            [np.asarray(o) for o in jouts], [g.numpy() for g in grads],
+            [np.asarray(w) for w in want])
+
+
+def _vjp_both(models, name, xs_np, seed):
+    """``_vjp_pair``'s outputs within TOL and gradients within GRAD_TOL,
+    elementwise."""
+    touts, jouts, grads, want = _vjp_pair(models, name, xs_np, seed)
+    for to, jo in zip(touts, jouts):
+        np.testing.assert_allclose(to, jo, **TOL)
     for g, w in zip(grads, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+        np.testing.assert_allclose(g, w, **GRAD_TOL)
 
 
 def test_layernorm_forward_and_grads(enc_models):
@@ -266,6 +276,148 @@ def test_mha_forward_and_grads(models, enc_models, monkeypatch, route,
     rs = np.random.RandomState(15)
     xs = [rs.randn(2, 16, width).astype(np.float32) for _ in range(3)]
     _vjp_both(pair, name, xs, 16)
+
+
+# ---- the routes off the kernels: shapes the kernels do not take ---------
+#
+# The JAX ops route these shapes off their Pallas kernels (attention.py
+# _flash_ok, norm.py _fused_ok); on the CPU the JAX ops always take those
+# routes. The port's ops route them by ``kernels.flash_attention_takes`` /
+# ``fused_add_layernorm_takes`` to their own torch code, on the card too
+# (tests/test_torch_cuda.py holds the card's route to the CPU's).
+
+ROUTE_CASES = {
+    # name: (q seq, kv seq, embed, heads, kv heads, kdim, vdim, causal,
+    #        use_flash_attention)
+    "head_dim_48_gqa": (10, 10, 96, 2, 1, 0, 0, True, True),
+    "kdim_ne_vdim": (9, 9, 64, 2, 0, 64, 32, False, True),
+    "causal_sq_gt_sk": (6, 3, 64, 2, 0, 0, 0, True, True),
+    "flash_off": (12, 12, 64, 2, 0, 0, 0, True, False),
+    "blockwise": (4160, 4160, 16, 2, 0, 0, 0, True, True),
+}
+
+
+def _single_op_models(build, flash=True):
+    """One op built by ``build(ff)`` in both packages (batch 1 or 2), the
+    JAX weights carried into the port."""
+    jff = JModel(JConfig(batch_size=2, mesh_shape={"data": 1},
+                         use_flash_attention=flash))
+    out = build(jff)
+    jff.compile(final_tensor=out)
+    tff = FFModel(FFConfig(batch_size=2, use_flash_attention=flash),
+                  device="cpu")
+    out = build(tff)
+    tff.compile(final_tensor=out)
+    tff.params = params_from_jax(
+        {op: {w: np.asarray(a) for w, a in ws.items()}
+         for op, ws in jff.params.items()}, "cpu", torch.float32, model=tff)
+    return jff, tff
+
+
+def _route_close(names, touts, jouts, grads, want):
+    """Outputs within 1e-5 (f32); each gradient within 1e-4 of its largest
+    magnitude (sums over up to 4160 keys in other orders). The key bias's
+    true gradient is zero (a bias shared by every key shifts a query's
+    logits alike, which the softmax ignores): both packages return
+    round-off for it, held below 1e-5 of the op's largest gradient."""
+    for to, jo in zip(touts, jouts):
+        np.testing.assert_allclose(to, jo, **TOL)
+    top = max(np.abs(w).max() for w in want)
+    for name, g, w in zip(names, grads, want):
+        if name == "bias_k":
+            assert max(np.abs(g).max(), np.abs(w).max()) <= 1e-5 * top
+        else:
+            assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max(), name
+
+
+def _spy(monkeypatch, name):
+    """Record each call of the kernel wrapper ``kernels.<name>`` (the CPU
+    runs its plain version and counts no launch)."""
+    calls = []
+    fn = getattr(kernels, name)
+    monkeypatch.setattr(kernels, name,
+                        lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_mha_torch_route_matches_jax(case, monkeypatch):
+    """Forward and every gradient of an attention op whose shape the flash
+    kernels do not take (head dim 48 under GQA; q and v head dims 32 and
+    16; causal with 6 queries over 3 keys — its first 3 rows have no live
+    key and come out uniform in both), or under use_flash_attention=False,
+    and the blockwise scan past 4096 positions (2 heads of width 8,
+    causal), against the JAX op."""
+    sq, sk, e, h, kvh, kdim, vdim, causal, flash = ROUTE_CASES[case]
+    b = 1 if case == "blockwise" else 2
+
+    def build(ff):
+        q = ff.create_tensor((b, sq, e))
+        kv = ff.create_tensor((b, sk, e))
+        return ff.multihead_attention(q, kv, kv, e, h, kdim=kdim, vdim=vdim,
+                                      causal=causal, num_kv_heads=kvh,
+                                      name="attn")
+
+    jff, tff = _single_op_models(build, flash)
+    top = tff.get_op_by_name("attn")
+    qt = torch.zeros(b, sq, h, top.qk_head_dim)
+    kt = torch.zeros(b, sk, h, top.qk_head_dim)
+    vt = torch.zeros(b, sk, h, top.v_head_dim)
+    assert not (flash and kernels.flash_attention_takes(qt, kt, vt, causal))
+    rs = np.random.RandomState(17)
+    xs = [rs.randn(b, n, e).astype(np.float32) for n in (sq, sk, sk)]
+    calls = _spy(monkeypatch, "flash_attention")
+    _route_close(list(tff.params["attn"]) + ["q", "k", "v"],
+                 *_vjp_pair((jff, tff), "attn", xs, 18))
+    assert not calls
+
+
+def test_mha_prefill_forward_off_kernel_matches_jax(monkeypatch):
+    """The prompt pass of a head-dim-48 GQA op (the dense route on
+    broadcast kv heads) and the cache it fills, against the JAX op."""
+    def build(ff):
+        x = ff.create_tensor((1, 10, 96))
+        return ff.multihead_attention(x, x, x, 96, 2, causal=True,
+                                      num_kv_heads=1, name="attn")
+
+    jff, tff = _single_op_models(build)
+    jop, jp, top, tp = _pair((jff, tff), "attn")
+    x = np.random.RandomState(19).randn(1, 10, 96).astype(np.float32)
+    calls = _spy(monkeypatch, "flash_attention_fwd")
+    jout, jcache = jop.prefill_forward(
+        jp, [jnp.asarray(x)] * 3, jop.init_cache(1, 12, jnp.float32))
+    with torch.inference_mode():
+        tout, tcache = top.prefill_forward(
+            tp, [torch.as_tensor(x)] * 3,
+            top.init_cache(1, 12, torch.float32, torch.device("cpu")))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(tcache[n].numpy(), np.asarray(jcache[n]),
+                                   **TOL)
+    assert not calls
+
+
+def test_add_layernorm_torch_route_matches_jax(monkeypatch):
+    """Both outputs and all four gradients of an add + LayerNorm whose
+    rows (width 1004, not a multiple of 8) the kernel does not take,
+    against the JAX op's plain branch."""
+    def build(ff):
+        x = ff.create_tensor((2, 5, 1004))
+        r = ff.create_tensor((2, 5, 1004))
+        return ff.add_layer_norm(x, r, name="add_ln")[1]
+
+    jff, tff = _single_op_models(build)
+    rs = np.random.RandomState(21)
+    xs = [(rs.randn(2, 5, 1004) + 3.0).astype(np.float32),
+          rs.randn(2, 5, 1004).astype(np.float32)]
+    tparams = tff.params["add_ln"]
+    x2 = torch.as_tensor(xs[0]).reshape(-1, 1004)
+    assert not kernels.fused_add_layernorm_takes(x2, x2, tparams["scale"],
+                                                 tparams["bias"])
+    calls = _spy(monkeypatch, "fused_add_layernorm")
+    _route_close(["scale", "bias", "x", "r"],
+                 *_vjp_pair((jff, tff), "add_ln", xs, 22))
+    assert not calls
 
 
 def test_mha_training_dropout_is_refused(enc_models):

@@ -186,13 +186,49 @@ def _small_port_model(**cfg):
 
 @pytest.mark.parametrize("knobs", [
     dict(grad_accum_steps=2), dict(scan_steps=4), dict(on_nonfinite="skip"),
-    dict(checkpoint_dir="ckpt"), dict(use_flash_attention=False)],
+    dict(checkpoint_dir="ckpt")],
     ids=lambda k: next(iter(k)))
 def test_later_slice_training_knobs_raise(knobs):
     ff, _, out = _small_port_model(**knobs)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ff.compile(SGDOptimizer(), final_tensor=out)
     ff.compile(final_tensor=out)   # serving compile ignores them
+
+
+def test_flash_off_trains_through_the_einsum_route(monkeypatch):
+    """``use_flash_attention=False`` compiles for training and routes the
+    dense attention to the einsum route (the flash autograd Function is
+    never called): a train step from the same weights gives the loss and
+    weights of the default model, whose attention runs the flash kernels'
+    plain versions on the CPU (the same einsum arithmetic)."""
+    from flexflow_tpu_torch.ops import kernels
+
+    calls = []
+    flash = kernels.flash_attention
+    monkeypatch.setattr(kernels, "flash_attention",
+                        lambda *a, **k: calls.append(1) or flash(*a, **k))
+    xs, ys = _data(5, B)
+    batch = {"input": xs, "label": ys}
+    models = []
+    for on in (True, False):
+        ff, _, out = _small_port_model(use_flash_attention=on)
+        ff.compile(SGDOptimizer(lr=LR), final_tensor=out)
+        models.append(ff)
+    models[1].params = {op: {w: t.clone() for w, t in ws.items()}
+                        for op, ws in models[0].params.items()}
+    models[1].opt_state = models[1].optimizer.init_state(models[1].params)
+    steps = []
+    for ff in models:
+        calls.clear()
+        steps.append((float(ff._run_train_step(batch)[0]), len(calls)))
+    on, off = models
+    (l_on, n_on), (l_off, n_off) = steps
+    assert (n_on, n_off) == (1, 0)
+    np.testing.assert_allclose(l_off, l_on, **TOL)
+    for op, ws in on.params.items():
+        for w, t in ws.items():
+            np.testing.assert_allclose(off.params[op][w].detach().numpy(),
+                                       t.detach().numpy(), **TOL)
 
 
 def test_lr_schedule_is_refused():
