@@ -6,7 +6,7 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
   1. card     — print the card's name and power limit (nvidia-smi).
-  2. build    — compile the seven CUDA sources from flexflow_tpu_torch/csrc
+  2. build    — compile the eight CUDA sources from flexflow_tpu_torch/csrc
                 with nvcc (sm_90a), one process each, all started together,
                 and print the build time and ptxas's registers and spills;
                 count each flash and paged-attention kernel's HGMMA
@@ -40,7 +40,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 events around single launches after an L2 flush and a
                 short device wait that hides the wrapper's host time
                 (cuda_ms); print each row's share of its bound and its
-                ratio to the torch call.
+                ratio to the torch call. Then the fused optimizer update
+                (fused_update.cu, the port's own kernel) at the full-width
+                flagship's bucket (1.21 B bf16 weights, ~100 leaves) for
+                SGD, SGD with momentum and Adam: bitwise against its plain
+                version (run a few leaves at a time) and the optimizer's
+                per-leaf torch update; timed beside the per-leaf update,
+                torch._foreach_* of the same formula and a device copy of
+                the same bytes.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
                 same weights served on the CPU through the plain versions:
@@ -54,10 +61,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 past 4096 positions; add + LayerNorm at width 1004): card
                 vs CPU, forward and gradients, and no kernel launched.
   5. train check — a small f32 flagship encoder classifier (hidden 512, 2
-                layers, 4 heads of 128, fused add + LayerNorm) takes 3 SGD
+                layers, 4 heads of 128, fused add + LayerNorm) takes 3
                 steps on the card through the kernels and on the CPU
-                through the plain branches from the same weights: losses
-                within 1e-4 relative, every weight within 1e-5.
+                through the plain branches from the same weights, for each
+                of: SGD; Adam under WarmupCosine; fused SGD with momentum
+                (also bitwise the card's per-leaf update); grad_accum_steps
+                2; on_nonfinite="skip" with a NaN injected at step 2 (the
+                weights bitwise untouched by it); scan_steps=3 through the
+                CUDA graph replay. Losses within 1e-4 relative, every
+                weight within 1e-5 (Adam's key biases: see
+                ADAM_NOISE_ATOL), exact launch counts.
   6. serve    — Llama-3-8B widths (hidden 4096, 32 heads over 8 kv heads,
                 ffn 14336, vocab 128256, rope_theta 500000, 32 layers, bf16,
                 seeded random weights) serve 6 prompts (13..700 tokens, 32
@@ -84,7 +97,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 epoch of 4 steps: every loss finite, and per step exactly
                 6 flash forwards, 6 flash backwards and 12 add + LayerNorm
                 launches. Prints step time, samples/s, peak memory and a
-                torch.profiler breakdown of one more step.
+                torch.profiler breakdown of one more step. Then the same
+                model, compiled again from the same seed, trains the same
+                way with the fused SGD update, the fused Adam update, and
+                scan_steps=4 (one chunk a fit: a CUDA graph replayed 4
+                times): each with exact launch counts (one fused update a
+                step), step time, samples/s, idle share, peak memory, and
+                the update's own device time (CUDA events around
+                ff.optimizer.update on one step's gradients, also for the
+                per-leaf SGD run). Every run sees the same batches, so the
+                fused and scanned SGD runs' losses are compared with the
+                per-leaf run's (printed: bitwise or not).
 
 The last two lines of standard output are a JSON object describing each
 kernel and the result line {"ok": true, "device": {...}}.
@@ -93,7 +116,9 @@ kernel and the result line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -324,8 +349,9 @@ def sass_counts(kernels):
             fail(f"{name} holds no tensor-core (HMMA) instruction")
 
 
-def phase_kernels(torch, kernels):
-    """Kernel vs plain version at the serving shapes (bf16)."""
+def phase_kernels(torch, port, kernels):
+    """Kernel vs plain version at the serving and training shapes (bf16),
+    and the fused update at the flagship's bucket."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -375,6 +401,7 @@ def phase_kernels(torch, kernels):
     rows.update(paged_attention_rows(torch, kernels, g))
     rows.update(prefill_write_rows(torch, kernels, g))
     rows.update(training_kernel_rows(torch, kernels, g))
+    rows.update(fused_update_rows(torch, port, kernels, g))
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -385,7 +412,10 @@ def phase_kernels(torch, kernels):
                if r["library_ms"] else "")
             + (f", a device copy of the same bytes {r['copy_ms']:.4f} ms: "
                f"{r['ms'] / r['copy_ms']:.2f}x its time"
-               if r.get("copy_ms") else "") + ")")
+               if r.get("copy_ms") else "")
+            + (f", the per-leaf torch update {r['per_leaf_ms']:.4f} ms: "
+               f"{r['ms'] / r['per_leaf_ms']:.2f}x its time"
+               if r.get("per_leaf_ms") else "") + ")")
     return rows
 
 
@@ -757,6 +787,163 @@ def training_kernel_rows(torch, kernels, g):
     return rows
 
 
+#: phase 3's fused-update rows at the flagship's bucket: (row, rule, bytes
+#: an element moves in bf16 (w, g read, w written, plus v or m and v read
+#: and written), f32 operations an element)
+UPDATE_ROWS = (("fused_update", dict(kind="sgd"), 6, 2),
+               ("fused_update_momentum", dict(kind="sgd", momentum=0.9), 10,
+                4),
+               ("fused_update_adam", dict(kind="adam"), 14, 12))
+#: the plain version runs this many elements' leaves at a time (for memory)
+PLAIN_CHUNK = 1 << 28
+
+
+def flagship_leaf_shapes(port):
+    """The full-width flagship's weight shapes, in walk order (no weights
+    allocated)."""
+    from flexflow_tpu_torch.models import build_encoder_classifier
+
+    f = FLAGSHIP
+    ff = port.FFModel(port.FFConfig(batch_size=f["batch"], use_fused_ln=True),
+                      device="cuda")
+    build_encoder_classifier(ff, f["batch"], f["seq"], f["hidden"],
+                             f["layers"], f["heads"], f["ffn_mult"],
+                             f["num_classes"])
+    return [s for ws in ff.weight_shapes().values() for s in ws.values()]
+
+
+def update_case(torch, g, rule, shapes):
+    """bf16 weights ~N(0, 1), grads ~N(0, 1e-4), flat state: momentum
+    ~N(0, 1e-4), Adam's m ~N(0, 1e-4) and v its square's scale."""
+    bf16 = torch.bfloat16
+    ps = [torch.randn(s, device="cuda", generator=g).to(bf16) for s in shapes]
+    gs = [torch.randn(s, device="cuda", generator=g).mul_(1e-2).to(bf16)
+          for s in shapes]
+    total = sum(p.numel() for p in ps)
+    ms = []
+    for i in range(rule.n_moments):
+        m = torch.empty(total, dtype=bf16, device="cuda")
+        for lo in range(0, total, PLAIN_CHUNK):
+            x = torch.randn(min(PLAIN_CHUNK, total - lo), device="cuda",
+                            generator=g).mul_(1e-2)
+            v_of_adam = rule.kind == "adam" and i == 1
+            m[lo:lo + x.numel()] = x.square_() if v_of_adam else x
+        ms.append(m)
+    return ps, gs, ms
+
+
+def _groups(ps, limit):
+    """Runs of consecutive leaves of at most ``limit`` elements (or one
+    leaf), with their offsets into the flat state."""
+    out, lo, cur, off = [], 0, [], 0
+    for i, p in enumerate(ps):
+        if cur and off + p.numel() - lo > limit:
+            out.append((cur, lo, off))
+            cur, lo = [], off
+        cur.append(i)
+        off += p.numel()
+    out.append((cur, lo, off))
+    return out
+
+
+def fused_update_rows(torch, port, kernels, g):
+    """The fused update at the flagship's bucket (1.21 B bf16 weights in
+    its ~100 leaves), SGD, SGD with momentum and Adam: bitwise against its
+    plain version (run a few leaves at a time, which is the same
+    elementwise function) and against the per-leaf torch update of the
+    optimizer; times beside the per-leaf update, torch._foreach_* of the
+    same formula, and a device copy of the same bytes."""
+    from flexflow_tpu_torch.runtime.optimizer import apply_update
+
+    shapes = flagship_leaf_shapes(port)
+    n = sum(math.prod(s) for s in shapes)
+    rows = {}
+    for name, kw, bytes_per, ops_per in UPDATE_ROWS:
+        rule = kernels.UpdateRule(**kw)
+        ps, gs, ms = update_case(torch, g, rule, shapes)
+        if rule.kind == "adam":
+            lr = port.AdamOptimizer(alpha=1e-3).lr_of(
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+        else:
+            lr = torch.full((), TRAIN_LR, device="cuda")
+        groups = _groups(ps, PLAIN_CHUNK)
+
+        def per_leaf(ps, ms):
+            off = 0
+            for p, gr in zip(ps, gs):
+                k = p.numel()
+                apply_update(rule, p, gr,
+                             [m[off:off + k].view(p.shape) for m in ms], lr)
+                off += k
+
+        def plain(ps, ms):
+            for idx, lo, hi in groups:
+                kernels.fused_update_plain(
+                    rule, [ps[i] for i in idx], [gs[i] for i in idx],
+                    [m[lo:hi] for m in ms], lr)
+
+        ref = ([p.clone() for p in ps], [m.clone() for m in ms])
+        pln = ([p.clone() for p in ps], [m.clone() for m in ms])
+        kernels.fused_update(rule, ps, gs, ms, lr)
+        per_leaf(*ref)
+        plain(*pln)
+        torch.cuda.synchronize()
+        bits = lambda ts: [t.view(torch.int16) for t in ts]  # noqa: E731
+        for tag, (rp, rm) in (("the per-leaf update", ref),
+                              ("its plain version", pln)):
+            if not all(torch.equal(a, b) for a, b in
+                       zip(bits(ps + ms), bits(rp + rm))):
+                fail(f"{name}: the kernel is not bitwise {tag}")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(ps, pln[0]))
+        del ref, pln
+        lr_f = lr.item()
+        mv = [[m[lo:lo + p.numel()].view(p.shape) for p, lo in zip(
+            ps, itertools.accumulate([0] + [p.numel() for p in ps]))]
+            for m in ms]
+
+        def foreach():
+            if rule.kind == "adam":
+                m, v = mv
+                torch._foreach_mul_(m, rule.beta1)
+                torch._foreach_add_(m, gs, alpha=1 - rule.beta1)
+                torch._foreach_mul_(v, rule.beta2)
+                torch._foreach_addcmul_(v, gs, gs, value=1 - rule.beta2)
+                den = torch._foreach_sqrt(v)
+                torch._foreach_add_(den, rule.epsilon)
+                torch._foreach_addcdiv_(ps, m, den, value=-lr_f)
+            elif rule.momentum:
+                (v,) = mv
+                torch._foreach_mul_(v, rule.momentum)
+                torch._foreach_add_(v, gs)
+                torch._foreach_add_(ps, v, alpha=-lr_f)
+            else:
+                torch._foreach_add_(ps, gs, alpha=-lr_f)
+
+        nbytes = bytes_per * n
+        rows[name] = dict(
+            err=err,
+            ms=cuda_ms(lambda: kernels.fused_update(rule, ps, gs, ms, lr),
+                       iters=5, warmup=1),
+            per_leaf_ms=cuda_ms(lambda: per_leaf(ps, ms), iters=3,
+                                warmup=1, sleep=LONG_SLEEP_CYCLES),
+            plain_ms=cuda_ms(lambda: plain(ps, ms), iters=3, warmup=1),
+            library_ms=cuda_ms(foreach, iters=3, warmup=1,
+                               sleep=LONG_SLEEP_CYCLES),
+            library="torch._foreach_* of the formula (bf16 storage)",
+            bound=bound(nbytes, ops_per * n, F32_FLOP_PER_S),
+            shape=f"{len(shapes)} leaves, {n / 1e9:.3f} B bf16 elements, "
+                  f"{rule.kind}" + (" momentum" if rule.momentum else ""))
+        del ps, gs, ms, mv
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        rows[name]["copy_ms"] = cuda_ms(lambda: dst.copy_(src), iters=5,
+                                        warmup=1)
+        del src, dst
+        torch.cuda.empty_cache()
+    return rows
+
+
 def build_llama(FFConfig, FFModel, llama_lm, device, dtype: str, seed: int,
                 **arch):
     ff = FFModel(FFConfig(batch_size=ENGINE["serve_slots"],
@@ -917,61 +1104,178 @@ def check_routes(torch, FFConfig, FFModel, kernels):
 
 
 def build_flagship(port, device, dtype: str, seed: int, batch, seq, hidden,
-                   layers, heads, ffn_mult, num_classes):
+                   layers, heads, ffn_mult, num_classes, opt=None, **cfg):
     """The flagship encoder classifier (models/transformer.py), fused add +
-    LayerNorm, compiled for training with SGD, sparse cross-entropy and
-    accuracy as __graft_entry__.py compiles the JAX one."""
+    LayerNorm, compiled for training (SGD unless ``opt``), sparse
+    cross-entropy and accuracy as __graft_entry__.py compiles the JAX
+    one; ``cfg``: more FFConfig fields."""
     from flexflow_tpu_torch.models import build_encoder_classifier
 
     ff = port.FFModel(port.FFConfig(batch_size=batch, seed=seed,
                                     compute_dtype=dtype, master_dtype=dtype,
-                                    use_fused_ln=True), device=device)
+                                    use_fused_ln=True, **cfg), device=device)
     x, out = build_encoder_classifier(ff, batch, seq, hidden, layers, heads,
                                       ffn_mult, num_classes)
-    ff.compile(port.SGDOptimizer(lr=TRAIN_LR),
+    ff.compile(opt or port.SGDOptimizer(lr=TRAIN_LR),
                port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
                [port.MetricsType.METRICS_ACCURACY], final_tensor=out)
     return ff, x
 
 
+def copy_weights(dst, params):
+    """A copy of ``params`` ({op: {weight: tensor}}) as dst's weights, on
+    dst's device; dst's optimizer state fresh."""
+    dst.params = {op: {w: t.detach().to(dst.device).clone()
+                       for w, t in ws.items()}
+                  for op, ws in params.items()}
+    dst.opt_state = dst.optimizer.init_state(dst.params)
+
+
+def same_bits(a, b) -> bool:
+    """Two {op: {weight: tensor}} trees equal bit for bit."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    return all(torch.equal(bits(a[op][w]), bits(t))
+               for op, ws in b.items() for w, t in ws.items())
+
+
+def weight_diff(a, b, skip=()) -> float:
+    return max((a.params[op][w].detach().cpu() - t.detach().cpu()).abs()
+               .max().item() for op, ws in b.params.items()
+               for w, t in ws.items() if w not in skip)
+
+
+#: phase 5's variants: (name, optimizer factory, FFConfig fields)
+TRAIN_CHECK_VARIANTS = (
+    ("SGD", lambda port: port.SGDOptimizer(lr=TRAIN_LR), {}),
+    ("Adam under WarmupCosine",
+     lambda port: port.AdamOptimizer(alpha=1e-3,
+                                     schedule=port.WarmupCosine(1, 10)), {}),
+    ("fused SGD with momentum",
+     lambda port: port.SGDOptimizer(lr=TRAIN_LR, momentum=0.9),
+     dict(fused_optimizer=True)),
+    ("grad_accum_steps=2", lambda port: port.SGDOptimizer(lr=TRAIN_LR),
+     dict(grad_accum_steps=2)),
+    ("on_nonfinite=skip, a NaN at step 2",
+     lambda port: port.SGDOptimizer(lr=TRAIN_LR), dict(on_nonfinite="skip")),
+    ("scan_steps=3 (CUDA graph replay)",
+     lambda port: port.SGDOptimizer(lr=TRAIN_LR, momentum=0.9),
+     dict(scan_steps=3, fused_optimizer=True)),
+)
+# Adam's key biases have an exact gradient of zero (softmax ignores a
+# shift of every key): card and CPU feed Adam rounding noise there, which
+# it normalises to steps of up to ~alpha; they are held to 2 alpha a step
+ADAM_NOISE_ATOL = 3 * 2 * 1e-3
+
+
 def phase_train_check(torch, port, kernels):
-    """Small f32 flagship: 3 SGD steps on the card (kernels) vs the CPU
-    (plain branches) from the same weights."""
+    """Small f32 flagship, card (kernels) vs CPU (plain branches) from the
+    same weights, 3 steps of each variant of TRAIN_CHECK_VARIANTS; the
+    fused update on the card bitwise the card's per-leaf update; the
+    skipped step bitwise a no-op; the scanned steps replay a CUDA graph.
+    Returns the fused variant's launch counts."""
     import numpy as np
 
     arch = dict(batch=4, seq=128, hidden=512, layers=2, heads=4, ffn_mult=4,
                 num_classes=16)
-    cpu, _ = build_flagship(port, "cpu", "float32", 3, **arch)
-    gpu, _ = build_flagship(port, "cuda", "float32", 3, **arch)
-    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
-                  for op, ws in cpu.params.items()}
-    gpu.opt_state = gpu.optimizer.init_state(gpu.params)
     rs = np.random.RandomState(3)
-    kernels.reset_launch_counts()
-    worst = 0.0
-    for i in range(3):
-        batch = {"input": rs.randn(4, arch["seq"], arch["hidden"]).astype(
-                     np.float32),
-                 "label": rs.randint(0, 16, (4, 1)).astype(np.int32)}
-        lc = float(cpu._run_train_step(batch)[0])
-        lg = float(gpu._run_train_step(batch)[0])
-        if not (np.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)):
-            fail(f"train check: step {i} loss on the card {lg} vs the CPU "
-                 f"{lc} (limit {TRAIN_LOSS_RTOL} relative)")
-        worst = max(worst, abs(lg - lc) / abs(lc))
-    diff = max((gpu.params[op][w].detach().cpu() - t.detach()).abs().max()
-               .item() for op, ws in cpu.params.items() for w, t in ws.items())
-    if not diff <= TRAIN_PARAM_ATOL:
-        fail(f"train check: weights after 3 steps differ card vs CPU by "
-             f"{diff} (limit {TRAIN_PARAM_ATOL})")
-    launches = kernels.launch_counts()
-    want = dict(flash_attention_fwd=6, flash_attention_bwd=6,
-                fused_add_layernorm_fwd=12)
-    if any(launches[k] != n for k, n in want.items()):
-        fail(f"train check did not run through the kernels: {launches}")
-    say(f"train check: small f32 flagship, 3 SGD steps, card through the "
-        f"kernels vs CPU plain branches: losses within {worst:.2e} "
-        f"relative, weights within {diff:.2e}")
+    xs = rs.randn(12, arch["seq"], arch["hidden"]).astype(np.float32)
+    ys = rs.randint(0, 16, (12, 1)).astype(np.int32)
+    batches = [{"input": xs[4 * i:4 * i + 4], "label": ys[4 * i:4 * i + 4]}
+               for i in range(3)]
+    fused_launches = None
+    for name, opt, cfg in TRAIN_CHECK_VARIANTS:
+        cpu, _ = build_flagship(port, "cpu", "float32", 3, **arch,
+                                opt=opt(port), **cfg)
+        gpu, gx = build_flagship(port, "cuda", "float32", 3, **arch,
+                                 opt=opt(port), **cfg)
+        copy_weights(gpu, cpu.params)
+        start = {op: {w: t.clone() for w, t in ws.items()}
+                 for op, ws in cpu.params.items()}
+        copy_weights(cpu, start)
+        guard = "on_nonfinite" in cfg
+        scan = "scan_steps" in cfg
+        if scan:
+            port.SingleDataLoader(gpu, gx, xs)
+            port.SingleDataLoader(gpu, gpu.label_tensor, ys)
+        kernels.reset_launch_counts()
+        if scan:
+            gl = [float(v) for v in gpu.train_scanned(3)[0]]
+        worst = 0.0
+        for i, batch in enumerate(batches):
+            nan = guard and i == 1
+            if nan:
+                before = {op: {w: t.clone() for w, t in ws.items()}
+                          for op, ws in gpu.params.items()}
+            lc = float(cpu._run_train_step(batch, inject_nan=nan)[0])
+            lg = gl[i] if scan else float(
+                gpu._run_train_step(batch, inject_nan=nan)[0])
+            if nan:
+                if not (np.isnan(lg) and np.isnan(lc)
+                        and same_bits(before, gpu.params)
+                        and int(gpu._guard_state["skipped"]) == 1):
+                    fail(f"train check ({name}): the NaN step was not "
+                         f"skipped bitwise on the card")
+                continue
+            if not (np.isfinite(lg)
+                    and abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc)):
+                fail(f"train check ({name}): step {i} loss on the card "
+                     f"{lg} vs the CPU {lc} (limit {TRAIN_LOSS_RTOL} "
+                     f"relative)")
+            worst = max(worst, abs(lg - lc) / abs(lc))
+        adam = name.startswith("Adam")
+        diff = weight_diff(gpu, cpu, skip=("bias_k",) if adam else ())
+        noise = weight_diff(gpu, cpu)
+        if not (diff <= TRAIN_PARAM_ATOL and noise <= (
+                ADAM_NOISE_ATOL if adam else TRAIN_PARAM_ATOL)):
+            fail(f"train check ({name}): weights after 3 steps differ card "
+                 f"vs CPU by {diff} (limit {TRAIN_PARAM_ATOL}; all weights "
+                 f"{noise})")
+        launches = kernels.launch_counts()
+        micro = 2 if cfg.get("grad_accum_steps") else 1
+        steps = 2 if guard else 3
+        want = dict(flash_attention_fwd=2 * micro * 3,
+                    flash_attention_bwd=2 * micro * 3,
+                    fused_add_layernorm_fwd=4 * micro * 3,
+                    fused_update=steps if cfg.get("fused_optimizer") else 0)
+        if any(launches[k] != v for k, v in want.items()):
+            fail(f"train check ({name}) did not run through the kernels: "
+                 f"{launches} (want {want})")
+        extra = ""
+        if cfg.get("fused_optimizer") and not scan:
+            # the card's per-leaf update from the same weights and batches
+            fused_launches = launches
+            per, _ = build_flagship(port, "cuda", "float32", 3, **arch,
+                                    opt=opt(port))
+            copy_weights(per, start)
+            for batch in batches:
+                per._run_train_step(batch)
+            if not same_bits(per.params, gpu.params):
+                fail(f"train check ({name}): the fused update on the card "
+                     f"is not bitwise the card's per-leaf update")
+            extra = "; bitwise the card's per-leaf update"
+            del per
+        if scan:
+            per, _ = build_flagship(port, "cuda", "float32", 3, **arch,
+                                    opt=opt(port), **cfg)
+            copy_weights(per, start)
+            for batch in batches:
+                per._run_train_step(batch)
+            extra = (f"; {gpu._replay.replays} graph replays; vs the card's "
+                     f"per-step path: weights within "
+                     f"{weight_diff(gpu, per):.2e} (bitwise: "
+                     f"{same_bits(per.params, gpu.params)})")
+            del per
+        say(f"train check ({name}): small f32 flagship, 3 steps, card "
+            f"through the kernels vs CPU plain branches: losses within "
+            f"{worst:.2e} relative, weights within {diff:.2e}"
+            + (f" (key biases, Adam's normalised noise: {noise:.2e})"
+               if adam else "") + extra)
+        del cpu, gpu, start
+    return fused_launches
 
 
 def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
@@ -1001,7 +1305,8 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     want = {"flash_attention_fwd": layers * len(prompts),
             "paged_prefill_write": len(prompts),
             "paged_attention_fwd": layers * st["decode_steps"],
-            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0,
+            "fused_update": 0}
     if launches != want:
         fail(f"serve: kernel launches {launches} != expected {want}")
     for o, n in zip(outs, PROMPT_LENS):
@@ -1051,7 +1356,8 @@ def _serve_round(torch, kernels, eng, prompts, layers):
     want = {"flash_attention_fwd": layers * cold,
             "paged_prefill_write": d["prefix_lookups"],
             "paged_attention_fwd": layers * d["decode_steps"],
-            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0}
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0,
+            "fused_update": 0}
     if launches != want:
         fail(f"serve quantized: kernel launches {launches} != expected "
              f"{want}")
@@ -1144,20 +1450,36 @@ def kernel_class(name: str) -> str:
         return "flash backward"
     if "add_ln_fwd_kernel" in name:
         return "add + LayerNorm forward"
+    if "fused_update_kernel" in name:
+        return "fused update"
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
         return "cuBLAS GEMM"
     return "other (elementwise, reductions, copies)"
 
 
+#: phase 7's runs after the per-leaf SGD one: (label, the path its launch
+#: counts report, optimizer factory, FFConfig fields)
+TRAIN_VARIANTS = (
+    ("fused SGD", "train_fused",
+     lambda port: port.SGDOptimizer(lr=TRAIN_LR), dict(fused_optimizer=True)),
+    ("fused Adam", "train_adam", lambda port: port.AdamOptimizer(alpha=1e-4),
+     dict(fused_optimizer=True)),
+    (f"scan_steps={TRAIN_STEPS}, fused SGD", "train_scan",
+     lambda port: port.SGDOptimizer(lr=TRAIN_LR),
+     dict(fused_optimizer=True, scan_steps=TRAIN_STEPS)),
+)
+
+
 def phase_train(torch, port, kernels, card: str):
-    """The flagship at full width: one warm-up step, then fit() over one
-    epoch of TRAIN_STEPS steps; then one step under torch.profiler."""
+    """The flagship at full width: per-leaf SGD, then each TRAIN_VARIANTS
+    run from the same seeded weights (compile again); each one warm-up
+    step (scanned: one step, then the graph's capture), fit() over one
+    epoch of TRAIN_STEPS steps, one step (or chunk) under torch.profiler,
+    and the update's own device time. Returns {path: launch counts}."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     f = FLAGSHIP
     t0 = time.perf_counter()
     ff, x = build_flagship(port, "cuda", "bfloat16", 0, **f)
@@ -1174,17 +1496,74 @@ def phase_train(torch, port, kernels, card: str):
         f"{f['layers']} layers, {f['heads']} heads, batch {f['batch']}, seq "
         f"{f['seq']}, {n_params / 1e9:.3f} B params bf16, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    out, losses = {}, {}
+    out["train"], losses["train"] = train_run(torch, kernels, card, ff,
+                                              "per-leaf SGD")
+    for label, path, opt, cfg in TRAIN_VARIANTS:
+        ff.config.fused_optimizer = False
+        ff.config.scan_steps = 0
+        for k, v in cfg.items():
+            setattr(ff.config, k, v)
+        ff.params = ff.opt_state = ff._replay = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        ff.compile(opt(port),
+                   port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [port.MetricsType.METRICS_ACCURACY],
+                   final_tensor=ff._final_tensor)
+        out[path], losses[path] = train_run(torch, kernels, card, ff, label)
+    # the fused and the scanned SGD runs took the per-leaf run's steps from
+    # the same weights on the same batches: the fused update is bitwise the
+    # per-leaf one and the graph replays the same kernels, but cuBLAS may
+    # choose other algorithms under capture (printed, not gated in bf16;
+    # phase 5 holds the f32 case)
+    for path, what in (("train_fused", "fused SGD"),
+                       ("train_scan", "scanned SGD")):
+        a, b = losses[path], losses["train"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        say(f"train: the {what} run's {len(a)} losses against the per-leaf "
+            f"SGD run's (same weights, same batches): max relative "
+            f"difference {rel:.3g}, bitwise {a == b}")
+    return out
 
+
+def train_run(torch, kernels, card: str, ff, label: str):
+    """One configuration of the full-width flagship: warm-up, fit() of
+    TRAIN_STEPS steps (exact launch counts: 6 flash forwards and
+    backwards, 12 add + LayerNorm and, fused, 1 update a step, the scanned
+    ones counted through the graph's replays), the profile of one step
+    (scanned: one chunk) with the idle share and device time by kernel
+    class, and the update's own device time (CUDA events around
+    ff.optimizer.update on one step's real gradients), and the profile's
+    top kernels. Returns the launch counts and the losses (warm-up first:
+    the same batches for every configuration)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    f = FLAGSHIP
+    n = f["batch"] * TRAIN_STEPS
+    scan = ff.config.scan_steps > 0
+    fused = ff.config.fused_optimizer
+    torch.cuda.reset_peak_memory_stats()
     losses = []
-    step = ff._run_train_step
+    step, scanned = ff._run_train_step, ff.train_scanned
 
-    def recording_step(batch):
-        loss, mets = step(batch)
-        losses.append(loss)
+    def recording_step(batch, inject_nan=False):
+        loss, mets = step(batch, inject_nan)
+        losses.append(loss.reshape(1))
         return loss, mets
 
-    ff._run_train_step = recording_step
-    recording_step(ff._stage_batch())     # warm-up
+    def recording_scan(k):
+        ls, mets = scanned(k)
+        losses.append(ls)
+        return ls, mets
+
+    ff._run_train_step, ff.train_scanned = recording_step, recording_scan
+    ff._reset_dataloaders()      # every configuration sees batch 0 first
+    if scan:          # warm-up: one eager step, then the capture
+        recording_scan(1)
+    else:
+        recording_step(ff._stage_batch())
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1192,51 +1571,73 @@ def phase_train(torch, port, kernels, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    vals = [float(v) for v in losses]
+    del ff._run_train_step, ff.train_scanned
+    vals = [float(v) for v in torch.cat(losses)]
     if len(vals) != TRAIN_STEPS + 1 or not all(np.isfinite(vals)):
-        fail(f"train: losses {vals}")
+        fail(f"train ({label}): losses {vals}")
     layers = f["layers"]
     want = {"flash_attention_fwd": layers * TRAIN_STEPS,
             "flash_attention_bwd": layers * TRAIN_STEPS,
             "fused_add_layernorm_fwd": 2 * layers * TRAIN_STEPS,
-            "paged_attention_fwd": 0, "paged_prefill_write": 0}
+            "paged_attention_fwd": 0, "paged_prefill_write": 0,
+            "fused_update": TRAIN_STEPS if fused else 0}
     if launches != want:
-        fail(f"train: kernel launches {launches} != expected {want}")
+        fail(f"train ({label}): kernel launches {launches} != expected "
+             f"{want}")
     step_ms = wall * 1e3 / TRAIN_STEPS
-    say(f"train: losses {[round(v, 4) for v in vals]} (warm-up first)")
-    say(f"train: fit of {TRAIN_STEPS} steps in {wall:.3f} s: step "
-        f"{step_ms:.1f} ms, {n / wall:.2f} samples/s [{card}]")
-    say(f"train: launches per step "
+    say(f"train ({label}): losses {[round(v, 4) for v in vals]} "
+        f"(warm-up first)")
+    say(f"train ({label}): fit of {TRAIN_STEPS} steps in {wall:.3f} s: "
+        f"step {step_ms:.1f} ms, {n / wall:.2f} samples/s [{card}]")
+    say(f"train ({label}): launches per step "
         f"{ {k: v // TRAIN_STEPS for k, v in launches.items() if v} }")
-    say(f"train: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
+    say(f"train ({label}): peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     batch = ff._stage_batch()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(batch)
+        if scan:
+            ff.train_scanned(TRAIN_STEPS)
+        else:
+            step(batch)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy = busy_ms(events)
+    busy = busy_ms(events) / (TRAIN_STEPS if scan else 1)
     by_class, by_name = {}, {}
     for e in events:
         us = e.time_range.end - e.time_range.start
         by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name),
                                                       0) + us
         by_name[e.name] = by_name.get(e.name, 0) + us
-    say(f"train profile: device busy {busy:.1f} ms of a {step_ms:.1f} ms "
-        f"step: idle share {max(1 - busy / step_ms, 0):.3f} [{card}]")
-    total = sum(by_class.values())
+    say(f"train profile ({label}): {len(events)} device events, device busy "
+        f"{busy:.1f} ms a step of {step_ms:.1f} ms: idle share "
+        f"{max(1 - busy / step_ms, 0):.3f} [{card}]")
+    total = sum(by_class.values()) or 1
+    per = TRAIN_STEPS if scan else 1
     for k, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        say(f"train profile: {k}: {us / 1e3:.2f} ms "
+        say(f"train profile ({label}): {k}: {us / 1e3 / per:.2f} ms a step "
             f"({100 * us / total:.1f}%)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        say(f"train profile kernel: {us / 1e3:.3f} ms {name[:110]}")
-    return launches
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"train profile kernel ({label}): {us / 1e3 / per:.3f} ms a "
+            f"step {name[:100]}")
+
+    _, _, grads = ff.executor._loss_and_grads(
+        ff.params, ff._to_device(batch), ff.loss_type, ff.metric_types,
+        ff._final_tensor)
+    upd = cuda_ms(lambda: ff.optimizer.update(ff.params, grads, ff.opt_state),
+                  iters=5, warmup=1, sleep=LONG_SLEEP_CYCLES)
+    say(f"train ({label}): the update {upd:.3f} ms of device time (CUDA "
+        f"events around ff.optimizer.update on one step's gradients) "
+        f"[{card}]")
+    del grads
+    return launches, vals
 
 
-#: the JSON line's rows: name -> (source, line of the Pallas function
-#: replaced, the main path whose launch counts it reports, wrapper)
+FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
+#: the JSON line's rows: name -> (source, what it replaces (a line of
+#: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
+#: launch counts it reports, wrapper)
 KERNEL_ROWS = {
     "flash_attention_fwd": ("flash_attention_wgmma.cu", 180, "serve",
                             "flash_attention_fwd"),
@@ -1272,6 +1673,14 @@ KERNEL_ROWS = {
                             "flash_attention_bwd"),
     "fused_add_layernorm_fwd": ("fused_add_layernorm.cu", 461, "train",
                                 "fused_add_layernorm_fwd"),
+    # the port's own kernel: JAX's FusedUpdate is an XLA fusion, not a
+    # Pallas kernel
+    "fused_update": ("fused_update.cu", FUSED_UPDATE_REPLACES, "train_fused",
+                     "fused_update"),
+    "fused_update_momentum": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                              "train_check_fused", "fused_update"),
+    "fused_update_adam": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                          "train_adam", "fused_update"),
 }
 
 
@@ -1293,14 +1702,14 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     phase_build(kernels)
-    rows = phase_kernels(torch, kernels)
+    rows = phase_kernels(torch, port, kernels)
     launches = phase_check(torch, FFConfig, FFModel, llama_lm, kernels)
-    phase_train_check(torch, port, kernels)
+    launches["train_check_fused"] = phase_train_check(torch, port, kernels)
     launches["serve"], ff = phase_serve(torch, FFConfig, FFModel, llama_lm,
                                         kernels, card)
     launches.update(phase_serve_quantized(torch, ff, kernels, card))
     del ff
-    launches["train"] = phase_train(torch, port, kernels, card)
+    launches.update(phase_train(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     table = []
@@ -1312,12 +1721,13 @@ def main():
         table.append({
             "name": name, "route": "cuda",
             "source": f"flexflow_tpu_torch/csrc/{src}",
-            "replaces": f"flexflow_tpu/ops/pallas_kernels.py:{line}",
+            "replaces": (line if isinstance(line, str) else
+                         f"flexflow_tpu/ops/pallas_kernels.py:{line}"),
             "path": path, "launches": launches[path][wrapper],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "library": r["library"],
-            "copy_ms": r.get("copy_ms")})
+            "copy_ms": r.get("copy_ms"), "per_leaf_ms": r.get("per_leaf_ms")})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

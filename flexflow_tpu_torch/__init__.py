@@ -9,8 +9,12 @@ beside it slice by slice and imports nothing of it (nor of JAX).
     ``FFModel.serve`` runs it through the continuous-batching
     ``ServingEngine`` over a paged KV cache.
   * Training: ``models.build_encoder_classifier`` built on ``FFModel``,
-    ``compile(SGDOptimizer(...), loss, metrics)``, ``SingleDataLoader``s
-    for the input and ``ff.label_tensor``, then ``fit()`` / ``evaluate``.
+    ``compile(SGDOptimizer(...) or AdamOptimizer(...), loss, metrics)``
+    (lr schedules from ``runtime/schedule.py``), ``SingleDataLoader``s
+    for the input and ``ff.label_tensor``, then ``fit()`` / ``evaluate`` /
+    ``predict``; ``FFConfig`` selects gradient accumulation, the
+    divergence guard, scanned steps (a CUDA graph replayed) and the fused
+    optimizer update. ``entry.entry()`` is the flagship's forward.
 
 Where the JAX package ran a Pallas kernel, the port runs a CUDA C++ kernel
 written for ``sm_90a`` (``ops/kernels.py``, sources in ``csrc/``).
@@ -24,9 +28,23 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType)
 from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
-from flexflow_tpu_torch.runtime.optimizer import SGDOptimizer
+from flexflow_tpu_torch.runtime.initializer import (ConstantInitializer,
+                                                    GlorotUniformInitializer,
+                                                    NormInitializer,
+                                                    OneInitializer,
+                                                    UniformInitializer,
+                                                    ZeroInitializer)
+from flexflow_tpu_torch.runtime.optimizer import AdamOptimizer, SGDOptimizer
+from flexflow_tpu_torch.runtime.schedule import (ConstantSchedule,
+                                                 ExponentialDecay, StepDecay,
+                                                 WarmupCosine, WarmupLinear)
 from flexflow_tpu_torch.tensor import Tensor
 
-__all__ = ["ActiMode", "AggrMode", "CompMode", "DataType", "FFConfig",
-           "FFModel", "LossType", "MetricsType", "OperatorType",
-           "SGDOptimizer", "SingleDataLoader", "Tensor"]
+__all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode",
+           "ConstantInitializer", "ConstantSchedule", "DataType",
+           "ExponentialDecay", "FFConfig", "FFModel",
+           "GlorotUniformInitializer", "LossType", "MetricsType",
+           "NormInitializer", "OneInitializer", "OperatorType",
+           "SGDOptimizer", "SingleDataLoader", "StepDecay", "Tensor",
+           "UniformInitializer", "WarmupCosine", "WarmupLinear",
+           "ZeroInitializer"]

@@ -8,7 +8,7 @@ sets them must not be silently served or trained something else): the
 serving engine and the training ``compile`` reject each non-default value
 with ``NotImplementedError`` naming the ROADMAP item that ports it
 (``not_ported``) — ``host_kv_pages > 0`` (the prefix cache's host tier)
-among them.
+and ``checkpoint_dir`` among them.
 """
 
 from __future__ import annotations
@@ -19,8 +19,6 @@ from typing import List, Optional
 #: where the features of later slices are queued
 ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
 ROADMAP_OPS = "ROADMAP.md queue 1, item 2 (the training op set)"
-ROADMAP_TRAIN_LOOP = "ROADMAP.md queue 1, item 3 (the train loop)"
-ROADMAP_TRAINING = "ROADMAP.md queue 1, item 4 (the training surface)"
 ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
 
 
@@ -52,11 +50,28 @@ class FFConfig:
     # positions, blockwise) torch route instead of the flash kernels, as
     # in the JAX package
     use_flash_attention: bool = True
-    # later-slice knobs, kept with the JAX defaults (see module docstring)
-    grad_accum_steps: int = 1
+    # one update a dtype bucket (runtime/optimizer.py FusedUpdate): the
+    # fused_update kernel on the card, bitwise the per-leaf update
+    fused_optimizer: bool = False
+    # multi-step training (FFModel.train_scanned): fit() runs up to this
+    # many steps a dispatch — on the card one step captured as a CUDA
+    # graph and replayed. 0 = one dispatch a step
     scan_steps: int = 0
-    checkpoint_dir: str = ""
+    # gradient accumulation: each global batch splits into this many equal
+    # microbatches, their gradients summed (f32 for bf16 weights) and ONE
+    # update made. 1 = off
+    grad_accum_steps: int = 1
+    # divergence guard (runtime/executor.py guarded_train_step):
+    #   "none"    — guard off
+    #   "skip"    — a non-finite step leaves weights and optimizer state
+    #               untouched
+    #   "backoff" — skip, and halve the loss scale on a non-finite step;
+    #               double it after loss_scale_growth_interval clean steps
     on_nonfinite: str = "none"
+    loss_scale: float = 1.0  # initial loss scale ("backoff" mode)
+    loss_scale_growth_interval: int = 200
+    # later-slice knob, kept with the JAX default (see module docstring)
+    checkpoint_dir: str = ""
 
     # ---- serving (runtime/serving.py) ----
     # decode slots: the engine's batch; the host scheduler admits and
@@ -95,10 +110,22 @@ class FFConfig:
                 f"epochs={self.epochs} (>= 1), grad_accum_steps="
                 f"{self.grad_accum_steps} (>= 1), scan_steps="
                 f"{self.scan_steps} (>= 0)")
+        if self.batch_size % self.grad_accum_steps:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by "
+                f"grad_accum_steps {self.grad_accum_steps}")
         if self.on_nonfinite not in ("none", "skip", "backoff"):
             raise ValueError(
                 f"on_nonfinite={self.on_nonfinite!r}: must be 'none', "
                 f"'skip' or 'backoff'")
+        if self.loss_scale <= 0:
+            # 0 would make the guard divide by zero and classify every
+            # step non-finite
+            raise ValueError(f"loss_scale={self.loss_scale}: must be > 0")
+        if self.loss_scale_growth_interval < 1:
+            raise ValueError(
+                f"loss_scale_growth_interval="
+                f"{self.loss_scale_growth_interval}: must be >= 1")
         if self.serve_slots < 1 or self.kv_page_size < 1 \
                 or self.kv_pages < 0:
             raise ValueError(
@@ -135,15 +162,6 @@ class FFConfig:
 
 def check_training_ported(cfg: FFConfig) -> None:
     """Raise for a training knob set to a feature no slice has ported."""
-    if cfg.grad_accum_steps != 1:
-        raise not_ported("gradient accumulation (grad_accum_steps > 1)",
-                         where=ROADMAP_TRAINING)
-    if cfg.scan_steps:
-        raise not_ported("the scanned multi-step program (scan_steps > 0)",
-                         where=ROADMAP_TRAINING)
-    if cfg.on_nonfinite != "none":
-        raise not_ported(f"the divergence-guarded step (on_nonfinite="
-                         f"{cfg.on_nonfinite!r})", where=ROADMAP_TRAINING)
     if cfg.checkpoint_dir:
         raise not_ported("checkpointing and auto-resume (checkpoint_dir)",
                          where=ROADMAP_RUNTIME)

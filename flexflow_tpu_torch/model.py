@@ -6,12 +6,18 @@ model builders (``models/llama.py``, ``models/transformer.py``) read the
 same. ``compile`` initialises the parameters on the model's device from a
 seeded ``torch.Generator``: with an optimizer for training (``fit``,
 ``evaluate``), without one for serving (``make_serving_engine`` /
-``serve`` drive the continuous-batching engine). The model runs on the
-card unless it is built with ``device="cpu"``.
+``serve`` drive the continuous-batching engine). Training steps one batch
+a call (``fit``'s per-step path, ``_run_train_step``) or, with
+``FFConfig.scan_steps`` or ``train_scanned``, n steps a dispatch (a CUDA
+graph replayed on the card); ``grad_accum_steps``, ``on_nonfinite`` (the
+divergence guard) and ``fused_optimizer`` select the step's variants as in
+the JAX package. ``predict`` is the label-free forward. The model runs on
+the card unless it is built with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -28,12 +34,17 @@ from flexflow_tpu_torch.ops.dense import Embedding, Linear
 from flexflow_tpu_torch.ops.elementwise import (ElementBinary, ElementUnary,
                                                 Mean)
 from flexflow_tpu_torch.ops.norm import AddLayerNorm, LayerNorm, RMSNorm
-from flexflow_tpu_torch.runtime.executor import GraphExecutor
+from flexflow_tpu_torch.runtime.executor import GraphExecutor, StepReplay
+from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import loss_type_from_name
 from flexflow_tpu_torch.runtime.metrics import PerfMetrics, metrics_from_names
+from flexflow_tpu_torch.runtime.optimizer import FusedUpdate
+from flexflow_tpu_torch.runtime.resilience import init_guard_state
 from flexflow_tpu_torch.tensor import Tensor
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+log = logging.getLogger(__name__)
 
 
 class FFModel:
@@ -58,6 +69,12 @@ class FFModel:
         self._last_loss: Optional[torch.Tensor] = None
         self._last_metrics: Dict[str, torch.Tensor] = {}
         self._perf = PerfMetrics()
+        # the divergence guard (on_nonfinite): its settings and device state
+        self._guard: Optional[Dict] = None
+        self._guard_state: Optional[Dict[str, torch.Tensor]] = None
+        # the scanned steps' replay, and what it was built over
+        self._replay: Optional[StepReplay] = None
+        self._replay_key: Optional[tuple] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -190,11 +207,14 @@ class FFModel:
         if optimizer is None:
             dtype = self.compute_dtype
             self.params = {
-                op.name: {w.name: w.initialize(dtype, self.device, gen)
+                op.name: {w.name: init_weight(w, gen, dtype, self.device)
                           for w in op.weight_specs()}
                 for op in self.ops if op.weight_specs()}
             return
-        check_training_ported(self.config)
+        cfg = self.config
+        check_training_ported(cfg)
+        if cfg.fused_optimizer:
+            optimizer = FusedUpdate(optimizer)
         self.optimizer = optimizer
         self.loss_type = loss_type_from_name(loss_type)
         self.metric_types = metrics_from_names(metrics)
@@ -209,6 +229,19 @@ class FFModel:
         self.executor = GraphExecutor(self)
         self.params = self.executor.init_params(gen)
         self.opt_state = optimizer.init_state(self.params)
+        self._guard = self._guard_state = None
+        self._replay = self._replay_key = None
+        if cfg.on_nonfinite != "none":
+            if cfg.grad_accum_steps > 1:
+                log.warning("on_nonfinite=%r: divergence guard unsupported "
+                            "under grad accumulation — training runs "
+                            "unguarded", cfg.on_nonfinite)
+            else:
+                self._guard = {"on_nonfinite": cfg.on_nonfinite,
+                               "growth_interval":
+                                   cfg.loss_scale_growth_interval}
+                self._guard_state = init_guard_state(cfg.loss_scale,
+                                                     self.device)
 
     # ------------------------------------------------------------- training
 
@@ -228,28 +261,103 @@ class FFModel:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run_train_step(self, batch):
+    def _step(self, batch: Dict[str, torch.Tensor]):
+        """The unguarded step on a device batch: (loss, metrics)."""
+        return self.executor.train_step(
+            self.params, self.opt_state, batch, self.optimizer,
+            self.loss_type, self.metric_types, self._final_tensor)
+
+    def _run_train_step(self, batch, inject_nan: bool = False):
         """One forward + backward + update on ``batch`` ({input name or
         "label": array or tensor}); returns (loss, metrics) as device
-        scalars."""
+        scalars. Under the divergence guard (``on_nonfinite``) the guarded
+        step runs; ``inject_nan`` adds NaN to its loss (the fault hook,
+        which needs the guard)."""
         if self.optimizer is None:
             raise RuntimeError("compile() with an optimizer first")
-        loss, mets = self.executor.train_step(
-            self.params, self.opt_state, self._to_device(batch),
-            self.optimizer, self.loss_type, self.metric_types,
-            self._final_tensor)
+        batch = self._to_device(batch)
+        if self._guard is not None:
+            loss, mets = self.executor.guarded_train_step(
+                self.params, self.opt_state, batch, self.optimizer,
+                self.loss_type, self.metric_types, self._final_tensor,
+                self._guard, self._guard_state, inject_nan=inject_nan)
+        else:
+            if inject_nan:
+                raise RuntimeError(
+                    "nan_loss injection needs the divergence guard: set "
+                    "FFConfig.on_nonfinite before compile()")
+            loss, mets = self._step(batch)
         self._step_count += 1
         self._last_loss = loss
         self._last_metrics = mets
         return loss, mets
 
+    def _scan_eligible(self) -> bool:
+        """Scanned steps need an optimizer, no divergence guard (a guarded
+        fit stays per-step, or a non-finite step inside a chunk would
+        commit), loaders of one batch count (the scan has one batch
+        index), and every loader staged (num_batches, batch, ...)."""
+        return (self.optimizer is not None and self._guard is None
+                and bool(self._dataloaders)
+                and len({dl.num_batches for dl in self._dataloaders}) == 1
+                and all(dl._try_stage_on_device()
+                        for dl in self._dataloaders))
+
+    def train_scanned(self, n_steps: int):
+        """Run ``n_steps`` training steps a dispatch over the staged
+        dataset (``executor.StepReplay``: on the card, one step captured as
+        a CUDA graph and replayed). Losses and metrics come back stacked,
+        shape (n_steps,). Batch order and wrap follow the per-step path,
+        and the loaders' cursors move as if the steps ran one by one."""
+        if n_steps < 1:
+            raise ValueError(f"train_scanned: n_steps={n_steps} (>= 1)")
+        if not self._scan_eligible():
+            raise RuntimeError(
+                "train_scanned needs compile() with an optimizer, no "
+                "divergence guard, and dataloaders of equal batch counts "
+                "holding at least one full batch")
+        staged = {dl.name: dl._dev_data for dl in self._dataloaders}
+        key = tuple((k, v.data_ptr(), tuple(v.shape))
+                    for k, v in staged.items()) + tuple(
+            t.data_ptr() for t in self._state_leaves())
+        if self._replay is None or self._replay_key != key:
+            self._replay = StepReplay(self._step, staged,
+                                      max(n_steps, self.config.scan_steps))
+            self._replay_key = key
+        nb = min(dl.num_batches for dl in self._dataloaders)
+        first = self._dataloaders[0]
+        start = (first.next_index // first.batch_size) % nb
+        losses, mets = self._replay.run(start, n_steps)
+        for dl in self._dataloaders:     # keep the per-step verbs in sync
+            dl.next_index = ((start + n_steps) % nb) * dl.batch_size
+        self._step_count += n_steps
+        self._last_loss = losses[-1]
+        self._last_metrics = {k: v[-1] for k, v in mets.items()}
+        return losses, mets
+
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """Weights and optimizer state: what a captured step updates in
+        place (a change of any of them invalidates the capture)."""
+        out = [w for ws in self.params.values() for w in ws.values()]
+        todo = [self.opt_state]
+        while todo:
+            x = todo.pop()
+            if isinstance(x, dict):
+                todo.extend(x.values())
+            elif isinstance(x, torch.Tensor):
+                out.append(x)
+        return out
+
     def fit(self, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, verbose: bool = True):
-        """Training loop over the attached ``SingleDataLoader``s, one step
-        per batch (the JAX ``fit``'s per-step path): an ``epoch N:
-        loss=...`` line per epoch and a final ``THROUGHPUT = ... samples/s``
-        line. The first step (and any kernel build it triggers) is kept out
-        of the throughput window, as in the JAX package."""
+        """Training loop over the attached ``SingleDataLoader``s (the JAX
+        ``fit``): one step a batch, or with ``config.scan_steps`` > 0 (and
+        the scan eligible) chunks of up to ``scan_steps`` steps a dispatch
+        (``train_scanned``), the epoch's ragged tail one step at a time.
+        Prints an ``epoch N: loss=...`` line per epoch and a final
+        ``THROUGHPUT = ... samples/s`` line. The first step or chunk (and
+        any kernel build or graph capture it triggers) is kept out of the
+        throughput window, as in the JAX package."""
         if self.optimizer is None:
             raise RuntimeError("compile() with an optimizer first")
         if not self._dataloaders:
@@ -266,23 +374,37 @@ class FFModel:
                 f"dataset smaller than batch_size ("
                 f"{min(dl.num_samples for dl in self._dataloaders)} samples "
                 f"< {bs}); no full batch to train on")
+        chunk_max = self.config.scan_steps
+        use_scan = chunk_max > 0 and self._scan_eligible()
         t0 = time.time()
         warm = None
         total = 0
         for epoch in range(epochs):
             self._perf = PerfMetrics()
             self._reset_dataloaders()
-            epoch_mets = []   # device scalars, converted once per epoch
-            for _ in range(num_batches):
-                loss, mets = self._run_train_step(self._stage_batch())
-                epoch_mets.append(mets)
-                total += bs
+            # (metrics, steps): device scalars for a step, (n,) stacks for
+            # a scanned chunk; converted once per epoch
+            epoch_mets = []
+            it = 0
+            while it < num_batches:
+                if use_scan and num_batches - it >= chunk_max:
+                    n = chunk_max
+                    _, mets = self.train_scanned(n)
+                else:
+                    n = 1
+                    _, mets = self._run_train_step(self._stage_batch())
+                epoch_mets.append((mets, n))
+                it += n
+                total += bs * n
                 if warm is None:
-                    float(loss)   # waits for the first step
+                    float(self._last_loss)   # waits for the first step
                     warm = time.time()
                     total = 0
-            for mets in epoch_mets:
-                self._perf.update({k: float(v) for k, v in mets.items()}, bs)
+            for mets, n in epoch_mets:
+                vals = {k: v.cpu() for k, v in mets.items()}
+                for j in range(n):
+                    self._perf.update({k: float(v[j] if v.dim() else v)
+                                       for k, v in vals.items()}, bs)
             if verbose:
                 print(f"epoch {epoch}: loss={float(self._last_loss):.4f} "
                       + self._perf.report(self.loss_type, self.metric_types))
@@ -301,6 +423,15 @@ class FFModel:
             self.params, self._to_device(batch), self.loss_type,
             self.metric_types, self._final_tensor)
         return float(loss), {k: float(v) for k, v in mets.items()}, logits
+
+    def predict(self, batch):
+        """Label-free inference: the output of the final tensor for
+        ``batch`` ({input name: array or tensor}), forward only."""
+        if self.params is None:
+            raise RuntimeError("compile() first")
+        executor = self.executor or GraphExecutor(self)
+        return executor.forward(self.params, self._to_device(batch),
+                                [self._final_tensor])[0]
 
     # -------------------------------------------------------------- serving
 

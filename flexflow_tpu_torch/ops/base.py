@@ -14,30 +14,17 @@ from flexflow_tpu_torch.tensor import Tensor
 @dataclasses.dataclass
 class WeightSpec:
     """Metadata for one weight of an op: its name, shape (the JAX
-    package's layout, so weights carry across unchanged) and init rule."""
+    package's layout, so weights carry across unchanged) and init rule
+    (``runtime/initializer.py init_weight``)."""
 
     name: str
     shape: Tuple[int, ...]
-    init: str = "glorot"  # glorot | zero | one
+    # glorot | zero | one | uniform | normal | constant
+    init: str = "glorot"
     # fan dims for glorot: (fan_in, fan_out); default from the shape
     fan: Optional[Tuple[int, int]] = None
-
-    def initialize(self, dtype: torch.dtype, device: torch.device,
-                   gen: torch.Generator) -> torch.Tensor:
-        """A fresh weight on ``device``, drawn from ``gen`` (the model's
-        seeded generator). Glorot is uniform(-a, a), a = sqrt(6 / (fan_in +
-        fan_out)), as in the JAX package — the bits differ (torch's
-        generator is not threefry), the distribution does not."""
-        w = torch.empty(self.shape, dtype=dtype, device=device)
-        if self.init == "zero":
-            return w.zero_()
-        if self.init == "one":
-            return w.fill_(1.0)
-        if self.init != "glorot":
-            raise ValueError(f"{self.name}: unknown init {self.init!r}")
-        fan_in, fan_out = self.fan or (self.shape[0], self.shape[-1])
-        a = (6.0 / (fan_in + fan_out)) ** 0.5
-        return w.uniform_(-a, a, generator=gen)
+    # uniform: (low, high); normal: (mean, std); constant: (value,)
+    init_args: Optional[Tuple[float, ...]] = None
 
 
 class Op:

@@ -38,6 +38,12 @@ flash and add + LayerNorm kernels take, from the checks their wrappers
 make; the ops route the shapes they refuse to their own torch code, as the
 JAX ops route them off their Pallas kernels.
 
+A sixth kernel is the port's own, not a Pallas kernel's: ``fused_update``
+(``csrc/fused_update.cu``) applies the optimizer's update to every weight
+of one storage dtype in one launch, where the JAX package's ``FusedUpdate``
+(flexflow_tpu/runtime/optimizer.py:40) leaves the job to XLA's fusion;
+``update_math`` is the formula both it and the per-leaf update follow.
+
 ``flash_attention`` and ``fused_add_layernorm`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
 (:538 and :502): the forward kernel saves its residuals, and the backward
@@ -76,7 +82,7 @@ CSRC = _PKG / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
            "fused_add_layernorm.cu", "paged_attention.cu",
-           "paged_prefill_write.cu")
+           "paged_prefill_write.cu", "fused_update.cu")
 HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -187,11 +193,16 @@ class _Library:
                 lib.ff_paged_prefill_write_layers.argtypes = [
                     pp, pp, pp, pp, pp, pp, i, p, i, i, i, i, i, i, i, i, i,
                     i, p]
+                ll = ctypes.c_longlong
+                lib.ff_fused_update.argtypes = [
+                    pp, pp, ctypes.POINTER(ll), ctypes.POINTER(i), i, ll, p,
+                    p, i, i, i, f, f, f, f, f, f, f, p, p, p]
                 for fn in (lib.ff_flash_attention_fwd,
                            lib.ff_flash_attention_bwd,
                            lib.ff_fused_add_layernorm_fwd,
                            lib.ff_paged_attention_fwd,
-                           lib.ff_paged_prefill_write_layers):
+                           lib.ff_paged_prefill_write_layers,
+                           lib.ff_fused_update):
                     fn.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
@@ -1073,8 +1084,171 @@ def paged_prefill_write_layers(pools_k, pools_v, khs, vhs, pages,
 paged_prefill_write.launches = 0
 
 
+# ---------------------------------------------------------- fused update
+
+
+class UpdateRule(NamedTuple):
+    """An optimizer's elementwise update: ``kind`` "sgd" (``momentum``,
+    ``nesterov``) or "adam" (``beta1``, ``beta2``, ``epsilon``), both with
+    ``weight_decay``."""
+
+    kind: str
+    momentum: float = 0.0
+    nesterov: bool = False
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    @property
+    def n_moments(self) -> int:
+        """State vectors a weight carries: Adam's m and v, SGD's v with
+        momentum."""
+        if self.kind == "adam":
+            return 2
+        return 1 if self.momentum > 0.0 else 0
+
+
+def update_math(rule: UpdateRule, w, g, moments, lr):
+    """One update in f32, the JAX package's formulas
+    (flexflow_tpu/runtime/optimizer.py SGDOptimizer / AdamOptimizer
+    ``upd``): w, g and ``moments`` f32 tensors, ``lr`` a 0-dim f32 tensor
+    (Adam's bias-corrected alpha_t). Returns (w, moments) anew. Each
+    operation is a torch operator of its own, in the formula's order, so
+    every result rounds once (never a fused multiply-add) and
+    ``fused_update``'s kernel can match it bit for bit. ``g + wd w`` is
+    skipped when wd is 0."""
+    if rule.weight_decay:
+        g = g + rule.weight_decay * w
+    if rule.kind == "adam":
+        m, v = moments
+        m = rule.beta1 * m + (1.0 - rule.beta1) * g
+        v = rule.beta2 * v + (1.0 - rule.beta2) * g * g
+        return w - lr * m / (torch.sqrt(v) + rule.epsilon), (m, v)
+    if rule.momentum > 0.0:
+        (v,) = moments
+        v = rule.momentum * v + g
+        step = g + rule.momentum * v if rule.nesterov else v
+        return w - lr * step, (v,)
+    return w - lr * g, ()
+
+
+def _select(finite, new, old):
+    return new if finite is None else torch.where(finite, new, old)
+
+
+def fused_update_plain(rule: UpdateRule, params, grads, moments, lr,
+                       finite=None) -> None:
+    """Plain version of ``fused_update``: concatenate the bucket's weights
+    and gradients (a gradient in f32 where its dtype differs from its
+    weight's, as the JAX package's ``_flatten_grads`` upcasts), apply
+    ``update_math`` to the flat f32 vectors, and write the result back
+    into the weights and the flat state ``moments``, in place. With
+    ``finite`` (0-dim bool) false, everything keeps its old value."""
+    w = torch.cat([p.reshape(-1) for p in params]).float()
+    g = torch.cat([x.reshape(-1).float() for x in grads])
+    ms = [m.float() for m in moments]
+    nw, nms = update_math(rule, w, g, ms, lr)
+    nw = _select(finite, nw, w)
+    off = 0
+    for p in params:
+        p.copy_(nw[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    for m, new, old in zip(moments, nms, ms):
+        m.copy_(_select(finite, new, old))
+
+
+#: leaves a launch (csrc/fused_update.cu kMaxLeaves): the leaf table rides
+#: in the kernel's parameters; a bucket of more leaves takes more launches
+FUSED_UPDATE_MAX_LEAVES = 128
+
+
+def _check_update(name, rule, params, grads, moments, lr, finite):
+    dt = params[0].dtype
+    if dt not in COMPUTE_DTYPES:
+        raise ValueError(f"{name}: weights must be one of "
+                         f"{list(COMPUTE_DTYPES)}, got {dt}")
+    if len(grads) != len(params) or len(moments) != rule.n_moments:
+        raise ValueError(f"{name}: {len(params)} weights, {len(grads)} "
+                         f"grads, {len(moments)} state vectors (want "
+                         f"{rule.n_moments} for {rule.kind})")
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if p.dtype != dt or g.shape != p.shape \
+                or g.dtype not in (dt, torch.float32):
+            raise ValueError(
+                f"{name}: leaf {i}: weight {tuple(p.shape)} {p.dtype}, grad "
+                f"{tuple(g.shape)} {g.dtype}: weights share one dtype, a "
+                f"grad has its weight's shape and its dtype or f32")
+    total = sum(p.numel() for p in params)
+    for m in moments:
+        if m.dtype != dt or m.shape != (total,):
+            raise ValueError(f"{name}: state vectors must be ({total},) "
+                             f"{dt}, got {tuple(m.shape)} {m.dtype}")
+    if lr.shape != () or lr.dtype != torch.float32:
+        raise ValueError(f"{name}: lr must be a 0-dim f32 tensor")
+    if finite is not None and (finite.shape != ()
+                               or finite.dtype != torch.bool):
+        raise ValueError(f"{name}: finite must be a 0-dim bool tensor")
+
+
+def fused_update(rule: UpdateRule, params, grads, moments, lr,
+                 finite=None) -> None:
+    """The optimizer update of one bucket of weights of one storage dtype
+    (f32 or bf16), in place: ``params`` and ``grads`` lists of tensors
+    (each grad of its weight's shape, in its dtype or f32), ``moments``
+    the bucket's flat state vectors (v, or Adam's m and v; weight dtype,
+    one element a weight element, in the order of ``params``), ``lr`` a
+    0-dim f32 tensor (the scheduled learning rate, or Adam's alpha_t),
+    ``finite`` an optional 0-dim bool tensor: false writes nothing.
+
+    The port's own kernel (``csrc/fused_update.cu``), the counterpart of
+    the JAX package's ``FusedUpdate`` (flexflow_tpu/runtime/optimizer.py:40),
+    which XLA fuses into one loop a bucket; not a Pallas kernel. One
+    launch takes up to ``FUSED_UPDATE_MAX_LEAVES`` leaves through a table
+    of pointers in its parameters (no concatenation pass); each element's
+    arithmetic is ``update_math``'s, rounded operation by operation, so
+    the result is bitwise the per-leaf torch update's. Each launch counts
+    one. Bound on the H100: bytes (6, 10 or 14 B an element in bf16 for
+    SGD, SGD with momentum, Adam)."""
+    extra = (lr,) + (() if finite is None else (finite,))
+    if _on_cpu(*params, *grads, *moments, *extra):
+        return fused_update_plain(rule, params, grads, moments, lr, finite)
+    name = "fused_update"
+    _require_cuda(name, *params, *grads, *moments, *extra)
+    _check_update(name, rule, params, grads, moments, lr, finite)
+    # csrc/fused_update.cu Kind: SGD, momentum, nesterov, Adam
+    kind = (3 if rule.kind == "adam" else 0 if rule.n_moments == 0
+            else 2 if rule.nesterov else 1)
+    m = moments[0].data_ptr() if rule.kind == "adam" else None
+    v = moments[-1].data_ptr() if moments else None
+    lib = LIBRARY.get()
+    stream = _stream(params[0])
+    c_ptrs = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
+        *(t.data_ptr() for t in ts))
+    base = 0
+    for lo in range(0, len(params), FUSED_UPDATE_MAX_LEAVES):
+        ps = params[lo:lo + FUSED_UPDATE_MAX_LEAVES]
+        gs = grads[lo:lo + FUSED_UPDATE_MAX_LEAVES]
+        sizes = [p.numel() for p in ps]
+        with torch.cuda.device(ps[0].device):
+            _check(lib.ff_fused_update(
+                c_ptrs(ps), c_ptrs(gs), (ctypes.c_longlong * len(ps))(*sizes),
+                (ctypes.c_int * len(ps))(
+                    *(int(g.dtype != p.dtype) for p, g in zip(ps, gs))),
+                len(ps), base, m, v, _DTYPE_CODES[ps[0].dtype], kind,
+                int(bool(rule.weight_decay)), rule.weight_decay,
+                rule.momentum, rule.beta1, 1.0 - rule.beta1, rule.beta2,
+                1.0 - rule.beta2, rule.epsilon, lr.data_ptr(),
+                None if finite is None else finite.data_ptr(), stream), name)
+        fused_update.launches += 1
+        base += sum(sizes)
+
+
+fused_update.launches = 0
+
+
 KERNELS = (flash_attention_fwd, flash_attention_bwd, fused_add_layernorm_fwd,
-           paged_attention_fwd, paged_prefill_write)
+           paged_attention_fwd, paged_prefill_write, fused_update)
 
 
 def launch_counts() -> Dict[str, int]:

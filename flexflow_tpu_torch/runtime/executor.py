@@ -3,10 +3,14 @@ JAX package's ``runtime/executor.py``, the single-device subset).
 
 The JAX executor jits a fused forward + backward + update program per
 step; the port runs the same walk eagerly and takes the gradient with
-``torch.autograd``. Mixed precision follows the JAX package: weights are
-stored in ``FFConfig.master_dtype`` and every op runs in
-``FFConfig.compute_dtype`` — inputs and weights are cast at the start of
-the walk, so gradients come back in the storage dtype.
+``torch.autograd``. The step variants follow the JAX executor: gradient
+accumulation, the divergence-guarded step, and (``StepReplay``) n steps a
+dispatch over the staged dataset — the ``lax.scan`` program's analog, on
+the card one step captured as a CUDA graph and replayed. Mixed precision
+follows the JAX package: weights are stored in ``FFConfig.master_dtype``
+and every op runs in ``FFConfig.compute_dtype`` — inputs and weights are
+cast at the start of the walk, so gradients come back in the storage
+dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.ops.base import InputOp
+from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import batch_metrics
 
@@ -38,8 +43,8 @@ class GraphExecutor:
         master = (torch.bfloat16 if self.model.config.master_dtype ==
                   "bfloat16" else torch.float32)
         dev = self.model.device
-        return {op.name: {w.name: w.initialize(torch.float32, dev,
-                                               gen).to(master)
+        return {op.name: {w.name: init_weight(w, gen, torch.float32,
+                                              dev).to(master)
                           for w in op.weight_specs()}
                 for op in self.model.ops if op.weight_specs()}
 
@@ -88,12 +93,15 @@ class GraphExecutor:
 
     # ---- steps ---------------------------------------------------------------
 
-    def train_step(self, params: Params, opt_state, batch: Batch, optimizer,
-                   loss_type: LossType, metric_types: Sequence[MetricsType],
-                   final_tensor) -> Tuple[torch.Tensor, Dict]:
-        """Forward, backward and one optimizer update (in place on
-        ``params`` and ``opt_state``); returns the loss and metrics as
-        device scalars."""
+    def _loss_and_grads(self, params: Params, batch: Batch,
+                        loss_type: LossType,
+                        metric_types: Sequence[MetricsType], final_tensor,
+                        scale: Optional[torch.Tensor] = None,
+                        inject_nan: bool = False
+                        ) -> Tuple[torch.Tensor, Dict, Params]:
+        """(loss, metrics, grads) of one batch. With ``scale`` (a 0-dim
+        f32 tensor) the gradient is taken of loss * scale; ``inject_nan``
+        adds NaN to the loss (the guard's fault hook)."""
         leaves: List[torch.Tensor] = [w for ws in params.values()
                                       for w in ws.values()]
         for w in leaves:
@@ -101,10 +109,128 @@ class GraphExecutor:
         loss, mets, _ = self.loss_and_metrics(
             params, batch, loss_type, metric_types, final_tensor,
             training=True)
-        flat = iter(torch.autograd.grad(loss, leaves))
+        if inject_nan:
+            loss = loss + float("nan")
+        target = loss if scale is None else loss * scale
+        flat = iter(torch.autograd.grad(target, leaves))
         grads = {op: {k: next(flat) for k in ws} for op, ws in params.items()}
+        return loss.detach(), mets, grads
+
+    def _accum_loss_and_grads(self, params: Params, batch: Batch, accum: int,
+                              *args) -> Tuple[torch.Tensor, Dict, Params]:
+        """Gradient accumulation (the JAX ``accum_step``): the batch splits
+        into ``accum`` equal microbatches whose gradients are summed —
+        bf16 / f16 ones in an f32 carry — and divided by ``accum``;
+        numerically the full-batch step (every loss is a batch mean), at a
+        microbatch's activation memory. The loss is the microbatches'
+        mean; ``*_count`` / ``*_total`` metrics sum, the others average."""
+        for k, v in batch.items():
+            if v.shape[0] % accum:
+                raise ValueError(
+                    f"batch dim {v.shape[0]} of {k!r} not divisible by "
+                    f"grad_accum_steps={accum}")
+        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                 for k, v in batch.items()}
+        wide = (torch.bfloat16, torch.float16)
+        acc = {op: {k: torch.zeros(w.shape, device=w.device,
+                                   dtype=torch.float32 if w.dtype in wide
+                                   else w.dtype)
+                    for k, w in ws.items()} for op, ws in params.items()}
+        losses, all_mets = [], []
+        for i in range(accum):
+            loss, mets, grads = self._loss_and_grads(
+                params, {k: v[i] for k, v in micro.items()}, *args)
+            for op, ws in acc.items():
+                for k, a in ws.items():
+                    a.add_(grads[op][k].to(a.dtype))
+            del grads
+            losses.append(loss)
+            all_mets.append(mets)
+        grads = {op: {k: a / accum for k, a in ws.items()}
+                 for op, ws in acc.items()}
+        mets = {k: (torch.stack([m[k] for m in all_mets]).sum()
+                    if k.endswith(("_count", "_total"))
+                    else torch.stack([m[k] for m in all_mets]).mean())
+                for k in all_mets[0]}
+        return torch.stack(losses).mean(), mets, grads
+
+    def train_step(self, params: Params, opt_state, batch: Batch, optimizer,
+                   loss_type: LossType, metric_types: Sequence[MetricsType],
+                   final_tensor) -> Tuple[torch.Tensor, Dict]:
+        """Forward, backward and one optimizer update (in place on
+        ``params`` and ``opt_state``) — over ``grad_accum_steps``
+        microbatches when that is above 1; returns the loss and metrics as
+        device scalars. Reads nothing back to the host, so a CUDA graph
+        can capture it (``FFModel.train_scanned``)."""
+        accum = self.model.config.grad_accum_steps
+        args = (loss_type, metric_types, final_tensor)
+        if accum > 1:
+            loss, mets, grads = self._accum_loss_and_grads(params, batch,
+                                                           accum, *args)
+        else:
+            loss, mets, grads = self._loss_and_grads(params, batch, *args)
         optimizer.update(params, grads, opt_state)
-        return loss.detach(), mets
+        return loss, mets
+
+    def guarded_train_step(self, params: Params, opt_state, batch: Batch,
+                           optimizer, loss_type: LossType,
+                           metric_types: Sequence[MetricsType], final_tensor,
+                           guard: Dict, gstate: Dict[str, torch.Tensor],
+                           inject_nan: bool = False
+                           ) -> Tuple[torch.Tensor, Dict]:
+        """The divergence-guarded step (the JAX
+        ``make_guarded_train_step``): the loss is scaled by
+        ``gstate["loss_scale"]`` and the gradients unscaled; ``finite`` =
+        loss and the f32 global grad-norm² both finite, computed on the
+        device; the optimizer writes nothing when it is false, so a
+        non-finite step leaves weights and state bitwise untouched. The
+        streaks, the loss scale ("backoff": halved on a bad step, doubled
+        after ``growth_interval`` good ones, within [2^-14, 2^15]) and the
+        skip count update in place on the device: no host sync in the
+        step. With loss scale 1.0 and every step finite the trajectory is
+        bitwise the unguarded step's. Metrics add ``nonfinite``,
+        ``grad_norm``, ``loss_scale`` and ``skipped_total``; the loss
+        returned is the raw one."""
+        scale = gstate["loss_scale"]
+        loss, mets, grads = self._loss_and_grads(
+            params, batch, loss_type, metric_types, final_tensor,
+            scale=scale, inject_nan=inject_nan)
+        inv = 1.0 / scale
+        grads = {op: {k: g * inv.to(g.dtype) for k, g in ws.items()}
+                 for op, ws in grads.items()}
+        gnorm_sq = torch.zeros((), dtype=torch.float32, device=scale.device)
+        for ws in grads.values():
+            for g in ws.values():
+                gnorm_sq = gnorm_sq + torch.sum(torch.square(g.float()))
+        finite = torch.isfinite(loss) & torch.isfinite(gnorm_sq)
+        optimizer.update(params, grads, opt_state, finite=finite)
+        bad = ~finite
+        zero = torch.zeros_like(gstate["bad_streak"])
+        streak = torch.where(bad, gstate["bad_streak"] + 1, zero)
+        good = torch.where(bad, zero, gstate["good_streak"] + 1)
+        if guard.get("on_nonfinite", "skip") == "backoff":
+            backoff = float(guard.get("backoff", 2.0))
+            down = torch.clamp(scale / backoff,
+                               min=float(guard.get("min_loss_scale",
+                                                   2.0 ** -14)))
+            grow = good >= int(guard.get("growth_interval", 200))
+            up = torch.where(grow, torch.clamp(
+                scale * backoff, max=float(guard.get("max_loss_scale",
+                                                     2.0 ** 15))), scale)
+            new_scale = torch.where(bad, down, up)
+            good = torch.where(grow & ~bad, zero, good)
+        else:
+            new_scale = scale.clone()
+        skipped = gstate["skipped"] + bad.to(torch.int32)
+        for k, v in (("bad_streak", streak), ("good_streak", good),
+                     ("loss_scale", new_scale), ("skipped", skipped)):
+            gstate[k].copy_(v)
+        mets = dict(mets)
+        mets["nonfinite"] = bad.to(torch.int32)
+        mets["grad_norm"] = torch.sqrt(gnorm_sq)
+        mets["loss_scale"] = new_scale
+        mets["skipped_total"] = skipped
+        return loss, mets
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: Batch, loss_type: LossType,
@@ -120,3 +246,108 @@ class GraphExecutor:
         vals = self.apply_graph(params, self._input_values(batch),
                                 training=False)
         return [vals[t] for t in finals]
+
+
+class StepReplay:
+    """n training steps a dispatch over the staged dataset: the port's
+    counterpart of the JAX ``make_train_scan`` (one ``lax.scan`` program
+    over the pre-batched device-resident data).
+
+    ``staged`` maps each graph input (and "label") to its (num_batches,
+    batch, ...) device tensor. The batch index and the slot of the
+    per-step output buffers are device tensors advanced by the step
+    itself: step i reads batch (start + i) mod num_batches, writes its
+    loss and metrics into slot i, so a run returns them stacked (n,).
+
+    On the card one step is captured as a CUDA graph
+    (``torch.cuda.graph``) and replayed: the first use runs one real step
+    eagerly on a side stream (it builds the kernels and settles the
+    allocator), captures the next without running it, and replays the
+    graph for the remaining steps. Weights and optimizer state are
+    updated in place, so the graph's addresses stay valid; the owner
+    rebuilds the replay when they, or the staged data, change. Launch
+    counters do not tick on a replay, so each replay adds the launches its
+    capture recorded (and the capture, which launches nothing, takes back
+    what it counted). On the CPU the same step runs as a plain loop."""
+
+    def __init__(self, step_fn, staged: Dict[str, torch.Tensor],
+                 capacity: int):
+        self.step_fn = step_fn          # batch -> (loss, metrics)
+        self.staged = staged
+        self.nb = min(v.shape[0] for v in staged.values())
+        dev = next(iter(staged.values())).device
+        self.device = dev
+        self.capacity = max(1, capacity)
+        self.bi = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.losses: Optional[torch.Tensor] = None
+        self.mets: Dict[str, torch.Tensor] = {}
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+
+    def _step(self) -> None:
+        batch = {k: v.index_select(0, self.bi)[0]
+                 for k, v in self.staged.items()}
+        loss, mets = self.step_fn(batch)
+        if self.losses is None:        # the eager first step allocates
+            n = self.capacity
+            self.losses = torch.zeros(n, dtype=loss.dtype,
+                                      device=self.device)
+            self.mets = {k: torch.zeros(n, dtype=v.dtype, device=self.device)
+                         for k, v in mets.items()}
+        self.losses.index_copy_(0, self.slot, loss.detach().reshape(1))
+        for k, v in mets.items():
+            self.mets[k].index_copy_(0, self.slot, v.reshape(1))
+        self.bi.copy_(torch.remainder(self.bi + 1, self.nb))
+        self.slot.add_(1)
+
+    def _capture(self) -> None:
+        from flexflow_tpu_torch.ops import kernels
+
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step()              # a real step: one of this run's
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self._step()              # captured, not run
+        after = kernels.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        for fn in kernels.KERNELS:    # the capture launched nothing
+            fn.launches -= self.launches[fn.__name__]
+        self.graph = graph
+
+    def _replay(self) -> None:
+        from flexflow_tpu_torch.ops import kernels
+
+        self.graph.replay()
+        self.replays += 1
+        for fn in kernels.KERNELS:
+            fn.launches += self.launches[fn.__name__]
+
+    def run(self, start: int, n: int) -> Tuple[torch.Tensor, Dict]:
+        """Steps on batches start, start + 1, ... (mod num_batches);
+        returns the losses and metrics stacked (n,)."""
+        self.bi.fill_(start % self.nb)
+        losses, mets = [], []
+        done = 0
+        while done < n:
+            k = min(n - done, self.capacity)
+            self.slot.zero_()
+            i = 0
+            if self.device.type == "cuda" and self.graph is None:
+                self._capture()
+                i = 1
+            for _ in range(i, k):
+                if self.graph is not None:
+                    self._replay()
+                else:
+                    self._step()
+            losses.append(self.losses[:k].clone())
+            mets.append({key: v[:k].clone() for key, v in self.mets.items()})
+            done += k
+        return (torch.cat(losses),
+                {key: torch.cat([m[key] for m in mets]) for key in mets[0]})

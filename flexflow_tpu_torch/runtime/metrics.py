@@ -77,23 +77,29 @@ def batch_metrics(loss_type: LossType, metric_types: Sequence[MetricsType],
                   logits: torch.Tensor,
                   labels: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-batch metric values as device scalars. ``accuracy_total`` is
-    the number of predictions (batch x positions for token-level labels)."""
+    the number of predictions (batch x positions for token-level labels),
+    made on the device too (a fill, which a captured CUDA graph can hold;
+    ``torch.tensor`` would copy from the host)."""
     out: Dict[str, torch.Tensor] = {}
     logits = logits.float()
+
+    def count(n: int) -> torch.Tensor:
+        return torch.full((), n, dtype=torch.int64, device=logits.device)
+
     for m in metric_types:
         if m == MetricsType.METRICS_ACCURACY:
             pred = torch.argmax(logits, dim=-1)
             if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
                 out["accuracy_count"] = (pred == _class_ids(labels, logits)).sum()
-                out["accuracy_total"] = torch.tensor(pred.numel())
+                out["accuracy_total"] = count(pred.numel())
             elif loss_type == LossType.LOSS_CATEGORICAL_CROSSENTROPY:
                 out["accuracy_count"] = (pred == torch.argmax(labels, -1)).sum()
-                out["accuracy_total"] = torch.tensor(pred.numel())
+                out["accuracy_total"] = count(pred.numel())
             else:
                 # regression "accuracy": every |err| < 0.5
                 close = (logits - labels).abs() < 0.5
                 out["accuracy_count"] = close.flatten(1).all(dim=1).sum()
-                out["accuracy_total"] = torch.tensor(logits.shape[0])
+                out["accuracy_total"] = count(logits.shape[0])
         elif m == MetricsType.METRICS_CATEGORICAL_CROSSENTROPY:
             logp = F.log_softmax(logits, dim=-1)
             out["cce_loss"] = -(labels * logp).sum(-1).mean()

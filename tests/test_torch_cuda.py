@@ -31,6 +31,17 @@ the 64- and 128-row tiles, causal offsets, GQA and MQA, head dims
 The plain versions are held against the JAX package's Pallas
 kernels by tests/test_torch_kernels.py and
 tests/test_torch_quantized_serving.py.
+
+The fused optimizer update (the port's own kernel) is held bitwise to the
+per-leaf torch update and to its plain version — every rule, f32 and
+bf16, odd and 1-element leaves, f32 grads of bf16 weights, more leaves
+than one launch takes, a bucket past 2^31 bytes, the finite flag off. The
+train loop on the card: the scanned steps (a CUDA graph captured and
+replayed) against per-step training within 1e-5 in f32 (cuBLAS may choose
+other algorithms under capture), with every replayed launch counted; Adam
+under a schedule, fused and guarded with a NaN step, against the CPU
+within 1e-5 (the key biases, whose exact gradient is zero, within Adam's
+step bound).
 """
 
 import ctypes
@@ -1149,3 +1160,237 @@ def test_quantized_paged_kernel_keeps_f32_products(cuda, pool, ctx):
                                     128, pps, 1, rl, pad, wp0)
     ref = kernels.paged_attention_plain(args[0].float(), *args[1:], **kw)
     assert _rel_err(out, ref) <= 2.5e-3, _rel_err(out, ref)
+
+
+# ---- the fused optimizer update --------------------------------------------
+
+UPDATE_RULES = {
+    "sgd": kernels.UpdateRule("sgd"),
+    "sgd_wd": kernels.UpdateRule("sgd", weight_decay=0.01),
+    "momentum": kernels.UpdateRule("sgd", momentum=0.9, weight_decay=0.01),
+    "nesterov": kernels.UpdateRule("sgd", momentum=0.9, nesterov=True),
+    "adam": kernels.UpdateRule("adam", weight_decay=0.01),
+    "adam_nowd": kernels.UpdateRule("adam"),
+}
+#: odd sizes, 1-element leaves, and a leaf past one 2048-element tile
+UPDATE_SHAPES = [(1,), (3, 5), (1,), (17,), (64, 33), (2049,), (7, 1, 3)]
+
+
+def _update_case(cuda, rule, dtype, shapes, seed, f32_grads=()):
+    """Weights, gradients (f32 for the leaves in ``f32_grads``) and flat
+    state; moments positive where Adam's v must be."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ps = [torch.randn(s, device=cuda, generator=g).to(dtype) for s in shapes]
+    gs = [torch.randn(s, device=cuda, generator=g).to(
+        torch.float32 if i in f32_grads else dtype)
+        for i, s in enumerate(shapes)]
+    total = sum(p.numel() for p in ps)
+    ms = [torch.randn(total, device=cuda, generator=g).abs().to(dtype)
+          for _ in range(rule.n_moments)]
+    return ps, gs, ms
+
+
+def _per_leaf(rule, ps, gs, ms, lr, finite=None):
+    """The per-leaf torch update on the same tensors (optimizer.py
+    apply_update), state sliced from the flat vectors."""
+    from flexflow_tpu_torch.runtime.optimizer import apply_update
+
+    off = 0
+    for p, gr in zip(ps, gs):
+        n = p.numel()
+        apply_update(rule, p, gr, [m[off:off + n].view(p.shape) for m in ms],
+                     lr, finite)
+        off += n
+
+
+def _clone(ts):
+    return [t.clone() for t in ts]
+
+
+def _same(a, b):
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_kernel_bitwise_per_leaf(cuda, dtype, rule):
+    """Three steps at odd leaf sizes, 1-element leaves and a grad-dtype
+    mismatch (f32 grads of two leaves): the kernel's weights and state are
+    bitwise the per-leaf torch update's and its plain version's, with one
+    launch a step."""
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(cuda, rule, dtype, UPDATE_SHAPES, 21,
+                              f32_grads=(1, 4))
+    ref_p, ref_m = _clone(ps), _clone(ms)
+    plain_p, plain_m = _clone(ps), _clone(ms)
+    for step in range(3):
+        lr = torch.full((), 0.01 * (step + 1), device=cuda)
+        n0 = kernels.fused_update.launches
+        kernels.fused_update(rule, ps, gs, ms, lr)
+        assert kernels.fused_update.launches == n0 + 1
+        _per_leaf(rule, ref_p, gs, ref_m, lr)
+        kernels.fused_update_plain(rule, plain_p, gs, plain_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ref_p) and _same(ms, ref_m)
+    assert _same(ps, plain_p) and _same(ms, plain_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["momentum", "adam"])
+def test_fused_update_many_leaves_take_several_launches(cuda, rule):
+    """300 leaves: three launches of at most 128 leaves each, state offsets
+    carried across them; bitwise the per-leaf update."""
+    rule = UPDATE_RULES[rule]
+    shapes = [((i * 37) % 50 + 1,) for i in range(300)]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, shapes, 22)
+    ref_p, ref_m = _clone(ps), _clone(ms)
+    lr = torch.full((), 0.05, device=cuda)
+    n0 = kernels.fused_update.launches
+    kernels.fused_update(rule, ps, gs, ms, lr)
+    _per_leaf(rule, ref_p, gs, ref_m, lr)
+    torch.cuda.synchronize()
+    assert kernels.fused_update.launches == n0 + 3
+    assert _same(ps, ref_p) and _same(ms, ref_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam"])
+def test_fused_update_finite_flag_off_writes_nothing(cuda, rule):
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, UPDATE_SHAPES, 23)
+    before_p, before_m = _clone(ps), _clone(ms)
+    lr = torch.full((), 0.05, device=cuda)
+    kernels.fused_update(rule, ps, gs, ms, lr,
+                         torch.zeros((), dtype=torch.bool, device=cuda))
+    torch.cuda.synchronize()
+    assert _same(ps, before_p) and _same(ms, before_m)
+    kernels.fused_update(rule, ps, gs, ms, lr,
+                         torch.ones((), dtype=torch.bool, device=cuda))
+    _per_leaf(rule, before_p, gs, before_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, before_p) and _same(ms, before_m)
+
+
+@pytest.mark.cuda
+def test_fused_update_bucket_past_2_31_bytes(cuda):
+    """A bf16 bucket of 2^30 + 2^20 + 9 elements (past 2^31 bytes, as the
+    flagship's 1.21 B weights are) with momentum: 64-bit indices into the
+    weights and the flat state; bitwise the per-leaf update."""
+    rule = UPDATE_RULES["momentum"]
+    shapes = [(2 ** 20 + 9,), (2 ** 30,)]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, shapes, 24)
+    ref_p, ref_m = _clone(ps), _clone(ms)
+    lr = torch.full((), 0.01, device=cuda)
+    kernels.fused_update(rule, ps, gs, ms, lr)
+    _per_leaf(rule, ref_p, gs, ref_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ref_p) and _same(ms, ref_m)
+
+
+@pytest.mark.cuda
+def test_fused_update_refuses_what_it_does_not_take(cuda):
+    rule = UPDATE_RULES["adam"]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, [(4,), (5,)], 25)
+    lr = torch.full((), 0.01, device=cuda)
+    with pytest.raises(ValueError, match="state vectors"):
+        kernels.fused_update(rule, ps, gs, ms[:1], lr)
+    with pytest.raises(ValueError, match="leaf 1"):
+        kernels.fused_update(rule, ps, [gs[0], gs[1].to(torch.float16)], ms,
+                             lr)
+    with pytest.raises(ValueError, match="0-dim f32"):
+        kernels.fused_update(rule, ps, gs, ms, lr.double())
+
+
+# ---- the train loop on the card ---------------------------------------------
+
+
+def _small_flagship(device, opt, seed=5, **cfg):
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType,
+                                    MetricsType, SingleDataLoader)
+    from flexflow_tpu_torch.models import build_encoder_classifier
+
+    ff = FFModel(FFConfig(batch_size=4, seed=seed, use_fused_ln=True, **cfg),
+                 device=device)
+    x, out = build_encoder_classifier(ff, 4, 64, 128, 2, 4, 4, 16)
+    ff.compile(opt, LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = torch.Generator().manual_seed(seed)
+    SingleDataLoader(ff, x, torch.randn(24, 64, 128, generator=rs).numpy())
+    SingleDataLoader(ff, ff.label_tensor, torch.randint(
+        0, 16, (24, 1), generator=rs, dtype=torch.int32).numpy())
+    return ff
+
+
+def _copy_weights(dst, src):
+    dst.params = {op: {w: t.detach().to(dst.device).clone()
+                       for w, t in ws.items()} for op, ws in
+                  src.params.items()}
+    dst.opt_state = dst.optimizer.init_state(dst.params)
+
+
+def _max_diff(a, b, skip=()):
+    return max((a.params[op][w].detach().cpu().float()
+                - t.detach().cpu().float()).abs().max().item()
+               for op, ws in b.params.items() for w, t in ws.items()
+               if w not in skip)
+
+
+@pytest.mark.cuda
+def test_scanned_steps_replay_a_cuda_graph_like_per_step(cuda):
+    """scan_steps 3 through FFModel.train_scanned (one eager step, one
+    capture, replays) against per-step training from the same weights,
+    f32: losses and weights within 1e-5 (the graph replays the same
+    kernels; cuBLAS may pick other algorithms under capture), and the
+    launch counters count every replayed launch."""
+    from flexflow_tpu_torch import SGDOptimizer
+
+    per = _small_flagship(cuda, SGDOptimizer(lr=0.05, momentum=0.9))
+    scan = _small_flagship(cuda, SGDOptimizer(lr=0.05, momentum=0.9),
+                           scan_steps=3, fused_optimizer=True)
+    _copy_weights(scan, per)
+    _copy_weights(per, scan)
+    kernels.reset_launch_counts()
+    losses, mets = scan.train_scanned(6)
+    torch.cuda.synchronize()
+    assert losses.shape == (6,) and mets["accuracy_count"].shape == (6,)
+    launched = kernels.launch_counts()
+    assert launched["flash_attention_fwd"] == 2 * 6
+    assert launched["fused_add_layernorm_fwd"] == 4 * 6
+    assert launched["fused_update"] == 6
+    assert scan._replay.replays == 5
+    ref = [float(per._run_train_step(per._stage_batch())[0])
+           for _ in range(6)]
+    torch.testing.assert_close(losses.cpu(), torch.tensor(ref), rtol=1e-5,
+                               atol=1e-5)
+    assert _max_diff(scan, per) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_adam_and_guard_on_the_card_match_the_cpu(cuda):
+    """Adam under WarmupCosine, fused, guarded with one injected NaN step:
+    3 steps on the card vs the CPU from the same weights, f32. Every weight
+    within 1e-5 but the key biases, whose exact gradient is zero (softmax
+    ignores a shift of every key) and whose Adam steps are rounding noise
+    normalised: those within 3 steps of alpha (1 - b1) / sqrt(1 - b2)."""
+    from flexflow_tpu_torch import AdamOptimizer, WarmupCosine
+
+    def adam():
+        return AdamOptimizer(alpha=0.01, schedule=WarmupCosine(1, 10))
+
+    cfg = dict(fused_optimizer=True, on_nonfinite="skip")
+    cpu = _small_flagship("cpu", adam(), **cfg)
+    gpu = _small_flagship(cuda, adam(), **cfg)
+    _copy_weights(gpu, cpu)
+    for i in range(4):
+        b = cpu._stage_batch()
+        lc, _ = cpu._run_train_step(b, inject_nan=(i == 1))
+        lg, mg = gpu._run_train_step(gpu._stage_batch(), inject_nan=(i == 1))
+        if i == 1:
+            assert int(mg["nonfinite"]) == 1
+        else:
+            torch.testing.assert_close(lg.cpu(), lc, rtol=1e-5, atol=1e-5)
+    assert int(gpu._guard_state["skipped"]) == 1
+    assert int(gpu.opt_state["t"]) == 3
+    assert _max_diff(gpu, cpu, skip=("bias_k",)) <= 1e-5
+    assert _max_diff(gpu, cpu) <= 3 * 0.01 * 0.1 / (0.001 ** 0.5)

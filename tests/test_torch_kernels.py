@@ -532,4 +532,4 @@ def test_launch_counters_are_plain_integers():
     assert kernels.launch_counts() == {
         "flash_attention_fwd": 0, "flash_attention_bwd": 0,
         "fused_add_layernorm_fwd": 0, "paged_attention_fwd": 0,
-        "paged_prefill_write": 0}
+        "paged_prefill_write": 0, "fused_update": 0}
