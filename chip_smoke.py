@@ -13,7 +13,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 (tensor-core), UTMALDG (TMA load) and LDGSTS (cp.async)
                 instructions with cuobjdump -sass and fail unless every
                 tensor-core flash kernel holds HGMMA and UTMALDG and every
-                paged-attention kernel LDGSTS or UTMALDG.
+                paged-attention kernel LDGSTS or UTMALDG, and every
+                fused-update kernel 16-byte global loads and stores.
                 bf16 flash attention (forward and backward) runs on the
                 tensor cores (wgmma, tiles by TMA: flash_attention_wgmma.cu,
                 flash_attention_bwd_wgmma.cu), f32 on the CUDA-core kernels
@@ -43,11 +44,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 ratio to the torch call. Then the fused optimizer update
                 (fused_update.cu, the port's own kernel) at the full-width
                 flagship's bucket (1.21 B bf16 weights, ~100 leaves) for
-                SGD, SGD with momentum and Adam: bitwise against its plain
-                version (run a few leaves at a time) and the optimizer's
-                per-leaf torch update; timed beside the per-leaf update,
-                torch._foreach_* of the same formula and a device copy of
-                the same bytes.
+                SGD, SGD with momentum and Adam on flat state (FusedUpdate's
+                layout), and SGD and Adam as the per-leaf optimizer calls
+                it (Adam on per-leaf state tensors): bitwise against its
+                plain version (run a few leaves at a time) and the
+                per-leaf torch formula (apply_update_plain); timed beside
+                that formula, torch._foreach_* of the same formula and a
+                device copy of the same bytes; each row prints the share
+                of its bytes on the kernel's 16-byte vector path, counted
+                on the card (vector_count) and held equal to the plan's.
   4. check    — a small Llama (2 layers, head dim 128) served in f32 on the
                 card through the kernels gives the same greedy tokens as the
                 same weights served on the CPU through the plain versions:
@@ -65,12 +70,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 steps on the card through the kernels and on the CPU
                 through the plain branches from the same weights, for each
                 of: SGD; Adam under WarmupCosine; fused SGD with momentum
-                (also bitwise the card's per-leaf update); grad_accum_steps
-                2; on_nonfinite="skip" with a NaN injected at step 2 (the
+                (also bitwise, on the card, the per-leaf torch formula —
+                Optimizer.update_plain, no kernel — and the per-leaf
+                optimizer, which launches the same kernel on per-leaf
+                state); grad_accum_steps 2; on_nonfinite="skip" with a NaN injected at step 2 (the
                 weights bitwise untouched by it); scan_steps=3 through the
                 CUDA graph replay. Losses within 1e-4 relative, every
                 weight within 1e-5 (Adam's key biases: see
-                ADAM_NOISE_ATOL), exact launch counts.
+                ADAM_NOISE_ATOL), exact launch counts (one update launch
+                a step in every variant: the per-leaf optimizer runs the
+                fused update kernel on the card too).
   6. serve    — Llama-3-8B widths (hidden 4096, 32 heads over 8 kv heads,
                 ffn 14336, vocab 128256, rope_theta 500000, 32 layers, bf16,
                 seeded random weights) serve 6 prompts (13..700 tokens, 32
@@ -95,9 +104,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 fused add + LayerNorm, SGD lr 0.01, seeded random weights
                 and data) takes one warm-up step, then FFModel.fit runs one
                 epoch of 4 steps: every loss finite, and per step exactly
-                6 flash forwards, 6 flash backwards and 12 add + LayerNorm
-                launches. Prints step time, samples/s, peak memory and a
-                torch.profiler breakdown of one more step. Then the same
+                6 flash forwards, 6 flash backwards, 12 add + LayerNorm
+                launches and one fused update (the per-leaf optimizer's,
+                on per-leaf state). Prints step time, samples/s, peak
+                memory and a torch.profiler breakdown of one more step (by
+                kernel class, the top 8 kernels, and the top 8 of the
+                "other" class with their launches). Then the same
                 model, compiled again from the same seed, trains the same
                 way with the fused SGD update, the fused Adam update, and
                 scan_steps=4 (one chunk a fit: a CUDA graph replayed 4
@@ -311,9 +323,10 @@ def sass_counts(kernels):
     (LDGSTS) instructions of each flash and paged-attention kernel in the
     built library (cuobjdump -sass); fail unless every tensor-core flash
     kernel holds HGMMA and UTMALDG, every paged-attention kernel streams
-    its K/V by cp.async or TMA, and every bf16-query paged kernel
-    (paged_attn_mma_kernel) holds HMMA."""
-    ops = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+    its K/V by cp.async or TMA, every bf16-query paged kernel
+    (paged_attn_mma_kernel) holds HMMA, and every fused-update kernel
+    16-byte global loads and stores (LDG / STG .128)."""
+    ops = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "LDG.128", "STG.128")
     tool = Path(kernels._find_nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(kernels.LIBRARY.path)],
                          capture_output=True, text=True, timeout=300)
@@ -324,21 +337,28 @@ def sass_counts(kernels):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = kernel_name(m.group(1)) if any(
-                k in m.group(1) for k in ("flash", "simt", "paged_attn")) \
-                else None
+                k in m.group(1) for k in ("flash", "simt", "paged_attn",
+                                          "fused_update")) else None
             if cur:
                 counts[cur] = dict.fromkeys(ops, 0)
         elif cur:
-            for op in ops:
+            for op in ops[:4]:
                 counts[cur][op] += op in ln
+            # 16-byte global loads and stores (LDG.E.EF.128 and the like)
+            for op in ops[4:]:
+                counts[cur][op] += op[:3] in ln and ".128" in ln
     wgmma = [k for k in counts if "wgmma" in k]
     paged = [k for k in counts if "paged_attn" in k]
+    update = [k for k in counts if "fused_update" in k]
     if len(wgmma) != 9:
         fail(f"expected 9 tensor-core flash kernels in the library, found "
              f"{sorted(wgmma)}")
     if len(paged) != 21:
         fail(f"expected 21 paged-attention kernels in the library, found "
              f"{sorted(paged)}")
+    if len(update) != 16:     # 4 rules x 2 dtypes x weight decay on / off
+        fail(f"expected 16 fused-update kernels in the library, found "
+             f"{sorted(update)}")
     for name, c in sorted(counts.items()):
         say(f"  sass {name}: " + ", ".join(f"{c[op]} {op}" for op in ops))
         if name in wgmma and not (c["HGMMA"] and c["UTMALDG"]):
@@ -347,6 +367,8 @@ def sass_counts(kernels):
             fail(f"{name} holds no cp.async (LDGSTS) or TMA (UTMALDG) load")
         if "paged_attn_mma" in name and not c["HMMA"]:
             fail(f"{name} holds no tensor-core (HMMA) instruction")
+        if name in update and not (c["LDG.128"] and c["STG.128"]):
+            fail(f"{name} holds no 16-byte global load or store")
 
 
 def phase_kernels(torch, port, kernels):
@@ -413,9 +435,12 @@ def phase_kernels(torch, port, kernels):
             + (f", a device copy of the same bytes {r['copy_ms']:.4f} ms: "
                f"{r['ms'] / r['copy_ms']:.2f}x its time"
                if r.get("copy_ms") else "")
-            + (f", the per-leaf torch update {r['per_leaf_ms']:.4f} ms: "
+            + (f", the per-leaf torch formula {r['per_leaf_ms']:.4f} ms: "
                f"{r['ms'] / r['per_leaf_ms']:.2f}x its time"
-               if r.get("per_leaf_ms") else "") + ")")
+               if r.get("per_leaf_ms") else "")
+            + (f", {100 * r['vector_share']:.4f}% of the bytes on the "
+               f"vector path, counted on the card" if "vector_share" in r
+               else "") + ")")
     return rows
 
 
@@ -787,13 +812,17 @@ def training_kernel_rows(torch, kernels, g):
     return rows
 
 
-#: phase 3's fused-update rows at the flagship's bucket: (row, rule, bytes
-#: an element moves in bf16 (w, g read, w written, plus v or m and v read
-#: and written), f32 operations an element)
-UPDATE_ROWS = (("fused_update", dict(kind="sgd"), 6, 2),
-               ("fused_update_momentum", dict(kind="sgd", momentum=0.9), 10,
-                4),
-               ("fused_update_adam", dict(kind="adam"), 14, 12))
+#: phase 3's fused-update rows at the flagship's bucket: (row, rule, state
+#: form, bytes an element moves in bf16 (w, g read, w written, plus v or m
+#: and v read and written), f32 operations an element)
+UPDATE_ROWS = (("fused_update", dict(kind="sgd"), "flat", 6, 2),
+               ("fused_update_per_leaf", dict(kind="sgd"), "per_leaf", 6, 2),
+               ("fused_update_momentum", dict(kind="sgd", momentum=0.9),
+                "flat", 10, 4),
+               ("fused_update_adam", dict(kind="adam"), "flat", 14, 12),
+               ("fused_update_adam_per_leaf", dict(kind="adam"), "per_leaf",
+                14, 12))
+UPDATE_CALLER = {"flat": "FusedUpdate", "per_leaf": "the per-leaf Optimizer"}
 #: the plain version runs this many elements' leaves at a time (for memory)
 PLAIN_CHUNK = 1 << 28
 
@@ -812,9 +841,10 @@ def flagship_leaf_shapes(port):
     return [s for ws in ff.weight_shapes().values() for s in ws.values()]
 
 
-def update_case(torch, g, rule, shapes):
-    """bf16 weights ~N(0, 1), grads ~N(0, 1e-4), flat state: momentum
-    ~N(0, 1e-4), Adam's m ~N(0, 1e-4) and v its square's scale."""
+def update_case(torch, g, rule, shapes, form="flat"):
+    """bf16 weights ~N(0, 1), grads ~N(0, 1e-4), state: momentum ~N(0,
+    1e-4), Adam's m ~N(0, 1e-4) and v its square's scale; flat (a vector a
+    moment) or per leaf (a tensor of each weight's shape a moment)."""
     bf16 = torch.bfloat16
     ps = [torch.randn(s, device="cuda", generator=g).to(bf16) for s in shapes]
     gs = [torch.randn(s, device="cuda", generator=g).mul_(1e-2).to(bf16)
@@ -828,8 +858,19 @@ def update_case(torch, g, rule, shapes):
                             generator=g).mul_(1e-2)
             v_of_adam = rule.kind == "adam" and i == 1
             m[lo:lo + x.numel()] = x.square_() if v_of_adam else x
+        if form == "per_leaf":
+            m = [m[lo:lo + p.numel()].clone().view(p.shape) for p, lo in
+                 zip(ps, itertools.accumulate([0] + [p.numel() for p in ps]))]
         ms.append(m)
     return ps, gs, ms
+
+
+def leaf_state(torch, ps, m):
+    """State ``m`` of either form as one tensor of each weight's shape."""
+    if not torch.is_tensor(m):
+        return m
+    offs = itertools.accumulate([0] + [p.numel() for p in ps])
+    return [m[lo:lo + p.numel()].view(p.shape) for p, lo in zip(ps, offs)]
 
 
 def _groups(ps, limit):
@@ -848,19 +889,23 @@ def _groups(ps, limit):
 
 def fused_update_rows(torch, port, kernels, g):
     """The fused update at the flagship's bucket (1.21 B bf16 weights in
-    its ~100 leaves), SGD, SGD with momentum and Adam: bitwise against its
-    plain version (run a few leaves at a time, which is the same
-    elementwise function) and against the per-leaf torch update of the
-    optimizer; times beside the per-leaf update, torch._foreach_* of the
-    same formula, and a device copy of the same bytes."""
-    from flexflow_tpu_torch.runtime.optimizer import apply_update
+    its ~100 leaves), SGD, SGD with momentum and Adam on flat state (as
+    FusedUpdate keeps it), and SGD (no state) and Adam on per-leaf state
+    as the per-leaf optimizer calls it: bitwise against the per-leaf torch formula
+    (optimizer.py apply_update_plain, which nothing on the card's main
+    path runs) and against its plain version (run a few leaves at a time,
+    which is the same elementwise function); times beside the per-leaf
+    torch formula, torch._foreach_* of the same formula and a device copy
+    of the same bytes; the share of the bytes on the vector path, counted
+    by the kernel on the card."""
+    from flexflow_tpu_torch.runtime.optimizer import apply_update_plain
 
     shapes = flagship_leaf_shapes(port)
     n = sum(math.prod(s) for s in shapes)
     rows = {}
-    for name, kw, bytes_per, ops_per in UPDATE_ROWS:
+    for name, kw, form, bytes_per, ops_per in UPDATE_ROWS:
         rule = kernels.UpdateRule(**kw)
-        ps, gs, ms = update_case(torch, g, rule, shapes)
+        ps, gs, ms = update_case(torch, g, rule, shapes, form)
         if rule.kind == "adam":
             lr = port.AdamOptimizer(alpha=1e-3).lr_of(
                 torch.zeros((), dtype=torch.int32, device="cuda"))
@@ -869,38 +914,51 @@ def fused_update_rows(torch, port, kernels, g):
         groups = _groups(ps, PLAIN_CHUNK)
 
         def per_leaf(ps, ms):
-            off = 0
-            for p, gr in zip(ps, gs):
-                k = p.numel()
-                apply_update(rule, p, gr,
-                             [m[off:off + k].view(p.shape) for m in ms], lr)
-                off += k
+            views = [leaf_state(torch, ps, m) for m in ms]
+            for i, (p, gr) in enumerate(zip(ps, gs)):
+                apply_update_plain(rule, p, gr, [v[i] for v in views], lr)
 
         def plain(ps, ms):
             for idx, lo, hi in groups:
                 kernels.fused_update_plain(
                     rule, [ps[i] for i in idx], [gs[i] for i in idx],
-                    [m[lo:hi] for m in ms], lr)
+                    [m[lo:hi] if torch.is_tensor(m) else [m[i] for i in idx]
+                     for m in ms], lr)
 
-        ref = ([p.clone() for p in ps], [m.clone() for m in ms])
-        pln = ([p.clone() for p in ps], [m.clone() for m in ms])
-        kernels.fused_update(rule, ps, gs, ms, lr)
+        def clone(ms):
+            return [m.clone() if torch.is_tensor(m) else [x.clone() for x in m]
+                    for m in ms]
+
+        def flat(ts):
+            return [x for t in ts for x in ([t] if torch.is_tensor(t) else t)]
+
+        ref = ([p.clone() for p in ps], clone(ms))
+        pln = ([p.clone() for p in ps], clone(ms))
+        # the elements the kernel's 16-byte path stored, counted on the card
+        # (every array of a row is bf16, so it is the share of the bytes
+        # too), and the plan's count, which it must equal
+        counted = torch.zeros(1, dtype=torch.int64, device="cuda")
+        kernels.fused_update(rule, ps, gs, ms, lr, vector_count=counted)
+        planned = sum(sum(kernels.fused_update_vector_elements(x.plan))
+                      for x in kernels.fused_update_launches(ps, gs, ms))
         per_leaf(*ref)
         plain(*pln)
         torch.cuda.synchronize()
         bits = lambda ts: [t.view(torch.int16) for t in ts]  # noqa: E731
-        for tag, (rp, rm) in (("the per-leaf update", ref),
+        for tag, (rp, rm) in (("the per-leaf torch formula", ref),
                               ("its plain version", pln)):
             if not all(torch.equal(a, b) for a, b in
-                       zip(bits(ps + ms), bits(rp + rm))):
+                       zip(bits(ps + flat(ms)), bits(rp + flat(rm)))):
                 fail(f"{name}: the kernel is not bitwise {tag}")
+        counted = int(counted.item())
+        if counted != planned:
+            fail(f"{name}: the kernel stored {counted} elements on its "
+                 f"vector path, its plan {planned}")
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(ps, pln[0]))
         del ref, pln
         lr_f = lr.item()
-        mv = [[m[lo:lo + p.numel()].view(p.shape) for p, lo in zip(
-            ps, itertools.accumulate([0] + [p.numel() for p in ps]))]
-            for m in ms]
+        mv = [leaf_state(torch, ps, m) for m in ms]
 
         def foreach():
             if rule.kind == "adam":
@@ -923,17 +981,23 @@ def fused_update_rows(torch, port, kernels, g):
         nbytes = bytes_per * n
         rows[name] = dict(
             err=err,
+            # the long wait hides the wrapper's host time (~100 leaves'
+            # addresses a call)
             ms=cuda_ms(lambda: kernels.fused_update(rule, ps, gs, ms, lr),
-                       iters=5, warmup=1),
+                       iters=5, warmup=1, sleep=LONG_SLEEP_CYCLES),
             per_leaf_ms=cuda_ms(lambda: per_leaf(ps, ms), iters=3,
                                 warmup=1, sleep=LONG_SLEEP_CYCLES),
             plain_ms=cuda_ms(lambda: plain(ps, ms), iters=3, warmup=1),
             library_ms=cuda_ms(foreach, iters=3, warmup=1,
                                sleep=LONG_SLEEP_CYCLES),
             library="torch._foreach_* of the formula (bf16 storage)",
+            vector_share=counted / n,
             bound=bound(nbytes, ops_per * n, F32_FLOP_PER_S),
             shape=f"{len(shapes)} leaves, {n / 1e9:.3f} B bf16 elements, "
-                  f"{rule.kind}" + (" momentum" if rule.momentum else ""))
+                  f"{rule.kind}" + (" momentum" if rule.momentum else "")
+                  + (", no state" if not ms else
+                     f", {form.replace('_', '-')} state")
+                  + f", as {UPDATE_CALLER[form]} calls it")
         del ps, gs, ms, mv
         src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
         dst = torch.empty_like(src)
@@ -1174,9 +1238,10 @@ ADAM_NOISE_ATOL = 3 * 2 * 1e-3
 def phase_train_check(torch, port, kernels):
     """Small f32 flagship, card (kernels) vs CPU (plain branches) from the
     same weights, 3 steps of each variant of TRAIN_CHECK_VARIANTS; the
-    fused update on the card bitwise the card's per-leaf update; the
+    fused update on the card bitwise the per-leaf torch formula and the
+    per-leaf optimizer on the card; the
     skipped step bitwise a no-op; the scanned steps replay a CUDA graph.
-    Returns the fused variant's launch counts."""
+    Returns {variant name: launch counts}."""
     import numpy as np
 
     arch = dict(batch=4, seq=128, hidden=512, layers=2, heads=4, ffn_mult=4,
@@ -1186,7 +1251,7 @@ def phase_train_check(torch, port, kernels):
     ys = rs.randint(0, 16, (12, 1)).astype(np.int32)
     batches = [{"input": xs[4 * i:4 * i + 4], "label": ys[4 * i:4 * i + 4]}
                for i in range(3)]
-    fused_launches = None
+    out = {}
     for name, opt, cfg in TRAIN_CHECK_VARIANTS:
         cpu, _ = build_flagship(port, "cpu", "float32", 3, **arch,
                                 opt=opt(port), **cfg)
@@ -1236,28 +1301,41 @@ def phase_train_check(torch, port, kernels):
                  f"{noise})")
         launches = kernels.launch_counts()
         micro = 2 if cfg.get("grad_accum_steps") else 1
-        steps = 2 if guard else 3
+        # one update launch a step, per-leaf or fused (the guard's skipped
+        # step launches it too, and it writes nothing)
         want = dict(flash_attention_fwd=2 * micro * 3,
                     flash_attention_bwd=2 * micro * 3,
-                    fused_add_layernorm_fwd=4 * micro * 3,
-                    fused_update=steps if cfg.get("fused_optimizer") else 0)
+                    fused_add_layernorm_fwd=4 * micro * 3, fused_update=3)
         if any(launches[k] != v for k, v in want.items()):
             fail(f"train check ({name}) did not run through the kernels: "
                  f"{launches} (want {want})")
+        out[name] = launches
         extra = ""
         if cfg.get("fused_optimizer") and not scan:
-            # the card's per-leaf update from the same weights and batches
-            fused_launches = launches
-            per, _ = build_flagship(port, "cuda", "float32", 3, **arch,
-                                    opt=opt(port))
-            copy_weights(per, start)
-            for batch in batches:
-                per._run_train_step(batch)
-            if not same_bits(per.params, gpu.params):
-                fail(f"train check ({name}): the fused update on the card "
-                     f"is not bitwise the card's per-leaf update")
-            extra = "; bitwise the card's per-leaf update"
-            del per
+            # from the same weights and batches on the card: the per-leaf
+            # torch formula (Optimizer.update_plain, apply_update_plain leaf
+            # by leaf, no kernel), and the per-leaf optimizer (the same
+            # kernel on per-leaf state); the fused run bitwise both
+            for tag, plain in (("the per-leaf torch formula", True),
+                               ("the per-leaf optimizer", False)):
+                per, _ = build_flagship(port, "cuda", "float32", 3, **arch,
+                                        opt=opt(port))
+                if plain:
+                    per.optimizer.update = per.optimizer.update_plain
+                copy_weights(per, start)
+                n0 = kernels.fused_update.launches
+                for batch in batches:
+                    per._run_train_step(batch)
+                ran = kernels.fused_update.launches - n0
+                if ran != (0 if plain else 3):
+                    fail(f"train check ({name}): {tag} on the card launched "
+                         f"the update kernel {ran} times")
+                if not same_bits(per.params, gpu.params):
+                    fail(f"train check ({name}): the fused update on the "
+                         f"card is not bitwise {tag} on the card")
+                del per
+            extra = ("; bitwise the per-leaf torch formula and the per-leaf "
+                     "optimizer on the card")
         if scan:
             per, _ = build_flagship(port, "cuda", "float32", 3, **arch,
                                     opt=opt(port), **cfg)
@@ -1275,7 +1353,7 @@ def phase_train_check(torch, port, kernels):
             + (f" (key biases, Adam's normalised noise: {noise:.2e})"
                if adam else "") + extra)
         del cpu, gpu, start
-    return fused_launches
+    return out
 
 
 def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
@@ -1543,7 +1621,6 @@ def train_run(torch, kernels, card: str, ff, label: str):
     f = FLAGSHIP
     n = f["batch"] * TRAIN_STEPS
     scan = ff.config.scan_steps > 0
-    fused = ff.config.fused_optimizer
     torch.cuda.reset_peak_memory_stats()
     losses = []
     step, scanned = ff._run_train_step, ff.train_scanned
@@ -1580,7 +1657,7 @@ def train_run(torch, kernels, card: str, ff, label: str):
             "flash_attention_bwd": layers * TRAIN_STEPS,
             "fused_add_layernorm_fwd": 2 * layers * TRAIN_STEPS,
             "paged_attention_fwd": 0, "paged_prefill_write": 0,
-            "fused_update": TRAIN_STEPS if fused else 0}
+            "fused_update": TRAIN_STEPS}
     if launches != want:
         fail(f"train ({label}): kernel launches {launches} != expected "
              f"{want}")
@@ -1621,6 +1698,12 @@ def train_run(torch, kernels, card: str, ff, label: str):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         say(f"train profile kernel ({label}): {us / 1e3 / per:.3f} ms a "
             f"step {name[:100]}")
+    other = [(n, us) for n, us in by_name.items()
+             if kernel_class(n).startswith("other")]
+    for name, us in sorted(other, key=lambda kv: -kv[1])[:8]:
+        calls = sum(e.name == name for e in events) / per
+        say(f"train profile other ({label}): {us / 1e3 / per:.3f} ms a "
+            f"step, {calls:g} launches a step: {name[:200]}")
 
     _, _, grads = ff.executor._loss_and_grads(
         ff.params, ff._to_device(batch), ff.loss_type, ff.metric_types,
@@ -1681,6 +1764,12 @@ KERNEL_ROWS = {
                               "train_check_fused", "fused_update"),
     "fused_update_adam": ("fused_update.cu", FUSED_UPDATE_REPLACES,
                           "train_adam", "fused_update"),
+    # the per-leaf optimizer's call: SGD as phase 7's default per-leaf run
+    # takes it, Adam on per-leaf state (phase 5)
+    "fused_update_per_leaf": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                              "train", "fused_update"),
+    "fused_update_adam_per_leaf": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                                   "train_check_adam", "fused_update"),
 }
 
 
@@ -1704,7 +1793,9 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, port, kernels)
     launches = phase_check(torch, FFConfig, FFModel, llama_lm, kernels)
-    launches["train_check_fused"] = phase_train_check(torch, port, kernels)
+    checked = phase_train_check(torch, port, kernels)
+    launches["train_check_fused"] = checked["fused SGD with momentum"]
+    launches["train_check_adam"] = checked["Adam under WarmupCosine"]
     launches["serve"], ff = phase_serve(torch, FFConfig, FFModel, llama_lm,
                                         kernels, card)
     launches.update(phase_serve_quantized(torch, ff, kernels, card))
@@ -1727,7 +1818,8 @@ def main():
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "library": r["library"],
-            "copy_ms": r.get("copy_ms"), "per_leaf_ms": r.get("per_leaf_ms")})
+            "copy_ms": r.get("copy_ms"), "per_leaf_ms": r.get("per_leaf_ms"),
+            "vector_share": r.get("vector_share")})
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,8 +41,11 @@ JAX ops route them off their Pallas kernels.
 A sixth kernel is the port's own, not a Pallas kernel's: ``fused_update``
 (``csrc/fused_update.cu``) applies the optimizer's update to every weight
 of one storage dtype in one launch, where the JAX package's ``FusedUpdate``
-(flexflow_tpu/runtime/optimizer.py:40) leaves the job to XLA's fusion;
-``update_math`` is the formula both it and the per-leaf update follow.
+(flexflow_tpu/runtime/optimizer.py:40) leaves the job to XLA's fusion.
+Both of the port's optimizers launch it on the card — ``FusedUpdate`` on
+its flat state vectors, the per-leaf ``Optimizer`` on its per-leaf state
+tensors; ``update_math`` is the formula it and the per-leaf torch update
+(the CPU path) follow.
 
 ``flash_attention`` and ``fused_add_layernorm`` are the
 ``torch.autograd.Function`` counterparts of the JAX package's custom VJPs
@@ -62,6 +65,7 @@ through the kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -194,9 +198,10 @@ class _Library:
                     pp, pp, pp, pp, pp, pp, i, p, i, i, i, i, i, i, i, i, i,
                     i, p]
                 ll = ctypes.c_longlong
+                ip = ctypes.POINTER(i)
                 lib.ff_fused_update.argtypes = [
-                    pp, pp, ctypes.POINTER(ll), ctypes.POINTER(i), i, ll, p,
-                    p, i, i, i, f, f, f, f, f, f, f, p, p, p]
+                    pp, pp, pp, pp, ctypes.POINTER(ll), ip, ip, ip, i, ll, i,
+                    i, i, f, f, f, f, f, f, f, p, p, p, p]
                 for fn in (lib.ff_flash_attention_fwd,
                            lib.ff_flash_attention_bwd,
                            lib.ff_fused_add_layernorm_fwd,
@@ -1137,17 +1142,36 @@ def _select(finite, new, old):
     return new if finite is None else torch.where(finite, new, old)
 
 
+def _flat_state(m):
+    """A state vector of the flat form, or the per-leaf form's tensors
+    concatenated in leaf order."""
+    if torch.is_tensor(m):
+        return m
+    return torch.cat([x.reshape(-1) for x in m])
+
+
+def _put_state(m, new) -> None:
+    """Write the flat f32 ``new`` into state ``m`` (either form)."""
+    if torch.is_tensor(m):
+        m.copy_(new)
+        return
+    off = 0
+    for x in m:
+        x.copy_(new[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+
+
 def fused_update_plain(rule: UpdateRule, params, grads, moments, lr,
                        finite=None) -> None:
     """Plain version of ``fused_update``: concatenate the bucket's weights
     and gradients (a gradient in f32 where its dtype differs from its
-    weight's, as the JAX package's ``_flatten_grads`` upcasts), apply
-    ``update_math`` to the flat f32 vectors, and write the result back
-    into the weights and the flat state ``moments``, in place. With
-    ``finite`` (0-dim bool) false, everything keeps its old value."""
+    weight's, as the JAX package's ``_flatten_grads`` upcasts) and its
+    state (either form), apply ``update_math`` to the flat f32 vectors,
+    and write the result back into the weights and the state, in place.
+    With ``finite`` (0-dim bool) false, everything keeps its old value."""
     w = torch.cat([p.reshape(-1) for p in params]).float()
     g = torch.cat([x.reshape(-1).float() for x in grads])
-    ms = [m.float() for m in moments]
+    ms = [_flat_state(m).float() for m in moments]
     nw, nms = update_math(rule, w, g, ms, lr)
     nw = _select(finite, nw, w)
     off = 0
@@ -1155,15 +1179,152 @@ def fused_update_plain(rule: UpdateRule, params, grads, moments, lr,
         p.copy_(nw[off:off + p.numel()].view(p.shape))
         off += p.numel()
     for m, new, old in zip(moments, nms, ms):
-        m.copy_(_select(finite, new, old))
+        _put_state(m, _select(finite, new, old))
 
 
 #: leaves a launch (csrc/fused_update.cu kMaxLeaves): the leaf table rides
-#: in the kernel's parameters; a bucket of more leaves takes more launches
+#: in the kernel's parameters (CUDA >= 12.1's 32764-byte limit); a bucket
+#: of more leaves takes more launches
 FUSED_UPDATE_MAX_LEAVES = 128
+#: threads a block and 16-byte vectors a thread a chunk (csrc/
+#: fused_update.cu kThreads, kUnroll): a chunk is 4096 bf16 or 2048 f32
+#: elements of one leaf
+FUSED_UPDATE_THREADS = 128
+FUSED_UPDATE_UNROLL = 4
+# leaf flags (csrc/fused_update.cu LeafFlag)
+_GRAD_F32, _VECTOR = 1, 2
+
+
+class UpdatePlan(NamedTuple):
+    """How ``fused_update``'s kernel cuts one launch's leaves: ``head[i]``
+    leading elements of leaf i are updated one by one before its body
+    takes 16-byte vectors of ``width`` elements (``vector[i]``; a leaf
+    whose pointers cannot all be aligned at one element goes one by one
+    throughout); leaf i has ``chunk_end[i] - chunk_end[i - 1]`` chunks of
+    up to ``chunk`` elements, none across two leaves."""
+
+    numel: Tuple[int, ...]
+    head: Tuple[int, ...]
+    vector: Tuple[bool, ...]
+    chunk_end: Tuple[int, ...]
+    width: int
+    chunk: int
+
+
+def fused_update_plan(numels, pointers, elem_size: int) -> UpdatePlan:
+    """The kernel's cut of one launch's leaves, from their sizes and
+    addresses alone (no tensor touched). ``numels[i]``: leaf i's elements;
+    ``pointers[i]``: (address, element size) of each of its arrays, the
+    weight first (then its gradient and state); ``elem_size``: the
+    weights' (4 f32, 2 bf16).
+
+    A leaf's head is where its weight pointer reaches a 16-byte boundary;
+    the leaf takes vectors iff every one of its pointers is aligned at
+    that element (an array's element j lies at address + j * size, and a
+    vector advances 16 bytes of the weight: 8 bf16 or 4 f32, one or two
+    16-byte loads of an f32 gradient). Its chunks: the first holds the
+    head and up to ``chunk`` elements after it, each next one ``chunk``
+    elements, the last the rest (``fused_update_chunk_spans``)."""
+    width = 16 // elem_size
+    chunk = FUSED_UPDATE_THREADS * FUSED_UPDATE_UNROLL * width
+    heads, vectors, ends, end = [], [], [], 0
+    for n, ptrs in zip(numels, pointers):
+        head = (-ptrs[0][0]) % 16 // elem_size
+        vec = True
+        for p, s in ptrs:
+            if p % s or (p + head * s) % 16:
+                vec, head = False, 0
+                break
+        if n == 0:
+            count = 0
+        elif vec:
+            count = 1 if n <= head else -(-(n - head) // chunk)
+        else:
+            count = -(-n // chunk)
+        end += count
+        heads.append(head)
+        vectors.append(vec)
+        ends.append(end)
+    return UpdatePlan(tuple(numels), tuple(heads), tuple(vectors),
+                      tuple(ends), width, chunk)
+
+
+def fused_update_chunk_spans(plan: UpdatePlan, leaf: int, k: int):
+    """Chunk k of ``leaf`` as the kernel walks it: (s0, a, b, e), elements
+    [s0, a) one by one, [a, b) in vectors, [b, e) one by one — the
+    arithmetic of csrc/fused_update.cu's loop, for the host's tests."""
+    n, head, c = plan.numel[leaf], plan.head[leaf], plan.chunk
+    if plan.vector[leaf]:
+        s0 = 0 if k == 0 else head + k * c
+        a = min(head, n) if k == 0 else s0
+        e = min(n, head + (k + 1) * c)
+        return s0, a, a + (e - a) // plan.width * plan.width, e
+    s0 = k * c
+    return s0, s0, s0, min(n, s0 + c)
+
+
+def fused_update_vector_elements(plan: UpdatePlan) -> Tuple[int, ...]:
+    """Elements of each leaf that the vector path updates."""
+    return tuple((n - h) // plan.width * plan.width if v and n > h else 0
+                 for n, h, v in zip(plan.numel, plan.head, plan.vector))
+
+
+def _per_leaf_form(moments) -> bool:
+    return bool(moments) and not torch.is_tensor(moments[0])
+
+
+def _state_pointers(numels, moments) -> list:
+    """Per state vector, the address of each leaf's state: the per-leaf
+    form's tensors, or the flat form's vector at each leaf's offset."""
+    if _per_leaf_form(moments):
+        return [[x.data_ptr() for x in m] for m in moments]
+    out = []
+    for m in moments:
+        ptrs, addr, size = [], m.data_ptr(), m.element_size()
+        for n in numels:
+            ptrs.append(addr)
+            addr += n * size
+        out.append(ptrs)
+    return out
+
+
+class UpdateLaunch(NamedTuple):
+    """One launch of ``fused_update``: its first leaf's index, its plan,
+    and each of its leaves' weight, grad and state addresses."""
+
+    lo: int
+    plan: UpdatePlan
+    w: list
+    g: list
+    state: list   # per state vector, one address a leaf
+
+
+def fused_update_launches(params, grads, moments):
+    """``fused_update``'s launches for these tensors, one per
+    ``FUSED_UPDATE_MAX_LEAVES`` leaves, from addresses and sizes alone
+    (CPU tensors too)."""
+    numels = [p.numel() for p in params]
+    state = _state_pointers(numels, moments)
+    size = params[0].element_size()
+    w = [p.data_ptr() for p in params]
+    g = [x.data_ptr() for x in grads]
+    gsize = [x.element_size() for x in grads]
+    out = []
+    for lo in range(0, len(params), FUSED_UPDATE_MAX_LEAVES):
+        hi = min(lo + FUSED_UPDATE_MAX_LEAVES, len(params))
+        sl = [s[lo:hi] for s in state]
+        ptrs = [[(w[i], size), (g[i], gsize[i])]
+                + [(s[i - lo], size) for s in sl] for i in range(lo, hi)]
+        out.append(UpdateLaunch(
+            lo, fused_update_plan(numels[lo:hi], ptrs, size), w[lo:hi],
+            g[lo:hi], sl))
+    return out
 
 
 def _check_update(name, rule, params, grads, moments, lr, finite):
+    """Raise ``ValueError`` for what ``fused_update`` does not take. State
+    comes in one of two forms: flat, a ``(total,)`` vector a moment; or
+    per leaf, a list a moment of one tensor of each weight's shape."""
     dt = params[0].dtype
     if dt not in COMPUTE_DTYPES:
         raise ValueError(f"{name}: weights must be one of "
@@ -1179,11 +1340,29 @@ def _check_update(name, rule, params, grads, moments, lr, finite):
                 f"{name}: leaf {i}: weight {tuple(p.shape)} {p.dtype}, grad "
                 f"{tuple(g.shape)} {g.dtype}: weights share one dtype, a "
                 f"grad has its weight's shape and its dtype or f32")
+    per_leaf = _per_leaf_form(moments)
     total = sum(p.numel() for p in params)
     for m in moments:
-        if m.dtype != dt or m.shape != (total,):
-            raise ValueError(f"{name}: state vectors must be ({total},) "
-                             f"{dt}, got {tuple(m.shape)} {m.dtype}")
+        if torch.is_tensor(m) == per_leaf:
+            raise ValueError(f"{name}: state must be all flat vectors or all "
+                             f"lists of per-leaf tensors")
+        if not per_leaf:
+            if m.dtype != dt or m.shape != (total,):
+                raise ValueError(f"{name}: state vectors must be ({total},) "
+                                 f"{dt}, got {tuple(m.shape)} {m.dtype}")
+            continue
+        if len(m) != len(params):
+            raise ValueError(f"{name}: per-leaf state of {len(m)} tensors "
+                             f"for {len(params)} weights")
+        for i, (x, p) in enumerate(zip(m, params)):
+            if x.dtype != dt or x.shape != p.shape:
+                raise ValueError(
+                    f"{name}: leaf {i}: per-leaf state {tuple(x.shape)} "
+                    f"{x.dtype} must match its weight {tuple(p.shape)} {dt}")
+    _check_update_scalars(name, lr, finite)
+
+
+def _check_update_scalars(name, lr, finite):
     if lr.shape != () or lr.dtype != torch.float32:
         raise ValueError(f"{name}: lr must be a 0-dim f32 tensor")
     if finite is not None and (finite.shape != ()
@@ -1191,57 +1370,121 @@ def _check_update(name, rule, params, grads, moments, lr, finite):
         raise ValueError(f"{name}: finite must be a 0-dim bool tensor")
 
 
+def _state_tensors(moments) -> list:
+    return [x for m in moments for x in ([m] if torch.is_tensor(m) else m)]
+
+
+def _update_key(rule, params, grads, moments) -> tuple:
+    """What a bucket's launches depend on: every tensor's address, shape
+    and dtype, the state's form and the rule's state count."""
+    def sig(t):
+        return t.data_ptr(), t.shape, t.dtype
+
+    return (rule.n_moments, tuple(map(sig, params)), tuple(map(sig, grads)),
+            tuple(sig(m) if torch.is_tensor(m) else tuple(map(sig, m))
+                  for m in moments))
+
+
+def _update_args(rule, params, grads, moments) -> list:
+    """Each launch's table arguments for ``ff_fused_update`` as ctypes
+    arrays: (w, g, m, v, numel, flags, head, chunk_end, leaves, chunk)."""
+    c_ptrs = lambda xs: (ctypes.c_void_p * len(xs))(*xs)  # noqa: E731
+    c_ints = lambda xs: (ctypes.c_int * len(xs))(*xs)  # noqa: E731
+    out = []
+    for x in fused_update_launches(params, grads, moments):
+        plan = x.plan
+        if plan.chunk_end[-1] == 0:
+            continue
+        n = len(plan.numel)
+        flags = [(_GRAD_F32 if grads[x.lo + i].dtype != params[0].dtype
+                  else 0) | (_VECTOR if vec else 0)
+                 for i, vec in enumerate(plan.vector)]
+        out.append((c_ptrs(x.w), c_ptrs(x.g),
+                    c_ptrs(x.state[0]) if rule.kind == "adam" else None,
+                    c_ptrs(x.state[-1]) if x.state else None,
+                    (ctypes.c_longlong * n)(*plan.numel), c_ints(flags),
+                    c_ints(plan.head), c_ints(plan.chunk_end), n, plan.chunk))
+    return out
+
+
+#: ``fused_update``'s checked launch arguments by ``_update_key``: a
+#: training loop updates the same tensors every step, so the leaf checks,
+#: the plan and the ctypes tables are made once (a hit is always right: the
+#: plan is a function of addresses, sizes and dtypes alone)
+_UPDATE_ARGS: "collections.OrderedDict[tuple, list]" = \
+    collections.OrderedDict()
+_UPDATE_ARGS_SIZE = 16
+
+
 def fused_update(rule: UpdateRule, params, grads, moments, lr,
-                 finite=None) -> None:
+                 finite=None, vector_count=None) -> None:
     """The optimizer update of one bucket of weights of one storage dtype
     (f32 or bf16), in place: ``params`` and ``grads`` lists of tensors
     (each grad of its weight's shape, in its dtype or f32), ``moments``
-    the bucket's flat state vectors (v, or Adam's m and v; weight dtype,
-    one element a weight element, in the order of ``params``), ``lr`` a
-    0-dim f32 tensor (the scheduled learning rate, or Adam's alpha_t),
-    ``finite`` an optional 0-dim bool tensor: false writes nothing.
+    the state (v, or Adam's m and v; weight dtype), either flat — one
+    ``(total,)`` vector a moment, one element a weight element in the
+    order of ``params`` (``FusedUpdate``) — or per leaf — a list a moment
+    of one tensor of each weight's shape (the per-leaf ``Optimizer``);
+    ``lr`` a 0-dim f32 tensor (the scheduled learning rate, or Adam's
+    alpha_t), ``finite`` an optional 0-dim bool tensor: false writes
+    nothing.
 
     The port's own kernel (``csrc/fused_update.cu``), the counterpart of
     the JAX package's ``FusedUpdate`` (flexflow_tpu/runtime/optimizer.py:40),
     which XLA fuses into one loop a bucket; not a Pallas kernel. One
     launch takes up to ``FUSED_UPDATE_MAX_LEAVES`` leaves through a table
-    of pointers in its parameters (no concatenation pass); each element's
-    arithmetic is ``update_math``'s, rounded operation by operation, so
-    the result is bitwise the per-leaf torch update's. Each launch counts
-    one. Bound on the H100: bytes (6, 10 or 14 B an element in bf16 for
-    SGD, SGD with momentum, Adam)."""
-    extra = (lr,) + (() if finite is None else (finite,))
-    if _on_cpu(*params, *grads, *moments, *extra):
-        return fused_update_plain(rule, params, grads, moments, lr, finite)
+    of pointers (weight, grad, state) in its parameters: no concatenation
+    pass, and both state forms give the kernel the same per-leaf pointers.
+    It moves 16-byte vectors wherever a leaf's pointers align
+    (``fused_update_plan``), over leaf-aligned chunks on a persistent
+    grid; each element's arithmetic is ``update_math``'s, rounded
+    operation by operation, so the result is bitwise the per-leaf torch
+    update's. Each launch counts one. Bound on the H100: bytes (6, 10 or
+    14 B an element in bf16 for SGD, SGD with momentum, Adam).
+
+    ``vector_count``, a measurement only: an int64 ``(1,)`` tensor on the
+    card to which the launches add the elements their 16-byte path stored
+    (the CPU's plain version has no such path and refuses it)."""
     name = "fused_update"
-    _require_cuda(name, *params, *grads, *moments, *extra)
-    _check_update(name, rule, params, grads, moments, lr, finite)
+    extra = (lr,) + (() if finite is None else (finite,))
+    state = _state_tensors(moments)
+    if _on_cpu(*params, *grads, *state, *extra):
+        if vector_count is not None:
+            raise ValueError(f"{name}: vector_count counts the card "
+                             f"kernel's vector path; the CPU has none")
+        return fused_update_plain(rule, params, grads, moments, lr, finite)
+    if vector_count is not None:
+        extra += (vector_count,)
+        if vector_count.shape != (1,) or vector_count.dtype != torch.int64:
+            raise ValueError(f"{name}: vector_count must be a (1,) int64 "
+                             f"tensor")
+    _require_cuda(name, *params, *grads, *state, *extra)
+    _check_update_scalars(name, lr, finite)
+    key = _update_key(rule, params, grads, moments)
+    args = _UPDATE_ARGS.get(key)
+    if args is None:
+        _check_update(name, rule, params, grads, moments, lr, finite)
+        args = _UPDATE_ARGS[key] = _update_args(rule, params, grads, moments)
+        if len(_UPDATE_ARGS) > _UPDATE_ARGS_SIZE:
+            _UPDATE_ARGS.popitem(last=False)
+    else:
+        _UPDATE_ARGS.move_to_end(key)
     # csrc/fused_update.cu Kind: SGD, momentum, nesterov, Adam
     kind = (3 if rule.kind == "adam" else 0 if rule.n_moments == 0
             else 2 if rule.nesterov else 1)
-    m = moments[0].data_ptr() if rule.kind == "adam" else None
-    v = moments[-1].data_ptr() if moments else None
     lib = LIBRARY.get()
     stream = _stream(params[0])
-    c_ptrs = lambda ts: (ctypes.c_void_p * len(ts))(  # noqa: E731
-        *(t.data_ptr() for t in ts))
-    base = 0
-    for lo in range(0, len(params), FUSED_UPDATE_MAX_LEAVES):
-        ps = params[lo:lo + FUSED_UPDATE_MAX_LEAVES]
-        gs = grads[lo:lo + FUSED_UPDATE_MAX_LEAVES]
-        sizes = [p.numel() for p in ps]
-        with torch.cuda.device(ps[0].device):
+    with torch.cuda.device(params[0].device):
+        for table in args:
             _check(lib.ff_fused_update(
-                c_ptrs(ps), c_ptrs(gs), (ctypes.c_longlong * len(ps))(*sizes),
-                (ctypes.c_int * len(ps))(
-                    *(int(g.dtype != p.dtype) for p, g in zip(ps, gs))),
-                len(ps), base, m, v, _DTYPE_CODES[ps[0].dtype], kind,
+                *table, _DTYPE_CODES[params[0].dtype], kind,
                 int(bool(rule.weight_decay)), rule.weight_decay,
                 rule.momentum, rule.beta1, 1.0 - rule.beta1, rule.beta2,
                 1.0 - rule.beta2, rule.epsilon, lr.data_ptr(),
-                None if finite is None else finite.data_ptr(), stream), name)
-        fused_update.launches += 1
-        base += sum(sizes)
+                None if finite is None else finite.data_ptr(),
+                None if vector_count is None else vector_count.data_ptr(),
+                stream), name)
+            fused_update.launches += 1
 
 
 fused_update.launches = 0

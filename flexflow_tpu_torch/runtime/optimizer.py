@@ -19,6 +19,14 @@ replays it as it ran (``FFModel.train_scanned``).
 
 ``update`` takes an optional 0-dim bool tensor ``finite`` (the divergence
 guard's verdict): when false, weights and state keep their bits.
+
+On the card both optimizers update through one kernel,
+``kernels.fused_update`` (``csrc/fused_update.cu``): the per-leaf
+``Optimizer`` passes its state tensors leaf by leaf, ``FusedUpdate`` its
+flat vectors, one launch a dtype bucket per 128 leaves either way. On the
+CPU the per-leaf optimizer runs ``update_plain`` (``apply_update_plain``
+leaf by leaf), the formula in torch operators, which the kernel matches
+bit for bit.
 """
 
 from __future__ import annotations
@@ -38,11 +46,22 @@ def _leaves(tree: Tree) -> List[torch.Tensor]:
     return [w for ws in tree.values() for w in ws.values()]
 
 
-def apply_update(rule: UpdateRule, w: torch.Tensor, g: torch.Tensor,
-                 moments, lr: torch.Tensor,
-                 finite: Optional[torch.Tensor] = None) -> None:
-    """The per-leaf update of one weight, in place on ``w`` and its state
-    tensors ``moments`` (storage dtype; f32 arithmetic)."""
+def _buckets(params: Tree) -> Dict[torch.dtype, List[tuple]]:
+    """{storage dtype: [(op, weight name), ...]} in walk order."""
+    out: Dict[torch.dtype, List[tuple]] = {}
+    for op, ws in params.items():
+        for k, w in ws.items():
+            out.setdefault(w.dtype, []).append((op, k))
+    return out
+
+
+def apply_update_plain(rule: UpdateRule, w: torch.Tensor, g: torch.Tensor,
+                       moments, lr: torch.Tensor,
+                       finite: Optional[torch.Tensor] = None) -> None:
+    """The per-leaf update of one weight in torch operators, in place on
+    ``w`` and its state tensors ``moments`` (storage dtype; f32
+    arithmetic): the per-leaf optimizer's CPU path, and the formula the
+    card's kernel is held to bit for bit."""
     wf, gf = w.float(), g.float()
     ms = [m.float() for m in moments]
     nw, nms = kernels.update_math(rule, wf, gf, ms, lr)
@@ -82,13 +101,34 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Tree, grads: Tree, state,
                finite: Optional[torch.Tensor] = None) -> None:
-        """One step, in place on ``params`` and ``state``."""
+        """One step, in place on ``params`` and ``state``: on the card the
+        fused update kernel on the per-leaf state, a launch a dtype
+        bucket; on the CPU ``update_plain``."""
+        if not _leaves(params)[0].is_cuda:
+            return self.update_plain(params, grads, state, finite)
+        lr = self.lr_of(state["t"])
+        names = self.moment_names()
+        for keys in _buckets(params).values():
+            kernels.fused_update(
+                self.rule, [params[op][k] for op, k in keys],
+                [grads[op][k] for op, k in keys],
+                [[state[n][op][k] for op, k in keys] for n in names],
+                lr, finite)
+        _advance(state["t"], finite)
+
+    @torch.no_grad()
+    def update_plain(self, params: Tree, grads: Tree, state,
+                     finite: Optional[torch.Tensor] = None) -> None:
+        """``update`` in torch operators, ``apply_update_plain`` leaf by
+        leaf on the per-leaf state, on any device: the CPU's step, and the
+        reference the card's kernel is held to bit for bit."""
         lr = self.lr_of(state["t"])
         names = self.moment_names()
         for op, ws in params.items():
             for k, w in ws.items():
-                apply_update(self.rule, w, grads[op][k],
-                             [state[n][op][k] for n in names], lr, finite)
+                apply_update_plain(self.rule, w, grads[op][k],
+                                   [state[n][op][k] for n in names], lr,
+                                   finite)
         _advance(state["t"], finite)
 
 
@@ -146,7 +186,8 @@ class FusedUpdate(Optimizer):
     weights of one storage dtype, in the order the weights are walked (as
     JAX stores it); weights and gradients stay separate tensors, and
     ``kernels.fused_update`` updates a bucket in one launch (its plain
-    version on the CPU), with no concatenation pass on the card. A
+    version on the CPU), with no concatenation pass on the card — the
+    kernel the per-leaf optimizer launches too, on other pointers. A
     gradient whose dtype differs from its weight's (f32 grads of bf16
     weights, as grad accumulation gives) buckets by the weight's dtype.
     Values are bitwise the per-leaf update's: the kernel rounds the same
@@ -167,22 +208,13 @@ class FusedUpdate(Optimizer):
     def lr_of(self, t):
         return self.inner.lr_of(t)
 
-    @staticmethod
-    def _buckets(params: Tree) -> Dict[torch.dtype, List[tuple]]:
-        """{storage dtype: [(op, weight name), ...]} in walk order."""
-        out: Dict[torch.dtype, List[tuple]] = {}
-        for op, ws in params.items():
-            for k, w in ws.items():
-                out.setdefault(w.dtype, []).append((op, k))
-        return out
-
     def init_state(self, params: Tree) -> Dict:
         state = {}
         for n in self.moment_names():
             state[n] = {dt: torch.zeros(
                 sum(params[op][k].numel() for op, k in keys), dtype=dt,
                 device=params[keys[0][0]][keys[0][1]].device)
-                for dt, keys in self._buckets(params).items()}
+                for dt, keys in _buckets(params).items()}
         if "v" not in state:
             state["v"] = None
         state["t"] = torch.zeros((), dtype=torch.int32,
@@ -194,7 +226,7 @@ class FusedUpdate(Optimizer):
                finite: Optional[torch.Tensor] = None) -> None:
         lr = self.lr_of(state["t"])
         names = self.moment_names()
-        for dt, keys in self._buckets(params).items():
+        for dt, keys in _buckets(params).items():
             kernels.fused_update(
                 self.rule, [params[op][k] for op, k in keys],
                 [grads[op][k] for op, k in keys],

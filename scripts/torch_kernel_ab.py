@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time this checkout's paged-attention, add + LayerNorm and prefill-write
-kernels beside another checkout's (the parent commit's, say) on one card,
-in turns.
+"""Time this checkout's paged-attention, add + LayerNorm, prefill-write and
+fused-update kernels beside another checkout's (the parent commit's, say)
+on one card, in turns.
 
     python3 scripts/torch_kernel_ab.py --other DIR [--rounds 3] [--serve N]
-        [--out FILE]
+        [--cases all|ln|paged|write|update] [--out FILE]
 
 DIR is the root of another checkout of the repository (for instance
 ``git archive`` of the parent commit unpacked into ``build/parent``, which
@@ -33,6 +33,13 @@ a ~10 ms device wait so that their host time lies behind it too). With
 ``--serve N`` it also serves chip_smoke.py's Llama-3-8B-width model from a
 native and an int8 pool, swapping the two checkouts' prefill writes in one
 process, A B B A N times (``serve_ab``: wall time, TTFT, decode step).
+The fused update (``update``) runs at chip_smoke.py's phase-3 bucket (the
+full-width flagship's 1.21 B bf16 weights in ~100 leaves) for SGD, SGD
+with momentum and Adam on flat state, both checkouts' ``fused_update``
+bitwise the per-leaf torch formula, timed in turns after a ~10 ms device
+wait (the wrapper's host time: it reads every leaf's address, and plans
+the leaves where it has no cached tables for them), beside a device copy
+of the same bytes. ``--cases`` picks one group of cases (default all).
 Writes the numbers as JSON to FILE (default build/kernel_ab.json).
 """
 
@@ -68,6 +75,9 @@ def main():
                     help="also serve chip_smoke.py's Llama-3-8B-width model "
                          "ROUNDS times A B B A per KV pool, with this and "
                          "the other checkout's prefill write")
+    ap.add_argument("--cases", default="all",
+                    choices=("all", "ln", "paged", "write", "update"),
+                    help="run one group of cases (default: all)")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "kernel_ab.json")
     args = ap.parse_args()
@@ -137,7 +147,43 @@ def main():
                + f"; rounds this {times['this']} other {times['other']} "
                f"[{card}]")
 
-    # add + LayerNorm at the flagship's training shape
+    def want(group):
+        return args.cases in ("all", group)
+
+    if want("ln"):
+        layernorm_ab(torch, F, cs, this, other, g, dev, card, results,
+                     run_case)
+    if want("paged"):
+        for name, pool, long in cs.PAGED_CASES:
+            c = cs.paged_case(torch, this, g, pool, long)
+            pref = this.paged_attention_plain(*c["args"], **c["kw"])
+
+            def check_paged(out, c=c, pref=pref):
+                torch.cuda.synchronize()
+                return cs.paged_err(c, out, pref), c["limit"]
+
+            run_case(name,
+                     [lambda k=k, c=c: k.paged_attention_fwd(*c["args"],
+                                                             **c["kw"])
+                      for k in (other, this)], check_paged,
+                     lambda c=c: this.paged_attention_plain(*c["args"],
+                                                            **c["kw"]),
+                     None, c["bound"], c["shape"])
+            del c, pref
+    if want("write"):
+        prefill_write_ab(torch, cs, this, other, g, run_case)
+    if want("update"):
+        update_ab(torch, cs, this, other, g, card, results, run_case)
+    if args.serve:
+        results.extend(serve_ab(torch, cs, this, other, card, args.serve))
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(results, indent=1))
+    cs.say(f"ab: {len(results)} cases -> {args.out}")
+
+
+def layernorm_ab(torch, F, cs, this, other, g, dev, card, results, run_case):
+    """Add + LayerNorm at the flagship's training shape, and a device copy
+    of the same bytes."""
     f = cs.FLAGSHIP
     n, dm = f["batch"] * f["seq"], f["hidden"]
     bf16 = torch.bfloat16
@@ -174,29 +220,70 @@ def main():
            f"TB/s) [{card}]")
     del x, r, ref, src, dst
 
-    for name, pool, long in cs.PAGED_CASES:
-        c = cs.paged_case(torch, this, g, pool, long)
-        pref = this.paged_attention_plain(*c["args"], **c["kw"])
 
-        def check_paged(out, c=c, pref=pref):
+def update_ab(torch, cs, this, other, g, card, results, run_case):
+    """The fused update at chip_smoke.py's phase-3 bucket, flat state, for
+    SGD, SGD with momentum and Adam: each checkout's ``fused_update`` on a
+    copy of the same weights and state, checked bitwise against the
+    per-leaf torch formula on a third copy, then timed in turns; the
+    "plain" column is that formula's time, and a device copy of the same
+    bytes stands beside them."""
+    import math
+
+    import flexflow_tpu_torch as port
+    from flexflow_tpu_torch.runtime.optimizer import apply_update_plain
+
+    shapes = cs.flagship_leaf_shapes(port)
+    n = sum(math.prod(s) for s in shapes)
+    for name, kw, form, bytes_per, ops_per in cs.UPDATE_ROWS:
+        if form != "flat":
+            continue
+        rule = this.UpdateRule(**kw)
+        ps, gs, ms = cs.update_case(torch, g, rule, shapes)
+        if rule.kind == "adam":
+            lr = port.AdamOptimizer(alpha=1e-3).lr_of(
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+        else:
+            lr = torch.full((), cs.TRAIN_LR, device="cuda")
+        copies = {tag: ([p.clone() for p in ps], [m.clone() for m in ms])
+                  for tag in ("other", "this")}
+        ref_p, ref_m = ps, ms          # the formula runs on the originals
+        views = [cs.leaf_state(torch, ref_p, m) for m in ref_m]
+
+        def formula(ps=ref_p, views=views):
+            for i, (p, gr) in enumerate(zip(ps, gs)):
+                apply_update_plain(rule, p, gr, [v[i] for v in views], lr)
+
+        formula()
+
+        def check(got, ref=(ref_p, ref_m)):
             torch.cuda.synchronize()
-            return cs.paged_err(c, out, pref), c["limit"]
+            same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                       for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+            return (0.0 if same else float("inf")), 0.0
 
-        run_case(name,
-                 [lambda k=k, c=c: k.paged_attention_fwd(*c["args"],
-                                                         **c["kw"])
-                  for k in (other, this)], check_paged,
-                 lambda c=c: this.paged_attention_plain(*c["args"],
-                                                        **c["kw"]),
-                 None, c["bound"], c["shape"])
-        del c, pref
+        def step(k, tag):
+            cp, cm = copies[tag]
+            k.fused_update(rule, cp, gs, cm, lr)
+            return cp, cm
 
-    prefill_write_ab(torch, cs, this, other, g, run_case)
-    if args.serve:
-        results.extend(serve_ab(torch, cs, this, other, card, args.serve))
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(results, indent=1))
-    cs.say(f"ab: {len(results)} cases -> {args.out}")
+        run_case(name, [lambda: step(other, "other"),
+                        lambda: step(this, "this")], check,
+                 formula, None,
+                 cs.bound(bytes_per * n, ops_per * n, cs.F32_FLOP_PER_S),
+                 f"{len(shapes)} leaves, {n / 1e9:.3f} B bf16 elements, "
+                 f"{name}, flat state", sleep=cs.LONG_SLEEP_CYCLES)
+        del ps, gs, ms, copies, ref_p, ref_m, views
+        src = torch.empty(bytes_per * n // 2, dtype=torch.uint8,
+                          device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = cs.cuda_ms(lambda: dst.copy_(src), iters=5, warmup=1)
+        results.append(dict(name=f"copy_{name}", card=card,
+                            this_ms=copy_ms,
+                            shape=f"{bytes_per * n} bytes, read and written"))
+        cs.say(f"ab copy of {name}'s bytes: {copy_ms:.4f} ms [{card}]")
+        del src, dst
+        torch.cuda.empty_cache()
 
 
 def prefill_write_ab(torch, cs, this, other, g, run_case):

@@ -33,9 +33,13 @@ kernels by tests/test_torch_kernels.py and
 tests/test_torch_quantized_serving.py.
 
 The fused optimizer update (the port's own kernel) is held bitwise to the
-per-leaf torch update and to its plain version — every rule, f32 and
-bf16, odd and 1-element leaves, f32 grads of bf16 weights, more leaves
-than one launch takes, a bucket past 2^31 bytes, the finite flag off. The
+per-leaf torch formula and to its plain version — every rule, f32 and
+bf16, flat and per-leaf state, leaves of 1 to 16385 elements around the
+16-byte vector and the 4096-element chunk, views at storage offsets of 1
+to 7 elements in the weight, the grad or the state (f32 grads of bf16
+weights too), more leaves than one launch takes, a bucket past 2^31
+bytes, the finite flag off, the per-leaf optimizer's update on the card
+(launches counted) and a CUDA graph of it replayed. The
 train loop on the card: the scanned steps (a CUDA graph captured and
 replayed) against per-step training within 1e-5 in f32 (cuBLAS may choose
 other algorithms under capture), with every replayed launch counted; Adam
@@ -1191,15 +1195,17 @@ def _update_case(cuda, rule, dtype, shapes, seed, f32_grads=()):
 
 
 def _per_leaf(rule, ps, gs, ms, lr, finite=None):
-    """The per-leaf torch update on the same tensors (optimizer.py
-    apply_update), state sliced from the flat vectors."""
-    from flexflow_tpu_torch.runtime.optimizer import apply_update
+    """The per-leaf torch formula on the same tensors (optimizer.py
+    apply_update_plain), state sliced from the flat vectors or taken leaf
+    by leaf (the per-leaf form)."""
+    from flexflow_tpu_torch.runtime.optimizer import apply_update_plain
 
     off = 0
-    for p, gr in zip(ps, gs):
+    for i, (p, gr) in enumerate(zip(ps, gs)):
         n = p.numel()
-        apply_update(rule, p, gr, [m[off:off + n].view(p.shape) for m in ms],
-                     lr, finite)
+        apply_update_plain(
+            rule, p, gr, [m[off:off + n].view(p.shape) if torch.is_tensor(m)
+                          else m[i] for m in ms], lr, finite)
         off += n
 
 
@@ -1300,6 +1306,411 @@ def test_fused_update_refuses_what_it_does_not_take(cuda):
                              lr)
     with pytest.raises(ValueError, match="0-dim f32"):
         kernels.fused_update(rule, ps, gs, ms, lr.double())
+
+
+FORMS = ["flat", "per_leaf"]
+#: around the 8-element bf16 vector, the 4-element f32 one, the
+#: 4096-element bf16 (2048 f32) chunk and several chunks
+EDGE_SHAPES = [(1,), (7,), (8,), (9,), (4095,), (4096,), (4097,), (3, 5),
+               (8191,), (8193,), (16385,)]
+
+
+def _as_form(ms, ps, form):
+    """The flat state ``ms`` as ``form``: itself, or per-leaf tensors of
+    each weight's shape (fresh allocations)."""
+    if form == "flat":
+        return ms
+    out = []
+    for m in ms:
+        leaves, off = [], 0
+        for p in ps:
+            leaves.append(m[off:off + p.numel()].clone().view(p.shape))
+            off += p.numel()
+        out.append(leaves)
+    return out
+
+
+def _clone_state(ms):
+    return [m.clone() if torch.is_tensor(m) else _clone(m) for m in ms]
+
+
+def _state_list(ms):
+    return [x for m in ms for x in ([m] if torch.is_tensor(m) else m)]
+
+
+def _at_offset(t, off):
+    """A contiguous copy of ``t`` as a view ``off`` elements into a larger
+    buffer (a storage offset: the data pointer off a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + off + 8, dtype=t.dtype, device=t.device)
+    v = buf[off:off + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_edge_sizes_bitwise_per_leaf(cuda, rule, dtype, form):
+    """Leaves of 1 to 16385 elements (heads, tails and chunk edges), two
+    steps: bitwise the per-leaf torch formula
+    and the plain version, in either state form, one launch a step."""
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(cuda, rule, dtype, EDGE_SHAPES, 31)
+    ms = _as_form(ms, ps, form)
+    ref_p, ref_m = _clone(ps), _clone_state(ms)
+    pl_p, pl_m = _clone(ps), _clone_state(ms)
+    for step in range(2):
+        lr = torch.full((), 0.01 * (step + 1), device=cuda)
+        n0 = kernels.fused_update.launches
+        kernels.fused_update(rule, ps, gs, ms, lr)
+        assert kernels.fused_update.launches == n0 + 1
+        _per_leaf(rule, ref_p, gs, ref_m, lr)
+        kernels.fused_update_plain(rule, pl_p, gs, pl_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ref_p) and _same(_state_list(ms), _state_list(ref_m))
+    assert _same(ps, pl_p) and _same(_state_list(ms), _state_list(pl_m))
+
+
+OFFSET_CASES = ["w", "g", "state", "all_same", "all_mixed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_storage_offsets_bitwise_per_leaf(cuda, rule, dtype,
+                                                       where):
+    """Views at storage offsets of 1 to 7 elements in the weight, the grad
+    or the per-leaf state alone, in all of them by the same offset (the
+    leaf stays on the vector path after a scalar head) and in all of them
+    by different offsets (the leaf goes element by element): bitwise the
+    per-leaf torch formula, and the plan takes vectors exactly where
+    every pointer aligns."""
+    rule = UPDATE_RULES[rule]
+    shapes = [(8191,), (100, 37), (9,), (4096,), (1,), (2000,), (8193,)]
+    ps, gs, ms = _update_case(cuda, rule, dtype, shapes, 32)
+    ms = _as_form(ms, ps, "per_leaf")
+    for i in range(len(ps)):
+        k = i % 7 + 1
+        off = dict(w=k, g=k, s=k) if where == "all_same" else \
+            dict(w=k, g=(k + 2) % 7 + 1, s=(k + 4) % 7 + 1) \
+            if where == "all_mixed" else {where[0]: k}
+        ps[i] = _at_offset(ps[i], off.get("w", 0))
+        gs[i] = _at_offset(gs[i], off.get("g", 0))
+        for m in ms:
+            m[i] = _at_offset(m[i], off.get("s", 0))
+    plan = kernels.fused_update_launches(ps, gs, ms)[0].plan
+    for i, vec in enumerate(plan.vector):
+        ptrs = [ps[i], gs[i]] + [m[i] for m in ms]
+        h = plan.head[i]
+        assert vec == all((t.data_ptr() + h * t.element_size()) % 16 == 0
+                          for t in ptrs)
+    if where == "all_same":
+        assert all(plan.vector)
+    ref_p, ref_m = _clone(ps), _clone_state(ms)
+    lr = torch.full((), 0.02, device=cuda)
+    for _ in range(2):
+        kernels.fused_update(rule, ps, gs, ms, lr)
+        _per_leaf(rule, ref_p, gs, ref_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ref_p) and _same(_state_list(ms), _state_list(ref_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_off", [0, 1, 3, 4, 5, 7])
+@pytest.mark.parametrize("w_off", [0, 1, 3, 5])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_f32_grads_of_bf16_at_odd_offsets(cuda, rule, w_off,
+                                                       g_off):
+    """f32 grads of bf16 weights (two 16-byte loads for 8 elements) with
+    the weight and state at w_off and the grad at g_off elements into
+    their buffers: vectors where both align (g_off = w_off, or 4 apart),
+    element by element elsewhere; bitwise the per-leaf torch formula."""
+    rule = UPDATE_RULES[rule]
+    shapes = [(8193,), (17, 31), (5,)]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, shapes, 33,
+                              f32_grads=(0, 1, 2))
+    ms = _as_form(ms, ps, "per_leaf")
+    ps = [_at_offset(p, w_off) for p in ps]
+    gs = [_at_offset(g, g_off) for g in gs]
+    ms = [[_at_offset(x, w_off) for x in m] for m in ms]
+    plan = kernels.fused_update_launches(ps, gs, ms)[0].plan
+    assert plan.vector[0] == ((w_off - g_off) % 4 == 0)
+    ref_p, ref_m = _clone(ps), _clone_state(ms)
+    lr = torch.full((), 0.03, device=cuda)
+    kernels.fused_update(rule, ps, gs, ms, lr)
+    _per_leaf(rule, ref_p, gs, ref_m, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ref_p) and _same(_state_list(ms), _state_list(ref_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("n_leaves", [129, 300])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_leaves_past_one_launch(cuda, rule, dtype, n_leaves,
+                                             form):
+    """129 and 300 leaves: a launch per 128, each leaf's state pointer
+    carried across them; bitwise the per-leaf torch formula."""
+    rule = UPDATE_RULES[rule]
+    shapes = [((i * 53) % 700 + 1,) for i in range(n_leaves)]
+    ps, gs, ms = _update_case(cuda, rule, dtype, shapes, 34)
+    ms = _as_form(ms, ps, form)
+    ref_p, ref_m = _clone(ps), _clone_state(ms)
+    lr = torch.full((), 0.05, device=cuda)
+    n0 = kernels.fused_update.launches
+    kernels.fused_update(rule, ps, gs, ms, lr)
+    _per_leaf(rule, ref_p, gs, ref_m, lr)
+    torch.cuda.synchronize()
+    assert kernels.fused_update.launches == n0 + -(-n_leaves // 128)
+    assert _same(ps, ref_p) and _same(_state_list(ms), _state_list(ref_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_per_leaf_finite_flag_off_writes_nothing(cuda, rule,
+                                                              dtype):
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(cuda, rule, dtype, EDGE_SHAPES, 35)
+    ms = _as_form(ms, ps, "per_leaf")
+    before_p, before_m = _clone(ps), _clone_state(ms)
+    lr = torch.full((), 0.05, device=cuda)
+    kernels.fused_update(rule, ps, gs, ms, lr,
+                         torch.zeros((), dtype=torch.bool, device=cuda))
+    torch.cuda.synchronize()
+    assert _same(ps, before_p)
+    assert _same(_state_list(ms), _state_list(before_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", list(UPDATE_RULES), ids=list(UPDATE_RULES))
+def test_fused_update_per_leaf_and_flat_forms_agree(cuda, rule, dtype):
+    """The same update through per-leaf state tensors and through the flat
+    vectors: bitwise each other."""
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(cuda, rule, dtype, UPDATE_SHAPES + EDGE_SHAPES,
+                              36, f32_grads=(1, 9) if dtype != torch.float32
+                              else ())
+    per = _as_form(ms, ps, "per_leaf")
+    ps2 = _clone(ps)
+    lr = torch.full((), 0.04, device=cuda)
+    for _ in range(3):
+        kernels.fused_update(rule, ps, gs, ms, lr)
+        kernels.fused_update(rule, ps2, gs, per, lr)
+    torch.cuda.synchronize()
+    assert _same(ps, ps2)
+    for m, leaves in zip(ms, per):
+        assert _same([m], [torch.cat([x.reshape(-1) for x in leaves])])
+
+
+def _opt_tree(cuda, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = {"dense": {"kernel": (64, 129), "bias": (129,)},
+              "ln": {"scale": (7,), "bias": (7,)},
+              "head": {"kernel": (129, 16), "bias": (16,)}}
+    return {op: {k: torch.randn(s, device=cuda, generator=g).to(dtype)
+                 for k, s in ws.items()} for op, ws in shapes.items()}
+
+
+def _optimizers():
+    from flexflow_tpu_torch import AdamOptimizer, SGDOptimizer
+    from flexflow_tpu_torch.runtime import schedule
+
+    return {
+        "sgd": lambda: SGDOptimizer(lr=0.05),
+        "momentum": lambda: SGDOptimizer(lr=0.05, momentum=0.9,
+                                         weight_decay=0.01),
+        "adam": lambda: AdamOptimizer(alpha=0.01,
+                                      schedule=schedule.WarmupLinear(1, 8)),
+    }
+
+
+def _plain_steps(opt, params, grads, state, steps):
+    """``steps`` updates of the per-leaf torch formula on a copy."""
+    from flexflow_tpu_torch.runtime.optimizer import apply_update_plain
+
+    names = opt.moment_names()
+    t = state["t"].clone()
+    for _ in range(steps):
+        lr = opt.lr_of(t)
+        for op, ws in params.items():
+            for k, w in ws.items():
+                apply_update_plain(opt.rule, w, grads[op][k],
+                                   [state[n][op][k] for n in names], lr)
+        t += 1
+
+
+def _copy_tree(tree):
+    return {op: {k: w.clone() for k, w in ws.items()}
+            for op, ws in tree.items()}
+
+
+def _copy_state(state, names):
+    out = {n: _copy_tree(state[n]) for n in names}
+    out["t"] = state["t"].clone()
+    return out
+
+
+def _same_tree(a, b):
+    return all(torch.equal(_bits(w), _bits(b[op][k]))
+               for op, ws in a.items() for k, w in ws.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adam"])
+def test_optimizer_per_leaf_update_launches_the_kernel(cuda, opt, dtype):
+    """The per-leaf Optimizer's update on CUDA tensors: one fused_update
+    launch a step (one dtype bucket), per-leaf state kept, f32 grads of
+    bf16 weights on one leaf; bitwise the per-leaf torch formula over
+    three steps of the schedule."""
+    make = _optimizers()[opt]
+    o = make()
+    params = _opt_tree(cuda, dtype, 37)
+    state = o.init_state(params)
+    grads = [_opt_tree(cuda, dtype, 38 + i) for i in range(3)]
+    if dtype == torch.bfloat16:
+        for g in grads:
+            g["dense"]["kernel"] = g["dense"]["kernel"].float()
+    names = o.moment_names()
+    ref_p, ref_s = _copy_tree(params), _copy_state(state, names)
+    n0 = kernels.fused_update.launches
+    for g in grads:
+        o.update(params, g, state)
+    assert kernels.fused_update.launches == n0 + 3
+    for g in grads:
+        _plain_steps(o, ref_p, g, ref_s, 1)
+        ref_s["t"] += 1
+    torch.cuda.synchronize()
+    assert int(state["t"]) == 3
+    assert _same_tree(params, ref_p)
+    assert all(_same_tree(state[n], ref_s[n]) for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("opt", ["momentum", "adam"])
+def test_per_leaf_update_graph_replay_bitwise(cuda, opt, dtype):
+    """The per-leaf Optimizer's update captured in a CUDA graph (the leaf
+    table held by value) and replayed three times: bitwise three eager
+    steps of the per-leaf torch formula, the step counter and the
+    scheduled lr read on the device at each replay."""
+    o = _optimizers()[opt]()
+    params = _opt_tree(cuda, dtype, 41)
+    grads = _opt_tree(cuda, dtype, 42)
+    state = o.init_state(params)
+    names = o.moment_names()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        o.update(params, grads, state)          # eager warm-up step
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    ref_p, ref_s = _copy_tree(params), _copy_state(state, names)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        o.update(params, grads, state)
+    for _ in range(3):
+        graph.replay()
+    _plain_steps(o, ref_p, grads, ref_s, 3)
+    torch.cuda.synchronize()
+    assert int(state["t"]) == 4
+    assert _same_tree(params, ref_p)
+    assert all(_same_tree(state[n], ref_s[n]) for n in names)
+
+
+VECTOR_COUNT_CASES = ["flat", "per_leaf", "w", "all_same", "all_mixed",
+                      "f32_grads", "finite_off"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VECTOR_COUNT_CASES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rule", ["sgd", "adam"])
+def test_fused_update_counts_its_vector_path(cuda, rule, dtype, case):
+    """``vector_count``: the elements the kernel stored on its 16-byte
+    path, counted on the card, equal the plan's vector elements (aligned
+    leaves in both state forms, storage offsets, f32 grads of bf16 weights
+    at an odd offset), and nothing under a false ``finite``; the update
+    stays bitwise the per-leaf torch formula with the counter on."""
+    rule = UPDATE_RULES[rule]
+    ps, gs, ms = _update_case(
+        cuda, rule, dtype, EDGE_SHAPES, 44,
+        f32_grads=range(len(EDGE_SHAPES)) if case == "f32_grads" else ())
+    ms = _as_form(ms, ps, "flat" if case == "flat" else "per_leaf")
+    for i in range(len(ps)):
+        k = i % 7 + 1
+        off = dict(w=dict(w=k), all_same=dict(w=k, g=k, s=k),
+                   all_mixed=dict(w=k, g=(k + 2) % 7 + 1, s=(k + 4) % 7 + 1),
+                   f32_grads=dict(g=3)).get(case, {})
+        ps[i] = _at_offset(ps[i], off.get("w", 0))
+        gs[i] = _at_offset(gs[i], off.get("g", 0))
+        if case != "flat":
+            for m in ms:
+                m[i] = _at_offset(m[i], off.get("s", 0))
+    planned = sum(sum(kernels.fused_update_vector_elements(x.plan))
+                  for x in kernels.fused_update_launches(ps, gs, ms))
+    if case in ("flat", "per_leaf", "all_same"):
+        assert planned > 0
+    ref_p, ref_m = _clone(ps), _clone_state(ms)
+    lr = torch.full((), 0.02, device=cuda)
+    finite = (torch.zeros((), dtype=torch.bool, device=cuda)
+              if case == "finite_off" else None)
+    counted = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernels.fused_update(rule, ps, gs, ms, lr, finite, vector_count=counted)
+    _per_leaf(rule, ref_p, gs, ref_m, lr, finite)
+    torch.cuda.synchronize()
+    assert int(counted) == (0 if finite is not None else planned)
+    assert _same(ps, ref_p) and _same(_state_list(ms), _state_list(ref_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adam"])
+def test_optimizer_update_plain_on_the_card_is_the_kernel(cuda, opt, dtype):
+    """``Optimizer.update_plain`` on CUDA tensors (the per-leaf torch
+    formula, no launch) and ``Optimizer.update`` (the kernel) from the same
+    weights and state, three steps: bitwise, the step counter advanced by
+    both."""
+    o = _optimizers()[opt]()
+    params = _opt_tree(cuda, dtype, 45)
+    state = o.init_state(params)
+    names = o.moment_names()
+    ref_p, ref_s = _copy_tree(params), _copy_state(state, names)
+    grads = [_opt_tree(cuda, dtype, 46 + i) for i in range(3)]
+    n0 = kernels.fused_update.launches
+    for g in grads:
+        o.update_plain(ref_p, g, ref_s)
+    assert kernels.fused_update.launches == n0
+    for g in grads:
+        o.update(params, g, state)
+    assert kernels.fused_update.launches == n0 + 3
+    torch.cuda.synchronize()
+    assert int(state["t"]) == int(ref_s["t"]) == 3
+    assert _same_tree(params, ref_p)
+    assert all(_same_tree(state[n], ref_s[n]) for n in names)
+
+
+@pytest.mark.cuda
+def test_fused_update_refuses_bad_per_leaf_state(cuda):
+    rule = UPDATE_RULES["momentum"]
+    ps, gs, ms = _update_case(cuda, rule, torch.bfloat16, [(4,), (5,)], 43)
+    per = _as_form(ms, ps, "per_leaf")
+    lr = torch.full((), 0.01, device=cuda)
+    with pytest.raises(ValueError, match="per-leaf state of 1"):
+        kernels.fused_update(rule, ps, gs, [per[0][:1]], lr)
+    with pytest.raises(ValueError, match="leaf 1: per-leaf state"):
+        kernels.fused_update(rule, ps, gs, [[per[0][0], per[0][1].float()]],
+                             lr)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_update(rule, [ps[0], ps[1]], gs,
+                             [[per[0][0], torch.zeros(
+                                 10, dtype=torch.bfloat16,
+                                 device=cuda)[::2]]], lr)
 
 
 # ---- the train loop on the card ---------------------------------------------
