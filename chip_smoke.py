@@ -121,8 +121,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 fused and scanned SGD runs' losses are compared with the
                 per-leaf run's (printed: bitwise or not).
 
-The last two lines of standard output are a JSON object describing each
-kernel and the result line {"ok": true, "device": {...}}.
+  8. zoo check — the zoo small and f32 (TF32 off), card through the
+                kernels vs CPU through the plain versions from the same
+                weights and BatchNorm state, 2 SGD steps on the same
+                batches: alexnet_cifar10, inception_v3_stem (image 75), a
+                ResNet of resnet50's stem and bottleneck blocks (image
+                32), vit (patch 8, head dim 64), dlrm (SUM bags),
+                bert_base (2 layers, head dim 64), gpt_lm: losses within
+                1e-4 relative, weights 1e-5, BatchNorm state 1e-5; a
+                small Llama with tied embeddings serving the CPU's greedy
+                tokens; dropout on the card: the kept share within 4.5
+                sigma of the binomial mean, kept values exactly x / keep,
+                and fit(scan_steps=4) at lr 0 on one repeated batch
+                giving 4 different losses (every replayed step draws its
+                own mask).
+  9. zoo train — ResNet-50 (224 x 224, 1000 classes, batch 128, SGD lr
+                0.1, the per-leaf optimizer: 214 leaves, two update
+                launches a step) and BERT-base (hidden 768, 12 layers, 12
+                heads, seq 512, batch 32, 2 classes, SGD lr 1e-4: the
+                flash kernels at head dim 64, 12 launches each a step),
+                bf16, seeded random weights, one batch repeated: compile
+                time, a warm-up step, then fit over 4 steps (the loss
+                finite and falling; exact launch counts): step ms,
+                samples/s, peak memory, the idle share and device time by
+                kernel class (cuDNN's conv kernels, the GEMM kernels of
+                cuBLAS and of cuDNN's GEMM-run convs, flash, the update,
+                BatchNorm, pooling, the rest) over one profiled step, and
+                the update's own device time and share of its bound.
+                Phase 3 also holds the flash rows at BERT-base's shape
+                (32, 512, 12, 64) and the fused update at ResNet-50's
+                leaves.
+
+The last two lines of standard output are a JSON object
+describing each kernel and the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -372,8 +403,9 @@ def sass_counts(kernels):
 
 
 def phase_kernels(torch, port, kernels):
-    """Kernel vs plain version at the serving and training shapes (bf16),
-    and the fused update at the flagship's bucket."""
+    """Kernel vs plain version at the serving and training shapes (bf16;
+    the flash training rows at the flagship's and BERT-base's), and the
+    fused update at the flagship's bucket and ResNet-50's leaves."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -424,6 +456,9 @@ def phase_kernels(torch, port, kernels):
     rows.update(prefill_write_rows(torch, kernels, g))
     rows.update(training_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
+    rows.update(fused_update_rows(torch, port, kernels, g,
+                                  resnet50_leaf_shapes(port),
+                                  RESNET_UPDATE_ROWS, "ResNet-50's leaves"))
     for name, r in rows.items():
         say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
@@ -698,89 +733,23 @@ def prefill_write_rows(torch, kernels, g):
 
 def training_kernel_rows(torch, kernels, g):
     """Flash forward with its lse, flash backward and add + LayerNorm at
-    the flagship's training shapes (bf16, non-causal attention); errors
-    scaled to the output's magnitude."""
+    the flagship's training shapes (bf16, non-causal attention), and the
+    flash rows again at BERT-base's (phase 9); errors scaled to the
+    output's magnitude."""
     import torch.nn.functional as F
+
+    h = FLAGSHIP["heads"]
+    rows = flash_training_rows(torch, kernels, g, FLAGSHIP["batch"],
+                               FLAGSHIP["seq"], h, FLAGSHIP["hidden"] // h,
+                               "", entry_check=True)
+    b, s = BERT_BASE["batch"], BERT_BASE["seq"]
+    rows.update(flash_training_rows(
+        torch, kernels, g, b, s, BERT_BASE["heads"],
+        BERT_BASE["hidden"] // BERT_BASE["heads"], "_bert"))
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    b, s, h = FLAGSHIP["batch"], FLAGSHIP["seq"], FLAGSHIP["heads"]
-    d = FLAGSHIP["hidden"] // h
-    scale = d ** -0.5
-    rows = {}
-    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(bf16)
-                   for _ in range(4))
-    n_qkv = q.numel()
-    shape = f"q/k/v ({b},{s},{h},{d}) non-causal bf16"
-
-    o, lse = kernels.flash_attention_fwd(q, k, v, False, scale, need_lse=True)
-    ro, rlse = kernels.flash_attention_plain(q, k, v, False, scale,
-                                             need_lse=True)
-    torch.cuda.synchronize()
-    err = scaled_err(o, ro)
-    lse_err = (lse - rlse).abs().max().item()
-    if not (err <= SCALED_TOL and lse_err <= LSE_TOL):
-        fail(f"flash_attention_fwd with lse disagrees with its plain "
-             f"version: scaled err {err} (limit {SCALED_TOL}), lse err "
-             f"{lse_err} (limit {LSE_TOL})")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    rows["flash_attention_fwd_lse"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: kernels.flash_attention_fwd(
-            q, k, v, False, scale, need_lse=True)),
-        plain_ms=cuda_ms(lambda: kernels.flash_attention_plain(
-            q, k, v, False, scale, need_lse=True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
-                                                                  vt)),
-        library="F.scaled_dot_product_attention",
-        bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * s * s * d),
-        shape=shape + ", lse (B,H,S) f32")
-
-    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale)
-    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
-                                             scale)
-    torch.cuda.synchronize()
-    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
-    if not err <= BWD_TOL:
-        fail(f"flash_attention_bwd disagrees with its plain version: "
-             f"scaled err {err} (limit {BWD_TOL})")
-    # the yardstick is SDPA's backward alone: its forward runs once here
-    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
-              for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves)
-    lib_do = do.transpose(1, 2).contiguous()
-    rows["flash_attention_bwd"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: kernels.flash_attention_bwd(
-            q, k, v, o, lse, do, False, scale)),
-        plain_ms=cuda_ms(lambda: kernels.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, False, scale)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, lib_do, retain_graph=True)),
-        library="F.scaled_dot_product_attention backward",
-        # q, k, v, o, dO read, dq, dk, dv written; the five products
-        bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
-                    10 * b * h * s * s * d),
-        shape=shape + ", o/dO/lse -> dq/dk/dv")
-
-    # the Pallas backward's delta_precomputed / dlse entry: a caller's delta
-    # skips the delta kernel, an lse cotangent is folded into delta
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dlse = torch.randn(lse.shape, device=dev, generator=g)
-    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale,
-                                        delta=delta, dlse=dlse)
-    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
-                                             scale, delta=delta, dlse=dlse)
-    torch.cuda.synchronize()
-    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
-    if not err <= BWD_TOL:
-        fail(f"flash_attention_bwd with delta and dlse disagrees with its "
-             f"plain version: scaled err {err} (limit {BWD_TOL})")
-    say(f"kernel flash_attention_bwd with a given delta and dlse: {shape}: "
-        f"scaled err {err:.3g} (limit {BWD_TOL})")
-    del q, k, v, do, o, lse, ro, rlse, grads, refs, leaves, lib_out, delta
-    del dlse
-
+    b, s = FLAGSHIP["batch"], FLAGSHIP["seq"]
     n, dm = b * s, FLAGSHIP["hidden"]
     x, r = (torch.randn(n, dm, device=dev, generator=g).to(bf16)
             for _ in range(2))
@@ -809,6 +778,94 @@ def training_kernel_rows(torch, kernels, g):
         bound=bound(2 * 4 * n * dm + 2 * 2 * dm + 4 * 2 * n, 9 * n * dm,
                     F32_FLOP_PER_S),
         shape=f"x/r ({n},{dm}) bf16 with stats")
+    return rows
+
+
+def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
+                        entry_check: bool = False):
+    """The rows ``flash_attention_fwd_lse<suffix>`` and
+    ``flash_attention_bwd<suffix>`` at q/k/v (b, s, h, d) bf16, non-causal
+    (a training step's shapes), with SDPA and its backward as yardsticks;
+    ``entry_check`` also holds the backward with a caller's delta and an
+    lse cotangent."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    scale = d ** -0.5
+    rows = {}
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(bf16)
+                   for _ in range(4))
+    n_qkv = q.numel()
+    shape = f"q/k/v ({b},{s},{h},{d}) non-causal bf16"
+
+    o, lse = kernels.flash_attention_fwd(q, k, v, False, scale, need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, False, scale,
+                                             need_lse=True)
+    torch.cuda.synchronize()
+    err = scaled_err(o, ro)
+    lse_err = (lse - rlse).abs().max().item()
+    if not (err <= SCALED_TOL and lse_err <= LSE_TOL):
+        fail(f"flash_attention_fwd with lse disagrees with its plain "
+             f"version: scaled err {err} (limit {SCALED_TOL}), lse err "
+             f"{lse_err} (limit {LSE_TOL})")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows["flash_attention_fwd_lse" + suffix] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.flash_attention_fwd(
+            q, k, v, False, scale, need_lse=True)),
+        plain_ms=cuda_ms(lambda: kernels.flash_attention_plain(
+            q, k, v, False, scale, need_lse=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                  vt)),
+        library="F.scaled_dot_product_attention",
+        bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * s * s * d),
+        shape=shape + ", lse (B,H,S) f32")
+
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+                                             scale)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
+    if not err <= BWD_TOL:
+        fail(f"flash_attention_bwd disagrees with its plain version: "
+             f"scaled err {err} (limit {BWD_TOL})")
+    # the yardstick is SDPA's backward alone: its forward runs once here
+    leaves = [x.transpose(1, 2).contiguous().requires_grad_()
+              for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_do = do.transpose(1, 2).contiguous()
+    rows["flash_attention_bwd" + suffix] = dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.flash_attention_bwd(
+            q, k, v, o, lse, do, False, scale)),
+        plain_ms=cuda_ms(lambda: kernels.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, False, scale)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, lib_do, retain_graph=True)),
+        library="F.scaled_dot_product_attention backward",
+        # q, k, v, o, dO read, dq, dk, dv written; the five products
+        bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
+                    10 * b * h * s * s * d),
+        shape=shape + ", o/dO/lse -> dq/dk/dv")
+
+    if not entry_check:
+        return rows
+    # the Pallas backward's delta_precomputed / dlse entry: a caller's delta
+    # skips the delta kernel, an lse cotangent is folded into delta
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dlse = torch.randn(lse.shape, device=dev, generator=g)
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale,
+                                        delta=delta, dlse=dlse)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+                                             scale, delta=delta, dlse=dlse)
+    torch.cuda.synchronize()
+    err = max(scaled_err(a, r) for a, r in zip(grads, refs))
+    if not err <= BWD_TOL:
+        fail(f"flash_attention_bwd with delta and dlse disagrees with its "
+             f"plain version: scaled err {err} (limit {BWD_TOL})")
+    say(f"kernel flash_attention_bwd with a given delta and dlse: {shape}: "
+        f"scaled err {err:.3g} (limit {BWD_TOL})")
     return rows
 
 
@@ -887,7 +944,24 @@ def _groups(ps, limit):
     return out
 
 
-def fused_update_rows(torch, port, kernels, g):
+#: the fused update at ResNet-50's leaves (phase 9's per-leaf SGD: 214
+#: leaves of 64 .. 2.4 M elements, two launches a step)
+RESNET_UPDATE_ROWS = (("fused_update_resnet50", dict(kind="sgd"),
+                       "per_leaf", 6, 2),)
+
+
+def resnet50_leaf_shapes(port):
+    """ResNet-50's weight shapes at 224 x 224 and 1000 classes, in walk
+    order (no weights allocated)."""
+    from flexflow_tpu_torch.models import resnet50
+
+    ff = port.FFModel(port.FFConfig(batch_size=1), device="cuda")
+    resnet50(ff, 1)
+    return [s for ws in ff.weight_shapes().values() for s in ws.values()]
+
+
+def fused_update_rows(torch, port, kernels, g, shapes=None,
+                      cases=UPDATE_ROWS, where="the flagship's bucket"):
     """The fused update at the flagship's bucket (1.21 B bf16 weights in
     its ~100 leaves), SGD, SGD with momentum and Adam on flat state (as
     FusedUpdate keeps it), and SGD (no state) and Adam on per-leaf state
@@ -900,10 +974,10 @@ def fused_update_rows(torch, port, kernels, g):
     by the kernel on the card."""
     from flexflow_tpu_torch.runtime.optimizer import apply_update_plain
 
-    shapes = flagship_leaf_shapes(port)
+    shapes = shapes or flagship_leaf_shapes(port)
     n = sum(math.prod(s) for s in shapes)
     rows = {}
-    for name, kw, form, bytes_per, ops_per in UPDATE_ROWS:
+    for name, kw, form, bytes_per, ops_per in cases:
         rule = kernels.UpdateRule(**kw)
         ps, gs, ms = update_case(torch, g, rule, shapes, form)
         if rule.kind == "adam":
@@ -997,7 +1071,7 @@ def fused_update_rows(torch, port, kernels, g):
                   f"{rule.kind}" + (" momentum" if rule.momentum else "")
                   + (", no state" if not ms else
                      f", {form.replace('_', '-')} state")
-                  + f", as {UPDATE_CALLER[form]} calls it")
+                  + f", as {UPDATE_CALLER[form]} calls it at {where}")
         del ps, gs, ms, mv
         src = torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda")
         dst = torch.empty_like(src)
@@ -1518,6 +1592,16 @@ def phase_serve_quantized(torch, ff, kernels, card: str):
 def kernel_class(name: str) -> str:
     """Where a device kernel of a training step belongs."""
     low = name.lower()
+    # cuDNN's convolutions (implicit-GEMM fprop / dgrad / wgrad kernels
+    # and their layout transposes); checked before cuBLAS, whose GEMMs
+    # share the xmma / cutlass names
+    if any(k in low for k in ("cudnn", "fprop", "dgrad", "wgrad", "conv",
+                              "implicit_gemm", "nchwtonhwc", "nhwctonchw")):
+        return "cuDNN conv"
+    if "batch_norm" in low or "batchnorm" in low:
+        return "BatchNorm"
+    if "pool" in low:
+        return "pooling"
     # flash_fwd_wgmma_kernel (bf16), flash_fwd_simt_kernel (f32)
     if "flash_fwd_" in name:
         return "flash forward"
@@ -1531,7 +1615,8 @@ def kernel_class(name: str) -> str:
     if "fused_update_kernel" in name:
         return "fused update"
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
-        return "cuBLAS GEMM"
+        # cuDNN runs some convs (1 x 1 among them) on these GEMM kernels
+        return "GEMM kernels (cuBLAS; cuDNN's GEMM-run convs)"
     return "other (elementwise, reductions, copies)"
 
 
@@ -1605,21 +1690,24 @@ def phase_train(torch, port, kernels, card: str):
     return out
 
 
-def train_run(torch, kernels, card: str, ff, label: str):
-    """One configuration of the full-width flagship: warm-up, fit() of
-    TRAIN_STEPS steps (exact launch counts: 6 flash forwards and
-    backwards, 12 add + LayerNorm and, fused, 1 update a step, the scanned
-    ones counted through the graph's replays), the profile of one step
-    (scanned: one chunk) with the idle share and device time by kernel
-    class, and the update's own device time (CUDA events around
-    ff.optimizer.update on one step's real gradients), and the profile's
-    top kernels. Returns the launch counts and the losses (warm-up first:
+def train_run(torch, kernels, card: str, ff, label: str, want=None,
+              batch_size: int = FLAGSHIP["batch"], falls: bool = False):
+    """One training configuration at full width: warm-up, fit() of
+    TRAIN_STEPS steps (exact launch counts ``want``, by default the
+    flagship's: 6 flash forwards and backwards, 12 add + LayerNorm and 1
+    update a step, the scanned ones counted through the graph's replays),
+    the profile of one step (scanned: one chunk) with the idle share and
+    device time by kernel class, and the update's own device time (CUDA
+    events around ff.optimizer.update on one step's real gradients) and
+    its share of its bound, and the profile's top kernels. ``falls``: the
+    fit's batches are one batch repeated, and its last loss must be under
+    its first. Returns the launch counts and the losses (warm-up first:
     the same batches for every configuration)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     f = FLAGSHIP
-    n = f["batch"] * TRAIN_STEPS
+    n = batch_size * TRAIN_STEPS
     scan = ff.config.scan_steps > 0
     torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -1652,12 +1740,15 @@ def train_run(torch, kernels, card: str, ff, label: str):
     vals = [float(v) for v in torch.cat(losses)]
     if len(vals) != TRAIN_STEPS + 1 or not all(np.isfinite(vals)):
         fail(f"train ({label}): losses {vals}")
+    if falls and not vals[-1] < vals[1]:
+        fail(f"train ({label}): on a repeated batch the loss did not fall "
+             f"over the {TRAIN_STEPS} steps of fit: {vals[1:]}")
     layers = f["layers"]
-    want = {"flash_attention_fwd": layers * TRAIN_STEPS,
-            "flash_attention_bwd": layers * TRAIN_STEPS,
-            "fused_add_layernorm_fwd": 2 * layers * TRAIN_STEPS,
-            "paged_attention_fwd": 0, "paged_prefill_write": 0,
-            "fused_update": TRAIN_STEPS}
+    want = want or {"flash_attention_fwd": layers * TRAIN_STEPS,
+                    "flash_attention_bwd": layers * TRAIN_STEPS,
+                    "fused_add_layernorm_fwd": 2 * layers * TRAIN_STEPS,
+                    "paged_attention_fwd": 0, "paged_prefill_write": 0,
+                    "fused_update": TRAIN_STEPS}
     if launches != want:
         fail(f"train ({label}): kernel launches {launches} != expected "
              f"{want}")
@@ -1698,23 +1789,393 @@ def train_run(torch, kernels, card: str, ff, label: str):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         say(f"train profile kernel ({label}): {us / 1e3 / per:.3f} ms a "
             f"step {name[:100]}")
-    other = [(n, us) for n, us in by_name.items()
-             if kernel_class(n).startswith("other")]
-    for name, us in sorted(other, key=lambda kv: -kv[1])[:8]:
-        calls = sum(e.name == name for e in events) / per
-        say(f"train profile other ({label}): {us / 1e3 / per:.3f} ms a "
-            f"step, {calls:g} launches a step: {name[:200]}")
+    for cls, tag in (("other", "other"), ("GEMM", "GEMM")):
+        picked = [(n, us) for n, us in by_name.items()
+                  if kernel_class(n).startswith(cls)]
+        for name, us in sorted(picked, key=lambda kv: -kv[1])[:8]:
+            calls = sum(e.name == name for e in events) / per
+            say(f"train profile {tag} ({label}): {us / 1e3 / per:.3f} ms a "
+                f"step, {calls:g} launches a step: {name[:200]}")
 
-    _, _, grads = ff.executor._loss_and_grads(
+    _, _, grads, _ = ff.executor._loss_and_grads(
         ff.params, ff._to_device(batch), ff.loss_type, ff.metric_types,
         ff._final_tensor)
     upd = cuda_ms(lambda: ff.optimizer.update(ff.params, grads, ff.opt_state),
                   iters=5, warmup=1, sleep=LONG_SLEEP_CYCLES)
+    # bytes an update moves: each weight and its grad read, the weight
+    # written, each moment read and written; ~2 f32 operations an element
+    # a moment more than SGD's two (update_math)
+    leaves = [w for ws in ff.params.values() for w in ws.values()]
+    moments = ff.optimizer.rule.n_moments
+    nbytes = sum(w.numel() * w.element_size() * (3 + 2 * moments)
+                 for w in leaves)
+    elems = sum(w.numel() for w in leaves)
+    ub = bound(nbytes, (2 + 5 * moments) * elems, F32_FLOP_PER_S)
     say(f"train ({label}): the update {upd:.3f} ms of device time (CUDA "
-        f"events around ff.optimizer.update on one step's gradients) "
+        f"events around ff.optimizer.update on one step's gradients), "
+        f"{len(leaves)} leaves, {elems / 1e6:.2f} M elements, bound "
+        f"{ub[0]:.4f} ms by {ub[1]}: {100 * ub[0] / upd:.1f}% of bound "
         f"[{card}]")
     del grads
     return launches, vals
+
+
+# ------------------------------------------------- phases 8 and 9: the zoo
+
+
+def _zoo_resnet_blocks(port, ff, b):
+    """ResNet-50's stem and three ``_bottleneck`` blocks (one strided
+    projection) at image 32: ResNet-50 block by block."""
+    from flexflow_tpu_torch.models import cnn
+
+    x = ff.create_tensor([b, 3, 32, 32], name="input")
+    t = ff.conv2d(x, 32, 7, 7, 2, 2, 3, 3, name="conv1")
+    t = ff.batch_norm(t, relu=True, name="bn1")
+    t = ff.pool2d(t, 3, 3, 2, 2, 1, 1, name="pool1")
+    t = cnn._bottleneck(ff, t, 16, 1, 0, downsample=True)
+    t = cnn._bottleneck(ff, t, 16, 1, 1, downsample=False)
+    t = cnn._bottleneck(ff, t, 32, 2, 2, downsample=True)
+    h = t.dims[2]
+    t = ff.pool2d(t, h, h, 1, 1, 0, 0, port.PoolType.POOL_AVG, name="gap")
+    return {"input": x}, ff.dense(ff.flat(t), 10, name="fc")
+
+
+def _zoo_builders():
+    """Phase 8's models at small widths: name -> (build(port, ff, batch)
+    -> ({input name: Tensor}, output), feed(rs, n) -> {input name: array},
+    classes of the labels (None: MSE targets))."""
+    from flexflow_tpu_torch.models import (alexnet_cifar10, bert_base, dlrm,
+                                           gpt_lm, inception_v3_stem, vit)
+    import numpy as np
+
+    def image(size):
+        return lambda rs, n: {"input": rs.randn(n, 3, size, size).astype(
+            np.float32)}
+
+    def tokens(vocab, seq, positions=False):
+        def feed(rs, n):
+            out = {"input": rs.randint(0, vocab, (n, seq)).astype(np.int32)}
+            if positions:
+                out["positions"] = np.tile(np.arange(seq, dtype=np.int32),
+                                           (n, 1))
+            return out
+        return feed
+
+    def dlrm_feed(rs, n):
+        out = {"dense_input": rs.randn(n, 16).astype(np.float32)}
+        out.update({f"sparse_{i}": rs.randint(0, 1000, (n, 3)).astype(
+            np.int32) for i in range(4)})
+        return out
+
+    def named(x, out):
+        return {"input": x}, out
+
+    def dlrm_named(r):
+        return ({t.owner_op.name: t for t in [r[0]] + r[1]}, r[2])
+
+    def bert_named(r):
+        return {"input": r[0], "positions": r[1]}, r[2]
+
+    return {
+        "alexnet_cifar10": (
+            lambda port, ff, b: named(*alexnet_cifar10(ff, b)), image(32),
+            10),
+        "inception_v3_stem": (
+            lambda port, ff, b: named(*inception_v3_stem(
+                ff, b, num_classes=10, image_size=75)), image(75), 10),
+        "resnet blocks": (_zoo_resnet_blocks, image(32), 10),
+        "vit (patch 8, head dim 64)": (
+            lambda port, ff, b: named(*vit(
+                ff, b, image_size=32, patch_size=8, hidden=128, layers=2,
+                heads=2, num_classes=10)), image(32), 10),
+        "dlrm (SUM bags)": (
+            lambda port, ff, b: dlrm_named(dlrm(
+                ff, b, embedding_size=16, embedding_entries=1000,
+                num_tables=4, indices_per_table=3, dense_dim=16,
+                mlp_bot=(64, 16), mlp_top=(64, 1))), dlrm_feed, None),
+        "bert_base (2 layers, head dim 64)": (
+            lambda port, ff, b: bert_named(bert_base(
+                ff, b, seq_len=128, hidden=128, layers=2, heads=2,
+                vocab_size=1000)), tokens(1000, 128, positions=True), 2),
+        "gpt_lm": (
+            lambda port, ff, b: named(*gpt_lm(
+                ff, b, seq_len=128, hidden=128, layers=2, heads=2,
+                vocab_size=1000)), tokens(1000, 128), 1000),
+    }
+
+
+#: phase 8: card vs CPU, f32 with TF32 off, after ZOO_CHECK_STEPS SGD steps
+#: at lr ZOO_LR from the same weights and batches. Sums in other orders
+#: (cuDNN's and cuBLAS's algorithms against the CPU's) differ by ~1e-6
+#: relative a product; two steps at lr 0.01 move the weights ~1e-3, so
+#: they agree far inside 1e-5, the losses inside 1e-4 relative; the
+#: BatchNorm state (0.1 of a batch statistic a step) inside 1e-5
+ZOO_CHECK_STEPS = 2
+ZOO_LR = 0.01
+ZOO_STATE_ATOL = 1e-5
+ZOO_BATCH = 4
+#: dropout on the card: elements drawn, and the kept-share bound in
+#: binomial standard deviations
+DROPOUT_N = 1 << 22
+DROPOUT_SIGMAS = 4.5
+
+
+def phase_zoo_check(torch, port, kernels):
+    """Phase 8: each zoo model small and f32 on the card (the kernels;
+    cuDNN and cuBLAS without TF32) against the CPU (the plain versions)
+    from the same weights and BatchNorm state, ZOO_CHECK_STEPS SGD steps
+    on the same batches: losses, weights and BatchNorm state; a tied Llama
+    serving the CPU's greedy tokens; dropout's law on the card and a
+    different mask on each replayed step of fit(scan_steps=4). Returns
+    {path: launch counts}."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launch_counts()
+    for name, (build, feed, classes) in _zoo_builders().items():
+        models = []
+        for dev in ("cpu", "cuda"):
+            ff = port.FFModel(port.FFConfig(batch_size=ZOO_BATCH, seed=11),
+                              device=dev)
+            ins, out = build(port, ff, ZOO_BATCH)
+            loss = ("LOSS_SPARSE_CATEGORICAL_CROSSENTROPY" if classes
+                    else "LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE")
+            ff.compile(port.SGDOptimizer(lr=ZOO_LR),
+                       getattr(port.LossType, loss),
+                       [port.MetricsType.METRICS_ACCURACY if classes else
+                        port.MetricsType.METRICS_MEAN_SQUARED_ERROR],
+                       final_tensor=out)
+            models.append(ff)
+        cpu, gpu = models
+        copy_weights(gpu, cpu.params)
+        gpu.bn_state = {op: {k: v.to("cuda") for k, v in ws.items()}
+                        for op, ws in cpu.bn_state.items()}
+        rs = np.random.RandomState(5)
+        worst = 0.0
+        for step in range(ZOO_CHECK_STEPS):
+            batch = feed(rs, ZOO_BATCH)
+            dims = (ZOO_BATCH,) + tuple(cpu._final_tensor.dims[1:])
+            batch["label"] = (rs.rand(*dims).astype(np.float32)
+                              if classes is None else rs.randint(
+                                  0, classes, dims[:-1] + (1,)).astype(
+                                      np.int32))
+            lc = float(cpu._run_train_step(batch)[0])
+            lg = float(gpu._run_train_step(batch)[0])
+            if not (np.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL
+                    * abs(lc)):
+                fail(f"zoo check ({name}): step {step} loss card {lg} vs "
+                     f"CPU {lc} (limit {TRAIN_LOSS_RTOL} relative)")
+            worst = max(worst, abs(lg - lc) / abs(lc))
+        diff = weight_diff(gpu, cpu)
+        sdiff = max([(gpu.bn_state[op][k].cpu() - v).abs().max().item()
+                     for op, ws in cpu.bn_state.items()
+                     for k, v in ws.items()] or [0.0])
+        if not (diff <= TRAIN_PARAM_ATOL and sdiff <= ZOO_STATE_ATOL):
+            fail(f"zoo check ({name}): after {ZOO_CHECK_STEPS} steps the "
+                 f"weights differ card vs CPU by {diff} (limit "
+                 f"{TRAIN_PARAM_ATOL}), the BatchNorm state by {sdiff} "
+                 f"(limit {ZOO_STATE_ATOL})")
+        say(f"zoo check ({name}): f32, {ZOO_CHECK_STEPS} SGD steps, card vs "
+            f"CPU: losses within {worst:.2e} relative, weights within "
+            f"{diff:.2e}, {len(cpu.bn_state)} BatchNorm states within "
+            f"{sdiff:.2e}")
+        del cpu, gpu, models
+    launches = {"zoo_check": kernels.launch_counts()}
+    for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_update"):
+        if launches["zoo_check"][k] == 0:
+            fail(f"zoo check: no launch of {k} ({launches['zoo_check']})")
+    zoo_tied_llama(torch, port, kernels)
+    zoo_dropout(torch, port, kernels)
+    return launches
+
+
+def zoo_tied_llama(torch, port, kernels):
+    """A small f32 Llama with tied embeddings serves on the card the CPU's
+    greedy tokens from the same weights (one stored table for both
+    uses)."""
+    import numpy as np
+    from flexflow_tpu_torch.models import llama_lm
+
+    arch = dict(hidden=256, layers=2, heads=4, kv_heads=2, ffn_hidden=512,
+                vocab_size=1000, tie_embeddings=True)
+    models = []
+    for dev in ("cpu", "cuda"):
+        ff = port.FFModel(port.FFConfig(batch_size=2, seed=2), device=dev)
+        _, logits = llama_lm(ff, 2, seq_len=256, **arch)
+        ff.compile(final_tensor=logits)
+        models.append(ff)
+    cpu, gpu = models
+    if cpu.params["lm_head"] or gpu.params["lm_head"]:
+        fail("zoo check (tied Llama): lm_head owns a weight")
+    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 1000, n).astype(np.int32) for n in (7, 40, 100)]
+    kw = dict(serve_slots=2, kv_page_size=64, max_seq_len=256)
+    kernels.reset_launch_counts()
+    ref, _ = cpu.serve(prompts, max_new_tokens=8, **kw)
+    got, _ = gpu.serve(prompts, max_new_tokens=8, **kw)
+    if kernels.paged_attention_fwd.launches == 0:
+        fail("zoo check (tied Llama) did not reach the kernels")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a is None or b is None or not np.array_equal(a, b):
+            fail(f"zoo check (tied Llama): prompt {i} tokens card vs CPU "
+                 f"differ")
+    say(f"zoo check (tied Llama): lm_head tied to tok_embed (transposed), "
+        f"{len(prompts)} prompts x 8 greedy tokens on the card == the CPU's")
+
+
+def zoo_dropout(torch, port, kernels):
+    """Dropout on the card: the kept share of DROPOUT_N elements within
+    DROPOUT_SIGMAS binomial deviations of keep * n, every kept value
+    exactly x / keep (the CPU's IEEE division of the same values), and a
+    model with dropout trained by fit(scan_steps=4) on one repeated batch
+    at lr 0: the eager step and the 3 replays of the captured one give 4
+    different losses (new masks a replay: the op's generator is
+    registered with the graph)."""
+    import numpy as np
+    from flexflow_tpu_torch.ops.norm import dropout
+
+    rate = 0.3
+    x = torch.rand(DROPOUT_N, device="cuda") + 0.5
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    y = dropout(x, rate, gen)
+    kept = int((y != 0).sum())
+    keep = 1 - rate
+    sd = math.sqrt(DROPOUT_N * keep * rate)
+    if abs(kept - keep * DROPOUT_N) > DROPOUT_SIGMAS * sd:
+        fail(f"dropout on the card kept {kept} of {DROPOUT_N} (expected "
+             f"{keep * DROPOUT_N:.0f} +- {DROPOUT_SIGMAS} x {sd:.0f})")
+    yc, xc = y.cpu().numpy(), x.cpu().numpy()
+    mask = yc != 0
+    if not np.array_equal(yc[mask], xc[mask] / np.float32(keep)):
+        fail("dropout on the card: kept values are not exactly x / keep")
+
+    ff = port.FFModel(port.FFConfig(batch_size=8, seed=4, scan_steps=4),
+                      device="cuda")
+    t = ff.create_tensor([8, 256], name="input")
+    h = ff.dense(t, 256, port.ActiMode.AC_MODE_RELU, name="fc1")
+    h = ff.dropout(h, 0.5, name="drop")
+    out = ff.dense(h, 4, name="fc2")
+    ff.compile(port.SGDOptimizer(lr=0.0),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = np.random.RandomState(0)
+    xs = np.tile(rs.randn(8, 256).astype(np.float32), (4, 1))
+    ys = np.tile(rs.randint(0, 4, (8, 1)).astype(np.int32), (4, 1))
+    port.SingleDataLoader(ff, t, xs)
+    port.SingleDataLoader(ff, ff.label_tensor, ys)
+    losses = []
+    scanned = ff.train_scanned
+
+    def recording(n):
+        ls, mets = scanned(n)
+        losses.extend(float(v) for v in ls)
+        return ls, mets
+    ff.train_scanned = recording
+    ff.fit(epochs=1, verbose=False)
+    replays = ff._replay.replays if ff._replay is not None else 0
+    if len(losses) != 4 or replays != 3 or len(set(losses)) != 4:
+        fail(f"dropout under fit(scan_steps=4): losses {losses} over "
+             f"{replays} graph replays: a replay repeated a mask")
+    say(f"zoo check (dropout): kept {kept} of {DROPOUT_N} at rate {rate} "
+        f"({(kept - keep * DROPOUT_N) / sd:+.2f} sigma), kept values "
+        f"exactly x / keep; fit(scan_steps=4) at lr 0 on one batch: losses "
+        f"{[round(v, 5) for v in losses]} (eager step, then {replays} "
+        f"replays), each its own mask")
+
+
+#: phase 9: the two zoo models at their published widths (bf16 weights and
+#: compute). ResNet-50: He et al. 2015, Table 1, 50-layer (torchvision
+#: resnet50), 224 x 224, 1000 classes, batch 128, SGD lr 0.1, the
+#: per-leaf optimizer. BERT-base: google-research/bert
+#: uncased_L-12_H-768_A-12 bert_config.json (hidden 768, 12 layers, 12
+#: heads, intermediate 3072, vocab 30522), sequence 512, batch 32, 2
+#: classes, SGD lr 1e-4 (the per-leaf optimizer, as ResNet-50's). From its
+#: glorot initialisation the model's first steps are steep, in the JAX
+#: package as in the port: at full width on the CPU
+#: (tests/test_torch_bert_witness.py: seq 512, batch 8, f32, both packages
+#: from the same weights, agreeing within 3e-6 over 5 steps) one repeated
+#: batch's loss oscillates at lr 1e-2 and 1e-3, still rises at 3e-4 and
+#: falls at 1e-4.
+RESNET50 = dict(batch=128, image=224, classes=1000, lr=0.1)
+BERT_BASE = dict(batch=32, seq=512, hidden=768, layers=12, heads=12,
+                 vocab=30522, classes=2, lr=1e-4)
+
+
+def phase_zoo_train(torch, port, kernels, card: str):
+    """Phase 9: ResNet-50 and BERT-base train through FFModel.fit at the
+    widths above: compile time, then train_run (a warm-up step, fit over
+    TRAIN_STEPS copies of one batch, whose loss must fall; exact launch
+    counts; step ms, samples/s, peak memory, the idle share and device
+    time by kernel class over one profiled step, the update's own device
+    time and share of its bound). Returns {path: launch counts}."""
+    import numpy as np
+    from flexflow_tpu_torch.models import bert_base, resnet50
+
+    out = {}
+    rs = np.random.RandomState(0)
+    for label, path in (("ResNet-50", "zoo_resnet50"),
+                        ("BERT-base", "zoo_bert")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = port.FFConfig(compute_dtype="bfloat16",
+                            master_dtype="bfloat16", seed=0,
+                            batch_size=(RESNET50 if path == "zoo_resnet50"
+                                        else BERT_BASE)["batch"])
+        t0 = time.perf_counter()
+        ff = port.FFModel(cfg, device="cuda")
+        if path == "zoo_resnet50":
+            r = RESNET50
+            b = r["batch"]
+            x, logits = resnet50(ff, b, r["classes"], r["image"])
+            ff.compile(port.SGDOptimizer(lr=r["lr"]),
+                       port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                       [port.MetricsType.METRICS_ACCURACY],
+                       final_tensor=logits)
+            feeds = {x: rs.randn(b, 3, r["image"], r["image"]).astype(
+                np.float32)}
+            classes = r["classes"]
+            want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+        else:
+            r = BERT_BASE
+            b = r["batch"]
+            tok, pos, logits = bert_base(ff, b, r["seq"], r["hidden"],
+                                         r["layers"], r["heads"], r["vocab"],
+                                         r["classes"])
+            ff.compile(port.SGDOptimizer(lr=r["lr"]),
+                       port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                       [port.MetricsType.METRICS_ACCURACY],
+                       final_tensor=logits)
+            feeds = {tok: rs.randint(0, r["vocab"], (b, r["seq"])).astype(
+                np.int32), pos: np.tile(np.arange(r["seq"], dtype=np.int32),
+                                        (b, 1))}
+            classes = r["classes"]
+            want = {"flash_attention_fwd": r["layers"] * TRAIN_STEPS,
+                    "flash_attention_bwd": r["layers"] * TRAIN_STEPS}
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        feeds[ff.label_tensor] = rs.randint(0, classes, (b, 1)).astype(
+            np.int32)
+        for t, a in feeds.items():      # one batch, TRAIN_STEPS times
+            port.SingleDataLoader(ff, t, np.concatenate([a] * TRAIN_STEPS))
+        leaves = sum(len(ws) for ws in ff.params.values())
+        n_params = sum(w.numel() for ws in ff.params.values()
+                       for w in ws.values())
+        launches = -(-leaves // kernels.FUSED_UPDATE_MAX_LEAVES)
+        want.update({"fused_add_layernorm_fwd": 0, "paged_attention_fwd": 0,
+                     "paged_prefill_write": 0,
+                     "fused_update": launches * TRAIN_STEPS})
+        say(f"zoo train ({label}): {n_params / 1e6:.2f} M params bf16 in "
+            f"{leaves} leaves ({launches} update launches a step), "
+            f"{len(ff.bn_state)} BatchNorm states, batch {b}; built and "
+            f"compiled in {compile_s:.2f} s [{card}]")
+        out[path], _ = train_run(torch, kernels, card, ff, label, want=want,
+                                 batch_size=b, falls=True)
+        del ff, feeds
+    return out
 
 
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
@@ -1770,6 +2231,14 @@ KERNEL_ROWS = {
                               "train", "fused_update"),
     "fused_update_adam_per_leaf": ("fused_update.cu", FUSED_UPDATE_REPLACES,
                                    "train_check_adam", "fused_update"),
+    # phase 9's shapes: BERT-base's attention (head dim 64, 12 heads) and
+    # ResNet-50's 214 leaves (two update launches a step)
+    "flash_attention_fwd_lse_bert": ("flash_attention_wgmma.cu", 180,
+                                     "zoo_bert", "flash_attention_fwd"),
+    "flash_attention_bwd_bert": ("flash_attention_bwd_wgmma.cu", 335,
+                                 "zoo_bert", "flash_attention_bwd"),
+    "fused_update_resnet50": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                              "zoo_resnet50", "fused_update"),
 }
 
 
@@ -1801,6 +2270,8 @@ def main():
     launches.update(phase_serve_quantized(torch, ff, kernels, card))
     del ff
     launches.update(phase_train(torch, port, kernels, card))
+    launches.update(phase_zoo_check(torch, port, kernels))
+    launches.update(phase_zoo_train(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     table = []

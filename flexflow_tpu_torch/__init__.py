@@ -8,7 +8,9 @@ beside it slice by slice and imports nothing of it (nor of JAX).
     ``compile(final_tensor=...)`` initialises it on the card, and
     ``FFModel.serve`` runs it through the continuous-batching
     ``ServingEngine`` over a paged KV cache.
-  * Training: ``models.build_encoder_classifier`` built on ``FFModel``,
+  * Training: a model of ``models`` (the encoder classifier, the CNN
+    zoo with BatchNorm's running state, BERT / GPT, ViT, DLRM) built on
+    ``FFModel``,
     ``compile(SGDOptimizer(...) or AdamOptimizer(...), loss, metrics)``
     (lr schedules from ``runtime/schedule.py``), ``SingleDataLoader``s
     for the input and ``ff.label_tensor``, then ``fit()`` / ``evaluate`` /
@@ -25,7 +27,8 @@ PyTorch versions of the kernels on the CPU.
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
-                                        LossType, MetricsType, OperatorType)
+                                        LossType, MetricsType, OperatorType,
+                                        PoolType)
 from flexflow_tpu_torch.model import FFModel
 from flexflow_tpu_torch.runtime.dataloader import SingleDataLoader
 from flexflow_tpu_torch.runtime.initializer import (ConstantInitializer,
@@ -44,7 +47,7 @@ __all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode",
            "ConstantInitializer", "ConstantSchedule", "DataType",
            "ExponentialDecay", "FFConfig", "FFModel",
            "GlorotUniformInitializer", "LossType", "MetricsType",
-           "NormInitializer", "OneInitializer", "OperatorType",
+           "NormInitializer", "OneInitializer", "OperatorType", "PoolType",
            "SGDOptimizer", "SingleDataLoader", "StepDecay", "Tensor",
            "UniformInitializer", "WarmupCosine", "WarmupLinear",
            "ZeroInitializer"]

@@ -18,7 +18,8 @@ from typing import List, Optional
 
 #: where the features of later slices are queued
 ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
-ROADMAP_OPS = "ROADMAP.md queue 1, item 2 (the training op set)"
+ROADMAP_OPS = ("ROADMAP.md queue 1, item 4 (recurrent, MoE, fused and "
+               "pipelined ops)")
 ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
 
 

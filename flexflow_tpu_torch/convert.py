@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and op state from the JAX package into the port.
 
 The port keeps the JAX package's weight names and layouts (``Linear.kernel``
 (in, out), ``wq`` (D, H, Hd), ``wo`` (H, Hd, D), ...), so moving a model's
@@ -23,12 +23,28 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
     """{op: {weight: array}} -> the same tree of ``dtype`` tensors on
     ``device``. With ``model`` (a port FFModel) the names and shapes are
     checked against its graph first: a missing, extra or misshapen weight
-    raises ``ValueError``."""
+    raises ``ValueError``. A tied model's destination weight has no leaf in
+    either package (``FFModel.tie_weights``)."""
     if model is not None:
         _check_against(params, model.weight_shapes())
     return {op: {w: torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for w, a in ws.items()}
             for op, ws in params.items()}
+
+
+def state_from_jax(state: Dict[str, Dict[str, np.ndarray]],
+                   device: Union[str, torch.device], model=None
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX model's op state (``ff.bn_state``: BatchNorm's f32 ``mean`` /
+    ``var`` per op) -> the port's, f32 on ``device``. With ``model`` the
+    ops and shapes are checked against its own initial state."""
+    if model is not None:
+        _check_against(state, {op: {k: tuple(v.shape) for k, v in ws.items()}
+                                for op, ws in model.bn_state.items()})
+    return {op: {k: torch.tensor(np.asarray(a), dtype=torch.float32,
+                                 device=device)
+                 for k, a in ws.items()}
+            for op, ws in state.items()}
 
 
 #: numpy dtypes of the JAX package that torch cannot take directly (they

@@ -2,8 +2,10 @@
 (the JAX package's ``model.py``, the subsets the ported slices run).
 
 The builder verbs append ops to a graph exactly as in the JAX package, so
-model builders (``models/llama.py``, ``models/transformer.py``) read the
-same. ``compile`` initialises the parameters on the model's device from a
+model builders (``models/``: the Llama decoder, the encoder classifier,
+the CNN zoo, BERT / GPT, ViT, DLRM) read the same; ``tie_weights`` shares
+one stored weight between two ops. ``compile`` initialises the parameters
+(and the ops' state, ``bn_state``) on the model's device from a
 seeded ``torch.Generator``: with an optimizer for training (``fit``,
 ``evaluate``), without one for serving (``make_serving_engine`` /
 ``serve`` drive the continuous-batching engine). Training steps one batch
@@ -25,16 +27,23 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch._device import resolve_device
-from flexflow_tpu_torch.config import FFConfig, check_training_ported
+from flexflow_tpu_torch.config import (ROADMAP_OPS, FFConfig,
+                                       check_training_ported, not_ported)
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
-                                        LossType, MetricsType, OperatorType)
+                                        LossType, MetricsType, OperatorType,
+                                        PoolType)
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
 from flexflow_tpu_torch.ops.base import InputOp, Op
-from flexflow_tpu_torch.ops.dense import Embedding, Linear
-from flexflow_tpu_torch.ops.elementwise import (ElementBinary, ElementUnary,
-                                                Mean)
-from flexflow_tpu_torch.ops.norm import AddLayerNorm, LayerNorm, RMSNorm
-from flexflow_tpu_torch.runtime.executor import GraphExecutor, StepReplay
+from flexflow_tpu_torch.ops.conv import BatchNorm, Conv2D, Flat, Pool2D
+from flexflow_tpu_torch.ops.dense import BatchMatmul, Embedding, Linear
+from flexflow_tpu_torch.ops.elementwise import (Cast, ElementBinary,
+                                                ElementUnary, Mean)
+from flexflow_tpu_torch.ops.norm import (AddLayerNorm, Dropout, LayerNorm,
+                                         RMSNorm, Softmax)
+from flexflow_tpu_torch.ops.tensor_ops import (Concat, Gather, Pad, Reshape,
+                                               Reverse, Split, TopK, Transpose)
+from flexflow_tpu_torch.runtime.executor import (GraphExecutor, StepReplay,
+                                                 tie_transform)
 from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import loss_type_from_name
 from flexflow_tpu_torch.runtime.metrics import PerfMetrics, metrics_from_names
@@ -55,6 +64,12 @@ class FFModel:
         self.ops: List[Op] = []
         self._op_counters: Dict[str, int] = {}
         self.params: Optional[Params] = None
+        # (dst op, dst weight) -> (src op, src weight, transform)
+        self._tied: Dict[Tuple[str, str], Tuple[str, str, str]] = {}
+        # the stateful ops' state ({op: {"mean", "var"}} for BatchNorm) and
+        # the drawing ops' generators (executor.init_generators)
+        self.bn_state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self._generators: Dict[str, torch.Generator] = {}
         self._final_tensor: Optional[Tensor] = None
         # training state (compile with an optimizer)
         self.executor: Optional[GraphExecutor] = None
@@ -120,6 +135,121 @@ class FFModel:
         return self._add(Linear(self, self._name("dense", name), [input],
                                 out_dim, activation, use_bias))
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True,
+               name: Optional[str] = None) -> Tensor:
+        return self._add(Conv2D(self, self._name("conv2d", name), [input],
+                                out_channels, kernel_h, kernel_w, stride_h,
+                                stride_w, padding_h, padding_w, activation,
+                                groups, use_bias))
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: Optional[str] = None) -> Tensor:
+        return self._add(Pool2D(self, self._name("pool2d", name), [input],
+                                kernel_h, kernel_w, stride_h, stride_w,
+                                padding_h, padding_w, pool_type, activation))
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add(BatchNorm(self, self._name("batch_norm", name),
+                                   [input], relu))
+
+    def batch_matmul(self, a: Tensor, b: Tensor,
+                     name: Optional[str] = None) -> Tensor:
+        return self._add(BatchMatmul(self, self._name("batch_matmul", name),
+                                     [a, b]))
+
+    def flat(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        return self._add(Flat(self, self._name("flat", name), [input]))
+
+    def softmax(self, input: Tensor, axis: int = -1,
+                name: Optional[str] = None) -> Tensor:
+        return self._add(Softmax(self, self._name("softmax", name), [input],
+                                 axis))
+
+    def dropout(self, input: Tensor, rate: float, seed: int = 0,
+                name: Optional[str] = None) -> Tensor:
+        return self._add(Dropout(self, self._name("dropout", name), [input],
+                                 rate, seed))
+
+    def reshape(self, input: Tensor, shape: Sequence[int],
+                name: Optional[str] = None) -> Tensor:
+        return self._add(Reshape(self, self._name("reshape", name), [input],
+                                 shape))
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name: Optional[str] = None) -> Tensor:
+        return self._add(Transpose(self, self._name("transpose", name),
+                                   [input], perm))
+
+    def reverse(self, input: Tensor, axis: int,
+                name: Optional[str] = None) -> Tensor:
+        return self._add(Reverse(self, self._name("reverse", name), [input],
+                                 axis))
+
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: Optional[str] = None) -> Tensor:
+        return self._add(Concat(self, self._name("concat", name),
+                                list(tensors), axis))
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]],
+              axis: int, name: Optional[str] = None) -> List[Tensor]:
+        if isinstance(sizes, int):
+            d = input.dims[axis]
+            if d % sizes:
+                raise ValueError(f"split: dim {axis} of {input.dims} does "
+                                 f"not divide into {sizes}")
+            sizes = [d // sizes] * sizes
+        out = self._add(Split(self, self._name("split", name), [input],
+                              sizes, axis))
+        return out if isinstance(out, list) else [out]
+
+    def topk(self, input: Tensor, k: int, sorted: bool = True,
+             name: Optional[str] = None) -> List[Tensor]:
+        return self._add(TopK(self, self._name("topk", name), [input], k,
+                              sorted))
+
+    def gather(self, input: Tensor, index: Tensor, axis: int,
+               name: Optional[str] = None) -> Tensor:
+        return self._add(Gather(self, self._name("gather", name),
+                                [input, index], axis))
+
+    def cast(self, input: Tensor, dtype: DataType,
+             name: Optional[str] = None) -> Tensor:
+        return self._add(Cast(self, self._name("cast", name), [input],
+                              dtype))
+
+    def pad(self, input: Tensor, pads, value: float = 0.0,
+            name: Optional[str] = None) -> Tensor:
+        return self._add(Pad(self, self._name("pad", name), [input], pads,
+                             value))
+
+    def lstm(self, input: Tensor, hidden_size: int,
+             return_sequences: bool = True, name: Optional[str] = None):
+        raise not_ported("lstm (ops/recurrent.py)", where=ROADMAP_OPS)
+
+    def gru(self, input: Tensor, hidden_size: int,
+            return_sequences: bool = True, name: Optional[str] = None):
+        raise not_ported("gru (ops/recurrent.py)", where=ROADMAP_OPS)
+
+    def moe(self, input: Tensor, num_experts: int, hidden_dim: int,
+            k: int = 2, capacity_factor: float = 1.25,
+            dispatch: str = "auto", name: Optional[str] = None):
+        raise not_ported("moe (ops/moe.py)", where=ROADMAP_OPS)
+
+    def transformer_pipeline_stack(self, input: Tensor, num_layers: int,
+                                   num_heads: int, ffn_mult: int = 4,
+                                   causal: bool = False,
+                                   num_microbatches: Optional[int] = None,
+                                   name: Optional[str] = None):
+        raise not_ported("transformer_pipeline_stack (ops/pipelined.py)",
+                         where=ROADMAP_OPS)
+
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
                   name: Optional[str] = None) -> Tensor:
@@ -164,25 +294,160 @@ class FFModel:
             bias, add_bias_kv, add_zero_attn, causal,
             num_kv_heads=num_kv_heads, rope=rope, rope_theta=rope_theta))
 
-    def sigmoid(self, x: Tensor, name: Optional[str] = None) -> Tensor:
-        return self._add(ElementUnary(self, self._name("sigmoid", name), [x],
-                                      OperatorType.OP_SIGMOID))
+    # elementwise unary / binary (op names as the JAX builder's)
 
-    def add(self, a: Tensor, b: Tensor, name: Optional[str] = None) -> Tensor:
-        return self._add(ElementBinary(self, self._name("ew_add", name),
-                                       [a, b], OperatorType.OP_EW_ADD))
+    def _unary(self, op_type: OperatorType, x: Tensor, name=None,
+               scalar=None) -> Tensor:
+        kind = op_type.name[3:].lower()
+        return self._add(ElementUnary(self, self._name(kind, name), [x],
+                                      op_type, scalar))
 
-    def multiply(self, a: Tensor, b: Tensor,
-                 name: Optional[str] = None) -> Tensor:
-        return self._add(ElementBinary(self, self._name("ew_mul", name),
-                                       [a, b], OperatorType.OP_EW_MUL))
+    def _binary(self, op_type: OperatorType, a: Tensor, b: Tensor,
+                name=None) -> Tensor:
+        kind = op_type.name[3:].lower()
+        return self._add(ElementBinary(self, self._name(kind, name), [a, b],
+                                       op_type))
+
+    def exp(self, x, name=None):
+        return self._unary(OperatorType.OP_EXP, x, name)
+
+    def sin(self, x, name=None):
+        return self._unary(OperatorType.OP_SIN, x, name)
+
+    def cos(self, x, name=None):
+        return self._unary(OperatorType.OP_COS, x, name)
+
+    def relu(self, x, name=None):
+        return self._unary(OperatorType.OP_RELU, x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OperatorType.OP_SIGMOID, x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OperatorType.OP_TANH, x, name)
+
+    def elu(self, x, name=None):
+        return self._unary(OperatorType.OP_ELU, x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OperatorType.OP_GELU, x, name)
+
+    def identity(self, x, name=None):
+        return self._unary(OperatorType.OP_IDENTITY, x, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OperatorType.OP_POW, x, name, scalar=exponent)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OperatorType.OP_RSQRT, x, name)
+
+    def scalar_multiply(self, x, scalar: float, name=None):
+        return self._unary(OperatorType.OP_SCALAR_MULTIPLY, x, name,
+                           scalar=scalar)
+
+    def add(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_ADD, a, b, name)
+
+    def subtract(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_SUB, a, b, name)
+
+    def multiply(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_MUL, a, b, name)
+
+    def divide(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_DIV, a, b, name)
+
+    def max(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_MAX, a, b, name)
+
+    def min(self, a, b, name=None):
+        return self._binary(OperatorType.OP_EW_MIN, a, b, name)
+
+    def tie_weights(self, dst_op: str, dst_weight: str, src_op: str,
+                    src_weight: str, transform: str = "same"):
+        """Share one stored weight between two ops (a tied embedding and
+        lm_head): the destination owns no leaf — the optimizer, the fused
+        update and ``weight_shapes`` never see it — and the walk takes it
+        from the source's leaf (transform "same" or "transpose"), so both
+        uses' gradients sum into that one leaf. Call after building both
+        ops, before ``compile``. Refuses what the JAX ``tie_weights``
+        refuses."""
+        if transform not in ("same", "transpose"):
+            raise ValueError(f"transform must be 'same' or 'transpose', "
+                             f"got {transform!r}")
+        if self.params is not None:
+            raise ValueError(
+                "tie_weights must be called before compile(): the weights "
+                "are already built, so a late tie would be ignored")
+        s, d = self.get_op_by_name(src_op), self.get_op_by_name(dst_op)
+        for nm, op in ((src_op, s), (dst_op, d)):
+            if op is None:
+                raise ValueError(f"tie_weights: no op named {nm!r}")
+        specs_s = {w.name: w for w in s.weight_specs()}
+        specs_d = {w.name: w for w in d.weight_specs()}
+        if src_weight not in specs_s:
+            raise ValueError(f"tie_weights: {src_op!r} has no weight "
+                             f"{src_weight!r} (has {list(specs_s)})")
+        if dst_weight not in specs_d:
+            raise ValueError(f"tie_weights: {dst_op!r} has no weight "
+                             f"{dst_weight!r} (has {list(specs_d)})")
+        shape_s = tuple(specs_s[src_weight].shape)
+        if transform == "transpose":
+            shape_s = shape_s[::-1]
+        if tuple(specs_d[dst_weight].shape) != shape_s:
+            raise ValueError(
+                f"tie_weights: shape mismatch — {dst_op}.{dst_weight} is "
+                f"{tuple(specs_d[dst_weight].shape)} but {src_op}."
+                f"{src_weight} {transform} gives {shape_s}")
+        if (src_op, src_weight) in self._tied:
+            raise ValueError(
+                f"tie_weights: source {src_op}.{src_weight} is itself tied "
+                f"— chain ties to the original storage instead")
+        if (dst_op, dst_weight) in self._tied:
+            prev = self._tied[(dst_op, dst_weight)]
+            raise ValueError(
+                f"tie_weights: {dst_op}.{dst_weight} is already tied to "
+                f"{prev[0]}.{prev[1]}")
+        if any((v[0], v[1]) == (dst_op, dst_weight)
+               for v in self._tied.values()):
+            raise ValueError(
+                f"tie_weights: {dst_op}.{dst_weight} is the SOURCE of an "
+                f"existing tie; it must keep its storage — reverse the tie "
+                f"or chain the other ops to the same source")
+        self._tied[(dst_op, dst_weight)] = (src_op, src_weight, transform)
 
     # -------------------------------------------------------------- compile
 
     def weight_shapes(self) -> Dict[str, Dict[str, Tuple[int, ...]]]:
-        """{op name: {weight name: shape}} of every op that owns weights."""
-        return {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()}
+        """{op name: {weight name: shape}} of every op that owns weights
+        (a tied destination owns none)."""
+        return {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()
+                          if (op.name, w.name) not in self._tied}
                 for op in self.ops if op.weight_specs()}
+
+    def get_weights(self, op_name: str,
+                    weight_name: str = "kernel") -> np.ndarray:
+        """A weight as a numpy array (a tied one read through its
+        source and transform)."""
+        tie = self._tied.get((op_name, weight_name))
+        if tie is not None:
+            src_op, src_w, tf = tie
+            w = tie_transform(self.params[src_op][src_w], tf)
+        else:
+            w = self.params[op_name][weight_name]
+        return w.detach().float().cpu().numpy()
+
+    def set_weights(self, op_name: str, weight_name: str, value) -> None:
+        """Overwrite a weight in place (its dtype and device kept); a tied
+        destination refuses — set its source."""
+        tie = self._tied.get((op_name, weight_name))
+        if tie is not None:
+            raise ValueError(
+                f"{op_name}.{weight_name} is tied to {tie[0]}.{tie[1]} — "
+                f"set the source weight instead")
+        w = self.params[op_name][weight_name]
+        with torch.no_grad():
+            w.copy_(torch.as_tensor(np.asarray(value)).reshape(w.shape))
 
     def compile(self, optimizer=None,
                 loss_type: Union[LossType, str] =
@@ -204,11 +469,14 @@ class FFModel:
         self._final_tensor = final_tensor or self.ops[-1].outputs[0]
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed)
+        executor = GraphExecutor(self)
+        self.bn_state = executor.init_state()
         if optimizer is None:
             dtype = self.compute_dtype
             self.params = {
                 op.name: {w.name: init_weight(w, gen, dtype, self.device)
-                          for w in op.weight_specs()}
+                          for w in op.weight_specs()
+                          if (op.name, w.name) not in self._tied}
                 for op in self.ops if op.weight_specs()}
             return
         cfg = self.config
@@ -226,8 +494,9 @@ class FFModel:
         else:
             self.label_tensor = Tensor(dims=fdims, dtype=DataType.DT_FLOAT,
                                        name="label")
-        self.executor = GraphExecutor(self)
+        self.executor = executor
         self.params = self.executor.init_params(gen)
+        self._generators = self.executor.init_generators()
         self.opt_state = optimizer.init_state(self.params)
         self._guard = self._guard_state = None
         self._replay = self._replay_key = None
@@ -322,7 +591,8 @@ class FFModel:
             t.data_ptr() for t in self._state_leaves())
         if self._replay is None or self._replay_key != key:
             self._replay = StepReplay(self._step, staged,
-                                      max(n_steps, self.config.scan_steps))
+                                      max(n_steps, self.config.scan_steps),
+                                      self._generators.values())
             self._replay_key = key
         nb = min(dl.num_batches for dl in self._dataloaders)
         first = self._dataloaders[0]
@@ -336,10 +606,11 @@ class FFModel:
         return losses, mets
 
     def _state_leaves(self) -> List[torch.Tensor]:
-        """Weights and optimizer state: what a captured step updates in
-        place (a change of any of them invalidates the capture)."""
+        """Weights, optimizer state and op state: what a captured step
+        updates in place (a change of any of them invalidates the
+        capture)."""
         out = [w for ws in self.params.values() for w in ws.values()]
-        todo = [self.opt_state]
+        todo = [self.opt_state, self.bn_state]
         while todo:
             x = todo.pop()
             if isinstance(x, dict):

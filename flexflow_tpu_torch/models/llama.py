@@ -24,11 +24,9 @@ def llama_lm(ff, batch_size: int, seq_len: int = 256,
              tie_embeddings: bool = False):
     """Decoder-only causal LM in the Llama shape. kv_heads=0 -> MHA;
     kv_heads < heads -> grouped-query attention. ffn_hidden defaults to
-    the Llama-style ~8/3 * hidden rounded to a multiple of 128."""
-    if tie_embeddings:
-        raise NotImplementedError(
-            "tied embeddings need FFModel.tie_weights, which is not ported "
-            "yet (ROADMAP.md queue 1, item 2)")
+    the Llama-style ~8/3 * hidden rounded to a multiple of 128.
+    tie_embeddings shares the lm_head with the token embedding
+    (FFModel.tie_weights) — vocab x hidden params stored once."""
     if not ffn_hidden:
         ffn_hidden = max(128, (8 * hidden // 3 + 127) // 128 * 128)
     tokens = ff.create_tensor([batch_size, seq_len], dtype=DataType.DT_INT32,
@@ -45,4 +43,7 @@ def llama_lm(ff, batch_size: int, seq_len: int = 256,
         t = ff.add(t, f, name=f"res2_{i}")
     t = ff.rms_norm(t, name="ln_f")
     logits = ff.dense(t, vocab_size, use_bias=False, name="lm_head")
+    if tie_embeddings:
+        ff.tie_weights("lm_head", "kernel", "tok_embed", "kernel",
+                       "transpose")
     return tokens, logits

@@ -39,10 +39,10 @@ from typing import List, Optional, Tuple, Union
 import torch
 import torch.utils.checkpoint
 
-from flexflow_tpu_torch.config import ROADMAP_OPS, not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+from flexflow_tpu_torch.ops.norm import dropout
 
 
 # ---- quantized KV-page storage (the JAX package's attention.py:67-134) ---
@@ -165,12 +165,15 @@ NEG_INF = -1e30
 
 
 def einsum_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-                     causal: bool, scale: float) -> torch.Tensor:
+                     causal: bool, scale: float, dropout_rate: float = 0.0,
+                     gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """The JAX dense path's einsum branch (attention.py:794-806) on
     (B, Sq, H, Dk) q, (B, Sk, H, Dk) k and (B, Sk, H, Dv) v: f32 logits, a
     bottom-right causal mask filled with the f32 minimum (not -inf, so a
     query row with no live key comes out uniform, as in JAX), softmax in
-    f32, the probabilities cast to q's dtype for the product with v."""
+    f32, the probabilities cast to q's dtype for the product with v. With
+    ``dropout_rate`` and ``gen`` the probabilities go through
+    ``norm.dropout`` first (attention dropout in training)."""
     logits = torch.einsum("bqhk,bshk->bhqs", qh.float(), kh.float()) * scale
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
@@ -178,13 +181,52 @@ def einsum_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                           device=qh.device).tril(diagonal=sk - sq)
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(qh.dtype)
+    probs = dropout(probs, dropout_rate, gen)
     return torch.einsum("bhqs,bshk->bqhk", probs, vh)
 
 
-def _block_attend(q, k, v, m, l, o, scale: float, mask):
+def _i64(v: int) -> int:
+    """A python int wrapped to int64 (two's complement)."""
+    return (v + (1 << 63)) % (1 << 64) - (1 << 63)
+
+
+#: splitmix64's constants as signed int64 (torch has no uint64 arithmetic)
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+
+
+def _srl(z: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 ``z`` by ``k`` (torch shifts signed
+    values arithmetically)."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def hashed_keep_mask(seed: torch.Tensor, shape, keep: float) -> torch.Tensor:
+    """A Bernoulli(``keep``) bool mask of ``shape`` that is a pure function
+    of ``seed`` (a 0-dim int64 tensor) and the element index: splitmix64
+    of ``seed + index * golden``, its top 53 bits as a uniform in [0, 1).
+    The blockwise route draws its dropout masks this way, so the
+    backward's recomputation of a block (``torch.utils.checkpoint``)
+    redraws the forward's mask; the JAX route folds the block index into
+    its key for the same reason."""
+    z = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=seed.device).reshape(shape) * _GOLDEN + seed
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    z = z ^ _srl(z, 31)
+    return _srl(z, 11).to(torch.float64) * 2.0 ** -53 < keep
+
+
+def _block_attend(q, k, v, m, l, o, scale: float, mask,
+                  dropout_rate: float = 0.0, seed=None):
     """One online-softmax step over a key block (the JAX ``_block_attend``,
     ring_attention.py:44): q (B, Sq, H, D), k/v (B, Sk, H, D), running
-    max m and sum l (B, H, Sq) and output o (B, Sq, H, D), all f32."""
+    max m and sum l (B, H, Sq) and output o (B, Sq, H, D), all f32. With
+    attention dropout the mask (``hashed_keep_mask`` of ``seed``) applies
+    to the block's unnormalised probabilities feeding the value product
+    while ``l`` sums the undropped ones, so the final o / l equals
+    dropout(softmax) @ v, as in JAX."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         s = torch.where(mask, s, NEG_INF)
@@ -192,18 +234,28 @@ def _block_attend(q, k, v, m, l, o, scale: float, mask):
     alpha = torch.exp(m - m_new)
     p = torch.exp(s - m_new[..., None])
     l_new = l * alpha + p.sum(dim=-1)
-    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    pv_in = p
+    if seed is not None and dropout_rate > 0.0:
+        keep = 1.0 - dropout_rate
+        pv_in = torch.where(hashed_keep_mask(seed, p.shape, keep),
+                            p / torch.full((), keep, dtype=p.dtype,
+                                           device=p.device), 0.0)
+    pv = torch.einsum("bhqk,bkhd->bqhd", pv_in.to(v.dtype).float(),
+                      v.float())
     return m_new, l_new, o * alpha.transpose(1, 2)[..., None] + pv
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool, scale: float,
-                        block_size: int) -> torch.Tensor:
+                        causal: bool, scale: float, block_size: int,
+                        dropout_rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention as a scan over key blocks of ``block_size`` with an online
     softmax (the JAX ``blockwise_attention``, ring_attention.py:333): the
     working set is one (Sq, block) score tile, never the (Sq, Sk) one.
     Causal masking aligns bottom-right; a key length that ``block_size``
-    does not divide is one block. f32 accumulation, output in q's dtype."""
+    does not divide is one block. f32 accumulation, output in q's dtype.
+    Attention dropout (``dropout_rate`` > 0 with a 0-dim int64 ``seed``)
+    masks block i with ``hashed_keep_mask(seed + i * golden, ...)``."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     dev = q.device
@@ -219,9 +271,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             k_pos = start + torch.arange(block_size, device=dev)
             mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+        blk_seed = None
+        if seed is not None:
+            blk_seed = seed + _i64((start // block_size + 1) * _GOLDEN)
         m, l, o = _block_attend(q, k[:, start:start + block_size],
                                 v[:, start:start + block_size], m, l, o,
-                                scale, mask)
+                                scale, mask, dropout_rate, blk_seed)
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
@@ -267,9 +322,11 @@ class MultiHeadAttention(Op):
         self.rope_theta = rope_theta
         self.kdim = kdim if kdim > 0 else embed_dim
         self.vdim = vdim if vdim > 0 else embed_dim
-        # attention dropout is the identity at inference; in training a rate
-        # above 0 is refused (not ported)
+        # attention dropout: the identity at inference; in training it
+        # takes the dense path off the flash kernels (_dense_attention);
+        # only then does the op draw, and get a generator
         self.dropout = dropout
+        self.needs_rng = dropout > 0
         self.bias = bias
         self.causal = causal
         if embed_dim % num_heads or self.kdim % num_heads \
@@ -352,11 +409,11 @@ class MultiHeadAttention(Op):
 
     # ---- dense path (training, evaluation) --------------------------------
 
-    def forward(self, params, xs, *, training=False):
+    def forward(self, params, xs, *, training=False, gen=None):
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2])
         kh, vh = self._broadcast_kv(kh, vh)
-        return [self._out_proj(params,
-                               self._dense_attention(qh, kh, vh, training))]
+        return [self._out_proj(params, self._dense_attention(
+            qh, kh, vh, training, gen))]
 
     def _flash_ok(self, qh, kh, vh) -> bool:
         """The flash kernels take these q/k/v and the config does not turn
@@ -367,35 +424,47 @@ class MultiHeadAttention(Op):
             return False
         return kernels.flash_attention_takes(qh, kh, vh, self.causal)
 
-    def _fallback_attention(self, qh, kh, vh):
+    def _fallback_attention(self, qh, kh, vh, gen=None):
         """The JAX dense path off its flash kernel (attention.py:771-806)
         on broadcast kv heads, in torch ops with autograd: past
         ``BLOCKWISE_SEQ_THRESHOLD`` positions with equal head dims the
         blockwise scan (key blocks of the first of 512 ... 8 that divides
         Sk), recomputed in the backward (``torch.utils.checkpoint``, as
-        ``jax.checkpoint``); otherwise the einsum branch."""
+        ``jax.checkpoint``); otherwise the einsum branch. With ``gen``
+        (training) attention dropout at ``self.dropout``: the einsum
+        branch draws its mask from ``gen``, the blockwise scan one int64
+        seed from ``gen`` for its hashed block masks."""
         sq, sk = qh.shape[1], kh.shape[1]
+        rate = self.dropout if gen is not None else 0.0
         if max(sq, sk) > BLOCKWISE_SEQ_THRESHOLD \
                 and self.qk_head_dim == self.v_head_dim:
             block = next((b for b in (512, 256, 128, 64, 32, 16, 8)
                           if sk % b == 0), sk)
+            seed = None
+            if rate > 0.0:
+                seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (),
+                                     dtype=torch.int64, device=qh.device,
+                                     generator=gen)
             return torch.utils.checkpoint.checkpoint(
                 blockwise_attention, qh, kh, vh, self.causal, self.scale,
-                block, use_reentrant=False)
-        return einsum_attention(qh, kh, vh, self.causal, self.scale)
+                block, rate, seed, use_reentrant=False)
+        return einsum_attention(qh, kh, vh, self.causal, self.scale, rate,
+                                gen)
 
-    def _dense_attention(self, qh, kh, vh, training):
+    def _dense_attention(self, qh, kh, vh, training, gen=None):
         """The flash autograd Function for the shapes its kernels take (on
         the CPU its plain versions); the JAX fallback in torch ops for the
-        rest, and for every shape under ``use_flash_attention=False``."""
-        if training and self.dropout > 0.0:
-            raise not_ported(f"{self.name}: attention dropout in training "
-                             f"(dropout={self.dropout})", where=ROADMAP_OPS)
+        rest, for every shape under ``use_flash_attention=False``, and for
+        attention dropout in training (a generator given and a rate above
+        0: the mask applies to the probabilities, which the flash kernels
+        never hold, as in JAX)."""
+        use_dropout = training and self.dropout > 0.0 and gen is not None
         qh, kh, vh = qh.contiguous(), kh.contiguous(), vh.contiguous()
-        if self._flash_ok(qh, kh, vh):
+        if not use_dropout and self._flash_ok(qh, kh, vh):
             return kernels.flash_attention(qh, kh, vh, self.causal,
                                            self.scale)
-        return self._fallback_attention(qh, kh, vh)
+        return self._fallback_attention(qh, kh, vh,
+                                        gen if use_dropout else None)
 
     # ---- contiguous per-request cache (prefill) ---------------------------
 

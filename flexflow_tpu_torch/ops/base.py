@@ -29,9 +29,20 @@ class WeightSpec:
 
 class Op:
     """Graph-node base. Subclasses set ``op_type`` and implement
-    ``output_shapes`` and ``forward``, and ``weights`` when they own any."""
+    ``output_shapes`` and ``forward``, and ``weights`` when they own any.
+
+    A ``stateful`` op (BatchNorm's running statistics) implements
+    ``forward_stateful`` and ``init_state`` instead of ``forward``: the
+    executor keeps its state beside the weights, never casts it, never
+    takes its gradient, and commits each new state in place. An op that
+    ``needs_rng`` (Dropout, attention dropout, each at a rate above 0)
+    takes ``gen``, a ``torch.Generator`` on the op's device that the
+    executor derives from ``FFConfig.seed``, the op's index and its own
+    ``seed``, in its ``forward``; its draws advance it, step by step."""
 
     op_type: OperatorType = OperatorType.OP_NOOP
+    stateful: bool = False
+    needs_rng: bool = False
 
     def __init__(self, model, name: str, inputs: Sequence[Tensor]):
         self.model = model
@@ -63,8 +74,30 @@ class Op:
     def forward(self, params: Dict[str, Any], xs: List[torch.Tensor], *,
                 training: bool = False) -> List[torch.Tensor]:
         """Output values of ``xs``; ``training`` selects the training
-        behaviour where an op has one (the JAX package's flag)."""
+        behaviour where an op has one (the JAX package's flag). An op that
+        ``needs_rng`` also takes ``gen`` (None: no randomness, as the JAX
+        ops do without an rng)."""
         raise NotImplementedError
+
+    def forward_stateful(self, params: Dict[str, Any],
+                         state: Dict[str, torch.Tensor],
+                         xs: List[torch.Tensor], *, training: bool = False,
+                         gen: Optional[torch.Generator] = None
+                         ) -> Tuple[List[torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+        """(outputs, new state) of a ``stateful`` op; ``state`` is read,
+        never written (the executor commits the new state)."""
+        raise NotImplementedError
+
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        """The initial state of a ``stateful`` op, on ``device``."""
+        return {}
+
+    def init_state_for_shapes(self, in_shapes, device=None
+                              ) -> Dict[str, torch.Tensor]:
+        """State sized for the given input shapes (the JAX package sizes a
+        shard's state this way). Default: the full-size state."""
+        return self.init_state(device)
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"

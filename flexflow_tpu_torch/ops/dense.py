@@ -1,7 +1,10 @@
-"""Linear (dense) and Embedding (the JAX package's ``ops/dense.py``).
+"""Linear (dense), Embedding and BatchMatmul (the JAX package's
+``ops/dense.py``).
 
 A plain matrix product goes to ``torch.matmul`` (cuBLAS on the card), as
 the JAX package left it to XLA. The kernel keeps the JAX layout (in, out).
+An embedding bag (``AGGR_MODE_SUM`` / ``AVG`` over the last input dim)
+is ``F.embedding_bag``.
 """
 
 from __future__ import annotations
@@ -66,10 +69,6 @@ class Embedding(Op):
 
     def __init__(self, model, name, inputs, num_entries: int, out_dim: int,
                  aggr: AggrMode = AggrMode.AGGR_MODE_NONE):
-        if aggr != AggrMode.AGGR_MODE_NONE:
-            raise NotImplementedError(
-                f"{name}: Embedding aggregation {aggr.name} is not ported "
-                f"yet (ROADMAP.md queue 1, item 2); AGGR_MODE_NONE only")
         super().__init__(model, name, inputs)
         self.num_entries = num_entries
         self.out_dim = out_dim
@@ -77,12 +76,40 @@ class Embedding(Op):
         self.finalize()
 
     def output_shapes(self):
-        return [tuple(self.inputs[0].dims) + (self.out_dim,)], \
-            [DataType.DT_FLOAT]
+        ishape = tuple(self.inputs[0].dims)
+        if self.aggr != AggrMode.AGGR_MODE_NONE:
+            # a bag over the last input dim (the reference's AGGR_MODE_SUM
+            # / AVG)
+            ishape = ishape[:-1]
+        return [ishape + (self.out_dim,)], [DataType.DT_FLOAT]
 
     def weights(self):
         return [WeightSpec("kernel", (self.num_entries, self.out_dim),
                            init="glorot", fan=(self.num_entries, self.out_dim))]
 
     def forward(self, params, xs, *, training=False):
-        return [F.embedding(xs[0].long(), params["kernel"])]
+        idx = xs[0].long()
+        if self.aggr == AggrMode.AGGR_MODE_NONE:
+            return [F.embedding(idx, params["kernel"])]
+        mode = "sum" if self.aggr == AggrMode.AGGR_MODE_SUM else "mean"
+        bags = F.embedding_bag(idx.reshape(-1, idx.shape[-1]),
+                               params["kernel"], mode=mode)
+        return [bags.reshape(*idx.shape[:-1], self.out_dim)]
+
+
+class BatchMatmul(Op):
+    op_type = OperatorType.OP_BATCHMATMUL
+
+    def __init__(self, model, name, inputs):
+        super().__init__(model, name, inputs)
+        self.finalize()
+
+    def output_shapes(self):
+        a, b = self.inputs[0].dims, self.inputs[1].dims
+        if a[:-2] != b[:-2] or a[-1] != b[-2]:
+            raise ValueError(f"{self.name}: batch_matmul {a} @ {b}: batch "
+                             f"dims or the contraction do not match")
+        return [tuple(a[:-1]) + (b[-1],)], [self.inputs[0].dtype]
+
+    def forward(self, params, xs, *, training=False):
+        return [torch.matmul(xs[0], xs[1])]

@@ -1,16 +1,75 @@
-"""LayerNorm, AddLayerNorm and RMSNorm (the JAX package's ``ops/norm.py``).
+"""Softmax, Dropout, LayerNorm, AddLayerNorm and RMSNorm (the JAX
+package's ``ops/norm.py``).
 
 ``AddLayerNorm`` runs the ``fused_add_layernorm`` kernel (ops/kernels.py)
 on the card, where the JAX package ran its Pallas kernel on the TPU.
+Softmax and Dropout are torch calls, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and scale it by
+    ``1 / keep``, else 0 (the JAX ``jnp.where(bernoulli(rng, keep, shape),
+    x / keep, 0)``): the mask is ``uniform < keep`` drawn from ``gen`` on
+    ``x``'s device, and a kept value is exactly ``x / keep`` with keep in
+    ``x``'s dtype, an IEEE division as in JAX (a python divisor would let
+    the CUDA path multiply by the reciprocal). The identity at rate 0 or
+    without a generator."""
+    if rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype,
+                                            device=x.device), 0.0)
+
+
+class Softmax(Op):
+    op_type = OperatorType.OP_SOFTMAX
+
+    def __init__(self, model, name, inputs, axis: int = -1):
+        super().__init__(model, name, inputs)
+        self.axis = axis
+        self.finalize()
+
+    def output_shapes(self):
+        return [self.inputs[0].dims], [self.inputs[0].dtype]
+
+    def forward(self, params, xs, *, training=False):
+        return [torch.softmax(xs[0], dim=self.axis)]
+
+
+class Dropout(Op):
+    """The identity at inference and at rate 0; in training ``dropout``
+    with the generator the executor derives for this op."""
+
+    op_type = OperatorType.OP_DROPOUT
+
+    def __init__(self, model, name, inputs, rate: float, seed: int = 0):
+        super().__init__(model, name, inputs)
+        self.rate = rate
+        self.needs_rng = rate > 0
+        self.seed = seed
+        self.finalize()
+
+    def output_shapes(self):
+        return [self.inputs[0].dims], [self.inputs[0].dtype]
+
+    def forward(self, params, xs, *, training=False, gen=None):
+        if not training:
+            return [xs[0]]
+        return [dropout(xs[0], self.rate, gen)]
 
 
 class LayerNorm(Op):

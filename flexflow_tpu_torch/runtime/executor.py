@@ -11,6 +11,20 @@ follows the JAX package: weights are stored in ``FFConfig.master_dtype``
 and every op runs in ``FFConfig.compute_dtype`` — inputs and weights are
 cast at the start of the walk, so gradients come back in the storage
 dtype.
+
+Op state (BatchNorm's running statistics, ``FFModel.bn_state``) stays out
+of the weights: never cast, no gradient, read by the walk and replaced by
+what the stateful ops return, which a training step commits in place
+(``copy_``, so a captured step keeps writing live addresses) — after each
+microbatch under accumulation, only on a finite step under the guard.
+Evaluation reads it and leaves it. Ops that ``needs_rng`` draw from a
+``torch.Generator`` of their own (``init_generators``: seeded from
+``FFConfig.seed``, the op's index and its ``seed``, as the JAX executor
+folds them into its step key), which their draws advance step by step; a
+captured step registers them with its CUDA graph, so every replay draws
+anew. Tied weights (``FFModel.tie_weights``) are resolved from their
+source's leaf in the walk (``resolve_tied_params``), so both uses'
+gradients sum into that leaf.
 """
 
 from __future__ import annotations
@@ -27,6 +41,49 @@ from flexflow_tpu_torch.runtime.metrics import batch_metrics
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
+State = Dict[str, Dict[str, torch.Tensor]]
+
+_MASK64 = (1 << 64) - 1
+
+
+def op_generator_seed(seed: int, index: int, op_seed: int = 0) -> int:
+    """The seed of the generator of the op at graph ``index``: splitmix64
+    of ``FFConfig.seed``, the index and the op's own ``seed`` (the JAX
+    executor's ``fold_in(fold_in(step key, index), seed)`` in spirit; its
+    threefry bits are not reproduced)."""
+    z = 0
+    for v in (seed, index, op_seed):
+        z = (z + (v & _MASK64) + 0x9E3779B97F4A7C15) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        z ^= z >> 31
+    return z >> 1          # manual_seed takes up to 2^63 - 1 here
+
+
+def tie_transform(w: torch.Tensor, tf: str) -> torch.Tensor:
+    """The one definition of a tie's transform ("same" | "transpose")."""
+    return w.t() if tf == "transpose" else w
+
+
+def resolve_tied_params(model, params: Params, op_name: str,
+                        p: Dict[str, torch.Tensor], leaf=None
+                        ) -> Dict[str, torch.Tensor]:
+    """``p`` (``op_name``'s weights) with its tied weights
+    (``FFModel.tie_weights``) taken from their source's leaf, transformed
+    (the JAX ``resolve_tied_params``). Autograd then sums both uses'
+    gradients into the source leaf. ``leaf`` maps the stored source
+    before the transform (the serving walk dequantizes there)."""
+    out = None
+    for (dst_op, dst_w), (src_op, src_w, tf) in model._tied.items():
+        if dst_op != op_name:
+            continue
+        if out is None:
+            out = dict(p)
+        w = params[src_op][src_w]
+        if leaf is not None:
+            w = leaf(w)
+        out[dst_w] = tie_transform(w, tf)
+    return p if out is None else out
 
 
 class GraphExecutor:
@@ -43,20 +100,45 @@ class GraphExecutor:
         master = (torch.bfloat16 if self.model.config.master_dtype ==
                   "bfloat16" else torch.float32)
         dev = self.model.device
+        tied = self.model._tied
         return {op.name: {w.name: init_weight(w, gen, torch.float32,
                                               dev).to(master)
-                          for w in op.weight_specs()}
+                          for w in op.weight_specs()
+                          if (op.name, w.name) not in tied}
                 for op in self.model.ops if op.weight_specs()}
+
+    def init_state(self) -> State:
+        """Every stateful op's initial state on the model's device."""
+        return {op.name: op.init_state(self.model.device)
+                for op in self.model.ops if op.stateful}
+
+    def init_generators(self) -> Dict[str, torch.Generator]:
+        """A generator on the model's device for every op that draws
+        (``needs_rng``), seeded by ``op_generator_seed``."""
+        gens = {}
+        for idx, op in enumerate(self.model.ops):
+            if op.needs_rng:
+                g = torch.Generator(device=self.model.device)
+                g.manual_seed(op_generator_seed(
+                    self.model.config.seed, idx, getattr(op, "seed", 0)))
+                gens[op.name] = g
+        return gens
 
     # ---- forward interpretation ----------------------------------------------
 
-    def apply_graph(self, params: Params, input_values: Dict,
-                    *, training: bool) -> Dict:
-        """Interpret the graph in order; returns the tensor -> value map.
-        With a bf16 compute dtype, f32 inputs are cast to bf16; every
-        floating weight is cast to the compute dtype."""
+    def apply_graph(self, params: Params, input_values: Dict, *,
+                    training: bool, state: Optional[State] = None,
+                    gens: Optional[Dict[str, torch.Generator]] = None
+                    ) -> Tuple[Dict, State]:
+        """Interpret the graph in order; returns (the tensor -> value map,
+        the new state of every stateful op). With a bf16 compute dtype, f32
+        inputs are cast to bf16; every floating weight (tied ones resolved
+        from their source) is cast to the compute dtype, the state never.
+        ``gens`` (training) hands each drawing op its generator."""
         cdt = self.model.compute_dtype
         bf16 = cdt == torch.bfloat16
+        state = state or {}
+        new_state: State = {}
         vals = {t: (v.to(cdt) if bf16 and v.dtype == torch.float32 else v)
                 for t, v in input_values.items()}
         for op in self.model.ops:
@@ -64,32 +146,67 @@ class GraphExecutor:
                 if op.outputs[0] not in vals:
                     raise ValueError(f"missing input value for {op.name}")
                 continue
+            p = resolve_tied_params(self.model, params, op.name,
+                                    params.get(op.name, {}))
             p = {k: (w.to(cdt) if w.is_floating_point() and w.dtype != cdt
                      else w)
-                 for k, w in params.get(op.name, {}).items()}
-            outs = op.forward(p, [vals[t] for t in op.inputs],
-                              training=training)
+                 for k, w in p.items()}
+            xs = [vals[t] for t in op.inputs]
+            if op.stateful:
+                outs, new_state[op.name] = op.forward_stateful(
+                    p, state[op.name], xs, training=training)
+            elif op.needs_rng:
+                outs = op.forward(p, xs, training=training,
+                                  gen=(gens or {}).get(op.name))
+            else:
+                outs = op.forward(p, xs, training=training)
             for t, v in zip(op.outputs, outs):
                 vals[t] = v
-        return vals
+        return vals, new_state
 
     def _input_values(self, batch: Batch) -> Dict:
         return {op.outputs[0]: batch[op.name] for op in self.input_ops}
+
+    def _loss_and_state(self, params: Params, batch: Batch,
+                        loss_type: LossType,
+                        metric_types: Sequence[MetricsType], final_tensor,
+                        training: bool, label_key: str = "label"):
+        """(loss, metrics, logits, new state) of one batch — the JAX
+        ``_make_loss_fn`` body — on the model's state, drawing from its
+        generators in training."""
+        vals, new_state = self.apply_graph(
+            params, self._input_values(batch), training=training,
+            state=self.model.bn_state,
+            gens=self.model._generators if training else None)
+        logits = vals[final_tensor]
+        loss = compute_loss(loss_type, logits, batch[label_key])
+        mets = batch_metrics(loss_type, metric_types, logits.detach(),
+                             batch[label_key])
+        return loss, mets, logits, new_state
 
     def loss_and_metrics(self, params: Params, batch: Batch,
                          loss_type: LossType,
                          metric_types: Sequence[MetricsType], final_tensor,
                          *, training: bool, label_key: str = "label"
                          ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
-        """(loss, metrics, logits) of one batch — the JAX ``_make_loss_fn``
-        body."""
-        vals = self.apply_graph(params, self._input_values(batch),
-                                training=training)
-        logits = vals[final_tensor]
-        loss = compute_loss(loss_type, logits, batch[label_key])
-        mets = batch_metrics(loss_type, metric_types, logits.detach(),
-                             batch[label_key])
-        return loss, mets, logits
+        """(loss, metrics, logits) of one batch; the model's state is read
+        and left as it is."""
+        return self._loss_and_state(params, batch, loss_type, metric_types,
+                                    final_tensor, training, label_key)[:3]
+
+    def commit_state(self, new_state: State,
+                     finite: Optional[torch.Tensor] = None) -> None:
+        """Write ``new_state`` into the model's state in place — where
+        ``finite`` (a 0-dim bool tensor) is true, else keep the old bits
+        (the guard's ``jnp.where`` per state leaf)."""
+        with torch.no_grad():
+            for op, ws in new_state.items():
+                for k, v in ws.items():
+                    old = self.model.bn_state[op][k]
+                    if v is old:
+                        continue
+                    old.copy_(v if finite is None
+                              else torch.where(finite, v, old))
 
     # ---- steps ---------------------------------------------------------------
 
@@ -98,23 +215,23 @@ class GraphExecutor:
                         metric_types: Sequence[MetricsType], final_tensor,
                         scale: Optional[torch.Tensor] = None,
                         inject_nan: bool = False
-                        ) -> Tuple[torch.Tensor, Dict, Params]:
-        """(loss, metrics, grads) of one batch. With ``scale`` (a 0-dim
-        f32 tensor) the gradient is taken of loss * scale; ``inject_nan``
-        adds NaN to the loss (the guard's fault hook)."""
+                        ) -> Tuple[torch.Tensor, Dict, Params, State]:
+        """(loss, metrics, grads, new state) of one training batch; the
+        state is not committed. With ``scale`` (a 0-dim f32 tensor) the
+        gradient is taken of loss * scale; ``inject_nan`` adds NaN to the
+        loss (the guard's fault hook)."""
         leaves: List[torch.Tensor] = [w for ws in params.values()
                                       for w in ws.values()]
         for w in leaves:
             w.requires_grad_(True)
-        loss, mets, _ = self.loss_and_metrics(
-            params, batch, loss_type, metric_types, final_tensor,
-            training=True)
+        loss, mets, _, new_state = self._loss_and_state(
+            params, batch, loss_type, metric_types, final_tensor, True)
         if inject_nan:
             loss = loss + float("nan")
         target = loss if scale is None else loss * scale
         flat = iter(torch.autograd.grad(target, leaves))
         grads = {op: {k: next(flat) for k in ws} for op, ws in params.items()}
-        return loss.detach(), mets, grads
+        return loss.detach(), mets, grads, new_state
 
     def _accum_loss_and_grads(self, params: Params, batch: Batch, accum: int,
                               *args) -> Tuple[torch.Tensor, Dict, Params]:
@@ -123,7 +240,9 @@ class GraphExecutor:
         bf16 / f16 ones in an f32 carry — and divided by ``accum``;
         numerically the full-batch step (every loss is a batch mean), at a
         microbatch's activation memory. The loss is the microbatches'
-        mean; ``*_count`` / ``*_total`` metrics sum, the others average."""
+        mean; ``*_count`` / ``*_total`` metrics sum, the others average.
+        Each microbatch's state is committed before the next runs (the
+        carry of the JAX scan)."""
         for k, v in batch.items():
             if v.shape[0] % accum:
                 raise ValueError(
@@ -138,8 +257,9 @@ class GraphExecutor:
                     for k, w in ws.items()} for op, ws in params.items()}
         losses, all_mets = [], []
         for i in range(accum):
-            loss, mets, grads = self._loss_and_grads(
+            loss, mets, grads, new_state = self._loss_and_grads(
                 params, {k: v[i] for k, v in micro.items()}, *args)
+            self.commit_state(new_state)
             for op, ws in acc.items():
                 for k, a in ws.items():
                     a.add_(grads[op][k].to(a.dtype))
@@ -168,7 +288,9 @@ class GraphExecutor:
             loss, mets, grads = self._accum_loss_and_grads(params, batch,
                                                            accum, *args)
         else:
-            loss, mets, grads = self._loss_and_grads(params, batch, *args)
+            loss, mets, grads, new_state = self._loss_and_grads(
+                params, batch, *args)
+            self.commit_state(new_state)
         optimizer.update(params, grads, opt_state)
         return loss, mets
 
@@ -183,7 +305,8 @@ class GraphExecutor:
         ``gstate["loss_scale"]`` and the gradients unscaled; ``finite`` =
         loss and the f32 global grad-norm² both finite, computed on the
         device; the optimizer writes nothing when it is false, so a
-        non-finite step leaves weights and state bitwise untouched. The
+        non-finite step leaves weights, optimizer state and op state
+        bitwise untouched. The
         streaks, the loss scale ("backoff": halved on a bad step, doubled
         after ``growth_interval`` good ones, within [2^-14, 2^15]) and the
         skip count update in place on the device: no host sync in the
@@ -192,7 +315,7 @@ class GraphExecutor:
         ``grad_norm``, ``loss_scale`` and ``skipped_total``; the loss
         returned is the raw one."""
         scale = gstate["loss_scale"]
-        loss, mets, grads = self._loss_and_grads(
+        loss, mets, grads, new_state = self._loss_and_grads(
             params, batch, loss_type, metric_types, final_tensor,
             scale=scale, inject_nan=inject_nan)
         inv = 1.0 / scale
@@ -204,6 +327,7 @@ class GraphExecutor:
                 gnorm_sq = gnorm_sq + torch.sum(torch.square(g.float()))
         finite = torch.isfinite(loss) & torch.isfinite(gnorm_sq)
         optimizer.update(params, grads, opt_state, finite=finite)
+        self.commit_state(new_state, finite)
         bad = ~finite
         zero = torch.zeros_like(gstate["bad_streak"])
         streak = torch.where(bad, gstate["bad_streak"] + 1, zero)
@@ -243,8 +367,8 @@ class GraphExecutor:
                 final_tensors: Optional[Sequence] = None) -> List:
         """Plain forward over the graph inputs (inference)."""
         finals = final_tensors or [self.model.ops[-1].outputs[0]]
-        vals = self.apply_graph(params, self._input_values(batch),
-                                training=False)
+        vals, _ = self.apply_graph(params, self._input_values(batch),
+                                   training=False, state=self.model.bn_state)
         return [vals[t] for t in finals]
 
 
@@ -265,14 +389,19 @@ class StepReplay:
     allocator), captures the next without running it, and replays the
     graph for the remaining steps. Weights and optimizer state are
     updated in place, so the graph's addresses stay valid; the owner
-    rebuilds the replay when they, or the staged data, change. Launch
-    counters do not tick on a replay, so each replay adds the launches its
-    capture recorded (and the capture, which launches nothing, takes back
-    what it counted). On the CPU the same step runs as a plain loop."""
+    rebuilds the replay when they, or the staged data, change. The step's
+    generators (``generators``: those of the ops that draw) are registered
+    with the graph (``CUDAGraph.register_generator_state``), so each replay
+    advances them and draws new masks; a graph replaying one offset would
+    repeat the captured step's masks. Launch counters do not tick on a
+    replay, so each replay adds the launches its capture recorded (and the
+    capture, which launches nothing, takes back what it counted). On the
+    CPU the same step runs as a plain loop."""
 
     def __init__(self, step_fn, staged: Dict[str, torch.Tensor],
-                 capacity: int):
+                 capacity: int, generators: Sequence[torch.Generator] = ()):
         self.step_fn = step_fn          # batch -> (loss, metrics)
+        self.generators = list(generators)
         self.staged = staged
         self.nb = min(v.shape[0] for v in staged.values())
         dev = next(iter(staged.values())).device
@@ -312,6 +441,13 @@ class StepReplay:
         torch.cuda.current_stream(self.device).wait_stream(side)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        if self.generators and not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this PyTorch's CUDAGraph cannot register a generator, so a "
+                "replayed step would repeat its dropout masks; train this "
+                "model with scan_steps=0")
+        for g in self.generators:
+            graph.register_generator_state(g)
         with torch.cuda.graph(graph, stream=side):
             self._step()              # captured, not run
         after = kernels.launch_counts()

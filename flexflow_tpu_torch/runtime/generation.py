@@ -27,6 +27,7 @@ from flexflow_tpu_torch.ops.attention import (MultiHeadAttention, _divide,
                                               paged_slot, rope_tables,
                                               storage_qmax)
 from flexflow_tpu_torch.ops.base import InputOp
+from flexflow_tpu_torch.runtime.executor import resolve_tied_params
 
 # ops whose forward treats every (batch, position) independently — safe to
 # run on a (B, 1) decode slab exactly as on the full sequence
@@ -141,19 +142,24 @@ class Generator:
             else self.model.params
 
     def _op_params(self, op, params, xs, cdtype):
-        """``op``'s weights for one use, dequantized where quantized. An
+        """``op``'s weights for one use, dequantized where quantized, tied
+        ones taken from their source (the JAX walk, generation.py:
+        298-306: a quantized source is dequantized, then transformed). An
         embedding lookup gathers the quantized rows first and dequantizes
         only those (elementwise, so the values are those of the dequantized
         table) instead of the whole table: the walk then computes it here,
         and the op is skipped (the second value is its output)."""
         p = params.get(op.name, {})
         if not self.quantize:
-            return p, None
+            return resolve_tied_params(self.model, params, op.name, p), None
         w = p.get("kernel")
         if op.op_type == OperatorType.OP_EMBEDDING and isinstance(w, dict):
             rows = kernels.take_pages(w["q"], xs[0].long())
             return p, (rows.float() * w["s"][0]).to(cdtype)
-        return {k: self._deq(v, cdtype) for k, v in p.items()}, None
+        deq = lambda v: self._deq(v, cdtype)  # noqa: E731
+        return resolve_tied_params(self.model, params, op.name,
+                                   {k: deq(v) for k, v in p.items()},
+                                   leaf=deq), None
 
     # ---- graph walks -------------------------------------------------------
 

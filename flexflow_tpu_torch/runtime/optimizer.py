@@ -46,6 +46,13 @@ def _leaves(tree: Tree) -> List[torch.Tensor]:
     return [w for ws in tree.values() for w in ws.values()]
 
 
+def _device(params: Tree):
+    """The weights' device (None, the CPU, for a graph without
+    weights)."""
+    leaves = _leaves(params)
+    return leaves[0].device if leaves else None
+
+
 def _buckets(params: Tree) -> Dict[torch.dtype, List[tuple]]:
     """{storage dtype: [(op, weight name), ...]} in walk order."""
     out: Dict[torch.dtype, List[tuple]] = {}
@@ -92,7 +99,7 @@ class Optimizer:
         if "v" not in state:
             state["v"] = None
         state["t"] = torch.zeros((), dtype=torch.int32,
-                                 device=_leaves(params)[0].device)
+                                 device=_device(params))
         return state
 
     def moment_names(self) -> tuple:
@@ -104,7 +111,8 @@ class Optimizer:
         """One step, in place on ``params`` and ``state``: on the card the
         fused update kernel on the per-leaf state, a launch a dtype
         bucket; on the CPU ``update_plain``."""
-        if not _leaves(params)[0].is_cuda:
+        dev = _device(params)
+        if dev is None or not dev.type == "cuda":
             return self.update_plain(params, grads, state, finite)
         lr = self.lr_of(state["t"])
         names = self.moment_names()
@@ -218,7 +226,7 @@ class FusedUpdate(Optimizer):
         if "v" not in state:
             state["v"] = None
         state["t"] = torch.zeros((), dtype=torch.int32,
-                                 device=_leaves(params)[0].device)
+                                 device=_device(params))
         return state
 
     @torch.no_grad()

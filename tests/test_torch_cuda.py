@@ -1805,3 +1805,311 @@ def test_adam_and_guard_on_the_card_match_the_cpu(cuda):
     assert int(gpu.opt_state["t"]) == 3
     assert _max_diff(gpu, cpu, skip=("bias_k",)) <= 1e-5
     assert _max_diff(gpu, cpu) <= 3 * 0.01 * 0.1 / (0.001 ** 0.5)
+
+
+# ---- the zoo slice on the card ----------------------------------------------
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """f32 convs and matmuls in f32 (cuDNN's TF32 is on by default)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _zoo_op_graph(device, build):
+    """A one-op graph from ``build(ff) -> ({name: array}, output)``, f32,
+    compiled for training (SGD) on ``device``."""
+    from flexflow_tpu_torch import LossType, MetricsType, SGDOptimizer
+
+    ff = FFModel(FFConfig(batch_size=2, seed=3), device=device)
+    feeds, out = build(ff)
+    ff.compile(SGDOptimizer(lr=0.1),
+               LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+               [MetricsType.METRICS_MEAN_SQUARED_ERROR], final_tensor=out)
+    return ff, feeds, out
+
+
+def _zoo_ops():
+    import numpy as np
+    from flexflow_tpu_torch import AggrMode, DataType, PoolType
+
+    rs = np.random.RandomState(0)
+
+    def one(verb, shape, *args, offset=0.0, **kw):
+        def build(ff):
+            x = ff.create_tensor(list(shape), name="x")
+            y = getattr(ff, verb)(x, *args, name="op", **kw)
+            return ({"x": (rs.randn(*shape) + offset).astype(np.float32)},
+                    y[0] if isinstance(y, list) else y)
+        return build
+
+    def bag(aggr):
+        def build(ff):
+            idx = ff.create_tensor([4, 6], DataType.DT_INT32, name="idx")
+            y = ff.embedding(idx, 50, 16, aggr, name="op")
+            return {"idx": rs.randint(0, 50, (4, 6)).astype(np.int32)}, y
+        return build
+
+    def bmm(ff):
+        a = ff.create_tensor([2, 3, 16, 8], name="a")
+        b = ff.create_tensor([2, 3, 8, 12], name="b")
+        return ({"a": rs.randn(2, 3, 16, 8).astype(np.float32),
+                 "b": rs.randn(2, 3, 8, 12).astype(np.float32)},
+                ff.batch_matmul(a, b, name="op"))
+
+    def concat_gather(ff):
+        a = ff.create_tensor([2, 3, 4], name="a")
+        b = ff.create_tensor([2, 5, 4], name="b")
+        c = ff.concat([a, b], axis=1, name="cat")
+        idx = ff.create_tensor([2, 3, 4], DataType.DT_INT32, name="idx")
+        return ({"a": rs.randn(2, 3, 4).astype(np.float32),
+                 "b": rs.randn(2, 5, 4).astype(np.float32),
+                 "idx": rs.randint(0, 8, (2, 3, 4)).astype(np.int32)},
+                ff.gather(c, idx, axis=1, name="op"))
+
+    relu = __import__("flexflow_tpu_torch").ActiMode.AC_MODE_RELU
+    return {
+        "conv-strided-padded": one("conv2d", (2, 8, 17, 17), 16, 3, 3, 2, 2,
+                                   1, 1, relu),
+        "conv-grouped": one("conv2d", (2, 8, 9, 9), 8, 3, 3, 1, 1, 1, 1,
+                            groups=4, use_bias=False),
+        "conv-1x7": one("conv2d", (2, 4, 9, 12), 6, 1, 7, 1, 1, 0, 3),
+        "pool-max": one("pool2d", (2, 4, 9, 9), 3, 3, 2, 2, 1, 1),
+        "pool-avg": one("pool2d", (2, 4, 9, 9), 3, 3, 1, 1, 1, 1,
+                        PoolType.POOL_AVG),
+        "pool-max-past-half": one("pool2d", (2, 4, 9, 9), 3, 3, 2, 2, 2, 2),
+        "pool-avg-past-half": one("pool2d", (2, 4, 9, 9), 3, 3, 1, 1, 2, 2,
+                                  PoolType.POOL_AVG),
+        "batch-norm-relu": one("batch_norm", (4, 6, 5, 5), True,
+                               offset=2.0),
+        "batch-norm": one("batch_norm", (4, 6, 5, 5), False, offset=-1.0),
+        "flat": one("flat", (2, 3, 4, 5)),
+        "embedding-sum": bag(AggrMode.AGGR_MODE_SUM),
+        "embedding-avg": bag(AggrMode.AGGR_MODE_AVG),
+        "batch-matmul": bmm,
+        "softmax": one("softmax", (2, 5, 33), -1),
+        "reshape": one("reshape", (2, 3, 4), [4, -1, 3]),
+        "transpose": one("transpose", (2, 3, 4), [2, 0, 1]),
+        "reverse": one("reverse", (2, 3, 4), 1),
+        "split": one("split", (2, 6, 4), [1, 2, 3], 1),
+        "topk": one("topk", (3, 40), 5),
+        "pad": one("pad", (2, 3, 4), [(0, 0), (1, 2), (3, 0)], 0.5),
+        "concat-gather": concat_gather,
+        "cast-bf16": one("cast", (2, 6), DataType.DT_BFLOAT16),
+        "gelu": one("gelu", (3, 40)),
+        "elu": one("elu", (3, 40)),
+        "rsqrt": one("rsqrt", (3, 40), offset=3.0),
+        "pow": one("pow", (3, 40), 3.0),
+        "divide": lambda ff: (lambda a, b: (
+            {"a": rs.randn(3, 40).astype(np.float32),
+             "b": (rs.randn(3, 40) + 4).astype(np.float32)},
+            ff.divide(a, b, name="op")))(ff.create_tensor([3, 40], name="a"),
+                                         ff.create_tensor([3, 40], name="b")),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_zoo_ops()))
+def test_zoo_op_on_card_matches_the_cpu(no_tf32, case):
+    """Each new op in training mode, f32 without TF32, on the card against
+    the same op on the CPU from the same weights: outputs within 1e-5, the
+    gradients of every weight and float input within 1e-5 of their largest
+    value (sums in other orders); the BatchNorm state's update too."""
+    import numpy as np
+
+    graphs = []
+    for dev in ("cpu", no_tf32):
+        ff, feeds, out = _zoo_op_graph(dev, _zoo_ops()[case])
+        graphs.append((ff, feeds, out))
+    cpu, feeds, cout = graphs[0]
+    gpu, _, gout = graphs[1]
+    _copy_weights(gpu, cpu)
+    results = []
+    for ff, out in ((cpu, cout), (gpu, gout)):
+        ins = {op.name: op.outputs[0] for op in ff.ops
+               if type(op).__name__ == "InputOp"}
+        xs = {k: torch.tensor(v, device=ff.device,
+                              requires_grad=np.issubdtype(v.dtype,
+                                                          np.floating))
+              for k, v in feeds.items()}
+        leaves = [w.requires_grad_() for ws in ff.params.values()
+                  for w in ws.values()]
+        vals, state = ff.executor.apply_graph(
+            ff.params, {ins[k]: x for k, x in xs.items()}, training=True,
+            state=ff.bn_state)
+        y = vals[out]
+        wrt = leaves + [x for x in xs.values() if x.requires_grad]
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            1)).to(ff.device, y.dtype)
+        grads = (torch.autograd.grad((y * cot).sum(), wrt)
+                 if y.requires_grad else [])
+        results.append((y.detach().float().cpu(),
+                        [g.float().cpu() for g in grads],
+                        [v.cpu() for ws in state.values()
+                         for v in ws.values()]))
+    (yc, gc_, sc), (yg, gg, sg) = results
+    torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5)
+    for a, b in zip(gg, gc_):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item() + 1e-7)
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _bn_cnn(device, seed=1, **cfg):
+    """conv -> BatchNorm (relu) -> conv -> BatchNorm -> global pool -> fc,
+    f32, SGD, 6 batches of 4 staged."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, PoolType,
+                                    SGDOptimizer, SingleDataLoader)
+
+    ff = FFModel(FFConfig(batch_size=4, seed=seed, **cfg), device=device)
+    x = ff.create_tensor([4, 3, 16, 16], name="input")
+    t = ff.conv2d(x, 8, 3, 3, 1, 1, 1, 1, name="c1")
+    t = ff.batch_norm(t, relu=True, name="bn1")
+    t = ff.conv2d(t, 8, 3, 3, 2, 2, 1, 1, name="c2")
+    t = ff.batch_norm(t, relu=False, name="bn2")
+    t = ff.pool2d(t, 8, 8, 1, 1, 0, 0, PoolType.POOL_AVG, name="gap")
+    out = ff.dense(ff.flat(t), 5, name="fc")
+    ff.compile(SGDOptimizer(lr=0.1),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = np.random.RandomState(seed)
+    SingleDataLoader(ff, x, (rs.randn(24, 3, 16, 16) * 2 + 1).astype(
+        np.float32))
+    SingleDataLoader(ff, ff.label_tensor,
+                     rs.randint(0, 5, (24, 1)).astype(np.int32))
+    return ff
+
+
+@pytest.mark.cuda
+def test_bn_state_under_step_replay_matches_per_step(no_tf32):
+    """BatchNorm's running state through scan_steps (a CUDA graph of one
+    step replayed; the state committed in place with copy_, so every
+    replay writes the live tensors) against per-step training on the card
+    and on the CPU from the same weights: state within 1e-6, weights
+    within 1e-5, and the state moves on every replayed step."""
+    per = _bn_cnn(no_tf32)
+    scan = _bn_cnn(no_tf32, scan_steps=3)
+    cpu = _bn_cnn("cpu")
+    for ff in (scan, cpu):
+        _copy_weights(ff, per)
+    addr = {op: {k: v.data_ptr() for k, v in ws.items()}
+            for op, ws in scan.bn_state.items()}
+    means = []
+    for _ in range(2):
+        scan.train_scanned(3)
+        means.append(scan.bn_state["bn1"]["mean"].clone())
+    # the first chunk: an eager step, the capture, 2 replays; then 3
+    assert scan._replay.replays == 5
+    assert not torch.equal(means[0], means[1])
+    assert addr == {op: {k: v.data_ptr() for k, v in ws.items()}
+                    for op, ws in scan.bn_state.items()}
+    for ff in (per, cpu):
+        for _ in range(6):
+            ff._run_train_step(ff._stage_batch())
+    for ref in (per, cpu):
+        for op, ws in ref.bn_state.items():
+            for k, v in ws.items():
+                torch.testing.assert_close(scan.bn_state[op][k].cpu(),
+                                           v.cpu(), rtol=1e-6, atol=1e-6)
+        assert _max_diff(scan, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dropout_masks_differ_across_replays(cuda):
+    """A dropout model trained by train_scanned on one repeated batch at
+    lr 0: the eager step and every replay of the captured step draw their
+    own masks (the op's generator is registered with the graph), so the
+    losses all differ; the kept share of each replayed mask's output
+    stays near keep."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, SGDOptimizer,
+                                    SingleDataLoader)
+
+    ff = FFModel(FFConfig(batch_size=8, seed=4, scan_steps=6),
+                 device=cuda)
+    x = ff.create_tensor([8, 512], name="input")
+    h = ff.dropout(x, 0.5, name="drop")
+    out = ff.dense(h, 4, name="fc")
+    ff.compile(SGDOptimizer(lr=0.0),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = np.random.RandomState(0)
+    SingleDataLoader(ff, x, np.tile(rs.randn(8, 512).astype(np.float32),
+                                    (6, 1)))
+    SingleDataLoader(ff, ff.label_tensor, np.tile(
+        rs.randint(0, 4, (8, 1)).astype(np.int32), (6, 1)))
+    gen = ff._generators["drop"]
+    before = gen.get_state()
+    losses, _ = ff.train_scanned(6)
+    assert ff._replay.replays == 5
+    vals = losses.cpu().tolist()
+    assert len(set(vals)) == 6, vals
+    assert not torch.equal(gen.get_state(), before)
+
+
+@pytest.mark.cuda
+def test_fused_update_at_resnet50_leaves_bitwise_per_leaf(cuda):
+    """The per-leaf SGD update over ResNet-50's 214 bf16 leaves (64 to
+    2.4 M elements): two launches, bitwise the per-leaf torch formula
+    (Optimizer.update_plain) on the card."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.models import resnet50
+
+    ff = FFModel(FFConfig(batch_size=1), device=cuda)
+    resnet50(ff, 1)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = {op: {k: torch.randn(s, device=cuda, generator=g).to(
+        torch.bfloat16) for k, s in ws.items()}
+        for op, ws in ff.weight_shapes().items()}
+    grads = {op: {k: torch.randn(w.shape, device=cuda, generator=g).mul_(
+        1e-2).to(torch.bfloat16) for k, w in ws.items()}
+        for op, ws in params.items()}
+    assert sum(len(ws) for ws in params.values()) == 214
+    opt = SGDOptimizer(lr=0.1)
+    ref = {op: {k: w.clone() for k, w in ws.items()}
+           for op, ws in params.items()}
+    n0 = kernels.fused_update.launches
+    opt.update(params, grads, opt.init_state(params))
+    assert kernels.fused_update.launches - n0 == 2
+    opt.update_plain(ref, grads, opt.init_state(ref))
+    for op, ws in ref.items():
+        for k, w in ws.items():
+            assert torch.equal(_bits(params[op][k]), _bits(w)), f"{op}.{k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_at_bert_base_heads(cuda, dtype):
+    """Kernels 1 (with its lse) and 2 at BERT-base's attention: 12 heads
+    of 64, seq 512, non-causal (batch 2), against their plain versions:
+    f32 within 2e-5 (the backward within 1e-4 of the gradients' largest
+    value), bf16 within 2e-2 of the largest magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, do = (torch.randn(2, 512, 12, 64, device=cuda,
+                               generator=g).to(dtype) for _ in range(4))
+    scale = 64 ** -0.5
+    n0 = kernels.flash_attention_fwd.launches
+    o, lse = kernels.flash_attention_fwd(q, k, v, False, scale,
+                                         need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, False, scale,
+                                             need_lse=True)
+    assert kernels.flash_attention_fwd.launches == n0 + 1
+    _close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-3)
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale)
+    ref = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+                                            scale)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=rel * b.float().abs().max().item())

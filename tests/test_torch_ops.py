@@ -421,14 +421,27 @@ def test_add_layernorm_torch_route_matches_jax(monkeypatch):
 
 
 def test_mha_training_dropout_is_refused(enc_models):
+    """The name is from when attention dropout was refused in training;
+    it is not any more, and this checks how it runs: with a generator the
+    op draws its mask (tests/test_torch_dropout.py holds its law); without
+    one it is the identity, as the JAX op without an rng; in inference it
+    never draws."""
     top = enc_models[1].get_op_by_name("attn_0")
-    top.dropout = 0.1
+    p = enc_models[1].params["attn_0"]
+    top.dropout = 0.5
     try:
-        x = torch.zeros(1, 4, 128)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            top.forward(enc_models[1].params["attn_0"], [x] * 3,
-                        training=True)
-        top.forward(enc_models[1].params["attn_0"], [x] * 3)  # inference
+        x = torch.randn(1, 4, 128, generator=torch.Generator().manual_seed(0))
+        ref = top.forward(p, [x] * 3)[0]                       # inference
+        torch.testing.assert_close(
+            top.forward(p, [x] * 3, training=True)[0], ref)    # no rng
+        gen = torch.Generator().manual_seed(1)
+        state = gen.get_state()
+        torch.testing.assert_close(
+            top.forward(p, [x] * 3, training=False, gen=gen)[0], ref)
+        assert torch.equal(gen.get_state(), state)
+        dropped = top.forward(p, [x] * 3, training=True, gen=gen)[0]
+        assert not torch.equal(gen.get_state(), state)
+        assert not torch.allclose(dropped, ref)
     finally:
         top.dropout = 0.0
 

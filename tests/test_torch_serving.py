@@ -132,13 +132,19 @@ def test_port_imports_no_jax():
     script imports jax or the JAX package (flexflow_tpu_torch itself is
     fine)."""
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_serve_profile.py"]
+    files += [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     names = {str(f.relative_to(REPO)) for f in files}
-    # the training slice's modules are among those scanned
+    # the training slice's modules and the zoo slice's are among those
+    # scanned, and the port's scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
         "runtime/metrics", "runtime/dataloader", "models/transformer",
-        "ops/norm", "ops/kernels")} <= names
+        "ops/norm", "ops/kernels", "ops/conv", "ops/tensor_ops",
+        "ops/elementwise", "ops/dense", "ops/attention", "models/cnn",
+        "models/bert", "models/vit", "models/dlrm", "models/llama",
+        "convert", "ffconst")} <= names
+    assert "scripts/torch_serve_profile.py" in names
     bad = []
     for f in files:
         for mod in _imports(f):
