@@ -151,6 +151,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 Phase 3 also holds the flash rows at BERT-base's shape
                 (32, 512, 12, 64) and the fused update at ResNet-50's
                 leaves.
+ 10. rest     — the rest of the single-device op set. Card vs CPU (f32,
+                TF32 off): the MoE op (sort and dense dispatch at a
+                binding capacity), LSTM and GRU, forward and gradients;
+                nmt_seq2seq, gpt_pipelined and gpt_lm with MoE small
+                through 2 SGD steps (phase 8's limits); a small MoE LM's
+                greedy tokens served. Fusion: phase 8's ResNet blocks
+                trained 4 steps with perform_fusion and without, from
+                the same seed (cuDNN deterministic): FUSION_ELIMINATED
+                ops fused away and the losses, weights and BatchNorm
+                state bitwise equal. Then, bf16 at published widths with
+                seeded random weights, each through train_run (a warm-up
+                step, fit over 4 copies of one batch with exact launch
+                counts, a profiled step): NMT (nmt/nmt.cc's 2 + 2 LSTM
+                layers of 2048, vocab 20k, batch 64, 20 + 20 steps) once
+                a step and with scan_steps=4 (a CUDA graph); the GLaM
+                (0.1B/64E) MoE LM (hidden 768, 12 layers, 64 experts
+                top-2 every other layer, vocab 256k, seq 1024, batch 8,
+                2.26 B weights); the pipelined LM at GPT-2 small's widths
+                (seq 1024, batch 16); then the same MoE LM served through
+                FFModel.serve (8 prompts of 512 tokens, 64 new tokens, 4
+                slots, exact launches), a profiled serve's share of device
+                time in the expert products (capacity = the slab's
+                tokens) and those products timed alone. Phase 3 holds
+                kernels 1 and 2 at the MoE LM's (8, 1024, 12, 64) causal,
+                and kernels 1, 4 and 5 at its serve's shapes.
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -404,57 +429,17 @@ def sass_counts(kernels):
 
 def phase_kernels(torch, port, kernels):
     """Kernel vs plain version at the serving and training shapes (bf16;
-    the flash training rows at the flagship's and BERT-base's), and the
+    the flash training rows at the flagship's, BERT-base's and the MoE
+    LM's; the serving rows at Llama-3-8B's and the MoE LM's), and the
     fused update at the flagship's bucket and ResNet-50's leaves."""
-    import torch.nn.functional as F
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    bf16 = torch.bfloat16
-    h, kvh, d = LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"], 128
-    scale = d ** -0.5
-    rows = {}
-
-    # flash attention: the prefill of a 512-token bucket
-    s = 512
-    q = torch.randn(1, s, h, d, device=dev, generator=g).to(bf16)
-    k = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    v = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    out = kernels.flash_attention_fwd(q, k, v, True, scale)
-    ref = kernels.flash_attention_plain(q, k, v, True, scale)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= FLASH_TOL:
-        fail(f"flash_attention_fwd disagrees with its plain version: "
-             f"max abs err {err}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
-
-        def lib():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
-    except TypeError:   # torch without enable_gqa: expand kv heads first
-        ke = kt.repeat_interleave(h // kvh, dim=1)
-        ve = vt.repeat_interleave(h // kvh, dim=1)
-
-        def lib():
-            F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
-    pairs = s * (s + 1) // 2
-    rows["flash_attention_fwd"] = dict(
-        err=err,
-        ms=cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, True, scale)),
-        plain_ms=cuda_ms(
-            lambda: kernels.flash_attention_plain(q, k, v, True, scale)),
-        library_ms=cuda_ms(lib), library="F.scaled_dot_product_attention",
-        bound=bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * pairs * h * d),
-        shape=f"q (1,{s},{h},{d}) k/v (1,{s},{kvh},{d}) causal bf16")
-
+    rows = {"flash_attention_fwd": flash_serve_row(
+        torch, kernels, g, LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"], 128)}
     rows.update(paged_attention_rows(torch, kernels, g))
     rows.update(prefill_write_rows(torch, kernels, g))
     rows.update(training_kernel_rows(torch, kernels, g))
+    rows.update(moe_serve_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
@@ -480,6 +465,52 @@ def phase_kernels(torch, port, kernels):
 
 
 #: paged-attention rows: (row name, pool, long context)
+def flash_serve_row(torch, kernels, g, h: int, kvh: int, d: int,
+                    s: int = 512) -> dict:
+    """Flash attention forward at a prefill of an ``s``-token bucket: q (1,
+    s, h, d), k/v (1, s, kvh, d), causal, bf16; SDPA (GQA) as the
+    yardstick."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    scale = d ** -0.5
+    q = torch.randn(1, s, h, d, device=dev, generator=g).to(bf16)
+    k = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
+    out = kernels.flash_attention_fwd(q, k, v, True, scale)
+    ref = kernels.flash_attention_plain(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= FLASH_TOL:
+        fail(f"flash_attention_fwd disagrees with its plain version at q "
+             f"{tuple(q.shape)}: max abs err {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+
+        def lib():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    except TypeError:   # torch without enable_gqa: expand kv heads first
+        ke = kt.repeat_interleave(h // kvh, dim=1)
+        ve = vt.repeat_interleave(h // kvh, dim=1)
+
+        def lib():
+            F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
+    pairs = s * (s + 1) // 2
+    return dict(
+        err=err,
+        ms=cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, True, scale)),
+        plain_ms=cuda_ms(
+            lambda: kernels.flash_attention_plain(q, k, v, True, scale)),
+        library_ms=cuda_ms(lib), library="F.scaled_dot_product_attention",
+        bound=bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * pairs * h * d),
+        shape=f"q (1,{s},{h},{d}) k/v (1,{s},{kvh},{d}) causal bf16")
+
+
 PAGED_CASES = (("paged_attention_fwd", "bf16", False),
               ("paged_attention_fwd_int8", "int8", False),
               ("paged_attention_fwd_fp8", "fp8", False),
@@ -489,15 +520,18 @@ PAGED_CASES = (("paged_attention_fwd", "bf16", False),
               ("paged_attention_fwd_long_fp8", "fp8", True))
 
 
-def paged_case(torch, kernels, g, pool: str, long: bool) -> dict:
+def paged_case(torch, kernels, g, pool: str, long: bool,
+               geom: dict = None) -> dict:
     """One decode step of 4 slots at Llama-3-8B widths (32 heads over 8 kv
     heads, D = 128, 128-token pages): ~620 live positions a slot (the
     serving shape, 8 pages a slot) or ~8000 (``long``: Llama-3-8B's 8192
     context, 64 pages a slot), with ragged prompts whose bucket padding is
     dead. ``pool``: "bf16" (native), "int8" / "fp8" (random payload, random
     positive per-(page, kv head) scales) under bf16 queries, or "mixed" (a
-    bf16 pool under f32 queries). Returns the wrapper's arguments, the
-    error and its limit, the bound, the launch plan and a description."""
+    bf16 pool under f32 queries). ``geom`` overrides the heads, kv heads,
+    head dim, pages a slot and the (row_len, prompt_pad, write_pos) lists
+    (another model's serve). Returns the wrapper's arguments, the error
+    and its limit, the bound, the launch plan and a description."""
     dev = torch.device("cuda")
     h, kvh, d = LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"], 128
     b, ps = ENGINE["serve_slots"], ENGINE["kv_page_size"]
@@ -509,6 +543,9 @@ def paged_case(torch, kernels, g, pool: str, long: bool) -> dict:
         pps = 8
         lens = ([500, 620, 530, 690], [512, 640, 544, 704],
                 [600, 660, 560, 720])
+    if geom:
+        h, kvh, d, pps, lens = (geom[k] for k in ("heads", "kv_heads", "d",
+                                                  "pages", "lens"))
     n_pool = b * pps + 1
     qdt = torch.float32 if pool == "mixed" else torch.bfloat16
     q = torch.randn(b, 1, h, d, device=dev, generator=g).to(qdt)
@@ -573,12 +610,14 @@ def paged_err(case: dict, out, ref) -> float:
     return (out.float() - ref.float()).abs().max().item()
 
 
-def paged_attention_rows(torch, kernels, g):
+def paged_attention_rows(torch, kernels, g, cases=PAGED_CASES,
+                         geom: dict = None):
     """Paged attention over every pool at the serving shape and at ~8000
-    live positions a slot, against its plain version."""
+    live positions a slot (``cases``, at ``geom``: see paged_case),
+    against its plain version."""
     rows = {}
-    for name, pool, long in PAGED_CASES:
-        c = paged_case(torch, kernels, g, pool, long)
+    for name, pool, long in cases:
+        c = paged_case(torch, kernels, g, pool, long, geom)
         out = kernels.paged_attention_fwd(*c["args"], **c["kw"])
         ref = kernels.paged_attention_plain(*c["args"], **c["kw"])
         torch.cuda.synchronize()
@@ -603,16 +642,18 @@ WRITE_LAYERS = LLAMA3_8B["layers"]
 WRITE_POOLS = (("", "bf16"), ("_int8", "int8"), ("_fp8", "fp8"))
 
 
-def prefill_write_case(torch, g, pool: str, n_layers: int) -> dict:
+def prefill_write_case(torch, g, pool: str, n_layers: int,
+                       kvh: int = LLAMA3_8B["kv_heads"],
+                       d: int = 128) -> dict:
     """The prefill write of a 512-token bf16 slab (Llama-3-8B's 8 kv heads,
-    D = 128) into 4 of 33 pool pages (128 rows, listed out of order) for
-    ``n_layers`` layers: a native bf16 pool, or int8 / fp8 with random
-    positive scales. Returns ``new()`` (fresh copies of the pools and
-    scales: the ``paged_prefill_write_layers`` arguments), the bound and
-    a description."""
+    D = 128, or ``kvh`` / ``d``) into 4 of 33 pool pages (128 rows, listed
+    out of order) for ``n_layers`` layers: a native bf16 pool, or int8 /
+    fp8 with random positive scales. Returns ``new()`` (fresh copies of the
+    pools and scales: the ``paged_prefill_write_layers`` arguments), the
+    bound and a description."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    kvh, d, ps, s = LLAMA3_8B["kv_heads"], 128, ENGINE["kv_page_size"], 512
+    ps, s = ENGINE["kv_page_size"], 512
     n_pool, n_pages = 33, s // ps
     dt = {"bf16": bf16, "int8": torch.int8,
           "fp8": torch.float8_e4m3fn}[pool]
@@ -661,18 +702,22 @@ def same_bytes(torch, a, b) -> bool:
                for x, y in zip(xs, ys))
 
 
-def prefill_write_rows(torch, kernels, g):
+def prefill_write_rows(torch, kernels, g, pools=WRITE_POOLS,
+                       layer_counts=(1, WRITE_LAYERS), tag_suffix: str = "",
+                       **geom):
     """The prefill write of a 512-token bf16 slab into 4 pages of a native,
-    an int8 and an fp8 pool, for one layer (``paged_prefill_write``) and
-    for Llama-3-8B's 32 layers in one launch (``paged_prefill_write_layers``,
-    the serving engine's call): payload (and scales) bitwise the plain
-    version's. The native rows also time ``index_copy_`` of the
-    page-reshaped slabs (k and v, each layer) as the library call and a
-    device copy of the same bytes as a yardstick."""
+    an int8 and an fp8 pool (``pools``), for one layer
+    (``paged_prefill_write``) and for Llama-3-8B's 32 layers in one launch
+    (``paged_prefill_write_layers``, the serving engine's call), or for
+    ``layer_counts`` at ``geom`` (prefill_write_case's kvh / d): payload
+    (and scales) bitwise the plain version's. The native rows also time
+    ``index_copy_`` of the page-reshaped slabs (k and v, each layer) as the
+    library call and a device copy of the same bytes as a yardstick."""
     rows = {}
-    for suffix, pool in WRITE_POOLS:
-        for n_layers in (1, WRITE_LAYERS):
-            c = prefill_write_case(torch, g, pool, n_layers)
+    for suffix, pool in pools:
+        suffix += tag_suffix
+        for n_layers in layer_counts:
+            c = prefill_write_case(torch, g, pool, n_layers, **geom)
             got, ref = c["new"](), c["new"]()
             if n_layers == 1:
                 tag = f"paged_prefill_write{suffix}"
@@ -734,8 +779,8 @@ def prefill_write_rows(torch, kernels, g):
 def training_kernel_rows(torch, kernels, g):
     """Flash forward with its lse, flash backward and add + LayerNorm at
     the flagship's training shapes (bf16, non-causal attention), and the
-    flash rows again at BERT-base's (phase 9); errors scaled to the
-    output's magnitude."""
+    flash rows again at BERT-base's (phase 9) and, causal, at the MoE
+    LM's (phase 10); errors scaled to the output's magnitude."""
     import torch.nn.functional as F
 
     h = FLAGSHIP["heads"]
@@ -746,6 +791,10 @@ def training_kernel_rows(torch, kernels, g):
     rows.update(flash_training_rows(
         torch, kernels, g, b, s, BERT_BASE["heads"],
         BERT_BASE["hidden"] // BERT_BASE["heads"], "_bert"))
+    # the MoE LM's attention (phase 10): GLaM 0.1B/64E's heads, causal
+    rows.update(flash_training_rows(
+        torch, kernels, g, GLAM["batch"], GLAM["seq"], GLAM["heads"],
+        GLAM["hidden"] // GLAM["heads"], "_moe_lm", causal=True))
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -782,12 +831,13 @@ def training_kernel_rows(torch, kernels, g):
 
 
 def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
-                        entry_check: bool = False):
+                        entry_check: bool = False, causal: bool = False):
     """The rows ``flash_attention_fwd_lse<suffix>`` and
     ``flash_attention_bwd<suffix>`` at q/k/v (b, s, h, d) bf16, non-causal
-    (a training step's shapes), with SDPA and its backward as yardsticks;
-    ``entry_check`` also holds the backward with a caller's delta and an
-    lse cotangent."""
+    or ``causal`` (a training step's shapes), with SDPA and its backward as
+    yardsticks; ``entry_check`` also holds the backward with a caller's
+    delta and an lse cotangent. A causal row's operations count the (q,
+    k) pairs on and below the diagonal."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -797,10 +847,13 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
     q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(bf16)
                    for _ in range(4))
     n_qkv = q.numel()
-    shape = f"q/k/v ({b},{s},{h},{d}) non-causal bf16"
+    shape = (f"q/k/v ({b},{s},{h},{d}) "
+             f"{'causal' if causal else 'non-causal'} bf16")
+    pairs = s * (s + 1) // 2 if causal else s * s
 
-    o, lse = kernels.flash_attention_fwd(q, k, v, False, scale, need_lse=True)
-    ro, rlse = kernels.flash_attention_plain(q, k, v, False, scale,
+    o, lse = kernels.flash_attention_fwd(q, k, v, causal, scale,
+                                         need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, causal, scale,
                                              need_lse=True)
     torch.cuda.synchronize()
     err = scaled_err(o, ro)
@@ -813,17 +866,17 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
     rows["flash_attention_fwd_lse" + suffix] = dict(
         err=err,
         ms=cuda_ms(lambda: kernels.flash_attention_fwd(
-            q, k, v, False, scale, need_lse=True)),
+            q, k, v, causal, scale, need_lse=True)),
         plain_ms=cuda_ms(lambda: kernels.flash_attention_plain(
-            q, k, v, False, scale, need_lse=True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
-                                                                  vt)),
+            q, k, v, causal, scale, need_lse=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)),
         library="F.scaled_dot_product_attention",
-        bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * s * s * d),
+        bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * pairs * d),
         shape=shape + ", lse (B,H,S) f32")
 
-    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, False, scale)
-    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, False,
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                              scale)
     torch.cuda.synchronize()
     err = max(scaled_err(a, r) for a, r in zip(grads, refs))
@@ -833,20 +886,20 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
     # the yardstick is SDPA's backward alone: its forward runs once here
     leaves = [x.transpose(1, 2).contiguous().requires_grad_()
               for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves)
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     lib_do = do.transpose(1, 2).contiguous()
     rows["flash_attention_bwd" + suffix] = dict(
         err=err,
         ms=cuda_ms(lambda: kernels.flash_attention_bwd(
-            q, k, v, o, lse, do, False, scale)),
+            q, k, v, o, lse, do, causal, scale)),
         plain_ms=cuda_ms(lambda: kernels.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, False, scale)),
+            q, k, v, o, lse, do, causal, scale)),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
             lib_out, leaves, lib_do, retain_graph=True)),
         library="F.scaled_dot_product_attention backward",
         # q, k, v, o, dO read, dq, dk, dv written; the five products
         bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
-                    10 * b * h * s * s * d),
+                    10 * b * h * pairs * d),
         shape=shape + ", o/dO/lse -> dq/dk/dv")
 
     if not entry_check:
@@ -866,6 +919,29 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
              f"plain version: scaled err {err} (limit {BWD_TOL})")
     say(f"kernel flash_attention_bwd with a given delta and dlse: {shape}: "
         f"scaled err {err:.3g} (limit {BWD_TOL})")
+    return rows
+
+
+def moe_serve_kernel_rows(torch, kernels, g):
+    """Kernels 1, 4 and 5 at the shapes of phase 10's MoE serve (12 heads
+    of 64, no GQA, 4 slots of 512-token prompts and 64 new tokens on the
+    native bf16 pool, 12 layers): the prefill's flash forward, a decode
+    step's paged attention (5 pages a slot, 540-575 live positions) and
+    the prefill write of all 12 layers in one launch."""
+    h, d = GLAM["heads"], GLAM["hidden"] // GLAM["heads"]
+    rows = {"flash_attention_fwd_moe_serve": flash_serve_row(
+        torch, kernels, g, h, h, d, MOE_SERVE["prompt"])}
+    p = MOE_SERVE["prompt"]
+    geom = dict(heads=h, kv_heads=h, d=d, pages=-(-(
+        p + MOE_SERVE["new"]) // ENGINE["kv_page_size"]),
+        lens=([p] * 4, [p] * 4, [p + 27, p + 47, p + 63, p + 37]))
+    rows.update(paged_attention_rows(
+        torch, kernels, g, (("paged_attention_fwd_moe_serve", "bf16",
+                             False),), geom))
+    rows.update(prefill_write_rows(
+        torch, kernels, g, pools=(("", "bf16"),),
+        layer_counts=(GLAM["layers"],), tag_suffix="_moe_serve", kvh=h,
+        d=d))
     return rows
 
 
@@ -1617,6 +1693,12 @@ def kernel_class(name: str) -> str:
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
         # cuDNN runs some convs (1 x 1 among them) on these GEMM kernels
         return "GEMM kernels (cuBLAS; cuDNN's GEMM-run convs)"
+    if any(k in low for k in ("sort", "radix", "index", "scatter",
+                              "gather")):
+        # the MoE's routing (stable sorts), dispatch (an index write) and
+        # combine (a gather), and their backwards; also any embedding's
+        # backward (a sort) and the loss's gather
+        return "sort / index / gather / scatter (MoE routing)"
     return "other (elementwise, reductions, copies)"
 
 
@@ -1789,7 +1871,8 @@ def train_run(torch, kernels, card: str, ff, label: str, want=None,
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         say(f"train profile kernel ({label}): {us / 1e3 / per:.3f} ms a "
             f"step {name[:100]}")
-    for cls, tag in (("other", "other"), ("GEMM", "GEMM")):
+    for cls, tag in (("other", "other"), ("GEMM", "GEMM"),
+                     ("sort", "routing")):
         picked = [(n, us) for n, us in by_name.items()
                   if kernel_class(n).startswith(cls)]
         for name, us in sorted(picked, key=lambda kv: -kv[1])[:8]:
@@ -1928,59 +2011,12 @@ def phase_zoo_check(torch, port, kernels):
     serving the CPU's greedy tokens; dropout's law on the card and a
     different mask on each replayed step of fit(scan_steps=4). Returns
     {path: launch counts}."""
-    import numpy as np
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels.reset_launch_counts()
     for name, (build, feed, classes) in _zoo_builders().items():
-        models = []
-        for dev in ("cpu", "cuda"):
-            ff = port.FFModel(port.FFConfig(batch_size=ZOO_BATCH, seed=11),
-                              device=dev)
-            ins, out = build(port, ff, ZOO_BATCH)
-            loss = ("LOSS_SPARSE_CATEGORICAL_CROSSENTROPY" if classes
-                    else "LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE")
-            ff.compile(port.SGDOptimizer(lr=ZOO_LR),
-                       getattr(port.LossType, loss),
-                       [port.MetricsType.METRICS_ACCURACY if classes else
-                        port.MetricsType.METRICS_MEAN_SQUARED_ERROR],
-                       final_tensor=out)
-            models.append(ff)
-        cpu, gpu = models
-        copy_weights(gpu, cpu.params)
-        gpu.bn_state = {op: {k: v.to("cuda") for k, v in ws.items()}
-                        for op, ws in cpu.bn_state.items()}
-        rs = np.random.RandomState(5)
-        worst = 0.0
-        for step in range(ZOO_CHECK_STEPS):
-            batch = feed(rs, ZOO_BATCH)
-            dims = (ZOO_BATCH,) + tuple(cpu._final_tensor.dims[1:])
-            batch["label"] = (rs.rand(*dims).astype(np.float32)
-                              if classes is None else rs.randint(
-                                  0, classes, dims[:-1] + (1,)).astype(
-                                      np.int32))
-            lc = float(cpu._run_train_step(batch)[0])
-            lg = float(gpu._run_train_step(batch)[0])
-            if not (np.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL
-                    * abs(lc)):
-                fail(f"zoo check ({name}): step {step} loss card {lg} vs "
-                     f"CPU {lc} (limit {TRAIN_LOSS_RTOL} relative)")
-            worst = max(worst, abs(lg - lc) / abs(lc))
-        diff = weight_diff(gpu, cpu)
-        sdiff = max([(gpu.bn_state[op][k].cpu() - v).abs().max().item()
-                     for op, ws in cpu.bn_state.items()
-                     for k, v in ws.items()] or [0.0])
-        if not (diff <= TRAIN_PARAM_ATOL and sdiff <= ZOO_STATE_ATOL):
-            fail(f"zoo check ({name}): after {ZOO_CHECK_STEPS} steps the "
-                 f"weights differ card vs CPU by {diff} (limit "
-                 f"{TRAIN_PARAM_ATOL}), the BatchNorm state by {sdiff} "
-                 f"(limit {ZOO_STATE_ATOL})")
-        say(f"zoo check ({name}): f32, {ZOO_CHECK_STEPS} SGD steps, card vs "
-            f"CPU: losses within {worst:.2e} relative, weights within "
-            f"{diff:.2e}, {len(cpu.bn_state)} BatchNorm states within "
-            f"{sdiff:.2e}")
-        del cpu, gpu, models
+        train_card_vs_cpu(torch, port, "zoo check", name, build, feed,
+                          classes)
     launches = {"zoo_check": kernels.launch_counts()}
     for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_update"):
         if launches["zoo_check"][k] == 0:
@@ -1988,6 +2024,62 @@ def phase_zoo_check(torch, port, kernels):
     zoo_tied_llama(torch, port, kernels)
     zoo_dropout(torch, port, kernels)
     return launches
+
+
+def train_card_vs_cpu(torch, port, phase: str, name: str, build, feed,
+                      classes, lr: float = ZOO_LR):
+    """One model small in f32 on the card (the kernels; cuBLAS and cuDNN
+    as the caller set TF32) against the CPU (the plain versions) from the
+    same weights and BatchNorm state: ZOO_CHECK_STEPS SGD steps at ``lr``
+    on the same batches; losses within TRAIN_LOSS_RTOL, weights within
+    TRAIN_PARAM_ATOL, the BatchNorm state within ZOO_STATE_ATOL.
+    ``build(port, ff, batch)`` -> ({input name: Tensor}, output); ``feed(rs,
+    n)`` -> {input name: array}; ``classes`` of the labels (None: MSE
+    targets)."""
+    import numpy as np
+
+    models = []
+    for dev in ("cpu", "cuda"):
+        ff = port.FFModel(port.FFConfig(batch_size=ZOO_BATCH, seed=11),
+                          device=dev)
+        ins, out = build(port, ff, ZOO_BATCH)
+        loss = ("LOSS_SPARSE_CATEGORICAL_CROSSENTROPY" if classes
+                else "LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE")
+        ff.compile(port.SGDOptimizer(lr=lr), getattr(port.LossType, loss),
+                   [port.MetricsType.METRICS_ACCURACY if classes else
+                    port.MetricsType.METRICS_MEAN_SQUARED_ERROR],
+                   final_tensor=out)
+        models.append(ff)
+    cpu, gpu = models
+    copy_weights(gpu, cpu.params)
+    gpu.bn_state = {op: {k: v.to("cuda") for k, v in ws.items()}
+                    for op, ws in cpu.bn_state.items()}
+    rs = np.random.RandomState(5)
+    worst = 0.0
+    for step in range(ZOO_CHECK_STEPS):
+        batch = feed(rs, ZOO_BATCH)
+        dims = (ZOO_BATCH,) + tuple(cpu._final_tensor.dims[1:])
+        batch["label"] = (rs.rand(*dims).astype(np.float32)
+                          if classes is None else rs.randint(
+                              0, classes, dims[:-1] + (1,)).astype(np.int32))
+        lc = float(cpu._run_train_step(batch)[0])
+        lg = float(gpu._run_train_step(batch)[0])
+        if not (np.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_RTOL
+                * abs(lc)):
+            fail(f"{phase} ({name}): step {step} loss card {lg} vs CPU {lc} "
+                 f"(limit {TRAIN_LOSS_RTOL} relative)")
+        worst = max(worst, abs(lg - lc) / abs(lc))
+    diff = weight_diff(gpu, cpu)
+    sdiff = max([(gpu.bn_state[op][k].cpu() - v).abs().max().item()
+                 for op, ws in cpu.bn_state.items()
+                 for k, v in ws.items()] or [0.0])
+    if not (diff <= TRAIN_PARAM_ATOL and sdiff <= ZOO_STATE_ATOL):
+        fail(f"{phase} ({name}): after {ZOO_CHECK_STEPS} steps the weights "
+             f"differ card vs CPU by {diff} (limit {TRAIN_PARAM_ATOL}), the "
+             f"BatchNorm state by {sdiff} (limit {ZOO_STATE_ATOL})")
+    say(f"{phase} ({name}): f32, {ZOO_CHECK_STEPS} SGD steps, card vs CPU: "
+        f"losses within {worst:.2e} relative, weights within {diff:.2e}, "
+        f"{len(cpu.bn_state)} BatchNorm states within {sdiff:.2e}")
 
 
 def zoo_tied_llama(torch, port, kernels):
@@ -2178,6 +2270,501 @@ def phase_zoo_train(torch, port, kernels, card: str):
     return out
 
 
+# --------------------- phase 10: MoE, LSTM / GRU, the pipelined stack, fusion
+
+#: GLaM (0.1B/64E), Du et al. 2022, "GLaM", Table 4: hidden 768, 12 layers,
+#: 12 heads, expert FFN 3072 (4 x hidden), 64 experts, top-2, a MoE layer
+#: every other layer, the paper's 256k SentencePiece vocabulary; seq 1024,
+#: batch 8, capacity factor 1.25 (the op's default); SGD, bf16. gpt_lm has
+#: no relative position bias and no gated dense FFN (PERF.md section 4)
+GLAM = dict(batch=8, seq=1024, hidden=768, layers=12, heads=12,
+            vocab=256_000, experts=64, moe_every=2, lr=1e-4)
+#: the same model served: 8 prompts of 512 tokens, 64 new tokens each,
+#: through 4 slots on the native bf16 pool
+MOE_SERVE = dict(prompts=8, prompt=512, new=64)
+MOE_ENGINE = dict(serve_slots=4, kv_page_size=128, max_seq_len=576)
+#: GPT-2 small's widths (openai-community/gpt2 config.json: n_embd 768,
+#: n_layer 12, n_head 12, n_positions 1024, vocab_size 50257) as
+#: gpt_pipelined's one stacked op; seq 1024, batch 16, SGD, bf16
+GPT2_SMALL = dict(batch=16, seq=1024, hidden=768, layers=12, heads=12,
+                  vocab=50257, lr=1e-4)
+#: NMT at the reference's widths (nmt/nmt.cc:31-99: 2 encoder and 2
+#: decoder LSTM layers, embed = hidden 2048, vocab 20k; batch 64, the
+#: reference's samples a worker), source and target 20 (nmt_seq2seq's
+#: defaults); SGD, bf16
+NMT = dict(batch=64, src=20, tgt=20, embed=2048, hidden=2048, vocab=20_000,
+           layers=2, lr=0.01)
+#: the fused ResNet (phase 8's blocks at batch 16, f32): the ops
+#: apply_fusion eliminates from it, the count tests/test_torch_fusion.py
+#: takes from the JAX package's apply_fusion on the same graph (its three
+#: add + ReLU tails)
+FUSION_ELIMINATED = 3
+FUSION_BATCH = 16
+#: phase 10's card-vs-CPU op checks, f32 without TF32: outputs within 1e-5,
+#: gradients within 1e-5 of their largest value (sums in other orders)
+OP_TOL = 1e-5
+
+
+def _rest_ops():
+    """Phase 10's one-op checks: name -> (verb, input shape, args,
+    kwargs)."""
+    return {
+        "moe sort, binding capacity": ("moe", (4, 32, 64), (8, 256),
+                                       dict(capacity_factor=0.5,
+                                            dispatch="sort")),
+        "moe dense, binding capacity": ("moe", (4, 32, 64), (8, 256),
+                                        dict(capacity_factor=0.5,
+                                             dispatch="dense")),
+        "lstm": ("lstm", (8, 20, 64), (128,), {}),
+        "gru (last step)": ("gru", (8, 20, 64), (128,),
+                            dict(return_sequences=False)),
+    }
+
+
+def op_card_vs_cpu(torch, port, name, verb, shape, args, kw):
+    """One op in training mode, f32, on the card against the CPU from the
+    same weights and input: the output (and a MoE's aux) within OP_TOL,
+    the gradients of sum(out * cot) + aux by every weight and the input
+    within OP_TOL of their largest value."""
+    import numpy as np
+
+    rs = np.random.RandomState(9)
+    x = rs.randn(*shape).astype(np.float32)
+    cot = rs.randn(*shape[:-1], 1).astype(np.float32)
+    res, src = [], None
+    for dev in ("cpu", "cuda"):
+        ff = port.FFModel(port.FFConfig(batch_size=shape[0], seed=3),
+                          device=dev)
+        xt = ff.create_tensor(list(shape), name="x")
+        y = getattr(ff, verb)(xt, *args, name="op", **kw)
+        ff.compile(port.SGDOptimizer(lr=0.1),
+                   port.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   [port.MetricsType.METRICS_MEAN_SQUARED_ERROR],
+                   final_tensor=y)
+        if src is None:
+            src = ff.params
+        else:
+            copy_weights(ff, src)
+        xv = torch.tensor(x, device=dev, requires_grad=True)
+        leaves = [w.requires_grad_() for ws in ff.params.values()
+                  for w in ws.values()]
+        vals, _ = ff.executor.apply_graph(ff.params, {xt: xv},
+                                          training=True)
+        out = vals[y]
+        aux = sum(vals[t] for t in ff._aux_tensors) if ff._aux_tensors \
+            else torch.zeros((), device=dev)
+        c = torch.tensor(cot, device=dev)
+        c = c if out.dim() == c.dim() else c[:, 0]
+        grads = torch.autograd.grad((out * c).sum() + aux, leaves + [xv])
+        res.append((out.detach().cpu(), aux.detach().cpu(),
+                    [g.cpu() for g in grads]))
+    (yc, ac, gc_), (yg, ag, gg) = res
+    err = max((yg - yc).abs().max().item(), (ag - ac).abs().item())
+    gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(gg, gc_))
+    if not (err <= OP_TOL and gerr <= OP_TOL):
+        fail(f"phase 10 check ({name}): card vs CPU output err {err}, "
+             f"gradient err {gerr} of the largest (limit {OP_TOL})")
+    say(f"phase 10 check ({name}): f32, card vs CPU: output within "
+        f"{err:.2e}, gradients within {gerr:.2e} of their largest")
+
+
+def _rest_models():
+    """Phase 10's small models trained card vs CPU (train_card_vs_cpu):
+    name -> (build, feed, classes)."""
+    import numpy as np
+    from flexflow_tpu_torch.models import gpt_lm, gpt_pipelined, nmt_seq2seq
+
+    def tokens(vocab, *names_and_lens):
+        return lambda rs, n: {k: rs.randint(0, vocab, (n, s)).astype(
+            np.int32) for k, s in names_and_lens}
+
+    def nmt(port, ff, b):
+        src, tgt, out = nmt_seq2seq(ff, b, src_len=10, tgt_len=12,
+                                    embed_size=64, hidden_size=64,
+                                    vocab_size=500)
+        return {"src_tokens": src, "tgt_tokens": tgt}, out
+
+    def pipe(port, ff, b):
+        x, out = gpt_pipelined(ff, b, seq_len=128, hidden=128, layers=2,
+                               heads=2, vocab_size=1000)
+        return {"input": x}, out
+
+    def moe(port, ff, b):
+        x, out = gpt_lm(ff, b, seq_len=128, hidden=128, layers=2, heads=2,
+                        vocab_size=1000, moe_every=2, num_experts=4)
+        return {"input": x}, out
+
+    return {
+        "nmt_seq2seq (2 + 2 LSTM layers, hidden 64)": (
+            nmt, tokens(500, ("src_tokens", 10), ("tgt_tokens", 12)), 500),
+        "gpt_pipelined (2 stacked layers, head dim 64)": (
+            pipe, tokens(1000, ("input", 128)), 1000),
+        "gpt_lm with MoE (4 experts, top-2)": (
+            moe, tokens(1000, ("input", 128)), 1000),
+    }
+
+
+def rest_moe_served_check(torch, port, kernels):
+    """A small f32 MoE LM serves on the card the CPU's greedy tokens from
+    the same weights."""
+    import numpy as np
+    from flexflow_tpu_torch.models import gpt_lm
+
+    models = []
+    for dev in ("cpu", "cuda"):
+        ff = port.FFModel(port.FFConfig(batch_size=2, seed=2), device=dev)
+        _, logits = gpt_lm(ff, 2, seq_len=256, hidden=128, layers=2,
+                           heads=2, vocab_size=1000, moe_every=2,
+                           num_experts=4)
+        ff.compile(final_tensor=logits)
+        models.append(ff)
+    cpu, gpu = models
+    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 1000, n).astype(np.int32) for n in (7, 40, 100)]
+    kw = dict(serve_slots=2, kv_page_size=64, max_seq_len=256)
+    kernels.reset_launch_counts()
+    ref, _ = cpu.serve(prompts, max_new_tokens=8, **kw)
+    got, _ = gpu.serve(prompts, max_new_tokens=8, **kw)
+    for k in ("flash_attention_fwd", "paged_attention_fwd",
+              "paged_prefill_write"):
+        if getattr(kernels, k).launches == 0:
+            fail(f"phase 10 check (served MoE LM): no launch of {k}")
+    for i, (a, b) in enumerate(zip(ref, got)):
+        if a is None or b is None or not np.array_equal(a, b):
+            fail(f"phase 10 check (served MoE LM): prompt {i} tokens card "
+                 f"vs CPU differ")
+    say(f"phase 10 check (served MoE LM): {len(prompts)} prompts x 8 greedy "
+        f"tokens on the card == the CPU's")
+
+
+def rest_fusion(torch, port, kernels, card: str):
+    """phase 8's ResNet blocks (f32, batch FUSION_BATCH, cuDNN
+    deterministic) trained 4 SGD steps through fit with perform_fusion and
+    without, from the same seed: FUSION_ELIMINATED ops fused away, and the
+    losses, weights and BatchNorm state bitwise equal. Returns the fused
+    run's launch counts."""
+    import numpy as np
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for fusion in (False, True):
+        ff = port.FFModel(port.FFConfig(batch_size=FUSION_BATCH, seed=12,
+                                        perform_fusion=fusion),
+                          device="cuda")
+        ins, out = _zoo_resnet_blocks(port, ff, FUSION_BATCH)
+        n_ops = len(ff.ops)
+        ff.compile(port.SGDOptimizer(lr=ZOO_LR),
+                   port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [port.MetricsType.METRICS_ACCURACY], final_tensor=out)
+        rs = np.random.RandomState(6)
+        n = FUSION_BATCH * TRAIN_STEPS
+        port.SingleDataLoader(ff, ins["input"], rs.randn(
+            n, 3, 32, 32).astype(np.float32))
+        port.SingleDataLoader(ff, ff.label_tensor, rs.randint(
+            0, 10, (n, 1)).astype(np.int32))
+        losses = []
+        step = ff._run_train_step
+        ff._run_train_step = lambda b, **kw: (
+            lambda r: losses.append(r[0].reshape(1)) or r)(step(b, **kw))
+        kernels.reset_launch_counts()
+        ff.fit(epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        runs.append((ff, torch.cat(losses).cpu(), kernels.launch_counts(),
+                     n_ops - len(ff.ops)))
+    torch.backends.cudnn.deterministic = saved
+    (plain, lp, _, _), (fused, lf, launches, gone) = runs
+    if gone != FUSION_ELIMINATED:
+        fail(f"fusion: {gone} ops eliminated, expected {FUSION_ELIMINATED}")
+    bn_same = all(torch.equal(fused.bn_state[op][k], v)
+                  for op, ws in plain.bn_state.items() for k, v in ws.items())
+    if not (torch.equal(lf, lp) and same_bits(fused.params, plain.params)
+            and bn_same and bool(torch.isfinite(lf).all())):
+        fail(f"fusion: fused training is not bitwise the unfused: losses "
+             f"{lf.tolist()} vs {lp.tolist()}")
+    say(f"fusion: phase 8's ResNet blocks, batch {FUSION_BATCH}, f32: "
+        f"{gone} ops fused away ({len(plain.ops)} -> {len(fused.ops)}); "
+        f"{TRAIN_STEPS} SGD steps through fit, losses "
+        f"{[round(v, 5) for v in lf.tolist()]} bitwise the unfused run's, "
+        f"weights and {len(plain.bn_state)} BatchNorm states bitwise "
+        f"[{card}]")
+    return launches
+
+
+def _repeat_loaders(port, ff, feeds):
+    """Attach one batch, repeated TRAIN_STEPS times, to each input."""
+    import numpy as np
+
+    for t, a in feeds.items():
+        port.SingleDataLoader(ff, t, np.concatenate([a] * TRAIN_STEPS))
+
+
+def _train_want(kernels, ff, flash: int):
+    """A full-width run's exact launches over TRAIN_STEPS steps: ``flash``
+    flash forwards and backwards a step, the per-leaf update's launches."""
+    leaves = sum(len(ws) for ws in ff.params.values())
+    return {"flash_attention_fwd": flash * TRAIN_STEPS,
+            "flash_attention_bwd": flash * TRAIN_STEPS,
+            "fused_add_layernorm_fwd": 0, "paged_attention_fwd": 0,
+            "paged_prefill_write": 0,
+            "fused_update": -(-leaves // kernels.FUSED_UPDATE_MAX_LEAVES)
+            * TRAIN_STEPS}
+
+
+def _bf16_config(port, batch: int, **cfg):
+    return port.FFConfig(batch_size=batch, seed=0, compute_dtype="bfloat16",
+                         master_dtype="bfloat16", **cfg)
+
+
+def _describe(torch, ff, label: str, t0: float, card: str,
+              extra: str = ""):
+    torch.cuda.synchronize()
+    leaves = sum(len(ws) for ws in ff.params.values())
+    n_params = sum(w.numel() for ws in ff.params.values()
+                   for w in ws.values())
+    say(f"phase 10 train ({label}): {n_params / 1e9:.3f} B params bf16 in "
+        f"{leaves} leaves{extra}; built and compiled in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+
+def rest_train(torch, port, kernels, card: str):
+    """The full-width training runs (train_run: a warm-up step, fit over
+    TRAIN_STEPS copies of one batch with exact launches, step ms,
+    samples/s, peak memory, the idle share and device time by kernel class
+    over one profiled step, the update's device time): NMT once a step and
+    with scan_steps=TRAIN_STEPS (a CUDA graph replayed), the GLaM-width MoE
+    LM and the GPT-2-small-width pipelined LM. Returns {path: launches}."""
+    import numpy as np
+    from flexflow_tpu_torch.models import gpt_lm, gpt_pipelined, nmt_seq2seq
+
+    out = {}
+    rs = np.random.RandomState(0)
+    # NMT: the recurrence is a host-launch loop; the scanned run replays it
+    n = NMT
+    losses = {}
+    for label, path, scan in (("NMT", "nmt_train", 0),
+                              (f"NMT, scan_steps={TRAIN_STEPS}",
+                               "nmt_scan", TRAIN_STEPS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ff = port.FFModel(_bf16_config(port, n["batch"], scan_steps=scan),
+                          device="cuda")
+        src, tgt, logits = nmt_seq2seq(ff, n["batch"], n["src"], n["tgt"],
+                                       n["embed"], n["hidden"], n["vocab"],
+                                       n["layers"])
+        ff.compile(port.SGDOptimizer(lr=n["lr"]),
+                   port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+        data = np.random.RandomState(1)
+        _repeat_loaders(port, ff, {
+            src: data.randint(0, n["vocab"], (n["batch"], n["src"])).astype(
+                np.int32),
+            tgt: data.randint(0, n["vocab"], (n["batch"], n["tgt"])).astype(
+                np.int32),
+            ff.label_tensor: data.randint(0, n["vocab"], (
+                n["batch"], n["tgt"], 1)).astype(np.int32)})
+        _describe(torch, ff, label, t0, card,
+                  f", batch {n['batch']}, source and target {n['src']}, "
+                  f"{2 * n['layers']} LSTM layers of {n['hidden']}, vocab "
+                  f"{n['vocab']}")
+        out[path], losses[path] = train_run(
+            torch, kernels, card, ff, label, want=_train_want(kernels, ff, 0),
+            batch_size=n["batch"])
+        del ff
+    a, b = losses["nmt_scan"], losses["nmt_train"]
+    say(f"phase 10 train (NMT): the scanned run's losses against the "
+        f"per-step run's: max relative difference "
+        f"{max(abs(x - y) / abs(y) for x, y in zip(a, b)):.3g}, bitwise "
+        f"{a == b}")
+
+    for label, path in (("GLaM-width MoE LM", "moe_lm_train"),
+                        ("GPT-2-small-width pipelined LM", "pipe_train")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m = GLAM if path == "moe_lm_train" else GPT2_SMALL
+        t0 = time.perf_counter()
+        ff = port.FFModel(_bf16_config(port, m["batch"]), device="cuda")
+        if path == "moe_lm_train":
+            tok, logits = gpt_lm(ff, m["batch"], m["seq"], m["hidden"],
+                                 m["layers"], m["heads"], m["vocab"],
+                                 moe_every=m["moe_every"],
+                                 num_experts=m["experts"])
+            moe = ff.get_op_by_name("moe_1")
+            extra = (f", {m['layers'] // m['moe_every']} MoE layers of "
+                     f"{m['experts']} experts (top-{moe.k}, capacity "
+                     f"{moe.capacity} a expert)")
+        else:
+            tok, logits = gpt_pipelined(ff, m["batch"], m["seq"],
+                                        m["hidden"], m["layers"],
+                                        m["heads"], m["vocab"])
+            extra = f", {m['layers']} layers stacked in one op"
+        ff.compile(port.SGDOptimizer(lr=m["lr"]),
+                   port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+        _repeat_loaders(port, ff, {
+            tok: rs.randint(0, m["vocab"], (m["batch"], m["seq"])).astype(
+                np.int32),
+            ff.label_tensor: rs.randint(0, m["vocab"], (
+                m["batch"], m["seq"], 1)).astype(np.int32)})
+        _describe(torch, ff, label, t0, card,
+                  extra + f", batch {m['batch']}, seq {m['seq']}, vocab "
+                  f"{m['vocab']}")
+        out[path], vals = train_run(
+            torch, kernels, card, ff, label,
+            want=_train_want(kernels, ff, m["layers"]),
+            batch_size=m["batch"])
+        say(f"phase 10 train ({label}): on one repeated batch the loss went "
+            f"{vals[1]:.4f} -> {vals[-1]:.4f} over fit (not gated)")
+        del ff
+    return out
+
+
+def rest_moe_serve(torch, port, kernels, card: str):
+    """The GLaM-width MoE LM (bf16, seeded random weights) serves
+    MOE_SERVE's prompts through FFModel.serve: every request finishes,
+    exact launch counts (12 flash forwards and one prefill write a
+    prefill, 12 paged attentions a decode step); tokens/s, TTFT (the
+    second wave's queued behind the first's decode), decode step, peak
+    memory; one wave's TTFT (4 prompts x 16 new tokens). Then a profiled
+    serve of that wave:
+    device busy and idle share under the profiler, and the share of its
+    device time in the expert products (aten::bmm: their only caller on
+    this path), which run at capacity = the slab's tokens; and the expert
+    products timed alone at a prefill's capacity and at the routed rows'.
+    Returns the timed serve's launch counts."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from flexflow_tpu_torch.models import gpt_lm
+    from flexflow_tpu_torch.ops.moe import expert_ffn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = GLAM
+    t0 = time.perf_counter()
+    ff = port.FFModel(port.FFConfig(batch_size=MOE_ENGINE["serve_slots"],
+                                    seed=0, compute_dtype="bfloat16"),
+                      device="cuda")
+    _, logits = gpt_lm(ff, MOE_ENGINE["serve_slots"],
+                       MOE_ENGINE["max_seq_len"], m["hidden"], m["layers"],
+                       m["heads"], m["vocab"], moe_every=m["moe_every"],
+                       num_experts=m["experts"])
+    ff.compile(final_tensor=logits)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for ws in ff.params.values()
+                   for w in ws.values())
+    say(f"phase 10 serve (MoE LM): {n_params / 1e9:.3f} B params bf16, "
+        f"built in {time.perf_counter() - t0:.2f} s [{card}]")
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, m["vocab"], MOE_SERVE["prompt"]).astype(
+        np.int32) for _ in range(MOE_SERVE["prompts"])]
+    ff.serve(prompts[:2], max_new_tokens=4, **MOE_ENGINE)     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, st = ff.serve(prompts, max_new_tokens=MOE_SERVE["new"],
+                        **MOE_ENGINE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if any(o is None for o in outs) or st["completed"] != len(prompts):
+        fail(f"phase 10 serve (MoE LM): not every request finished with "
+             f"finite logits: {st}")
+    for o in outs:
+        if o.shape != (MOE_SERVE["prompt"] + MOE_SERVE["new"],):
+            fail(f"phase 10 serve (MoE LM): output shape {o.shape}")
+    want = {"flash_attention_fwd": m["layers"] * len(prompts),
+            "paged_prefill_write": len(prompts),
+            "paged_attention_fwd": m["layers"] * st["decode_steps"],
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0,
+            "fused_update": 0}
+    if launches != want:
+        fail(f"phase 10 serve (MoE LM): kernel launches {launches} != "
+             f"expected {want}")
+    say(f"phase 10 serve (MoE LM): {len(prompts)} prompts of "
+        f"{MOE_SERVE['prompt']} tokens, {st['tokens_generated']} tokens in "
+        f"{wall:.3f} s = {st['tokens_generated'] / wall:.2f} tokens/s; "
+        f"TTFT p50 {st['ttft_p50_ms']:.1f} ms, p99 {st['ttft_p99_ms']:.1f} "
+        f"ms; decode step {st['decode_step_ms']:.2f} ms over "
+        f"{st['decode_steps']} steps of {MOE_ENGINE['serve_slots']} slots; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    say(f"phase 10 serve (MoE LM): launches {launches}")
+    # one wave (a prompt a slot): TTFT without the queue behind a wave
+    _, st1 = ff.serve(prompts[:4], max_new_tokens=16, **MOE_ENGINE)
+    say(f"phase 10 serve (MoE LM): one wave of 4 prompts x 16 new tokens: "
+        f"TTFT p50 {st1['ttft_p50_ms']:.1f} ms, p99 "
+        f"{st1['ttft_p99_ms']:.1f} ms (the prefills run one after another),"
+        f" decode step {st1['decode_step_ms']:.2f} ms [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ff.serve(prompts[:4], max_new_tokens=16, **MOE_ENGINE)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = busy_ms(events)
+    bmm = sum(getattr(e, "device_time_total", 0) or
+              getattr(e, "cuda_time_total", 0)
+              for e in prof.key_averages() if e.key == "aten::bmm") / 1e3
+    say(f"phase 10 serve profile (MoE LM): 4 prompts x 16 new tokens, "
+        f"{len(events)} device events, device busy {busy:.1f} ms of "
+        f"{pwall:.1f} ms under the profiler (idle share "
+        f"{max(1 - busy / pwall, 0):.3f}); the expert products (aten::bmm, "
+        f"capacity = the slab's tokens) {bmm:.2f} ms, "
+        f"{100 * bmm / busy:.1f}% of the device time [{card}]")
+    p = ff.params["moe_1"]
+    e, d = m["experts"], m["hidden"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    routed = MOE_SERVE["prompt"] * 2 // e
+    times = {}
+    for c in (MOE_SERVE["prompt"], routed, MOE_ENGINE["serve_slots"]):
+        buf = torch.randn(e, c, d, device="cuda", generator=g).to(
+            torch.bfloat16)
+        times[c] = cuda_ms(lambda: expert_ffn(buf, p["w_in"],
+                                              p["w_out"]))
+    say(f"phase 10 serve (MoE LM): one layer's expert products at a "
+        f"{MOE_SERVE['prompt']}-token prefill's capacity "
+        f"({e}, {MOE_SERVE['prompt']}, {d}): {times[MOE_SERVE['prompt']]:.4f}"
+        f" ms; at the rows top-2 routing fills on average ({e}, {routed}, "
+        f"{d}): {times[routed]:.4f} ms; a decode step's ({e}, "
+        f"{MOE_ENGINE['serve_slots']}, {d}): "
+        f"{times[MOE_ENGINE['serve_slots']]:.4f} ms [{card}]")
+    del ff
+    return launches
+
+
+def phase_rest(torch, port, kernels, card: str):
+    """Phase 10: the card-vs-CPU checks (each op, each small model through
+    2 SGD steps, a served MoE LM's tokens), the fused ResNet bitwise the
+    unfused, the full-width training runs and the MoE serve. Returns
+    {path: launch counts}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launch_counts()
+    for name, (verb, shape, args, kw) in _rest_ops().items():
+        op_card_vs_cpu(torch, port, name, verb, shape, args, kw)
+    for name, (build, feed, classes) in _rest_models().items():
+        train_card_vs_cpu(torch, port, "phase 10 check", name, build, feed,
+                          classes)
+    checked = kernels.launch_counts()
+    for k in ("flash_attention_fwd", "flash_attention_bwd", "fused_update"):
+        if checked[k] == 0:
+            fail(f"phase 10 check: no launch of {k} ({checked})")
+    rest_moe_served_check(torch, port, kernels)
+    launches = {"fusion": rest_fusion(torch, port, kernels, card)}
+    launches.update(rest_train(torch, port, kernels, card))
+    launches["moe_serve"] = rest_moe_serve(torch, port, kernels, card)
+    return launches
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -2231,6 +2818,18 @@ KERNEL_ROWS = {
                               "train", "fused_update"),
     "fused_update_adam_per_leaf": ("fused_update.cu", FUSED_UPDATE_REPLACES,
                                    "train_check_adam", "fused_update"),
+    # phase 10's shapes: the MoE LM's causal attention in training, and
+    # its serve's prefill, decode step and 12-layer prefill write
+    "flash_attention_fwd_lse_moe_lm": ("flash_attention_wgmma.cu", 180,
+                                       "moe_lm_train", "flash_attention_fwd"),
+    "flash_attention_bwd_moe_lm": ("flash_attention_bwd_wgmma.cu", 335,
+                                   "moe_lm_train", "flash_attention_bwd"),
+    "flash_attention_fwd_moe_serve": ("flash_attention_wgmma.cu", 180,
+                                      "moe_serve", "flash_attention_fwd"),
+    "paged_attention_fwd_moe_serve": ("paged_attention.cu", 689,
+                                      "moe_serve", "paged_attention_fwd"),
+    f"paged_prefill_write_layers{GLAM['layers']}_moe_serve": (
+        "paged_prefill_write.cu", 779, "moe_serve", "paged_prefill_write"),
     # phase 9's shapes: BERT-base's attention (head dim 64, 12 heads) and
     # ResNet-50's 214 leaves (two update launches a step)
     "flash_attention_fwd_lse_bert": ("flash_attention_wgmma.cu", 180,
@@ -2272,6 +2871,7 @@ def main():
     launches.update(phase_train(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))
     launches.update(phase_zoo_train(torch, port, kernels, card))
+    launches.update(phase_rest(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     table = []

@@ -18,8 +18,6 @@ from typing import List, Optional
 
 #: where the features of later slices are queued
 ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
-ROADMAP_OPS = ("ROADMAP.md queue 1, item 4 (recurrent, MoE, fused and "
-               "pipelined ops)")
 ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
 
 
@@ -71,6 +69,9 @@ class FFConfig:
     on_nonfinite: str = "none"
     loss_scale: float = 1.0  # initial loss scale ("backoff" mode)
     loss_scale_growth_interval: int = 200
+    # fold each op's chain of weightless elementwise followers into one
+    # FusedOp at compile (ops/fused.py apply_fusion); the math is unchanged
+    perform_fusion: bool = False
     # later-slice knob, kept with the JAX default (see module docstring)
     checkpoint_dir: str = ""
 

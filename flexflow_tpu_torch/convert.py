@@ -1,9 +1,12 @@
 """Carry weights and op state from the JAX package into the port.
 
 The port keeps the JAX package's weight names and layouts (``Linear.kernel``
-(in, out), ``wq`` (D, H, Hd), ``wo`` (H, Hd, D), ...), so moving a model's
-``ff.params`` across is a cast and a copy; a paged KV pool (``k``/``v``
-pages and, quantized, ``k_scale``/``v_scale``) moves bit for bit. The JAX
+(in, out), ``wq`` (D, H, Hd), ``wo`` (H, Hd, D), the pipelined stack's
+(L, ...) stacked weights, a MoE's ``w_in`` (E, D, F) and ``w_out`` (E, F,
+D), a fused group's weights under its leader's name, ...), so moving a
+model's ``ff.params`` across is a cast and a copy; a paged KV pool
+(``k``/``v`` pages and, quantized, ``k_scale``/``v_scale``) moves bit for
+bit. The JAX
 arrays arrive as numpy (``np.asarray`` of each leaf) — this module imports
 nothing of JAX.
 """

@@ -108,6 +108,10 @@ class OperatorType(enum.Enum):
     OP_PAD = enum.auto()
     OP_MEAN = enum.auto()
     OP_GATHER = enum.auto()
+    OP_FUSED = enum.auto()
+    OP_LSTM = enum.auto()
+    OP_GRU = enum.auto()
+    OP_MOE = enum.auto()
 
 
 #: the torch dtype of each DataType (a Cast's target; the JAX package

@@ -27,8 +27,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch._device import resolve_device
-from flexflow_tpu_torch.config import (ROADMAP_OPS, FFConfig,
-                                       check_training_ported, not_ported)
+from flexflow_tpu_torch.config import FFConfig, check_training_ported
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType,
                                         PoolType)
@@ -38,8 +37,12 @@ from flexflow_tpu_torch.ops.conv import BatchNorm, Conv2D, Flat, Pool2D
 from flexflow_tpu_torch.ops.dense import BatchMatmul, Embedding, Linear
 from flexflow_tpu_torch.ops.elementwise import (Cast, ElementBinary,
                                                 ElementUnary, Mean)
+from flexflow_tpu_torch.ops.fused import apply_fusion
+from flexflow_tpu_torch.ops.moe import MoE
 from flexflow_tpu_torch.ops.norm import (AddLayerNorm, Dropout, LayerNorm,
                                          RMSNorm, Softmax)
+from flexflow_tpu_torch.ops.pipelined import TransformerPipelineStack
+from flexflow_tpu_torch.ops.recurrent import GRU, LSTM
 from flexflow_tpu_torch.ops.tensor_ops import (Concat, Gather, Pad, Reshape,
                                                Reverse, Split, TopK, Transpose)
 from flexflow_tpu_torch.runtime.executor import (GraphExecutor, StepReplay,
@@ -63,6 +66,10 @@ class FFModel:
         self.device = resolve_device(device)
         self.ops: List[Op] = []
         self._op_counters: Dict[str, int] = {}
+        # second outputs a training loss adds (each MoE's balance loss)
+        self._aux_tensors: List[Tensor] = []
+        # each op's index before apply_fusion (seeds its generator)
+        self._graph_index: Optional[Dict[str, int]] = None
         self.params: Optional[Params] = None
         # (dst op, dst weight) -> (src op, src weight, transform)
         self._tied: Dict[Tuple[str, str], Tuple[str, str, str]] = {}
@@ -230,25 +237,41 @@ class FFModel:
                              value))
 
     def lstm(self, input: Tensor, hidden_size: int,
-             return_sequences: bool = True, name: Optional[str] = None):
-        raise not_ported("lstm (ops/recurrent.py)", where=ROADMAP_OPS)
+             return_sequences: bool = True,
+             name: Optional[str] = None) -> Tensor:
+        return self._add(LSTM(self, self._name("lstm", name), [input],
+                              hidden_size, return_sequences))
 
     def gru(self, input: Tensor, hidden_size: int,
-            return_sequences: bool = True, name: Optional[str] = None):
-        raise not_ported("gru (ops/recurrent.py)", where=ROADMAP_OPS)
+            return_sequences: bool = True,
+            name: Optional[str] = None) -> Tensor:
+        return self._add(GRU(self, self._name("gru", name), [input],
+                             hidden_size, return_sequences))
 
     def moe(self, input: Tensor, num_experts: int, hidden_dim: int,
             k: int = 2, capacity_factor: float = 1.25,
-            dispatch: str = "auto", name: Optional[str] = None):
-        raise not_ported("moe (ops/moe.py)", where=ROADMAP_OPS)
+            dispatch: str = "auto", name: Optional[str] = None) -> Tensor:
+        """Mixture-of-experts FFN. Returns the main output; the
+        load-balancing aux loss (the op's second output) is folded into
+        the training loss. dispatch: "auto" (sort-based: the experts are
+        not mesh-sharded in the port) | "dense" | "sort"."""
+        outs = self._add(MoE(self, self._name("moe", name), [input],
+                             num_experts, hidden_dim, k, capacity_factor,
+                             dispatch=dispatch))
+        self._aux_tensors.append(outs[1])
+        return outs[0]
 
     def transformer_pipeline_stack(self, input: Tensor, num_layers: int,
                                    num_heads: int, ffn_mult: int = 4,
                                    causal: bool = False,
                                    num_microbatches: Optional[int] = None,
-                                   name: Optional[str] = None):
-        raise not_ported("transformer_pipeline_stack (ops/pipelined.py)",
-                         where=ROADMAP_OPS)
+                                   name: Optional[str] = None) -> Tensor:
+        """L identical transformer blocks as one op with stacked (L, ...)
+        weights, run layer by layer (ops/pipelined.py; the GPipe path
+        under a pipe mesh axis comes with the mesh)."""
+        return self._add(TransformerPipelineStack(
+            self, self._name("transformer_pipeline_stack", name), [input],
+            num_layers, num_heads, ffn_mult, causal, num_microbatches))
 
     def embedding(self, input: Tensor, num_entries: int, out_dim: int,
                   aggr: AggrMode = AggrMode.AGGR_MODE_NONE,
@@ -467,6 +490,10 @@ class FFModel:
         if not self.ops:
             raise ValueError("compile() on an empty graph")
         self._final_tensor = final_tensor or self.ops[-1].outputs[0]
+        if self.config.perform_fusion:
+            # reference: FFModel::apply_fusion (model.cc:1538-1593)
+            apply_fusion(self, protected=[self._final_tensor]
+                         + self._aux_tensors)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.seed)
         executor = GraphExecutor(self)

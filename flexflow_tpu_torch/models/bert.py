@@ -1,7 +1,5 @@
 """BERT / GPT-style language models on the native API — a copy of the JAX
-package's ``models/bert.py`` against the port's FFModel. The MoE layers
-of ``gpt_lm`` and the pipelined stack of ``gpt_pipelined`` are not ported
-yet (ROADMAP.md queue 1, item 4): both raise.
+package's ``models/bert.py`` against the port's FFModel.
 
 Reference analog: examples/python/native/bert_proxy_native.py (BERT-proxy
 encoder stack). Adds the decoder-only GPT/Llama-style variant (RMSNorm +
@@ -11,7 +9,6 @@ causal attention + MoE option) — the modern configs the TPU rebuild targets
 
 from __future__ import annotations
 
-from flexflow_tpu_torch.config import ROADMAP_OPS, not_ported
 from flexflow_tpu_torch.ffconst import ActiMode, DataType
 from flexflow_tpu_torch.models.transformer import encoder_block
 
@@ -40,11 +37,7 @@ def gpt_lm(ff, batch_size: int, seq_len: int = 256,
            hidden: int = 512, layers: int = 8, heads: int = 8,
            vocab_size: int = 32_000, moe_every: int = 0,
            num_experts: int = 8):
-    """Decoder-only causal LM; set moe_every=2 for a GShard-style MoE stack
-    (not ported yet: raises)."""
-    if moe_every:
-        raise not_ported(f"gpt_lm(moe_every={moe_every}): the MoE layer",
-                         where=ROADMAP_OPS)
+    """Decoder-only causal LM; set moe_every=2 for a GShard-style MoE stack."""
     tokens = ff.create_tensor([batch_size, seq_len], dtype=DataType.DT_INT32,
                               name="input")
     t = ff.embedding(tokens, vocab_size, hidden, name="tok_embed")
@@ -54,8 +47,13 @@ def gpt_lm(ff, batch_size: int, seq_len: int = 256,
                                    bias=False, name=f"attn_{i}")
         t = ff.add(t, a, name=f"res1_{i}")
         f = ff.rms_norm(t, name=f"ln2_{i}")
-        f = ff.dense(f, hidden * 4, ActiMode.AC_MODE_GELU, name=f"ffn1_{i}")
-        f = ff.dense(f, hidden, name=f"ffn2_{i}")
+        if moe_every and (i + 1) % moe_every == 0:
+            f = ff.moe(f, num_experts=num_experts, hidden_dim=hidden * 4,
+                       k=2, name=f"moe_{i}")
+        else:
+            f = ff.dense(f, hidden * 4, ActiMode.AC_MODE_GELU,
+                         name=f"ffn1_{i}")
+            f = ff.dense(f, hidden, name=f"ffn2_{i}")
         t = ff.add(t, f, name=f"res2_{i}")
     t = ff.rms_norm(t, name="ln_f")
     logits = ff.dense(t, vocab_size, use_bias=False, name="lm_head")
@@ -68,8 +66,15 @@ def gpt_pipelined(ff, batch_size: int, seq_len: int = 256,
                   num_microbatches=None):
     """Decoder-only causal LM with the layer stack as ONE pipelined op
     (ops/pipelined.py): under a 'pipe' mesh axis the blocks run as a GPipe
-    ring; single-device it is a lax.scan over layers. The graph-level PP
-    counterpart of the reference's NMT pipeline (nmt/rnn.h:21-63). Not
-    ported yet: raises."""
-    raise not_ported("gpt_pipelined: the pipelined layer stack",
-                     where=ROADMAP_OPS)
+    ring; single-device it is a loop over the stacked layers. The
+    graph-level PP counterpart of the reference's NMT pipeline
+    (nmt/rnn.h:21-63)."""
+    tokens = ff.create_tensor([batch_size, seq_len], dtype=DataType.DT_INT32,
+                              name="input")
+    t = ff.embedding(tokens, vocab_size, hidden, name="tok_embed")
+    t = ff.transformer_pipeline_stack(t, layers, heads, causal=True,
+                                      num_microbatches=num_microbatches,
+                                      name="blocks")
+    t = ff.rms_norm(t, name="ln_f")
+    logits = ff.dense(t, vocab_size, use_bias=False, name="lm_head")
+    return tokens, logits

@@ -24,7 +24,10 @@ folds them into its step key), which their draws advance step by step; a
 captured step registers them with its CUDA graph, so every replay draws
 anew. Tied weights (``FFModel.tie_weights``) are resolved from their
 source's leaf in the walk (``resolve_tied_params``), so both uses'
-gradients sum into that leaf.
+gradients sum into that leaf. An op may have several outputs (the MoE's
+second is its 0-d f32 aux loss, which a training loss adds in every step
+variant); a fused group (``ops/fused.py``) runs as one op under its
+leader's name, each of its parts that draws from its own generator.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.ops.base import InputOp
+from flexflow_tpu_torch.ops.fused import FusedOp
 from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import batch_metrics
@@ -86,6 +90,18 @@ def resolve_tied_params(model, params: Params, op_name: str,
     return p if out is None else out
 
 
+def drawing_ops(model):
+    """(graph index, op) of every op that draws, fused groups' parts
+    included: the index is the op's place in the graph before
+    ``apply_fusion`` (``FFModel._graph_index``), so a fused model's ops
+    draw what the unfused model's do."""
+    index = model._graph_index
+    for idx, op in enumerate(model.ops):
+        for part in (op.parts() if isinstance(op, FusedOp) else [op]):
+            if part.needs_rng:
+                yield (index[part.name] if index else idx), part
+
+
 class GraphExecutor:
     def __init__(self, model):
         self.model = model
@@ -116,12 +132,11 @@ class GraphExecutor:
         """A generator on the model's device for every op that draws
         (``needs_rng``), seeded by ``op_generator_seed``."""
         gens = {}
-        for idx, op in enumerate(self.model.ops):
-            if op.needs_rng:
-                g = torch.Generator(device=self.model.device)
-                g.manual_seed(op_generator_seed(
-                    self.model.config.seed, idx, getattr(op, "seed", 0)))
-                gens[op.name] = g
+        for idx, op in drawing_ops(self.model):
+            g = torch.Generator(device=self.model.device)
+            g.manual_seed(op_generator_seed(
+                self.model.config.seed, idx, getattr(op, "seed", 0)))
+            gens[op.name] = g
         return gens
 
     # ---- forward interpretation ----------------------------------------------
@@ -152,9 +167,12 @@ class GraphExecutor:
                      else w)
                  for k, w in p.items()}
             xs = [vals[t] for t in op.inputs]
+            kw = {"gens": gens} if isinstance(op, FusedOp) else {}
             if op.stateful:
                 outs, new_state[op.name] = op.forward_stateful(
-                    p, state[op.name], xs, training=training)
+                    p, state[op.name], xs, training=training, **kw)
+            elif kw:
+                outs = op.forward(p, xs, training=training, **kw)
             elif op.needs_rng:
                 outs = op.forward(p, xs, training=training,
                                   gen=(gens or {}).get(op.name))
@@ -173,13 +191,19 @@ class GraphExecutor:
                         training: bool, label_key: str = "label"):
         """(loss, metrics, logits, new state) of one batch — the JAX
         ``_make_loss_fn`` body — on the model's state, drawing from its
-        generators in training."""
+        generators in training. A training loss adds every aux tensor
+        (``FFModel._aux_tensors``: each MoE's load-balancing loss, a 0-d
+        f32 value); evaluation leaves them out, as JAX's eval step
+        does."""
         vals, new_state = self.apply_graph(
             params, self._input_values(batch), training=training,
             state=self.model.bn_state,
             gens=self.model._generators if training else None)
         logits = vals[final_tensor]
         loss = compute_loss(loss_type, logits, batch[label_key])
+        if training:
+            for t in self.model._aux_tensors:   # MoE load-balancing losses
+                loss = loss + vals[t]
         mets = batch_metrics(loss_type, metric_types, logits.detach(),
                              batch[label_key])
         return loss, mets, logits, new_state

@@ -7,6 +7,8 @@ whole-prompt prefill into a contiguous per-request cache, a prompt chunk
 behind a cached prefix (``chunk_start=``) and the read-only query of the
 prompt's last token (``gather_last=``) — a prefix-cache hit's two passes —
 or one continuous-batching decode step over the paged pool (``paged=``).
+A MoE layer runs at capacity = the slab's token count, as in the JAX walk:
+no token drops, so each row's output is its own.
 
 Weight-only quantization (``quantize='int8'`` / ``'fp8'``): every float
 weight with two or more dims is stored once as a quantized payload with
@@ -17,6 +19,7 @@ use (``_deq``), as the JAX package does; the matrix products stay
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -30,14 +33,36 @@ from flexflow_tpu_torch.ops.base import InputOp
 from flexflow_tpu_torch.runtime.executor import resolve_tied_params
 
 # ops whose forward treats every (batch, position) independently — safe to
-# run on a (B, 1) decode slab exactly as on the full sequence
+# run on a (B, 1) decode slab exactly as on the full sequence (the JAX set)
 _DECODE_SAFE = {
     OperatorType.OP_LINEAR,
     OperatorType.OP_EMBEDDING,
+    OperatorType.OP_LAYERNORM,
     OperatorType.OP_RMSNORM,
+    OperatorType.OP_DROPOUT,   # inference: identity
+    OperatorType.OP_CAST,
+    OperatorType.OP_SCALAR_MULTIPLY,
+    OperatorType.OP_IDENTITY,
+    OperatorType.OP_EXP,
+    OperatorType.OP_SIN,
+    OperatorType.OP_COS,
+    OperatorType.OP_POW,
+    OperatorType.OP_RSQRT,
+    OperatorType.OP_RELU,
     OperatorType.OP_SIGMOID,
+    OperatorType.OP_TANH,
+    OperatorType.OP_ELU,
+    OperatorType.OP_GELU,
     OperatorType.OP_EW_ADD,
     OperatorType.OP_EW_MUL,
+    OperatorType.OP_EW_SUB,
+    OperatorType.OP_EW_DIV,
+    OperatorType.OP_EW_MAX,
+    OperatorType.OP_EW_MIN,
+    # MoE routes each token independently; the walk overrides its capacity
+    # to the slab's token count, so no assignment drops and rows stay
+    # independent (the JAX walk, generation.py:364-369)
+    OperatorType.OP_MOE,
 }
 
 
@@ -246,6 +271,9 @@ class Generator:
                 outs = [out]
             elif looked_up is not None:
                 outs = [looked_up]
+            elif op.op_type == OperatorType.OP_MOE:
+                outs = op.forward(p, xs,
+                                  capacity=math.prod(xs[0].shape[:-1]))
             else:
                 outs = op.forward(p, xs)
             for i, t in enumerate(op.outputs):

@@ -1875,6 +1875,16 @@ def _zoo_ops():
 
     relu = __import__("flexflow_tpu_torch").ActiMode.AC_MODE_RELU
     return {
+        # the slice of MoE and LSTM / GRU: the MoE at a binding capacity
+        # (4 of ~12 assignments an expert)
+        "moe-sort": one("moe", (2, 12, 16), 4, 32, capacity_factor=0.5,
+                        dispatch="sort"),
+        "moe-dense": one("moe", (2, 12, 16), 4, 32, capacity_factor=0.5,
+                         dispatch="dense"),
+        "lstm": one("lstm", (3, 7, 12), 10),
+        "lstm-last": one("lstm", (3, 7, 12), 10, return_sequences=False),
+        "gru": one("gru", (3, 7, 12), 10),
+        "gru-last": one("gru", (3, 7, 12), 10, return_sequences=False),
         "conv-strided-padded": one("conv2d", (2, 8, 17, 17), 16, 3, 3, 2, 2,
                                    1, 1, relu),
         "conv-grouped": one("conv2d", (2, 8, 9, 9), 8, 3, 3, 1, 1, 1, 1,
@@ -2113,3 +2123,165 @@ def test_flash_at_bert_base_heads(cuda, dtype):
         torch.testing.assert_close(
             a.float(), b.float(), rtol=0,
             atol=rel * b.float().abs().max().item())
+
+
+# ---- MoE, the recurrent ops, the pipelined stack and fusion on the card --
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_at_gpt2_small_heads_causal(cuda, dtype):
+    """Kernels 1 (with its lse) and 2 at the MoE and pipelined LMs'
+    attention: 12 heads of 64, seq 1024, causal (batch 8), against their
+    plain versions: f32 within 2e-5 (the backward within 1e-4 of the
+    gradients' largest value), bf16 within 2e-2 of the largest
+    magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(8, 1024, 12, 64, device=cuda,
+                               generator=g).to(dtype) for _ in range(4))
+    scale = 64 ** -0.5
+    n0 = kernels.flash_attention_fwd.launches
+    o, lse = kernels.flash_attention_fwd(q, k, v, True, scale,
+                                         need_lse=True)
+    ro, rlse = kernels.flash_attention_plain(q, k, v, True, scale,
+                                             need_lse=True)
+    assert kernels.flash_attention_fwd.launches == n0 + 1
+    _close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-3)
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    ref = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, True,
+                                            scale)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=rel * b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flash", "einsum"])
+def test_pipeline_stack_on_card_matches_the_cpu(no_tf32, route):
+    """The pipelined stack (2 stacked layers, hidden 64, 2 heads of 32,
+    causal) in f32 on the card — the f32 flash kernels, or its einsum
+    route under use_flash_attention=False — against the CPU from the same
+    weights: output within 1e-5, each gradient within 1e-5 of its largest
+    value, but the key bias's, which is zero in exact arithmetic (a
+    constant a query row, which the softmax drops): there both devices'
+    rounding noise stays under 1e-6 of the largest gradient."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 64, 64).astype(np.float32)
+    cot = rs.randn(2, 64, 64).astype(np.float32)
+    res, src = [], None
+    for dev in ("cpu", no_tf32):
+        ff = FFModel(FFConfig(batch_size=2, seed=3,
+                              use_flash_attention=route == "flash"),
+                     device=dev)
+        xt = ff.create_tensor([2, 64, 64], name="x")
+        ff.transformer_pipeline_stack(xt, 2, 2, causal=True, name="op")
+        ff.compile(final_tensor=ff.ops[-1].outputs[0])
+        if src is None:
+            src = ff.params
+        else:
+            ff.params = {op: {k: w.to(dev) for k, w in ws.items()}
+                         for op, ws in src.items()}
+        p = {k: w.clone().requires_grad_() for k, w in ff.params["op"].items()}
+        xv = torch.tensor(x, device=dev, requires_grad=True)
+        n0 = kernels.flash_attention_bwd.launches
+        y = ff.get_op_by_name("op").forward(p, [xv], training=True)[0]
+        grads = torch.autograd.grad(
+            (y * torch.tensor(cot, device=dev)).sum(), [xv, *p.values()])
+        launched = kernels.flash_attention_bwd.launches - n0
+        res.append((y.detach().cpu(), dict(zip(["x", *p], [
+            g.cpu() for g in grads]))))
+    assert launched == (2 if route == "flash" else 0)
+    (yc, gc_), (yg, gg) = res
+    torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5)
+    top = max(g.abs().max().item() for g in gc_.values())
+    for got in (gg.pop("bk"), gc_.pop("bk")):
+        assert got.abs().max().item() <= 1e-6 * top
+    for k, b in gc_.items():
+        torch.testing.assert_close(gg[k], b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item(),
+                                   msg=lambda m: f"{k}: {m}")
+
+
+def _moe_lm(device, seed=2, **cfg):
+    """gpt_lm(moe_every=2) small in f32 (hidden 64, 2 heads of 32, 4
+    experts at the default capacity), SGD, 6 batches of 4 staged."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, SGDOptimizer,
+                                    SingleDataLoader)
+    from flexflow_tpu_torch.models import gpt_lm
+
+    ff = FFModel(FFConfig(batch_size=4, seed=seed, **cfg), device=device)
+    tok, out = gpt_lm(ff, 4, seq_len=64, hidden=64, layers=2, heads=2,
+                      vocab_size=97, moe_every=2, num_experts=4)
+    ff.compile(SGDOptimizer(lr=0.05),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = np.random.RandomState(seed)
+    SingleDataLoader(ff, tok, rs.randint(0, 97, (24, 64)).astype(np.int32))
+    SingleDataLoader(ff, ff.label_tensor,
+                     rs.randint(0, 97, (24, 64, 1)).astype(np.int32))
+    return ff
+
+
+@pytest.mark.cuda
+def test_moe_lm_aux_under_step_replay_matches_per_step(no_tf32):
+    """The MoE LM through scan_steps (one step captured as a CUDA graph,
+    the routing and the aux loss inside it) against per-step training on
+    the card and on the CPU from the same weights: losses within 1e-5
+    relative, weights within 1e-5; the flash kernels launched on every
+    replayed step."""
+    per = _moe_lm(no_tf32)
+    scan = _moe_lm(no_tf32, scan_steps=3)
+    cpu = _moe_lm("cpu")
+    for ff in (scan, cpu):
+        _copy_weights(ff, per)
+    n0 = kernels.flash_attention_bwd.launches
+    losses = torch.cat([scan.train_scanned(3)[0] for _ in range(2)]).cpu()
+    assert scan._replay.replays == 5
+    assert kernels.flash_attention_bwd.launches - n0 == 6 * 2
+    for ref in (per, cpu):
+        want = torch.stack([ref._run_train_step(ref._stage_batch())[0]
+                            for _ in range(6)]).cpu()
+        torch.testing.assert_close(losses, want, rtol=1e-5, atol=0)
+        assert _max_diff(scan, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_fused_group_dropout_replays_like_unfused(cuda):
+    """A dropout fused onto its producer (perform_fusion) keeps its own
+    generator, which the CUDA graph of a scanned step registers through
+    the group: every replay draws a new mask, and the fused model's losses
+    over 6 scanned steps are bitwise the unfused model's."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, SGDOptimizer,
+                                    SingleDataLoader)
+
+    runs = []
+    for fusion in (False, True):
+        ff = FFModel(FFConfig(batch_size=8, seed=4, scan_steps=6,
+                              perform_fusion=fusion), device=cuda)
+        x = ff.create_tensor([8, 256], name="input")
+        h = ff.dense(x, 256, name="fc1")
+        h = ff.relu(h, name="act")
+        h = ff.dropout(h, 0.5, name="drop")
+        out = ff.dense(h, 4, name="fc2")
+        ff.compile(SGDOptimizer(lr=0.01),
+                   LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [MetricsType.METRICS_ACCURACY], final_tensor=out)
+        rs = np.random.RandomState(0)
+        SingleDataLoader(ff, x, np.tile(rs.randn(8, 256).astype(
+            np.float32), (6, 1)))
+        SingleDataLoader(ff, ff.label_tensor, np.tile(
+            rs.randint(0, 4, (8, 1)).astype(np.int32), (6, 1)))
+        runs.append((ff, ff.train_scanned(6)[0].cpu()))
+    (plain, lp), (fused, lf) = runs
+    assert len(plain.ops) - len(fused.ops) == 2
+    assert fused._replay.replays == 5
+    assert len(set(lf.tolist())) == 6
+    assert torch.equal(lf, lp)

@@ -135,15 +135,17 @@ def test_port_imports_no_jax():
     files += [REPO / "chip_smoke.py"]
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     names = {str(f.relative_to(REPO)) for f in files}
-    # the training slice's modules and the zoo slice's are among those
-    # scanned, and the port's scripts
+    # the training slice's modules, the zoo slice's and the MoE / recurrent
+    # / pipelined / fusion slice's are among those scanned, and the port's
+    # scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
         "runtime/metrics", "runtime/dataloader", "models/transformer",
         "ops/norm", "ops/kernels", "ops/conv", "ops/tensor_ops",
         "ops/elementwise", "ops/dense", "ops/attention", "models/cnn",
         "models/bert", "models/vit", "models/dlrm", "models/llama",
-        "convert", "ffconst")} <= names
+        "convert", "ffconst", "ops/moe", "ops/recurrent", "ops/pipelined",
+        "ops/fused", "models/nmt")} <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
     for f in files:
