@@ -177,6 +177,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 kernels 1 and 2 at the MoE LM's (8, 1024, 12, 64) causal,
                 and kernels 1, 4 and 5 at its serve's shapes.
 
+ 11. decode features — right after 6b, on phase 6's Llama-3-8B (bf16, 4
+                slots, 128-token pages, no prefix cache so every round
+                prefills cold): (a) greedy through the captured decode (a
+                CUDA graph: one capture, then replays), twice on one
+                engine and once under torch.profiler (idle share), and the
+                same body uncaptured in the same process (its decode step
+                and token agreement printed); (b) sampled per request
+                (temperatures 0 / 0.7 / 1.0, top_p 0.9, top_k 50, a seed
+                each) on two engines; (c) greedy and (d) sampled
+                speculation at K = 4 with a draft at Llama-3.2-1B's widths
+                (hidden 2048, 16 layers, 32 heads over 8 kv heads, ffn
+                8192, tied embeddings); (e) prefill_chunk=256, then with
+                prefill_interleave_chunks=1 (and a wave whose 700-token
+                prompt prefills while three short ones decode). Greedy
+                tokens identical to phase 6's in every run (the
+                temperature-0 rows of the sampled ones too), sampled
+                streams identical across two engines, exact launch counts
+                (the draft's layers included), each key captured once, the
+                split-KV tickets zero after every round. Phase 3 holds
+                kernel 4 at the verify slab (4, 5, 32, 128) with clamped
+                positions and at the draft's decode step, kernel 1 at the
+                draft's prefill and kernel 5 over its 16 layers.
+
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
 """
@@ -440,6 +463,7 @@ def phase_kernels(torch, port, kernels):
     rows.update(prefill_write_rows(torch, kernels, g))
     rows.update(training_kernel_rows(torch, kernels, g))
     rows.update(moe_serve_kernel_rows(torch, kernels, g))
+    rows.update(decode_feature_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
@@ -543,17 +567,25 @@ def paged_case(torch, kernels, g, pool: str, long: bool,
         pps = 8
         lens = ([500, 620, 530, 690], [512, 640, 544, 704],
                 [600, 660, 560, 720])
+    s = 1
     if geom:
         h, kvh, d, pps, lens = (geom[k] for k in ("heads", "kv_heads", "d",
                                                   "pages", "lens"))
+        s = geom.get("s", 1)
     n_pool = b * pps + 1
     qdt = torch.float32 if pool == "mixed" else torch.bfloat16
-    q = torch.randn(b, 1, h, d, device=dev, generator=g).to(qdt)
+    q = torch.randn(b, s, h, d, device=dev, generator=g).to(qdt)
     table = (torch.randperm(n_pool - 1, device=dev, generator=g) + 1)
     table = table[:b * pps].reshape(b, pps).to(torch.int32).contiguous()
     row_len, pad = (torch.tensor(x, dtype=torch.int32, device=dev)
                     for x in lens[:2])
-    wp = torch.tensor(lens[2], dtype=torch.int32, device=dev)[:, None]
+    # a verify slab (s > 1): position i writes at lens[2] + i, clamped to
+    # the slot's budget - 1 (the clamped slots repeat their last position)
+    wp = torch.tensor(lens[2], dtype=torch.int32, device=dev)[:, None] \
+        + torch.arange(s, dtype=torch.int32, device=dev)
+    if s > 1:
+        wp = torch.minimum(wp, torch.tensor(geom["budget"], dtype=torch.int32,
+                                            device=dev)[:, None] - 1)
     shape = (n_pool, ps, kvh, d)
     kw = {}
     if pool in ("bf16", "mixed"):
@@ -572,31 +604,38 @@ def paged_case(torch, kernels, g, pool: str, long: bool,
             for _ in range(2))))
     # live keys per slot: the prompt, then the decoded positions from the
     # bucket's end to the write frontier (the padding between is dead), and
-    # the pages they lie in (the scale reads)
-    live, pages_read = 0, 0
+    # the pages they lie in (the scale reads); K/V are read once a slot (up
+    # to its furthest frontier), the products count every query row's keys
+    keys, live, pages_read = 0, 0, 0
     for i in range(b):
+        front = [int(x) for x in wp[i]]
         pos = list(range(int(row_len[i]))) + list(
-            range(int(pad[i]), int(wp[i, 0]) + 1))
-        live += len(pos)
+            range(int(pad[i]), max(front) + 1))
+        keys += len(pos)
+        live += sum(int(row_len[i]) + f + 1 - int(pad[i]) for f in front)
         pages_read += len({j // ps for j in pos})
     ints = 4 * (table.numel() + wp.numel() + 2 * b)
     # q read and out written, the live K/V once, a quantized pool's scales
     nbytes = (2 * q.element_size() * q.numel()
-              + 2 * live * kvh * d * kp.element_size() + ints
+              + 2 * keys * kvh * d * kp.element_size() + ints
               + (4 * 2 * pages_read * kvh if kw else 0))
     peak = F32_FLOP_PER_S if pool == "mixed" else BF16_FLOP_PER_S
-    plan = kernels.paged_attention_plan(b, 1, h, kvh, ps, pps,
-                                        kernels.sm_count(dev))
+    # a bf16 verify slab splits as a decode step does, as the engine runs
+    # it (attention.verify_as_decode)
+    fwd_kw = dict(decode_splits=True) if s > 1 else {}
+    plan = kernels.paged_attention_plan(b, s, h, kvh, ps, pps,
+                                        kernels.sm_count(dev), **fwd_kw)
     limit, scaled = {"bf16": (PAGED_TOL, False), "int8": (QUANT_TOL, True),
                      "fp8": (QUANT_TOL, True),
                      "mixed": (MIXED_TOL, True)}[pool]
-    desc = (f"q ({b},1,{h},{d}) {'f32' if pool == 'mixed' else 'bf16'}, "
+    desc = (f"q ({b},{s},{h},{d}) {'f32' if pool == 'mixed' else 'bf16'}, "
             f"{'bf16' if pool == 'mixed' else pool} pool ({n_pool},{ps},"
-            f"{kvh},{d}){' + scales' if kw else ''}, {live} live positions; "
+            f"{kvh},{d}){' + scales' if kw else ''}, {keys} live positions"
+            + (f", write_pos {wp.tolist()}" if s > 1 else "") + "; "
             f"grid {plan.grid} = {plan.blocks} blocks of {plan.threads}, "
             f"{plan.splits} splits of {plan.split_pages} page(s)")
     return dict(args=(q, kp, vp, table, wp, row_len, pad, d ** -0.5), kw=kw,
-                limit=limit, scaled=scaled, bound=bound(nbytes, 4 * live * h
+                fwd_kw=fwd_kw, limit=limit, scaled=scaled, bound=bound(nbytes, 4 * live * h
                                                         * d, peak),
                 plan=plan, shape=desc)
 
@@ -618,7 +657,8 @@ def paged_attention_rows(torch, kernels, g, cases=PAGED_CASES,
     rows = {}
     for name, pool, long in cases:
         c = paged_case(torch, kernels, g, pool, long, geom)
-        out = kernels.paged_attention_fwd(*c["args"], **c["kw"])
+        out = kernels.paged_attention_fwd(*c["args"], **c["kw"],
+                                          **c["fwd_kw"])
         ref = kernels.paged_attention_plain(*c["args"], **c["kw"])
         torch.cuda.synchronize()
         err = paged_err(c, out, ref)
@@ -627,8 +667,8 @@ def paged_attention_rows(torch, kernels, g, cases=PAGED_CASES,
                  f"(limit {c['limit']}{', scaled' if c['scaled'] else ''})")
         rows[name] = dict(
             err=err,
-            ms=cuda_ms(lambda: kernels.paged_attention_fwd(*c["args"],
-                                                           **c["kw"])),
+            ms=cuda_ms(lambda: kernels.paged_attention_fwd(
+                *c["args"], **c["kw"], **c["fwd_kw"])),
             plain_ms=cuda_ms(lambda: kernels.paged_attention_plain(
                 *c["args"], **c["kw"])),
             library_ms=None, library=None, bound=c["bound"], shape=c["shape"])
@@ -941,6 +981,35 @@ def moe_serve_kernel_rows(torch, kernels, g):
     rows.update(prefill_write_rows(
         torch, kernels, g, pools=(("", "bf16"),),
         layer_counts=(GLAM["layers"],), tag_suffix="_moe_serve", kvh=h,
+        d=d))
+    return rows
+
+
+def decode_feature_kernel_rows(torch, kernels, g):
+    """Kernels 1, 4 and 5 at the new shapes of phase 11's speculative
+    serve: kernel 4 at the verify slab (4 slots of K + 1 = 5 positions
+    over Llama-3-8B's pool, the clamped slots repeating their last write
+    position) and at the draft's decode step (Llama-3.2-1B's 32 heads of
+    64 over 8 kv heads), kernel 1 at the draft's 512-token prefill, and
+    kernel 5 writing the draft's 16 layers in one launch."""
+    h, kvh = LLAMA32_1B["heads"], LLAMA32_1B["kv_heads"]
+    d = LLAMA32_1B["hidden"] // h
+    rows = paged_attention_rows(
+        torch, kernels, g, (("paged_attention_fwd_verify", "bf16", False),),
+        dict(heads=LLAMA3_8B["heads"], kv_heads=LLAMA3_8B["kv_heads"],
+             d=128, pages=8, s=SPEC_K + 1,
+             lens=([500, 620, 530, 690], [512, 640, 544, 704],
+                   [600, 660, 560, 720]), budget=[1024, 662, 562, 1024]))
+    rows.update(paged_attention_rows(
+        torch, kernels, g, (("paged_attention_fwd_draft", "bf16", False),),
+        dict(heads=h, kv_heads=kvh, d=d, pages=8,
+             lens=([500, 620, 530, 690], [512, 640, 544, 704],
+                   [600, 660, 560, 720]))))
+    rows["flash_attention_fwd_draft"] = flash_serve_row(torch, kernels, g, h,
+                                                        kvh, d)
+    rows.update(prefill_write_rows(
+        torch, kernels, g, pools=(("", "bf16"),),
+        layer_counts=(LLAMA32_1B["layers"],), tag_suffix="_draft", kvh=kvh,
         d=d))
     return rows
 
@@ -1558,7 +1627,7 @@ def phase_serve(torch, FFConfig, FFModel, llama_lm, kernels, card: str):
     say(f"serve: launches {launches}")
     say(f"serve: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
-    return launches, ff
+    return launches, ff, outs
 
 
 def _serve_round(torch, kernels, eng, prompts, layers):
@@ -2765,6 +2834,285 @@ def phase_rest(torch, port, kernels, card: str):
     return launches
 
 
+# ------------------- phase 11: the serving engine's decode features
+
+#: the draft: Llama-3.2-1B's widths (meta-llama/Llama-3.2-1B config.json;
+#: its "llama3" rope scaling is implemented by neither package)
+LLAMA32_1B = dict(hidden=2048, layers=16, heads=32, kv_heads=8,
+                  ffn_hidden=8192, vocab_size=128256, rope_theta=500000.0)
+SPEC_K = 4
+#: phase 11's engine: phase 6's without the prefix cache, so a second
+#: round on one engine prefills cold again (a hit's tail runs the grouped
+#: einsum attention, not the flash kernel, and its tokens may differ)
+P11_ENGINE = dict(ENGINE, prefix_cache=False)
+#: the sampled requests: temperatures cycled over the prompts, nucleus
+#: and top-k filters, one seed a request
+P11_TEMPS = (0.0, 0.7, 1.0)
+P11_TOP_P, P11_TOP_K = 0.9, 50
+P11_CHUNK = 256
+
+
+def _p11_sampled_kw(n: int):
+    return [dict(temperature=P11_TEMPS[i % len(P11_TEMPS)], top_p=P11_TOP_P,
+                 top_k=P11_TOP_K, seed=100 + i) for i in range(n)]
+
+
+def _p11_expected(eng, prompts, st):
+    """The launches a serve of ``prompts`` on ``eng`` must make, from its
+    stats deltas ``st``: kernel 1 once a layer for each prompt prefilled
+    whole (the target's, unless its bucket passes prefill_chunk; the
+    draft's always), kernel 5 once a prefill a model, kernel 4 once a
+    layer a decode step (under speculation: the draft's layers K times a
+    dispatch, the target's once)."""
+    layers = len(eng.gen.attn_ops)
+    chunk = eng.prefill_chunk
+    whole = sum(1 for p in prompts
+                if not chunk or eng._bucket(p.size) <= chunk)
+    n = len(prompts)
+    want = {"flash_attention_fwd": layers * whole,
+            "paged_prefill_write": n,
+            "paged_attention_fwd": layers * st["decode_steps"],
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0,
+            "fused_update": 0}
+    if eng.draft_gen is not None:
+        dl = len(eng.draft_gen.attn_ops)
+        want["flash_attention_fwd"] += dl * n
+        want["paged_prefill_write"] += n
+        want["paged_attention_fwd"] = (layers + dl * eng.speculate_k) \
+            * st["spec_dispatches"]
+    return want
+
+
+def _p11_round(torch, kernels, eng, prompts, tag: str, kws=None):
+    """One serve of ``prompts`` on ``eng`` (``kws``: one submit() kwargs
+    dict a request) with the launch counts set to 0 just before; fails
+    unless every request finished and each kernel ran exactly its
+    expected count, or a split-KV ticket was left set. Returns the tokens,
+    wall time, stats deltas, TTFTs (ms) and launches."""
+    import numpy as np
+
+    before = eng.stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, MAX_NEW, **(kws[i] if kws else {}))
+            for i, p in enumerate(prompts)]
+    while eng.step():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in (
+        "decode_steps", "tokens_generated", "spec_dispatches",
+        "spec_proposed", "spec_accepted", "prefill_chunks_interleaved",
+        "recompiles", "graph_replays")}
+    d["decode_ms"] = (st["decode_step_ms"] * st["decode_steps"]
+                      - before["decode_step_ms"] * before["decode_steps"])
+    if any(r.state != "done" for r in reqs):
+        fail(f"phase 11 ({tag}): not every request finished: "
+             f"{[(r.state, r.error) for r in reqs]}")
+    want = _p11_expected(eng, prompts, d)
+    if launches != want:
+        fail(f"phase 11 ({tag}): kernel launches {launches} != expected "
+             f"{want}")
+    if not kernels.tickets_clear():
+        fail(f"phase 11 ({tag}): a split-KV ticket was left set")
+    toks = [list(r.tokens) for r in reqs]
+    vocab = LLAMA3_8B["vocab_size"]
+    if any(not 0 <= t < vocab for ts in toks for t in ts):
+        fail(f"phase 11 ({tag}): a token outside [0, {vocab})")
+    return dict(tokens=toks, wall=wall, d=d, launches=launches,
+                step_ms=d["decode_ms"] / max(1, d["decode_steps"]),
+                ttfts=[r.ttft * 1e3 for r in reqs], st=st)
+
+
+def _p11_diff(got, want) -> str:
+    """Where two token lists first differ, per prompt ('' if equal)."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            out.append(f"prompt {i} from token {j} of {len(b)}")
+    return "; ".join(out)
+
+
+def _p11_say(tag: str, r: dict, card: str):
+    t = sorted(r["ttfts"])
+    say(f"phase 11 ({tag}): {r['d']['tokens_generated']} tokens in "
+        f"{r['wall']:.3f} s = {r['d']['tokens_generated'] / r['wall']:.2f} "
+        f"tokens/s, decode step {r['step_ms']:.2f} ms over "
+        f"{r['d']['decode_steps']} steps, TTFT p50 {t[len(t) // 2]:.1f} ms "
+        f"p99 {t[-1]:.1f} ms, captures {r['d']['recompiles']}, replays "
+        f"{r['d']['graph_replays']} [{card}]")
+
+
+def phase_decode_features(torch, FFConfig, FFModel, llama_lm, kernels, ff,
+                          ref, prompts, card: str):
+    """Phase 11: phase 6's Llama-3-8B serves through the decode features —
+    (a) greedy through the captured decode, (b) sampled per request, (c)
+    greedy and (d) sampled speculation with a Llama-3.2-1B-width draft at
+    K = SPEC_K, greedy speculation with the target as its own draft, (e)
+    chunked and chunk-interleaved prefill. ``ref``: phase
+    6's tokens. Returns {path: launch counts}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    problems = []
+
+    def same(tag, got, want):
+        diff = _p11_diff(got, want)
+        say(f"phase 11 ({tag}): tokens identical: {not diff}"
+            + (f" (differ: {diff})" if diff else ""))
+        if diff:
+            problems.append(f"{tag}: {diff}")
+
+    out = {}
+    # (a) greedy through the captured decode: a round that captures, a
+    # round of replays only, then the same body uncaptured (printed)
+    eng = ff.make_serving_engine(**P11_ENGINE)
+    a1 = _p11_round(torch, kernels, eng, prompts, "greedy, capture")
+    same("greedy, captured decode vs phase 6", a1["tokens"], ref)
+    a2 = _p11_round(torch, kernels, eng, prompts, "greedy, replay")
+    same("greedy, second round on the engine", a2["tokens"], ref)
+    if a1["d"]["recompiles"] != 1 or a2["d"]["recompiles"] != 0:
+        fail(f"phase 11 (greedy): captures {a1['d']['recompiles']} then "
+             f"{a2['d']['recompiles']}: the decode key must be captured once")
+    out["decode_graph"] = a2["launches"]
+    _p11_say("greedy, captured decode, first round", a1, card)
+    _p11_say("greedy, captured decode, replays only", a2, card)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a3 = _p11_round(torch, kernels, eng, prompts, "greedy, profiled")
+    busy = busy_ms(prof.events())
+    say(f"phase 11 (greedy, captured decode, under the profiler): serve "
+        f"{a3['wall'] * 1e3:.1f} ms wall, device busy {busy:.1f} ms, idle "
+        f"share {1 - busy / (a3['wall'] * 1e3):.3f}, decode step "
+        f"{a3['step_ms']:.2f} ms [{card}]")
+    del prof
+    # the same decode body, run uncaptured (the engine's comparison switch)
+    eager = ff.make_serving_engine(**P11_ENGINE, capture=False)
+    e1 = _p11_round(torch, kernels, eager, prompts, "greedy, uncaptured")
+    e2 = _p11_round(torch, kernels, eager, prompts, "greedy, uncaptured")
+    agree = sum(x == y for a, b in zip(e2["tokens"], ref)
+                for x, y in zip(a, b)) / sum(len(b) for b in ref)
+    say(f"phase 11 (greedy, the decode body uncaptured, same process): "
+        f"decode step {e2['step_ms']:.2f} ms against the graph's "
+        f"{a2['step_ms']:.2f} ms; {e2['d']['tokens_generated'] / e2['wall']:.2f}"
+        f" against {a2['d']['tokens_generated'] / a2['wall']:.2f} tokens/s; "
+        f"token agreement with the graph's {agree:.3f} (positionwise, not "
+        f"gated: cuBLAS may choose other algorithms under capture) [{card}]")
+    del eager, e1, e2
+
+    # (b) sampled, per request, on two engines
+    kws = _p11_sampled_kw(len(prompts))
+    b1 = _p11_round(torch, kernels, eng, prompts, "sampled", kws)
+    eng_b = ff.make_serving_engine(**P11_ENGINE)
+    b2 = _p11_round(torch, kernels, eng_b, prompts, "sampled, 2nd engine",
+                    kws)
+    same("sampled, two engines", b2["tokens"], b1["tokens"])
+    greedy_rows = [i for i, k in enumerate(kws) if k["temperature"] == 0]
+    same("sampled, temperature-0 rows vs phase 6",
+         [b1["tokens"][i] for i in greedy_rows], [ref[i] for i in greedy_rows])
+    sampled_rows = [i for i in range(len(prompts)) if i not in greedy_rows]
+    moved = sum(b1["tokens"][i] != ref[i] for i in sampled_rows)
+    say(f"phase 11 (sampled): temperatures {[k['temperature'] for k in kws]}"
+        f", top_p {P11_TOP_P}, top_k {P11_TOP_K}: {moved} of "
+        f"{len(sampled_rows)} sampled streams differ from the greedy one")
+    _p11_say("sampled", b1, card)
+    if b1["d"]["recompiles"] != 0:
+        fail("phase 11 (sampled): the decode graph was captured again")
+    out["sampled"] = b1["launches"]
+    del eng_b
+
+    # (c) and (d): speculation with the Llama-3.2-1B-width draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    draft = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16", 1,
+                        tie_embeddings=True, **LLAMA32_1B)
+    n_draft = sum(t.numel() for ws in draft.params.values()
+                  for t in ws.values())
+    say(f"phase 11: draft at Llama-3.2-1B widths, {LLAMA32_1B['layers']} "
+        f"layers, tied embeddings, {n_draft / 1e9:.3f} B params bf16, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    spec_kw = dict(P11_ENGINE, draft_model=draft, speculate_k=SPEC_K)
+    eng_c = ff.make_serving_engine(**spec_kw)
+    c1 = _p11_round(torch, kernels, eng_c, prompts, "speculative greedy")
+    same("speculative greedy vs (a)", c1["tokens"], a1["tokens"])
+    c2 = _p11_round(torch, kernels, eng_c, prompts, "speculative greedy")
+    same("speculative greedy, second round", c2["tokens"], a1["tokens"])
+    if c1["d"]["recompiles"] != 2 or c2["d"]["recompiles"] != 0:
+        fail(f"phase 11 (speculative): captures {c1['d']['recompiles']} "
+             f"then {c2['d']['recompiles']}: the proposal and the verify "
+             f"keys must be captured once each")
+    for tag, r in (("first round", c1), ("second round", c2)):
+        _p11_say(f"speculative greedy K={SPEC_K}, {tag}", r, card)
+        say(f"phase 11 (speculative greedy K={SPEC_K}, {tag}): accept rate "
+            f"{r['d']['spec_accepted'] / max(1, r['d']['spec_proposed']):.4f}"
+            f" ({r['d']['spec_accepted']} of {r['d']['spec_proposed']}, "
+            f"{r['d']['spec_dispatches']} dispatches) [{card}]")
+    out["spec_greedy"] = c2["launches"]
+    d1 = _p11_round(torch, kernels, eng_c, prompts, "speculative sampled",
+                    kws)
+    eng_d = ff.make_serving_engine(**spec_kw)
+    d2 = _p11_round(torch, kernels, eng_d, prompts,
+                    "speculative sampled, 2nd engine", kws)
+    same("speculative sampled, two engines", d2["tokens"], d1["tokens"])
+    same("speculative sampled, temperature-0 rows vs phase 6",
+         [d1["tokens"][i] for i in greedy_rows], [ref[i] for i in greedy_rows])
+    _p11_say("speculative sampled", d1, card)
+    out["spec_sampled"] = d1["launches"]
+    say(f"phase 11: launches, speculative greedy round {c2['launches']}")
+    del eng_c, eng_d, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) again with the target as its own draft: its proposals are the
+    # decode's tokens, so the verify accepts them and takes the bonus token
+    # (the accepted path, which the random draft never reaches)
+    eng_s = ff.make_serving_engine(**P11_ENGINE, draft_model=ff,
+                                   speculate_k=SPEC_K)
+    s1 = _p11_round(torch, kernels, eng_s, prompts,
+                    "self-draft speculative greedy")
+    same("self-draft speculative greedy vs (a)", s1["tokens"], a1["tokens"])
+    _p11_say(f"self-draft speculative greedy K={SPEC_K}", s1, card)
+    say(f"phase 11 (self-draft speculative greedy K={SPEC_K}): accept rate "
+        f"{s1['d']['spec_accepted'] / max(1, s1['d']['spec_proposed']):.4f}"
+        f" ({s1['d']['spec_accepted']} of {s1['d']['spec_proposed']}, "
+        f"{s1['d']['spec_dispatches']} dispatches) [{card}]")
+    if not s1["d"]["spec_accepted"] > 0:
+        fail("phase 11 (self-draft speculative greedy): no proposal was "
+             "accepted")
+    out["spec_self_draft"] = s1["launches"]
+    del eng_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) chunked, then chunk-interleaved prefill
+    for tag, knobs in (("prefill_chunk", dict(prefill_chunk=P11_CHUNK)),
+                       ("interleaved", dict(prefill_chunk=P11_CHUNK,
+                                            prefill_interleave_chunks=1))):
+        eng_e = ff.make_serving_engine(**P11_ENGINE, **knobs)
+        r = _p11_round(torch, kernels, eng_e, prompts, tag)
+        same(f"{tag} {P11_CHUNK} vs (a)", r["tokens"], a1["tokens"])
+        _p11_say(tag, r, card)
+        out[f"chunk_{tag}"] = r["launches"]
+        # the short prompts' TTFT while the longest prompt prefills: it is
+        # admitted first and its chunks run a tick each (interleaved) or
+        # all at its admission
+        wave = [max(prompts, key=len)] + sorted(prompts, key=len)[:3]
+        w = _p11_round(torch, kernels, eng_e, wave, f"{tag}, one wave")
+        say(f"phase 11 ({tag}): a wave of {[p.size for p in wave]}-token "
+            f"prompts: TTFT {[round(t, 1) for t in w['ttfts']]} ms, "
+            f"{w['d']['prefill_chunks_interleaved']} chunks interleaved "
+            f"[{card}]")
+        del eng_e
+    del eng
+    if problems:
+        fail("phase 11: " + " | ".join(problems))
+    return out
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -2838,6 +3186,17 @@ KERNEL_ROWS = {
                                  "zoo_bert", "flash_attention_bwd"),
     "fused_update_resnet50": ("fused_update.cu", FUSED_UPDATE_REPLACES,
                               "zoo_resnet50", "fused_update"),
+    # phase 11's shapes: the verify slab, and the draft's decode step,
+    # prefill and 16-layer prefill write (the speculative greedy serve
+    # launches each: its launches count the target's and the draft's)
+    "paged_attention_fwd_verify": ("paged_attention.cu", 689, "spec_greedy",
+                                   "paged_attention_fwd"),
+    "paged_attention_fwd_draft": ("paged_attention.cu", 689, "spec_greedy",
+                                  "paged_attention_fwd"),
+    "flash_attention_fwd_draft": ("flash_attention_wgmma.cu", 180,
+                                  "spec_greedy", "flash_attention_fwd"),
+    f"paged_prefill_write_layers{LLAMA32_1B['layers']}_draft": (
+        "paged_prefill_write.cu", 779, "spec_greedy", "paged_prefill_write"),
 }
 
 
@@ -2864,10 +3223,14 @@ def main():
     checked = phase_train_check(torch, port, kernels)
     launches["train_check_fused"] = checked["fused SGD with momentum"]
     launches["train_check_adam"] = checked["Adam under WarmupCosine"]
-    launches["serve"], ff = phase_serve(torch, FFConfig, FFModel, llama_lm,
-                                        kernels, card)
+    launches["serve"], ff, outs = phase_serve(torch, FFConfig, FFModel,
+                                              llama_lm, kernels, card)
     launches.update(phase_serve_quantized(torch, ff, kernels, card))
-    del ff
+    launches.update(phase_decode_features(
+        torch, FFConfig, FFModel, llama_lm, kernels, ff,
+        [list(o[n:]) for o, n in zip(outs, PROMPT_LENS)],
+        [o[:n] for o, n in zip(outs, PROMPT_LENS)], card))
+    del ff, outs
     launches.update(phase_train(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))
     launches.update(phase_zoo_train(torch, port, kernels, card))

@@ -16,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+from flexflow_tpu_torch.ops.sampling import validate_sampling
+
 #: where the features of later slices are queued
 ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
 ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
@@ -95,10 +97,24 @@ class FFConfig:
     # served weights: native, int8 or fp8 (per-output-channel scales)
     kv_cache_dtype: str = "native"
     serve_weight_dtype: str = "native"
-    # later-slice knobs, kept with the JAX defaults (see module docstring):
-    # the prefix cache's host-memory tier, and the attention route
-    host_kv_pages: int = 0
+    # decode attention route: "auto" / "pallas" the paged-attention
+    # kernel, "einsum" the page gather + grouped einsum attention
     paged_attention_impl: str = "auto"
+    # per-request sampling defaults (a request's submit() overrides them):
+    # temperature 0 = greedy; top_p 1 and top_k 0 = no filter
+    serve_temperature: float = 0.0
+    serve_top_p: float = 1.0
+    serve_top_k: int = 0
+    # speculative decoding: a draft FFModel (same vocabulary) proposes this
+    # many tokens a slot, one verify pass of the target scores them
+    serve_speculate_k: int = 0
+    draft_model: Optional[object] = None
+    # chunk-interleaved admission: prefill chunks (of the engine's
+    # prefill_chunk) run a tick between decode dispatches; 0 = off
+    prefill_interleave_chunks: int = 0
+    # later-slice knob, kept with the JAX default (see module docstring):
+    # the prefix cache's host-memory tier
+    host_kv_pages: int = 0
 
     def __post_init__(self):
         for field in ("compute_dtype", "master_dtype"):
@@ -154,6 +170,16 @@ class FFConfig:
             raise ValueError(
                 f"serve_weight_dtype={self.serve_weight_dtype!r}: must "
                 f"be 'native', 'int8' or 'fp8'")
+        if self.serve_speculate_k < 0:
+            raise ValueError(
+                f"serve_speculate_k={self.serve_speculate_k}: must be >= 0")
+        if self.prefill_interleave_chunks < 0:
+            raise ValueError(
+                f"prefill_interleave_chunks="
+                f"{self.prefill_interleave_chunks}: must be >= 0")
+        validate_sampling(
+            self.serve_temperature, self.serve_top_p, self.serve_top_k,
+            "FFConfig (serve_temperature/serve_top_p/serve_top_k)")
         if self.decode_buckets is not None:
             bs = [int(b) for b in self.decode_buckets]
             if not bs or any(b < 1 for b in bs) or sorted(set(bs)) != bs:

@@ -280,14 +280,60 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def resolve_paged_attention_impl(impl=None, config=None,
+                                 device=None) -> str:
+    """An ``auto | pallas | einsum`` request (the engine's override first,
+    then FFConfig.paged_attention_impl) -> the decode attention route's
+    name (the JAX ``resolve_paged_attention_impl``, attention.py:41-70).
+    Both names reach ``kernels.paged_attention_fwd``: the CUDA kernel on
+    the card, its plain version — the page gather and grouped einsum
+    attention of the JAX einsum branch — on the CPU. ``auto`` is
+    ``pallas``. ``einsum`` asks for the plain route, which the CPU runs
+    and the card does not: on a CUDA ``device`` it raises."""
+    if impl in (None, "", "auto"):
+        impl = getattr(config, "paged_attention_impl", "auto") or "auto"
+    if impl == "auto":
+        return "pallas"
+    if impl not in ("pallas", "einsum"):
+        raise ValueError(
+            f"paged_attention_impl={impl!r}: must be 'auto', 'pallas' "
+            f"or 'einsum'")
+    if impl == "einsum" and device is not None \
+            and torch.device(device).type == "cuda":
+        raise ValueError(
+            "paged_attention_impl='einsum' is the CPU's route: on the card "
+            "decode attention runs the paged-attention kernel "
+            "(kernels.paged_attention_fwd, csrc/paged_attention.cu); use "
+            "'auto' or 'pallas'")
+    return impl
+
+
+def verify_as_decode(x: torch.Tensor) -> bool:
+    """Whether a speculative verify slab computes each position as a decode
+    step does, bit for bit: on the card at 16-bit widths. There greedy
+    speculation's tokens are the plain decode's only if slab position 0's
+    logits are the decode step's, and two sums differ: cuBLAS sums the
+    narrow k / v product of 4 rows in another order than of 4 x (K + 1)
+    (measured at Llama-3-8B's 1024 kv columns), and kernel 4's splits
+    sized for the slab merge in another order than a decode step's. So
+    the verify projects k / v a position at a time and sizes kernel 4's
+    splits for one position (``scripts/torch_verify_numerics.py`` times
+    both). In f32, and on the CPU (no splits), the slab takes one product
+    and its own splits."""
+    return x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+
+
 def paged_slot(page_table: torch.Tensor, write_pos: torch.Tensor,
                page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pool row each slot's decode token is written to: (page id,
-    row in page), both (B,) int64, from the (B, pages_per_slot) page table
-    and the (B,) write positions."""
+    """The pool rows the slots' tokens are written to: (page id, row in
+    page), int64 of ``write_pos``'s shape, from the (B, pages_per_slot)
+    page table and the (B,) decode or (B, S) verify write positions."""
     wp = write_pos.long()
+    idx = wp // page_size
     page_ids = torch.gather(page_table.long(), 1,
-                            (wp // page_size)[:, None])[:, 0]
+                            idx if wp.dim() == 2 else idx[:, None])
+    if wp.dim() == 1:
+        page_ids = page_ids[:, 0]
     return page_ids, wp % page_size
 
 
@@ -296,6 +342,13 @@ def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     einsum "bsd,dhk->bshk")."""
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     return y.view(*x.shape[:-1], w.shape[1], w.shape[2])
+
+
+def _head_proj_by_position(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_head_proj`` with each position's (B, D) rows a product of their
+    own, a decode step's (``verify_as_decode``)."""
+    return torch.cat([_head_proj(x[:, i:i + 1].contiguous(), w)
+                      for i in range(x.shape[1])], dim=1)
 
 
 class MultiHeadAttention(Op):
@@ -366,15 +419,22 @@ class MultiHeadAttention(Op):
                    WeightSpec("bias_o", (self.embed_dim,), init="zero")]
         return ws
 
-    def _project_qkv(self, params, q, k, v, rope_offset=0, rope=None):
+    def _project_qkv(self, params, q, k, v, rope_offset=0, rope=None,
+                     kv_by_position: bool = False):
         """(B, S, D) x (D, H, Hd) -> (B, S, H, Hd) for q and (B, S, KVH, Hd)
         for k/v, bias and RoPE applied; k/v stay un-broadcast (the cache
         layout). ``rope``: the ``rope_tables`` of these positions, where
         the caller holds them (a graph walk derives them once for all its
-        layers)."""
+        layers). ``kv_by_position``: k and v projected one position at a
+        time, each a (B, D) product as a decode step's (a verify slab under
+        ``verify_as_decode``)."""
         qh = _head_proj(q, params["wq"])
-        kh = _head_proj(k, params["wk"])
-        vh = _head_proj(v, params["wv"])
+        if kv_by_position and k.shape[1] > 1:
+            kh = _head_proj_by_position(k, params["wk"])
+            vh = _head_proj_by_position(v, params["wv"])
+        else:
+            kh = _head_proj(k, params["wk"])
+            vh = _head_proj(v, params["wv"])
         if self.bias:
             qh = qh + params["bias_q"]
             kh = kh + params["bias_k"]
@@ -613,13 +673,13 @@ class MultiHeadAttention(Op):
         return out
 
     def _paged_attention_ctx(self, qh, cache, page_table, write_pos,
-                             row_len, prompt_pad):
+                             row_len, prompt_pad, decode_splits=False):
         """q (B, S, H, Hd) against the pool through the per-slot page
         tables; write_pos (B, S) per-position frontiers."""
         return kernels.paged_attention_fwd(
             qh.contiguous(), cache["k"], cache["v"], page_table, write_pos,
             row_len, prompt_pad, self.scale, k_scales=cache.get("k_scale"),
-            v_scales=cache.get("v_scale"))
+            v_scales=cache.get("v_scale"), decode_splits=decode_splits)
 
     def paged_decode_forward(self, params, xs, cache, page_table, write_pos,
                              rope_pos, row_len, prompt_pad, rope=None,
@@ -641,4 +701,45 @@ class MultiHeadAttention(Op):
         ctx = self._paged_attention_ctx(qh, cache, page_table,
                                         write_pos[:, None], row_len,
                                         prompt_pad)
+        return self._out_proj(params, ctx), cache
+
+    def paged_verify_forward(self, params, xs, cache, page_table, write_pos,
+                             rope_pos0, row_len, prompt_pad, rope=None,
+                             slot=None):
+        """Speculative verify (the JAX ``paged_verify_forward``,
+        attention.py:685-735): a (B, S) slab of candidate tokens (S = K
+        draft proposals + 1) scored against the pool in one pass. Position
+        i writes its k/v at ``write_pos[b, i]`` (the host clamps
+        write_pos0 + i to the slot's budget, so positions at the budget
+        repeat), rotates at ``rope_pos0[b] + i`` and attends at its own
+        frontier through the same kernel as decode — the one kernel serves
+        both shapes; under ``verify_as_decode`` each position's k / v and
+        attention are a decode step's bits. On a quantized pool the S
+        positions append SEQUENTIALLY through ``_paged_append`` (position
+        i + 1 may land in the page position i just requantized; the
+        running-max scale sees them in order), as JAX's do, so the pool
+        after a verify is bitwise JAX's. A native pool takes one scatter;
+        of positions repeated at the budget the last one's k/v is written
+        (the others go to the scratch page 0), the order JAX's scatter
+        writes them in."""
+        as_decode = verify_as_decode(xs[0])
+        qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
+                                       rope_offset=rope_pos0, rope=rope,
+                                       kv_by_position=as_decode)
+        if slot is None:
+            slot = paged_slot(page_table, write_pos, cache["k"].shape[1])
+        page_ids, offs = slot
+        if "k_scale" in cache:
+            for i in range(kh.shape[1]):
+                cache = self._paged_append(cache, kh[:, i], vh[:, i],
+                                           page_ids[:, i], offs[:, i])
+        else:
+            dup = torch.zeros_like(write_pos, dtype=torch.bool)
+            dup[:, :-1] = write_pos[:, :-1] == write_pos[:, 1:]
+            page_ids = torch.where(dup, torch.zeros_like(page_ids), page_ids)
+            cache["k"][page_ids, offs] = kh.to(cache["k"].dtype)
+            cache["v"][page_ids, offs] = vh.to(cache["v"].dtype)
+        ctx = self._paged_attention_ctx(qh, cache, page_table, write_pos,
+                                        row_len, prompt_pad,
+                                        decode_splits=as_decode)
         return self._out_proj(params, ctx), cache

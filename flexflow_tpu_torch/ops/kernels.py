@@ -741,16 +741,23 @@ class PagedPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def paged_attention_plan(b: int, s: int, h: int, kvh: int, page_size: int,
-                         pages_per_slot: int, sms: int) -> PagedPlan:
+                         pages_per_slot: int, sms: int,
+                         decode_splits: bool = False) -> PagedPlan:
     """How ``paged_attention_fwd`` splits the slots' positions across
     blocks, from the shapes and the card's SM count alone (never from
     row_len or write_pos, which live on the device): enough whole-page
     splits that the grid holds about ``PAGED_BLOCKS_PER_SM`` blocks on
     each of the card's ``sms`` SMs, none shorter than ``PAGED_MIN_SPLIT``
-    positions, at most ``PAGED_MAX_SPLITS`` of them."""
+    positions, at most ``PAGED_MAX_SPLITS`` of them. ``decode_splits``
+    sizes the splits for one query position a slot whatever S, so each
+    position of a speculative verify slab splits its keys as a decode step
+    does and its attention is bitwise a decode step's
+    (``attention.verify_as_decode``)."""
     row_chunks = -(-s * (h // kvh) // PAGED_ROWS)
     base = b * kvh * row_chunks
-    want = max(1, -(-PAGED_BLOCKS_PER_SM * sms // base))
+    sized_for = b * kvh * -(-(1 if decode_splits else s) * (h // kvh)
+                            // PAGED_ROWS)
+    want = max(1, -(-PAGED_BLOCKS_PER_SM * sms // sized_for))
     split_pages = min(pages_per_slot,
                       max(-(-pages_per_slot // want),
                           -(-PAGED_MIN_SPLIT // page_size),
@@ -798,9 +805,26 @@ def _workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
+def stream_scratch(device: torch.device, stream: int) -> list:
+    """The split-KV tickets and workspace cached for (``device``,
+    ``stream``). A CUDA graph captured on that stream holds their
+    addresses, so its owner keeps them alive: a later, larger launch on the
+    stream replaces the cached buffers, and the old ones must not return
+    to the allocator while the graph replays."""
+    key = (device.index, stream)
+    return [t for t in (_TICKETS.get(key), _WORKSPACE.get(key))
+            if t is not None]
+
+
+def tickets_clear() -> bool:
+    """Every cached ticket buffer is all zero, as each launch must leave
+    it (the next launch's merge relies on it)."""
+    return all(not t.any() for t in _TICKETS.values())
+
+
 def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
                         prompt_pad, scale: float, k_scales=None,
-                        v_scales=None):
+                        v_scales=None, decode_splits: bool = False):
     """Decode attention over the paged pool: q (B, S, H, D), k/v pools
     (P, page_size, KVH, D), page_table (B, pages_per_slot), write_pos
     (B, S), row_len / prompt_pad (B,) int32 -> (B, S, H, D) in q's dtype.
@@ -820,8 +844,10 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
     int8 / fp8 payload exact in bf16, each page's scales applied to its
     positions' scores and probabilities); f32 queries (f32 and mixed-width
     pools) on the CUDA cores in f32. The f32 workspace of the partials is
-    one buffer per (device, stream), kept between calls. ``launches``
-    counts wrapper calls: one a call,
+    one buffer per (device, stream), kept between calls.
+    ``decode_splits``: split as a decode step does whatever S
+    (``paged_attention_plan``). ``launches`` counts wrapper calls: one a
+    call,
     whatever the grid. Bound on the H100: bytes (the live K/V).
     """
     ints = (page_table, write_pos, row_len, prompt_pad)
@@ -859,7 +885,8 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
         raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
     lib = LIBRARY.get()
     out = torch.empty_like(q)
-    plan = paged_attention_plan(b, s, h, kvh, ps, pps, sm_count(q.device))
+    plan = paged_attention_plan(b, s, h, kvh, ps, pps, sm_count(q.device),
+                                decode_splits)
     stream = _stream(q)
     ws_acc = ws_ml = tickets = None
     if plan.splits > 1:
@@ -1501,3 +1528,23 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+
+
+def capture(graph, stream, fn):
+    """Capture ``fn()`` into the CUDA graph ``graph`` on ``stream``
+    (``torch.cuda.graph``); returns fn's outputs and the launches the
+    capture recorded. A capture launches nothing, so the counters give
+    those back; each replay adds them (``add_launches``)."""
+    before = launch_counts()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = fn()
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    for f in KERNELS:
+        f.launches -= launches[f.__name__]
+    return outs, launches
+
+
+def add_launches(launches: Dict[str, int]) -> None:
+    """Count a replay of a graph whose capture recorded ``launches``."""
+    for fn in KERNELS:
+        fn.launches += launches[fn.__name__]

@@ -463,7 +463,6 @@ class StepReplay:
         with torch.cuda.stream(side):
             self._step()              # a real step: one of this run's
         torch.cuda.current_stream(self.device).wait_stream(side)
-        before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         if self.generators and not hasattr(graph, "register_generator_state"):
             raise RuntimeError(
@@ -472,12 +471,8 @@ class StepReplay:
                 "model with scan_steps=0")
         for g in self.generators:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph, stream=side):
-            self._step()              # captured, not run
-        after = kernels.launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
-        for fn in kernels.KERNELS:    # the capture launched nothing
-            fn.launches -= self.launches[fn.__name__]
+        # captured, not run
+        _, self.launches = kernels.capture(graph, side, self._step)
         self.graph = graph
 
     def _replay(self) -> None:
@@ -485,8 +480,7 @@ class StepReplay:
 
         self.graph.replay()
         self.replays += 1
-        for fn in kernels.KERNELS:
-            fn.launches += self.launches[fn.__name__]
+        kernels.add_launches(self.launches)
 
     def run(self, start: int, n: int) -> Tuple[torch.Tensor, Dict]:
         """Steps on batches start, start + 1, ... (mod num_batches);

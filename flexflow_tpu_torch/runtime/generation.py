@@ -6,7 +6,8 @@ eagerly. ``_walk`` interprets the op graph on a (B, S) token slab:
 whole-prompt prefill into a contiguous per-request cache, a prompt chunk
 behind a cached prefix (``chunk_start=``) and the read-only query of the
 prompt's last token (``gather_last=``) — a prefix-cache hit's two passes —
-or one continuous-batching decode step over the paged pool (``paged=``).
+one continuous-batching decode step over the paged pool (``paged=``), or
+a speculative verify slab of K + 1 positions a slot over it.
 A MoE layer runs at capacity = the slab's token count, as in the JAX walk:
 no token drops, so each row's output is its own.
 
@@ -198,7 +199,8 @@ class Generator:
         caches already hold; ``gather_last`` queries each row's last prompt
         token (a (B, 1) slab at position ``row_lengths`` - 1) read-only
         against the caches; with ``paged``, a (B, 1) decode step over the
-        paged pool. ``skip_tail`` stops after the last attention op (a
+        paged pool, or a (B, S) verify slab (``paged["write_pos"]`` (B, S)).
+        ``skip_tail`` stops after the last attention op (a
         cache-only pass; no logits). ``last_only`` narrows the prefill
         tail: past the last attention op only each row's last valid
         position (``row_lengths`` - 1, or column -1) flows through, so the
@@ -254,7 +256,11 @@ class Generator:
                 r = rope if (op.rope_theta, op.qk_head_dim) == rope_key \
                     else None
                 if paged is not None:
-                    out, nc = op.paged_decode_forward(
+                    # a (B, S > 1) slab is the speculative verify pass:
+                    # write_pos is (B, S), a frontier a position
+                    fwd = (op.paged_verify_forward if s_full > 1
+                           else op.paged_decode_forward)
+                    out, nc = fwd(
                         p, xs, cache, paged["page_table"],
                         paged["write_pos"], paged["rope_pos"],
                         paged["row_len"], paged["prompt_pad"], rope=r,
@@ -280,9 +286,22 @@ class Generator:
                 vals[t] = outs[i]
         return vals[self.model._final_tensor], new_caches
 
-    def _prefill(self, params, tokens, caches, row_lengths):
-        """Whole-prompt prefill (the JAX ``_prefill`` with
-        ``prefill_chunk=0``): logits (B, 1, V) at each row's last valid
-        position, and the filled caches."""
-        return self._walk(params, tokens, caches, last_only=True,
-                          row_lengths=row_lengths)
+    def _prefill(self, params, tokens, caches, row_lengths,
+                 prefill_chunk: int = 0):
+        """Prefill (the JAX ``_prefill``, generation.py:383-420): logits
+        (B, 1, V) at each row's last valid position, and the filled
+        caches. Whole-prompt through the flash kernel, or, with
+        ``prefill_chunk`` > 0 and a longer prompt, chunked: every chunk
+        runs cache-only through ``chunk_forward`` (a ragged row's last
+        position may fall in any chunk), then a read-only query of each
+        row's last prompt token scores it (``query_forward``)."""
+        s0 = tokens.shape[1]
+        if not prefill_chunk or s0 <= prefill_chunk:
+            return self._walk(params, tokens, caches, last_only=True,
+                              row_lengths=row_lengths)
+        for st in range(0, s0, prefill_chunk):
+            _, caches = self._walk(params, tokens[:, st:st + prefill_chunk],
+                                   caches, chunk_start=st, skip_tail=True)
+        tok_last = torch.gather(tokens, 1, (row_lengths.long() - 1)[:, None])
+        return self._walk(params, tok_last, caches, last_only=True,
+                          row_lengths=row_lengths, gather_last=True)

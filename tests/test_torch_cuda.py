@@ -2285,3 +2285,227 @@ def test_fused_group_dropout_replays_like_unfused(cuda):
     assert fused._replay.replays == 5
     assert len(set(lf.tolist())) == 6
     assert torch.equal(lf, lp)
+
+
+# ---- the serving engine's decode features on the card ----------------------
+
+
+def _small_llama(device, seed=1, **arch):
+    """A small f32 Llama (head dim 128, GQA 2) for the engine's card
+    checks."""
+    from flexflow_tpu_torch.models import llama_lm
+
+    arch = dict(dict(hidden=256, layers=2, heads=2, kv_heads=1,
+                     ffn_hidden=512, vocab_size=500, rope_theta=500000.0),
+                **arch)
+    ff = FFModel(FFConfig(batch_size=4, seed=seed), device=device)
+    _, logits = llama_lm(ff, 4, seq_len=256, **arch)
+    ff.compile(final_tensor=logits)
+    return ff
+
+
+def _llama_pair(cuda, seed=1, **arch):
+    """The small Llama on the CPU and on the card with the same weights."""
+    cpu = _small_llama("cpu", seed, **arch)
+    gpu = _small_llama(cuda, seed, **arch)
+    gpu.params = {op: {w: t.to(cuda) for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    return cpu, gpu
+
+
+def _serve_prompts(n_vocab=500, lens=(5, 30, 77, 130)):
+    import numpy as np
+
+    rs = np.random.RandomState(3)
+    return [rs.randint(1, n_vocab, size=n).astype(np.int32) for n in lens]
+
+
+ENGINE_KW = dict(serve_slots=4, kv_page_size=16, max_seq_len=320)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["native", "int8"])
+def test_captured_decode_matches_uncaptured_body(no_tf32, kv):
+    """The decode chunk as a CUDA graph (captured at its first use,
+    replayed after) against the same body run eagerly on the card (an
+    engine built with ``capture=False``): tokens and pool bitwise; the graph's
+    launches are counted on every replay, the split-KV tickets are zero
+    after every replay, and the key is captured once."""
+    _, gpu = _llama_pair(no_tf32)
+    prompts = _serve_prompts()
+    kw = dict(ENGINE_KW, kv_cache_dtype=kv or "native", decode_chunk=4,
+              prefix_cache=False)
+    graph = gpu.make_serving_engine(**kw)
+    n0 = kernels.paged_attention_fwd.launches
+    a = [r.tokens for r in graph.run(prompts, max_new_tokens=12)]
+    st = graph.stats()
+    assert st["recompiles"] == 1 and st["graph_replays"] > 0
+    assert kernels.paged_attention_fwd.launches - n0 \
+        == 2 * st["decode_steps"]
+    assert kernels.tickets_clear()
+    eager = gpu.make_serving_engine(**kw, capture=False)
+    b = [r.tokens for r in eager.run(prompts, max_new_tokens=12)]
+    assert a == b
+    for name in graph.pool:
+        for t in graph.pool[name]:
+            assert torch.equal(graph.pool[name][t].view(torch.uint8),
+                               eager.pool[name][t].view(torch.uint8))
+    # a second round replays only; on the native pool it serves the
+    # first round's tokens (an int8 page reused for decode appends starts
+    # from its previous owner's running-max scale, as JAX's append does,
+    # so there a second round may round otherwise)
+    c = [r.tokens for r in graph.run(prompts, max_new_tokens=12)]
+    assert graph.stats()["recompiles"] == 1 and kernels.tickets_clear()
+    if kv is None:
+        assert c == a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decode_splits", [False, True],
+                         ids=["slab_splits", "decode_splits"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_paged_kernel_at_verify_shape_with_repeated_positions(cuda, dtype,
+                                                              decode_splits):
+    """Kernel 4 at a verify slab (4 slots, K + 1 = 5 positions, 32 heads
+    over 8 kv heads, head dim 128): slots clamped at their budget repeat
+    their last write position; an idle slot reads scratch page 0. Against
+    the plain version, with the slab's splits and with a decode step's;
+    with a decode step's, slab position 0 is bitwise a one-position launch
+    at its frontier."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ps, pps, s = 128, 8, 5
+    n_pool = 4 * pps + 1
+    q = torch.randn(4, s, 32, 128, device=cuda, generator=g).to(dtype)
+    kp, vp = (torch.randn(n_pool, ps, 8, 128, device=cuda, generator=g)
+              .to(dtype) for _ in range(2))
+    table = (torch.randperm(n_pool - 1, device=cuda, generator=g)[:4 * pps]
+             + 1).reshape(4, pps).to(torch.int32)
+    table[3] = 0
+    wp0 = torch.tensor([600, 700, 530, 0], device=cuda)
+    budget = torch.tensor([1024, 703, 532, 1], device=cuda)
+    wp = torch.minimum(wp0[:, None] + torch.arange(s, device=cuda),
+                       budget[:, None] - 1).to(torch.int32)
+    assert (wp[1, -2:] == 702).all() and (wp[2, 2:] == 531).all()
+    row_len = torch.tensor([500, 620, 400, 0], dtype=torch.int32,
+                           device=cuda)
+    pad = torch.tensor([512, 640, 512, 0], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, wp, row_len, pad, 128 ** -0.5)
+    kw = dict(decode_splits=decode_splits)
+    n0 = kernels.paged_attention_fwd.launches
+    out = kernels.paged_attention_fwd(*args, **kw)
+    assert kernels.paged_attention_fwd.launches == n0 + 1
+    _close(out, kernels.paged_attention_plain(*args), dtype)
+    # positions sharing a write frontier see the same keys: equal rows
+    # wherever the slab's queries are equal
+    q2 = q.clone()
+    q2[1, 4] = q2[1, 3]
+    out2 = kernels.paged_attention_fwd(q2, *args[1:], **kw)
+    assert torch.equal(out2[1, 4], out2[1, 3])
+    if decode_splits:
+        one = kernels.paged_attention_fwd(q[:, :1].contiguous(), kp, vp,
+                                          table, wp[:, :1].contiguous(),
+                                          row_len, pad, 128 ** -0.5)
+        assert torch.equal(out[:, 0], one[:, 0])
+
+
+@pytest.mark.cuda
+def test_sampler_on_card_matches_cpu(cuda):
+    """The sampler's draws are integer arithmetic on (seed, tag, index):
+    on identical f32 logits the card and the CPU give the same tokens,
+    the same accept uniforms and the same residual draws. The sampling
+    probabilities agree within 1e-6 (plus the mass that moved), but at
+    the top-p boundary: the card and the CPU sum 128256 sorted f32
+    probabilities in other orders, so a token whose preceding mass lies
+    within 1e-4 of top_p may be kept on one and not the other (with top_p
+    1 that is the far tail, where the f32 sum reaches 1 before the last
+    token, in JAX's sampler too); the mass that moves stays under 1e-3."""
+    import numpy as np
+    from flexflow_tpu_torch.ops import sampling
+
+    rs = np.random.RandomState(0)
+    b, v = 12, 128256
+    logits = (rs.randn(b, v) * 3).astype(np.float32)
+    temps = np.asarray([0, 0.7, 1.0] * 4, np.float32)
+    top_ps = np.asarray([1.0, 0.9, 0.9, 1.0] * 3, np.float32)
+    top_ks = np.asarray([0, 50, 0] * 4, np.int32)
+    seeds = np.arange(b, dtype=np.int32) * 7
+    ctrs = np.arange(b, dtype=np.int32)
+    host = [torch.from_numpy(a) for a in (logits, temps, top_ps, top_ks,
+                                          seeds, ctrs)]
+    dev = [t.to(cuda) for t in host]
+    for tag in (sampling.TAG_TARGET, sampling.TAG_DRAFT):
+        assert torch.equal(sampling.sample_tokens(*dev, tag=tag).cpu(),
+                           sampling.sample_tokens(*host, tag=tag))
+    p_dev = sampling.sampling_probs(*dev[:4]).cpu()
+    p_host = sampling.sampling_probs(*host[:4])
+    moved = (p_dev > 0) != (p_host > 0)
+    # the warped distribution's mass before each position, in f64
+    warped = host[0] / torch.where(host[1] > 0, host[1], 1.0)[:, None]
+    probs = torch.softmax(warped.double(), -1)
+    order = torch.sort(-probs, dim=-1, stable=True).indices
+    before = torch.empty_like(probs).scatter_(
+        -1, order, torch.cumsum(torch.gather(probs, -1, order), -1)
+        - torch.gather(probs, -1, order))
+    gap = (before - torch.from_numpy(top_ps).double()[:, None]).abs()
+    assert (gap[moved] < 1e-4).all()
+    mass = torch.where(moved, torch.maximum(p_dev, p_host), 0.0).sum(-1)
+    assert (mass < 1e-3).all(), mass
+    diff = (p_dev - p_host).abs().masked_fill(moved, 0.0).amax(-1)
+    assert (diff <= 1e-6 + mass).all(), diff
+    assert torch.equal(sampling.accept_uniforms(dev[4], dev[5], 4).cpu(),
+                       sampling.accept_uniforms(host[4], host[5], 4))
+    p = torch.softmax(host[0], -1)
+    q = torch.softmax(host[0].flip(-1), -1)
+    assert torch.equal(
+        sampling.residual_sample(p.to(cuda), q.to(cuda), dev[4],
+                                 dev[5]).cpu(),
+        sampling.residual_sample(p, q, host[4], host[5]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(speculate_k=3),
+    dict(speculate_k=3, self_draft=True),
+    dict(prefill_chunk=32),
+    dict(prefill_chunk=32, prefill_interleave_chunks=1),
+    dict(paged_attention_impl="einsum"),
+], ids=["spec", "self_spec", "chunk", "interleave", "einsum"])
+def test_engine_features_card_vs_cpu(no_tf32, knobs):
+    """Speculation (K = 3, its proposals and the verify pass captured)
+    with a smaller draft, which rejects nearly every proposal, and with
+    the target as its own draft, which accepts them and takes the bonus
+    token; chunked and chunk-interleaved prefill — on a small f32 Llama:
+    greedy tokens on the card equal the CPU's, and so do the counters.
+    The einsum route is the CPU's: the card refuses it."""
+    cpu, gpu = _llama_pair(no_tf32)
+    knobs = dict(knobs)
+    self_draft = knobs.pop("self_draft", False)
+    kw = dict(ENGINE_KW, **knobs)
+    if knobs.get("paged_attention_impl") == "einsum":
+        with pytest.raises(ValueError, match="paged_attention_fwd"):
+            gpu.make_serving_engine(**kw)
+        return
+    if self_draft:
+        kw_cpu, kw_gpu = dict(kw, draft_model=cpu), dict(kw, draft_model=gpu)
+    elif "speculate_k" in knobs:
+        dcpu, dgpu = _llama_pair(no_tf32, seed=2, hidden=128, layers=1,
+                                 heads=1)
+        kw_cpu = dict(kw, draft_model=dcpu)
+        kw_gpu = dict(kw, draft_model=dgpu)
+    else:
+        kw_cpu = kw_gpu = kw
+    prompts = _serve_prompts()
+    ref = cpu.make_serving_engine(**kw_cpu)
+    eng = gpu.make_serving_engine(**kw_gpu)
+    n0 = kernels.paged_attention_fwd.launches
+    want = [r.tokens for r in ref.run(prompts, max_new_tokens=10)]
+    got = [r.tokens for r in eng.run(prompts, max_new_tokens=10)]
+    assert got == want
+    st, cst = eng.stats(), ref.stats()
+    for key in ("spec_proposed", "spec_accepted", "decode_steps",
+                "prefill_chunks_interleaved"):
+        assert st[key] == cst[key], key
+    if self_draft:
+        assert st["spec_accepted"] > 0
+    assert kernels.paged_attention_fwd.launches - n0 > 0
+    assert kernels.tickets_clear()

@@ -125,28 +125,48 @@ def test_groups_and_eliminated_count_match_jax(graph, monkeypatch):
         assert tff_groups == [("fc1", ["act"])]
 
 
-def test_protected_aux_is_never_swallowed():
-    """A MoE followed by a ReLU: the group would adopt the ReLU's single
-    output and drop the MoE's aux from the value map, so the MoE does not
-    lead (the JAX function fuses it, and its loss then misses the aux);
-    the final tensor stays the tail of its group."""
-    ff = T.FFModel(T.FFConfig(batch_size=2, perform_fusion=True),
-                   device="cpu")
+def _moe_relu_graph(pkg, ff):
+    """MoE -> ReLU -> Dense -> ReLU, compiled with perform_fusion."""
     x = ff.create_tensor([2, 4, 8], name="input")
     t = ff.moe(x, 4, 16, name="moe")
     t = ff.relu(t, name="act")
     t = ff.dense(t, 8, name="fc")
     out = ff.relu(t, name="out_act")
-    ff.compile(T.SGDOptimizer(lr=0.1),
-               T.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
-               [T.MetricsType.METRICS_MEAN_SQUARED_ERROR], final_tensor=out)
+    ff.compile(pkg.SGDOptimizer(lr=0.1),
+               pkg.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+               [pkg.MetricsType.METRICS_MEAN_SQUARED_ERROR], final_tensor=out)
+    rs = np.random.RandomState(0)
+    return {"input": rs.randn(2, 4, 8).astype(np.float32),
+            "label": rs.rand(2, 4, 8).astype(np.float32)}
+
+
+def test_protected_aux_is_never_swallowed():
+    """A MoE followed by a ReLU: the group would adopt the ReLU's single
+    output and drop the MoE's aux from the value map, so the MoE does not
+    lead (the JAX function fuses it, and its first training step then
+    raises KeyError: see test_reference_fusion_drops_moe_aux); the final
+    tensor stays the tail of its group."""
+    ff = T.FFModel(T.FFConfig(batch_size=2, perform_fusion=True),
+                   device="cpu")
+    batch = _moe_relu_graph(T, ff)
     assert _groups(ff, FusedOp) == [("fc", ["out_act"])]
     assert len(ff.ops) == 4   # input, moe, act, fc + out_act
-    rs = np.random.RandomState(0)
-    batch = {"input": rs.randn(2, 4, 8).astype(np.float32),
-             "label": rs.rand(2, 4, 8).astype(np.float32)}
     loss, _ = ff._run_train_step(batch)
     assert np.isfinite(float(loss))
+
+
+def test_reference_fusion_drops_moe_aux():
+    """The departure pinned against the reference (ROADMAP.md §3, fault
+    2): on the same graph the JAX package's apply_fusion lets the MoE lead
+    a group whose FusedOp adopts the ReLU's single output, so the MoE's
+    aux loss leaves the value map and the first training step raises
+    KeyError naming the aux tensor."""
+    jff = J.FFModel(J.FFConfig(batch_size=2, mesh_shape={"data": 1},
+                               perform_fusion=True))
+    batch = _moe_relu_graph(J, jff)
+    assert _groups(jff, JFusedOp) == [("moe", ["act"]), ("fc", ["out_act"])]
+    with pytest.raises(KeyError, match="owner=moe"):
+        jff._run_train_step(batch)
 
 
 def _fused_pair(name):

@@ -343,11 +343,19 @@ def test_paged_attention_plan(case):
     pages a split, every page in exactly one split, no split shorter than
     the minimum unless the table is, at most the cap, 16 query rows a row
     chunk, and at the serving shape on a 132-SM H100 well over one block
-    an SM."""
+    an SM. With ``decode_splits`` the grid keeps the slab's row chunks and
+    the splits are a decode step's whatever S (a verify slab's positions
+    split their keys as decode steps do)."""
     b, s, h, kvh, ps, pps = PLAN_SHAPES[case]
     plan = kernels.paged_attention_plan(b, s, h, kvh, ps, pps, 132)
     chunks = -(-s * (h // kvh) // kernels.PAGED_ROWS)
     assert plan.grid == (b * kvh * chunks, plan.splits)
+    as_decode = kernels.paged_attention_plan(b, s, h, kvh, ps, pps, 132,
+                                             decode_splits=True)
+    decode = kernels.paged_attention_plan(b, 1, h, kvh, ps, pps, 132)
+    assert as_decode.grid == (b * kvh * chunks, decode.splits)
+    assert (as_decode.splits, as_decode.split_pages) == (decode.splits,
+                                                         decode.split_pages)
     assert 1 <= plan.split_pages <= pps
     assert (plan.splits - 1) * plan.split_pages < pps \
         <= plan.splits * plan.split_pages

@@ -12,7 +12,8 @@ card (tests/test_torch_kernels.py, ``cuda`` marker, and chip_smoke.py).
 
 Also pinned here: the port imports nothing of JAX or the JAX package, its
 entry points refuse to run without a card unless asked for the CPU, the
-knobs of later slices raise instead of being ignored, and a default
+knobs of later slices (the host tier, LoRA) raise instead of being
+ignored, and a default
 FFConfig (prefix cache on, as in the JAX package) serves.
 """
 
@@ -167,23 +168,14 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("knobs", [
     dict(host_kv_pages=4),
-    dict(temperature=0.7),
-    dict(prefill_interleave_chunks=2),
-    dict(draft_model="self"),
-    dict(paged_attention_impl="pallas"),
     dict(adapter_pool_pages=4),
-    dict(speculate_k=2),
-    dict(prefill_chunk=8),
 ], ids=lambda k: next(iter(k)))
 def test_later_slice_knobs_raise(tff, knobs):
-    """The prefix cache and the quantized tier are ported; the prefix
-    cache's host tier, speculation (a draft model, here the model itself),
-    sampling, chunk-interleaved admission, other attention routes, LoRA and
-    chunked prefill still raise."""
+    """The prefix cache, the quantized tier, sampling, speculation,
+    chunked and chunk-interleaved prefill and the attention routes are
+    ported; the prefix cache's host tier and LoRA still raise."""
     kw = dict(ENGINE)
     kw.update(knobs)
-    if kw.get("draft_model") == "self":
-        kw["draft_model"] = tff
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tff.make_serving_engine(**kw)
 
@@ -234,3 +226,62 @@ def test_submit_validates_prompt(tff):
         eng.submit(np.asarray([1, VOCAB]), 4)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(np.arange(40) % VOCAB, 40)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "pallas"])
+def test_paged_attention_impl_matches_jax(jff, tff, prompts, impl):
+    """``paged_attention_impl``: "pallas" names the paged-attention
+    kernel, "einsum" the page gather and grouped einsum attention — the
+    kernel's plain version, which is what the CPU runs for either name.
+    The port's route against the JAX route of each name (the Pallas kernel
+    in interpret mode): a decode / verify slab's attention within 1e-5,
+    and the engine's greedy tokens identical."""
+    from flexflow_tpu_torch.ops import kernels
+
+    ja = next(op for op in jff.ops if type(op).__name__ ==
+              "MultiHeadAttention")
+    ta = next(op for op in tff.ops if type(op).__name__ ==
+              "MultiHeadAttention")
+    rs = np.random.RandomState(4)
+    pool = {n: rs.randn(6, 4, 2, 16).astype(np.float32) for n in "kv"}
+    table = np.asarray([[3, 1, 4], [5, 2, 0]], np.int32)
+    for s in (1, 3):
+        q = rs.randn(2, s, 4, 16).astype(np.float32)
+        wp = np.minimum(np.asarray([8, 5])[:, None] + np.arange(s),
+                        [[11], [6]]).astype(np.int32)
+        rl, pad = np.asarray([3, 4], np.int32), np.asarray([8, 4], np.int32)
+        want = np.asarray(ja._paged_attention_ctx(
+            jnp.asarray(q), {n: jnp.asarray(a) for n, a in pool.items()},
+            *(jnp.asarray(a) for a in (table, wp, rl, pad)), impl=impl))
+        got = ta._paged_attention_ctx(
+            torch.from_numpy(q), {n: torch.from_numpy(a)
+                                  for n, a in pool.items()},
+            *(torch.from_numpy(a) for a in (table, wp, rl, pad))).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    kw = dict(ENGINE, paged_attention_impl=impl)
+    j_reqs = jff.make_serving_engine(**kw).run(prompts[:3], max_new_tokens=4)
+    eng = tff.make_serving_engine(**kw)
+    n0 = kernels.paged_attention_fwd.launches
+    for jr, tr in zip(j_reqs, eng.run(prompts[:3], max_new_tokens=4)):
+        assert tr.state == "done" and tr.tokens == jr.tokens
+    assert kernels.paged_attention_fwd.launches == n0    # the CPU
+    assert eng.stats()["paged_attention_impl"] == impl
+    with pytest.raises(ValueError, match="paged_attention_impl"):
+        tff.make_serving_engine(**dict(ENGINE, paged_attention_impl="xla"))
+
+
+@pytest.mark.parametrize("impl", ["einsum", "pallas", "auto", None])
+def test_einsum_route_refused_on_the_card(impl):
+    """On a CUDA device decode attention is the paged-attention kernel:
+    "einsum" (the plain route) raises, naming the kernel; the other names
+    resolve to it. On the CPU every name is accepted."""
+    from flexflow_tpu_torch.ops import attention
+
+    if impl == "einsum":
+        with pytest.raises(ValueError, match="paged_attention_fwd"):
+            attention.resolve_paged_attention_impl(impl, None, "cuda")
+    else:
+        assert attention.resolve_paged_attention_impl(
+            impl, None, torch.device("cuda", 0)) == "pallas"
+    assert attention.resolve_paged_attention_impl(impl, None, "cpu") \
+        == (impl if impl == "einsum" else "pallas")
