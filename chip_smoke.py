@@ -200,6 +200,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 positions and at the draft's decode step, kernel 1 at the
                 draft's prefill and kernel 5 over its 16 layers.
 
+ 12. serving rest — right after 11, on phase 6's Llama-3-8B: (a) LoRA
+                tenants (4 adapter pages + the null page, rank 16, every
+                Linear op targeted: the 96 FFN Linears and lm_head; five
+                seeded adapters A..E, alpha 16): the null adapter's tokens
+                are phase 6's, each tenant alone, then A, B, C and the base
+                model mixed across the slots (each request's tokens its
+                tenant-alone tokens), then D, E and A again (LRU evictions,
+                A's tokens unchanged, no capture added); decode step and
+                adapter fault-in times. (b) The prefix cache's host tier
+                (64 pinned host pages; a pool of 29 pages: scratch and the
+                4 live slots' worst case, cached prefixes keeping what the
+                live requests leave): six families of a 384-token
+                prefix, two prompts each, then the first three families
+                again — pages demote and promote, no copy fails, prefix
+                hits equal an ample pool's without a tier, the native
+                pool's tokens too, and a prefix exported before its
+                demotion and after its promotion is the same bytes; the
+                same from an int8 pool; TTFT of a promoted hit, an HBM hit
+                and a cold prefill, D2H and H2D GB/s; drained and flushed,
+                every page is free. (c) The lifecycle: a prefix slab
+                prefilled on one engine and imported by another (the same
+                tokens, re-exported bitwise); drain() with 4 live and 4
+                queued, reclaim_queued(), reopen() (phase 6's tokens);
+                health() polled from another thread meanwhile, its keys and
+                load()'s JAX's; a request past its deadline retires with
+                no launch; swap_weights to a second seeded weight set on a
+                native and an int8-weight engine (a fresh engine's tokens,
+                no capture added) and back (the first tokens), refused
+                under a live slot; warmup() then the same prompts capture
+                nothing. Exact launch counts in every round.
+
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
 """
@@ -2954,7 +2985,8 @@ def phase_decode_features(torch, FFConfig, FFModel, llama_lm, kernels, ff,
     greedy and (d) sampled speculation with a Llama-3.2-1B-width draft at
     K = SPEC_K, greedy speculation with the target as its own draft, (e)
     chunked and chunk-interleaved prefill. ``ref``: phase
-    6's tokens. Returns {path: launch counts}."""
+    6's tokens. Returns {path: launch counts} and the captured decode's
+    step (ms) of (a)'s replay round."""
     from torch.profiler import ProfilerActivity, profile
 
     problems = []
@@ -3110,6 +3142,553 @@ def phase_decode_features(torch, FFConfig, FFModel, llama_lm, kernels, ff,
     del eng
     if problems:
         fail("phase 11: " + " | ".join(problems))
+    return out, a2["step_ms"]
+
+
+#: phase 12: the LoRA pool (pages, rank, alpha, the adapters' spread), the
+#: host tier (its pages; the tight pool: scratch and the 4 slots' worst case
+#: of 7 pages each, so cached prefixes keep only what live requests leave;
+#: the ample reference pool), the copy-rate batch
+P12_LORA = dict(adapter_pool_pages=4, lora_rank=16)
+P12_ALPHA = 16.0
+P12_LORA_STD = 0.03
+P12_TIER = dict(prefix_cache=True, host_kv_pages=64, kv_pages=29)
+P12_AMPLE = dict(prefix_cache=True, host_kv_pages=0, kv_pages=80)
+P12_COPY_PAGES = 8
+#: JAX's health() and load() keys (flexflow_tpu/runtime/serving.py
+#: ServingEngine.health / load), in order
+P12_HEALTH_KEYS = ["status", "admitting", "active_slots", "queued",
+                   "weight_version", "deploy_state", "serve_slots",
+                   "free_pages", "completed", "failed", "timeouts",
+                   "occupancy", "recompiles", "pages_in_use",
+                   "kv_pages_shared", "prefix_hit_rate", "spec_accept_rate",
+                   "kv_cache_dtype", "weight_dtype", "kv_bytes_per_token",
+                   "tokens_per_pool_gb"]
+P12_LOAD_KEYS = ["active_slots", "queued"]
+
+
+def _p12_round(torch, kernels, eng, prompts, tag: str, kws=None):
+    """One serve of ``prompts`` on ``eng`` (no draft) with the launch
+    counts set to 0 just before: fails unless every request finished and
+    each kernel ran exactly its count — kernel 1 once a layer for each cold
+    prefill (an admission the prefix cache did not hit), kernel 5 once an
+    admission, kernel 4 once a layer a decode step. Returns the tokens,
+    prefix tokens, TTFTs (ms), stats deltas and launches."""
+    layers = len(eng.gen.attn_ops)
+    before = eng.stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, MAX_NEW, **(kws[i] if kws else {}))
+            for i, p in enumerate(prompts)]
+    while eng.step():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    d = {k: st[k] - before[k] for k in (
+        "decode_steps", "tokens_generated", "prefix_lookups", "prefix_hits",
+        "recompiles", "tier_demotions", "tier_promotions")}
+    d["decode_ms"] = (st["decode_step_ms"] * st["decode_steps"]
+                      - before["decode_step_ms"] * before["decode_steps"])
+    if any(r.state != "done" for r in reqs):
+        fail(f"phase 12 ({tag}): not every request finished: "
+             f"{[(r.state, r.error) for r in reqs]}")
+    admitted = d["prefix_lookups"] if eng.prefix_cache else len(prompts)
+    want = {"flash_attention_fwd": layers * (admitted - d["prefix_hits"]),
+            "paged_prefill_write": admitted,
+            "paged_attention_fwd": layers * d["decode_steps"],
+            "flash_attention_bwd": 0, "fused_add_layernorm_fwd": 0,
+            "fused_update": 0}
+    if launches != want:
+        fail(f"phase 12 ({tag}): kernel launches {launches} != expected "
+             f"{want}")
+    if not kernels.tickets_clear():
+        fail(f"phase 12 ({tag}): a split-KV ticket was left set")
+    return dict(tokens=[list(r.tokens) for r in reqs],
+                prefix=[r.prefix_tokens for r in reqs],
+                ttfts=[r.ttft * 1e3 for r in reqs], wall=wall, d=d,
+                launches=launches, st=st,
+                step_ms=d["decode_ms"] / max(1, d["decode_steps"]))
+
+
+def _p12_adapter(np, geometry, seed: int, rank: int):
+    rs = np.random.RandomState(seed)
+    return {n: {"a": (rs.standard_normal((i, rank)) * P12_LORA_STD)
+                .astype(np.float32),
+                "b": (rs.standard_normal((rank, o)) * P12_LORA_STD)
+                .astype(np.float32)}
+            for n, (i, o) in geometry.items()}
+
+
+def _p12_lora(torch, kernels, ff, ref, prompts, step_ms_p11: float,
+              card: str, same, out):
+    """Phase 12 (a): LoRA tenants on the captured decode."""
+    import numpy as np
+
+    eng = ff.make_serving_engine(**P11_ENGINE, **P12_LORA)
+    geo = eng.lora.geometry
+    n_ops = len(geo)
+    t0 = time.perf_counter()
+    for i, name in enumerate("ABCDE"):
+        eng.register_adapter(name, _p12_adapter(np, geo, 40 + i,
+                                                eng.lora_rank),
+                             alpha=P12_ALPHA)
+    pool_mb = sum(t.numel() * 4 for v in eng.lora_pool.values()
+                  for t in (v.values() if isinstance(v, dict) else [v])) \
+        / 2**20
+    say(f"phase 12 (LoRA): {n_ops} Linear ops targeted, rank "
+        f"{eng.lora_rank}, alpha {P12_ALPHA}, 5 adapters registered in "
+        f"{time.perf_counter() - t0:.1f} s, device pool "
+        f"{eng.adapter_pool_pages} pages + the null page = {pool_mb:.0f} MiB")
+    if n_ops != 3 * LLAMA3_8B["layers"] + 1:
+        fail(f"phase 12 (LoRA): {n_ops} Linear ops targeted, expected the "
+             f"{3 * LLAMA3_8B['layers']} FFN Linears and lm_head")
+    w1 = _p12_round(torch, kernels, eng, prompts, "LoRA, null adapter")
+    same("LoRA wave 1 (null adapter) vs phase 6", w1["tokens"], ref)
+    caps = eng.stats()["recompiles"]
+    out["lora"] = w1["launches"]
+    say(f"phase 12 (LoRA): decode step with the adapter pool "
+        f"{w1['step_ms']:.2f} ms (null pages, first round, incl. capture) "
+        f"against phase 11's captured step {step_ms_p11:.2f} ms [{card}]")
+    # each tenant alone over every prompt, then the tenants mixed
+    solo = {}
+    for name in "ABC":
+        r = _p12_round(torch, kernels, eng, prompts, f"LoRA, {name} alone",
+                       [dict(adapter=name)] * len(prompts))
+        solo[name] = r["tokens"]
+    # C comes back last, so A and B are the least recently used pages
+    tenants = ["A", "B", "C", None, "C", None]
+    mixed = _p12_round(torch, kernels, eng, prompts, "LoRA, mixed",
+                       [dict(adapter=t) for t in tenants])
+    same("LoRA wave 2 (A, B, C, null mixed) vs each tenant alone",
+         mixed["tokens"], [solo[t][i] if t else ref[i]
+                           for i, t in enumerate(tenants)])
+    moved = sum(solo[n][i] != ref[i] for n in "ABC"
+                for i in range(len(prompts)))
+    say(f"phase 12 (LoRA): {moved} of {3 * len(prompts)} tenant streams "
+        f"differ from the base model's")
+    if not moved:
+        fail("phase 12 (LoRA): no adapter moved a token")
+    say(f"phase 12 (LoRA): decode step, mixed tenants "
+        f"{mixed['step_ms']:.2f} ms over {mixed['d']['decode_steps']} "
+        f"steps (replays only) against phase 11's {step_ms_p11:.2f} ms "
+        f"[{card}]")
+    # adapter fault-in: one adapter's pages written into its device page
+    # (the same bytes again), host -> device
+    st = eng.stats()
+    page = eng.lora.lookup_page("A")
+    ent = eng.lora.registry["A"]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._write_adapter_page(page, ent["payload"], ent["scale"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(a.nbytes for sub in ent["payload"].values()
+             for a in sub.values()) / 2**20
+    say(f"phase 12 (LoRA): adapter fault-in {sorted(times)[1]:.1f} ms "
+        f"(median of 3) for {mb:.0f} MiB from pageable host memory "
+        f"[{card}]")
+    # D and E take the free page and then evict the least recently used
+    # tenant; A's return evicts the next
+    for name in "DEA":
+        r = _p12_round(torch, kernels, eng, prompts, f"LoRA, {name} alone",
+                       [dict(adapter=name)] * len(prompts))
+    same("LoRA wave 3: A after eviction and fault-in vs A alone before",
+         r["tokens"], solo["A"])
+    st = eng.stats()
+    say(f"phase 12 (LoRA): adapter faults {st['adapter_faults']}, hits "
+        f"{st['adapter_hits']}, evictions {st['adapter_evictions']}, "
+        f"captures since wave 1 {st['recompiles'] - caps}; launches of the "
+        f"mixed wave {mixed['launches']}")
+    if st["adapter_evictions"] < 2 or st["recompiles"] != caps \
+            or st["adapter_refs_live"] != 0:
+        fail(f"phase 12 (LoRA): evictions {st['adapter_evictions']} (>= 2)"
+             f", captures added {st['recompiles'] - caps} (0), live refs "
+             f"{st['adapter_refs_live']} (0)")
+    out["lora_mixed"] = mixed["launches"]
+    del eng
+
+
+def _p12_tier_traffic(np):
+    """Six families of a QUANT_PREFIX-token prefix, two prompts a family
+    (phase 6b's tails), families in turn; then the first three families'
+    prompts again."""
+    rs = np.random.RandomState(12)
+    vocab = LLAMA3_8B["vocab_size"]
+    fams = [rs.randint(0, vocab, size=QUANT_PREFIX) for _ in range(6)]
+    first = [np.concatenate([fams[i // 2], rs.randint(
+        0, vocab, size=QUANT_TAILS[i % len(QUANT_TAILS)])]).astype(np.int32)
+        for i in range(12)]
+    return first, first[:6]
+
+
+def _p12_tier_run(torch, kernels, eng, first, again, tag):
+    """The tier traffic on one engine: family 0, the prefix's pages
+    exported, families 1-5, then the repeats one request at a time (each
+    TTFT is its own admission's), the prefix exported again."""
+    r0 = _p12_round(torch, kernels, eng, first[:2], f"{tag}, family 0")
+    before = eng.export_prefix_slab(first[0][:QUANT_PREFIX])
+    r1 = _p12_round(torch, kernels, eng, first[2:], f"{tag}, families 1-5")
+    tier0 = eng.prefix_cache.match(first[0], 3)[0].tier
+    rep = [_p12_round(torch, kernels, eng, [p], f"{tag}, repeat {i}")
+           for i, p in enumerate(again)]
+    after = eng.export_prefix_slab(first[0][:QUANT_PREFIX])
+    eng.prefix_cache.wait_migrations()
+    return dict(tokens=r0["tokens"] + r1["tokens"]
+                + [r["tokens"][0] for r in rep],
+                prefix=r0["prefix"] + r1["prefix"]
+                + [r["prefix"][0] for r in rep],
+                cold_ttft=r0["ttfts"][0], rep=rep, before=before,
+                after=after, tier0=tier0, st=eng.stats(),
+                launches=r1["launches"])
+
+
+def _p12_copy_rates(torch, eng, card: str, tag: str):
+    """The host tier's copies at their batch: P12_COPY_PAGES pool pages
+    (target pool, scales included) D2H into pinned memory and back H2D
+    into free pages of the drained, flushed engine (nothing served
+    changes)."""
+    pages = list(range(1, 1 + P12_COPY_PAGES))
+    dst = eng._free_pages[:P12_COPY_PAGES]
+    page_bytes = sum(t[0].numel() * t.element_size()
+                     for c in eng.pool.values() for t in c.values())
+    d2h, h2d = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payloads = eng._page_d2h(pages)()
+        d2h.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._page_h2d(dst, payloads)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+    nbytes = page_bytes * P12_COPY_PAGES
+    say(f"phase 12 (host tier, {tag}): D2H {nbytes / sorted(d2h)[2] / 1e9:.1f}"
+        f" GB/s, H2D {nbytes / sorted(h2d)[2] / 1e9:.1f} GB/s (median of 5,"
+        f" {P12_COPY_PAGES} pages of {page_bytes / 2**20:.1f} MiB, pinned "
+        f"host memory, host clock around each copy and its sync) [{card}]")
+
+
+def _p12_tier(torch, kernels, ff, card: str, same, out):
+    """Phase 12 (b): the host tier under a tight pool, native and int8."""
+    import numpy as np
+
+    first, again = _p12_tier_traffic(np)
+    for kv in ("native", "int8"):
+        tag = f"host tier, {kv} pool"
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        eng = ff.make_serving_engine(**ENGINE, kv_cache_dtype=kv,
+                                     **P12_TIER)
+        tight = _p12_tier_run(torch, kernels, eng, first, again, tag)
+        t_tight = time.perf_counter() - t0
+        ample_eng = ff.make_serving_engine(**ENGINE, kv_cache_dtype=kv,
+                                           **P12_AMPLE)
+        ample = _p12_tier_run(torch, kernels, ample_eng, first, again,
+                              f"ample {kv} pool")
+        st = tight["st"]
+        say(f"phase 12 ({tag}): kv_pages {st['kv_pages']}, host pages "
+            f"{st['host_kv_pages']}: demotions {st['tier_demotions']}, "
+            f"promotions {st['tier_promotions']}, host evictions "
+            f"{st['tier_host_evictions']}, failures "
+            f"{st['tier_demote_failures']} / "
+            f"{st['tier_promote_failures']}, hits {st['prefix_hits']} of "
+            f"{st['prefix_lookups']} (ample pool: "
+            f"{ample['st']['prefix_hits']}); the first family's prefix was "
+            f"{tight['tier0']}-resident before its repeat; {t_tight:.1f} s")
+        if st["tier_demotions"] == 0 or st["tier_promotions"] == 0 \
+                or st["tier_demote_failures"] or st["tier_promote_failures"] \
+                or tight["tier0"] != "host":
+            fail(f"phase 12 ({tag}): demotions {st['tier_demotions']} and "
+                 f"promotions {st['tier_promotions']} must be > 0, failures "
+                 f"{st['tier_demote_failures']} / "
+                 f"{st['tier_promote_failures']} 0, and the first family "
+                 f"demoted ({tight['tier0']})")
+        if tight["prefix"] != ample["prefix"]:
+            fail(f"phase 12 ({tag}): prefix hits {tight['prefix']} != the "
+                 f"ample pool's {ample['prefix']}")
+        for pb, pa in zip(tight["before"]["payload"],
+                          tight["after"]["payload"]):
+            for key in pb:
+                for name in pb[key]:
+                    if pb[key][name].tobytes() != pa[key][name].tobytes():
+                        fail(f"phase 12 ({tag}): page {key} {name} not "
+                             f"bitwise after demotion and promotion")
+        say(f"phase 12 ({tag}): the first family's {QUANT_PREFIX}-token "
+            f"prefix exported before its demotion and after its promotion:"
+            f" bitwise equal")
+        if kv == "native":
+            same(f"{tag} vs an ample pool without a host tier",
+                 tight["tokens"], ample["tokens"])
+        else:
+            agree = np.mean([a == b for x, y in zip(tight["tokens"],
+                                                    ample["tokens"])
+                             for a, b in zip(x, y)])
+            say(f"phase 12 ({tag}): token agreement with the ample int8 "
+                f"pool {agree:.4f} (positionwise, not gated: a decode "
+                f"append into a reused int8 page starts from its previous "
+                f"owner's scale, and the two pools reuse other pages)")
+        promoted = [r["ttfts"][0] for r in tight["rep"]
+                    if r["d"]["tier_promotions"] > 0]
+        hbm = [r["ttfts"][0] for r in ample["rep"]]
+        say(f"phase 12 ({tag}): TTFT of a promoted hit "
+            f"{np.median(promoted):.1f} ms (median of {len(promoted)}), of "
+            f"an HBM hit {np.median(hbm):.1f} ms (median of {len(hbm)}), of "
+            f"a cold prefill {tight['cold_ttft']:.1f} ms (the first "
+            f"request) [{card}]")
+        eng.drain()
+        eng.flush_prefix_cache()
+        st = eng.stats()
+        if st["free_pages"] != st["kv_pages"] - 1 or st["kv_pages_host"] \
+                or st["prefix_refs_live"]:
+            fail(f"phase 12 ({tag}): after drain and flush free "
+                 f"{st['free_pages']} (want {st['kv_pages'] - 1}), host "
+                 f"{st['kv_pages_host']} (0), refs {st['prefix_refs_live']}")
+        _p12_copy_rates(torch, eng, card, kv)
+        out[f"tier_{kv}"] = tight["launches"]
+        del eng, ample_eng, tight, ample
+
+
+def _p12_second_weights(torch, ff):
+    """A second weight set of phase 6's geometry from its own seed: each
+    matrix at the spread of the one it replaces, the norm scales near 1."""
+    dev = next(iter(ff.params["lm_head"].values())).device
+    g = torch.Generator(device=dev).manual_seed(12)
+    new = {}
+    for op, ws in ff.params.items():
+        new[op] = {}
+        for w, t in ws.items():
+            r = torch.randn(t.shape, device=dev, generator=g)
+            if t.dim() == 1:
+                new[op][w] = (1.0 + 0.1 * r).to(t.dtype)
+            else:
+                new[op][w] = (r * t.float().std()).to(t.dtype)
+    return new
+
+
+def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
+    """Phase 12 (c): the slab handoff, drain / reclaim / reopen, a
+    deadline, weight swaps, warmup, health and load."""
+    import threading
+
+    import numpy as np
+
+    layers = LLAMA3_8B["layers"]
+    first, _ = _p12_tier_traffic(np)
+    # ---- the slab handoff: A prefills into its cache, B imports the slab
+    prompt = first[1]
+    a = ff.make_serving_engine(**ENGINE)
+    b = ff.make_serving_engine(**ENGINE)
+    kernels.reset_launch_counts()
+    n = a.prefill_into_cache(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slab = a.export_prefix_slab(prompt)
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = b.import_prefix_slab(slab)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {"flash_attention_fwd": layers, "paged_prefill_write": 1,
+            "paged_attention_fwd": 0, "flash_attention_bwd": 0,
+            "fused_add_layernorm_fwd": 0, "fused_update": 0}
+    if got != n or launches != want:
+        fail(f"phase 12 (slab): {n} pages prefilled, {got} imported; "
+             f"launches {launches} != {want}")
+    ra = _p12_round(torch, kernels, a, [prompt], "slab, exporter")
+    rb = _p12_round(torch, kernels, b, [prompt], "slab, importer")
+    nbytes = sum(x.nbytes for p in slab["payload"] for sub in p.values()
+                 for x in sub.values())
+    say(f"phase 12 (slab): {n} pages ({nbytes / 2**20:.0f} MiB) exported "
+        f"in {t_exp * 1e3:.0f} ms, imported in {t_imp * 1e3:.0f} ms; both "
+        f"engines serve the {prompt.size}-token prompt as a hit of "
+        f"{rb['prefix'][0]} tokens [{card}]")
+    if ra["prefix"] != rb["prefix"] or rb["prefix"][0] != n * 128:
+        fail(f"phase 12 (slab): prefix tokens {ra['prefix']} / "
+             f"{rb['prefix']}, want {n * 128}")
+    same("slab: the importer vs the exporter", rb["tokens"], ra["tokens"])
+    again = b.export_prefix_slab(prompt)
+    if any(pa[k][m].tobytes() != pb[k][m].tobytes()
+           for pa, pb in zip(slab["payload"], again["payload"])
+           for k in pa for m in pa[k]):
+        fail("phase 12 (slab): the importer's re-export is not the slab")
+    say("phase 12 (slab): the importer's re-export is the slab, bitwise")
+    del a, b, slab, again
+
+    # ---- drain with 4 live and 4 queued, reclaim, reopen
+    eng = ff.make_serving_engine(**P11_ENGINE)
+    eight = list(prompts) + list(prompts[:2])
+    want_tok = list(ref) + list(ref[:2])
+    reqs = [eng.submit(p, MAX_NEW) for p in eight]
+    seen = []
+    stop = threading.Event()
+
+    def probe():
+        while not stop.is_set():
+            seen.append((eng.health()["status"], eng.load()))
+            time.sleep(0.005)
+
+    th = threading.Thread(target=probe)
+    th.start()
+    eng.step()
+    snap = eng.drain()
+    stop.set()
+    th.join()
+    back = eng.reclaim_queued()
+    if snap["queued"] != 4 or len(back) != 4 \
+            or [r.state for r in reqs[:4]] != ["done"] * 4:
+        fail(f"phase 12 (drain): queued {snap['queued']}, reclaimed "
+             f"{len(back)}, live states {[r.state for r in reqs[:4]]}")
+    eng.reopen()
+    r = _p12_round(torch, kernels, eng, [q.prompt for q in back],
+                   "drain, reopened")
+    same("drain: the live requests vs phase 6",
+         [q.tokens for q in reqs[:4]], want_tok[:4])
+    same("drain: the reclaimed requests, reopened, vs phase 6",
+         r["tokens"], want_tok[4:])
+    statuses = sorted({s for s, _ in seen})
+    say(f"phase 12 (drain): 4 live finished, 4 reclaimed and served after "
+        f"reopen; health() from another thread during the drain saw "
+        f"{statuses} in {len(seen)} probes")
+    h, ld = eng.health(), eng.load()
+    if list(h) != P12_HEALTH_KEYS or list(ld) != P12_LOAD_KEYS:
+        fail(f"phase 12: health() keys {list(h)} / load() keys {list(ld)} "
+             f"are not JAX's")
+    say("phase 12: health() and load() keys are JAX's")
+
+    # ---- a deadline already passed: timeout, no launch
+    kernels.reset_launch_counts()
+    late = eng.submit(prompts[0], MAX_NEW,
+                      deadline=time.perf_counter() - 1.0)
+    while eng.step():
+        pass
+    torch.cuda.synchronize()
+    launched = sum(kernels.launch_counts().values())
+    if late.state != "timeout" or launched \
+            or eng.stats()["timeouts"] != 1:
+        fail(f"phase 12 (deadline): state {late.state}, launches "
+             f"{launched}, timeouts {eng.stats()['timeouts']}")
+    say("phase 12 (deadline): a request past its deadline retired "
+        "'timeout' with no kernel launched")
+    del eng
+
+    # ---- weight swaps under captured decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng_n = ff.make_serving_engine(**P11_ENGINE)
+    eng_q = ff.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
+    n1 = _p12_round(torch, kernels, eng_n, prompts, "swap, native before")
+    same("swap: native engine before the swap vs phase 6", n1["tokens"],
+         ref)
+    q1 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 before")
+    eng_n.submit(prompts[0], MAX_NEW)
+    eng_n.step()
+    try:
+        eng_n.swap_weights(ff.params, "v-live")
+        fail("phase 12 (swap): swap_weights under a live slot did not raise")
+    except RuntimeError:
+        pass
+    eng_n.run()
+    say("phase 12 (swap): swap_weights with a live slot raised")
+    caps_n, caps_q = (eng_n.stats()["recompiles"],
+                      eng_q.stats()["recompiles"])
+    new = _p12_second_weights(torch, ff)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng_n.swap_weights(new, "v1")
+    torch.cuda.synchronize()
+    t_swap = time.perf_counter() - t0
+    n2 = _p12_round(torch, kernels, eng_n, prompts, "swap, native after")
+    fresh = ff.make_serving_engine(**P11_ENGINE)
+    f2 = _p12_round(torch, kernels, fresh, prompts, "swap, fresh native")
+    del fresh
+    same("swap: native engine after the swap vs a fresh engine",
+         n2["tokens"], f2["tokens"])
+    if n2["tokens"] == n1["tokens"]:
+        fail("phase 12 (swap): the second weight set served the first "
+             "set's tokens")
+    t0 = time.perf_counter()
+    eng_q.swap_weights(new, "v1")
+    torch.cuda.synchronize()
+    t_swap_q = time.perf_counter() - t0
+    q2 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 after")
+    fresh = ff.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
+    fq2 = _p12_round(torch, kernels, fresh, prompts, "swap, fresh int8")
+    del fresh
+    same("swap: int8-weight engine after the swap vs a fresh one",
+         q2["tokens"], fq2["tokens"])
+    eng_n.swap_weights(None, "v0")
+    eng_q.swap_weights(None, "v0")
+    n3 = _p12_round(torch, kernels, eng_n, prompts, "swap, native back")
+    q3 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 back")
+    same("swap back: native vs phase 6", n3["tokens"], ref)
+    same("swap back: int8 weights vs before the swap", q3["tokens"],
+         q1["tokens"])
+    added = (eng_n.stats()["recompiles"] - caps_n,
+             eng_q.stats()["recompiles"] - caps_q)
+    say(f"phase 12 (swap): native swap {t_swap:.2f} s (the construction "
+        f"weights kept in host memory), int8 re-quantization in place "
+        f"{t_swap_q:.2f} s; captures added across the swaps {added} "
+        f"[{card}]")
+    if added != (0, 0):
+        fail(f"phase 12 (swap): captures added across the swaps {added}")
+    out["swap"] = n2["launches"]
+    del eng_n, eng_q, new
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- warmup, then the same prompts build nothing
+    eng = ff.make_serving_engine(**ENGINE)
+    t0 = time.perf_counter()
+    w = eng.warmup(prompts, max_new_tokens=MAX_NEW)
+    t_w = time.perf_counter() - t0
+    caps = eng.stats()["recompiles"]
+    _p12_round(torch, kernels, eng, prompts, "after warmup")
+    st = eng.stats()
+    say(f"phase 12 (warmup): {w['requests']} requests, {w['programs']} "
+        f"captures ({w['variants']}) in {t_w:.1f} s; serving the same "
+        f"prompts after it captured {st['recompiles'] - caps}, retraces "
+        f"{st['sanitizer_retraces']}")
+    if w["requests"] != 2 * len(prompts) or w["programs"] != 1 \
+            or st["recompiles"] != caps or st["sanitizer_retraces"]:
+        fail(f"phase 12 (warmup): {w}, captures after it "
+             f"{st['recompiles'] - caps}")
+    del eng
+
+
+def phase_serving_rest(torch, kernels, ff, ref, prompts, step_ms_p11: float,
+                       card: str):
+    """Phase 12: phase 6's Llama-3-8B through the rest of the serving
+    engine — (a) LoRA tenants, (b) the prefix cache's host tier, (c) the
+    lifecycle API. ``ref``: phase 6's tokens; ``step_ms_p11``: phase 11's
+    captured decode step. Returns {path: launch counts}."""
+    problems = []
+
+    def same(tag, got, want):
+        diff = _p11_diff(got, want)
+        say(f"phase 12 ({tag}): tokens identical: {not diff}"
+            + (f" (differ: {diff})" if diff else ""))
+        if diff:
+            problems.append(f"{tag}: {diff}")
+
+    out = {}
+    t0 = time.perf_counter()
+    _p12_lora(torch, kernels, ff, ref, prompts, step_ms_p11, card, same,
+              out)
+    t1 = time.perf_counter()
+    _p12_tier(torch, kernels, ff, card, same, out)
+    t2 = time.perf_counter()
+    _p12_lifecycle(torch, kernels, ff, ref, prompts, card, same, out)
+    say(f"phase 12: LoRA {t1 - t0:.1f} s, host tier {t2 - t1:.1f} s, "
+        f"lifecycle {time.perf_counter() - t2:.1f} s")
+    if problems:
+        fail("phase 12: " + " | ".join(problems))
     return out
 
 
@@ -3226,10 +3805,13 @@ def main():
     launches["serve"], ff, outs = phase_serve(torch, FFConfig, FFModel,
                                               llama_lm, kernels, card)
     launches.update(phase_serve_quantized(torch, ff, kernels, card))
-    launches.update(phase_decode_features(
-        torch, FFConfig, FFModel, llama_lm, kernels, ff,
-        [list(o[n:]) for o, n in zip(outs, PROMPT_LENS)],
-        [o[:n] for o, n in zip(outs, PROMPT_LENS)], card))
+    ref = [list(o[n:]) for o, n in zip(outs, PROMPT_LENS)]
+    prompts = [o[:n] for o, n in zip(outs, PROMPT_LENS)]
+    p11, step_ms_p11 = phase_decode_features(
+        torch, FFConfig, FFModel, llama_lm, kernels, ff, ref, prompts, card)
+    launches.update(p11)
+    launches.update(phase_serving_rest(torch, kernels, ff, ref, prompts,
+                                       step_ms_p11, card))
     del ff, outs
     launches.update(phase_train(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))

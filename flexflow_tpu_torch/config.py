@@ -5,10 +5,9 @@ Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
 other. Knobs that select features of later slices are kept (a user who
 sets them must not be silently served or trained something else): the
-serving engine and the training ``compile`` reject each non-default value
-with ``NotImplementedError`` naming the ROADMAP item that ports it
-(``not_ported``) — ``host_kv_pages > 0`` (the prefix cache's host tier)
-and ``checkpoint_dir`` among them.
+training ``compile`` rejects each non-default value with
+``NotImplementedError`` naming the ROADMAP item that ports it
+(``not_ported``) — ``checkpoint_dir`` among them.
 """
 
 from __future__ import annotations
@@ -19,15 +18,13 @@ from typing import List, Optional
 from flexflow_tpu_torch.ops.sampling import validate_sampling
 
 #: where the features of later slices are queued
-ROADMAP_SERVING = "ROADMAP.md queue 1, item 5 (serving features)"
 ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
 
 
-def not_ported(feature: str, hint: str = "",
-               where: str = ROADMAP_SERVING) -> NotImplementedError:
+def not_ported(feature: str) -> NotImplementedError:
     """The error for a knob whose feature a later slice ports."""
-    msg = f"{feature} is not ported to flexflow_tpu_torch yet ({where})"
-    return NotImplementedError(msg + (f"; {hint}" if hint else ""))
+    return NotImplementedError(f"{feature} is not ported to "
+                               f"flexflow_tpu_torch yet ({ROADMAP_RUNTIME})")
 
 
 @dataclasses.dataclass
@@ -112,9 +109,14 @@ class FFConfig:
     # chunk-interleaved admission: prefill chunks (of the engine's
     # prefill_chunk) run a tick between decode dispatches; 0 = off
     prefill_interleave_chunks: int = 0
-    # later-slice knob, kept with the JAX default (see module docstring):
-    # the prefix cache's host-memory tier
+    # the prefix cache's host-memory tier: pages evicted under pool
+    # pressure demote to this many pinned host pages (0 = no host tier)
     host_kv_pages: int = 0
+    # the paged LoRA adapter pool: device pages for concurrently resident
+    # adapters (0 = no pool), each holding one adapter's (a, b) for every
+    # targeted Linear op at rank serve_lora_rank
+    serve_adapter_pool_pages: int = 0
+    serve_lora_rank: int = 8
 
     def __post_init__(self):
         for field in ("compute_dtype", "master_dtype"):
@@ -180,6 +182,13 @@ class FFConfig:
         validate_sampling(
             self.serve_temperature, self.serve_top_p, self.serve_top_k,
             "FFConfig (serve_temperature/serve_top_p/serve_top_k)")
+        if self.serve_adapter_pool_pages < 0:
+            raise ValueError(
+                f"serve_adapter_pool_pages={self.serve_adapter_pool_pages}"
+                f": must be >= 0 (0 = no adapter pool)")
+        if self.serve_lora_rank < 1:
+            raise ValueError(
+                f"serve_lora_rank={self.serve_lora_rank}: must be >= 1")
         if self.decode_buckets is not None:
             bs = [int(b) for b in self.decode_buckets]
             if not bs or any(b < 1 for b in bs) or sorted(set(bs)) != bs:
@@ -191,5 +200,4 @@ class FFConfig:
 def check_training_ported(cfg: FFConfig) -> None:
     """Raise for a training knob set to a feature no slice has ported."""
     if cfg.checkpoint_dir:
-        raise not_ported("checkpointing and auto-resume (checkpoint_dir)",
-                         where=ROADMAP_RUNTIME)
+        raise not_ported("checkpointing and auto-resume (checkpoint_dir)")

@@ -739,9 +739,10 @@ class FFModel:
         prefix cache; the host scheduler admits queued prompts into free
         slots and retires rows on eos or length. Knobs default to this
         model's FFConfig; kwargs override them per engine (see
-        ServingEngine), among them ``prefix_cache``, ``kv_cache_dtype``
-        ('native', 'bf16', 'int8', 'fp8') and ``weight_dtype`` ('native',
-        'int8', 'fp8')."""
+        ServingEngine), among them ``prefix_cache``, ``host_kv_pages``,
+        ``kv_cache_dtype`` ('native', 'bf16', 'int8', 'fp8'),
+        ``weight_dtype`` ('native', 'int8', 'fp8'), ``adapter_pool_pages``,
+        ``lora_rank`` and ``lora_targets``."""
         from flexflow_tpu_torch.runtime.serving import ServingEngine
 
         return ServingEngine(self, **kwargs)

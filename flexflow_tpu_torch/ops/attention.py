@@ -337,6 +337,15 @@ def paged_slot(page_table: torch.Tensor, write_pos: torch.Tensor,
     return page_ids, wp % page_size
 
 
+#: the integer type of each element size: page payloads move as bits
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _raw_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s storage viewed as integers of its element size."""
+    return t.view(_BITS[t.element_size()])
+
+
 def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, H, Hd) -> (B, S, H, Hd): one matrix product (the
     einsum "bsd,dhk->bshk")."""
@@ -671,6 +680,38 @@ class MultiHeadAttention(Op):
                 x = page_dequantize(x, cache[name + "_scale"][pages])
             out[name] = x.reshape(1, -1, *x.shape[2:])
         return out
+
+    @staticmethod
+    def export_page(cache, pages: torch.Tensor):
+        """Pool pages ``pages`` ((n,) int64 on the pool's device) as the
+        migration payload the host tier and the slab handoff move: each
+        pool array's rows gathered verbatim (``index_select`` on the
+        bits, which every storage dtype has), the quantized pools' per-
+        (page, kv head) scales included, so a page imported back is
+        bitwise the donor's. Device tensors; the caller copies them
+        host-ward."""
+        return {name: _raw_bits(cache[name]).index_select(0, pages)
+                .view(cache[name].dtype)
+                for name in ("k", "v", "k_scale", "v_scale")
+                if name in cache}
+
+    @staticmethod
+    def import_page(cache, pages: torch.Tensor, payload) -> None:
+        """Write exported payloads ((n, ...) per pool array, any device)
+        into pool pages ``pages`` in place (``index_copy_``): the bytes
+        land verbatim, never requantized, so export then import
+        round-trips bitwise. Only fresh pages are ever targets (the
+        copy-on-write rule)."""
+        for name, x in payload.items():
+            pool = cache[name]
+            if x.dtype != pool.dtype or tuple(x.shape[1:]) \
+                    != tuple(pool.shape[1:]):
+                raise ValueError(
+                    f"page payload {name} is {x.dtype}{tuple(x.shape[1:])} "
+                    f"but the pool stores {pool.dtype}"
+                    f"{tuple(pool.shape[1:])}")
+            _raw_bits(pool).index_copy_(
+                0, pages, _raw_bits(x.to(pool.device, non_blocking=True)))
 
     def _paged_attention_ctx(self, qh, cache, page_table, write_pos,
                              row_len, prompt_pad, decode_splits=False):

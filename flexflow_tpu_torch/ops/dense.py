@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, OperatorType
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+from flexflow_tpu_torch.ops.lora import lora_delta
 
 
 def apply_activation(x: torch.Tensor, acti: ActiMode) -> torch.Tensor:
@@ -57,8 +58,12 @@ class Linear(Op):
             ws.append(WeightSpec("bias", (self.out_dim,), init="zero"))
         return ws
 
-    def forward(self, params, xs, *, training=False):
+    def forward(self, params, xs, *, training=False, lora=None):
         y = torch.matmul(xs[0], params["kernel"])
+        if lora is not None:
+            # the gathered per-row LoRA delta (ops/lora.py), added before
+            # the bias as a merged W + a @ b * scale kernel would be
+            y = y + lora_delta(xs[0], *lora)
         if self.use_bias:
             y = y + params["bias"]
         return [apply_activation(y, self.activation)]

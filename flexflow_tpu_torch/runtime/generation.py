@@ -31,6 +31,7 @@ from flexflow_tpu_torch.ops.attention import (MultiHeadAttention, _divide,
                                               paged_slot, rope_tables,
                                               storage_qmax)
 from flexflow_tpu_torch.ops.base import InputOp
+from flexflow_tpu_torch.ops.lora import gather_op_lora
 from flexflow_tpu_torch.runtime.executor import resolve_tied_params
 
 # ops whose forward treats every (batch, position) independently — safe to
@@ -79,6 +80,12 @@ class Generator:
         self.quantize = quantize
         self._qparams = None
         self._qparams_key = None
+        # a weight swap (set_params): the tree being served instead of
+        # model.params, and, while a native-width swap stands, the
+        # construction weights it displaced (host memory)
+        self._params_override = None
+        self._override_version = 0
+        self._backup = None
         input_ops = [op for op in model.ops if isinstance(op, InputOp)]
         tok_inputs = [op for op in input_ops
                       if op.outputs[0].dtype in (DataType.DT_INT32,
@@ -127,17 +134,31 @@ class Generator:
         payload, "s": f32 scale per OUTPUT channel} — amax over the leading
         (contraction) axis only, over qmax, floored at 1e-12; the quotient
         is clipped to +-qmax before the cast and rounded half to even for
-        int8. 1-D weights (norm scales, biases) stay exact. Built once per
-        params tree (keyed by the identity of its tensors)."""
-        src = self.model.params
-        key = tuple(id(t) for ws in src.values() for t in ws.values())
+        int8. 1-D weights (norm scales, biases) stay exact, as copies.
+
+        The tree is built once and then only ever rewritten in place: the
+        captured decode programs hold its tensors' addresses. When the
+        source changes — ``set_params`` (a weight swap), or tensors of
+        model.params rebound — the same buffers are re-quantized from it."""
+        src = self._source_params()
+        key = (self._override_version,
+               tuple(id(t) for ws in src.values() for t in ws.values()))
         if self._qparams is not None and self._qparams_key == key:
             return self._qparams
+        with torch.no_grad():
+            self._qparams = self._quantize_into(src, self._qparams)
+        self._qparams_key = key
+        return self._qparams
+
+    def _quantize_into(self, src, out):
+        """Quantize ``src`` into the tree ``out`` in place, or into a new
+        tree when ``out`` is None."""
         qdtype = torch.float8_e4m3fn if self.quantize == "fp8" else torch.int8
         qmax = storage_qmax(qdtype)
-        out = {}
+        build = out is None
+        out = {} if build else out
         for op_name, ws in src.items():
-            q_ws = {}
+            q_ws = out.setdefault(op_name, {})
             for w_name, w in ws.items():
                 if w.dim() >= 2 and w.dtype.is_floating_point:
                     wf = w.float()
@@ -146,12 +167,66 @@ class Generator:
                     q = torch.clamp(wf / scale, -qmax, qmax)
                     if qdtype == torch.int8:
                         q = torch.round(q)
-                    q_ws[w_name] = {"q": q.to(qdtype), "s": scale}
+                    new = {"q": q.to(qdtype), "s": scale}
+                    if build:
+                        q_ws[w_name] = new
+                    else:
+                        for part in ("q", "s"):
+                            q_ws[w_name][part].copy_(new[part])
+                elif build:
+                    q_ws[w_name] = w.clone()
                 else:
-                    q_ws[w_name] = w
-            out[op_name] = q_ws
-        self._qparams, self._qparams_key = out, key
+                    q_ws[w_name].copy_(w)
         return out
+
+    def _source_params(self):
+        """The weights served: the swapped-in tree, else model.params."""
+        if self._params_override is not None:
+            return self._params_override
+        return self.model.params
+
+    def set_params(self, tree):
+        """Install (or, with ``tree=None``, clear) a weight swap: ``tree``
+        must match model.params op by op, shapes and dtypes included. The
+        decode programs are CUDA graphs holding the served tensors'
+        addresses, so the swap writes in place. A quantized tier re-
+        quantizes its own buffers from ``tree``. At native widths the
+        served tensors are model.params's own (a private copy would double
+        the weights' memory), so the new weights are copied into them —
+        every engine on this model serves them while the swap stands — and
+        the construction weights wait in host memory until
+        ``set_params(None)`` writes them back."""
+        ref = self.model.params
+        if tree is not None:
+            if set(tree) != set(ref) or any(
+                    set(tree[op]) != set(ref[op]) for op in ref):
+                raise ValueError(
+                    "set_params: tree structure differs from model.params "
+                    "— a weight swap must be same-geometry")
+            for op, ws in ref.items():
+                for w, t in ws.items():
+                    new = tree[op][w]
+                    if tuple(new.shape) != tuple(t.shape) \
+                            or new.dtype != t.dtype:
+                        raise ValueError(
+                            f"set_params: leaf geometry mismatch {op}.{w}: "
+                            f"{tuple(t.shape)}/{t.dtype} vs "
+                            f"{tuple(new.shape)}/{new.dtype}")
+        if not self.quantize:
+            with torch.no_grad():
+                if tree is not None and self._backup is None:
+                    self._backup = {op: {w: t.to("cpu", copy=True)
+                                         for w, t in ws.items()}
+                                    for op, ws in ref.items()}
+                src = tree if tree is not None else self._backup
+                if src is not None:
+                    for op, ws in ref.items():
+                        for w, t in ws.items():
+                            t.copy_(src[op][w])
+            if tree is None:
+                self._backup = None
+        self._params_override = tree
+        self._override_version += 1
 
     @staticmethod
     def _deq(v, cdtype: torch.dtype):
@@ -162,8 +237,8 @@ class Generator:
         return v
 
     def params(self):
-        """The tree the walks read: the model's weights, or their quantized
-        form."""
+        """The tree the walks read: the model's weights (a native swap
+        writes into them), or their quantized form."""
         return self._quantized_params() if self.quantize \
             else self.model.params
 
@@ -192,7 +267,7 @@ class Generator:
     def _walk(self, params, tokens, caches, last_only=False,
               row_lengths=None, paged: Optional[Dict] = None,
               chunk_start: Optional[int] = None, skip_tail: bool = False,
-              gather_last: bool = False):
+              gather_last: bool = False, lora: Optional[Dict] = None):
         """Interpret the graph on a (B, S) token slab. By default this is
         the whole-prompt prefill (positions 0..S-1, fills ``caches``);
         ``chunk_start`` prefills positions chunk_start.. behind what the
@@ -205,7 +280,9 @@ class Generator:
         tail: past the last attention op only each row's last valid
         position (``row_lengths`` - 1, or column -1) flows through, so the
         lm_head never sees the pad positions and no (B, S, V) logits are
-        made."""
+        made. ``lora`` ({"pool", "pages"}: the adapter pool and each row's
+        page) adds each row's gathered LoRA delta to every targeted Linear
+        (the JAX walk, generation.py:356-365)."""
         s_full = tokens.shape[1]
         vals = {self.token_input.outputs[0]: tokens}
         new_caches = {}
@@ -280,6 +357,10 @@ class Generator:
             elif op.op_type == OperatorType.OP_MOE:
                 outs = op.forward(p, xs,
                                   capacity=math.prod(xs[0].shape[:-1]))
+            elif (lora is not None and op.op_type == OperatorType.OP_LINEAR
+                  and op.name in lora["pool"]):
+                outs = op.forward(p, xs, lora=gather_op_lora(
+                    lora["pool"], op.name, lora["pages"]))
             else:
                 outs = op.forward(p, xs)
             for i, t in enumerate(op.outputs):
@@ -287,7 +368,7 @@ class Generator:
         return vals[self.model._final_tensor], new_caches
 
     def _prefill(self, params, tokens, caches, row_lengths,
-                 prefill_chunk: int = 0):
+                 prefill_chunk: int = 0, lora: Optional[Dict] = None):
         """Prefill (the JAX ``_prefill``, generation.py:383-420): logits
         (B, 1, V) at each row's last valid position, and the filled
         caches. Whole-prompt through the flash kernel, or, with
@@ -298,10 +379,12 @@ class Generator:
         s0 = tokens.shape[1]
         if not prefill_chunk or s0 <= prefill_chunk:
             return self._walk(params, tokens, caches, last_only=True,
-                              row_lengths=row_lengths)
+                              row_lengths=row_lengths, lora=lora)
         for st in range(0, s0, prefill_chunk):
             _, caches = self._walk(params, tokens[:, st:st + prefill_chunk],
-                                   caches, chunk_start=st, skip_tail=True)
+                                   caches, chunk_start=st, skip_tail=True,
+                                   lora=lora)
         tok_last = torch.gather(tokens, 1, (row_lengths.long() - 1)[:, None])
         return self._walk(params, tok_last, caches, last_only=True,
-                          row_lengths=row_lengths, gather_last=True)
+                          row_lengths=row_lengths, gather_last=True,
+                          lora=lora)

@@ -2509,3 +2509,166 @@ def test_engine_features_card_vs_cpu(no_tf32, knobs):
         assert st["spec_accepted"] > 0
     assert kernels.paged_attention_fwd.launches - n0 > 0
     assert kernels.tickets_clear()
+
+
+# ---- the rest of the serving engine on the card: LoRA, the host tier,
+# the slab handoff, weight swaps under captured programs --------------------
+
+
+def _adapter(geometry, seed, rank=8, scale=0.05):
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return {n: {"a": (rs.randn(i, rank) * scale).astype(np.float32),
+                "b": (rs.randn(rank, o) * scale).astype(np.float32)}
+            for n, (i, o) in geometry.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "self_spec"])
+def test_lora_tenants_card_vs_cpu(no_tf32, spec):
+    """Three adapters and the base model mixed across four slots through a
+    2-page adapter pool (faults and LRU evictions) — the adapter gathered
+    inside the captured decode (and verify) programs: the card's greedy
+    tokens and adapter counters equal the CPU's; adapters move tokens."""
+    cpu, gpu = _llama_pair(no_tf32)
+    kw = dict(ENGINE_KW, adapter_pool_pages=2, lora_rank=8)
+    if spec:
+        kw_cpu, kw_gpu = (dict(kw, speculate_k=3, draft_model=cpu),
+                          dict(kw, speculate_k=3, draft_model=gpu))
+    else:
+        kw_cpu = kw_gpu = kw
+    prompts = _serve_prompts() * 2
+    tenants = ["a", None, "b", "c", "c", "a", None, "b"]
+    out = []
+    for ff, kwx in ((cpu, kw_cpu), (gpu, kw_gpu)):
+        eng = ff.make_serving_engine(**kwx)
+        for i, name in enumerate("abc"):
+            eng.register_adapter(name, _adapter(eng.lora.geometry, i),
+                                 alpha=16.0)
+        reqs = [eng.submit(p, 10, adapter=t)
+                for p, t in zip(prompts, tenants)]
+        while eng.step():
+            pass
+        st = eng.stats()
+        out.append(([r.tokens for r in reqs],
+                    {k: st[k] for k in ("adapter_faults", "adapter_hits",
+                                        "adapter_evictions",
+                                        "adapter_refs_live")}))
+    assert out[1] == out[0]
+    assert out[1][1]["adapter_evictions"] > 0
+    base = gpu.make_serving_engine(**ENGINE_KW).run(prompts[:4], 10)
+    assert [r.tokens for r in base] != out[1][0][:4]
+    assert kernels.tickets_clear()
+
+
+def _tier_traffic(n_vocab=500):
+    import numpy as np
+
+    rs = np.random.RandomState(8)
+    fams = [rs.randint(1, n_vocab, size=48) for _ in range(6)]
+    first = [np.concatenate([fams[i // 2], rs.randint(1, n_vocab,
+                                                      size=5 + 7 * i)])
+             .astype(np.int32) for i in range(12)]
+    return first, first[:6]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["native", "int8"])
+def test_host_tier_on_card(no_tf32, kv):
+    """Pool pressure with a host tier on the card: pages demote into pinned
+    host memory and promote back; the tokens and prefix hits equal the
+    CPU's tier engine and an ample card pool's; a page exported before its
+    demotion and after its promotion is the same bytes; no copy failed;
+    drained and flushed, every page is free and the host tier empty."""
+    cpu, gpu = _llama_pair(no_tf32)
+    first, again = _tier_traffic()
+    tight = dict(ENGINE_KW, kv_cache_dtype=kv, kv_pages=45,
+                 host_kv_pages=48)
+    runs = []
+    for ff, knobs in ((cpu, tight), (gpu, tight),
+                      (gpu, dict(tight, kv_pages=140, host_kv_pages=0))):
+        eng = ff.make_serving_engine(**knobs)
+        reqs = eng.run(first[:2], 8)
+        before = eng.export_prefix_slab(first[0][:48])
+        reqs += eng.run(first[2:], 8)
+        reqs += eng.run(again, 8)
+        after = eng.export_prefix_slab(first[0][:48])
+        eng.prefix_cache.wait_migrations()
+        st = eng.stats()
+        runs.append(([r.tokens for r in reqs],
+                     [r.prefix_tokens for r in reqs], st))
+        for pb, pa in zip(before["payload"], after["payload"]):
+            for key in pb:
+                for name in pb[key]:
+                    assert (pb[key][name].tobytes()
+                            == pa[key][name].tobytes())
+        if knobs["host_kv_pages"]:
+            assert st["tier_demotions"] > 0 and st["tier_promotions"] > 0
+            assert st["tier_demote_failures"] == 0
+            assert st["tier_promote_failures"] == 0
+            eng.drain()
+            eng.flush_prefix_cache()
+            st = eng.stats()
+            assert st["free_pages"] == st["kv_pages"] - 1
+            assert st["kv_pages_host"] == 0
+    assert runs[1][:2] == runs[0][:2] and runs[2][:2] == runs[1][:2]
+    for key in ("tier_demotions", "tier_promotions", "prefix_hits"):
+        assert runs[1][2][key] == runs[0][2][key], key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["native", "int8"])
+def test_prefix_slab_on_card(no_tf32, kv):
+    """A slab exported on the card imports into another card engine and
+    into a CPU engine: each re-exports it bitwise and serves the prompt as
+    a hit with the exporter's tokens."""
+    cpu, gpu = _llama_pair(no_tf32)
+    prompt = _tier_traffic()[0][3]
+    kw = dict(ENGINE_KW, kv_cache_dtype=kv)
+    a = gpu.make_serving_engine(**kw)
+    n = a.prefill_into_cache(prompt)
+    slab = a.export_prefix_slab(prompt)
+    want = a.run([prompt], 8)[0]
+    assert want.prefix_tokens == n * 16
+    for ff in (gpu, cpu):
+        b = ff.make_serving_engine(**kw)
+        assert b.import_prefix_slab(slab) == n
+        again = b.export_prefix_slab(prompt)
+        for pa, pb in zip(slab["payload"], again["payload"]):
+            for key in pa:
+                for name in pa[key]:
+                    assert (pa[key][name].tobytes()
+                            == pb[key][name].tobytes())
+        got = b.run([prompt], 8)[0]
+        assert got.prefix_tokens == want.prefix_tokens
+        assert got.tokens == want.tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["native", "int8"])
+def test_swap_weights_under_captured_decode(no_tf32, weights):
+    """An engine whose decode chunk is a captured CUDA graph swaps to a
+    second weight set: it serves a fresh engine's tokens on those weights
+    with no capture added (the graph reads the new values in place — for
+    the int8 tier, re-quantized into the same buffers); the swap back
+    restores its first tokens."""
+    _, gpu = _llama_pair(no_tf32)
+    _, gpu2 = _llama_pair(no_tf32, seed=7)
+    kw = dict(ENGINE_KW, weight_dtype=weights, prefix_cache=False)
+    prompts = _serve_prompts()
+    eng = gpu.make_serving_engine(**kw)
+    first = [r.tokens for r in eng.run(prompts, 10)]
+    caps = eng.stats()["recompiles"]
+    assert caps == 1 and eng.stats()["graph_replays"] > 0
+    new = {op: {w: t.clone() for w, t in ws.items()}
+           for op, ws in gpu2.params.items()}
+    eng.swap_weights(new, "v1")
+    swapped = [r.tokens for r in eng.run(prompts, 10)]
+    fresh = [r.tokens for r in
+             gpu2.make_serving_engine(**kw).run(prompts, 10)]
+    assert swapped == fresh and swapped != first
+    assert eng.stats()["recompiles"] == caps
+    eng.swap_weights(None, "v0")
+    assert [r.tokens for r in eng.run(prompts, 10)] == first
+    assert eng.stats()["recompiles"] == caps

@@ -225,7 +225,9 @@ def test_paged_append_bitwise(jff, tff, kv):
 @pytest.mark.parametrize("wd", QDTYPES)
 def test_quantized_params_bitwise(jff, tff, wd):
     """Weight-only quantization: payload and per-output-channel scales
-    bitwise JAX's for every weight; 1-D weights stay as they are."""
+    bitwise JAX's for every weight; 1-D weights stay as they are, in the
+    tree's own copies (a weight swap rewrites the served tree in place,
+    never the model's tensors)."""
     jq = JGenerator(jff, quantize=wd)._quantized_params()
     tq = Generator(tff, quantize=wd)._quantized_params()
     assert set(tq) == set(jq)
@@ -241,7 +243,8 @@ def test_quantized_params_bitwise(jff, tff, wd):
                 np.testing.assert_array_equal(_bits(tq[op][w]["s"]),
                                               _bits(v["s"]))
             else:
-                assert tq[op][w] is tff.params[op][w]
+                assert torch.equal(tq[op][w], tff.params[op][w])
+                assert tq[op][w].data_ptr() != tff.params[op][w].data_ptr()
     assert quantized >= 4
 
 

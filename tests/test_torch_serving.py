@@ -12,9 +12,9 @@ card (tests/test_torch_kernels.py, ``cuda`` marker, and chip_smoke.py).
 
 Also pinned here: the port imports nothing of JAX or the JAX package, its
 entry points refuse to run without a card unless asked for the CPU, the
-knobs of later slices (the host tier, LoRA) raise instead of being
-ignored, and a default
-FFConfig (prefix cache on, as in the JAX package) serves.
+host tier's and LoRA's knobs serve and are validated while the telemetry
+identity of a later slice raises, and a default FFConfig (prefix cache on,
+as in the JAX package) serves.
 """
 
 import ast
@@ -136,8 +136,9 @@ def test_port_imports_no_jax():
     files += [REPO / "chip_smoke.py"]
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     names = {str(f.relative_to(REPO)) for f in files}
-    # the training slice's modules, the zoo slice's and the MoE / recurrent
-    # / pipelined / fusion slice's are among those scanned, and the port's
+    # the training slice's modules, the zoo slice's, the MoE / recurrent
+    # / pipelined / fusion slice's and the serving engine's (LoRA, the
+    # fault-injection copy) are among those scanned, and the port's
     # scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
@@ -146,7 +147,9 @@ def test_port_imports_no_jax():
         "ops/elementwise", "ops/dense", "ops/attention", "models/cnn",
         "models/bert", "models/vit", "models/dlrm", "models/llama",
         "convert", "ffconst", "ops/moe", "ops/recurrent", "ops/pipelined",
-        "ops/fused", "models/nmt")} <= names
+        "ops/fused", "models/nmt", "ops/lora", "runtime/lora",
+        "runtime/faultinject", "runtime/serving", "runtime/generation")} \
+        <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
     for f in files:
@@ -166,30 +169,52 @@ def test_default_device_is_cuda():
         FFModel(FFConfig())
 
 
-@pytest.mark.parametrize("knobs", [
-    dict(host_kv_pages=4),
-    dict(adapter_pool_pages=4),
-], ids=lambda k: next(iter(k)))
-def test_later_slice_knobs_raise(tff, knobs):
-    """The prefix cache, the quantized tier, sampling, speculation,
-    chunked and chunk-interleaved prefill and the attention routes are
-    ported; the prefix cache's host tier and LoRA still raise."""
-    kw = dict(ENGINE)
-    kw.update(knobs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tff.make_serving_engine(**kw)
+@pytest.mark.parametrize("knob", ["host_kv_pages", "adapter_pool_pages",
+                                  "set_telemetry_identity"])
+def test_later_slice_knobs_raise(tff, knob):
+    """The host tier and LoRA adapters are ported: their knobs serve and
+    are validated as in the JAX package (a negative size, a host tier
+    without the prefix cache, a rank below 1). The fleet's telemetry
+    identity belongs to the runtime plane (ROADMAP item 11) and raises."""
+    if knob == "set_telemetry_identity":
+        eng = tff.make_serving_engine(**ENGINE)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            eng.set_telemetry_identity(0, "decode")
+        return
+    eng = tff.make_serving_engine(**dict(ENGINE, prefix_cache=True,
+                                         **{knob: 4}))
+    assert eng.stats()[knob] == 4
+    with pytest.raises(ValueError, match=knob):
+        tff.make_serving_engine(**dict(ENGINE, **{knob: -1}))
+    if knob == "host_kv_pages":
+        with pytest.raises(ValueError, match="radix prefix cache"):
+            tff.make_serving_engine(**dict(ENGINE, host_kv_pages=4))
+        with pytest.raises(ValueError, match="host_kv_pages"):
+            FFConfig(host_kv_pages=-1)
+    else:
+        with pytest.raises(ValueError, match="serve_adapter_pool_pages"):
+            FFConfig(serve_adapter_pool_pages=-1)
+        with pytest.raises(ValueError, match="serve_lora_rank"):
+            FFConfig(serve_lora_rank=0)
 
 
 def test_config_prefix_cache_default_raises():
     """FFConfig's serve_prefix_cache defaults to True, as in the JAX
     package, and serves; the cache's host tier (FFConfig.host_kv_pages > 0)
-    is refused rather than served without it."""
+    is inherited from the config and served, and refused without the
+    prefix cache it lives under."""
     model = FFModel(FFConfig(batch_size=2, host_kv_pages=4), device="cpu")
     _, logits = llama_lm(model, 2, **ARCH)
     model.compile(final_tensor=logits)
-    with pytest.raises(NotImplementedError, match="host_kv_pages=4"):
+    eng = model.make_serving_engine(serve_slots=2, kv_page_size=4,
+                                    max_seq_len=32)
+    st = eng.stats()
+    assert st["prefix_cache"] and st["host_kv_pages"] == 4
+    assert eng.run([np.arange(9) % VOCAB], max_new_tokens=2)[0].state \
+        == "done"
+    with pytest.raises(ValueError, match="host_kv_pages"):
         model.make_serving_engine(serve_slots=2, kv_page_size=4,
-                                  max_seq_len=32)
+                                  max_seq_len=32, prefix_cache=False)
 
 
 def test_config_default_serves(jff, tff, prompts):
