@@ -217,7 +217,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 hits equal an ample pool's without a tier, the native
                 pool's tokens too, and a prefix exported before its
                 demotion and after its promotion is the same bytes; the
-                same from an int8 pool; TTFT of a promoted hit, an HBM hit
+                same from an int8 pool, where each request's first token
+                (before any decode append) is the ample pool's and the
+                rest agree positionwise at P12_INT8_AGREE or better (an
+                append into a reused int8 page starts from the previous
+                owner's scale, in both packages); TTFT of a promoted hit,
+                an HBM hit
                 and a cold prefill, D2H and H2D GB/s; drained and flushed,
                 every page is free. (c) The lifecycle: a prefix slab
                 prefilled on one engine and imported by another (the same
@@ -225,10 +230,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 queued, reclaim_queued(), reopen() (phase 6's tokens);
                 health() polled from another thread meanwhile, its keys and
                 load()'s JAX's; a request past its deadline retires with
-                no launch; swap_weights to a second seeded weight set on a
-                native and an int8-weight engine (a fresh engine's tokens,
-                no capture added) and back (the first tokens), refused
-                under a live slot; warmup() then the same prompts capture
+                no launch; swap_weights to a second seeded model's
+                weights on a native and an int8-weight engine (the tokens
+                of an engine on that second model, no capture added) and
+                back (the first tokens), refused under a live slot and, at
+                native width, while another engine reads the model (which
+                keeps its tokens); warmup() then the same prompts capture
                 nothing. Exact launch counts in every round.
 
 The last two lines of standard output are a JSON object
@@ -3155,6 +3162,14 @@ P12_LORA_STD = 0.03
 P12_TIER = dict(prefix_cache=True, host_kv_pages=64, kv_pages=29)
 P12_AMPLE = dict(prefix_cache=True, host_kv_pages=0, kv_pages=80)
 P12_COPY_PAGES = 8
+#: the int8 tier engine's positionwise token agreement with the ample int8
+#: pool, at least: a decode append into a reused int8 page starts from its
+#: previous owner's running-max scale (JAX's ``_paged_append`` too), and the
+#: two pools reuse other pages, so past each request's first token the
+#: streams may part; below phase 6b's int8-vs-native agreements at these
+#: widths (0.938 / 0.977 on an H100 80GB HBM3 at 700 W), far above the
+#: repo's documented int8 budget against full width (0.6, docs/serving.md)
+P12_INT8_AGREE = 0.9
 #: JAX's health() and load() keys (flexflow_tpu/runtime/serving.py
 #: ServingEngine.health / load), in order
 P12_HEALTH_KEYS = ["status", "admitting", "active_slots", "queued",
@@ -3426,13 +3441,23 @@ def _p12_tier(torch, kernels, ff, card: str, same, out):
             same(f"{tag} vs an ample pool without a host tier",
                  tight["tokens"], ample["tokens"])
         else:
+            same(f"{tag}: each request's first token vs the ample pool's",
+                 [x[:1] for x in tight["tokens"]],
+                 [y[:1] for y in ample["tokens"]])
             agree = np.mean([a == b for x, y in zip(tight["tokens"],
                                                     ample["tokens"])
                              for a, b in zip(x, y)])
+            parted = [next((i for i, (a, b) in enumerate(zip(x, y))
+                            if a != b), None)
+                      for x, y in zip(tight["tokens"], ample["tokens"])]
             say(f"phase 12 ({tag}): token agreement with the ample int8 "
-                f"pool {agree:.4f} (positionwise, not gated: a decode "
-                f"append into a reused int8 page starts from its previous "
-                f"owner's scale, and the two pools reuse other pages)")
+                f"pool {agree:.4f} (positionwise; limit {P12_INT8_AGREE}: "
+                f"a decode append into a reused int8 page starts from its "
+                f"previous owner's scale); first differing token of each "
+                f"request {parted}")
+            if agree < P12_INT8_AGREE:
+                fail(f"phase 12 ({tag}): token agreement {agree:.4f} with "
+                     f"the ample int8 pool is below {P12_INT8_AGREE}")
         promoted = [r["ttfts"][0] for r in tight["rep"]
                     if r["d"]["tier_promotions"] > 0]
         hbm = [r["ttfts"][0] for r in ample["rep"]]
@@ -3452,23 +3477,6 @@ def _p12_tier(torch, kernels, ff, card: str, same, out):
         _p12_copy_rates(torch, eng, card, kv)
         out[f"tier_{kv}"] = tight["launches"]
         del eng, ample_eng, tight, ample
-
-
-def _p12_second_weights(torch, ff):
-    """A second weight set of phase 6's geometry from its own seed: each
-    matrix at the spread of the one it replaces, the norm scales near 1."""
-    dev = next(iter(ff.params["lm_head"].values())).device
-    g = torch.Generator(device=dev).manual_seed(12)
-    new = {}
-    for op, ws in ff.params.items():
-        new[op] = {}
-        for w, t in ws.items():
-            r = torch.randn(t.shape, device=dev, generator=g)
-            if t.dim() == 1:
-                new[op][w] = (1.0 + 0.1 * r).to(t.dtype)
-            else:
-                new[op][w] = (r * t.float().std()).to(t.dtype)
-    return new
 
 
 def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
@@ -3578,68 +3586,98 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
         "'timeout' with no kernel launched")
     del eng
 
-    # ---- weight swaps under captured decode
+    # ---- weight swaps under captured decode. The second weight set is a
+    # second model of the same graph from its own seed; the witness of a
+    # swap to it is an engine on that model, which reads those tensors
+    # directly (not the swapped engine's model.params).
     gc.collect()
     torch.cuda.empty_cache()
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import llama_lm
+
+    ff2 = build_llama(FFConfig, FFModel, llama_lm, ff.device,
+                      ff.config.compute_dtype, 12, **LLAMA3_8B)
+    new = ff2.params
     eng_n = ff.make_serving_engine(**P11_ENGINE)
-    eng_q = ff.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
     n1 = _p12_round(torch, kernels, eng_n, prompts, "swap, native before")
     same("swap: native engine before the swap vs phase 6", n1["tokens"],
          ref)
-    q1 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 before")
     eng_n.submit(prompts[0], MAX_NEW)
     eng_n.step()
     try:
-        eng_n.swap_weights(ff.params, "v-live")
+        eng_n.swap_weights(new, "v-live")
         fail("phase 12 (swap): swap_weights under a live slot did not raise")
     except RuntimeError:
         pass
     eng_n.run()
     say("phase 12 (swap): swap_weights with a live slot raised")
-    caps_n, caps_q = (eng_n.stats()["recompiles"],
-                      eng_q.stats()["recompiles"])
-    new = _p12_second_weights(torch, ff)
+    # a native swap writes ff.params: refused while another engine reads
+    # them, and that engine keeps its tokens
+    other = ff.make_serving_engine(**P11_ENGINE)
+    try:
+        eng_n.swap_weights(new, "v1")
+        fail("phase 12 (swap): a native swap with a second engine on the "
+             "model did not raise")
+    except RuntimeError as e:
+        if "other engine" not in str(e):
+            raise
+    o1 = _p12_round(torch, kernels, other, prompts, "swap, other engine")
+    same("swap refused: the model's other engine vs phase 6", o1["tokens"],
+         ref)
+    del other
+    caps_n = eng_n.stats()["recompiles"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng_n.swap_weights(new, "v1")
     torch.cuda.synchronize()
     t_swap = time.perf_counter() - t0
     n2 = _p12_round(torch, kernels, eng_n, prompts, "swap, native after")
-    fresh = ff.make_serving_engine(**P11_ENGINE)
+    fresh = ff2.make_serving_engine(**P11_ENGINE)
     f2 = _p12_round(torch, kernels, fresh, prompts, "swap, fresh native")
     del fresh
-    same("swap: native engine after the swap vs a fresh engine",
-         n2["tokens"], f2["tokens"])
+    same("swap: native engine after the swap vs an engine on the second "
+         "model", n2["tokens"], f2["tokens"])
     if n2["tokens"] == n1["tokens"]:
         fail("phase 12 (swap): the second weight set served the first "
              "set's tokens")
+    t0 = time.perf_counter()
+    eng_n.swap_weights(None, "v0")
+    torch.cuda.synchronize()
+    t_back = time.perf_counter() - t0
+    n3 = _p12_round(torch, kernels, eng_n, prompts, "swap, native back")
+    same("swap back: native vs phase 6", n3["tokens"], ref)
+    added_n = eng_n.stats()["recompiles"] - caps_n
+    out["swap"] = n2["launches"]
+    del eng_n
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng_q = ff.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
+    q1 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 before")
+    caps_q = eng_q.stats()["recompiles"]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng_q.swap_weights(new, "v1")
     torch.cuda.synchronize()
     t_swap_q = time.perf_counter() - t0
     q2 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 after")
-    fresh = ff.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
+    fresh = ff2.make_serving_engine(**P11_ENGINE, weight_dtype="int8")
     fq2 = _p12_round(torch, kernels, fresh, prompts, "swap, fresh int8")
     del fresh
-    same("swap: int8-weight engine after the swap vs a fresh one",
-         q2["tokens"], fq2["tokens"])
-    eng_n.swap_weights(None, "v0")
+    same("swap: int8-weight engine after the swap vs an int8 engine on the "
+         "second model", q2["tokens"], fq2["tokens"])
     eng_q.swap_weights(None, "v0")
-    n3 = _p12_round(torch, kernels, eng_n, prompts, "swap, native back")
     q3 = _p12_round(torch, kernels, eng_q, prompts, "swap, int8 back")
-    same("swap back: native vs phase 6", n3["tokens"], ref)
     same("swap back: int8 weights vs before the swap", q3["tokens"],
          q1["tokens"])
-    added = (eng_n.stats()["recompiles"] - caps_n,
-             eng_q.stats()["recompiles"] - caps_q)
-    say(f"phase 12 (swap): native swap {t_swap:.2f} s (the construction "
-        f"weights kept in host memory), int8 re-quantization in place "
-        f"{t_swap_q:.2f} s; captures added across the swaps {added} "
-        f"[{card}]")
+    added = (added_n, eng_q.stats()["recompiles"] - caps_q)
+    say(f"phase 12 (swap): native swap {t_swap:.2f} s and back "
+        f"{t_back:.2f} s (the construction weights kept in host memory), "
+        f"int8 re-quantization in place {t_swap_q:.2f} s; captures added "
+        f"across the swaps {added}; a second engine on the model refused "
+        f"the native swap and kept its tokens [{card}]")
     if added != (0, 0):
         fail(f"phase 12 (swap): captures added across the swaps {added}")
-    out["swap"] = n2["launches"]
-    del eng_n, eng_q, new
+    del eng_q, new, ff2
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -68,6 +68,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import gc
 import hashlib
 import math
 import os
@@ -1534,10 +1535,19 @@ def capture(graph, stream, fn):
     """Capture ``fn()`` into the CUDA graph ``graph`` on ``stream``
     (``torch.cuda.graph``); returns fn's outputs and the launches the
     capture recorded. A capture launches nothing, so the counters give
-    those back; each replay adds them (``add_launches``)."""
+    those back; each replay adds them (``add_launches``). The cyclic
+    garbage collector stays off while it captures: a collection then could
+    free a dead engine's graph, and destroying a graph while a stream
+    captures invalidates the capture."""
     before = launch_counts()
-    with torch.cuda.graph(graph, stream=stream):
-        outs = fn()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            outs = fn()
+    finally:
+        if enabled:
+            gc.enable()
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     for f in KERNELS:
         f.launches -= launches[f.__name__]

@@ -21,6 +21,7 @@ use (``_deq``), as the JAX package does; the matrix products stay
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Dict, Optional
 
 import torch
@@ -68,6 +69,34 @@ _DECODE_SAFE = {
 }
 
 
+class ServedWeights:
+    """What a model's own weight tensors hold for the engines built on it.
+    The captured decode programs read model.params at fixed addresses, so
+    a native-width weight swap writes into them: the swap is the model's,
+    not one engine's. Kept here: the version the tensors hold (None for
+    the construction weights), the construction weights a standing swap
+    displaced (host memory), and every Generator reading the tensors
+    (weakly: a released engine drops out)."""
+
+    def __init__(self):
+        self.version = None
+        self.backup = None
+        self.readers = weakref.WeakSet()
+
+
+def served_weights(model) -> ServedWeights:
+    """``model``'s ServedWeights, made on first use."""
+    sw = getattr(model, "_served_weights", None)
+    if sw is None:
+        sw = model._served_weights = ServedWeights()
+    return sw
+
+
+def _host_copy(tree):
+    return {op: {w: t.to("cpu", copy=True) for w, t in ws.items()}
+            for op, ws in tree.items()}
+
+
 class Generator:
     """Graph walks of a decoder-only LM built on FFModel (after
     compile()): validation of the graph, prefill and paged decode."""
@@ -80,12 +109,12 @@ class Generator:
         self.quantize = quantize
         self._qparams = None
         self._qparams_key = None
-        # a weight swap (set_params): the tree being served instead of
-        # model.params, and, while a native-width swap stands, the
-        # construction weights it displaced (host memory)
+        # a quantized tier's weight swap (set_params): the tree its buffers
+        # are quantized from instead of model.params
         self._params_override = None
         self._override_version = 0
-        self._backup = None
+        self.served = served_weights(model)
+        self.served.readers.add(self)
         input_ops = [op for op in model.ops if isinstance(op, InputOp)]
         tok_inputs = [op for op in input_ops
                       if op.outputs[0].dtype in (DataType.DT_INT32,
@@ -157,9 +186,11 @@ class Generator:
         qmax = storage_qmax(qdtype)
         build = out is None
         out = {} if build else out
+        dev = self.model.device
         for op_name, ws in src.items():
             q_ws = out.setdefault(op_name, {})
             for w_name, w in ws.items():
+                w = w.to(dev)   # a source in host memory: the backup
                 if w.dim() >= 2 and w.dtype.is_floating_point:
                     wf = w.float()
                     scale = torch.clamp_min(_divide(
@@ -174,28 +205,43 @@ class Generator:
                         for part in ("q", "s"):
                             q_ws[w_name][part].copy_(new[part])
                 elif build:
-                    q_ws[w_name] = w.clone()
+                    q_ws[w_name] = w.clone() if w is ws[w_name] else w
                 else:
                     q_ws[w_name].copy_(w)
         return out
 
     def _source_params(self):
-        """The weights served: the swapped-in tree, else model.params."""
+        """The weights a quantized tier is built from: its swapped-in tree,
+        else model.params."""
         if self._params_override is not None:
             return self._params_override
         return self.model.params
+
+    def restore_point(self):
+        """What ``set_params`` takes to put back the weights served now:
+        a quantized tier's source tree; at native width None (the
+        construction weights) or, while a swap stands, a host copy of
+        model.params."""
+        if self.quantize:
+            return self._params_override
+        if self.served.backup is None:
+            return None
+        with torch.no_grad():
+            return _host_copy(self.model.params)
 
     def set_params(self, tree):
         """Install (or, with ``tree=None``, clear) a weight swap: ``tree``
         must match model.params op by op, shapes and dtypes included. The
         decode programs are CUDA graphs holding the served tensors'
         addresses, so the swap writes in place. A quantized tier re-
-        quantizes its own buffers from ``tree``. At native widths the
-        served tensors are model.params's own (a private copy would double
-        the weights' memory), so the new weights are copied into them —
-        every engine on this model serves them while the swap stands — and
-        the construction weights wait in host memory until
-        ``set_params(None)`` writes them back."""
+        quantizes its own buffers from ``tree`` (``None``: from the
+        construction weights). At native width the served tensors are
+        model.params's own (a private copy would double the weights'
+        memory): the new weights are copied into them, the construction
+        weights wait in host memory (``served``, the model's) until
+        ``set_params(None)`` writes them back, and no reference to
+        ``tree`` is kept. Every Generator on the model then serves them:
+        the engine refuses such a swap while another one reads them."""
         ref = self.model.params
         if tree is not None:
             if set(tree) != set(ref) or any(
@@ -212,21 +258,22 @@ class Generator:
                             f"set_params: leaf geometry mismatch {op}.{w}: "
                             f"{tuple(t.shape)}/{t.dtype} vs "
                             f"{tuple(new.shape)}/{new.dtype}")
-        if not self.quantize:
-            with torch.no_grad():
-                if tree is not None and self._backup is None:
-                    self._backup = {op: {w: t.to("cpu", copy=True)
-                                         for w, t in ws.items()}
-                                    for op, ws in ref.items()}
-                src = tree if tree is not None else self._backup
-                if src is not None:
-                    for op, ws in ref.items():
-                        for w, t in ws.items():
-                            t.copy_(src[op][w])
-            if tree is None:
-                self._backup = None
-        self._params_override = tree
         self._override_version += 1
+        if self.quantize:
+            self._params_override = (tree if tree is not None
+                                     else self.served.backup)
+            return
+        sw = self.served
+        with torch.no_grad():
+            if tree is not None and sw.backup is None:
+                sw.backup = _host_copy(ref)
+            src = tree if tree is not None else sw.backup
+            if src is not None:
+                for op, ws in ref.items():
+                    for w, t in ws.items():
+                        t.copy_(src[op][w])
+        if tree is None:
+            sw.backup = None
 
     @staticmethod
     def _deq(v, cdtype: torch.dtype):

@@ -82,11 +82,13 @@ runtime plane, a later slice: it raises ``NotImplementedError``.
 from __future__ import annotations
 
 import collections
+import gc
 import heapq
 import logging
 import math
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -249,6 +251,25 @@ class _TrieNode:
         self.tier = "hbm"
         self.hostdata = None
         self.gen = 0
+
+
+def _publisher_main(cache_ref, cv, pending):
+    """The host tier's publisher thread: publish demoted pages host-ward
+    in submission order. It holds the cache only while it publishes, so a
+    cache nobody else references (and the engine whose copies it calls)
+    can be collected; the thread then ends."""
+    while True:
+        with cv:
+            while not pending:
+                if cache_ref() is None:
+                    return
+                cv.wait(1.0)
+            item = pending.popleft()
+        cache = cache_ref()
+        if cache is None:
+            return
+        cache._publish(*item)
+        del cache
 
 
 class RadixPrefixCache:
@@ -680,39 +701,34 @@ class RadixPrefixCache:
     def _ensure_publisher(self):
         if self._publisher is None or not self._publisher.is_alive():
             self._publisher = threading.Thread(
-                target=self._publisher_main, daemon=True,
-                name="ff-prefix-tier-publisher")
+                target=_publisher_main,
+                args=(weakref.ref(self), self._cv, self._pending),
+                daemon=True, name="ff-prefix-tier-publisher")
             self._publisher.start()
 
-    def _publisher_main(self):
-        """Publish demoted pages host-ward in submission order: resolve
-        the snapshot (a wait, nothing launched), then commit each payload
-        only if its node's generation still matches — an abandoned
-        migration is dropped, never resurrected."""
-        while True:
-            with self._cv:
-                while not self._pending:
-                    self._cv.wait()
-                nodes, gens, handle = self._pending.popleft()
-            payloads, err = None, None
-            try:
-                payloads = handle()
-            except Exception as e:  # noqa: BLE001 — a failed copy is a
-                #   failed demotion: the pages die, serving continues
-                err = e
-            with self._cv:
-                self._inflight -= len(nodes)
-                for i, (node, gen) in enumerate(zip(nodes, gens)):
-                    if node.gen != gen or node.tier != "host":
-                        continue
-                    if err is not None:
-                        # removal needs the engine lock: mark for reaping
-                        node.tier = "dead"
-                        node.hostdata = None
-                        self.demote_failures += 1
-                    else:
-                        node.hostdata = payloads[i]
-                self._cv.notify_all()
+    def _publish(self, nodes, gens, handle):
+        """Resolve one batch's snapshot (a wait, nothing launched), then
+        commit each payload only if its node's generation still matches —
+        an abandoned migration is dropped, never resurrected."""
+        payloads, err = None, None
+        try:
+            payloads = handle()
+        except Exception as e:  # noqa: BLE001 — a failed copy is a
+            #   failed demotion: the pages die, serving continues
+            err = e
+        with self._cv:
+            self._inflight -= len(nodes)
+            for i, (node, gen) in enumerate(zip(nodes, gens)):
+                if node.gen != gen or node.tier != "host":
+                    continue
+                if err is not None:
+                    # removal needs the engine lock: mark for reaping
+                    node.tier = "dead"
+                    node.hostdata = None
+                    self.demote_failures += 1
+                else:
+                    node.hostdata = payloads[i]
+            self._cv.notify_all()
 
     def pending_migrations(self) -> int:
         with self._cv:
@@ -1082,9 +1098,11 @@ class ServingEngine:
         # decode dispatches see it as idle until _finish_prefill
         self._partial: Dict[int, dict] = {}
         self._prefill_rr = 0
-        # the weight version served (salts the prefix-cache namespace) and
-        # where the engine stands in a deploy: serving | swapping
-        self.weight_version = DEFAULT_WEIGHT_VERSION
+        # the weight version served (salts the prefix-cache namespace): the
+        # one model.params holds (another engine's native swap may stand),
+        # and where the engine stands in a deploy: serving | swapping
+        self.weight_version = (self.gen.served.version
+                               or DEFAULT_WEIGHT_VERSION)
         self.deploy_state = "serving"
         self._weight_swaps = 0
         # the decode-side programs by key (CUDA graphs on the card), their
@@ -2537,16 +2555,23 @@ class ServingEngine:
         (``Generator.set_params``; a quantized tier re-quantizes into its
         own buffers), so every captured program serves it and nothing is
         captured again; then the prefix cache is flushed (its KV is
-        stale). The engine must hold no live or mid-prefill slot.
-        FF_FAULT ``swap_fail@deploy:<n>`` fails after the install: the
-        prior weights are restored and the error raised."""
+        stale). The engine must hold no live or mid-prefill slot. At
+        native width the swap writes model.params, which every engine on
+        the model reads, so it is refused while another engine on the
+        model (or one using it as its draft) is alive: JAX's swap is one
+        engine's, and here it would change the others' weights mid-stream
+        and leave their caches and versions stale. FF_FAULT
+        ``swap_fail@deploy:<n>`` fails after the install: the prior
+        weights are restored and the error raised."""
         with self._lock:
             if self.active.any() or self._partial:
                 raise RuntimeError(
                     "swap_weights: engine has live slots — drain() first "
                     "(a mid-stream weight change corrupts in-flight "
                     "decodes)")
-            prev = self.gen._params_override
+            if not self.gen.quantize:
+                self._refuse_shared_swap()
+            prev = self.gen.restore_point()
             self.deploy_state = "swapping"
             try:
                 self.gen.set_params(params)
@@ -2560,11 +2585,34 @@ class ServingEngine:
                 self.deploy_state = "serving"
                 raise
             self.weight_version = str(version)
+            if not self.gen.quantize:
+                self.gen.served.version = self.weight_version
             self._weight_swaps += 1
             flushed = self.flush_prefix_cache()
             self.deploy_state = "serving"
         return {"version": self.weight_version, "flushed_pages": flushed,
                 "swaps": self._weight_swaps}
+
+    def _refuse_shared_swap(self):
+        """Raise unless this engine's generators are the only ones reading
+        its model's weights (engines released by their callers are
+        collected first)."""
+        own = {id(self.gen), id(self.draft_gen)}
+        readers = self.gen.served.readers
+
+        def others() -> int:   # counts, holding no reference
+            return sum(id(g) not in own for g in list(readers))
+
+        if others():
+            gc.collect()
+        n = others()
+        if n:
+            raise RuntimeError(
+                f"swap_weights: {n} other engine generator(s) "
+                f"read this model's weights in place; a native-width swap "
+                f"writes model.params and would change their weights too. "
+                f"Release them first, or give each engine a model of its "
+                f"own (or a quantized weight tier, which swaps privately)")
 
     def health(self) -> Dict:
         """Liveness / readiness probe for a router: admission status and

@@ -2672,3 +2672,66 @@ def test_swap_weights_under_captured_decode(no_tf32, weights):
     eng.swap_weights(None, "v0")
     assert [r.tokens for r in eng.run(prompts, 10)] == first
     assert eng.stats()["recompiles"] == caps
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph_in_a_cycle(cuda):
+    """A graph left in a reference cycle dies only when the collector runs;
+    a collection during another capture would destroy it there and
+    invalidate that capture. ``kernels.capture`` keeps the collector off
+    while it captures: a body that leaves such a cycle behind and then
+    allocates enough to trigger a collection (threshold 1) still captures
+    and replays right."""
+    import gc
+
+    from flexflow_tpu_torch.ops import kernels
+
+    side = torch.cuda.Stream()
+    x = torch.arange(4.0, device=cuda)
+    dead = [torch.cuda.CUDAGraph()]
+    kernels.capture(dead[0], side, lambda: x + 1)
+
+    def body():
+        cycle = {"graph": dead.pop()}
+        cycle["self"] = cycle
+        del cycle
+        junk = [[i] for i in range(64)]
+        return x * 2 + len(junk) * 0
+
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        outs, _ = kernels.capture(graph, side, body)
+    finally:
+        gc.set_threshold(*old)
+    x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(outs, x * 2)
+
+
+@pytest.mark.cuda
+def test_native_swap_refused_with_a_second_engine_on_card(no_tf32):
+    """Two engines with captured decodes on one model: the first one's
+    native swap (it would write model.params under the second's graphs) is
+    refused and the second keeps its tokens; with the second released, the
+    swap serves an engine on the second weight set's tokens."""
+    _, gpu = _llama_pair(no_tf32)
+    _, gpu2 = _llama_pair(no_tf32, seed=7)
+    kw = dict(ENGINE_KW, prefix_cache=False)
+    prompts = _serve_prompts()
+    eng = gpu.make_serving_engine(**kw)
+    sec = gpu.make_serving_engine(**kw)
+    first = [r.tokens for r in eng.run(prompts, 10)]
+    assert [r.tokens for r in sec.run(prompts, 10)] == first
+    with pytest.raises(RuntimeError, match="other engine"):
+        eng.swap_weights(gpu2.params, "v1")
+    assert [r.tokens for r in sec.run(prompts, 10)] == first
+    del sec
+    eng.swap_weights(gpu2.params, "v1")
+    want = [r.tokens for r in
+            gpu2.make_serving_engine(**kw).run(prompts, 10)]
+    assert [r.tokens for r in eng.run(prompts, 10)] == want != first
+    eng.swap_weights(None, "v0")
+    assert [r.tokens for r in eng.run(prompts, 10)] == first

@@ -17,7 +17,11 @@ JAX's engines on their einsum route. Held to JAX:
   * ``swap_weights`` to a second weight set: JAX's swapped tokens, those of
     a fresh engine on those weights, nothing built again; the swap back
     restores the first tokens; the int8-weight tier re-quantizes in place;
-    refused under live slots; the ``swap_fail`` drill rolls back;
+    refused under live slots; the ``swap_fail`` drill rolls back; at
+    native width (a swap writes model.params) refused while another engine
+    reads the model, which then keeps its tokens; an engine built while a
+    swap stands serves the swapped version; a released engine (one with a
+    host-tier publisher thread included) no longer blocks a swap;
   * the prefix slab: ``prefill_into_cache`` / ``export_prefix_slab`` /
     ``import_prefix_slab`` round-trip bitwise between two port engines
     (native and int8 pools), a JAX-exported slab imported by the port
@@ -28,6 +32,7 @@ JAX's engines on their einsum route. Held to JAX:
 """
 
 import time
+import weakref
 
 import jax
 import numpy as np
@@ -318,6 +323,106 @@ def test_swap_refused_live_and_rolled_back(models, prompts, monkeypatch):
         bad = {op: dict(ws) for op, ws in t_new.items()}
         bad["lm_head"]["kernel"] = bad["lm_head"]["kernel"][:, :-1]
         eng.swap_weights(bad, "v2")
+
+
+def _tokens(eng, prompts):
+    return [r.tokens for r in eng.run(prompts, MAX_NEW)]
+
+
+@pytest.mark.parametrize("other", ["native", "int8", "draft"])
+def test_native_swap_refused_while_another_engine_reads(models, prompts,
+                                                        other):
+    """At native width a swap writes model.params, which every engine on
+    the model reads. While a second engine on it is alive — native, on an
+    int8 weight tier, or serving another model with this one as its draft —
+    the swap is refused and both engines keep their tokens. Released, the
+    second engine no longer blocks; an engine built while the swap stands
+    serves and reports the swapped version, and blocks the swap back until
+    it is released too."""
+    jff, _ = models
+    tff = _port_model(_np_tree(jff.params))
+    t_new = params_from_jax(_second_weights(jff), "cpu", torch.float32,
+                            model=tff)
+    eng = tff.make_serving_engine(**ENGINE)
+    first = _tokens(eng, prompts)
+    if other == "draft":
+        sec = _port_model(_np_tree(jff.params)).make_serving_engine(
+            **ENGINE, draft_model=tff, speculate_k=2)
+    else:
+        sec = tff.make_serving_engine(**ENGINE, weight_dtype=other)
+    before = _tokens(sec, prompts)
+    with pytest.raises(RuntimeError, match="other engine"):
+        eng.swap_weights(t_new, "v1")
+    assert eng.stats()["weight_version"] == "v0"
+    assert eng.stats()["weight_swaps"] == 0
+    assert _tokens(sec, prompts) == before
+    assert _tokens(eng, prompts) == first
+    del sec
+    eng.swap_weights(t_new, "v1")
+    swapped = _tokens(eng, prompts)
+    assert swapped != first
+    late = tff.make_serving_engine(**ENGINE)
+    assert late.stats()["weight_version"] == "v1"
+    assert _tokens(late, prompts) == swapped
+    with pytest.raises(RuntimeError, match="other engine"):
+        eng.swap_weights(None, "v0")
+    del late
+    eng.swap_weights(None, "v0")
+    assert _tokens(eng, prompts) == first
+
+
+def test_int8_engine_under_a_standing_native_swap(models, prompts):
+    """An int8-weight engine built while a native swap stands quantizes the
+    swapped weights and reports their version; its own swap back (None)
+    serves the construction weights, from the host copy the native swap
+    kept — as an int8 engine on them does."""
+    jff, _ = models
+    new = _second_weights(jff)
+    tff = _port_model(_np_tree(jff.params))
+    want_v0 = _tokens(tff.make_serving_engine(**ENGINE, weight_dtype="int8"),
+                      prompts)
+    want_v1 = _tokens(_port_model(new).make_serving_engine(
+        **ENGINE, weight_dtype="int8"), prompts)
+    eng = tff.make_serving_engine(**ENGINE)
+    eng.swap_weights(params_from_jax(new, "cpu", torch.float32, model=tff),
+                     "v1")
+    q = tff.make_serving_engine(**ENGINE, weight_dtype="int8")
+    assert q.stats()["weight_version"] == "v1"
+    assert _tokens(q, prompts) == want_v1
+    q.swap_weights(None, "v0")
+    assert q.stats()["weight_version"] == "v0"
+    assert _tokens(q, prompts) == want_v0
+    del q
+    eng.swap_weights(None, "v0")
+
+
+def test_released_tier_engine_does_not_block_a_swap(models, prompts):
+    """The host tier's publisher thread holds its cache weakly: an engine
+    that demoted pages and was then dropped by its caller is collected,
+    its publisher ends, and it no longer counts against a native swap."""
+    jff, _ = models
+    tff = _port_model(_np_tree(jff.params))
+    rs = np.random.RandomState(5)
+    fams = [rs.randint(1, VOCAB, size=8) for _ in range(4)]
+    traffic = [np.concatenate([f, rs.randint(1, VOCAB, size=3)])
+               .astype(np.int32) for f in fams for _ in range(2)]
+    tier = tff.make_serving_engine(**ENGINE, kv_pages=13, host_kv_pages=24)
+    tier.run(traffic, 3)
+    tier.run(traffic[:2], 3)
+    assert tier.stats()["tier_demotions"] > 0
+    publisher = tier.prefix_cache._publisher
+    assert publisher is not None and publisher.is_alive()
+    eng = tff.make_serving_engine(**ENGINE)
+    first = _tokens(eng, prompts)
+    gone = weakref.ref(tier)
+    del tier
+    eng.swap_weights(params_from_jax(_second_weights(jff), "cpu",
+                                     torch.float32, model=tff), "v1")
+    assert gone() is None
+    publisher.join(timeout=10.0)
+    assert not publisher.is_alive()
+    eng.swap_weights(None, "v0")
+    assert _tokens(eng, prompts) == first
 
 
 # ---- the prefix slab ---------------------------------------------------------
