@@ -238,6 +238,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 keeps its tokens); warmup() then the same prompts capture
                 nothing. Exact launch counts in every round.
 
+ 13. generate — right after 12, on phase 6's Llama-3-8B (its construction
+                weights back, no engine holding it): (a) FFModel.generate
+                of the six prompts right-padded with prompt_lengths, 32 new
+                tokens, greedy: kernel 1 once a layer (the batched
+                whole-prompt prefill) and no other launch, the decode step
+                a CUDA graph replayed 30 times, a second call's tokens
+                identical, positionwise agreement with phase 6's serving
+                tokens >= P13_AGREE (printed with the first-token
+                matches); prefill ms, the decode step as a graph and
+                uncaptured (one eager run: the same tokens), tokens/s;
+                early_exit at an eos two rows emit (the full loop's tokens
+                in fewer steps); return_scores; sampled (temperature 0.8,
+                top_k 50: one seed twice, the same tokens); 4 beams on two
+                prompts with scores; quantize="int8"; peak memory. (b) 2
+                layers at Llama-3-8B widths in f32 (TF32 off), the same
+                weights on the card and the CPU: greedy and beam tokens
+                identical (a parting row prints its step and the CPU's
+                top-2 logit margin there, and fails). (c) seq2seq_lm at
+                Transformer-base widths (d_model 512, 6 + 6 layers, 8
+                heads, d_ff 2048, vocab 37000) through generate_seq2seq:
+                batch 32, source 128, a BOS prompt, 64 new tokens, bf16:
+                kernel 1 once an encoder layer and once a decoder prefill
+                layer, tokens/s; in f32 the card's tokens the CPU's.
+                Phase 3 holds kernel 1 at generate's prefill (6, 700, 32,
+                128) causal and the encoder's (32, 128, 8, 64) non-causal.
+
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
 """
@@ -502,6 +528,7 @@ def phase_kernels(torch, port, kernels):
     rows.update(training_kernel_rows(torch, kernels, g))
     rows.update(moe_serve_kernel_rows(torch, kernels, g))
     rows.update(decode_feature_kernel_rows(torch, kernels, g))
+    rows.update(generation_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
@@ -528,20 +555,20 @@ def phase_kernels(torch, port, kernels):
 
 #: paged-attention rows: (row name, pool, long context)
 def flash_serve_row(torch, kernels, g, h: int, kvh: int, d: int,
-                    s: int = 512) -> dict:
-    """Flash attention forward at a prefill of an ``s``-token bucket: q (1,
-    s, h, d), k/v (1, s, kvh, d), causal, bf16; SDPA (GQA) as the
-    yardstick."""
+                    s: int = 512, b: int = 1, causal: bool = True) -> dict:
+    """Flash attention forward at a prefill of ``b`` rows of an ``s``-token
+    bucket: q (b, s, h, d), k/v (b, s, kvh, d), causal (or not), bf16; SDPA
+    (GQA) as the yardstick."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     scale = d ** -0.5
-    q = torch.randn(1, s, h, d, device=dev, generator=g).to(bf16)
-    k = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    v = torch.randn(1, s, kvh, d, device=dev, generator=g).to(bf16)
-    out = kernels.flash_attention_fwd(q, k, v, True, scale)
-    ref = kernels.flash_attention_plain(q, k, v, True, scale)
+    q = torch.randn(b, s, h, d, device=dev, generator=g).to(bf16)
+    k = torch.randn(b, s, kvh, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(b, s, kvh, d, device=dev, generator=g).to(bf16)
+    out = kernels.flash_attention_fwd(q, k, v, causal, scale)
+    ref = kernels.flash_attention_plain(q, k, v, causal, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= FLASH_TOL:
@@ -549,28 +576,30 @@ def flash_serve_row(torch, kernels, g, h: int, kvh: int, d: int,
              f"{tuple(q.shape)}: max abs err {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                        enable_gqa=True)
 
         def lib():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=True)
     except TypeError:   # torch without enable_gqa: expand kv heads first
         ke = kt.repeat_interleave(h // kvh, dim=1)
         ve = vt.repeat_interleave(h // kvh, dim=1)
 
         def lib():
-            F.scaled_dot_product_attention(qt, ke, ve, is_causal=True)
-    pairs = s * (s + 1) // 2
+            F.scaled_dot_product_attention(qt, ke, ve, is_causal=causal)
+    pairs = s * (s + 1) // 2 if causal else s * s
     return dict(
         err=err,
-        ms=cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, True, scale)),
+        ms=cuda_ms(lambda: kernels.flash_attention_fwd(q, k, v, causal,
+                                                       scale)),
         plain_ms=cuda_ms(
-            lambda: kernels.flash_attention_plain(q, k, v, True, scale)),
+            lambda: kernels.flash_attention_plain(q, k, v, causal, scale)),
         library_ms=cuda_ms(lib), library="F.scaled_dot_product_attention",
         bound=bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * pairs * h * d),
-        shape=f"q (1,{s},{h},{d}) k/v (1,{s},{kvh},{d}) causal bf16")
+                    4 * b * pairs * h * d),
+        shape=f"q ({b},{s},{h},{d}) k/v ({b},{s},{kvh},{d}) "
+              f"{'causal' if causal else 'non-causal'} bf16")
 
 
 PAGED_CASES = (("paged_attention_fwd", "bf16", False),
@@ -1050,6 +1079,26 @@ def decode_feature_kernel_rows(torch, kernels, g):
         layer_counts=(LLAMA32_1B["layers"],), tag_suffix="_draft", kvh=kvh,
         d=d))
     return rows
+
+
+def generation_kernel_rows(torch, kernels, g):
+    """Kernel 1 at phase 13's three new shapes: generate's prefill of the
+    six prompts right-padded to 700 (Llama-3-8B's 32 heads over 8 kv
+    heads, causal), the Transformer-base encoder's self-attention (batch
+    32, source 128, 8 heads of 64, non-causal) and its decoder's prefill
+    of the one-token BOS prompt (batch 32, q/k/v of one position, causal:
+    one valid row and one key in the tile)."""
+    h, kvh = LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"]
+    th, td = T_BASE["heads"], T_BASE["hidden"] // T_BASE["heads"]
+    return {
+        "flash_attention_fwd_generate": flash_serve_row(
+            torch, kernels, g, h, kvh, 128, s=max(PROMPT_LENS),
+            b=len(PROMPT_LENS)),
+        "flash_attention_fwd_seq2seq": flash_serve_row(
+            torch, kernels, g, th, th, td, s=T_BASE_RUN["src"],
+            b=T_BASE_RUN["batch"], causal=False),
+        "flash_attention_fwd_seq2seq_dec": flash_serve_row(
+            torch, kernels, g, th, th, td, s=1, b=T_BASE_RUN["batch"])}
 
 
 #: phase 3's fused-update rows at the flagship's bucket: (row, rule, state
@@ -3730,6 +3779,380 @@ def phase_serving_rest(torch, kernels, ff, ref, prompts, step_ms_p11: float,
     return out
 
 
+# ---- phase 13: generation ---------------------------------------------------
+
+#: phase 13 (a): sampled generate's settings, the beam width and the
+#: least positionwise agreement of generate's greedy tokens with the
+#: serving engine's for the same prompts (the same model; the engine's
+#: decode attention is kernel 4 over the paged pool, generate's the grouped
+#: einsum over the static cache, and prefill batches differ, so bf16 rounds
+#: otherwise and a near tie may part a stream)
+P13_SAMPLED = dict(temperature=0.8, top_k=50)
+P13_BEAMS = 4
+P13_AGREE = 0.9
+#: (b): full width at 2 layers in f32, card vs CPU
+P13_EXACT = dict(LLAMA3_8B, layers=2)
+P13_EXACT_LENS = PROMPT_LENS[:4]
+P13_EXACT_NEW = 16
+#: (c): Transformer-base (Vaswani et al. 2017, Table 3 "base": d_model 512,
+#: 6 + 6 layers, 8 heads, d_ff 2048, a 37000-token shared vocabulary)
+#: through seq2seq_lm
+T_BASE = dict(hidden=512, layers=6, heads=8, ffn_mult=4, vocab_size=37000)
+T_BASE_RUN = dict(batch=32, src=128, new=64)
+
+
+def _p13_right_pad(np, prompts, width=None):
+    """Right-padded (B, width) int32 prompts and their (B,) lengths."""
+    lens = np.asarray([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), width or int(lens.max())), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    return toks, lens
+
+
+def _p13_timed(torch, fn):
+    """(fn(), wall seconds) with the card synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _p13_want(kernels, flash: int):
+    want = dict.fromkeys(kernels.launch_counts(), 0)
+    want["flash_attention_fwd"] = flash
+    return want
+
+
+def _p13_full_width(torch, kernels, ff, ref, prompts, card: str):
+    """Phase 13 (a): FFModel.generate on phase 6's Llama-3-8B (bf16, 32
+    layers, seeded random weights), after phase 12's swaps (the model's
+    construction weights back; no engine holds it)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.generation import Generator
+
+    layers = LLAMA3_8B["layers"]
+    toks, lens = _p13_right_pad(np, prompts)
+    n_new = len(prompts) * MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, wall = _p13_timed(torch, lambda: ff.generate(
+        toks, MAX_NEW, prompt_lengths=lens))
+    launches = kernels.launch_counts()
+    say(f"phase 13 (a): generate's kernel launches {launches} (kernel 1: "
+        f"one a layer for the whole-prompt prefill of all 6 rows)")
+    if launches != _p13_want(kernels, layers):
+        fail(f"phase 13 (a): kernel launches {launches} != "
+             f"{_p13_want(kernels, layers)}")
+    if out.shape != (len(prompts), toks.shape[1] + MAX_NEW):
+        fail(f"phase 13 (a): output shape {out.shape}")
+    (gen,) = ff._decoders.values()
+    (loop,) = gen._programs.values()
+    if loop.step.graph is None or loop.step.replays != MAX_NEW - 2:
+        fail(f"phase 13 (a): the decode step was not a graph replayed "
+             f"{MAX_NEW - 2} times (graph {loop.step.graph}, replays "
+             f"{loop.step.replays})")
+    new = [list(r) for r in out[:, toks.shape[1]:]]
+    again, wall2 = _p13_timed(torch, lambda: ff.generate(
+        toks, MAX_NEW, prompt_lengths=lens))
+    if not np.array_equal(again, out):
+        fail("phase 13 (a): a second generate gave other tokens")
+    agree = float(np.mean([a == b for g, r in zip(new, ref)
+                           for a, b in zip(g, r)]))
+    first = [g[0] == r[0] for g, r in zip(new, ref)]
+    say(f"phase 13 (a): greedy tokens vs the serving engine's (phase 6): "
+        f"positionwise agreement {agree:.4f} (least {P13_AGREE}), first "
+        f"tokens {sum(first)}/{len(first)} equal {first}; parting: "
+        f"{_p11_diff(new, ref) or 'none'}")
+    if agree < P13_AGREE:
+        fail(f"phase 13 (a): agreement {agree:.4f} with the serving "
+             f"engine's tokens < {P13_AGREE}")
+
+    step_graph = gen.last_decode_ms / gen.last_decode_steps
+    # prefill alone (max_new_tokens 1: no decode step); the decode step
+    # uncaptured, from the eager Generator's second call (its first
+    # allocates its caches). Both step times are the CUDA-event time of a
+    # warm call's decode loop over its steps.
+    _p13_timed(torch, lambda: ff.generate(toks, 1, prompt_lengths=lens))
+    _, t_pre = _p13_timed(torch, lambda: ff.generate(
+        toks, 1, prompt_lengths=lens))
+    eager = Generator(ff, capture=False)
+    eager(toks, MAX_NEW, prompt_lengths=lens)
+    e_out = eager(toks, MAX_NEW, prompt_lengths=lens)
+    step_eager = eager.last_decode_ms / eager.last_decode_steps
+    say(f"phase 13 (a): prefill (6 rows right-padded to {toks.shape[1]}, "
+        f"first token) {t_pre * 1e3:.2f} ms; decode step {step_graph:.2f} "
+        f"ms as a CUDA graph, {step_eager:.2f} ms uncaptured (the eager "
+        f"Generator's second call; tokens identical: "
+        f"{np.array_equal(e_out, out)}); {n_new} tokens in {wall2:.3f} s = "
+        f"{n_new / wall2:.2f} tokens/s (first call, capture included: "
+        f"{wall:.3f} s) [{card}]")
+    if not np.array_equal(e_out, out):
+        fail(f"phase 13 (a): the uncaptured decode gave other tokens: "
+             f"{_p11_diff([list(r) for r in e_out], [list(r) for r in out])}")
+    del eager
+
+    _p13_profile(torch, ff, toks, lens, card)
+
+    # early exit: two rows of one prompt, eos the first token of their
+    # stream that appears late (a random-weight stream may repeat one
+    # token from the start, which would exit before any step)
+    for r in range(len(prompts)):
+        two = np.stack([toks[r, :lens[r]]] * 2)
+        stream = list(ff.generate(two, MAX_NEW)[0, lens[r]:])
+        late = [j for j in range(MAX_NEW // 4, MAX_NEW)
+                if stream[j] not in stream[:j]]
+        if late:
+            break
+    else:
+        fail("phase 13 (a): no prompt's stream has a token new after its "
+             f"{MAX_NEW // 4}th to stop at")
+    j = late[0]
+    eos = int(stream[j])
+    kw = dict(eos_token_id=eos)
+    full = ff.generate(two, MAX_NEW, **kw)
+    steps_full = ff._decoders[(0.0, 0, eos, 0, None)].last_decode_steps
+    early = ff.generate(two, MAX_NEW, early_exit=True, **kw)
+    steps_early = ff._decoders[(0.0, 0, eos, 0, None)].last_decode_steps
+    say(f"phase 13 (a): early_exit at eos {eos} (prompt {r}'s token {j}, "
+        f"two rows of it): tokens identical to the full loop: "
+        f"{np.array_equal(early, full)}, {steps_early} decode steps "
+        f"against {steps_full}")
+    if not np.array_equal(early, full) or not steps_early < steps_full:
+        fail(f"phase 13 (a): early_exit gave other tokens or no fewer "
+             f"steps ({steps_early} vs {steps_full})")
+
+    scored, scores = ff.generate(toks, MAX_NEW, prompt_lengths=lens,
+                                 return_scores=True)
+    if not np.array_equal(scored, out) or scores.shape != (6, MAX_NEW) \
+            or not np.isfinite(scores).all() or (scores > 0).any():
+        fail(f"phase 13 (a): return_scores: tokens equal "
+             f"{np.array_equal(scored, out)}, scores {scores.shape}, finite "
+             f"{np.isfinite(scores).all()}, max {scores.max()}")
+    say(f"phase 13 (a): return_scores: tokens identical, mean logprob "
+        f"{scores.mean():.4f}")
+
+    s1 = ff.generate(toks, MAX_NEW, prompt_lengths=lens, seed=11,
+                     **P13_SAMPLED)
+    s2 = ff.generate(toks, MAX_NEW, prompt_lengths=lens, seed=11,
+                     **P13_SAMPLED)
+    s3 = ff.generate(toks, MAX_NEW, prompt_lengths=lens, seed=12,
+                     **P13_SAMPLED)
+    say(f"phase 13 (a): sampled {P13_SAMPLED}: seed 11 twice identical: "
+        f"{np.array_equal(s1, s2)}; seed 12 differs: "
+        f"{not np.array_equal(s1, s3)}")
+    if not np.array_equal(s1, s2):
+        fail("phase 13 (a): the same seed gave other sampled tokens")
+
+    btoks, blens = _p13_right_pad(np, prompts[:2])
+    (bout, bscore), t_beam = _p13_timed(torch, lambda: ff.generate(
+        btoks, MAX_NEW, num_beams=P13_BEAMS, prompt_lengths=blens,
+        return_scores=True))
+    if bout.shape != (2, btoks.shape[1] + MAX_NEW) \
+            or not np.isfinite(bscore).all():
+        fail(f"phase 13 (a): beam search {bout.shape}, scores {bscore}")
+    say(f"phase 13 (a): {P13_BEAMS} beams on 2 prompts: best scores "
+        f"{bscore.tolist()} in {t_beam:.3f} s (capture included) [{card}]")
+
+    (qout, t_q) = _p13_timed(torch, lambda: ff.generate(
+        toks, MAX_NEW, prompt_lengths=lens, quantize="int8"))
+    q_agree = float(np.mean(qout[:, toks.shape[1]:] == out[:, toks.shape[1]:]))
+    if qout.shape != out.shape or ((qout < 0) | (qout >= LLAMA3_8B[
+            "vocab_size"])).any():
+        fail(f"phase 13 (a): int8 weights: output {qout.shape}")
+    say(f"phase 13 (a): quantize='int8' greedy: agreement with bf16 "
+        f"{q_agree:.4f}, {t_q:.3f} s (weights quantized and the step "
+        f"captured in the call) [{card}]")
+    say(f"phase 13 (a): peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    ff._decoders.clear()
+    return launches
+
+
+def _p13_profile(torch, ff, toks, lens, card: str):
+    """One generate call (the program warm: prefill, first token, 31
+    replays) under torch.profiler: device busy, idle share, device time by
+    kernel class and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _p13_timed(torch, lambda: ff.generate(
+            toks, MAX_NEW, prompt_lengths=lens))
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = busy_ms(events)
+    by_class, by_name = {}, {}
+    for e in events:
+        us = e.time_range.end - e.time_range.start
+        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name),
+                                                      0) + us
+        by_name[e.name] = by_name.get(e.name, 0) + us
+    say(f"phase 13 (a) profile: one generate call, {len(events)} device "
+        f"events, device busy {busy:.1f} ms of {wall * 1e3:.1f} ms under the "
+        f"profiler: idle share {max(1 - busy / (wall * 1e3), 0):.3f} [{card}]")
+    total = sum(by_class.values()) or 1
+    for k, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        say(f"phase 13 (a) profile: {k}: {us / 1e3:.2f} ms "
+            f"({100 * us / total:.1f}%)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        calls = sum(e.name == name for e in events)
+        say(f"phase 13 (a) profile kernel: {us / 1e3:.3f} ms, {calls} "
+            f"launches: {name[:120]}")
+    del prof
+
+
+def _p13_parting(torch, gen_cpu, toks, got, want, s0):
+    """Each row where the card's tokens part from the CPU's: the step and
+    the CPU model's top-2 logit margin there."""
+    out = []
+    for r in range(got.shape[0]):
+        diff = [j for j in range(s0, got.shape[1]) if got[r, j] != want[r, j]]
+        if not diff:
+            continue
+        j = diff[0]
+        seq = torch.as_tensor(want[r:r + 1, :j]).long()
+        c = {op.name: op.init_cache(1, j, torch.float32, gen_cpu.model.device)
+             for op in gen_cpu.attn_ops}
+        with torch.inference_mode():
+            lg, _ = gen_cpu._prefill(gen_cpu.model.params, seq, c, None)
+        top = torch.topk(lg[0, -1].float(), 2).values
+        out.append(f"row {r} at step {j - s0}: top-2 margin "
+                   f"{(top[0] - top[1]).item():.3g}")
+    return "; ".join(out)
+
+
+def _p13_exact(torch, FFConfig, FFModel, llama_lm, kernels, prompts, card):
+    """Phase 13 (b): 2 layers at Llama-3-8B widths in f32 (TF32 off), the
+    same weights on the card and the CPU: greedy and beam tokens
+    identical."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.generation import Generator
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cpu = build_llama(FFConfig, FFModel, llama_lm, "cpu", "float32", 3,
+                      **P13_EXACT)
+    gpu = build_llama(FFConfig, FFModel, llama_lm, "cuda", "float32", 3,
+                      **P13_EXACT)
+    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    toks, lens = _p13_right_pad(np, [p for p in prompts
+                                     if len(p) in P13_EXACT_LENS])
+    btoks, blens = toks[:2, :int(lens[:2].max())], lens[:2]
+    t_build = time.perf_counter() - t0
+    problems = []
+    for tag, call in (
+            ("greedy", lambda ff: ff.generate(toks, P13_EXACT_NEW,
+                                              prompt_lengths=lens)),
+            (f"{P13_BEAMS} beams", lambda ff: ff.generate(
+                btoks, P13_EXACT_NEW, num_beams=P13_BEAMS,
+                prompt_lengths=blens))):
+        t1 = time.perf_counter()
+        want = call(cpu)
+        t_cpu = time.perf_counter() - t1
+        got, t_gpu = _p13_timed(torch, lambda: call(gpu))
+        same = np.array_equal(got, want)
+        parting = "" if same else _p13_parting(
+            torch, Generator(cpu), toks if tag == "greedy" else btoks, got,
+            want, (toks if tag == "greedy" else btoks).shape[1])
+        say(f"phase 13 (b): {tag}, 2 layers at Llama-3-8B widths, f32: card "
+            f"tokens identical to the CPU's: {same}"
+            + (f" (parting: {parting})" if parting else "")
+            + f"; card {t_gpu:.3f} s, CPU {t_cpu:.1f} s [{card}]")
+        if not same:
+            problems.append(f"{tag}: {parting}")
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    say(f"phase 13 (b): models built in {t_build:.1f} s")
+    del cpu, gpu
+    if problems:
+        fail("phase 13 (b): card vs CPU: " + " | ".join(problems))
+
+
+def _p13_seq2seq(torch, FFConfig, FFModel, kernels, card: str):
+    """Phase 13 (c): seq2seq_lm at Transformer-base widths through
+    generate_seq2seq: bf16 on the card (kernel 1 in the encoder and the
+    decoder prefill; tokens/s), and in f32 the card's greedy tokens the
+    CPU's."""
+    import numpy as np
+
+    from flexflow_tpu_torch.models import seq2seq_lm
+
+    r = T_BASE_RUN
+    layers = T_BASE["layers"]
+
+    def build(dev, dtype):
+        ff = FFModel(FFConfig(batch_size=r["batch"], compute_dtype=dtype,
+                              seed=5), device=dev)
+        seq2seq_lm(ff, r["batch"], src_len=r["src"], tgt_len=r["new"],
+                   **T_BASE)
+        ff.compile()
+        return ff
+
+    src = np.random.RandomState(4).randint(
+        1, T_BASE["vocab_size"], (r["batch"], r["src"])).astype(np.int32)
+    ff = build("cuda", "bfloat16")
+    n_params = sum(t.numel() for ws in ff.params.values()
+                   for t in ws.values())
+    kernels.reset_launch_counts()
+    out, wall = _p13_timed(torch, lambda: ff.generate_seq2seq(
+        src, max_new_tokens=r["new"]))
+    launches = kernels.launch_counts()
+    if launches != _p13_want(kernels, 2 * layers):
+        fail(f"phase 13 (c): kernel launches {launches} != "
+             f"{_p13_want(kernels, 2 * layers)} (kernel 1 once an encoder "
+             f"layer and once a decoder prefill layer)")
+    again, wall2 = _p13_timed(torch, lambda: ff.generate_seq2seq(
+        src, max_new_tokens=r["new"]))
+    if not np.array_equal(again, out) or out.shape != (r["batch"],
+                                                       1 + r["new"]):
+        fail(f"phase 13 (c): output {out.shape}, second call identical "
+             f"{np.array_equal(again, out)}")
+    n = r["batch"] * r["new"]
+    say(f"phase 13 (c): Transformer-base seq2seq_lm ({n_params / 1e6:.1f} M "
+        f"params, bf16), batch {r['batch']}, source {r['src']}, BOS prompt, "
+        f"{r['new']} new tokens: kernel launches {launches}; {n} tokens in "
+        f"{wall2:.3f} s = {n / wall2:.1f} tokens/s (first call, capture "
+        f"included: {wall:.3f} s) [{card}]")
+    del ff
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, gpu = build("cpu", "float32"), build("cuda", "float32")
+    gpu.params = {op: {w: t.to("cuda") for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    want = cpu.generate_seq2seq(src, max_new_tokens=r["new"])
+    got = gpu.generate_seq2seq(src, max_new_tokens=r["new"])
+    torch.backends.cuda.matmul.allow_tf32 = saved
+    same = np.array_equal(got, want)
+    say(f"phase 13 (c): f32, card tokens identical to the CPU's: {same}"
+        + ("" if same else " (differ: " + _p11_diff(
+            [list(x) for x in got], [list(x) for x in want]) + ")"))
+    if not same:
+        fail("phase 13 (c): f32 seq2seq tokens differ card vs CPU")
+    return launches
+
+
+def phase_generate(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
+                   prompts, card: str):
+    """Phase 13: generation — (a) FFModel.generate at Llama-3-8B widths on
+    phase 6's model, (b) exactness at full width and 2 layers, (c)
+    generate_seq2seq at Transformer-base widths. Returns {path: launch
+    counts}."""
+    t0 = time.perf_counter()
+    out = {"generate": _p13_full_width(torch, kernels, ff, ref, prompts,
+                                       card)}
+    t1 = time.perf_counter()
+    _p13_exact(torch, FFConfig, FFModel, llama_lm, kernels, prompts, card)
+    t2 = time.perf_counter()
+    out["seq2seq"] = _p13_seq2seq(torch, FFConfig, FFModel, kernels, card)
+    say(f"phase 13: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{time.perf_counter() - t2:.1f} s")
+    return out
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -3814,6 +4237,15 @@ KERNEL_ROWS = {
                                   "spec_greedy", "flash_attention_fwd"),
     f"paged_prefill_write_layers{LLAMA32_1B['layers']}_draft": (
         "paged_prefill_write.cu", 779, "spec_greedy", "paged_prefill_write"),
+    # phase 13's shapes: generate's prefill, and the seq2seq encoder and
+    # decoder prefill. Both seq2seq rows report the path's launches of the
+    # kernel at both shapes, one an encoder layer and one a decoder layer
+    "flash_attention_fwd_generate": ("flash_attention_wgmma.cu", 180,
+                                     "generate", "flash_attention_fwd"),
+    "flash_attention_fwd_seq2seq": ("flash_attention_wgmma.cu", 180,
+                                    "seq2seq", "flash_attention_fwd"),
+    "flash_attention_fwd_seq2seq_dec": ("flash_attention_wgmma.cu", 180,
+                                        "seq2seq", "flash_attention_fwd"),
 }
 
 
@@ -3850,6 +4282,8 @@ def main():
     launches.update(p11)
     launches.update(phase_serving_rest(torch, kernels, ff, ref, prompts,
                                        step_ms_p11, card))
+    launches.update(phase_generate(torch, FFConfig, FFModel, llama_lm,
+                                   kernels, ff, ref, prompts, card))
     del ff, outs
     launches.update(phase_train(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))

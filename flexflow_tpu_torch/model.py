@@ -8,7 +8,8 @@ one stored weight between two ops. ``compile`` initialises the parameters
 (and the ops' state, ``bn_state``) on the model's device from a
 seeded ``torch.Generator``: with an optimizer for training (``fit``,
 ``evaluate``), without one for serving (``make_serving_engine`` /
-``serve`` drive the continuous-batching engine). Training steps one batch
+``serve`` drive the continuous-batching engine, ``generate`` /
+``generate_seq2seq`` decode with a static KV cache). Training steps one batch
 a call (``fit``'s per-step path, ``_run_train_step``) or, with
 ``FFConfig.scan_steps`` or ``train_scanned``, n steps a dispatch (a CUDA
 graph replayed on the card); ``grad_accum_steps``, ``on_nonfinite`` (the
@@ -97,6 +98,9 @@ class FFModel:
         # the scanned steps' replay, and what it was built over
         self._replay: Optional[StepReplay] = None
         self._replay_key: Optional[tuple] = None
+        # generate()'s and generate_seq2seq()'s generators, by sampling
+        # config (``_generators`` holds the drawing ops' torch.Generators)
+        self._decoders: Dict[tuple, object] = {}
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -756,3 +760,89 @@ class FFModel:
         reqs = eng.run(prompts, max_new_tokens=max_new_tokens)
         outs = [r.output if r.state == "done" else None for r in reqs]
         return outs, eng.stats()
+
+    # ----------------------------------------------------------- generation
+
+    def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,
+                 top_k: int = 0, eos_token_id: Optional[int] = None,
+                 pad_token_id: int = 0, num_beams: int = 1,
+                 length_penalty: float = 0.0, prompt_lengths=None,
+                 quantize: Optional[str] = None, prefill_chunk: int = 0,
+                 return_scores: bool = False, seed: int = 0,
+                 early_exit: bool = False):
+        """KV-cache decoding of a decoder-only LM (the JAX ``generate``,
+        model.py:1330; runtime/generation.py). tokens: (B, S0) int prompts;
+        returns (B, S0 + max_new_tokens) int32 with the new tokens in
+        columns S0 onward — with ``return_scores`` a (tokens, scores)
+        pair, scores the (B, max_new_tokens) per-token log-probabilities
+        (pads after eos 0.0), or for beam search the best beam's (B,)
+        length-penalty-normalized total. ``prompt_lengths`` (B,): ragged
+        right-padded prompts. ``num_beams`` > 1: beam search
+        (temperature / top_k ignored; ``length_penalty`` 0 ranks by the
+        raw sum of log-probabilities, 1.0 by their mean). ``quantize``
+        "int8" / "fp8": weight-only quantized decode. ``prefill_chunk``:
+        chunked prefill. ``early_exit``: stop once every row has emitted
+        eos (the same tokens, fewer steps). ``seed``: sampled draws are a
+        pure function of (seed, row, token index).
+
+        Each sampling config keeps a Generator (beam calls key out
+        temperature and top_k), and each (max_new_tokens, ragged,
+        prefill_chunk, scores | beam settings, prompt shape) keeps a
+        program: static caches and, on the card, the decode step captured
+        as a CUDA graph; at most FF_GEN_PROGRAM_CACHE (default 8) a
+        Generator. A Generator reads ``params`` in place, so once this has
+        run a native-width ``swap_weights`` on any engine of the model is
+        refused."""
+        from flexflow_tpu_torch.runtime.generation import Generator
+
+        if self.params is None:
+            raise RuntimeError("generate() needs a compiled model "
+                               "(FFModel.compile)")
+        key = ((0.0, 0, eos_token_id, pad_token_id, quantize)
+               if num_beams > 1
+               else (temperature, top_k, eos_token_id, pad_token_id,
+                     quantize))
+        gen = self._decoders.get(key)
+        if gen is None:
+            # from the KEYED values: a Generator a beam call made must be
+            # greedy if a later num_beams=1 call reuses it
+            gen = self._decoders[key] = Generator(
+                self, temperature=key[0], top_k=key[1], eos_id=eos_token_id,
+                pad_id=pad_token_id, quantize=quantize)
+        if num_beams > 1:
+            return gen.beam_search(tokens, max_new_tokens, num_beams,
+                                   length_penalty,
+                                   prefill_chunk=prefill_chunk,
+                                   return_scores=return_scores,
+                                   prompt_lengths=prompt_lengths)
+        return gen(tokens, max_new_tokens, seed=seed,
+                   prompt_lengths=prompt_lengths, prefill_chunk=prefill_chunk,
+                   return_scores=return_scores, early_exit=early_exit)
+
+    def generate_seq2seq(self, src_tokens, tgt_prompt=None,
+                         max_new_tokens: int = 32, bos_token_id: int = 1,
+                         temperature: float = 0.0, top_k: int = 0,
+                         eos_token_id: Optional[int] = None,
+                         pad_token_id: int = 0, seed: int = 0):
+        """Encoder-decoder decoding (the JAX ``generate_seq2seq``,
+        model.py:1519; runtime/seq2seq_generation.py): the encoder runs
+        once on ``src_tokens`` (B, S_src), cross-attention k/v are
+        projected once, and the decoder's cached loop starts from
+        ``tgt_prompt`` (B, T0) — a column of ``bos_token_id`` when omitted.
+        Returns (B, T0 + max_new_tokens) int32."""
+        from flexflow_tpu_torch.runtime.seq2seq_generation import \
+            Seq2SeqGenerator
+
+        if self.params is None:
+            raise RuntimeError("generate_seq2seq() needs a compiled model "
+                               "(FFModel.compile)")
+        key = ("s2s", temperature, top_k, eos_token_id, pad_token_id)
+        gen = self._decoders.get(key)
+        if gen is None:
+            gen = self._decoders[key] = Seq2SeqGenerator(
+                self, temperature=temperature, top_k=top_k,
+                eos_id=eos_token_id, pad_id=pad_token_id)
+        src = np.asarray(src_tokens)
+        if tgt_prompt is None:
+            tgt_prompt = np.full((src.shape[0], 1), bos_token_id, np.int32)
+        return gen(src, tgt_prompt, max_new_tokens, seed=seed)

@@ -1,10 +1,107 @@
-"""Transformer builders (copies of the JAX package's
-``models/transformer.py`` ``encoder_block`` and
-``build_encoder_classifier``, the flagship trained model)."""
+"""Transformer builders (a copy of the JAX package's
+``models/transformer.py``, every builder of it).
+
+`build_reference_transformer` reproduces the reference benchmark app
+(examples/cpp/Transformer/transformer.cc:30-140: encoder-decoder of
+MHA + residual + 2xdense blocks, defaults hidden 512 / 16 heads / 12 layers /
+seq 128, MSE regression head, SGD 0.01).
+
+`build_encoder_classifier` is the modern variant (pre-LN, GELU FFN, causal
+option) used as the flagship trained model.
+
+`seq2seq_lm` is the token-level encoder-decoder LM that
+``FFModel.generate_seq2seq`` decodes.
+"""
 
 from __future__ import annotations
 
-from flexflow_tpu_torch.ffconst import ActiMode
+import dataclasses
+
+from flexflow_tpu_torch.ffconst import ActiMode, DataType
+
+
+@dataclasses.dataclass
+class TransformerConfig:
+    hidden_size: int = 512
+    embedding_size: int = 512
+    num_heads: int = 16
+    num_layers: int = 12
+    sequence_length: int = 128
+
+
+def attention_encoder_decoder(ff, x1, x2, hidden_dim, num_heads, i):
+    """One reference layer (transformer.cc:39-56): self-attn + residual +
+    dense(relu)+dense on each stream, plus cross-attention on stream 2."""
+    t1 = ff.add(ff.multihead_attention(x1, x1, x1, hidden_dim, num_heads,
+                                       name=f"enc_attn_{i}"), x1)
+    t1 = ff.dense(ff.dense(t1, hidden_dim, ActiMode.AC_MODE_RELU,
+                           name=f"enc_ff1_{i}"),
+                  hidden_dim, name=f"enc_ff2_{i}")
+    t2 = ff.add(ff.multihead_attention(x2, x2, x2, hidden_dim, num_heads,
+                                       name=f"dec_self_attn_{i}"), x2)
+    t2 = ff.add(ff.multihead_attention(t2, t1, t1, hidden_dim, num_heads,
+                                       name=f"dec_cross_attn_{i}"), t2)
+    t2 = ff.dense(ff.dense(t2, hidden_dim, ActiMode.AC_MODE_RELU,
+                           name=f"dec_ff1_{i}"),
+                  hidden_dim, name=f"dec_ff2_{i}")
+    return t1, t2
+
+
+def build_reference_transformer(ff, batch_size: int,
+                                cfg: TransformerConfig = None):
+    cfg = cfg or TransformerConfig()
+    x = ff.create_tensor([batch_size, cfg.sequence_length, cfg.hidden_size],
+                         name="input")
+    t1 = t2 = x
+    for i in range(cfg.num_layers):
+        t1, t2 = attention_encoder_decoder(ff, t1, t2, cfg.hidden_size,
+                                           cfg.num_heads, i)
+    out = ff.dense(t2, 1, name="regression_head")
+    return x, out
+
+
+def build_seq2seq_transformer(ff, batch_size: int,
+                              src_len: int = 128, tgt_len: int = 64,
+                              hidden: int = 512, layers: int = 4,
+                              heads: int = 8, ffn_mult: int = 4,
+                              vocab_size: int = 0):
+    """Modern encoder-decoder transformer with DISTINCT source/target
+    lengths: pre-LN encoder; decoder = causal self-attention + (non-causal)
+    cross-attention over the encoder states + FFN per layer. The
+    sq != sk cross-attention runs on the flash kernel when eligible — the
+    workload class the reference's vendor kernel served with distinct
+    q/kv lengths (attention.cu:533-570) and its Transformer app built as
+    twin streams (transformer.cc:39-56; see build_reference_transformer
+    for the faithful twin-stream port).
+
+    Returns (src_input, tgt_input, out): out is per-target-position
+    hidden states, projected to vocab_size logits when vocab_size > 0
+    (seq2seq LM head) else raw (B, tgt_len, hidden)."""
+    src = ff.create_tensor([batch_size, src_len, hidden], name="src")
+    tgt = ff.create_tensor([batch_size, tgt_len, hidden], name="tgt")
+    e = src
+    for i in range(layers):
+        e = encoder_block(ff, e, hidden, heads, ffn_mult, f"enc{i}")
+    e = ff.layer_norm(e, name="enc_ln_f")
+    d = tgt
+    for i in range(layers):
+        a = ff.layer_norm(d, name=f"dec_ln1_{i}")
+        a = ff.multihead_attention(a, a, a, hidden, heads, causal=True,
+                                   name=f"dec_self_{i}")
+        d = ff.add(d, a, name=f"dec_res1_{i}")
+        c = ff.layer_norm(d, name=f"dec_ln2_{i}")
+        c = ff.multihead_attention(c, e, e, hidden, heads,
+                                   name=f"dec_cross_{i}")
+        d = ff.add(d, c, name=f"dec_res2_{i}")
+        f = ff.layer_norm(d, name=f"dec_ln3_{i}")
+        f = ff.dense(f, hidden * ffn_mult, ActiMode.AC_MODE_GELU,
+                     name=f"dec_ffn1_{i}")
+        f = ff.dense(f, hidden, name=f"dec_ffn2_{i}")
+        d = ff.add(d, f, name=f"dec_res3_{i}")
+    d = ff.layer_norm(d, name="dec_ln_f")
+    if vocab_size > 0:
+        d = ff.dense(d, vocab_size, use_bias=False, name="lm_head")
+    return src, tgt, d
 
 
 def encoder_block(ff, x, hidden, heads, ffn_mult, i, causal=False,
@@ -47,3 +144,57 @@ def build_encoder_classifier(ff, batch_size: int, seq_len: int = 128,
     t = ff.mean(t, dims=[1], name="pool")
     out = ff.dense(t, num_classes, name="head")
     return x, out
+
+
+def seq2seq_lm(ff, batch_size: int, src_len: int = 32,
+               tgt_len: int = 32, hidden: int = 128, layers: int = 2,
+               heads: int = 4, ffn_mult: int = 4,
+               vocab_size: int = 1000, rope_theta: float = 10000.0):
+    """Token-level encoder-decoder LM, the GENERATION-capable member of
+    the seq2seq family (build_seq2seq_transformer is the hidden-state
+    twin of the reference's Transformer app). Positions come from RoPE
+    inside every SELF-attention (encoder bidirectional, decoder causal);
+    cross-attention carries no positional rotation — position info is
+    already mixed into both streams by their self-attentions. This is
+    the layout Seq2SeqGenerator decodes with a KV cache on decoder
+    self-attention and a STATIC projected k/v for cross-attention.
+
+    Returns (src_tokens, tgt_tokens, logits) with logits
+    (B, tgt_len, vocab)."""
+    src = ff.create_tensor([batch_size, src_len], dtype=DataType.DT_INT32,
+                           name="src")
+    tgt = ff.create_tensor([batch_size, tgt_len], dtype=DataType.DT_INT32,
+                           name="tgt")
+    e = ff.embedding(src, vocab_size, hidden, name="src_embed")
+    for i in range(layers):
+        a = ff.layer_norm(e, name=f"s2s_enc_ln1_{i}")
+        a = ff.multihead_attention(a, a, a, hidden, heads, rope=True,
+                                   rope_theta=rope_theta,
+                                   name=f"s2s_enc_attn_{i}")
+        e = ff.add(e, a, name=f"s2s_enc_res1_{i}")
+        f = ff.layer_norm(e, name=f"s2s_enc_ln2_{i}")
+        f = ff.dense(f, hidden * ffn_mult, ActiMode.AC_MODE_GELU,
+                     name=f"s2s_enc_ffn1_{i}")
+        f = ff.dense(f, hidden, name=f"s2s_enc_ffn2_{i}")
+        e = ff.add(e, f, name=f"s2s_enc_res2_{i}")
+    e = ff.layer_norm(e, name="s2s_enc_ln_f")
+
+    d = ff.embedding(tgt, vocab_size, hidden, name="tgt_embed")
+    for i in range(layers):
+        a = ff.layer_norm(d, name=f"s2s_dec_ln1_{i}")
+        a = ff.multihead_attention(a, a, a, hidden, heads, causal=True,
+                                   rope=True, rope_theta=rope_theta,
+                                   name=f"s2s_dec_self_{i}")
+        d = ff.add(d, a, name=f"s2s_dec_res1_{i}")
+        c = ff.layer_norm(d, name=f"s2s_dec_ln2_{i}")
+        c = ff.multihead_attention(c, e, e, hidden, heads,
+                                   name=f"s2s_dec_cross_{i}")
+        d = ff.add(d, c, name=f"s2s_dec_res2_{i}")
+        f = ff.layer_norm(d, name=f"s2s_dec_ln3_{i}")
+        f = ff.dense(f, hidden * ffn_mult, ActiMode.AC_MODE_GELU,
+                     name=f"s2s_dec_ffn1_{i}")
+        f = ff.dense(f, hidden, name=f"s2s_dec_ffn2_{i}")
+        d = ff.add(d, f, name=f"s2s_dec_res3_{i}")
+    d = ff.layer_norm(d, name="s2s_dec_ln_f")
+    logits = ff.dense(d, vocab_size, use_bias=False, name="s2s_lm_head")
+    return src, tgt, logits

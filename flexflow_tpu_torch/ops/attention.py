@@ -429,31 +429,39 @@ class MultiHeadAttention(Op):
         return ws
 
     def _project_qkv(self, params, q, k, v, rope_offset=0, rope=None,
-                     kv_by_position: bool = False):
+                     kv_by_position: bool = False, parts: str = "qkv"):
         """(B, S, D) x (D, H, Hd) -> (B, S, H, Hd) for q and (B, S, KVH, Hd)
         for k/v, bias and RoPE applied; k/v stay un-broadcast (the cache
         layout). ``rope``: the ``rope_tables`` of these positions, where
         the caller holds them (a graph walk derives them once for all its
         layers). ``kv_by_position``: k and v projected one position at a
         time, each a (B, D) product as a decode step's (a verify slab under
-        ``verify_as_decode``)."""
-        qh = _head_proj(q, params["wq"])
-        if kv_by_position and k.shape[1] > 1:
-            kh = _head_proj_by_position(k, params["wk"])
-            vh = _head_proj_by_position(v, params["wv"])
-        else:
-            kh = _head_proj(k, params["wk"])
-            vh = _head_proj(v, params["wv"])
-        if self.bias:
-            qh = qh + params["bias_q"]
-            kh = kh + params["bias_k"]
-            vh = vh + params["bias_v"]
+        ``verify_as_decode``). ``parts``: "q" or "kv" projects only those
+        (the others come back None), where a caller needs no more."""
+        qh = kh = vh = None
+        if "q" in parts:
+            qh = _head_proj(q, params["wq"])
+            if self.bias:
+                qh = qh + params["bias_q"]
+        if "k" in parts:
+            if kv_by_position and k.shape[1] > 1:
+                kh = _head_proj_by_position(k, params["wk"])
+                vh = _head_proj_by_position(v, params["wv"])
+            else:
+                kh = _head_proj(k, params["wk"])
+                vh = _head_proj(v, params["wv"])
+            if self.bias:
+                kh = kh + params["bias_k"]
+                vh = vh + params["bias_v"]
         if self.rope:
+            x = q if qh is not None else k
             if rope is None:
-                rope = rope_tables(self.rope_theta, qh.shape[1],
-                                   self.qk_head_dim, rope_offset, qh.device)
-            qh = _apply_rope(qh, self.rope_theta, tables=rope)
-            kh = _apply_rope(kh, self.rope_theta, tables=rope)
+                rope = rope_tables(self.rope_theta, x.shape[1],
+                                   self.qk_head_dim, rope_offset, x.device)
+            if qh is not None:
+                qh = _apply_rope(qh, self.rope_theta, tables=rope)
+            if kh is not None:
+                kh = _apply_rope(kh, self.rope_theta, tables=rope)
         return qh, kh, vh
 
     def _broadcast_kv(self, kh, vh):
@@ -596,13 +604,70 @@ class MultiHeadAttention(Op):
         ((B,) positions) attends the row's live prefix idx < row_lengths.
         The cache is returned untouched."""
         qh, _, _ = self._project_qkv(params, xs[0], xs[1], xs[2],
-                                     rope_offset=rope_pos, rope=rope)
+                                     rope_offset=rope_pos, rope=rope,
+                                     parts="q")
         idx = torch.arange(cache["k"].shape[1], device=qh.device)
         live = idx[None, :] < row_lengths[:, None]
         ctx = kernels.grouped_cache_attention(
             qh, cache["k"], cache["v"], live[:, None, None, None, :],
             self.scale)
         return self._out_proj(params, ctx), cache
+
+    def decode_forward(self, params, xs, cache, pos: torch.Tensor,
+                       rope_pos: Optional[torch.Tensor] = None,
+                       row_lengths: Optional[torch.Tensor] = None,
+                       prompt_len: Optional[int] = None, rope=None):
+        """One-token step of ``FFModel.generate`` (the JAX
+        ``decode_forward``, attention.py:410): write the (B, 1) slab's k/v
+        at slot ``pos`` of the static ``cache`` (in place) and attend the
+        whole cache under the live mask ``idx <= pos``. ``pos`` is a 0-dim
+        int64 device tensor, never a python int, so a CUDA graph captured
+        over one step serves every step (the write is an ``index_copy_``,
+        the mask a comparison on the card). Ragged right-padded prompts:
+        ``row_lengths`` (B,) and the padded width ``prompt_len`` mask the
+        pad slots, live = ``idx < row_lengths | (prompt_len <= idx <=
+        pos)``, and ``rope_pos`` (B,) rotates each row at its logical
+        position instead of ``pos``. The attention is the grouped einsum
+        of the JAX package (no kernel there either). ``rope``: the
+        ``rope_tables`` of these positions, where the caller holds them."""
+        qh, kh, vh = self._project_qkv(
+            params, xs[0], xs[1], xs[2],
+            rope_offset=pos if rope_pos is None else rope_pos, rope=rope)
+        slot = pos.reshape(1)
+        cache["k"].index_copy_(1, slot, kh.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, vh.to(cache["v"].dtype))
+        idx = torch.arange(cache["k"].shape[1], device=qh.device)[None, :]
+        if row_lengths is None:
+            live = idx <= pos
+        else:
+            live = (idx < row_lengths[:, None]) \
+                | ((idx >= prompt_len) & (idx <= pos))
+        ctx = kernels.grouped_cache_attention(
+            qh, cache["k"], cache["v"], live[:, None, None, None, :],
+            self.scale)
+        return self._out_proj(params, ctx), cache
+
+    def encode_kv(self, params, enc):
+        """Cross-attention's static k/v (the JAX ``encode_kv``,
+        attention.py:376), projected once from the encoder states at the
+        start of a seq2seq decode: every decoder pass reuses them. Only k
+        and v are projected."""
+        _, kh, vh = self._project_qkv(params, enc, enc, enc, parts="kv")
+        return {"k": kh, "v": vh}
+
+    def cross_forward_cached(self, params, xs, kv):
+        """Cross-attention of a (B, C) decoder slab over the static
+        encoder k/v of ``encode_kv`` (the JAX ``cross_forward_cached``,
+        attention.py:385): non-causal, every query attends the whole
+        source, through the grouped einsum attention. Only q is projected:
+        k and v are ``kv``'s."""
+        qh, _, _ = self._project_qkv(params, xs[0], xs[0], xs[0],
+                                     parts="q")
+        live = torch.ones((1, 1, 1, 1, kv["k"].shape[1]), dtype=torch.bool,
+                          device=qh.device)
+        ctx = kernels.grouped_cache_attention(qh, kv["k"], kv["v"], live,
+                                              self.scale)
+        return self._out_proj(params, ctx)
 
     # ---- paged KV pool (runtime/serving.py) --------------------------------
 

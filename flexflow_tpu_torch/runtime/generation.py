@@ -1,15 +1,34 @@
-"""Graph walks for KV-cache generation (the JAX package's
-``runtime/generation.py`` ``Generator``, the parts serving runs).
+"""KV-cache generation (the JAX package's ``runtime/generation.py``
+``Generator``): ``FFModel.generate``'s static-cache decode loop and beam
+search, and the graph walks the serving engine runs.
 
-The JAX package jits one program per shape; the port runs the same walk
-eagerly. ``_walk`` interprets the op graph on a (B, S) token slab:
-whole-prompt prefill into a contiguous per-request cache, a prompt chunk
-behind a cached prefix (``chunk_start=``) and the read-only query of the
-prompt's last token (``gather_last=``) — a prefix-cache hit's two passes —
-one continuous-batching decode step over the paged pool (``paged=``), or
-a speculative verify slab of K + 1 positions a slot over it.
-A MoE layer runs at capacity = the slab's token count, as in the JAX walk:
-no token drops, so each row's output is its own.
+``_walk`` interprets the op graph on a (B, S) token slab: whole-prompt
+prefill into a contiguous per-request cache, a prompt chunk behind a
+cached prefix (``chunk_start=``) and the read-only query of the prompt's
+last token (``gather_last=``) — a prefix-cache hit's two passes —, one
+``generate`` decode step over the static cache (``pos=``), one
+continuous-batching decode step over the paged pool (``paged=``), or a
+speculative verify slab of K + 1 positions a slot over it. A MoE layer
+runs at capacity = the slab's token count, as in the JAX walk: no token
+drops, so each row's output is its own.
+
+``generate`` (``__call__`` and ``beam_search``): the JAX package jits one
+program per key, prefill then a ``lax.scan`` / ``while_loop`` of decode
+steps. Here a program (``_Loop``) owns its static caches and loop state;
+the prefill runs eagerly into them, and one (B, 1) decode step — the
+cache write at ``pos``, the mask, the sampler, the token buffers — reads
+every position from device tensors, so on the card it is captured once as
+a CUDA graph and replayed ``max_new_tokens - 1`` times (on the CPU the
+same step runs eagerly). Beam search reorders the caches in place by
+beam parent under the graph. Programs are kept in an LRU bounded by
+``FF_GEN_PROGRAM_CACHE`` (default 8); an evicted program's graph and
+buffers are freed.
+
+Sampling draws with the serving engine's counter-based Gumbel-max
+(``ops/sampling.py``): draw n of row b is a pure function of (seed, b,
+n), the same bits on the CPU and the card, and a graph captures it with
+no generator state. JAX's threefry stream is not reproduced; sampled
+tokens are checked by distribution.
 
 Weight-only quantization (``quantize='int8'`` / ``'fp8'``): every float
 weight with two or more dims is stored once as a quantized payload with
@@ -20,20 +39,28 @@ use (``_deq``), as the JAX package does; the matrix products stay
 
 from __future__ import annotations
 
+import collections
+import logging
 import math
+import os
 import weakref
 from typing import Dict, Optional
+
+import numpy as np
 
 import torch
 
 from flexflow_tpu_torch.ffconst import DataType, OperatorType
 from flexflow_tpu_torch.ops import kernels
+from flexflow_tpu_torch.ops import sampling
 from flexflow_tpu_torch.ops.attention import (MultiHeadAttention, _divide,
                                               paged_slot, rope_tables,
                                               storage_qmax)
 from flexflow_tpu_torch.ops.base import InputOp
 from flexflow_tpu_torch.ops.lora import gather_op_lora
 from flexflow_tpu_torch.runtime.executor import resolve_tied_params
+
+log = logging.getLogger(__name__)
 
 # ops whose forward treats every (batch, position) independently — safe to
 # run on a (B, 1) decode slab exactly as on the full sequence (the JAX set)
@@ -97,22 +124,134 @@ def _host_copy(tree):
             for op, ws in tree.items()}
 
 
+def _to_compute(p, cdtype: torch.dtype):
+    """An op's weights with f32 tensors cast to the 16-bit compute dtype
+    (a model compiled for training keeps f32 master weights; the JAX walk
+    casts them per use the same way). ``p`` itself when none is f32."""
+    if not any(isinstance(v, torch.Tensor) and v.dtype == torch.float32
+               for v in p.values()):
+        return p
+    return {k: v.to(cdtype) if isinstance(v, torch.Tensor)
+            and v.dtype == torch.float32 else v for k, v in p.items()}
+
+
+def _leaf_addresses(tree) -> tuple:
+    """The data pointers of a weight tree's tensors (quantized leaves'
+    payloads and scales too): what a captured decode step reads."""
+    out = []
+    todo = [tree]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, dict):
+            todo.extend(x[k] for k in sorted(x))
+        elif isinstance(x, torch.Tensor):
+            out.append(x.data_ptr())
+    return tuple(out)
+
+
+def _top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row, ties broken
+    towards the lower index as ``jax.lax.top_k`` breaks them (a stable
+    descending sort; ``torch.topk`` leaves the order of ties open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+#: the side stream generate()'s programs capture on, one a device for the
+#: process (not one a program or a model): cuBLAS keeps a workspace for
+#: every stream it ran on for the process's life
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
+    if dev not in _STREAMS:
+        _STREAMS[dev] = torch.cuda.Stream(dev)
+    return _STREAMS[dev]
+
+
+class _Clock:
+    """Time on the device's current stream from construction to ``stop``:
+    CUDA events on the card (``ms`` waits for the end event), nothing on
+    the CPU (``ms`` is None)."""
+
+    def __init__(self, dev: torch.device):
+        self.events = None
+        if dev.type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+
+    def stop(self) -> "_Clock":
+        if self.events is not None:
+            self.events[1].record()
+        return self
+
+    def ms(self) -> Optional[float]:
+        if self.events is None:
+            return None
+        self.events[1].synchronize()
+        return self.events[0].elapsed_time(self.events[1])
+
+
+class _Loop:
+    """One cached ``generate`` program: the static tensors it owns
+    (``state``: caches, loop state, token buffers), its decode step and
+    ``run`` (set by ``_build`` / ``_build_beam``: prefill, then the
+    steps). On the card the
+    step is a CUDA graph, captured at its first use on the device's side
+    stream and replayed after (the serving engine's ``_Program``); on the
+    CPU, and under ``capture=False``, it runs eagerly. ``addresses``: the
+    weight tensors' addresses the capture holds (a weight tree rebound
+    since makes the program stale)."""
+
+    def __init__(self, generator, step, state: Dict, addresses: tuple):
+        from flexflow_tpu_torch.runtime.serving import _Program
+
+        dev = generator.model.device
+        stream = (_side_stream(dev)
+                  if dev.type == "cuda" and generator.capture else None)
+        self.state = state
+        self.step = _Program(step, state, stream)
+        self.addresses = addresses
+        self.run = None
+
+
 class Generator:
     """Graph walks of a decoder-only LM built on FFModel (after
-    compile()): validation of the graph, prefill and paged decode."""
+    compile()): validation of the graph, prefill, paged decode for the
+    serving engine, and ``generate``'s programs (``__call__``,
+    ``beam_search``). ``temperature`` 0 is greedy; ``top_k`` > 0 keeps
+    exactly k candidates; after ``eos_id`` a row emits ``pad_id``.
 
-    def __init__(self, model, quantize: Optional[str] = None):
+    ``capture=False`` is for comparisons only: on the card generate()'s
+    decode step then runs its body uncaptured, launched from the host each
+    step, as the reference a test holds the CUDA graph against."""
+
+    def __init__(self, model, temperature: float = 0.0, top_k: int = 0,
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 quantize: Optional[str] = None, capture: bool = True):
         if quantize not in (None, "int8", "fp8"):
             raise ValueError(f"quantize={quantize!r}: must be 'int8' or "
                              f"'fp8' (or None)")
         self.model = model
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.eos_id = eos_id
+        self.pad_id = pad_id
         self.quantize = quantize
+        self.capture = capture
         self._qparams = None
         self._qparams_key = None
         # a quantized tier's weight swap (set_params): the tree its buffers
         # are quantized from instead of model.params
         self._params_override = None
         self._override_version = 0
+        # generate()'s programs, LRU-bounded (FF_GEN_PROGRAM_CACHE)
+        self._programs: Dict = collections.OrderedDict()
+        # decode steps the last generate() call ran (early_exit stops short)
+        # and the clock of its decode loop (last_decode_ms)
+        self.last_decode_steps = 0
+        self._decode_clock: Optional[_Clock] = None
         self.served = served_weights(model)
         self.served.readers.add(self)
         input_ops = [op for op in model.ops if isinstance(op, InputOp)]
@@ -139,6 +278,12 @@ class Generator:
                         f"{op.name}: generation supports self-attention "
                         "only (q, k, v must be the same tensor)")
                 self.attn_ops.append(op)
+            elif op.op_type == OperatorType.OP_SOFTMAX:
+                nd = len(op.outputs[0].dims)
+                if op.axis % nd != nd - 1:
+                    raise ValueError(
+                        f"{op.name}: softmax over a non-feature axis mixes "
+                        "positions; not decodable")
             elif op.op_type not in _DECODE_SAFE:
                 raise ValueError(
                     f"{op.name} ({op.op_type.name}) is not supported in the "
@@ -283,6 +428,15 @@ class Generator:
             return (v["q"].float() * v["s"]).to(cdtype)
         return v
 
+    @property
+    def last_decode_ms(self) -> Optional[float]:
+        """Device time of the last generate() call's decode loop, its
+        steps alone (CUDA events on the stream around them: the graph's
+        replays, or the eager body's launches and the gaps between them);
+        None on the CPU and before a call."""
+        return None if self._decode_clock is None \
+            else self._decode_clock.ms()
+
     def params(self):
         """The tree the walks read: the model's weights (a native swap
         writes into them), or their quantized form."""
@@ -314,13 +468,20 @@ class Generator:
     def _walk(self, params, tokens, caches, last_only=False,
               row_lengths=None, paged: Optional[Dict] = None,
               chunk_start: Optional[int] = None, skip_tail: bool = False,
-              gather_last: bool = False, lora: Optional[Dict] = None):
+              gather_last: bool = False, lora: Optional[Dict] = None,
+              pos: Optional[torch.Tensor] = None,
+              rope_pos: Optional[torch.Tensor] = None,
+              prompt_len: Optional[int] = None):
         """Interpret the graph on a (B, S) token slab. By default this is
         the whole-prompt prefill (positions 0..S-1, fills ``caches``);
         ``chunk_start`` prefills positions chunk_start.. behind what the
         caches already hold; ``gather_last`` queries each row's last prompt
         token (a (B, 1) slab at position ``row_lengths`` - 1) read-only
-        against the caches; with ``paged``, a (B, 1) decode step over the
+        against the caches; with ``pos`` (a 0-dim device tensor), a (B, 1)
+        ``generate`` decode step writing slot ``pos`` of the static caches
+        (``decode_forward``: RoPE at ``rope_pos`` (B,) if given, ragged rows
+        masked by ``row_lengths`` and the padded width ``prompt_len``);
+        with ``paged``, a (B, 1) decode step over the
         paged pool, or a (B, S) verify slab (``paged["write_pos"]`` (B, S)).
         ``skip_tail`` stops after the last attention op (a
         cache-only pass; no logits). ``last_only`` narrows the prefill
@@ -341,6 +502,8 @@ class Generator:
         rope = slot = None
         if paged is not None:
             offset = paged["rope_pos"]
+        elif pos is not None:
+            offset = pos if rope_pos is None else rope_pos
         elif gather_last:
             offset = row_lengths - 1
         else:
@@ -357,8 +520,8 @@ class Generator:
             if skip_tail and idx > self._last_attn_idx:
                 return None, new_caches
             xs = [vals[t] for t in op.inputs]
-            if (last_only and paged is None and idx > self._last_attn_idx
-                    and s_full > 1):
+            if (last_only and paged is None and pos is None
+                    and idx > self._last_attn_idx and s_full > 1):
                 if row_lengths is None:
                     xs = [x[:, -1:] if (x.dim() >= 2
                                         and x.shape[1] == s_full) else x
@@ -374,6 +537,8 @@ class Generator:
 
                     xs = [take_last(x) for x in xs]
             p, looked_up = self._op_params(op, params, xs, cdtype)
+            if cdtype != torch.float32:
+                p = _to_compute(p, cdtype)
             if isinstance(op, MultiHeadAttention):
                 cache = caches[op.name]
                 # an op rotating other angles derives its own tables
@@ -389,6 +554,11 @@ class Generator:
                         paged["write_pos"], paged["rope_pos"],
                         paged["row_len"], paged["prompt_pad"], rope=r,
                         slot=slot)
+                elif pos is not None:
+                    out, nc = op.decode_forward(
+                        p, xs, cache, pos, rope_pos=rope_pos,
+                        row_lengths=row_lengths, prompt_len=prompt_len,
+                        rope=r)
                 elif gather_last:
                     out, nc = op.query_forward(p, xs, cache, row_lengths - 1,
                                                row_lengths, rope=r)
@@ -416,22 +586,404 @@ class Generator:
 
     def _prefill(self, params, tokens, caches, row_lengths,
                  prefill_chunk: int = 0, lora: Optional[Dict] = None):
-        """Prefill (the JAX ``_prefill``, generation.py:383-420): logits
+        """Prefill (the JAX ``_prefill``, generation.py:383-422): logits
         (B, 1, V) at each row's last valid position, and the filled
         caches. Whole-prompt through the flash kernel, or, with
-        ``prefill_chunk`` > 0 and a longer prompt, chunked: every chunk
-        runs cache-only through ``chunk_forward`` (a ragged row's last
-        position may fall in any chunk), then a read-only query of each
-        row's last prompt token scores it (``query_forward``)."""
+        ``prefill_chunk`` > 0 and a longer prompt, chunked. Ragged rows
+        (``row_lengths`` given): every chunk runs cache-only through
+        ``chunk_forward`` (a row's last position may fall in any chunk),
+        then a read-only query of each row's last prompt token scores it
+        (``query_forward``). Uniform rows: the last chunk runs the tail on
+        its final position (``last_only``)."""
         s0 = tokens.shape[1]
         if not prefill_chunk or s0 <= prefill_chunk:
             return self._walk(params, tokens, caches, last_only=True,
                               row_lengths=row_lengths, lora=lora)
-        for st in range(0, s0, prefill_chunk):
+        starts = list(range(0, s0, prefill_chunk))
+        ragged = row_lengths is not None
+        for st in (starts if ragged else starts[:-1]):
             _, caches = self._walk(params, tokens[:, st:st + prefill_chunk],
                                    caches, chunk_start=st, skip_tail=True,
                                    lora=lora)
+        if not ragged:
+            return self._walk(params, tokens[:, starts[-1]:], caches,
+                              last_only=True, chunk_start=starts[-1],
+                              lora=lora)
         tok_last = torch.gather(tokens, 1, (row_lengths.long() - 1)[:, None])
         return self._walk(params, tok_last, caches, last_only=True,
                           row_lengths=row_lengths, gather_last=True,
                           lora=lora)
+
+    # ---- sampling ----------------------------------------------------------
+
+    def _row_keys(self, seed: int, b: int) -> Optional[torch.Tensor]:
+        """(B,) int64 stream keys of a sampled call: row b's is a hash of
+        (seed, b), so rows draw independently. None when greedy."""
+        if self.temperature <= 0.0:
+            return None
+        dev = self.model.device
+        return sampling.slot_keys(
+            torch.full((b,), int(seed), dtype=torch.int64, device=dev),
+            torch.arange(b, dtype=torch.int64, device=dev),
+            sampling.TAG_TARGET)
+
+    @staticmethod
+    def _draw_keys(rows: Optional[torch.Tensor], n) -> Optional[torch.Tensor]:
+        """The (B,) keys of draw ``n`` (the new token's index: 0 for the
+        prefill's token; an int or a device tensor) of each row's stream."""
+        if rows is None:
+            return None
+        return sampling.slot_keys(rows, torch.as_tensor(n).to(rows.device)
+                                  .expand(rows.shape[0]),
+                                  sampling.TAG_TARGET)
+
+    def _warp(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B, V) f32 logits -> the sampled distribution's logits: over the
+        temperature, and with ``top_k`` > 0 exactly k of them kept, the
+        rest -inf. The keep-set is the serving sampler's
+        (``sampling._masked_warped`` at top_p above 1, which keeps every
+        token): the k first of a stable descending sort, as JAX scatters
+        ``lax.top_k``'s indices, which break ties towards the lower index,
+        never the threshold compare that keeps every tie.
+        ``top_k >= vocab`` is a no-op that warns once."""
+        vocab = logits.shape[-1]
+        top_k = self.top_k
+        if top_k >= vocab:
+            if not getattr(self, "_warned_topk", False):
+                log.warning("top_k=%d >= vocab %d; treating as top_k=0 "
+                            "(full-distribution sampling)", top_k, vocab)
+                self._warned_topk = True
+            top_k = 0
+        rows = logits.shape[0]
+
+        def per_row(x, dtype):
+            return torch.full((rows,), x, dtype=dtype, device=logits.device)
+
+        return sampling._masked_warped(
+            logits, per_row(self.temperature, torch.float32),
+            per_row(2.0, torch.float32), per_row(top_k, torch.int64))
+
+    def _sample(self, logits, key, with_score: bool = False):
+        """logits (B, V) -> (token (B,) int64, logp (B,) f32 or None) — the
+        JAX ``_sample`` (generation.py:426). Greedy at temperature 0
+        (``argmax`` of f32, the first maximum); otherwise one Gumbel-max
+        draw a row from ``_warp``'s logits with the (B,) ``key``s
+        (``_draw_keys``). The score is the model's log-probability of the
+        token, ``log_softmax`` of the raw f32 logits whatever the warp,
+        computed only when asked for."""
+        logits = logits.float()
+        if self.temperature <= 0.0:
+            tok = torch.argmax(logits, dim=-1)
+        else:
+            tok = sampling._categorical(key, self._warp(logits))
+        if not with_score:
+            return tok, None
+        logp = torch.log_softmax(logits, dim=-1)
+        return tok, torch.gather(logp, -1, tok[:, None])[:, 0]
+
+    # ---- generate()'s programs ---------------------------------------------
+
+    def _build(self, b: int, s0: int, max_new_tokens: int, ragged: bool,
+               prefill_chunk: int, with_scores: bool, early_exit: bool,
+               params) -> _Loop:
+        """The program of one key (the JAX ``_build``, generation.py:468):
+        static caches for s0 + max_new_tokens positions, the decode step
+        (``step``: one (B, 1) walk at ``pos = s0 + i``, the sampler, the
+        eos rule — a done row emits ``pad_id`` at score 0 —, the token
+        written into column i + 1 of the buffers, i advanced; every
+        position a device tensor) and ``run``: the eager prefill and first
+        token, then the step max_new_tokens - 1 times, or with
+        ``early_exit`` until every row is done (``done`` is read on the
+        host before each step: the skipped steps would only append pads,
+        so the tokens are the full loop's)."""
+        dev = self.model.device
+        cdtype = self._compute_dtype()
+        i64 = dict(dtype=torch.int64, device=dev)
+        caches = {op.name: op.init_cache(b, s0 + max_new_tokens, cdtype, dev)
+                  for op in self.attn_ops}
+        st = dict(tok=torch.zeros(b, **i64),
+                  done=torch.zeros(b, dtype=torch.bool, device=dev),
+                  i=torch.zeros((), **i64), lengths=torch.zeros(b, **i64),
+                  rows=torch.zeros(b, **i64),
+                  buf=torch.zeros((b, max_new_tokens), **i64),
+                  sbuf=torch.zeros((b, max_new_tokens), dtype=torch.float32,
+                                   device=dev))
+        eos, pad = self.eos_id, self.pad_id
+        sampled = self.temperature > 0.0
+
+        def step():
+            i = st["i"]
+            rl = st["lengths"] if ragged else None
+            logits, _ = self._walk(
+                self.params(), st["tok"][:, None], caches, pos=s0 + i,
+                rope_pos=(rl + i) if ragged else None, row_lengths=rl,
+                prompt_len=s0)
+            nxt, sc = self._sample(
+                logits[:, 0], self._draw_keys(st["rows"] if sampled
+                                              else None, i + 1),
+                with_score=with_scores)
+            if eos is not None:
+                done = st["done"]
+                nxt = torch.where(done, pad, nxt)
+                if with_scores:
+                    sc = torch.where(done, 0.0, sc)
+                done |= nxt == eos
+            col = (i + 1).reshape(1)
+            st["buf"].index_copy_(1, col, nxt[:, None])
+            if with_scores:
+                st["sbuf"].index_copy_(1, col, sc[:, None])
+            st["tok"].copy_(nxt)
+            i.add_(1)
+
+        loop = _Loop(self, step, st, _leaf_addresses(params))
+        prog = loop.step
+
+        def run(params, tokens, lengths, seed):
+            logits, _ = self._prefill(params, tokens, caches,
+                                      lengths if ragged else None,
+                                      prefill_chunk)
+            rows = self._row_keys(seed, b)
+            tok, score = self._sample(logits[:, -1],
+                                      self._draw_keys(rows, 0),
+                                      with_score=with_scores)
+            if rows is not None:
+                st["rows"].copy_(rows)
+            st["lengths"].copy_(lengths)
+            st["tok"].copy_(tok)
+            st["done"].copy_(tok == eos if eos is not None
+                             else torch.zeros_like(st["done"]))
+            st["i"].zero_()
+            st["buf"].fill_(pad)
+            st["buf"][:, 0] = tok
+            st["sbuf"].zero_()
+            if with_scores:
+                st["sbuf"][:, 0] = score
+            steps = 0
+            clock = _Clock(dev)
+            for _ in range(max_new_tokens - 1):
+                if early_exit and eos is not None and bool(st["done"].all()):
+                    break
+                prog()
+                steps += 1
+            self._decode_clock = clock.stop()
+            self.last_decode_steps = steps
+            out = torch.cat([tokens, st["buf"]], dim=1)
+            return out, (st["sbuf"] if with_scores else None)
+
+        loop.run = run
+        return loop
+
+    def _build_beam(self, b: int, s0: int, max_new_tokens: int,
+                    num_beams: int, length_penalty: float,
+                    prefill_chunk: int, ragged: bool, params) -> _Loop:
+        """Beam search's program (the JAX ``_build_beam``, generation.py:
+        564): beams flattened on the batch (row b * K + k is beam k of row
+        b). The prefill fills B rows' caches, its top K tokens start the
+        beams, and the caches are repeated into the program's (B * K) beam
+        caches. Each step: log-softmax of the (B * K, 1) walk's f32 logits;
+        a frozen beam (one that emitted eos) continues with pad only, at
+        logp 0; the K best of the K * V candidates (ties to the lower
+        index, as ``lax.top_k``); done, lengths and token buffers gathered
+        by parent and the caches reordered in place by ``rows = b * K +
+        parent`` (a gather into a temporary, copied back: the captured
+        graph keeps its addresses). The pick divides each beam's score by
+        its emitted length ** ``length_penalty``. Ragged rows repeat their
+        lengths per beam."""
+        dev = self.model.device
+        cdtype = self._compute_dtype()
+        K = num_beams
+        bk = b * K
+        i64 = dict(dtype=torch.int64, device=dev)
+        caches = {op.name: op.init_cache(bk, s0 + max_new_tokens, cdtype,
+                                         dev)
+                  for op in self.attn_ops}
+        st = dict(tok=torch.zeros((b, K), **i64),
+                  scores=torch.zeros((b, K), dtype=torch.float32, device=dev),
+                  done=torch.zeros((b, K), dtype=torch.bool, device=dev),
+                  new_len=torch.zeros((b, K), **i64),
+                  buf=torch.zeros((b, K, max_new_tokens), **i64),
+                  i=torch.zeros((), **i64), lengths=torch.zeros(bk, **i64))
+        base = (torch.arange(b, **i64) * K)[:, None]
+        eos, pad = self.eos_id, self.pad_id
+        # a frozen beam's next-token logp: pad at 0, everything else -inf
+        vocab = self.model._final_tensor.dims[-1]
+        frozen = torch.full((vocab,), -torch.inf, device=dev)
+        frozen[pad] = 0.0
+
+        def step():
+            i = st["i"]
+            rl = st["lengths"] if ragged else None
+            logits, _ = self._walk(
+                self.params(), st["tok"].reshape(bk, 1), caches, pos=s0 + i,
+                rope_pos=(rl + i) if ragged else None, row_lengths=rl,
+                prompt_len=s0)
+            logp = torch.log_softmax(logits[:, 0].float(), dim=-1)
+            logp = logp.reshape(b, K, vocab)
+            logp = torch.where(st["done"][..., None], frozen, logp)
+            cand = (st["scores"][..., None] + logp).reshape(b, K * vocab)
+            scores, flat = _top_k_stable(cand, K)
+            parent = flat // vocab
+            tok = flat % vocab
+            done = torch.gather(st["done"], 1, parent)
+            new_len = torch.gather(st["new_len"], 1, parent)
+            buf = torch.gather(st["buf"], 1, parent[:, :, None].expand(
+                -1, -1, max_new_tokens))
+            buf.index_copy_(2, (i + 1).reshape(1), tok[:, :, None])
+            rows = (base + parent).reshape(-1)
+            for c in caches.values():
+                for t in c.values():
+                    t.copy_(t.index_select(0, rows))
+            if eos is not None:
+                new_len = torch.where(done, new_len, new_len + 1)
+                done = done | (tok == eos)
+            else:
+                new_len = new_len + 1
+            for name, v in (("tok", tok), ("scores", scores), ("done", done),
+                            ("new_len", new_len), ("buf", buf)):
+                st[name].copy_(v)
+            i.add_(1)
+
+        loop = _Loop(self, step, st, _leaf_addresses(params))
+        prog = loop.step
+
+        def run(params, tokens, lengths, seed):
+            pre = {op.name: op.init_cache(b, s0 + max_new_tokens, cdtype,
+                                          dev) for op in self.attn_ops}
+            logits, pre = self._prefill(params, tokens, pre,
+                                        lengths if ragged else None,
+                                        prefill_chunk)
+            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            scores, tok = _top_k_stable(logp, K)
+            for name, c in caches.items():
+                for part, t in c.items():
+                    t.view(b, K, *t.shape[1:]).copy_(pre[name][part][:, None])
+            del pre
+            st["lengths"].copy_(lengths.repeat_interleave(K))
+            st["tok"].copy_(tok)
+            st["scores"].copy_(scores)
+            st["done"].copy_(tok == eos if eos is not None
+                             else torch.zeros_like(st["done"]))
+            st["new_len"].fill_(1)
+            st["buf"].fill_(pad)
+            st["buf"][:, :, 0] = tok
+            st["i"].zero_()
+            clock = _Clock(dev)
+            for _ in range(max_new_tokens - 1):
+                prog()
+            self._decode_clock = clock.stop()
+            self.last_decode_steps = max_new_tokens - 1
+            norm = st["scores"] / torch.clamp_min(
+                st["new_len"], 1).float() ** length_penalty
+            best = torch.argmax(norm, dim=1)
+            picked = st["buf"][torch.arange(b, device=dev), best]
+            best_score = torch.gather(norm, 1, best[:, None])[:, 0]
+            return torch.cat([tokens, picked], dim=1), best_score
+
+        loop.run = run
+        return loop
+
+    def _cached_program(self, key, build):
+        """LRU lookup / insert of generate()'s programs (the JAX
+        ``_cached_program``, generation.py:696): at most
+        ``FF_GEN_PROGRAM_CACHE`` (default 8; 0 or less keeps every one)
+        programs, the least recently used evicted first — dropping the
+        last reference to its graph and static buffers, which frees
+        them."""
+        fn = self._programs.get(key)
+        if fn is not None:
+            self._programs.move_to_end(key)
+            return fn
+        fn = self._programs[key] = build()
+        try:
+            cap = int(os.environ.get("FF_GEN_PROGRAM_CACHE", "8") or 8)
+        except ValueError:
+            cap = 8
+        while cap > 0 and len(self._programs) > cap:
+            self._programs.popitem(last=False)
+        return fn
+
+    def _program(self, key, build, params) -> _Loop:
+        """``_cached_program``, rebuilding a program whose captured weight
+        addresses are no longer those of ``params`` (a tree rebound)."""
+        loop = self._cached_program(key, build)
+        if loop.addresses != _leaf_addresses(params):
+            del self._programs[key]
+            loop = self._cached_program(key, build)
+        return loop
+
+    def _check_lengths(self, tokens: torch.Tensor, prompt_lengths):
+        """(B,) prompt lengths checked against the prompt slab (the JAX
+        ``_check_lengths``, generation.py:739): (int64 device tensor,
+        ragged). Uniform prompts pass zeros, which the program ignores."""
+        if prompt_lengths is None:
+            return torch.zeros(tokens.shape[0], dtype=torch.int64,
+                               device=tokens.device), False
+        lengths = np.asarray(prompt_lengths, np.int32)
+        if lengths.shape != (tokens.shape[0],):
+            raise ValueError(
+                f"prompt_lengths shape {lengths.shape} != "
+                f"({tokens.shape[0]},)")
+        if (lengths < 1).any() or (lengths > tokens.shape[1]).any():
+            raise ValueError(
+                f"prompt_lengths must be in [1, {tokens.shape[1]}], "
+                f"got {lengths.tolist()}")
+        return torch.as_tensor(lengths, dtype=torch.int64,
+                               device=tokens.device), True
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens, np.int32),
+                               dtype=torch.int64, device=self.model.device)
+
+    @torch.inference_mode()
+    def beam_search(self, tokens, max_new_tokens: int, num_beams: int,
+                    length_penalty: float = 0.0, prefill_chunk: int = 0,
+                    return_scores: bool = False, prompt_lengths=None):
+        """Beam search (the JAX ``beam_search``, generation.py:713): (B, S0
+        + max_new_tokens) int32 with the best beam's tokens, and with
+        ``return_scores`` its (B,) length-normalized total logp."""
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        tokens = self._tokens(tokens)
+        lengths, ragged = self._check_lengths(tokens, prompt_lengths)
+        b, s0 = tokens.shape
+        params = self.params()
+        key = ("beam", max_new_tokens, num_beams, length_penalty,
+               prefill_chunk, ragged, (b, s0))
+        loop = self._program(key, lambda: self._build_beam(
+            b, s0, max_new_tokens, num_beams, length_penalty, prefill_chunk,
+            ragged, params), params)
+        out, score = loop.run(params, tokens, lengths, 0)
+        out = out.to(torch.int32).cpu().numpy()
+        if return_scores:
+            return out, score.cpu().numpy()
+        return out
+
+    @torch.inference_mode()
+    def __call__(self, tokens, max_new_tokens: int, seed: int = 0,
+                 prompt_lengths=None, prefill_chunk: int = 0,
+                 return_scores: bool = False, early_exit: bool = False):
+        """tokens (B, S0) int prompts -> (B, S0 + max_new_tokens) int32 with
+        the generated tokens in columns S0 onward (the JAX ``__call__``,
+        generation.py:757); with ``return_scores`` also the (B,
+        max_new_tokens) f32 log-probabilities (pads after eos 0).
+        ``prompt_lengths`` (B,): ragged right-padded prompts;
+        ``prefill_chunk`` > 0: chunked prefill; ``early_exit``: stop once
+        every row has emitted eos (the same tokens)."""
+        tokens = self._tokens(tokens)
+        lengths, ragged = self._check_lengths(tokens, prompt_lengths)
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        b, s0 = tokens.shape
+        params = self.params()
+        key = (max_new_tokens, ragged, prefill_chunk, return_scores,
+               early_exit, (b, s0))
+        loop = self._program(key, lambda: self._build(
+            b, s0, max_new_tokens, ragged, prefill_chunk, return_scores,
+            early_exit, params), params)
+        out, scores = loop.run(params, tokens, lengths, seed)
+        out = out.to(torch.int32).cpu().numpy()
+        if return_scores:
+            return out, scores.cpu().numpy()
+        return out

@@ -2608,11 +2608,13 @@ class ServingEngine:
         n = others()
         if n:
             raise RuntimeError(
-                f"swap_weights: {n} other engine generator(s) "
-                f"read this model's weights in place; a native-width swap "
-                f"writes model.params and would change their weights too. "
-                f"Release them first, or give each engine a model of its "
-                f"own (or a quantized weight tier, which swaps privately)")
+                f"swap_weights: {n} other engine generator(s) — another "
+                f"engine's, a draft's, or FFModel.generate's (kept for the "
+                f"model's life once generate() ran) — read this model's "
+                f"weights in place; a native-width swap writes model.params "
+                f"and would change their weights too. Release the engines "
+                f"first, or give each engine a model of its own (or a "
+                f"quantized weight tier, which swaps privately)")
 
     def health(self) -> Dict:
         """Liveness / readiness probe for a router: admission status and

@@ -85,6 +85,7 @@ GPU_FLASH = [
     (1, 37, 129, 8, 8, 128, True),     # sk > sq: bottom-right offset
     (2, 65, 65, 4, 1, 32, False),      # non-causal, MQA
     (1, 512, 512, 32, 8, 128, True),   # the Llama-3-8B prefill shape
+    (4, 1, 1, 4, 4, 64, True),         # a one-token prompt's prefill
 ]
 
 
@@ -2735,3 +2736,156 @@ def test_native_swap_refused_with_a_second_engine_on_card(no_tf32):
     assert [r.tokens for r in eng.run(prompts, 10)] == want != first
     eng.swap_weights(None, "v0")
     assert [r.tokens for r in eng.run(prompts, 10)] == first
+
+
+# ---- FFModel.generate: the decode step as a CUDA graph ---------------------
+
+
+def _gen_prompts(n_vocab=500, b=3, s=40):
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    return rs.randint(1, n_vocab, size=(b, s)).astype(np.int32), \
+        np.asarray([40, 23, 9], np.int32)[:b]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "ragged_scores", "sampled",
+                                  "beam", "beam_ragged", "int8"])
+def test_generate_graph_matches_eager_decode(no_tf32, mode):
+    """generate()'s decode step captured as a CUDA graph and replayed
+    against the same step run eagerly on the card (``capture=False``):
+    tokens bitwise, scores bitwise; greedy and ragged beam tokens also the
+    CPU's (f32, TF32 off). One capture a program, replayed max_new - 1
+    times."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.generation import Generator
+
+    cpu, gpu = _llama_pair(no_tf32)
+    toks, lengths = _gen_prompts()
+    kw = dict(temperature=0.9, top_k=40) if mode == "sampled" else {}
+    if mode == "int8":
+        kw["quantize"] = "int8"
+    call = dict(prompt_lengths=lengths) if "ragged" in mode else {}
+    outs = []
+    for capture in (True, False):
+        g = Generator(gpu, eos_id=7, capture=capture, **kw)
+        if mode.startswith("beam"):
+            outs.append(g.beam_search(toks, 12, 3, 1.0, return_scores=True,
+                                      **call))
+        else:
+            outs.append(g(toks, 12, seed=5, return_scores=True, **call))
+        (loop,) = g._programs.values()
+        assert (loop.step.graph is not None) == capture
+        if capture:
+            assert loop.step.replays == 10
+        assert g.last_decode_steps == 11 and g.last_decode_ms > 0.0
+    (a, sa), (b, sb) = outs
+    assert np.array_equal(a, b) and np.array_equal(sa, sb)
+    if mode in ("greedy", "beam_ragged"):
+        g = Generator(cpu, eos_id=7)
+        want = (g.beam_search(toks, 12, 3, 1.0, prompt_lengths=lengths)
+                if mode.startswith("beam") else g(toks, 12))
+        assert np.array_equal(a, want)
+
+
+@pytest.mark.cuda
+def test_generate_keys_capture_their_own_programs(cuda):
+    """Two max_new_tokens values capture a program each; a second call of
+    either replays its graph without capturing again and gives the same
+    tokens."""
+    import numpy as np
+
+    ff = _small_llama(cuda)
+    toks, _ = _gen_prompts()
+    a8 = ff.generate(toks, 8)
+    a12 = ff.generate(toks, 12)
+    (gen,) = ff._decoders.values()
+    progs = list(gen._programs.values())
+    assert len(progs) == 2 and all(p.step.graph is not None for p in progs)
+    graphs = [p.step.graph for p in progs]
+    assert np.array_equal(ff.generate(toks, 8), a8)
+    assert np.array_equal(ff.generate(toks, 12), a12)
+    assert [p.step.graph for p in gen._programs.values()] == graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_launches_flash_once_a_layer_a_prefill(cuda, dtype):
+    """Kernel 1 runs each whole-prompt prefill, once a layer for the whole
+    batch; the decode steps launch no kernel (the grouped einsum, as in
+    JAX), replayed or not."""
+    ff = FFModel(FFConfig(batch_size=3, compute_dtype=dtype), device=cuda)
+    from flexflow_tpu_torch.models import llama_lm
+
+    _, logits = llama_lm(ff, 3, seq_len=64, hidden=256, layers=3, heads=2,
+                         kv_heads=1, vocab_size=500)
+    ff.compile(final_tensor=logits)
+    toks, lengths = _gen_prompts()
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        ff.generate(toks, 10, prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kernels.launch_counts(), 0)
+        want["flash_attention_fwd"] = 3
+        assert kernels.launch_counts() == want
+
+
+@pytest.mark.cuda
+def test_generate_lru_eviction_frees_program_memory(cuda, monkeypatch):
+    """FF_GEN_PROGRAM_CACHE=1: a second key evicts the first program, and
+    its graph and static caches go back to the allocator (every program
+    captures on one side stream a device: cuBLAS keeps a workspace a
+    stream)."""
+    import gc
+
+    monkeypatch.setenv("FF_GEN_PROGRAM_CACHE", "1")
+    ff = _small_llama(cuda)
+    toks, _ = _gen_prompts(b=3, s=40)
+    ff.generate(toks, 4)
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(cuda)
+    ff.generate(toks, 200)     # a program with caches of 240 positions
+    torch.cuda.synchronize()
+    big = torch.cuda.memory_allocated(cuda)
+    ff.generate(toks, 4)       # evicts it
+    (gen,) = ff._decoders.values()
+    assert len(gen._programs) == 1
+    torch.cuda.synchronize()
+    gc.collect()
+    after = torch.cuda.memory_allocated(cuda)
+    per_pos = 2 * 2 * 3 * 128 * 4     # layers, k/v, rows, Hd, f32
+    assert big - after >= (240 - 44) * per_pos
+    assert abs(after - base) <= (big - after) // 4
+
+
+@pytest.mark.cuda
+def test_generate_seq2seq_graph_matches_cpu(no_tf32):
+    """generate_seq2seq on the card (the encoder through kernel 1, the
+    decode step a CUDA graph) gives the CPU's greedy tokens in f32; the
+    encoder's and the decoder prefill's self-attentions launch kernel 1."""
+    import numpy as np
+
+    from flexflow_tpu_torch.models import seq2seq_lm
+
+    models = []
+    for dev in ("cpu", no_tf32):
+        ff = FFModel(FFConfig(batch_size=4), device=dev)
+        seq2seq_lm(ff, 4, src_len=48, tgt_len=8, hidden=256, layers=2,
+                   heads=4, vocab_size=301)
+        ff.compile()
+        models.append(ff)
+    cpu, gpu = models
+    gpu.params = {op: {w: t.to(no_tf32) for w, t in ws.items()}
+                  for op, ws in cpu.params.items()}
+    src = np.random.RandomState(2).randint(1, 301, (4, 48)).astype(np.int32)
+    kernels.reset_launch_counts()
+    got = gpu.generate_seq2seq(src, max_new_tokens=16)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention_fwd.launches == 4
+    assert np.array_equal(got, cpu.generate_seq2seq(src, max_new_tokens=16))
+    (gen,) = gpu._decoders.values()
+    (loop,) = gen._programs.values()
+    assert loop.step.graph is not None and loop.step.replays == 14

@@ -137,9 +137,9 @@ def test_port_imports_no_jax():
     files += sorted((REPO / "scripts").glob("torch_*.py"))
     names = {str(f.relative_to(REPO)) for f in files}
     # the training slice's modules, the zoo slice's, the MoE / recurrent
-    # / pipelined / fusion slice's and the serving engine's (LoRA, the
-    # fault-injection copy) are among those scanned, and the port's
-    # scripts
+    # / pipelined / fusion slice's, the serving engine's (LoRA, the
+    # fault-injection copy) and generation's are among those scanned, and
+    # the port's scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
         "runtime/metrics", "runtime/dataloader", "models/transformer",
@@ -148,7 +148,8 @@ def test_port_imports_no_jax():
         "models/bert", "models/vit", "models/dlrm", "models/llama",
         "convert", "ffconst", "ops/moe", "ops/recurrent", "ops/pipelined",
         "ops/fused", "models/nmt", "ops/lora", "runtime/lora",
-        "runtime/faultinject", "runtime/serving", "runtime/generation")} \
+        "runtime/faultinject", "runtime/serving", "runtime/generation",
+        "runtime/seq2seq_generation")} \
         <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
