@@ -264,6 +264,52 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 Phase 3 holds kernel 1 at generate's prefill (6, 700, 32,
                 128) causal and the encoder's (32, 128, 8, 64) non-causal.
 
+ 14. fleet — right after 13, on phase 6's Llama-3-8B (bf16, 4 slots an
+                engine, 128-token pages, max_seq_len 1024, prefix cache on),
+                every replica sharing its weights, over phase 6b's eight
+                shared-prefix prompts then phase 6's six, 32 new tokens,
+                greedy; the reference a single engine on the same traffic
+                (its tokens, and the prefix pages each request mounted).
+                Each request's prefill path is read from its prefill span;
+                where it matches the engine's the tokens must be the
+                engine's whole, elsewhere the first token and P14_AGREE
+                positionwise. (a) ServingRouter, two mixed replicas, COLD:
+                each captures its decode chunk on its own thread while the
+                other prefills (exact launches of kernels 1, 4 and 5 for the
+                fleet path, prefix hits >= the single engine's), then warmed
+                (router.warmup, caches flushed): tokens/s against the single
+                engine's, router TTFT p50 / p99, each replica's decode step
+                beside the single engine's, no capture after warmup, the
+                idle share of a profiled run. (b) crash(2)@replica:1 on the
+                warmed pair (fenced, resubmitted once, tokens by the rule,
+                a flight bundle tripped); on a second pair (health timeout
+                P14_HEALTH_S, max_queue P14_MAX_QUEUE): a request already
+                past its deadline never dispatches, three of six submits
+                are shed each under P14_REJECT_S, hang@replica:0 is fenced
+                and the survivor serves the accepted three. (c)
+                "prefill,decode": handoffs through export_prefix_slab ->
+                import_prefix_slab (the prefill replica completes nothing,
+                each handed-off span tree whole), slab MiB, handoff span
+                medians, export / import GB/s of the 700-token slab; then
+                "prefill,prefill,decode" with seq_parallel_shards=2 on the
+                700-token prompt: the merged pages bitwise one replica's
+                under the same shard schedule, and their distance to one
+                cold prefill of the whole prompt printed. (d) on the second
+                pair: add_replica (warmed before its first dispatch, no
+                capture after, takes work), remove_replica with prefix
+                evacuation, add_replica again, preempt(P14_PREEMPT_MS) of
+                the first newcomer: requests, slabs, bytes evacuated and
+                the deadline met. (e) /metrics and /metrics.json from
+                start_http_server(0) carry the engines' and the router's
+                families with replica / role labels; a Chrome trace is
+                exported; every flight bundle (the crash drill's trips and
+                FFModel.dump_flight_record) passes verify_bundle and the
+                HBM ledger reads the card; the captured decode step and the
+                eager prefill with telemetry on and off, medians of
+                P14_TM_PAIRS interleaved pairs. Peak memory and the phase's
+                seconds. The JSON line's "_fleet" rows repeat phase 3's
+                serving rows with the cold fleet run's launches.
+
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
 """
@@ -275,6 +321,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4153,6 +4200,646 @@ def phase_generate(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
     return out
 
 
+# ---- phase 14: the serving fleet --------------------------------------------
+
+#: phase 14: the least positionwise agreement with the single engine, the
+#: mean over a round's requests whose prefill path differs from the
+#: engine's (a prefix hit where the engine ran cold: the hit attends its
+#: tail through the grouped einsum over the gathered pages, the cold
+#: prefill through kernel 1, so bf16 rounds otherwise and a near tie may
+#: part a stream; phase 12's P12_INT8_AGREE is such a mean too); each such
+#: request's first token must be the engine's. A request whose path
+#: matches must give the engine's tokens whole.
+P14_AGREE = 0.9
+#: warmup's new tokens (one decode chunk), the drills' health timeout (a
+#: warm tick takes well under a second), the shedding bound, the
+#: preemption drill's evacuation deadline and a shed submit's time limit
+P14_WARM_NEW = 8
+P14_HEALTH_S = 2.0
+P14_MAX_QUEUE = 4
+P14_PREEMPT_MS = 5000
+P14_REJECT_S = 1e-3
+#: telemetry on / off pairs for the cost measurement (medians)
+P14_TM_PAIRS = 3
+
+
+def _p14_traffic(np, prompts):
+    """Phase 6b's eight shared-prefix prompts (the same seeded draw), then
+    phase 6's six prompts: with the shared ones first, affinity homes the
+    prefix on one replica and the rest fill the other."""
+    rs = np.random.RandomState(5)
+    vocab = LLAMA3_8B["vocab_size"]
+    prefix = rs.randint(0, vocab, size=QUANT_PREFIX)
+    shared = [np.concatenate([prefix, rs.randint(0, vocab, size=n)])
+              .astype(np.int32) for n in QUANT_TAILS]
+    return shared + [np.asarray(p, np.int32) for p in prompts]
+
+
+def _p14_matched(telemetry, trace_id) -> int:
+    """The prefix pages the request's last prefill mounted (its span)."""
+    spans = [e for e in telemetry.trace_tree(trace_id)["spans"]
+             if e["name"] == "prefill"]
+    if not spans:
+        fail(f"phase 14: request {trace_id} has no prefill span")
+    return int(spans[-1]["args"].get("matched_pages", 0))
+
+
+def _p14_compare(np, tag: str, got, want) -> tuple:
+    """got / want: [(tokens, matched pages)]. Tokens whole where the paths
+    match; elsewhere the first token and P14_AGREE positionwise."""
+    same, agree = 0, []
+    for i, ((g, gm), (w, wm)) in enumerate(zip(got, want)):
+        if gm == wm:
+            if list(g) != list(w):
+                fail(f"phase 14 {tag}: request {i} (matched pages {gm}, as "
+                     f"the single engine's) has other tokens")
+            same += 1
+            continue
+        if g[0] != w[0]:
+            fail(f"phase 14 {tag}: request {i} (matched pages {gm}, the "
+                 f"engine's {wm}) has another first token")
+        agree.append(float(np.mean(np.asarray(g) == np.asarray(w))))
+    if agree:
+        mean = float(np.mean(agree))
+        say(f"phase 14 {tag}: {len(agree)} requests on another prefill "
+            f"path than the engine's: agreement mean {mean:.4f}, least "
+            f"{min(agree):.4f} (limit {P14_AGREE} on the mean)")
+        if mean < P14_AGREE:
+            fail(f"phase 14 {tag}: positionwise agreement {mean:.4f} < "
+                 f"{P14_AGREE} where the prefill path differs")
+    return same, agree
+
+
+def _p14_engine_delta(before, after, key):
+    return sum(a[key] - b[key] for a, b in zip(after, before))
+
+
+def _p14_step_ms(before, after):
+    """Each engine's decode step over a round (its running mean,
+    unwound)."""
+    out = []
+    for b, a in zip(before, after):
+        n = a["decode_steps"] - b["decode_steps"]
+        out.append(round((a["decode_step_ms"] * a["decode_steps"]
+                          - b["decode_step_ms"] * b["decode_steps"])
+                         / max(1, n), 3))
+    return out
+
+
+def _p14_round(torch, router, traffic, max_new=MAX_NEW, **kw):
+    """One routed run: its requests, wall seconds, the engines' stats
+    before and after."""
+    before = [e.stats() for e in router.engines]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = router.run(traffic, max_new_tokens=max_new, timeout=600, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = [e.stats() for e in router.engines]
+    if any(r.state != "done" for r in reqs):
+        fail(f"phase 14: requests did not finish: "
+             f"{[(r.state, r.error) for r in reqs if r.state != 'done']}; "
+             f"replicas: {[(p['replica'], p['fence_reason']) for p in router.stats()['per_replica']]}")
+    return reqs, wall, before, after
+
+
+def _p14_ttft(reqs):
+    t = sorted(r.ttft * 1e3 for r in reqs)
+    return t[len(t) // 2], t[min(len(t) - 1, int(0.99 * len(t)))]
+
+
+def _p14_single(torch, ff, traffic, card: str):
+    """The reference: one engine on the same model and traffic, cold; then
+    the same traffic again cold (flushed) for its warm tokens/s."""
+    eng = ff.make_serving_engine(**ENGINE)
+    reqs = eng.run(traffic, max_new_tokens=MAX_NEW)
+    if any(r.state != "done" for r in reqs):
+        fail("phase 14: the single engine did not finish its traffic")
+    want = [(list(r.tokens), r.prefix_tokens // ENGINE["kv_page_size"])
+            for r in reqs]
+    eng.flush_prefix_cache()
+    b = eng.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.run(traffic, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    a = eng.stats()
+    if [list(r.tokens) for r in again] != [w[0] for w in want]:
+        fail("phase 14: the single engine's second run gave other tokens")
+    n_tok = a["tokens_generated"] - b["tokens_generated"]
+    p50, p99 = _p14_ttft(again)
+    single = dict(tps=n_tok / wall, wall=wall, step=_p14_step_ms([b], [a])[0],
+                  hits=a["prefix_hits"] - b["prefix_hits"], p50=p50, p99=p99)
+    say(f"phase 14 single engine: {n_tok} tokens in {wall:.3f} s = "
+        f"{single['tps']:.2f} tokens/s, TTFT p50 {p50:.1f} ms p99 "
+        f"{p99:.1f} ms, decode step {single['step']:.2f} ms (1 live "
+        f"engine), {single['hits']} prefix hits [{card}]")
+    return eng, want, single
+
+
+def _p14_fleet(torch, np, kernels, telemetry, flightrec, ff, traffic, want,
+               single, layers: int, card: str):
+    """(a) two mixed replicas, cold then warmed; (b)'s crash drill on the
+    same warmed replicas. Returns the cold run's launches."""
+    router = ff.make_serving_router(replicas=2, start=False, **ENGINE)
+    kernels.reset_launch_counts()
+    reqs, wall, before, after = _p14_round(torch, router, traffic)
+    launches = kernels.launch_counts()
+    cold = (_p14_engine_delta(before, after, "prefix_lookups")
+            - _p14_engine_delta(before, after, "prefix_hits"))
+    expect = dict.fromkeys(launches, 0)
+    expect.update(
+        flash_attention_fwd=layers * cold,
+        paged_prefill_write=_p14_engine_delta(before, after,
+                                              "prefix_lookups"),
+        paged_attention_fwd=layers * _p14_engine_delta(before, after,
+                                                       "decode_steps"))
+    if launches != expect:
+        fail(f"phase 14 (a): fleet launches {launches} != expected {expect}")
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    same, agree = _p14_compare(np, "(a) cold", got, want)
+    captures = [a["recompiles"] for a in after]
+    served = [a["completed"] for a in after]
+    hits = _p14_engine_delta(before, after, "prefix_hits")
+    if captures != [1, 1] or min(served) < 1:
+        fail(f"phase 14 (a): cold replicas captured {captures}, served "
+             f"{served}")
+    if hits < single["hits"]:
+        fail(f"phase 14 (a): the fleet's {hits} prefix hits < the single "
+             f"engine's {single['hits']}")
+    say(f"phase 14 (a) cold: 2 replicas, each captured its decode chunk "
+        f"on its own thread ({captures}), served {served}, {hits} prefix "
+        f"hits, {same} of {len(reqs)} streams the single engine's whole"
+        + f", {wall:.3f} s [{card}]")
+    say(f"phase 14 (a) cold: launches {launches}")
+
+    t0 = time.perf_counter()
+    router.warmup(traffic, max_new_tokens=P14_WARM_NEW)
+    for e in router.engines:
+        e.flush_prefix_cache()
+    built = [e.recompile_count for e in router.engines]
+    say(f"phase 14 (a) warmup: {time.perf_counter() - t0:.2f} s")
+    reqs, wall, before, after = _p14_round(torch, router, traffic)
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    _p14_compare(np, "(a) warm", got, want)
+    if [e.recompile_count for e in router.engines] != built or any(
+            a["sanitizer_retraces"] for a in after):
+        fail("phase 14 (a): a program was built after warmup")
+    n_tok = _p14_engine_delta(before, after, "tokens_generated")
+    p50, p99 = _p14_ttft(reqs)
+    steps = _p14_step_ms(before, after)
+    say(f"phase 14 (a) warm: {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.2f} tokens/s ({n_tok / wall / single['tps']:.3f}x "
+        f"the single engine's {single['tps']:.2f}), router TTFT p50 "
+        f"{p50:.1f} ms p99 {p99:.1f} ms, decode step per replica {steps} ms "
+        f"(2 live; 1 live: {single['step']:.2f} ms), captures after warmup "
+        f"0 [{card}]")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for e in router.engines:
+        e.flush_prefix_cache()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, pwall, _, _ = _p14_round(torch, router, traffic)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = busy_ms(events)
+    del prof
+    say(f"phase 14 (a) profile: {len(events)} device events, device busy "
+        f"{busy:.1f} ms of {pwall * 1e3:.1f} ms under the profiler: idle "
+        f"share {max(1 - busy / (pwall * 1e3), 0):.3f} [{card}]")
+
+    # (b) crash@replica:1 mid-traffic on the warmed replicas
+    from flexflow_tpu_torch.runtime import faultinject
+
+    for e in router.engines:
+        e.flush_prefix_cache()
+    import os
+
+    os.environ["FF_FAULT"] = "crash(2)@replica:1"
+    faultinject.reset()
+    try:
+        reqs, wall, _, _ = _p14_round(torch, router, traffic)
+    finally:
+        os.environ.pop("FF_FAULT", None)
+        faultinject.reset()
+    st = router.stats()
+    if st["fenced"] != 1 or st["per_replica"][1]["fenced"] is not True \
+            or "ReplicaCrash" not in st["per_replica"][1]["fence_reason"]:
+        fail(f"phase 14 (b) crash: replica 1 was not fenced: "
+             f"{st['per_replica']}")
+    resub = [r for r in reqs if r.attempts == 2]
+    if not resub or any(r.attempts > 2 for r in reqs) \
+            or st["resubmitted"] < len(resub):
+        fail(f"phase 14 (b) crash: attempts {[r.attempts for r in reqs]}, "
+             f"resubmitted {st['resubmitted']}")
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    _p14_compare(np, "(b) crash", got, want)
+    if not flightrec.recorder().wait_pending(30.0):
+        fail("phase 14 (b) crash: the flight recorder's trip never wrote")
+    say(f"phase 14 (b) crash: replica 1 fenced at its 2nd busy tick, "
+        f"{len(resub)} requests resubmitted once (stats "
+        f"{st['resubmitted']}), every stream the single engine's by the "
+        f"path rule, {wall:.3f} s [{card}]")
+    router.close()
+    torch.cuda.synchronize()
+    return launches
+
+
+def _p14_drills(torch, np, kernels, telemetry, faultinject, ff, traffic,
+                want, card: str):
+    """(b) hang, shedding and a queued deadline on one warmed fleet, then
+    (d) add_replica, remove_replica with prefix evacuation and the
+    preemption drill on the same fleet."""
+    import os
+
+    p6 = traffic[len(QUANT_TAILS):]
+    w6 = want[len(QUANT_TAILS):]
+    router = ff.make_serving_router(replicas=2, start=False,
+                                    health_timeout_s=P14_HEALTH_S,
+                                    max_queue=P14_MAX_QUEUE, **ENGINE)
+    router.warmup(p6[:4], max_new_tokens=P14_WARM_NEW)
+    for e in router.engines:
+        e.flush_prefix_cache()
+    late = router.submit(p6[0], MAX_NEW, deadline_s=0.0)
+    times, reqs = [], []
+    for p in p6:
+        t0 = time.perf_counter()
+        reqs.append(router.submit(p, MAX_NEW))
+        times.append(time.perf_counter() - t0)
+    shed = [r for r in reqs if r.state == "rejected"]
+    kept = [i for i, r in enumerate(reqs) if r.state == "queued"]
+    worst = max(t for t, r in zip(times, reqs) if r.state == "rejected")
+    if len(kept) != P14_MAX_QUEUE - 1 or worst >= P14_REJECT_S:
+        fail(f"phase 14 (b) shedding: {len(kept)} accepted, slowest reject "
+             f"{worst * 1e3:.3f} ms")
+    os.environ["FF_FAULT"] = "hang@replica:0"
+    faultinject.reset()
+    t0 = time.perf_counter()
+    try:
+        router.start()
+        router.wait([late] + reqs, timeout=600)
+    finally:
+        os.environ.pop("FF_FAULT", None)
+        faultinject.reset()
+    wall = time.perf_counter() - t0
+    st = router.stats()
+    if late.state != "timeout" or late.attempts != 0 \
+            or "router queue" not in late.error:
+        fail(f"phase 14 (b) deadline: {late.state} {late.attempts} "
+             f"{late.error}")
+    if st["fenced"] != 1 or "hang" not in \
+            st["per_replica"][0]["fence_reason"]:
+        fail(f"phase 14 (b) hang: {st['per_replica']}")
+    got = [(list(reqs[i].tokens), _p14_matched(telemetry,
+                                               reqs[i].trace_id))
+           for i in kept]
+    _p14_compare(np, "(b) hang", got, [w6[i] for i in kept])
+    hung = router.engines[0]
+    if not (hung._programs and hung.pool):
+        fail("phase 14 (b) hang: the fence freed the hung engine's state")
+    torch.cuda.synchronize()
+    say(f"phase 14 (b) hang: replica 0 wedged and fenced within "
+        f"{P14_HEALTH_S} s, the survivor served the {len(kept)} accepted "
+        f"requests ({wall:.2f} s); shedding: {len(shed)} rejected at "
+        f"max_queue {P14_MAX_QUEUE}, slowest {worst * 1e6:.1f} us; a "
+        f"request past its deadline in the queue never dispatched "
+        f"[{card}]")
+
+    # (d) elastic membership on the same fleet, its queue unbounded again;
+    # every cache flushed so the scale-out round is cold, as the engine's
+    router.max_queue = 0
+    t0 = time.perf_counter()
+    r2 = router.add_replica()
+    for e in router.engines:
+        e.flush_prefix_cache()
+    built = router.engines[r2].recompile_count
+    add_s = time.perf_counter() - t0
+    reqs, wall, _, _ = _p14_round(torch, router, p6)
+    if router.engines[r2].recompile_count != built or built < 1:
+        fail(f"phase 14 (d) scale out: the newcomer built "
+             f"{router.engines[r2].recompile_count - built} programs after "
+             f"its warmup ({built})")
+    if not any(r.replica == r2 for r in reqs):
+        fail("phase 14 (d) scale out: the newcomer took no work")
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    _p14_compare(np, "(d) scale out", got, w6)
+    t0 = time.perf_counter()
+    evac = router.remove_replica(1)
+    rm_s = time.perf_counter() - t0
+    if evac["fenced"] or evac["slabs"] < 1:
+        fail(f"phase 14 (d) scale in: {evac}")
+    say(f"phase 14 (d) scale out: replica {r2} built and warmed in "
+        f"{add_s:.2f} s, served {sum(r.replica == r2 for r in reqs)} of "
+        f"{len(reqs)}, no capture after its warmup; scale in of replica 1 "
+        f"in {rm_s:.2f} s: {evac['requeued']} requeued, {evac['slabs']} "
+        f"prefix slabs, {evac['pages']} pages, {evac['bytes'] / 2**20:.1f} "
+        f"MiB inherited [{card}]")
+    r3 = router.add_replica()
+    fenced0 = router.stats()["fenced"]
+    os.environ["FF_FAULT"] = f"preempt({P14_PREEMPT_MS})@replica:{r2}"
+    faultinject.reset()
+    try:
+        reqs, wall, _, _ = _p14_round(torch, router, traffic)
+    finally:
+        os.environ.pop("FF_FAULT", None)
+        faultinject.reset()
+    st = router.stats()
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    _p14_compare(np, "(d) preempt", got, want)
+    if st["preempts"] != 1 or not st["per_replica"][r2]["retired"] \
+            or st["completed"] < len(reqs):
+        fail(f"phase 14 (d) preempt: {st}")
+    met = st["evac_deadline_misses"] == 0
+    if met != (st["fenced"] == fenced0):
+        fail(f"phase 14 (d) preempt: deadline met {met} but fenced "
+             f"{st['fenced'] - fenced0}: "
+             f"{[(p['replica'], p['fence_reason']) for p in st['per_replica']]}")
+    say(f"phase 14 (d) preempt({P14_PREEMPT_MS}) of replica {r2} (replica "
+        f"{r3} added to inherit): {st['evacuated_requests']} requests "
+        f"evacuated in all, {st['evacuated_slabs']} slabs, "
+        f"{st['evacuated_pages']} pages, "
+        f"{st['evacuation_bytes'] / 2**20:.1f} MiB, deadline "
+        f"{'met, no fence' if met else 'MISSED (fenced)'} with "
+        f"{st['preempt_margin_s']} s to spare, {wall:.2f} s [{card}]")
+    router.close()
+    torch.cuda.synchronize()
+
+
+def _p14_pages(torch, eng, prompt, n_pages):
+    """The pool planes of the prompt's first n cached pages, stacked."""
+    path = eng.prefix_cache.match(prompt, n_pages)
+    if len(path) != n_pages:
+        fail(f"phase 14 (c): {len(path)} of {n_pages} pages cached")
+    dev = eng.pool[eng.gen.attn_ops[0].name]["k"].device
+    idx = torch.as_tensor([n.page for n in path], device=dev)
+    return {(op.name, plane): t.index_select(0, idx)
+            for op in eng.gen.attn_ops
+            for plane, t in eng.pool[op.name].items()}
+
+
+def _p14_get(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.read()
+
+
+def _p14_disagg(torch, np, telemetry, ff, traffic, want, plane, card: str):
+    """(c) "prefill,decode" handoffs and "prefill,prefill,decode" with two
+    sequence-parallel shards on the 700-token prompt. The scrape of (e)
+    runs while the role-split fleet is alive (into ``plane``)."""
+    from flexflow_tpu_torch.runtime.router import _slab_nbytes
+
+    page = ENGINE["kv_page_size"]
+    router = ff.make_serving_router(replicas=2, roles="prefill,decode",
+                                    start=False, **ENGINE)
+    reqs, wall, before, after = _p14_round(torch, router, traffic)
+    st = router.stats()
+    handed = [r for r in reqs if r.handoff]
+    if st["handoffs"] < 1 or not handed \
+            or after[0]["completed"] != 0 \
+            or after[1]["prefix_slab_imports"] < 1:
+        fail(f"phase 14 (c): handoffs {st['handoffs']}, prefill replica "
+             f"completed {after[0]['completed']}, slab imports "
+             f"{after[1]['prefix_slab_imports']}")
+    got = [(list(r.tokens), _p14_matched(telemetry, r.trace_id))
+           for r in reqs]
+    same, agree = _p14_compare(np, "(c) handoff", got, want)
+    exp_ms, imp_ms = [], []
+    for r in handed:
+        tree = telemetry.trace_tree(r.trace_id)
+        if not tree["complete"] or not {"handoff_export", "handoff_import",
+                                        "decode"} <= set(tree["names"]):
+            fail(f"phase 14 (e): request {r.rid}'s span tree across the "
+                 f"handoff is not whole: {tree['names']}")
+        exp_ms += [e["dur"] / 1e3 for e in tree["spans"]
+                   if e["name"] == "handoff_export"]
+        imp_ms += [e["dur"] / 1e3 for e in tree["spans"]
+                   if e["name"] == "handoff_import"]
+    plane["text"] = _p14_get(plane["port"], "/metrics").decode()
+    plane["json"] = _p14_get(plane["port"], "/metrics.json")
+    pages_in = after[1]["prefix_pages_imported"]
+    page_bytes = after[1]["kv_pool_bytes"] / after[1]["kv_pages"]
+    # the transport alone: the 700-token prompt's slab out of the prefill
+    # replica and into a flushed decode replica
+    p700 = traffic[-1]
+    e0, e1 = router.engines
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slab = e0.export_prefix_slab(p700)
+    t_exp = time.perf_counter() - t0
+    nbytes = _slab_nbytes(slab)
+    e1.flush_prefix_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_imp = e1.import_prefix_slab(slab)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    if n_imp != len(slab["payload"]):
+        fail(f"phase 14 (c): imported {n_imp} of {len(slab['payload'])} "
+             f"pages")
+    say(f"phase 14 (c) handoff: {st['handoffs']} handoffs, "
+        f"{len(handed)} requests handed off, {pages_in} pages imported "
+        f"({pages_in * page_bytes / 2**20:.1f} MiB of slabs), the prefill "
+        f"replica completed none; {same} of {len(reqs)} streams whole"
+        + f"; handoff_export span (prefill + export) median "
+        f"{sorted(exp_ms)[len(exp_ms) // 2]:.1f} ms, handoff_import "
+        f"median {sorted(imp_ms)[len(imp_ms) // 2]:.1f} ms; {wall:.3f} s "
+        f"[{card}]")
+    say(f"phase 14 (c) slab: {len(slab['payload'])} pages, "
+        f"{nbytes / 2**20:.1f} MiB: export {t_exp * 1e3:.1f} ms "
+        f"({nbytes / t_exp / 1e9:.2f} GB/s), import {t_imp * 1e3:.1f} ms "
+        f"({nbytes / t_imp / 1e9:.2f} GB/s) [{card}]")
+    router.close()
+    del router, e0, e1, slab
+
+    router = ff.make_serving_router(replicas=3,
+                                    roles="prefill,prefill,decode",
+                                    seq_parallel_shards=2, start=False,
+                                    **ENGINE)
+    reqs, wall, _, _ = _p14_round(torch, router, [p700])
+    fleet = router.stats()["fleet"]
+    if fleet["seq_parallel_prefills"] != 1 \
+            or fleet["partial_slab_imports"] < 1:
+        fail(f"phase 14 (c) sequence-parallel: {fleet}")
+    got = [(list(reqs[0].tokens), _p14_matched(telemetry,
+                                               reqs[0].trace_id))]
+    _p14_compare(np, "(c) sequence-parallel", got, want[-1:])
+    last = p700.size // page
+    merged = _p14_pages(torch, router.engines[2], p700, last)
+    base, rem = divmod(last, 2)
+    ends = [base + (1 if rem else 0), last]
+    sched = ff.make_serving_engine(**ENGINE)
+    for e in ends:
+        sched.prefill_into_cache(p700[:e * page])
+    want_pages = _p14_pages(torch, sched, p700, last)
+    for key, t in want_pages.items():
+        if not torch.equal(merged[key], t):
+            fail(f"phase 14 (c) sequence-parallel: merged pages {key} are "
+                 f"not one replica's under the same shard schedule")
+    cold = ff.make_serving_engine(**ENGINE)
+    cold.prefill_into_cache(p700)
+    cold_pages = _p14_pages(torch, cold, p700, last)
+    diff = max((merged[k].float() - cold_pages[k].float()).abs().max().item()
+               for k in merged)
+    n_eq = sum(torch.equal(merged[k], cold_pages[k]) for k in merged)
+    say(f"phase 14 (c) sequence-parallel: the 700-token prompt in 2 shards "
+        f"(pages [0, {ends[0]}) and [{ends[0]}, {last})) across 2 prefill "
+        f"replicas, merged on the decode replica: bitwise one replica's "
+        f"pages under the same schedule; against one cold prefill of the "
+        f"whole prompt {n_eq} of {len(merged)} planes bitwise, max abs "
+        f"diff {diff:.3e} (the second shard is a prefix hit); {wall:.3f} s "
+        f"[{card}]")
+    router.close()
+
+
+def _p14_plane(telemetry, flightrec, ff, plane, flight_dir, card: str):
+    """(e) the scrape (taken under (c)), the Chrome trace, the flight
+    bundles."""
+    import json as _json
+
+    text = plane["text"]
+    for needle in ('ff_serving_ttft_seconds_bucket{replica="0",role="mixed"',
+                   'ff_serving_queue_wait_seconds_count{replica="1"',
+                   'ff_serving_completed{replica="0",role="prefill"}',
+                   'ff_router_replica_up{replica="1",role="decode"}',
+                   "ff_router_handoffs ", "ff_router_fenced ",
+                   "ff_router_ttft_seconds_bucket",
+                   'ff_hbm_bytes{source="engine-0",subsystem="kv_pool"}'):
+        if needle not in text:
+            fail(f"phase 14 (e): /metrics lacks {needle!r}")
+    snap = _json.loads(plane["json"])
+    rows = snap["ff_serving_intertoken_seconds"]["series"]
+    if not any(set(r["labels"]) == {"replica", "role"} and r["count"] > 0
+               for r in rows):
+        fail("phase 14 (e): /metrics.json has no labelled inter-token rows")
+    trace_path = ROOT / "build" / "phase14_trace.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    n_ev = telemetry.export_chrome_trace(str(trace_path))
+    doc = _json.loads(trace_path.read_text())
+    if not doc["traceEvents"] or not all(
+            {"name", "ph", "ts", "pid", "tid"} <= set(e)
+            for e in doc["traceEvents"]):
+        fail("phase 14 (e): the Chrome trace breaks the event schema")
+    path = ff.dump_flight_record(note="phase 14")
+    bundles = flightrec.list_bundles(str(flight_dir))
+    causes = []
+    for b in bundles:
+        flightrec.verify_bundle(b)
+        causes.append(_json.loads((Path(b) / "trigger.json").read_text())
+                      ["cause"])
+    if path not in bundles or "replica_fence" not in causes \
+            and "fault" not in causes:
+        fail(f"phase 14 (e): bundles {causes}, the manual one {path}")
+    hbm = _json.loads((Path(path) / "hbm.json").read_text())
+    dev = hbm["device"].get("gpu:0", {})
+    if not dev.get("bytes_in_use") or not dev.get("bytes_limit"):
+        fail(f"phase 14 (e): the HBM ledger read no card stats: {dev}")
+    say(f"phase 14 (e) plane: /metrics ({len(text)} bytes) and "
+        f"/metrics.json carry the engines' and the router's families with "
+        f"replica / role labels; Chrome trace of {n_ev} events; "
+        f"{len(bundles)} flight bundles ({', '.join(causes)}) verified; "
+        f"the HBM ledger reads the card: {dev['bytes_in_use'] / 2**30:.2f} "
+        f"GiB in use of {dev['bytes_limit'] / 2**30:.2f} GiB, "
+        f"{hbm['total_tracked_bytes'] / 2**30:.2f} GiB tracked [{card}]")
+
+
+def _p14_telemetry_cost(torch, telemetry, eng, traffic, card: str):
+    """The captured decode step and the eager prefill of one engine with
+    the telemetry switch on and off, interleaved, medians."""
+    p6 = traffic[len(QUANT_TAILS):]
+    step = {True: [], False: []}
+    prefill = {True: [], False: []}
+    try:
+        for _ in range(P14_TM_PAIRS):
+            for on in (True, False):
+                telemetry.set_enabled(on)
+                eng.flush_prefix_cache()
+                b = eng.stats()
+                eng.run(p6[:4], max_new_tokens=MAX_NEW)
+                step[on].append(_p14_step_ms([b], [eng.stats()])[0])
+                eng.flush_prefix_cache()
+                torch.cuda.synchronize()
+                r = eng.run([p6[4]], max_new_tokens=1)[0]
+                prefill[on].append(r.ttft * 1e3)
+    finally:
+        telemetry.set_enabled(True)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    s_on, s_off = med(step[True]), med(step[False])
+    f_on, f_off = med(prefill[True]), med(prefill[False])
+    say(f"phase 14 (e) telemetry cost: decode step {s_on:.3f} ms on vs "
+        f"{s_off:.3f} ms off ({100 * (s_on / s_off - 1):+.2f}%), eager "
+        f"prefill of {p6[4].size} tokens (TTFT alone) {f_on:.2f} ms on vs "
+        f"{f_off:.2f} ms off ({100 * (f_on / f_off - 1):+.2f}%), medians "
+        f"of {P14_TM_PAIRS} interleaved pairs [{card}]")
+
+
+def phase_fleet(torch, kernels, ff, prompts, card: str):
+    """Phase 14: the serving fleet on phase 6's Llama-3-8B, every replica
+    sharing its weights. Returns {"fleet": the cold fleet run's launch
+    counts}."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime import faultinject, flightrec, telemetry
+
+    t_start = time.perf_counter()
+    layers = LLAMA3_8B["layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flight_dir = ROOT / "build" / "phase14_flight"
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    knobs = ("flight_recorder_dir", "flight_cooldown_s", "flight_debounce_s")
+    saved = {k: getattr(ff.config, k) for k in knobs}
+    ff.config.flight_recorder_dir = str(flight_dir)
+    ff.config.flight_cooldown_s = 0.0
+    ff.config.flight_debounce_s = 0.2
+    port = telemetry.start_http_server(0)
+    plane = {"port": port}
+    traffic = _p14_traffic(np, prompts)
+    try:
+        t0 = time.perf_counter()
+        eng, want, single = _p14_single(torch, ff, traffic, card)
+        t1 = time.perf_counter()
+        launches = _p14_fleet(torch, np, kernels, telemetry, flightrec, ff,
+                              traffic, want, single, layers, card)
+        t2 = time.perf_counter()
+        _p14_drills(torch, np, kernels, telemetry, faultinject, ff, traffic,
+                    want, card)
+        t3 = time.perf_counter()
+        _p14_disagg(torch, np, telemetry, ff, traffic, want, plane, card)
+        t4 = time.perf_counter()
+        _p14_plane(telemetry, flightrec, ff, plane, flight_dir, card)
+        _p14_telemetry_cost(torch, telemetry, eng, traffic, card)
+        t5 = time.perf_counter()
+    finally:
+        telemetry.stop_http_server()
+        for k, v in saved.items():
+            setattr(ff.config, k, v)
+        flightrec.configure(ff.config)
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    say(f"phase 14: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB (the model's weights once, up to 4 live engines' pools and "
+        f"graphs) [{card}]")
+    say(f"phase 14: single {t1 - t0:.1f} s, (a)+(b) crash {t2 - t1:.1f} s, "
+        f"(b)+(d) {t3 - t2:.1f} s, (c) {t4 - t3:.1f} s, (e) "
+        f"{t5 - t4:.1f} s, total {time.perf_counter() - t_start:.1f} s")
+    return {"fleet": launches}
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -4246,6 +4933,23 @@ KERNEL_ROWS = {
                                     "seq2seq", "flash_attention_fwd"),
     "flash_attention_fwd_seq2seq_dec": ("flash_attention_wgmma.cu", 180,
                                         "seq2seq", "flash_attention_fwd"),
+    # phase 14: the fleet runs the serving shapes of phase 6 on every
+    # replica (its rows are phase 3's serving rows, its launches the cold
+    # fleet run's, both replicas together)
+    "flash_attention_fwd_fleet": ("flash_attention_wgmma.cu", 180, "fleet",
+                                  "flash_attention_fwd"),
+    "paged_attention_fwd_fleet": ("paged_attention.cu", 689, "fleet",
+                                  "paged_attention_fwd"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}_fleet": (
+        "paged_prefill_write.cu", 779, "fleet", "paged_prefill_write"),
+}
+
+#: phase 14's rows: the serving row whose measurement each repeats
+FLEET_ROWS = {
+    "flash_attention_fwd_fleet": "flash_attention_fwd",
+    "paged_attention_fwd_fleet": "paged_attention_fwd",
+    f"paged_prefill_write_layers{WRITE_LAYERS}_fleet":
+        f"paged_prefill_write_layers{WRITE_LAYERS}",
 }
 
 
@@ -4284,6 +4988,7 @@ def main():
                                        step_ms_p11, card))
     launches.update(phase_generate(torch, FFConfig, FFModel, llama_lm,
                                    kernels, ff, ref, prompts, card))
+    launches.update(phase_fleet(torch, kernels, ff, prompts, card))
     del ff, outs
     launches.update(phase_train(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))
@@ -4291,6 +4996,8 @@ def main():
     launches.update(phase_rest(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
+    for name, of in FLEET_ROWS.items():
+        rows[name] = rows[of]
     table = []
     for name, r in rows.items():
         src, line, path, wrapper = KERNEL_ROWS[name]

@@ -7,7 +7,9 @@ other. Knobs that select features of later slices are kept (a user who
 sets them must not be silently served or trained something else): the
 training ``compile`` rejects each non-default value with
 ``NotImplementedError`` naming the ROADMAP item that ports it
-(``not_ported``) — ``checkpoint_dir`` among them.
+(``not_ported``) — ``checkpoint_dir`` among them — and the SLOs over the
+training step and the checkpoint stall are refused when the config is
+built.
 """
 
 from __future__ import annotations
@@ -118,6 +120,53 @@ class FFConfig:
     serve_adapter_pool_pages: int = 0
     serve_lora_rank: int = 8
 
+    # ---- the serving fleet (runtime/router.py ServingRouter) ----
+    # bound on the router queue: submissions past it are rejected at once
+    # (state "rejected"); 0 = unbounded
+    serve_max_queue: int = 0
+    # one role a replica, comma-separated ("prefill,decode,decode"):
+    # prefill replicas hand finished prompt pages to decode replicas as
+    # page slabs; "" = every replica "mixed"
+    serve_replica_roles: str = ""
+    # >= 2 splits a long prompt's page-aligned prefix into that many
+    # contiguous shards across the prefill tier; 0 = off
+    seq_parallel_shards: int = 0
+    # a preempted replica's evacuation deadline (seconds)
+    preempt_deadline_s: float = 5.0
+
+    # ---- the telemetry plane (runtime/telemetry.py) ----
+    # "on": metrics registry and trace ring record; "off": every emit
+    # short-circuits at one predicate
+    telemetry: str = "on"
+    # serve /metrics, /metrics.json, /trace.json, /healthz and /slo.json on
+    # 127.0.0.1:<port> (0 = no server)
+    metrics_port: int = 0
+    # ---- the flight recorder and SLOs (runtime/flightrec.py) ----
+    # post-mortem bundle directory ("" = automatic triggers off;
+    # FF_FLIGHT_DIR is the env fallback), retention, cooldown, debounce
+    # and the trace window a bundle captures
+    flight_recorder_dir: str = ""
+    flight_keep: int = 4
+    flight_cooldown_s: float = 30.0
+    flight_debounce_s: float = 1.0
+    flight_window_s: float = 120.0
+    # declarative SLOs over sliding windows (0 = that SLO off)
+    slo_ttft_p99_s: float = 0.0          # ceiling: p99 TTFT per replica
+    slo_queue_wait_p99_s: float = 0.0    # ceiling: engine queue wait p99
+    slo_prefix_hit_rate_min: float = 0.0  # floor: prefix-cache hit rate
+    slo_spec_accept_min: float = 0.0     # floor: speculative accept rate
+    # later-slice SLOs (fit's step histogram, the checkpoint stall), kept
+    # with the JAX defaults and refused above 0
+    slo_step_time_p99_s: float = 0.0
+    slo_checkpoint_stall_s: float = 0.0
+    slo_window_s: float = 10.0           # sliding evaluation window
+    slo_clear_windows: int = 2           # healthy windows to clear
+    slo_trip_recorder: bool = False      # a breach also trips the recorder
+    # the runtime sanitizer (runtime/locks.py): "" leaves FF_SANITIZE's
+    # mode; "on" checks lock order and counts programs built after
+    # warmup; "strict" raises on either; "off" disables
+    sanitize: str = ""
+
     def __post_init__(self):
         for field in ("compute_dtype", "master_dtype"):
             if getattr(self, field) not in ("float32", "bfloat16"):
@@ -189,6 +238,76 @@ class FFConfig:
         if self.serve_lora_rank < 1:
             raise ValueError(
                 f"serve_lora_rank={self.serve_lora_rank}: must be >= 1")
+        if self.seq_parallel_shards < 0 or self.seq_parallel_shards == 1:
+            raise ValueError(
+                f"seq_parallel_shards={self.seq_parallel_shards}: must "
+                f"be 0 (off) or >= 2 (shard count)")
+        if self.serve_max_queue < 0:
+            raise ValueError(
+                f"serve_max_queue={self.serve_max_queue}: must be >= 0 "
+                f"(0 = unbounded router queue)")
+        if self.serve_replica_roles:
+            roles = [t.strip()
+                     for t in self.serve_replica_roles.split(",")]
+            bad = [t for t in roles
+                   if t not in ("prefill", "decode", "mixed")]
+            if bad or not all(roles):
+                raise ValueError(
+                    f"serve_replica_roles={self.serve_replica_roles!r}: "
+                    f"comma-separated 'prefill'|'decode'|'mixed', one "
+                    f"per replica (bad: {bad or 'empty entry'})")
+        if self.preempt_deadline_s <= 0:
+            raise ValueError(
+                f"preempt_deadline_s={self.preempt_deadline_s}: must be "
+                f"> 0 (the evacuation race needs a budget)")
+        if self.sanitize not in ("", "off", "on", "strict"):
+            raise ValueError(
+                f"sanitize={self.sanitize!r}: must be '', 'off', "
+                f"'on' or 'strict'")
+        if self.telemetry not in ("on", "off"):
+            raise ValueError(
+                f"telemetry={self.telemetry!r}: must be 'on' or 'off'")
+        if self.metrics_port < 0 or self.metrics_port > 65535:
+            raise ValueError(
+                f"metrics_port={self.metrics_port}: must be 0 (no "
+                f"server) or a valid TCP port")
+        if self.flight_keep < 1:
+            raise ValueError(
+                f"flight_keep={self.flight_keep}: must be >= 1 (the "
+                f"bundle that just fired must survive its own retention)")
+        if self.flight_cooldown_s < 0 or self.flight_debounce_s < 0:
+            raise ValueError(
+                f"flight_cooldown_s={self.flight_cooldown_s} and "
+                f"flight_debounce_s={self.flight_debounce_s} must be "
+                f">= 0")
+        if self.flight_window_s <= 0:
+            raise ValueError(
+                f"flight_window_s={self.flight_window_s}: must be > 0")
+        for knob in ("slo_ttft_p99_s", "slo_queue_wait_p99_s",
+                     "slo_step_time_p99_s", "slo_checkpoint_stall_s"):
+            if getattr(self, knob) < 0:
+                raise ValueError(
+                    f"{knob}={getattr(self, knob)}: must be >= 0 "
+                    f"(0 = SLO off)")
+        for knob in ("slo_prefix_hit_rate_min", "slo_spec_accept_min"):
+            v = getattr(self, knob)
+            if v < 0 or v > 1:
+                raise ValueError(
+                    f"{knob}={v}: must be in [0, 1] (0 = SLO off; it "
+                    f"is a rate floor)")
+        if self.slo_window_s <= 0:
+            raise ValueError(
+                f"slo_window_s={self.slo_window_s}: must be > 0")
+        if self.slo_clear_windows < 1:
+            raise ValueError(
+                f"slo_clear_windows={self.slo_clear_windows}: must be "
+                f">= 1 (a breach must be clearable)")
+        if self.slo_step_time_p99_s > 0:
+            raise not_ported("the training step-time SLO "
+                             "(slo_step_time_p99_s)")
+        if self.slo_checkpoint_stall_s > 0:
+            raise not_ported("the checkpoint-stall SLO "
+                             "(slo_checkpoint_stall_s)")
         if self.decode_buckets is not None:
             bs = [int(b) for b in self.decode_buckets]
             if not bs or any(b < 1 for b in bs) or sorted(set(bs)) != bs:

@@ -761,6 +761,61 @@ class FFModel:
         outs = [r.output if r.state == "done" else None for r in reqs]
         return outs, eng.stats()
 
+    def make_serving_router(self, replicas: int = 2, **kwargs):
+        """Fleet serving router (runtime/router.py ServingRouter): N
+        continuous-batching replicas of this model (one set of weights),
+        each driven on its own thread, with failover (a crashed or hung
+        replica is fenced and its work resubmitted to survivors exactly
+        once), per-request deadlines, overload shedding (``max_queue`` /
+        FFConfig.serve_max_queue) and least-loaded + prefix-affinity
+        placement. ``roles=`` (or FFConfig.serve_replica_roles)
+        disaggregates the fleet into prefill and decode replicas joined by
+        page-slab handoffs; ``replicas`` is the starting size
+        (``add_replica`` / ``remove_replica`` / ``request_preempt``). Router
+        kwargs (``max_queue``, ``health_timeout_s``, ``dispatch_backlog``,
+        ``roles``, ``handoff_min_pages``, ``seq_parallel_shards``,
+        ``start``) are split out; the rest go to every replica's
+        ServingEngine."""
+        from flexflow_tpu_torch.runtime.router import ServingRouter
+
+        return ServingRouter(self, replicas=replicas, **kwargs)
+
+    def serve_fleet(self, prompts, max_new_tokens: int = 32,
+                    replicas: int = 2,
+                    deadline_s: Optional[float] = None, **kwargs):
+        """One-shot fleet serve: run ``prompts`` through a fresh N-replica
+        ServingRouter and return (outputs, stats) — outputs[i] is prompt +
+        generated tokens for prompts[i], or None for a request that
+        failed, expired (``deadline_s``) or was shed; stats is the
+        router's fleet ledger. Greedy fleet output equals single-engine
+        serve()'s: the router moves work, never changes it."""
+        router = self.make_serving_router(replicas=replicas, **kwargs)
+        try:
+            reqs = router.run(prompts, max_new_tokens=max_new_tokens,
+                              deadline_s=deadline_s)
+            outs = [r.output if r.state == "done" else None for r in reqs]
+            stats = router.stats()
+        finally:
+            router.close()
+        return outs, stats
+
+    def dump_flight_record(self, directory: Optional[str] = None,
+                           **note) -> Optional[str]:
+        """Manual post-mortem bundle (runtime/flightrec.py): snapshot the
+        recent trace window, the metrics registry, the log ring, the HBM
+        ledger (with the card's memory stats), every engine's stats and
+        the config / environment fingerprint into an atomic,
+        manifest-hashed bundle directory; returns its path.
+        ``directory`` overrides ``FFConfig.flight_recorder_dir`` (one of
+        the two must be set). None when ``FFConfig.telemetry="off"``."""
+        from flexflow_tpu_torch.runtime import flightrec
+
+        # recorder-only configure: re-arming the SLO monitor here would
+        # reset live breach state on an operator's dump
+        flightrec.recorder().configure(self.config)
+        return flightrec.dump("manual", directory=directory,
+                              source="model", **note)
+
     # ----------------------------------------------------------- generation
 
     def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import contextlib
 import functools
 import gc
 import hashlib
@@ -76,6 +77,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import weakref
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -217,6 +219,29 @@ class _Library:
 LIBRARY = _Library()
 
 
+_THREAD = threading.local()
+
+
+@contextlib.contextmanager
+def _on_device(device: torch.device):
+    """torch's device guard, with the device's primary context made
+    current on this thread. The library's CUDA runtime is linked
+    statically, beside torch's: it launches into the context current on
+    the calling thread, and a thread from which torch has launched nothing
+    has none (a serving replica's driver thread, say), where the launch
+    fails (cudaErrorInvalidValue). ``torch.cuda.set_device`` makes it
+    current, once a thread and device."""
+    with torch.cuda.device(device):
+        idx = torch.cuda.current_device()
+        bound = getattr(_THREAD, "bound", None)
+        if bound is None:
+            bound = _THREAD.bound = set()
+        if idx not in bound:
+            torch.cuda.set_device(idx)
+            bound.add(idx)
+        yield
+
+
 def _check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
@@ -352,13 +377,13 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
            if need_lse else None)
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         _check(lib.ff_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if need_lse else None, _DTYPE_CODES[q.dtype], b,
             sq, sk, h, kvh, d, float(scale), int(bool(causal)), _stream(q)),
             name)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return (out, lse) if need_lse else out
 
 
@@ -449,7 +474,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float, *,
     delta = torch.empty_like(lse) if compute else delta.contiguous()
     if dlse is not None:
         dlse = dlse.contiguous()
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         _check(lib.ff_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
@@ -457,7 +482,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, scale: float, *,
             dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk,
             h, d, float(scale), int(bool(causal)), int(compute), _stream(q)),
             name)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd)
     return dq, dk, dv
 
 
@@ -577,14 +602,14 @@ def fused_add_layernorm_fwd(x, r, scale, bias, eps: float,
     if need_stats:
         mean = torch.empty(n, dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mean)
-    with torch.cuda.device(x.device):
+    with _on_device(x.device):
         _check(lib.ff_fused_add_layernorm_fwd(
             x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             s.data_ptr(), y.data_ptr(),
             mean.data_ptr() if need_stats else None,
             rstd.data_ptr() if need_stats else None,
             _DTYPE_CODES[x.dtype], n, d, float(eps), _stream(x)), name)
-    fused_add_layernorm_fwd.launches += 1
+    _count(fused_add_layernorm_fwd)
     return s, y, mean, rstd
 
 
@@ -896,7 +921,7 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
         ws_ml = ws_acc + 4 * n_part * d
         tickets = _tickets(q.device, stream, plan.grid[0]).data_ptr()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         _check(lib.ff_paged_attention_fwd(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             ptr(k_scales), ptr(v_scales), page_table.data_ptr(),
@@ -904,7 +929,7 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
             out.data_ptr(), ws_acc, ws_ml, tickets, _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[pool], b, s, h, kvh, d, ps, pps, plan.split_pages,
             float(scale), stream), name)
-    paged_attention_fwd.launches += 1
+    _count(paged_attention_fwd)
     return out
 
 
@@ -1102,7 +1127,7 @@ def paged_prefill_write_layers(pools_k, pools_v, khs, vhs, pages,
         *(t.data_ptr() for t in ts))
     for lo in range(0, n, PREFILL_WRITE_MAX_LAYERS):
         hi = min(n, lo + PREFILL_WRITE_MAX_LAYERS)
-        with torch.cuda.device(pk0.device):
+        with _on_device(pk0.device):
             _check(lib.ff_paged_prefill_write_layers(
                 ptrs(khs[lo:hi]), ptrs(vhs[lo:hi]), ptrs(pools_k[lo:hi]),
                 ptrs(pools_v[lo:hi]),
@@ -1111,7 +1136,7 @@ def paged_prefill_write_layers(pools_k, pools_v, khs, vhs, pages,
                 pages.data_ptr(), n_pages, s, ps, kvh, dk, dv,
                 kh0.element_size(), _DTYPE_CODES.get(kh0.dtype, -1),
                 pool_code, cluster, stream), name)
-        paged_prefill_write.launches += 1
+        _count(paged_prefill_write)
 
 
 paged_prefill_write.launches = 0
@@ -1502,7 +1527,7 @@ def fused_update(rule: UpdateRule, params, grads, moments, lr,
             else 2 if rule.nesterov else 1)
     lib = LIBRARY.get()
     stream = _stream(params[0])
-    with torch.cuda.device(params[0].device):
+    with _on_device(params[0].device):
         for table in args:
             _check(lib.ff_fused_update(
                 *table, _DTYPE_CODES[params[0].dtype], kind,
@@ -1512,7 +1537,7 @@ def fused_update(rule: UpdateRule, params, grads, moments, lr,
                 None if finite is None else finite.data_ptr(),
                 None if vector_count is None else vector_count.data_ptr(),
                 stream), name)
-            fused_update.launches += 1
+            _count(fused_update)
 
 
 fused_update.launches = 0
@@ -1522,39 +1547,189 @@ KERNELS = (flash_attention_fwd, flash_attention_bwd, fused_add_layernorm_fwd,
            paged_attention_fwd, paged_prefill_write, fused_update)
 
 
+# Launch counting and capture are safe under threads: several serving
+# engines, each driven from its own thread, launch eagerly and capture
+# their own CUDA graphs on one card. The counters are updated under one
+# lock. A launch into the stream being captured (from the capturing
+# thread, or from autograd's worker thread running a captured backward)
+# is tallied for that capture only: the capture launches nothing, and
+# each replay adds the tally; a launch elsewhere counts as a launch.
+_COUNT_LOCK = threading.Lock()
+#: the tally of the capture under way (one at a time: the gate below)
+_ACTIVE_TALLY: Optional[Dict[str, int]] = None
+
+
+def _count(fn) -> None:
+    """Count one launch of wrapper ``fn``: into the capture under way when
+    the launch's stream (the calling thread's current one) captures, else
+    into the process-wide counter."""
+    tally = _ACTIVE_TALLY
+    with _COUNT_LOCK:
+        if tally is not None and torch.cuda.is_current_stream_capturing():
+            tally[fn.__name__] += 1
+        else:
+            fn.launches += 1
+
+
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    with _COUNT_LOCK:
+        return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    with _COUNT_LOCK:
+        for fn in KERNELS:
+            fn.launches = 0
+
+
+class _CaptureGate:
+    """One capture at a time, and no other thread's device work while it
+    runs. Device work — an engine's tick, its prefill, slab export and
+    import, a weight swap — runs in ``shared`` sections, any number at
+    once; a capture runs ``exclusive``: it waits until no other thread is
+    inside a shared section and holds new ones off until it ends. A
+    thread inside its own shared section may capture (an engine captures
+    its decode chunk mid-tick): its shared hold is set aside while it
+    waits and taken back after, so two threads capturing at once cannot
+    deadlock. A shared section must not wait on another engine's lock or
+    on a capture: engine methods take their own lock first, then the
+    section."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._active: Dict[int, int] = {}   # thread -> shared depth
+        self._capturing: Optional[int] = None
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cv:
+            if me not in self._active:
+                while self._capturing not in (None, me):
+                    self._cv.wait()
+            self._active[me] = self._active.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                n = self._active.pop(me) - 1
+                if n:
+                    self._active[me] = n
+                else:
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cv:
+            mine = self._active.pop(me, 0)
+            self._cv.notify_all()
+            while self._capturing is not None or self._active:
+                self._cv.wait()
+            self._capturing = me
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._capturing = None
+                if mine:
+                    self._active[me] = mine
+                self._cv.notify_all()
+
+
+# Several serving engines, each driven from its own thread, share one card
+# and capture their own CUDA graphs. While a stream captures, another
+# thread's device work — an allocation, a blocking copy, the first launch
+# of a kernel (which loads it) — can fail or invalidate the capture, so a
+# capture takes the gate exclusively and every engine's device work runs
+# in a shared section (``device_section``). The capture itself runs in
+# CUDA's "thread_local" mode, so work of threads outside the gate (the
+# host tier's publisher waiting on its events) is not refused, and on a
+# non-blocking stream that no other live owner holds (``private_stream``):
+# the legacy default stream that eager work runs on creates no implicit
+# dependency on it, and no one else's launch can land in the graph. The
+# collector stays off across one capture (a collection then could free a
+# dead engine's graph, and destroying a graph while a stream captures
+# invalidates the capture).
+_GATE = _CaptureGate()
+
+
+def device_section():
+    """The shared side of the capture gate: device work that must not run
+    while another thread captures."""
+    return _GATE.shared()
+
+
+_STREAM_OWNERS: Dict[Tuple[int, int], "weakref.ref"] = {}
+_NONBLOCKING: Dict[Tuple[int, int], bool] = {}
+
+
+def _stream_nonblocking(stream) -> bool:
+    """Whether ``stream`` was created non-blocking (the driver's
+    ``cuStreamGetFlags``, CU_STREAM_NON_BLOCKING = 1), cached."""
+    key = (stream.device.index, stream.cuda_stream)
+    if key not in _NONBLOCKING:
+        import ctypes
+
+        libcuda = ctypes.CDLL("libcuda.so.1")
+        flags = ctypes.c_uint(0)
+        rc = libcuda.cuStreamGetFlags(ctypes.c_void_p(stream.cuda_stream),
+                                      ctypes.byref(flags))
+        if rc != 0:
+            raise RuntimeError(f"cuStreamGetFlags failed ({rc})")
+        _NONBLOCKING[key] = bool(flags.value & 1)
+    return _NONBLOCKING[key]
+
+
+def private_stream(device: torch.device,
+                   owner=None) -> "torch.cuda.Stream":
+    """A side stream for ``owner``'s programs that no other live owner
+    holds. ``torch.cuda.Stream`` hands out a small pool of streams in turn,
+    so a long-lived process could give two engines one stream; another
+    engine's work on a stream that captures would land in the graph. The
+    stream is held while ``owner`` lives (weakly referenced), or for the
+    process's life without one."""
+    with _COUNT_LOCK:
+        for _ in range(64):     # the pool's streams, each at most twice
+            s = torch.cuda.Stream(device)
+            key = (s.device.index, s.cuda_stream)
+            ref = _STREAM_OWNERS.get(key)
+            if ref is None or ref() is None:
+                _STREAM_OWNERS[key] = (weakref.ref(owner) if owner is not None
+                                       else (lambda: True))
+                return s
+    raise RuntimeError("every pooled CUDA stream is held by a live "
+                       "engine or program: release some first")
 
 
 def capture(graph, stream, fn):
     """Capture ``fn()`` into the CUDA graph ``graph`` on ``stream``
-    (``torch.cuda.graph``); returns fn's outputs and the launches the
-    capture recorded. A capture launches nothing, so the counters give
-    those back; each replay adds them (``add_launches``). The cyclic
-    garbage collector stays off while it captures: a collection then could
-    free a dead engine's graph, and destroying a graph while a stream
-    captures invalidates the capture."""
-    before = launch_counts()
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, stream=stream):
-            outs = fn()
-    finally:
-        if enabled:
-            gc.enable()
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
-    for f in KERNELS:
-        f.launches -= launches[f.__name__]
-    return outs, launches
+    (``torch.cuda.graph``, "thread_local" mode, the gate held exclusively;
+    see above); returns fn's outputs and the launches the capture
+    recorded, which each replay adds (``add_launches``). ``stream`` must be
+    non-blocking; a failed capture raises."""
+    if not _stream_nonblocking(stream):
+        raise RuntimeError("a program captures on a non-blocking stream "
+                           "only (torch.cuda.Stream)")
+    global _ACTIVE_TALLY
+    with _GATE.exclusive():
+        enabled = gc.isenabled()
+        gc.disable()
+        tally = {f.__name__: 0 for f in KERNELS}
+        _ACTIVE_TALLY = tally
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                outs = fn()
+        finally:
+            _ACTIVE_TALLY = None
+            if enabled:
+                gc.enable()
+    return outs, dict(tally)
 
 
 def add_launches(launches: Dict[str, int]) -> None:
     """Count a replay of a graph whose capture recorded ``launches``."""
-    for fn in KERNELS:
-        fn.launches += launches[fn.__name__]
+    with _COUNT_LOCK:
+        for fn in KERNELS:
+            fn.launches += launches[fn.__name__]

@@ -458,7 +458,7 @@ class StepReplay:
     def _capture(self) -> None:
         from flexflow_tpu_torch.ops import kernels
 
-        side = torch.cuda.Stream(self.device)
+        side = kernels.private_stream(self.device, self)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._step()              # a real step: one of this run's

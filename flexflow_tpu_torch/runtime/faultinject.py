@@ -26,6 +26,17 @@ Consumers in the port:
   * ``ServingEngine.swap_weights`` checks ``swap_fail@deploy:<n>`` via
     ``maybe_fail`` after installing the new weights (the torn mid-swap
     drill: the engine restores the weights it served).
+  * ``ServingEngine._admit`` checks ``slow(<ms>)@serve:<n>`` and stalls
+    the n-th admission on the host by ``<ms>`` (the slow-replica drill);
+  * ``runtime/router.py`` drives the fleet drills: ``crash@replica:<r>``
+    kills replica r's driver thread and ``hang@replica:<r>`` wedges it
+    past the health timeout — at its first busy tick, or at its
+    *value*-th with ``crash(<tick>)@replica:<r>`` (peeked with
+    ``pending()``, consumed with ``at_site()``);
+    ``preempt(<deadline_ms>)@replica:<r>`` preempts replica r at its
+    first busy tick with that evacuation deadline; and the evacuation
+    checks ``slow_evac(<ms>)@evacuate:<n>`` to stall the n-th prefix-slab
+    export.
 
 The active plan is parsed lazily from ``FF_FAULT`` and re-parsed (with
 occurrence counters reset) whenever the env value changes; tests that
@@ -40,8 +51,25 @@ from typing import Dict, List, Optional, Tuple
 
 def _annotate(kind: str, site: str, index: int,
               value: Optional[int] = None):
-    """Where a fired injection is reported. The port has no telemetry
-    plane yet (ROADMAP.md queue 1, item 11), so nothing is reported."""
+    """Report a FIRED injection to the telemetry plane (an instant
+    ``fault`` trace annotation) and the flight recorder (a ``fault``
+    trigger), so a drill's trace shows where the fault landed. Deferred
+    imports (telemetry never imports this module back) and best-effort:
+    injection must work even with the plane torn down."""
+    try:
+        from flexflow_tpu_torch.runtime import telemetry
+
+        telemetry.annotate("fault", kind=kind, site=site, index=index,
+                           value=value)
+    except Exception:
+        pass
+    try:
+        from flexflow_tpu_torch.runtime import flightrec
+
+        flightrec.trip("fault", kind=kind, site=site, index=index,
+                       value=value)
+    except Exception:
+        pass
 
 
 class InjectedFault(OSError):

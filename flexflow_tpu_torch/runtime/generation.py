@@ -165,7 +165,7 @@ _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
     if dev not in _STREAMS:
-        _STREAMS[dev] = torch.cuda.Stream(dev)
+        _STREAMS[dev] = kernels.private_stream(dev)
     return _STREAMS[dev]
 
 

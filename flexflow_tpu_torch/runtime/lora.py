@@ -16,10 +16,11 @@ Pure host state; the engine owns the device writes (ops/lora.py)."""
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from flexflow_tpu_torch.runtime import locks
 
 
 class _Resident:
@@ -44,7 +45,7 @@ class LoraAdapterPool:
         self.rank = int(rank)
         # the engine lock already serializes its callers; the pool keeps
         # its own so several engines may share one
-        self._lock = threading.RLock()
+        self._lock = locks.make_rlock("adapter-pool")
         # op name -> (in_dim, out_dim): the fixed page geometry every
         # registered adapter must match
         self.geometry = {op.name: (op.in_dim, op.out_dim)

@@ -1,10 +1,11 @@
-"""The divergence guard's device state (the JAX package's
-``runtime/resilience.py`` ``init_guard_state``). The rest of that module —
-``TrainSupervisor``, checkpoints, fault injection — is ROADMAP.md queue 1,
-item 11."""
+"""The divergence guard's device state and the preemption-notice entry
+point (the JAX package's ``runtime/resilience.py`` ``init_guard_state``
+and ``install_sigterm``). The rest of that module — ``TrainSupervisor``,
+checkpoints — is ROADMAP.md queue 1, item 11."""
 
 from __future__ import annotations
 
+import signal
 from typing import Dict, Union
 
 import torch
@@ -24,3 +25,16 @@ def init_guard_state(loss_scale: float = 1.0,
             "loss_scale": torch.full((), loss_scale, dtype=torch.float32,
                                      device=device),
             "skipped": torch.zeros((), **i32)}
+
+
+def install_sigterm(handler):
+    """Install ``handler`` as the SIGTERM disposition — the one
+    preemption-notice entry point (``ServingRouter.install_preempt_handler``
+    routes the cloud's preemption signal through here). Returns
+    ``(installed, previous_disposition)`` — ``(False, None)`` off the main
+    thread (the signal module's rule), where the owner must call its
+    programmatic ``request_preempt()`` instead."""
+    try:
+        return True, signal.signal(signal.SIGTERM, handler)
+    except ValueError:
+        return False, None

@@ -75,8 +75,15 @@ prompt, ``[row_len, prompt_pad)`` masked bucket padding, and decode tokens
 append from ``prompt_pad``; RoPE positions stay logical
 (``row_len + emitted``).
 
-The fleet's telemetry identity (``set_telemetry_identity``) belongs to the
-runtime plane, a later slice: it raises ``NotImplementedError``.
+Telemetry (``runtime/telemetry.py``, ``runtime/flightrec.py``): the TTFT,
+inter-token and queue-wait histograms and per-request spans (queue_wait,
+prefill, decode, decode_chunk) under the JAX engine's names, a
+scrape-time collector exporting ``stats()`` as ``ff_serving_<key>``
+gauges, and the flight recorder's bundle, HBM-ledger, SLO and health
+sources, labeled (replica, role) — ``set_telemetry_identity`` sets the
+fleet identity. Every value reported is a host value the engine already
+holds: the plane adds no device synchronisation and nothing to a captured
+program; ``FFConfig.telemetry="off"`` skips every emit.
 """
 
 from __future__ import annotations
@@ -95,7 +102,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.config import not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops import lora as lora_ops
@@ -103,11 +109,15 @@ from flexflow_tpu_torch.ops import sampling as sampling_ops
 from flexflow_tpu_torch.ops.attention import (MultiHeadAttention,
                                               kv_storage_dtype,
                                               resolve_paged_attention_impl)
-from flexflow_tpu_torch.runtime import faultinject
+from flexflow_tpu_torch.runtime import faultinject, flightrec, locks, telemetry
 from flexflow_tpu_torch.runtime.generation import Generator
 from flexflow_tpu_torch.runtime.lora import LoraAdapterPool
 
 log = logging.getLogger(__name__)
+
+# process-wide engine ids: the default telemetry `replica` label when no
+# router assigns a fleet identity (set_telemetry_identity)
+_ENGINE_IDS = iter(range(1 << 30))
 
 #: the weight version every engine serves until ``swap_weights``; it salts
 #: nothing, so cache keys and slab namespaces stay those of an engine that
@@ -206,8 +216,14 @@ class Request:
     # absolute time.perf_counter() deadline: a request still queued past
     # it retires "timeout" without prefilling; an admitted one runs on
     deadline: Optional[float] = None
-    trace_id: str = ""              # stored for the fleet's tracing
+    # telemetry: the trace id every span of this request carries (a
+    # router passes its fleet id, so failover and handoff keep one tree);
+    # t_last_tok clocks the inter-token histogram; decode_span is the open
+    # decode span's handle (0 = none)
+    trace_id: str = ""
     t_submit: float = 0.0
+    t_last_tok: float = 0.0
+    decode_span: int = 0
     ttft: float = 0.0               # submit -> first emitted token (s)
     t_done: float = 0.0
     error: str = ""
@@ -347,7 +363,7 @@ class RadixPrefixCache:
         # the ordered publisher: _cv guards hostdata / gen / the queue
         # between that thread and the engine-lock holder; structural trie
         # changes happen under the engine lock only
-        self._cv = threading.Condition()
+        self._cv = locks.make_condition("prefix-cache")
         self._pending = collections.deque()
         self._inflight = 0
         self._publisher: Optional[threading.Thread] = None
@@ -893,6 +909,9 @@ class ServingEngine:
         if model.params is None:
             raise ValueError("ServingEngine needs a compiled model "
                              "(FFModel.compile)")
+        # the sanitizer mode is read at lock creation: adopt
+        # FFConfig.sanitize before this engine or its pools make a lock
+        locks.configure(cfg)
         self.model = model
         self.device = model.device
         # ---- per-request sampling defaults: requests carry their own
@@ -1107,19 +1126,18 @@ class ServingEngine:
         self._weight_swaps = 0
         # the decode-side programs by key (CUDA graphs on the card), their
         # side stream, and how many were built (JAX's recompile_count);
-        # after warmup() a new key is counted as a retrace (the JAX
-        # engine's sentinel)
+        # warmup() arms the retrace sentinel: a new key after it is a
+        # program built mid-traffic (runtime/locks.py)
         self._programs: Dict[tuple, _Program] = {}
-        self._stream = (torch.cuda.Stream(self.device)
+        self._stream = (kernels.private_stream(self.device, self)
                         if capture and self.device.type == "cuda" else None)
         self.recompile_count = 0
-        self._sentinel_armed = False
-        self._retraces = 0
+        self._retrace = locks.RetraceSentinel()
         # ONE engine lock around every queue / slot / counter mutation, so
         # a router may drive the engine from one thread while others
         # submit, probe health() or read stats(); reentrant: step() holds
         # it across the tick
-        self._lock = threading.RLock()
+        self._lock = locks.make_rlock("engine")
         self._next_rid = 0
         self.decode_steps = 0
         self._decode_seconds = 0.0
@@ -1148,6 +1166,29 @@ class ServingEngine:
         # kernel launches are counted process-wide by the wrappers;
         # stats() reports them since this engine was built
         self._launch_base = kernels.launch_counts()
+
+        # ---- the telemetry plane: the latency histograms are observed at
+        # the event sites; everything stats() counts is exported by the
+        # scrape-time collector (_tm_collect). telemetry="off" skips every
+        # emit at one predicate
+        self._tm_on = cfg.telemetry != "off"
+        self._tm_labels = {"replica": f"engine{next(_ENGINE_IDS)}",
+                           "role": "solo"}
+        self._retrace.owner = self._tm_labels["replica"]
+        self._tm_ch: Dict = {}
+        # unconditional: configure() is how telemetry="off" reaches the
+        # recorder's own gate
+        flightrec.configure(cfg)
+        if self._tm_on:
+            if cfg.metrics_port:
+                telemetry.start_http_server(cfg.metrics_port)
+            self._tm_bind_children()
+            telemetry.registry().add_collector(self._tm_collect)
+            # bundle, HBM-ledger, SLO and health sources, all weakly held
+            flightrec.recorder().attach_source(self._flightrec_source)
+            flightrec.hbm_ledger().add_source(self._hbm_source)
+            flightrec.slo_monitor().add_source(self._slo_source)
+            flightrec.register_health_source(self._health_probe)
 
     def _init_pool(self, gen):
         return {op.name: op.init_paged_cache(self.num_pages, self.page_size,
@@ -1186,11 +1227,149 @@ class ServingEngine:
             self.draft_gen.params()
         self.draft_pool = self._init_pool(self.draft_gen)
 
+    # ---- telemetry -----------------------------------------------------------
+
     def set_telemetry_identity(self, replica, role: str):
-        """The fleet's metric labels and trace track: part of the
-        telemetry plane, which the port does not have yet."""
-        raise not_ported("the fleet telemetry identity "
-                         "(set_telemetry_identity)")
+        """Fleet identity for this engine's metric labels and trace track
+        (a router stamps the replica index and role; a standalone engine
+        keeps its process-unique engine id)."""
+        self._tm_labels = {"replica": str(replica), "role": str(role)}
+        self._retrace.owner = self._tm_labels["replica"]
+        if self._tm_on:
+            self._tm_bind_children()
+
+    def _tm_bind_children(self):
+        """Resolve the hot-path histogram children once an identity: a
+        token's emit is then one predicate and one observe."""
+        reg = telemetry.registry()
+        lab = (self._tm_labels["replica"], self._tm_labels["role"])
+        self._tm_ch = {
+            "ttft": reg.histogram(
+                "ff_serving_ttft_seconds",
+                "engine submit -> first token",
+                labels=("replica", "role")).labels(*lab),
+            "itl": reg.histogram(
+                "ff_serving_intertoken_seconds",
+                "gap between consecutive emitted tokens",
+                labels=("replica", "role")).labels(*lab),
+            "queue": reg.histogram(
+                "ff_serving_queue_wait_seconds",
+                "engine queue wait: submit -> admission",
+                labels=("replica", "role")).labels(*lab),
+        }
+        # per-adapter families: children resolved lazily an adapter label
+        self._tm_fam_req = reg.counter(
+            "ff_serving_requests_total",
+            "requests submitted, labeled by LoRA adapter "
+            "('none' = base model)",
+            labels=("replica", "role", "adapter"))
+        self._tm_fam_attft = reg.histogram(
+            "ff_serving_adapter_ttft_seconds",
+            "engine submit -> first token, labeled by LoRA adapter",
+            labels=("replica", "role", "adapter"))
+        self._tm_adapter_ch = {}
+
+    def _tm_adapter(self, adapter: Optional[str]):
+        key = adapter or "none"
+        ch = self._tm_adapter_ch.get(key)
+        if ch is None:
+            lab = (self._tm_labels["replica"], self._tm_labels["role"],
+                   key)
+            ch = self._tm_adapter_ch[key] = (
+                self._tm_fam_req.labels(*lab),
+                self._tm_fam_attft.labels(*lab))
+        return ch
+
+    @property
+    def _tm_track(self) -> str:
+        return f"replica{self._tm_labels['replica']}"
+
+    def _tm_collect(self, reg):
+        """Scrape-time collector: every numeric stats() key as a
+        ``ff_serving_<key>`` gauge labeled (replica, role), plus the
+        engine's identity and weight version as info series."""
+        st = self.stats()
+        lab = (self._tm_labels["replica"], self._tm_labels["role"])
+        for k, v in st.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            reg.gauge(f"ff_serving_{k}",
+                      f"ServingEngine stats()['{k}']",
+                      labels=("replica", "role")).labels(*lab).set(v)
+        reg.gauge("ff_serving_engine_info",
+                  "engine identity (value is always 1)",
+                  labels=("replica", "role", "kv_cache_dtype",
+                          "weight_dtype", "impl")).labels(
+            *lab, st["kv_cache_dtype"], st["weight_dtype"],
+            st["paged_attention_impl"]).set(1)
+        reg.gauge("ff_replica_weight_version",
+                  "weight version + deploy state per replica "
+                  "(value is always 1)",
+                  labels=("replica", "role", "version", "state")).labels(
+            *lab, st["weight_version"], st["deploy_state"]).set(1)
+        if self._adapter_spec:
+            fam = reg.gauge(
+                "ff_serving_spec_accept_rate_by_adapter",
+                "speculative accept rate, labeled by LoRA adapter",
+                labels=("replica", "role", "adapter"))
+            with self._lock:
+                rows = {k: (v[0], v[1])
+                        for k, v in self._adapter_spec.items()}
+            for name, (prop, acc) in rows.items():
+                fam.labels(*lab, name).set(
+                    round(acc / max(1, prop), 4))
+
+    def _flightrec_source(self):
+        """Post-mortem bundle payload: the stats / health snapshot (the
+        recorder bounds a source that blocks behind a wedged tick)."""
+        return (f"engine-{self._tm_labels['replica']}",
+                {"stats": self.stats(), "health": self.health()})
+
+    def _slo_source(self):
+        """Lock-free counter reads for the ratio-floor SLOs."""
+        pc = self.prefix_cache
+        return (self._tm_labels["replica"], {
+            "prefix_hits": pc.hits if pc else 0,
+            "prefix_lookups": pc.lookups if pc else 0,
+            "spec_accepted": self._spec_accepted,
+            "spec_proposed": self._spec_proposed})
+
+    def _hbm_source(self):
+        """HBM-ledger row: the bytes this engine holds on the device (and
+        in pinned host memory), per subsystem — sizes fixed for the
+        engine's life."""
+        def _nbytes(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.numel() * tree.element_size()
+            vals = tree.values() if isinstance(tree, dict) else tree
+            return sum(_nbytes(v) for v in vals)
+
+        subs = {"kv_pool": self._pool_bytes}
+        pc = self.prefix_cache
+        if pc is not None and pc.host_pages:
+            page_bytes = self._pool_bytes / max(1, self.num_pages)
+            subs["kv_host_tier"] = int(pc.host_used * page_bytes)
+        if self.draft_pool is not None:
+            subs["kv_draft_pool"] = _nbytes(self.draft_pool)
+        if self.lora_pool is not None:
+            subs["adapter_pool"] = _nbytes(self.lora_pool)
+        if self.gen.quantize:
+            # a quantized serving copy is a separate device allocation
+            subs["serve_weights"] = _nbytes(self.gen.params())
+        dg = self.draft_gen
+        if dg is not None and dg.quantize:
+            subs["draft_weights"] = _nbytes(dg.params())
+        return (f"engine-{self._tm_labels['replica']}", subs)
+
+    def _health_probe(self):
+        """Lock-free /healthz row (the load() discipline)."""
+        return {"kind": "engine",
+                "replica": self._tm_labels["replica"],
+                "role": self._tm_labels["role"],
+                "status": "draining" if self._draining else "up",
+                "weight_version": self.weight_version,
+                "deploy_state": self.deploy_state,
+                **self.load()}
 
     # ---- scheduling ----------------------------------------------------------
 
@@ -1217,7 +1396,9 @@ class ServingEngine:
         derived from the engine seed and the request id). ``deadline`` is
         an absolute ``time.perf_counter()`` instant: a request still queued
         past it retires "timeout" without prefilling. ``adapter`` names a
-        registered LoRA adapter. ``trace_id`` is kept on the request."""
+        registered LoRA adapter. ``trace_id`` threads an existing fleet
+        trace through this engine's spans (None mints an engine-local
+        id)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -1259,7 +1440,8 @@ class ServingEngine:
                           seed=(int(seed) if seed is not None
                                 else (self._seed_base + self._next_rid)
                                 & 0x7FFFFFFF))
-            req.trace_id = trace_id or f"engine-r{req.rid}"
+            req.trace_id = trace_id or (
+                f"{self._tm_labels['replica']}-r{req.rid}")
             self._next_rid += 1
             self._submitted += 1
             if t > 0.0:
@@ -1267,6 +1449,8 @@ class ServingEngine:
             akey = adapter or "none"
             self._adapter_requests[akey] = \
                 self._adapter_requests.get(akey, 0) + 1
+            if self._tm_on:
+                self._tm_adapter(adapter)[0].inc()
             self._queue.append(req)
         return req
 
@@ -1289,6 +1473,11 @@ class ServingEngine:
         self._partial.pop(slot, None)
         if req.ttft:
             self._ttfts.append(req.ttft)
+        # close the decode span (handle 0 = telemetry off or none open)
+        telemetry.tracer().end(req.decode_span, state=state,
+                               tokens=len(req.tokens),
+                               **({"error": error} if error else {}))
+        req.decode_span = 0
         # copy-on-write teardown: pages the trie owns (the matched prefix
         # and the pages this request published) are decref'd and stay
         # cached; only the request's private pages return to the free list
@@ -1323,8 +1512,17 @@ class ServingEngine:
             return
         req.tokens.append(int(tok))
         self._tokens_emitted += 1
+        now = time.perf_counter()
         if not req.ttft:
-            req.ttft = time.perf_counter() - req.t_submit
+            req.ttft = now - req.t_submit
+            if self._tm_on:
+                self._tm_ch["ttft"].observe(req.ttft)
+                self._tm_adapter(req.adapter)[1].observe(req.ttft)
+        elif self._tm_on:
+            # host-observed inter-token latency: a decode chunk's tokens
+            # arrive together, so the chunk boundary carries the dispatch
+            self._tm_ch["itl"].observe(now - req.t_last_tok)
+        req.t_last_tok = now
         self.emitted[slot] += 1
         self.last_tok[slot] = tok
         if (self.eos_id is not None and tok == self.eos_id) \
@@ -1526,6 +1724,10 @@ class ServingEngine:
                 req.error = "deadline expired while queued"
                 req.t_done = now
                 self._timeouts += 1
+                if self._tm_on:
+                    telemetry.tracer().instant(
+                        "timeout", trace_id=req.trace_id,
+                        track=self._tm_track, where="engine_queue")
             else:
                 kept.append(req)
         self._queue = kept
@@ -1592,6 +1794,22 @@ class ServingEngine:
                     self._write_adapter_page(adapter_page, ent["payload"],
                                              ent["scale"])
             self._queue.pop(0)
+            # the engine queue wait ends here; the prefill span opens here
+            # and closes after the dispatch, tagged cold / hit
+            tm = self._tm_on and telemetry.enabled()
+            t_adm = time.perf_counter() if tm else 0.0
+            if tm:
+                wait = t_adm - req.t_submit
+                self._tm_ch["queue"].observe(wait)
+                telemetry.tracer().complete(
+                    "queue_wait", req.t_submit, wait,
+                    trace_id=req.trace_id, track=self._tm_track)
+            # FF_FAULT=slow(<ms>)@serve:<n> stalls the n-th admission on
+            # the host — the slow-replica drill (a deadline tighter than
+            # <ms> expires while this request is in flight)
+            if faultinject.active_plan().fire("slow", "serve"):
+                time.sleep((faultinject.active_plan().last_value or 0)
+                           / 1e3)
             fresh = [self._free_pages.pop() for _ in range(need)]
             if pc is not None:
                 pc.note_admitted(full)
@@ -1615,7 +1833,8 @@ class ServingEngine:
                 self._partial[slot] = {"req": req, "caches": None,
                                        "next": 0,
                                        "padded": self._dev(
-                                           self._padded(req))}
+                                           self._padded(req)),
+                                       "tm": tm, "t_adm": t_adm}
                 continue
             self._seed_slot(slot, req)
             n_prefill = math.ceil(req.bucket / self.page_size)
@@ -1626,6 +1845,15 @@ class ServingEngine:
                 tok, ok = self._build_prefill(req, req.pages[:n_prefill])
             if self.draft_gen is not None:
                 self._draft_prefill(req, full)
+            if tm:
+                telemetry.tracer().complete(
+                    "prefill", t_adm, time.perf_counter() - t_adm,
+                    trace_id=req.trace_id, track=self._tm_track,
+                    kind="hit" if full else "cold", bucket=req.bucket,
+                    matched_pages=full, ok=bool(ok))
+                req.decode_span = telemetry.tracer().begin(
+                    "decode", trace_id=req.trace_id,
+                    track=self._tm_track)
             self._publish(req, matched, full, ok)
             self.active[slot] = True
             self._record_token(slot, tok, ok)
@@ -1644,7 +1872,8 @@ class ServingEngine:
         for slot in sorted(self._partial):
             req = self._partial[slot]["req"]
             if req.deadline is not None and now >= req.deadline:
-                self._retire(slot, "timeout", "deadline expired mid-prefill")
+                self._abort_partial(slot, "timeout",
+                                    "deadline expired mid-prefill")
         budget = self.prefill_interleave_chunks
         while budget > 0 and self._partial:
             slots = sorted(self._partial)
@@ -1655,7 +1884,8 @@ class ServingEngine:
             except Exception as e:
                 # the slot's pages go back and its request fails; the
                 # error still reaches the caller
-                self._retire(slot, "failed", f"{type(e).__name__}: {e}")
+                self._abort_partial(slot, "failed",
+                                    f"{type(e).__name__}: {e}")
                 raise
             budget -= 1
         if self._partial:
@@ -1706,9 +1936,29 @@ class ServingEngine:
         if self.draft_gen is not None:
             self._draft_prefill(req, 0)
         self._seed_slot(slot, req)
+        if ps["tm"]:
+            telemetry.tracer().complete(
+                "prefill", ps["t_adm"], time.perf_counter() - ps["t_adm"],
+                trace_id=req.trace_id, track=self._tm_track,
+                kind="interleaved", bucket=req.bucket, matched_pages=0,
+                ok=bool(ok))
+            req.decode_span = telemetry.tracer().begin(
+                "decode", trace_id=req.trace_id, track=self._tm_track)
         self._publish(req, [], 0, ok)
         self.active[slot] = True
         self._record_token(slot, tok, ok)
+
+    def _abort_partial(self, slot: int, state: str, error: str):
+        """Retire a mid-prefill slot (deadline or failure): its chunk
+        caches are dropped, its pages freed, and the request retires
+        without decoding."""
+        ps = self._partial[slot]
+        if ps["tm"]:
+            telemetry.tracer().complete(
+                "prefill", ps["t_adm"], time.perf_counter() - ps["t_adm"],
+                trace_id=ps["req"].trace_id, track=self._tm_track,
+                kind="interleaved", aborted=state)
+        self._retire(slot, state, error)
 
     # ---- the host tier's page copies ----------------------------------------
 
@@ -1816,7 +2066,7 @@ class ServingEngine:
             raise RuntimeError(
                 "this engine has no adapter pool: build with "
                 "adapter_pool_pages > 0")
-        with self._lock:
+        with self._lock, kernels.device_section():
             replacing = name in self.lora.registry
             self.lora.register(name, weights, alpha)
             if replacing and self.prefix_cache is not None:
@@ -1837,13 +2087,11 @@ class ServingEngine:
         """The decode-side program for ``key`` (("decode", n),
         ("draft_propose", k), ("verify", k)), built on first use — each
         build is a capture on the card, counted in ``recompiles``. After
-        ``warmup()`` a new key is also counted as a retrace (a variant the
-        warmup did not reach)."""
+        ``warmup()`` the retrace sentinel records a new key (a variant the
+        warmup did not reach; strict sanitizing raises)."""
         prog = self._programs.get(key)
         if prog is None:
-            if self._sentinel_armed:
-                self._retraces += 1
-                log.warning("serving: program %r built after warmup", key)
+            self._retrace.note_miss(key)
             body, inputs = build()
             prog = self._programs[key] = _Program(body, inputs, self._stream)
             self.recompile_count += 1
@@ -2136,10 +2384,21 @@ class ServingEngine:
                 self._record_token(slot, tok, bool(t_oks[slot, m]))
 
     def _decode_tick(self):
+        tm = self._tm_on and telemetry.enabled()
+        if tm:
+            t0 = time.perf_counter()
+            slots = int(self.active.sum())
+            toks0 = self._tokens_emitted
         if self.draft_gen is not None:
             self._spec_step()
         else:
             self._decode_step()
+        if tm:
+            # one span a decode dispatch on the replica's track
+            telemetry.tracer().complete(
+                "decode_chunk", t0, time.perf_counter() - t0,
+                track=self._tm_track, slots=slots,
+                tokens=self._tokens_emitted - toks0)
 
     @torch.inference_mode()
     def step(self) -> bool:
@@ -2148,16 +2407,30 @@ class ServingEngine:
         slots, then one decode dispatch (a decode chunk, or a speculative
         iteration) if any slot is live. Returns whether progressable work
         remains — on a draining engine only live and mid-prefill slots
-        count, so a while-step loop always ends."""
-        with self._lock:
-            if not self._draining:
-                self._admit()
-            self._prefill_tick()
-            if self.active.any():
-                self._decode_tick()
-            if self._draining:
-                return bool(self.active.any()) or bool(self._partial)
-            return self.pending()
+        count, so a while-step loop always ends. An exception trips the
+        flight recorder (after the lock is released) and propagates."""
+        try:
+            with self._lock, kernels.device_section():
+                if not self._draining:
+                    self._admit()
+                self._prefill_tick()
+                if self.active.any():
+                    self._decode_tick()
+                if self._draining:
+                    out = bool(self.active.any()) or bool(self._partial)
+                else:
+                    out = self.pending()
+        except Exception as e:
+            if self._tm_on:
+                flightrec.trip(
+                    "engine_exception", exc=e,
+                    replica=self._tm_labels["replica"],
+                    error=f"{type(e).__name__}: {e}")
+            raise
+        if self._tm_on:
+            # the SLO tick: one time compare until a window has elapsed
+            flightrec.slo_monitor().maybe_evaluate()
+        return out
 
     def run(self, prompts=None, max_new_tokens: int = 32,
             **submit_kw) -> List[Request]:
@@ -2200,7 +2473,7 @@ class ServingEngine:
             raise ValueError(
                 f"bucketed prompt ({bucket}) exceeds max_seq_len "
                 f"{self.max_seq_len}")
-        with self._lock:
+        with self._lock, kernels.device_section():
             apage = 0
             if adapter is not None:
                 if self.lora is None or adapter not in self.lora.registry:
@@ -2292,7 +2565,7 @@ class ServingEngine:
             -> Optional[Dict]:
         """export_prefix_slab under an explicit namespace."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        with self._lock:
+        with self._lock, kernels.device_section():
             if self.prefix_cache is None:
                 return None
             last = prompt.size // self.page_size
@@ -2337,7 +2610,7 @@ class ServingEngine:
         the number of pages written. A partial-prefix slab (``start_page``
         > 0) extends an already imported path, and is refused (0) before
         its predecessors are in."""
-        with self._lock:
+        with self._lock, kernels.device_section():
             if self.prefix_cache is None:
                 return 0
             if int(slab["page_size"]) != self.page_size:
@@ -2441,8 +2714,10 @@ class ServingEngine:
     def warm_page_import(self, prompt) -> bool:
         """Run the page-import path once (host-tier promotion and slab
         import share it): publish the prompt's prefix, export it, forget
-        it, import it back — the trie ends as it started."""
-        with self._lock:
+        it, import it back — the trie ends as it started. Exempt from the
+        retrace sentinel (a deliberate warm-path build)."""
+        with self._lock, self._retrace.suspended(), \
+                kernels.device_section():
             if self.prefix_cache is None:
                 return False
             prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -2467,7 +2742,7 @@ class ServingEngine:
         built (CUDA-graph captures on the card), "requests", "variants":
         the program keys}."""
         plist = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
-        self._sentinel_armed = False
+        self._retrace.armed = False
         before = self.recompile_count
         req0 = self._submitted
         self.run(list(plist), max_new_tokens=max_new_tokens)
@@ -2494,7 +2769,11 @@ class ServingEngine:
                         "serving: warmup could not run the page-import "
                         "path (no full-page prompt, pool pressure, or "
                         "nothing to re-import)")
-        self._sentinel_armed = True
+        if self._tm_on:
+            # restart the SLO window clock past the warmup: a warmup's
+            # capture-inflated TTFT is never judged as a breach
+            flightrec.slo_monitor().rebaseline()
+        self._retrace.arm()
         return {"programs": self.recompile_count - before,
                 "requests": self._submitted - req0,
                 "variants": sorted(self._programs.keys(), key=repr)}
@@ -2519,7 +2798,8 @@ class ServingEngine:
         while True:
             # the lock a tick at a time: submit() callers get a prompt
             # RuntimeError instead of waiting out the drain
-            with self._lock, torch.inference_mode():
+            with self._lock, torch.inference_mode(), \
+                    kernels.device_section():
                 if not self.active.any() and not self._partial:
                     break
                 self._prefill_tick()
@@ -2563,7 +2843,7 @@ class ServingEngine:
         and leave their caches and versions stale. FF_FAULT
         ``swap_fail@deploy:<n>`` fails after the install: the prior
         weights are restored and the error raised."""
-        with self._lock:
+        with self._lock, kernels.device_section():
             if self.active.any() or self._partial:
                 raise RuntimeError(
                     "swap_weights: engine has live slots — drain() first "
@@ -2694,7 +2974,7 @@ class ServingEngine:
             # decode-side programs built (CUDA-graph captures on the card),
             # JAX's recompile count: flat once the keys are warm
             "recompiles": self.recompile_count,
-            "sanitizer_retraces": self._retraces,
+            "sanitizer_retraces": self._retrace.hits,
             "graph_replays": sum(p.replays for p in self._programs.values()),
             # useful slot-steps over computed ones (JAX's formula)
             "occupancy": (self._occupancy_sum

@@ -46,6 +46,13 @@ other algorithms under capture), with every replayed launch counted; Adam
 under a schedule, fused and guarded with a NaN step, against the CPU
 within 1e-5 (the key biases, whose exact gradient is zero, within Adam's
 step bound).
+
+The serving fleet on the card: two cold replicas capture their decode
+chunks on their own threads and streams while the other prefills, with
+the single engine's tokens; the launch counters stay exact while one
+thread launches eagerly and another captures; the fleet's f32 tokens and
+ledger equal the CPU's; with telemetry on nothing is captured after
+warmup; a hung replica is fenced and the survivor leaves no device error.
 """
 
 import ctypes
@@ -2889,3 +2896,212 @@ def test_generate_seq2seq_graph_matches_cpu(no_tf32):
     (gen,) = gpu._decoders.values()
     (loop,) = gen._programs.values()
     assert loop.step.graph is not None and loop.step.replays == 14
+
+
+# ---- the serving fleet on the card: several engines, several threads ------
+
+
+FLEET_KW = dict(serve_slots=2, kv_page_size=16, max_seq_len=320)
+
+
+def _fleet_prompts():
+    return _serve_prompts(lens=(5, 30, 77, 130, 41, 96))
+
+
+@pytest.mark.cuda
+def test_fleet_cold_replicas_capture_while_others_prefill(no_tf32):
+    """Two cold replicas started together: each captures its decode chunk
+    on its own thread while the other prefills eagerly — no capture
+    error, each replica captured once on its own stream, the tokens a
+    single engine's on the same card, the split-KV tickets clear."""
+    _, gpu = _llama_pair(no_tf32)
+    prompts = _fleet_prompts()
+    want = [r.tokens for r in gpu.make_serving_engine(
+        **FLEET_KW, prefix_cache=False).run(prompts, max_new_tokens=12)]
+    router = gpu.make_serving_router(replicas=2, prefix_cache=False,
+                                     start=False, **FLEET_KW)
+    try:
+        reqs = router.run(prompts, max_new_tokens=12, timeout=300)
+        assert [r.tokens for r in reqs] == want
+        assert all(e.stats()["recompiles"] == 1 for e in router.engines)
+        assert all(e.stats()["completed"] > 0 for e in router.engines)
+        streams = {e._stream.cuda_stream for e in router.engines}
+        assert len(streams) == 2
+        torch.cuda.synchronize()
+        assert kernels.tickets_clear()
+    finally:
+        router.close()
+
+
+@pytest.mark.cuda
+def test_launch_counters_exact_under_concurrent_captures(cuda):
+    """One thread launches kernel 1 eagerly, allocates and synchronises in
+    device sections (as a replica's prefill does; its first launch loads
+    the kernel) while another captures graphs whose bodies launch kernel 4
+    once (as a replica's decode chunk does): no launch fails, each
+    capture's tally is its own one launch, the process-wide counters hold
+    exactly the eager launches (a capture launches nothing), every replay
+    adds one, and the replays compute what an eager launch does."""
+    import threading
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q1 = torch.randn(1, 256, 32, 128, device=cuda, generator=g,
+                     dtype=torch.bfloat16)
+    k1 = torch.randn(1, 256, 8, 128, device=cuda, generator=g,
+                     dtype=torch.bfloat16)
+    ps, pps = 128, 4
+    q = torch.randn(4, 1, 32, 128, device=cuda, generator=g,
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn(4 * pps + 1, ps, 8, 128, device=cuda, generator=g,
+                          dtype=torch.bfloat16) for _ in range(2))
+    table = (torch.arange(4 * pps, device=cuda) + 1).reshape(
+        4, pps).to(torch.int32)
+    wp = torch.tensor([[300], [400], [130], [10]], dtype=torch.int32,
+                      device=cuda)
+    row_len = torch.tensor([250, 380, 100, 8], dtype=torch.int32,
+                           device=cuda)
+    pad = torch.tensor([256, 384, 128, 8], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, wp, row_len, pad, 128 ** -0.5)
+    want = kernels.paged_attention_fwd(*args)
+    eager_n, captures = 200, 20
+    n1 = kernels.flash_attention_fwd.launches
+    n4 = kernels.paged_attention_fwd.launches
+    tallies, graphs, outs, errors = [], [], [], []
+    go = threading.Event()
+    owner = type("Owner", (), {})()
+
+    def eager():
+        go.wait()
+        try:
+            for _ in range(eager_n):
+                # an engine's tick: device work in a shared section
+                with kernels.device_section():
+                    kernels.flash_attention_fwd(q1, k1, k1, True, 0.088)
+                    torch.empty(1 << 20, device=cuda)
+                    torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def capturing():
+        side = kernels.private_stream(cuda, owner)
+        go.wait()
+        try:
+            for _ in range(captures):
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    kernels.paged_attention_fwd(*args)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                out, tally = kernels.capture(
+                    graph, side, lambda: kernels.paged_attention_fwd(*args))
+                tallies.append(tally)
+                graphs.append(graph)
+                outs.append(out)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=eager), threading.Thread(target=capturing)]
+    for t in ts:
+        t.start()
+    go.set()
+    for t in ts:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert all(t["paged_attention_fwd"] == 1 and sum(t.values()) == 1
+               for t in tallies)
+    assert kernels.flash_attention_fwd.launches - n1 == eager_n
+    # each capture's eager first run launched; the captures did not
+    assert kernels.paged_attention_fwd.launches - n4 == captures
+    for graph, tally, out in zip(graphs, tallies, outs):
+        graph.replay()
+        kernels.add_launches(tally)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert kernels.paged_attention_fwd.launches - n4 == 2 * captures
+    assert kernels.tickets_clear()
+
+
+@pytest.mark.cuda
+def test_fleet_f32_tokens_card_vs_cpu(no_tf32):
+    """The fleet at 2 layers in f32, prefix cache on, on the card and on
+    the CPU from the same weights: the same greedy tokens and the same
+    fleet ledger."""
+    cpu, gpu = _llama_pair(no_tf32)
+    prompts = _fleet_prompts()
+    out = {}
+    for name, ff in (("cpu", cpu), ("cuda", gpu)):
+        router = ff.make_serving_router(replicas=2, start=False,
+                                        **FLEET_KW)
+        try:
+            reqs = []
+            for p in prompts:       # one at a time: a deterministic order
+                reqs += router.run([p], max_new_tokens=10, timeout=300)
+            st = router.stats()
+            out[name] = ([r.tokens for r in reqs], [r.replica for r in reqs],
+                         {k: st[k] for k in ("completed", "dispatched",
+                                             "affinity_keys")})
+        finally:
+            router.close()
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_fleet_telemetry_on_captures_nothing_after_warmup(no_tf32):
+    """telemetry on: after router.warmup() the fleet's traffic builds no
+    program on any replica (no capture), trips no sentinel, and every
+    request's span tree is complete."""
+    from flexflow_tpu_torch.runtime import telemetry
+
+    _, gpu = _llama_pair(no_tf32)
+    assert gpu.config.telemetry == "on"
+    prompts = _fleet_prompts()
+    router = gpu.make_serving_router(replicas=2, start=False, **FLEET_KW)
+    try:
+        router.warmup(prompts, max_new_tokens=4)
+        built = [e.recompile_count for e in router.engines]
+        assert all(b >= 1 for b in built)
+        for e in router.engines:
+            e.flush_prefix_cache()
+        reqs = router.run(prompts, max_new_tokens=10, timeout=300)
+        assert all(r.state == "done" for r in reqs)
+        assert [e.recompile_count for e in router.engines] == built
+        assert all(e.stats()["sanitizer_retraces"] == 0
+                   for e in router.engines)
+        assert all(telemetry.trace_tree(r.trace_id)["complete"]
+                   for r in reqs)
+    finally:
+        router.close()
+
+
+@pytest.mark.cuda
+def test_hung_replica_fenced_survivor_has_no_device_error(no_tf32,
+                                                          monkeypatch):
+    """hang@replica:0 on warmed replicas: the wedged replica is fenced, its
+    engine, pool and graphs stay alive, the survivor serves the single
+    engine's tokens, and the card reports no error afterwards."""
+    from flexflow_tpu_torch.runtime import faultinject
+
+    _, gpu = _llama_pair(no_tf32)
+    prompts = _fleet_prompts()
+    want = [r.tokens for r in gpu.make_serving_engine(
+        **FLEET_KW, prefix_cache=False).run(prompts, max_new_tokens=10)]
+    router = gpu.make_serving_router(replicas=2, prefix_cache=False,
+                                     health_timeout_s=2.0, start=False,
+                                     **FLEET_KW)
+    try:
+        router.warmup(prompts[:2], max_new_tokens=2)
+        monkeypatch.setenv("FF_FAULT", "hang@replica:0")
+        faultinject.reset()
+        reqs = router.run(prompts, max_new_tokens=10, timeout=300)
+        assert [r.tokens for r in reqs] == want
+        st = router.stats()
+        assert st["fenced"] == 1
+        assert "hang" in st["per_replica"][0]["fence_reason"]
+        hung = router.engines[0]
+        assert hung._programs and hung.pool
+        torch.cuda.synchronize()
+        assert kernels.tickets_clear()
+    finally:
+        monkeypatch.delenv("FF_FAULT", raising=False)
+        faultinject.reset()
+        router.close()

@@ -138,8 +138,9 @@ def test_port_imports_no_jax():
     names = {str(f.relative_to(REPO)) for f in files}
     # the training slice's modules, the zoo slice's, the MoE / recurrent
     # / pipelined / fusion slice's, the serving engine's (LoRA, the
-    # fault-injection copy) and generation's are among those scanned, and
-    # the port's scripts
+    # fault-injection copy), generation's and the fleet's with its runtime
+    # plane (router, locks, telemetry, flight recorder) are among those
+    # scanned, and the port's scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
         "runtime/metrics", "runtime/dataloader", "models/transformer",
@@ -149,7 +150,9 @@ def test_port_imports_no_jax():
         "convert", "ffconst", "ops/moe", "ops/recurrent", "ops/pipelined",
         "ops/fused", "models/nmt", "ops/lora", "runtime/lora",
         "runtime/faultinject", "runtime/serving", "runtime/generation",
-        "runtime/seq2seq_generation")} \
+        "runtime/seq2seq_generation", "runtime/router", "runtime/locks",
+        "runtime/telemetry", "runtime/flightrec", "runtime/manifest",
+        "runtime/resilience")} \
         <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
@@ -176,11 +179,19 @@ def test_later_slice_knobs_raise(tff, knob):
     """The host tier and LoRA adapters are ported: their knobs serve and
     are validated as in the JAX package (a negative size, a host tier
     without the prefix cache, a rank below 1). The fleet's telemetry
-    identity belongs to the runtime plane (ROADMAP item 11) and raises."""
+    identity is ported with the runtime plane: it relabels the engine's
+    series and trace track; the SLOs over the training step and the
+    checkpoint stall stay refused (ROADMAP item 11)."""
     if knob == "set_telemetry_identity":
         eng = tff.make_serving_engine(**ENGINE)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            eng.set_telemetry_identity(0, "decode")
+        eng.set_telemetry_identity(0, "decode")
+        assert eng._tm_labels == {"replica": "0", "role": "decode"}
+        assert eng._tm_track == "replica0"
+        req = eng.submit(np.arange(1, 6, dtype=np.int32), 2)
+        assert req.trace_id == "0-r0"
+        for knob in ("slo_step_time_p99_s", "slo_checkpoint_stall_s"):
+            with pytest.raises(NotImplementedError, match="item 11"):
+                FFConfig(**{knob: 1.0})
         return
     eng = tff.make_serving_engine(**dict(ENGINE, prefix_cache=True,
                                          **{knob: 4}))
