@@ -233,10 +233,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 no launch; swap_weights to a second seeded model's
                 weights on a native and an int8-weight engine (the tokens
                 of an engine on that second model, no capture added) and
-                back (the first tokens), refused under a live slot and, at
-                native width, while another engine reads the model (which
-                keeps its tokens); warmup() then the same prompts capture
-                nothing. Exact launch counts in every round.
+                back (the first tokens), refused under a live slot; at
+                native width beside another engine on the model the swap
+                moves to a weight set (captures inside the swap, none back;
+                the other engine keeps its tokens); warmup() then the same
+                prompts capture nothing. Exact launch counts in every
+                round.
 
  13. generate — right after 12, on phase 6's Llama-3-8B (its construction
                 weights back, no engine holding it): (a) FFModel.generate
@@ -309,6 +311,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 P14_TM_PAIRS interleaved pairs. Peak memory and the phase's
                 seconds. The JSON line's "_fleet" rows repeat phase 3's
                 serving rows with the cold fleet run's launches.
+ 15. checkpoints and deploys — (b)-(d) right after 14 on phase 6's
+                Llama-3-8B, (a) right after 7. Free disk under build/ is
+                printed and a shortfall fails; every file goes under
+                build/phase15/ and is removed at the end. (b) the seed-12
+                model at the same widths gives the reference tokens (a
+                single engine, generate()), is published through
+                WeightArtifactRegistry (one ~16 GB artifact: publish,
+                verify GB/s), and a 1-layer model's artifact is torn by
+                corrupt_ckpt@publish. A two-replica fleet (warmed, started)
+                then: refuses the torn version with no replica touched;
+                rolls back swap_fail@deploy:1; under live traffic (a
+                request every 0.25 s) rolls back a canary whose admissions
+                slow(P15_CANARY_STALL_MS)@canary:1 stalls past
+                slo_ttft_p99_s (a bundle written); and rolls onto v12 with
+                one canary window under live traffic: every live request
+                done, both replicas on one shared weight set, each
+                replica's captures inside its drained window and none
+                after, phase 6's prompts served with the seed-12 engine's
+                tokens by both replicas; the deploy's and each swap's
+                seconds, peak memory with two versions live. (c) the
+                artifact restored (verified) into a fresh model, whose
+                generate() equals the seed-12 model's; restore ms and GB/s.
+                (d) AutoscalePolicy (min 1, max 3) over a new pair, a
+                scripted breach (two windows) scaling out and idle windows
+                scaling in (the survivors inherit the retiree's prefixes;
+                PlacementAdvisor's price under the H100 model), then
+                remove_replica under a burst resubmits its queued
+                requests. (a) the flagship at full width (bf16, fused
+                momentum SGD): fit of P15_STEPS steps uninterrupted, then
+                with checkpoint_every=2, async, keep 2, sigterm after step
+                P15_PREEMPT (stops preempted), and a fresh model's fit
+                resuming it: losses and weights bitwise the uninterrupted
+                run's; the same under scan_steps=2 (within
+                P15_SCAN_LOSS_RTOL: cuBLAS under capture); the step with
+                and without checkpointing, each save's stall, snapshot
+                D2H GB/s, publish seconds and GB/s, manifest hash GB/s,
+                restore ms, peak memory; at P15_DRILL_LAYERS layers the
+                nan_loss rewind, the corrupt newest step's fallback and
+                the hang watchdog with its flight bundle. The "_resume"
+                and "_deploy" rows repeat phase 3's training and serving
+                rows with the resumed fit's and the deploy's launches.
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -3707,19 +3750,20 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
         pass
     eng_n.run()
     say("phase 12 (swap): swap_weights with a live slot raised")
-    # a native swap writes ff.params: refused while another engine reads
-    # them, and that engine keeps its tokens
+    # with another engine reading ff.params, a native swap moves the
+    # engine to the version's weight set (captured there, inside the
+    # swap) and leaves ff.params — the other engine keeps its tokens; the
+    # swap back finds its programs
     other = ff.make_serving_engine(**P11_ENGINE)
-    try:
-        eng_n.swap_weights(new, "v1")
-        fail("phase 12 (swap): a native swap with a second engine on the "
-             "model did not raise")
-    except RuntimeError as e:
-        if "other engine" not in str(e):
-            raise
+    shared = eng_n.swap_weights(new, "v1")
     o1 = _p12_round(torch, kernels, other, prompts, "swap, other engine")
-    same("swap refused: the model's other engine vs phase 6", o1["tokens"],
-         ref)
+    same("swap to a weight set: the model's other engine vs phase 6",
+         o1["tokens"], ref)
+    s2 = _p12_round(torch, kernels, eng_n, prompts, "swap, weight set")
+    back = eng_n.swap_weights(None, "v0")
+    if not shared["captures"] or back["captures"]:
+        fail(f"phase 12 (swap): the weight-set swap captured "
+             f"{shared['captures']}, its swap back {back['captures']}")
     del other
     caps_n = eng_n.stats()["recompiles"]
     torch.cuda.synchronize()
@@ -3733,6 +3777,8 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
     del fresh
     same("swap: native engine after the swap vs an engine on the second "
          "model", n2["tokens"], f2["tokens"])
+    same("swap: the weight-set engine vs an engine on the second model",
+         s2["tokens"], f2["tokens"])
     if n2["tokens"] == n1["tokens"]:
         fail("phase 12 (swap): the second weight set served the first "
              "set's tokens")
@@ -3769,8 +3815,9 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
     say(f"phase 12 (swap): native swap {t_swap:.2f} s and back "
         f"{t_back:.2f} s (the construction weights kept in host memory), "
         f"int8 re-quantization in place {t_swap_q:.2f} s; captures added "
-        f"across the swaps {added}; a second engine on the model refused "
-        f"the native swap and kept its tokens [{card}]")
+        f"across the swaps {added}; beside a second engine the swap took a "
+        f"weight set ({shared['captures']} captures, 0 back) and the "
+        f"second engine kept its tokens [{card}]")
     if added != (0, 0):
         fail(f"phase 12 (swap): captures added across the swaps {added}")
     del eng_q, new, ff2
@@ -4840,6 +4887,785 @@ def phase_fleet(torch, kernels, ff, prompts, card: str):
     return {"fleet": launches}
 
 
+# ------------------------------------------------ phase 15: checkpoints, deploy
+
+#: phase 15 (a): the flagship's fit with checkpoints — P15_STEPS steps, a
+#: checkpoint every 2 (async, keep 2), preempted after step P15_PREEMPT
+P15_STEPS = 8
+P15_PREEMPT = 5
+#: momentum 0.9 multiplies the step ~10x: phase 7's lr / 10 keeps the
+#: random-data losses from running away
+P15_LR = TRAIN_LR / 10
+#: the drills run the flagship at its widths and P15_DRILL_LAYERS layers
+#: (each checkpoint then writes ~1 GB instead of ~5 GB)
+P15_DRILL_LAYERS = 1
+P15_HANG_TIMEOUT_S = 2.0
+#: the scanned resume: the resumed run's first step runs eagerly where the
+#: uninterrupted run replays the captured graph, and cuBLAS may choose
+#: other GEMM algorithms under capture (bf16): losses within this relative
+#: distance, weights printed
+P15_SCAN_LOSS_RTOL = 2e-2
+#: (b): the SLO the canary is judged by, its window, and the canary drill's
+#: admission stall
+P15_SLO_WINDOW_S = 3.0
+P15_TTFT_SLO_S = 1.5
+P15_CANARY_STALL_MS = 2500
+#: free disk the phase needs under build/ (the 16 GB artifact, a small
+#: drill artifact, the flagship's checkpoints)
+P15_DISK_BYTES = 24 * 2**30
+#: the published version of the seed-12 model, and of the torn drill one
+P15_VERSION_STEP = 12
+P15_TORN_STEP = 11
+P15_GEN_NEW = 8
+
+
+def _p15_dir(name: str) -> Path:
+    d = ROOT / "build" / "phase15" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _p15_disk(card: str):
+    """Free space under build/, printed; short of P15_DISK_BYTES fails."""
+    base = ROOT / "build"
+    base.mkdir(exist_ok=True)
+    free = shutil.disk_usage(base).free
+    say(f"phase 15: {free / 2**30:.1f} GiB free under {base} (needs "
+        f"{P15_DISK_BYTES / 2**30:.0f}) [{card}]")
+    if free < P15_DISK_BYTES:
+        fail(f"phase 15: {free / 2**30:.1f} GiB free under {base}, the "
+             f"phase writes up to {P15_DISK_BYTES / 2**30:.0f} GiB")
+
+
+def _p15_nbytes(ckpt, ff) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in ckpt.state_tensors(ff).values())
+
+
+class _P15PublishClock:
+    """Times every checkpoint publish (payload write + manifest + rename +
+    retention, on whichever thread runs it) by wrapping
+    checkpoint._publish_step for the phase."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.real = ckpt, ckpt._publish_step
+        self.runs = []
+
+        def timed(directory, step, state, meta, keep):
+            t0 = time.perf_counter()
+            self.real(directory, step, state, meta, keep)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in state.values())
+            self.runs.append((step, time.perf_counter() - t0, nbytes))
+
+        ckpt._publish_step = timed
+
+    def close(self):
+        self.ckpt._publish_step = self.real
+
+
+def _p15_flagship(torch, port, layers: int, x_data, y_data, **cfg):
+    f = dict(FLAGSHIP, layers=layers)
+    ff, x = build_flagship(port, "cuda", "bfloat16", 0, **f,
+                           opt=port.SGDOptimizer(lr=P15_LR, momentum=0.9),
+                           fused_optimizer=True, **cfg)
+    port.SingleDataLoader(ff, x, x_data)
+    port.SingleDataLoader(ff, ff.label_tensor, y_data)
+    return ff
+
+
+def _p15_record(torch, ff, ends=None):
+    """Wrap ff's step verbs to record every loss a fit computes; with
+    ``ends``, each per-step step also synchronizes and appends its end
+    instant (step i's time is then ends[i] - ends[i-1]: its staging, its
+    device work and the boundary work — a save — after step i-1)."""
+    losses = []
+    step, scanned = ff._run_train_step, ff.train_scanned
+
+    def rec_step(batch, inject_nan=False):
+        loss, mets = step(batch, inject_nan)
+        losses.append(loss.reshape(1))
+        if ends is not None:
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+        return loss, mets
+
+    def rec_scan(k):
+        ls, mets = scanned(k)
+        losses.append(ls)
+        return ls, mets
+
+    ff._run_train_step, ff.train_scanned = rec_step, rec_scan
+    return losses
+
+
+def _p15_fit(torch, ff, card: str, tag: str, ends=None):
+    """fit() of one epoch, timed; (the losses it computed, seconds)."""
+    losses = _p15_record(torch, ff, ends)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ff.fit(epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = [float(v) for v in torch.cat(losses)] if losses else []
+    if not all(math.isfinite(v) for v in vals):
+        fail(f"phase 15 (a) {tag}: non-finite losses {vals}")
+    return vals, wall
+
+
+def _p15_weights_equal(torch, a, b) -> float:
+    """Max |a - b| over every weight (0.0: bitwise)."""
+    return max((x.float() - b.params[op][w].float()).abs().max().item()
+               for op, ws in a.params.items() for w, x in ws.items())
+
+
+def _p15_resume_case(torch, port, kernels, ckpt, faultinject, telemetry,
+                     data, card: str, scan: int):
+    """One resume check at full width: the uninterrupted fit, the fit
+    preempted after P15_PREEMPT (sigterm), a fresh model's resumed fit;
+    returns (the resumed fit's launches, measurements)."""
+    import os
+
+    tag = f"scan_steps={scan}" if scan else "per-step"
+    cfg = dict(scan_steps=scan) if scan else {}
+    ref = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **cfg)
+    ends_ref, ends_a = ([], []) if not scan else (None, None)
+    want, wall_ref = _p15_fit(torch, ref, card, tag + " uninterrupted",
+                              ends_ref)
+    d = _p15_dir("resume_scan" if scan else "resume")
+    ck = dict(checkpoint_dir=str(d), checkpoint_every=2,
+              async_checkpointing=True, keep_checkpoints=2, **cfg)
+    os.environ["FF_FAULT"] = f"sigterm@step:{P15_PREEMPT}"
+    faultinject.reset()
+    telemetry.tracer().reset()
+    a = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **ck)
+    got_a, wall_a = _p15_fit(torch, a, card, tag + " preempted", ends_a)
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    stop = a._step_count
+    if a.last_fit_status != "preempted" or stop < P15_PREEMPT:
+        fail(f"phase 15 (a) {tag}: the fit did not stop preempted "
+             f"({a.last_fit_status}, step {stop})")
+    if ckpt.latest_step(str(d)) != stop or \
+            ckpt.load_meta(str(d), stop)["reason"] != "preempt":
+        fail(f"phase 15 (a) {tag}: no preemption checkpoint at step {stop}")
+    saves = [(e["args"], e["dur"] / 1e6) for e in
+             telemetry.tracer().events(name="checkpoint_save")]
+    nbytes = _p15_nbytes(ckpt, a)
+    del a
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    b = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **ck)
+    telemetry.tracer().reset()
+    kernels.reset_launch_counts()
+    got_b, wall_b = _p15_fit(torch, b, card, tag + " resumed")
+    launches = kernels.launch_counts()
+    saves_b = [(e["args"], e["dur"] / 1e6) for e in
+               telemetry.tracer().events(name="checkpoint_save")]
+    peak = torch.cuda.max_memory_allocated()
+    if b._step_count != P15_STEPS or b.last_fit_status != "completed":
+        fail(f"phase 15 (a) {tag}: the resumed fit ended at step "
+             f"{b._step_count} ({b.last_fit_status})")
+    got = got_a[:len(want)] + got_b
+    # the uninterrupted and the resumed trajectories, step by step
+    if len(got_a) != stop or len(got_b) != P15_STEPS - stop:
+        fail(f"phase 15 (a) {tag}: {len(got_a)} + {len(got_b)} losses for "
+             f"{P15_STEPS} steps")
+    diff = _p15_weights_equal(torch, b, ref)
+    bitwise = got == want and diff == 0.0
+    rel = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(got, want))
+    say(f"phase 15 (a) {tag}: preempted at step {stop}, resumed to "
+        f"{P15_STEPS}: losses {[round(v, 5) for v in got]} vs uninterrupted "
+        f"{[round(v, 5) for v in want]}: max relative {rel:.3g}, weights max "
+        f"|diff| {diff:.3g}, bitwise {bitwise}")
+    if not scan and not bitwise:
+        fail(f"phase 15 (a) {tag}: the resumed run is not bitwise the "
+             f"uninterrupted one (every kernel on the path is "
+             f"deterministic)")
+    if scan and rel > P15_SCAN_LOSS_RTOL:
+        fail(f"phase 15 (a) {tag}: resumed losses {rel:.3g} from the "
+             f"uninterrupted run's (limit {P15_SCAN_LOSS_RTOL}: cuBLAS GEMM "
+             f"algorithms under capture)")
+    m = dict(wall_ref=wall_ref, wall_a=wall_a, stop=stop,
+             saves=saves + saves_b, nbytes=nbytes, peak=peak, wall_b=wall_b,
+             dir=d, model=b, ends_ref=ends_ref, ends_a=ends_a)
+    del ref
+    return launches, m
+
+
+def _p15_drills(torch, port, ckpt, faultinject, resilience, flightrec,
+                data, card: str):
+    """(a)'s drills at P15_DRILL_LAYERS layers: the nan_loss rewind, the
+    corrupt newest step, the hang watchdog with its flight bundle."""
+    import os
+
+    layers = P15_DRILL_LAYERS
+    # nan_loss on three consecutive steps, rewind after 3
+    d = _p15_dir("drill_nan")
+    os.environ["FF_FAULT"] = "nan_loss@step:4-6"
+    faultinject.reset()
+    resilience.reset_counters()
+    ff = _p15_flagship(torch, port, layers, *data, checkpoint_dir=str(d),
+                       checkpoint_every=2, on_nonfinite="skip",
+                       nonfinite_rewind_after=3)
+    ff.fit(epochs=1, verbose=False)
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    c = resilience.counters()
+    if c.get("rewinds") != 1 or ff._step_count != P15_STEPS or \
+            c.get("steps_skipped", 0) < 3:
+        fail(f"phase 15 (a) nan drill: counters {c}, step {ff._step_count}")
+    say(f"phase 15 (a) nan_loss@step:4-6, rewind after 3: rewound once to "
+        f"the last intact checkpoint, {c['steps_skipped']} steps skipped, "
+        f"fit ended at step {ff._step_count} (counters {c})")
+    del ff
+    # the corrupt newest step: saves at 1, 3 and the preemption save at 5,
+    # the third torn after it lands
+    d = _p15_dir("drill_corrupt")
+    os.environ["FF_FAULT"] = "sigterm@step:5,corrupt_ckpt@save:3"
+    faultinject.reset()
+    resilience.reset_counters()
+    ff = _p15_flagship(torch, port, layers, *data, checkpoint_dir=str(d),
+                       checkpoint_every=2, keep_checkpoints=3)
+    ff.fit(epochs=1, verbose=False)
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    if ckpt.latest_step(str(d)) != 5 or ckpt.latest_intact_step(str(d)) != 3:
+        fail(f"phase 15 (a) corrupt drill: latest {ckpt.latest_step(str(d))}"
+             f", intact {ckpt.latest_intact_step(str(d))}")
+    fresh = _p15_flagship(torch, port, layers, *data, checkpoint_dir=str(d))
+    sup = resilience.TrainSupervisor(fresh)
+    if sup.resume() != 3 or \
+            resilience.counters().get("corrupt_checkpoints_skipped") != 1:
+        fail(f"phase 15 (a) corrupt drill: resumed step {fresh._step_count},"
+             f" counters {resilience.counters()}")
+    say("phase 15 (a) corrupt_ckpt@save:3 on the newest step (5): the "
+        "resume skipped it and restored step 3")
+    del ff, fresh, sup
+    # hang at step 2 under a short watchdog: the fire, its flight bundle
+    d = _p15_dir("drill_hang")
+    fdir = _p15_dir("drill_hang_flight")
+    resilience.reset_counters()
+    ff = _p15_flagship(torch, port, layers, *data, checkpoint_dir=str(d),
+                       step_timeout_s=P15_HANG_TIMEOUT_S,
+                       flight_recorder_dir=str(fdir), flight_cooldown_s=0.0)
+    sup = resilience.TrainSupervisor(
+        ff, faults=faultinject.FaultPlan.parse("hang@step:2"))
+    t0 = time.perf_counter()
+    try:
+        sup.run(3)
+        fail("phase 15 (a) hang drill: the watchdog did not abort the run")
+    except KeyboardInterrupt:
+        pass
+    dt = time.perf_counter() - t0
+    bundles = flightrec.list_bundles(str(fdir))
+    causes = [json.load(open(Path(b) / "trigger.json"))["cause"]
+              for b in bundles]
+    if not sup.watchdog.fired or "watchdog_fire" not in causes:
+        fail(f"phase 15 (a) hang drill: fired {sup.watchdog.fired}, bundles "
+             f"{causes}")
+    for b in bundles:
+        flightrec.verify_bundle(b)
+    say(f"phase 15 (a) hang@step:2 under step_timeout_s "
+        f"{P15_HANG_TIMEOUT_S}: the watchdog fired and aborted the run in "
+        f"{dt:.1f} s; flight bundles {causes} (verified)")
+    flightrec.configure(port.FFConfig())
+    del ff, sup
+
+
+def phase_resilience(torch, port, kernels, card: str):
+    """Phase 15 (a): the flagship at full width trains through a
+    preemption — per-step and scan_steps=2 — and the drills. Returns
+    {"resume": the per-step resumed fit's launches}."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+    from flexflow_tpu_torch.runtime import (faultinject, flightrec,
+                                            resilience, telemetry)
+
+    t_start = time.perf_counter()
+    _p15_disk(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f = FLAGSHIP
+    n = f["batch"] * P15_STEPS
+    rs = np.random.RandomState(15)
+    data = (rs.randn(n, f["seq"], f["hidden"]).astype(np.float32),
+            rs.randint(0, f["num_classes"], (n, 1)).astype(np.int32))
+    clock = _P15PublishClock(ckpt)
+    try:
+        launches, m = _p15_resume_case(torch, port, kernels, ckpt,
+                                       faultinject, telemetry, data, card, 0)
+        t1 = time.perf_counter()
+        _, ms = _p15_resume_case(torch, port, kernels, ckpt, faultinject,
+                                 telemetry, data, card, 2)
+        t2 = time.perf_counter()
+    finally:
+        clock.close()
+    # the numbers, from the per-step case
+    gb = m["nbytes"] / 1e9
+    say(f"phase 15 (a): checkpoint payload {gb:.3f} GB (1.2 B bf16 weights "
+        f"+ momentum) [{card}]")
+    # step i's time: ends[i] - ends[i-1] (the first step, with its warm-up,
+    # left out); the checkpointed run saves after steps 1 and 3 (async)
+    ref_ms = [1e3 * (b - a) for a, b in zip(m["ends_ref"],
+                                             m["ends_ref"][1:])]
+    a_ms = [1e3 * (b - a) for a, b in zip(m["ends_a"], m["ends_a"][1:])]
+    after_save = [a_ms[i] for i in (0, 2) if i < len(a_ms)]
+    plain = [a_ms[i] for i in (1, 3) if i < len(a_ms)]
+    say(f"phase 15 (a): step (synchronized) without checkpoint_every: "
+        f"median {sorted(ref_ms)[len(ref_ms) // 2]:.1f} ms of "
+        f"{[round(v, 1) for v in ref_ms]}; with checkpoint_every=2 async: "
+        f"steps after a save {[round(v, 1) for v in after_save]} ms, the "
+        f"others {[round(v, 1) for v in plain]} ms [{card}]")
+    for args, stall in m["saves"]:
+        kind = "async" if args.get("published_async") else "sync"
+        say(f"phase 15 (a): save at step {args['step']} ({args['reason']}, "
+            f"{kind}): the loop stalled {stall * 1e3:.1f} ms [{card}]")
+    for step, dt, nbytes in clock.runs[:4]:
+        say(f"phase 15 (a): publish of step {step}: {dt:.2f} s for "
+            f"{nbytes / 1e9:.3f} GB (torch.save hashed as it writes, the "
+            f"manifest, the rename), "
+            f"{nbytes / 1e9 / dt:.2f} GB/s [{card}]")
+    d, b = m["dir"], m["model"]
+    # the snapshot's D2H alone: pinned buffers (the second, warm, call),
+    # copies on the current stream until the publisher's event
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ev = ckpt._host_snapshot(b, pinned=True)
+        ev.synchronize()
+        t_d2h = time.perf_counter() - t0
+    say(f"phase 15 (a): snapshot D2H into pinned memory {t_d2h * 1e3:.0f} "
+        f"ms, {gb / t_d2h:.2f} GB/s [{card}]")
+    step = ckpt.latest_step(str(d))
+    t0 = time.perf_counter()
+    ckpt.verify_checkpoint(str(d), step)
+    t_hash = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(b, str(d), step=step, verify=False)
+    torch.cuda.synchronize()
+    t_rest = time.perf_counter() - t0
+    say(f"phase 15 (a): manifest hash of step {step}: {t_hash:.2f} s, "
+        f"{gb / t_hash:.2f} GB/s; restore (in place, unverified) "
+        f"{t_rest * 1e3:.0f} ms, {gb / t_rest:.2f} GB/s; the resumed fit's "
+        f"peak memory {m['peak'] / 2**30:.2f} GiB [{card}]")
+    del b, m, ms
+    gc.collect()
+    _p15_drills(torch, port, ckpt, faultinject, resilience, flightrec,
+                data, card)
+    shutil.rmtree(ROOT / "build" / "phase15", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 15 (a): per-step case {t1 - t_start:.1f} s, scan case "
+        f"{t2 - t1:.1f} s, total {time.perf_counter() - t_start:.1f} s")
+    return {"resume": launches}
+
+
+class _P15Feed:
+    """Live traffic for a deploy: a thread submitting one fresh prompt every
+    ``gap`` seconds to the router until stopped; ``stop`` returns every
+    request it submitted."""
+
+    def __init__(self, router, prompts, gap: float, max_new: int):
+        import threading
+
+        self.router, self.prompts = router, prompts
+        self.gap, self.max_new = gap, max_new
+        self.reqs = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="phase15-feed")
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            p = self.prompts[i % len(self.prompts)]
+            self.reqs.append(self.router.submit(p, self.max_new))
+            i += 1
+            self._stop.wait(self.gap)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: float = 600.0):
+        self._stop.set()
+        self._thread.join()
+        self.router.wait(self.reqs, timeout=timeout)
+        bad = [(r.state, r.error) for r in self.reqs if r.state != "done"]
+        if bad:
+            fail(f"phase 15 (b): live traffic lost requests: {bad[:4]}")
+        return self.reqs
+
+
+def _p15_prompts(np, n: int, seed: int, lo: int = 40, hi: int = 300):
+    rs = np.random.RandomState(seed)
+    vocab = LLAMA3_8B["vocab_size"]
+    return [rs.randint(0, vocab, size=int(rs.randint(lo, hi)))
+            .astype(np.int32) for _ in range(n)]
+
+
+class _P15Monitor:
+    """A scripted SLO monitor for the autoscaler's deterministic breach
+    and idle windows (``rows``: the breaches it reports)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def maybe_evaluate(self, now=None):
+        return []
+
+    def breaches(self):
+        return self.rows
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
+
+
+def _p15_reference(torch, FFConfig, FFModel, llama_lm, prompts, gen_tokens,
+                   card: str):
+    """The seed-12 model: a single engine's tokens on ``prompts`` and
+    generate()'s on ``gen_tokens``; returns (model, tokens, generated)."""
+    t0 = time.perf_counter()
+    ff12 = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16",
+                       P15_VERSION_STEP, **LLAMA3_8B)
+    eng = ff12.make_serving_engine(**ENGINE)
+    reqs = eng.run(prompts, max_new_tokens=MAX_NEW)
+    if any(r.state != "done" for r in reqs):
+        fail("phase 15 (b): the seed-12 engine did not finish")
+    want = [list(r.tokens) for r in reqs]
+    del eng
+    gen = ff12.generate(gen_tokens, P15_GEN_NEW)
+    torch.cuda.synchronize()
+    say(f"phase 15 (b): the seed-12 model built, its single engine's and "
+        f"generate()'s tokens in {time.perf_counter() - t0:.1f} s [{card}]")
+    return ff12, want, gen
+
+
+def _p15_publish(torch, FFConfig, FFModel, llama_lm, faultinject, reg,
+                 ff12, card: str):
+    """Publish the seed-12 model as v12, then the torn drill artifact
+    v11 (a 1-layer model at the same widths, corrupt_ckpt@publish);
+    returns the publish measurements."""
+    import os
+
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = reg.publish(ff12, step=P15_VERSION_STEP)
+    t_pub = time.perf_counter() - t0
+    path = Path(reg.step_dir(v)) / ckpt.PAYLOAD_NAME
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    reg.verify(v)
+    t_ver = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reg.load_params(v)
+    t_map = time.perf_counter() - t0
+    gb = nbytes / 1e9
+    say(f"phase 15 (b): publish {v}: {t_pub:.2f} s for {gb:.3f} GB "
+        f"(torch.save hashed as it writes, the manifest, the rename), "
+        f"{gb / t_pub:.2f} GB/s; "
+        f"verify {t_ver:.2f} s, {gb / t_ver:.2f} GB/s; load_params "
+        f"(memory-mapped: the bytes move in each swap's copy) "
+        f"{t_map * 1e3:.0f} ms [{card}]")
+    small = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16",
+                        P15_TORN_STEP, **dict(LLAMA3_8B, layers=1))
+    os.environ["FF_FAULT"] = "corrupt_ckpt@publish:1"
+    faultinject.reset()
+    torn = reg.publish(small, step=P15_TORN_STEP)
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    del small
+    return dict(version=v, torn=torn, nbytes=nbytes)
+
+
+def _p15_deploy_drills(torch, faultinject, RollingDeployer, router, reg, pub,
+                       feed_prompts, warm, card: str):
+    """(b)'s drills on the live fleet: the torn artifact refused with no
+    replica touched, swap_fail@deploy rolled back, the canary's stalled
+    admissions breaching its SLO and rolled back with a bundle."""
+    import os
+
+    dep = RollingDeployer(router, reg, canary_windows=0)
+    rep = dep.deploy(pub["torn"])
+    swaps = [e.stats()["weight_swaps"] for e in router.engines]
+    if rep["state"] != "refused" or any(swaps):
+        fail(f"phase 15 (b) torn artifact: {rep['state']}, swaps {swaps}")
+    say(f"phase 15 (b) corrupt_ckpt@publish: deploy of {pub['torn']} "
+        f"refused in {rep['duration_s']} s, no replica touched "
+        f"({rep['error'][:80]})")
+    os.environ["FF_FAULT"] = "swap_fail@deploy:1"
+    faultinject.reset()
+    rep = dep.deploy(pub["version"])
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    versions = [e.weight_version for e in router.engines]
+    if rep["state"] != "rolled_back" or versions != ["v0", "v0"]:
+        fail(f"phase 15 (b) swap_fail: {rep['state']}, versions {versions}")
+    say(f"phase 15 (b) swap_fail@deploy:1: rolled back in "
+        f"{rep['duration_s']} s ({rep['error'][:60]}); fleet on {versions}")
+    feed = _P15Feed(router, feed_prompts, gap=0.25, max_new=16).start()
+    os.environ["FF_FAULT"] = f"slow({P15_CANARY_STALL_MS})@canary:1"
+    faultinject.reset()
+    dep3 = RollingDeployer(router, reg, canary_windows=3)
+    rep = dep3.deploy(pub["version"], warmup_prompts=warm,
+                      max_new_tokens=4)
+    del os.environ["FF_FAULT"]
+    faultinject.reset()
+    feed.stop()
+    versions = [e.weight_version for e in router.engines]
+    if rep["state"] != "rolled_back" or rep["breach"] is None or \
+            rep["bundle"] is None or versions != ["v0", "v0"]:
+        fail(f"phase 15 (b) canary drill: {rep['state']}, breach "
+             f"{rep['breach']}, bundle {rep['bundle']}, versions {versions}")
+    say(f"phase 15 (b) slow({P15_CANARY_STALL_MS})@canary:1: the canary "
+        f"(replica {rep['canary']}) breached {rep['breach']['slo']} = "
+        f"{rep['breach']['value']:.3f} s (bound {rep['breach']['bound']}); "
+        f"rolled back in {rep['rollback_s']} s, bundle "
+        f"{Path(rep['bundle']).name}; {len(feed.reqs)} live requests all "
+        f"done [{card}]")
+
+
+def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
+                 prompts, card: str):
+    """Phase 15 (b)-(d) on phase 6's Llama-3-8B: a rolling deploy of the
+    seed-12 model onto a two-replica fleet under live traffic with its
+    drills, restore-then-generate, the autoscaler. Returns {"deploy": the
+    clean deploy's launches (its traffic and the check after it)}."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime import (autoscale, checkpoint,
+                                            faultinject, flightrec)
+    from flexflow_tpu_torch.runtime.deploy import (RollingDeployer,
+                                                   WeightArtifactRegistry)
+    from flexflow_tpu_torch.runtime.generation import served_weights
+
+    t_start = time.perf_counter()
+    _p15_disk(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen_tokens = np.stack([np.asarray(p[:64]) for p in prompts[2:6]])
+    ff12, want12, gen12 = _p15_reference(torch, FFConfig, FFModel, llama_lm,
+                                         prompts, gen_tokens, card)
+    reg = WeightArtifactRegistry(str(_p15_dir("registry")))
+    pub = _p15_publish(torch, FFConfig, FFModel, llama_lm, faultinject, reg,
+                       ff12, card)
+    del ff12
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b0 = time.perf_counter()
+    knobs = ("slo_ttft_p99_s", "slo_window_s", "flight_recorder_dir",
+             "flight_cooldown_s", "flight_debounce_s")
+    saved = {k: getattr(ff.config, k) for k in knobs}
+    ff.config.slo_ttft_p99_s = P15_TTFT_SLO_S
+    ff.config.slo_window_s = P15_SLO_WINDOW_S
+    ff.config.flight_recorder_dir = str(_p15_dir("flight"))
+    ff.config.flight_cooldown_s = 0.0
+    ff.config.flight_debounce_s = 0.2
+    flightrec.configure(ff.config)
+    warm = _p15_prompts(np, 2, 151)
+    feed_prompts = _p15_prompts(np, 64, 152)
+    router = ff.make_serving_router(replicas=2, start=False, **ENGINE)
+    try:
+        router.warmup(warm, max_new_tokens=4)
+        router.start()
+        _p15_deploy_drills(torch, faultinject, RollingDeployer, router, reg,
+                           pub, feed_prompts, warm, card)
+        t_b1 = time.perf_counter()
+        # the deploy: v12 onto both replicas under live traffic
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        feed = _P15Feed(router, feed_prompts, gap=0.25, max_new=16).start()
+        dep = RollingDeployer(router, reg, canary_windows=1)
+        rep = dep.deploy(pub["version"], warmup_prompts=warm,
+                         max_new_tokens=4)
+        peak = torch.cuda.max_memory_allocated()
+        live = feed.stop()
+        if rep["state"] != "completed" or \
+                [e.weight_version for e in router.engines] != \
+                [pub["version"]] * 2:
+            fail(f"phase 15 (b): deploy {rep['state']} ({rep['error']}), "
+                 f"versions {[e.weight_version for e in router.engines]}")
+        st0 = [e.stats() for e in router.engines]
+        caps = [s["swap_captures"] for s in st0]
+        if not all(c >= 1 for c in caps):
+            fail(f"phase 15 (b): swap captures {caps} (each replica "
+                 f"captures its programs against the new weight set)")
+        sets = served_weights(ff).live_sets()
+        if list(sets) != [pub["version"]] or \
+                router.engines[0].gen._weight_set is not \
+                router.engines[1].gen._weight_set:
+            fail(f"phase 15 (b): weight sets {list(sets)} (one, shared)")
+        reqs = router.run(prompts, max_new_tokens=MAX_NEW, timeout=600)
+        launches = kernels.launch_counts()
+        st1 = [e.stats() for e in router.engines]
+        if [list(r.tokens) for r in reqs] != want12:
+            fail("phase 15 (b): the fleet on v12 does not serve the seed-12 "
+                 "single engine's tokens")
+        served = {r.replica for r in reqs}
+        if served != {0, 1}:
+            fail(f"phase 15 (b): the check traffic reached replicas "
+                 f"{served}, not both")
+        for a, b in zip(st0, st1):
+            if (a["recompiles"], a["swap_captures"]) != \
+                    (b["recompiles"], b["swap_captures"]) or \
+                    b["sanitizer_retraces"]:
+                fail(f"phase 15 (b): a program was built after the replicas "
+                     f"resumed: {a['recompiles']} -> {b['recompiles']} "
+                     f"recompiles, captures {a['swap_captures']} -> "
+                     f"{b['swap_captures']}, sentinel "
+                     f"{b['sanitizer_retraces']}")
+        say(f"phase 15 (b): deploy of {pub['version']} under live traffic "
+            f"(a request every 0.25 s, {len(live)} all done): "
+            f"{rep['duration_s']} s, canary replica {rep['canary']} held 1 "
+            f"window of {P15_SLO_WINDOW_S} s [{card}]")
+        for s in dep.swap_log:
+            say(f"phase 15 (b): replica {s['replica']} swap "
+                f"{s['swap_s']:.2f} s inside its drained window, "
+                f"{s['captures']} program captures (the first swap also "
+                f"copies the artifact into the weight set) [{card}]")
+        say(f"phase 15 (b): {_p15_set_gb(sets):.3f} GB weight set shared by "
+            f"both replicas; peak memory with v0 and v12 live "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        say(f"phase 15 (b): both replicas serve the seed-12 engine's tokens "
+            f"({len(reqs)} requests); no capture after resume; launches "
+            f"{launches}")
+    finally:
+        router.close()
+        for k, v in saved.items():
+            setattr(ff.config, k, v)
+        flightrec.configure(ff.config)
+    del router, dep, feed
+    gc.collect()
+    if served_weights(ff).live_sets():
+        fail("phase 15 (b): the weight set outlived the fleet")
+    torch.cuda.empty_cache()
+    t_c0 = time.perf_counter()
+    # (c) restore the artifact into a fresh model, then generate
+    fresh = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16", 99,
+                        **LLAMA3_8B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(fresh, reg.watch_dir,
+                                  step=P15_VERSION_STEP)
+    torch.cuda.synchronize()
+    t_rest = time.perf_counter() - t0
+    got = fresh.generate(gen_tokens, P15_GEN_NEW)
+    if not np.array_equal(got, gen12):
+        fail("phase 15 (c): generate() after the restore differs from the "
+             "seed-12 model's")
+    gb = pub["nbytes"] / 1e9
+    say(f"phase 15 (c): restore of {pub['version']} into a fresh model "
+        f"(verified) {t_rest * 1e3:.0f} ms, {gb / t_rest:.2f} GB/s; generate "
+        f"{gen_tokens.shape} + {P15_GEN_NEW} tokens equal the seed-12 "
+        f"model's [{card}]")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ROOT / "build" / "phase15", ignore_errors=True)
+    t_d0 = time.perf_counter()
+    _p15_autoscale(torch, np, autoscale, ff, ref, prompts, warm, card)
+    say(f"phase 15 (b)-(d): seed-12 reference + publish "
+        f"{t_b0 - t_start:.1f} s, drills {t_b1 - t_b0:.1f} s, deploy + "
+        f"check {t_c0 - t_b1:.1f} s, (c) {t_d0 - t_c0:.1f} s, (d) "
+        f"{time.perf_counter() - t_d0:.1f} s, total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return {"deploy": launches}
+
+
+def _p15_set_gb(sets) -> float:
+    return sum(ws.nbytes() for ws in sets.values()) / 1e9
+
+
+def _p15_autoscale(torch, np, autoscale, ff, ref, prompts, warm, card: str):
+    """(d): the autoscaler over a two-replica fleet (min 1, max 3): a
+    scripted breach scales out, scripted idle windows scale in (the
+    survivors inherit the retiree's prefixes); then remove_replica under
+    load resubmits the retiree's queued requests."""
+    mon = _P15Monitor()
+    real = autoscale.flightrec.slo_monitor
+    autoscale.flightrec.slo_monitor = lambda: mon
+    router = ff.make_serving_router(replicas=2, start=False, **ENGINE)
+    pol = autoscale.AutoscalePolicy(router, min_replicas=1, max_replicas=3,
+                                    breach_windows=2, idle_windows=2,
+                                    cooldown_s=0.0)
+    try:
+        router.warmup(warm, max_new_tokens=4)
+        router.start()
+        mon.rows = [{"slo": "queue_wait_p99", "replica": -1, "value": 2.0,
+                     "bound": 0.5, "ok_streak": 0, "windows": 2}]
+        acts = []
+        for want in (None, "scale_out"):
+            t0 = time.perf_counter()
+            got = pol.tick()
+            acts.append((got, time.perf_counter() - t0))
+            if got != want:
+                fail(f"phase 15 (d): tick -> {got}, expected {want}")
+        if router.stats()["alive"] != 3:
+            fail(f"phase 15 (d): {router.stats()['alive']} replicas after "
+                 f"the scale-out")
+        reqs = router.run(prompts, max_new_tokens=MAX_NEW, timeout=600)
+        if [list(r.tokens) for r in reqs] != ref:
+            fail("phase 15 (d): the scaled-out fleet's tokens differ from "
+                 "phase 6's")
+        mon.rows = []
+        for want in (None, "scale_in"):
+            t0 = time.perf_counter()
+            got = pol.tick()
+            acts.append((got, time.perf_counter() - t0))
+            if got != want:
+                fail(f"phase 15 (d): tick -> {got}, expected {want}")
+        st = router.stats()
+        if st["alive"] != 2 or not st["evacuated_pages"]:
+            fail(f"phase 15 (d): after the scale-in {st['alive']} alive, "
+                 f"{st['evacuated_pages']} pages evacuated")
+        ev = pol.state()["events"]
+        for got, dt in acts:
+            if got:
+                say(f"phase 15 (d): {got} in {dt:.2f} s [{card}]")
+        place = ev[-1]["placement"]
+        say(f"phase 15 (d): scale-in evacuated {st['evacuated_pages']} "
+            f"prefix pages ({st['evacuation_bytes'] / 2**20:.1f} MiB) to the "
+            f"survivors; PlacementAdvisor under the H100 datasheet model: "
+            f"{place}; for the evacuated bytes: "
+            f"{autoscale.PlacementAdvisor().place(st['evacuation_bytes'])}")
+        # the retiree's queued requests: remove a replica under load
+        burst = _p15_prompts(np, 24, 153)
+        sub = [router.submit(p, MAX_NEW) for p in burst]
+        # the retiree: the first live replica holding dispatched,
+        # never-admitted work in its engine queue (bounded wait)
+        live = [r for r, row in enumerate(router.stats()["per_replica"])
+                if not row["retired"]]
+        victim, t0 = None, time.perf_counter()
+        while victim is None and time.perf_counter() - t0 < 10.0:
+            victim = next((r for r in live
+                           if router.engines[r].load()["queued"]), None)
+            time.sleep(0.002)
+        if victim is None:
+            fail("phase 15 (d): no replica queued any of the burst")
+        t0 = time.perf_counter()
+        out = router.remove_replica(victim)
+        dt = time.perf_counter() - t0
+        router.wait(sub, timeout=600)
+        if any(r.state != "done" for r in sub) or out["requeued"] < 1:
+            fail(f"phase 15 (d): remove_replica under load: {out}, states "
+                 f"{[r.state for r in sub]}")
+        say(f"phase 15 (d): remove_replica({victim}) under a burst of "
+            f"{len(sub)}: {dt:.2f} s, {out['requeued']} queued requests "
+            f"resubmitted, {out['slabs']} slabs inherited, every request "
+            f"done once [{card}]")
+    finally:
+        pol.close()
+        router.close()
+        autoscale.flightrec.slo_monitor = real
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -4942,13 +5768,41 @@ KERNEL_ROWS = {
                                   "paged_attention_fwd"),
     f"paged_prefill_write_layers{WRITE_LAYERS}_fleet": (
         "paged_prefill_write.cu", 779, "fleet", "paged_prefill_write"),
+    # phase 15: (a)'s resumed fit runs the training shapes of phase 7 (its
+    # rows are phase 3's training rows, its launches the resumed fit's);
+    # (b)'s deploy runs phase 6's serving shapes on both replicas (phase
+    # 3's serving rows, the launches of the deploy under traffic and the
+    # check after it)
+    "flash_attention_fwd_lse_resume": ("flash_attention_wgmma.cu", 180,
+                                       "resume", "flash_attention_fwd"),
+    "flash_attention_bwd_resume": ("flash_attention_bwd_wgmma.cu", 335,
+                                   "resume", "flash_attention_bwd"),
+    "fused_add_layernorm_fwd_resume": ("fused_add_layernorm.cu", 461,
+                                       "resume", "fused_add_layernorm_fwd"),
+    "fused_update_momentum_resume": ("fused_update.cu",
+                                     FUSED_UPDATE_REPLACES, "resume",
+                                     "fused_update"),
+    "flash_attention_fwd_deploy": ("flash_attention_wgmma.cu", 180,
+                                   "deploy", "flash_attention_fwd"),
+    "paged_attention_fwd_deploy": ("paged_attention.cu", 689, "deploy",
+                                   "paged_attention_fwd"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}_deploy": (
+        "paged_prefill_write.cu", 779, "deploy", "paged_prefill_write"),
 }
 
-#: phase 14's rows: the serving row whose measurement each repeats
+#: phase 14's and 15's rows: the row whose measurement each repeats
 FLEET_ROWS = {
     "flash_attention_fwd_fleet": "flash_attention_fwd",
     "paged_attention_fwd_fleet": "paged_attention_fwd",
     f"paged_prefill_write_layers{WRITE_LAYERS}_fleet":
+        f"paged_prefill_write_layers{WRITE_LAYERS}",
+    "flash_attention_fwd_lse_resume": "flash_attention_fwd_lse",
+    "flash_attention_bwd_resume": "flash_attention_bwd",
+    "fused_add_layernorm_fwd_resume": "fused_add_layernorm_fwd",
+    "fused_update_momentum_resume": "fused_update_momentum",
+    "flash_attention_fwd_deploy": "flash_attention_fwd",
+    "paged_attention_fwd_deploy": "paged_attention_fwd",
+    f"paged_prefill_write_layers{WRITE_LAYERS}_deploy":
         f"paged_prefill_write_layers{WRITE_LAYERS}",
 }
 
@@ -4989,8 +5843,11 @@ def main():
     launches.update(phase_generate(torch, FFConfig, FFModel, llama_lm,
                                    kernels, ff, ref, prompts, card))
     launches.update(phase_fleet(torch, kernels, ff, prompts, card))
+    launches.update(phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels,
+                                 ff, ref, prompts, card))
     del ff, outs
     launches.update(phase_train(torch, port, kernels, card))
+    launches.update(phase_resilience(torch, port, kernels, card))
     launches.update(phase_zoo_check(torch, port, kernels))
     launches.update(phase_zoo_train(torch, port, kernels, card))
     launches.update(phase_rest(torch, port, kernels, card))

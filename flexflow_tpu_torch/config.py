@@ -1,15 +1,11 @@
-"""FFConfig: the subset of the JAX package's configuration that the serving
-and training slices read.
+"""FFConfig: the subset of the JAX package's configuration that the serving,
+training, fault-tolerance and deploy slices read.
 
 Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
-other. Knobs that select features of later slices are kept (a user who
-sets them must not be silently served or trained something else): the
-training ``compile`` rejects each non-default value with
-``NotImplementedError`` naming the ROADMAP item that ports it
-(``not_ported``) — ``checkpoint_dir`` among them — and the SLOs over the
-training step and the checkpoint stall are refused when the config is
-built.
+other. ``not_ported`` is the error of a feature no slice has ported yet,
+naming the ROADMAP item that ports it (the multi-device checkpoint
+layouts and the elastic mesh refit, item 8).
 """
 
 from __future__ import annotations
@@ -19,14 +15,15 @@ from typing import List, Optional
 
 from flexflow_tpu_torch.ops.sampling import validate_sampling
 
-#: where the features of later slices are queued
-ROADMAP_RUNTIME = "ROADMAP.md queue 1, item 11 (the runtime plane)"
+#: where the multi-device features are queued
+ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 8 (multi-device training)"
 
 
 def not_ported(feature: str) -> NotImplementedError:
-    """The error for a knob whose feature a later slice ports."""
+    """The error for a feature a later slice ports."""
     return NotImplementedError(f"{feature} is not ported to "
-                               f"flexflow_tpu_torch yet ({ROADMAP_RUNTIME})")
+                               f"flexflow_tpu_torch yet "
+                               f"({ROADMAP_MULTI_DEVICE})")
 
 
 @dataclasses.dataclass
@@ -73,8 +70,33 @@ class FFConfig:
     # fold each op's chain of weightless elementwise followers into one
     # FusedOp at compile (ops/fused.py apply_fusion); the math is unchanged
     perform_fusion: bool = False
-    # later-slice knob, kept with the JAX default (see module docstring)
+
+    # ---- fault tolerance (runtime/resilience.py, runtime/checkpoint.py) ----
+    # checkpoint directory for the TrainSupervisor / fit() auto-resume;
+    # "" = no supervision (fit behaves exactly as before)
     checkpoint_dir: str = ""
+    # periodic checkpoint cadence in steps (0 = only preemption / final
+    # saves); atomic tmp-dir + rename writes
+    checkpoint_every: int = 0
+    keep_checkpoints: int = 3  # retention: newest K step dirs survive
+    # a periodic save snapshots to host memory in the step and publishes
+    # (payload, manifest, rename, retention) on one background thread
+    async_checkpointing: bool = False
+    # rewind to the last checkpoint after this many CONSECUTIVE non-finite
+    # steps (0 = never; needs a checkpoint_dir supervisor and the guard)
+    nonfinite_rewind_after: int = 0
+    # wall-clock watchdog per train step: dump every thread's stack and
+    # abort when a step's host fetch blocks longer than this (0 = off)
+    step_timeout_s: float = 0.0
+    # verify a checkpoint's content-hash manifest before restoring, and
+    # fall back to the newest INTACT step when the latest one fails
+    verify_checkpoints: bool = True
+    # ---- elastic recovery (runtime/elastic.py) ----
+    # a resume whose checkpoint recorded another device count:
+    # "resume_resharded" | "research" refit the mesh (ROADMAP item 8:
+    # refused on one device), "abort" raises TopologyChangedError
+    on_topology_change: str = "resume_resharded"
+    elastic_min_devices: int = 1
 
     # ---- serving (runtime/serving.py) ----
     # decode slots: the engine's batch; the host scheduler admits and
@@ -133,6 +155,22 @@ class FFConfig:
     seq_parallel_shards: int = 0
     # a preempted replica's evacuation deadline (seconds)
     preempt_deadline_s: float = 5.0
+    # ---- rolling deployment (runtime/deploy.py) ----
+    # the weight-version registry's watch path ("" = pass one to
+    # WeightArtifactRegistry directly); the canary's soak in full
+    # slo_window_s windows (0 = no soak); one replica's drain ceiling
+    deploy_watch_dir: str = ""
+    deploy_canary_windows: int = 2
+    deploy_drain_timeout_s: float = 120.0
+    # ---- the autoscaler (runtime/autoscale.py AutoscalePolicy) ----
+    # fleet bounds; scale out after this many consecutive capacity-SLO
+    # breach windows, in after this many idle windows, never twice within
+    # the cooldown
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 8
+    autoscale_breach_windows: int = 2
+    autoscale_idle_windows: int = 6
+    autoscale_cooldown_s: float = 30.0
 
     # ---- the telemetry plane (runtime/telemetry.py) ----
     # "on": metrics registry and trace ring record; "off": every emit
@@ -155,8 +193,7 @@ class FFConfig:
     slo_queue_wait_p99_s: float = 0.0    # ceiling: engine queue wait p99
     slo_prefix_hit_rate_min: float = 0.0  # floor: prefix-cache hit rate
     slo_spec_accept_min: float = 0.0     # floor: speculative accept rate
-    # later-slice SLOs (fit's step histogram, the checkpoint stall), kept
-    # with the JAX defaults and refused above 0
+    # ceilings over fit's step histogram and the supervisor's stall a save
     slo_step_time_p99_s: float = 0.0
     slo_checkpoint_stall_s: float = 0.0
     slo_window_s: float = 10.0           # sliding evaluation window
@@ -187,6 +224,18 @@ class FFConfig:
             raise ValueError(
                 f"on_nonfinite={self.on_nonfinite!r}: must be 'none', "
                 f"'skip' or 'backoff'")
+        if self.nonfinite_rewind_after < 0 or self.checkpoint_every < 0:
+            raise ValueError(
+                "nonfinite_rewind_after and checkpoint_every must be >= 0")
+        if self.on_topology_change not in ("resume_resharded", "research",
+                                           "abort"):
+            raise ValueError(
+                f"on_topology_change={self.on_topology_change!r}: must be "
+                f"'resume_resharded', 'research' or 'abort'")
+        if self.elastic_min_devices < 1:
+            raise ValueError(
+                f"elastic_min_devices={self.elastic_min_devices}: "
+                f"must be >= 1")
         if self.loss_scale <= 0:
             # 0 would make the guard divide by zero and classify every
             # step non-finite
@@ -302,12 +351,35 @@ class FFConfig:
             raise ValueError(
                 f"slo_clear_windows={self.slo_clear_windows}: must be "
                 f">= 1 (a breach must be clearable)")
-        if self.slo_step_time_p99_s > 0:
-            raise not_ported("the training step-time SLO "
-                             "(slo_step_time_p99_s)")
-        if self.slo_checkpoint_stall_s > 0:
-            raise not_ported("the checkpoint-stall SLO "
-                             "(slo_checkpoint_stall_s)")
+        if self.deploy_canary_windows < 0:
+            raise ValueError(
+                f"deploy_canary_windows={self.deploy_canary_windows}: "
+                f"must be >= 0 (0 = no canary soak)")
+        if self.deploy_drain_timeout_s <= 0:
+            raise ValueError(
+                f"deploy_drain_timeout_s={self.deploy_drain_timeout_s}: "
+                f"must be > 0")
+        if self.autoscale_min_replicas < 1:
+            raise ValueError(
+                f"autoscale_min_replicas={self.autoscale_min_replicas}: "
+                f"must be >= 1 (the fleet must keep a survivor)")
+        if self.autoscale_max_replicas < self.autoscale_min_replicas:
+            raise ValueError(
+                f"autoscale_max_replicas={self.autoscale_max_replicas}: "
+                f"must be >= autoscale_min_replicas "
+                f"({self.autoscale_min_replicas})")
+        if self.autoscale_breach_windows < 1:
+            raise ValueError(
+                f"autoscale_breach_windows={self.autoscale_breach_windows}"
+                f": must be >= 1")
+        if self.autoscale_idle_windows < 1:
+            raise ValueError(
+                f"autoscale_idle_windows={self.autoscale_idle_windows}: "
+                f"must be >= 1")
+        if self.autoscale_cooldown_s < 0:
+            raise ValueError(
+                f"autoscale_cooldown_s={self.autoscale_cooldown_s}: "
+                f"must be >= 0")
         if self.decode_buckets is not None:
             bs = [int(b) for b in self.decode_buckets]
             if not bs or any(b < 1 for b in bs) or sorted(set(bs)) != bs:
@@ -315,8 +387,3 @@ class FFConfig:
                     f"decode_buckets={self.decode_buckets!r}: must be a "
                     f"strictly ascending list of positive ints")
 
-
-def check_training_ported(cfg: FFConfig) -> None:
-    """Raise for a training knob set to a feature no slice has ported."""
-    if cfg.checkpoint_dir:
-        raise not_ported("checkpointing and auto-resume (checkpoint_dir)")

@@ -20,6 +20,7 @@ the card unless it is built with ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch._device import resolve_device
-from flexflow_tpu_torch.config import FFConfig, check_training_ported
+from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode, DataType,
                                         LossType, MetricsType, OperatorType,
                                         PoolType)
@@ -101,6 +102,10 @@ class FFModel:
         # generate()'s and generate_seq2seq()'s generators, by sampling
         # config (``_generators`` holds the drawing ops' torch.Generators)
         self._decoders: Dict[tuple, object] = {}
+        # the compile-time elastic decision (runtime/elastic.py) and how
+        # the last fit() ended: "completed" | "preempted"
+        self._elastic = None
+        self.last_fit_status: Optional[str] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -511,7 +516,15 @@ class FFModel:
                 for op in self.ops if op.weight_specs()}
             return
         cfg = self.config
-        check_training_ported(cfg)
+        # elastic recovery (runtime/elastic.py): with a checkpoint_dir,
+        # compare the newest intact checkpoint's topology with this
+        # process's before anything is built
+        self._elastic = None
+        if cfg.checkpoint_dir:
+            from flexflow_tpu_torch.runtime.elastic import \
+                apply_elastic_policy
+
+            self._elastic = apply_elastic_policy(self)
         if cfg.fused_optimizer:
             optimizer = FusedUpdate(optimizer)
         self.optimizer = optimizer
@@ -659,14 +672,27 @@ class FFModel:
         Prints an ``epoch N: loss=...`` line per epoch and a final
         ``THROUGHPUT = ... samples/s`` line. The first step or chunk (and
         any kernel build or graph capture it triggers) is kept out of the
-        throughput window, as in the JAX package."""
+        throughput window, as in the JAX package.
+
+        With ``config.checkpoint_dir`` a ``TrainSupervisor``
+        (runtime/resilience.py) resumes from the newest intact checkpoint
+        (mid-epoch: the loaders' cursors are restored, not reset),
+        checkpoints every ``checkpoint_every`` steps, rewinds after
+        ``nonfinite_rewind_after`` non-finite steps and turns SIGTERM into
+        a checkpoint at the next step boundary and a stop; the epoch ends
+        there. Each per-step dispatch is a ``step-<n>`` span tree on the
+        "train" track and feeds ``ff_train_step_seconds`` (the step-time
+        SLO's histogram)."""
+        from flexflow_tpu_torch.runtime import flightrec, telemetry
+
         if self.optimizer is None:
             raise RuntimeError("compile() with an optimizer first")
         if not self._dataloaders:
             raise RuntimeError("no dataloaders attached; create "
                                "SingleDataLoader(ff, tensor, data)")
-        epochs = epochs or self.config.epochs
-        bs = batch_size or self.config.batch_size
+        cfg = self.config
+        epochs = epochs or cfg.epochs
+        bs = batch_size or cfg.batch_size
         if batch_size is not None:
             for dl in self._dataloaders:
                 dl.batch_size = batch_size
@@ -676,45 +702,131 @@ class FFModel:
                 f"dataset smaller than batch_size ("
                 f"{min(dl.num_samples for dl in self._dataloaders)} samples "
                 f"< {bs}); no full batch to train on")
-        chunk_max = self.config.scan_steps
+        chunk_max = cfg.scan_steps
         use_scan = chunk_max > 0 and self._scan_eligible()
+        tm_on = cfg.telemetry != "off"
+        # unconditional: how telemetry="off" reaches the recorder's gate
+        flightrec.configure(cfg)
+        if tm_on and cfg.metrics_port:
+            telemetry.start_http_server(cfg.metrics_port)
+        step_hist = (telemetry.registry().histogram(
+            "ff_train_step_seconds",
+            "fit() per-step wall time (host wait + dispatch)")
+            if tm_on else None)
+        sup = None
+        start_epoch = it0 = 0
+        if cfg.checkpoint_dir:
+            from flexflow_tpu_torch.runtime.resilience import TrainSupervisor
+
+            sup = TrainSupervisor(self)
+            # poll the guard's flag a step only when a prompt rewind needs
+            # it; otherwise the device skip counter reconciles at finalize
+            sup.poll_nonfinite = bool(sup.rewind_after)
+            sup.install()
+            resumed = sup.resume()
+            if resumed:
+                start_epoch = min(resumed // num_batches, epochs)
+                it0 = resumed % num_batches
+            if use_scan and sup._fault_plan().has_step_events(
+                    "nan_loss", "hang"):
+                log.warning("FF_FAULT schedules nan_loss/hang step events: "
+                            "running per-step (scanned chunks bypass "
+                            "injection)")
+                use_scan = False
         t0 = time.time()
         warm = None
         total = 0
-        for epoch in range(epochs):
-            self._perf = PerfMetrics()
-            self._reset_dataloaders()
-            # (metrics, steps): device scalars for a step, (n,) stacks for
-            # a scanned chunk; converted once per epoch
-            epoch_mets = []
-            it = 0
-            while it < num_batches:
-                if use_scan and num_batches - it >= chunk_max:
-                    n = chunk_max
-                    _, mets = self.train_scanned(n)
-                else:
-                    n = 1
-                    _, mets = self._run_train_step(self._stage_batch())
-                epoch_mets.append((mets, n))
-                it += n
-                total += bs * n
-                if warm is None:
-                    float(self._last_loss)   # waits for the first step
-                    warm = time.time()
-                    total = 0
-            for mets, n in epoch_mets:
-                vals = {k: v.cpu() for k, v in mets.items()}
-                for j in range(n):
-                    self._perf.update({k: float(v[j] if v.dim() else v)
-                                       for k, v in vals.items()}, bs)
-            if verbose:
-                print(f"epoch {epoch}: loss={float(self._last_loss):.4f} "
-                      + self._perf.report(self.loss_type, self.metric_types))
+        stopped = False
+        try:
+            for epoch in range(start_epoch, epochs):
+                self._perf = PerfMetrics()
+                # resuming mid-epoch: the cursors were just restored
+                if not (sup is not None and epoch == start_epoch
+                        and it0 > 0):
+                    self._reset_dataloaders()
+                # (metrics, steps): device scalars for a step, (n,) stacks
+                # for a scanned chunk; converted once per epoch
+                epoch_mets = []
+                it = it0
+                while it < num_batches:
+                    t_b = time.perf_counter()
+                    if use_scan and num_batches - it >= chunk_max:
+                        n = chunk_max
+                        _, mets = self.train_scanned(n)
+                        if tm_on:
+                            telemetry.tracer().complete(
+                                "train_scan_chunk", t_b,
+                                time.perf_counter() - t_b, track="train",
+                                steps=n)
+                    else:
+                        n = 1
+                        batch = self._stage_batch()
+                        t_h = time.perf_counter()
+                        _, mets = self._run_train_step(
+                            batch, inject_nan=(sup is not None
+                                               and sup.nan_due()))
+                        t_d = time.perf_counter()
+                        if tm_on:
+                            sid = f"step-{self._step_count}"
+                            tr = telemetry.tracer()
+                            tr.complete("train_step", t_b, t_d - t_b,
+                                        trace_id=sid, track="train",
+                                        step=self._step_count)
+                            tr.complete("host_wait", t_b, t_h - t_b,
+                                        trace_id=sid, track="train")
+                            tr.complete("dispatch", t_h, t_d - t_h,
+                                        trace_id=sid, track="train")
+                            step_hist.observe(t_d - t_b)
+                            if sup is None:
+                                flightrec.slo_monitor().maybe_evaluate()
+                    epoch_mets.append((mets, n))
+                    it += n
+                    total += bs * n
+                    if warm is None:
+                        float(self._last_loss)   # waits for the first step
+                        warm = time.time()
+                        total = 0
+                    if sup is not None:
+                        after = self._step_count
+                        if sup.after_step():
+                            stopped = True
+                            break
+                        if self._step_count < after:
+                            # divergence rewind: drop the discarded steps
+                            # from the epoch's accounting and re-run them
+                            k = after - self._step_count
+                            drop = min(k, len(epoch_mets))
+                            if drop:
+                                del epoch_mets[-drop:]
+                            total = max(total - bs * k, 0)
+                            it = max(it - k, 0)
+                it0 = 0
+                # the epoch-end conversion waits on every step dispatched
+                with (sup.watchdog.arm(f"epoch {epoch} metrics sync",
+                                       scale=max(len(epoch_mets), 1))
+                      if sup is not None else contextlib.nullcontext()):
+                    for mets, n in epoch_mets:
+                        vals = {k: v.cpu() for k, v in mets.items()}
+                        for j in range(n):
+                            self._perf.update(
+                                {k: float(v[j] if v.dim() else v)
+                                 for k, v in vals.items()}, bs)
+                if verbose:
+                    print(f"epoch {epoch}: loss="
+                          f"{float(self._last_loss):.4f} "
+                          + self._perf.report(self.loss_type,
+                                              self.metric_types))
+                if stopped:   # preemption checkpoint written
+                    break
+        finally:
+            if sup is not None:
+                sup.finalize()
         self._sync()
         elapsed = time.time() - (warm or t0)
         if total and elapsed > 0 and verbose:
             print(f"epochs {epochs}, ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {total / elapsed:.2f} samples/s")
+        self.last_fit_status = "preempted" if stopped else "completed"
         return self._perf
 
     def evaluate(self, batch):
@@ -845,9 +957,10 @@ class FFModel:
         prefill_chunk, scores | beam settings, prompt shape) keeps a
         program: static caches and, on the card, the decode step captured
         as a CUDA graph; at most FF_GEN_PROGRAM_CACHE (default 8) a
-        Generator. A Generator reads ``params`` in place, so once this has
-        run a native-width ``swap_weights`` on any engine of the model is
-        refused."""
+        Generator. A Generator reads ``params``; a native-width
+        ``swap_weights`` on an engine of the model then moves that engine
+        to a weight set of its own version and leaves ``params`` (and
+        generate's tokens) as they are."""
         from flexflow_tpu_torch.runtime.generation import Generator
 
         if self.params is None:

@@ -27,7 +27,10 @@ Consumers in the port:
     ``maybe_fail`` after installing the new weights (the torn mid-swap
     drill: the engine restores the weights it served).
   * ``ServingEngine._admit`` checks ``slow(<ms>)@serve:<n>`` and stalls
-    the n-th admission on the host by ``<ms>`` (the slow-replica drill);
+    the n-th admission on the host by ``<ms>`` (the slow-replica drill),
+    and ``slow(<ms>)@canary:<n>`` only while the engine is a deploy's
+    canary (the canary SLO-breach drill ``runtime/deploy.py`` rolls
+    back);
   * ``runtime/router.py`` drives the fleet drills: ``crash@replica:<r>``
     kills replica r's driver thread and ``hang@replica:<r>`` wedges it
     past the health timeout — at its first busy tick, or at its
@@ -37,6 +40,20 @@ Consumers in the port:
     first busy tick with that evacuation deadline; and the evacuation
     checks ``slow_evac(<ms>)@evacuate:<n>`` to stall the n-th prefix-slab
     export.
+
+Training and the deploy plane:
+  * ``TrainSupervisor`` (``runtime/resilience.py``) checks
+    ``nan_loss@step:<n>`` (NaN added to step n's loss; needs the guard),
+    ``sigterm@step:<n>`` (a real SIGTERM at the boundary after step n —
+    a range, so a scanned chunk crossing n delivers it) and
+    ``hang@step:<n>`` (``run()``'s step n blocks past the watchdog);
+  * ``runtime/checkpoint.py`` checks ``io_fail@save:<n>`` /
+    ``io_fail@load:<n>`` inside its retry (the retry path is the drill)
+    and ``corrupt_ckpt@save:<n>`` (bytes flipped in the n-th published
+    step); ``WeightArtifactRegistry.publish`` checks
+    ``corrupt_ckpt@publish:<n>`` (the n-th artifact torn after it lands);
+  * ``runtime/elastic.py`` refuses ``shrink(<k>)@resume:<n>``: a mesh
+    refit onto fewer devices is ROADMAP item 8.
 
 The active plan is parsed lazily from ``FF_FAULT`` and re-parsed (with
 occurrence counters reset) whenever the env value changes; tests that

@@ -40,6 +40,7 @@ use (``_deq``), as the JAX package does; the matrix products stay
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 import math
 import os
@@ -96,19 +97,66 @@ _DECODE_SAFE = {
 }
 
 
+class WeightSet:
+    """One weight version's device tensors, allocated once and shared by
+    every engine swapped to that version (the JAX deployer's one committed
+    tree): ``tree`` mirrors model.params, ``readers`` are the Generators
+    serving it (weakly), and ``serial`` — never reused — keys the programs
+    captured against its addresses."""
+
+    _serials = itertools.count(1)
+
+    def __init__(self, version: str, tree):
+        self.version = version
+        self.tree = tree
+        self.serial = next(WeightSet._serials)
+        self.readers = weakref.WeakSet()
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for ws in self.tree.values() for t in ws.values())
+
+
 class ServedWeights:
-    """What a model's own weight tensors hold for the engines built on it.
-    The captured decode programs read model.params at fixed addresses, so
-    a native-width weight swap writes into them: the swap is the model's,
-    not one engine's. Kept here: the version the tensors hold (None for
-    the construction weights), the construction weights a standing swap
-    displaced (host memory), and every Generator reading the tensors
-    (weakly: a released engine drops out)."""
+    """What a model's weights are for the engines built on it. Kept here:
+    the version model.params holds (None for the construction weights),
+    the construction weights a standing in-place swap displaced (host
+    memory), every Generator reading the model (weakly: a released engine
+    drops out), and the per-version ``WeightSet``s a native swap installs
+    on an engine whose model other readers share. A set is freed when its
+    last reader leaves it (``sweep``)."""
 
     def __init__(self):
         self.version = None
         self.backup = None
         self.readers = weakref.WeakSet()
+        self.sets: Dict[str, WeightSet] = {}
+
+    def acquire(self, version: str, tree, model) -> WeightSet:
+        """The live set of ``version`` (``tree`` is then not read: a
+        version names one set of weights), or a new one copied from
+        ``tree`` onto the model's device in model.params' dtypes."""
+        self.sweep()
+        ws = self.sets.get(version)
+        if ws is None:
+            with torch.no_grad():
+                dev = {op: {w: torch.empty_like(t)
+                            for w, t in wts.items()}
+                       for op, wts in model.params.items()}
+                for op, wts in dev.items():
+                    for w, t in wts.items():
+                        t.copy_(tree[op][w])
+            ws = self.sets[version] = WeightSet(version, dev)
+        return ws
+
+    def sweep(self):
+        """Free every set no Generator reads any more."""
+        for v in [v for v, ws in self.sets.items() if not len(ws.readers)]:
+            del self.sets[v]
+
+    def live_sets(self) -> Dict[str, WeightSet]:
+        self.sweep()
+        return dict(self.sets)
 
 
 def served_weights(model) -> ServedWeights:
@@ -246,6 +294,9 @@ class Generator:
         # are quantized from instead of model.params
         self._params_override = None
         self._override_version = 0
+        # a native swap on a shared model: the version's WeightSet served
+        # instead of model.params (None: model.params)
+        self._weight_set: Optional[WeightSet] = None
         # generate()'s programs, LRU-bounded (FF_GEN_PROGRAM_CACHE)
         self._programs: Dict = collections.OrderedDict()
         # decode steps the last generate() call ran (early_exit stops short)
@@ -374,35 +425,40 @@ class Generator:
         with torch.no_grad():
             return _host_copy(self.model.params)
 
+    def _check_geometry(self, tree):
+        """Refuse a tree that does not match model.params op by op, shapes
+        and dtypes included."""
+        ref = self.model.params
+        if set(tree) != set(ref) or any(
+                set(tree[op]) != set(ref[op]) for op in ref):
+            raise ValueError(
+                "set_params: tree structure differs from model.params "
+                "— a weight swap must be same-geometry")
+        for op, ws in ref.items():
+            for w, t in ws.items():
+                new = tree[op][w]
+                if tuple(new.shape) != tuple(t.shape) \
+                        or new.dtype != t.dtype:
+                    raise ValueError(
+                        f"set_params: leaf geometry mismatch {op}.{w}: "
+                        f"{tuple(t.shape)}/{t.dtype} vs "
+                        f"{tuple(new.shape)}/{new.dtype}")
+
     def set_params(self, tree):
-        """Install (or, with ``tree=None``, clear) a weight swap: ``tree``
-        must match model.params op by op, shapes and dtypes included. The
-        decode programs are CUDA graphs holding the served tensors'
-        addresses, so the swap writes in place. A quantized tier re-
-        quantizes its own buffers from ``tree`` (``None``: from the
+        """Install (or, with ``tree=None``, clear) a weight swap in place:
+        ``tree`` must match model.params op by op, shapes and dtypes
+        included. The decode programs are CUDA graphs holding the served
+        tensors' addresses, so the swap writes into them. A quantized tier
+        re-quantizes its own buffers from ``tree`` (``None``: from the
         construction weights). At native width the served tensors are
-        model.params's own (a private copy would double the weights'
-        memory): the new weights are copied into them, the construction
-        weights wait in host memory (``served``, the model's) until
-        ``set_params(None)`` writes them back, and no reference to
-        ``tree`` is kept. Every Generator on the model then serves them:
-        the engine refuses such a swap while another one reads them."""
+        model.params's own: the new weights are copied into them, the
+        construction weights wait in host memory (``served``, the model's)
+        until ``set_params(None)`` writes them back, and every Generator
+        reading model.params serves them — the engine takes this path only
+        as model.params' sole reader (``use_weight_set`` otherwise)."""
         ref = self.model.params
         if tree is not None:
-            if set(tree) != set(ref) or any(
-                    set(tree[op]) != set(ref[op]) for op in ref):
-                raise ValueError(
-                    "set_params: tree structure differs from model.params "
-                    "— a weight swap must be same-geometry")
-            for op, ws in ref.items():
-                for w, t in ws.items():
-                    new = tree[op][w]
-                    if tuple(new.shape) != tuple(t.shape) \
-                            or new.dtype != t.dtype:
-                        raise ValueError(
-                            f"set_params: leaf geometry mismatch {op}.{w}: "
-                            f"{tuple(t.shape)}/{t.dtype} vs "
-                            f"{tuple(new.shape)}/{new.dtype}")
+            self._check_geometry(tree)
         self._override_version += 1
         if self.quantize:
             self._params_override = (tree if tree is not None
@@ -419,6 +475,39 @@ class Generator:
                         t.copy_(src[op][w])
         if tree is None:
             sw.backup = None
+
+    @property
+    def weights_serial(self) -> int:
+        """Identity of the weights the walks read at native width: the
+        WeightSet's serial, 0 for model.params."""
+        return 0 if self._weight_set is None else self._weight_set.serial
+
+    def use_weight_set(self, tree, version: str) -> Optional[WeightSet]:
+        """Serve ``version``'s WeightSet (``tree=None``: model.params again,
+        or — while an in-place swap stands there — a set of the
+        construction weights). The set is shared with every Generator on
+        ``version`` and allocated on first use. Returns the set served
+        before, which this Generator still reads until
+        ``leave_weight_set(prior)``; model.params is never written."""
+        sw = self.served
+        if tree is None and sw.version is not None:
+            tree = sw.backup
+        if tree is None:
+            ws = None
+        else:
+            self._check_geometry(tree)
+            ws = sw.acquire(str(version), tree, self.model)
+            ws.readers.add(self)
+        prior = self._weight_set
+        self._weight_set = ws
+        return prior
+
+    def leave_weight_set(self, ws: Optional[WeightSet]):
+        """Stop reading ``ws`` (unless it is the set served now); the set
+        is freed when no Generator reads it."""
+        if ws is not None and ws is not self._weight_set:
+            ws.readers.discard(self)
+            self.served.sweep()
 
     @staticmethod
     def _deq(v, cdtype: torch.dtype):
@@ -438,10 +527,14 @@ class Generator:
             else self._decode_clock.ms()
 
     def params(self):
-        """The tree the walks read: the model's weights (a native swap
-        writes into them), or their quantized form."""
-        return self._quantized_params() if self.quantize \
-            else self.model.params
+        """The tree the walks read: the model's weights (an in-place swap
+        writes into them), a swapped-in WeightSet's, or their quantized
+        form."""
+        if self.quantize:
+            return self._quantized_params()
+        if self._weight_set is not None:
+            return self._weight_set.tree
+        return self.model.params
 
     def _op_params(self, op, params, xs, cdtype):
         """``op``'s weights for one use, dequantized where quantized, tied

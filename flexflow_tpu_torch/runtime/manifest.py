@@ -3,7 +3,7 @@
 with ``ff_manifest.json`` — ``{"algo": "sha256", "files": {relpath:
 {"sha256": ..., "bytes": n}}}`` — written inside its tmp dir before the
 publish rename, and ``verify_dir_manifest`` recomputes it. Flight-recorder
-bundles use it now; the port's checkpoints will share it. The format is
+bundles and the port's checkpoints use it. The format is
 the JAX package's, so a bundle either package writes verifies in the
 other."""
 
@@ -45,13 +45,42 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def write_manifest(step_dir: str) -> str:
+class HashingWriter:
+    """A binary file wrapper that hashes what is written through it, so a
+    writer (``torch.save``) and the manifest share one pass over the
+    bytes: ``digest()`` is the (sha256 hex, bytes) ``write_manifest``'s
+    ``known`` takes."""
+
+    def __init__(self, f):
+        self.f = f
+        self.h = hashlib.sha256()
+        self.nbytes = 0
+
+    def write(self, b) -> int:
+        self.h.update(b)
+        self.nbytes += len(b)
+        return self.f.write(b)
+
+    def flush(self):
+        self.f.flush()
+
+    def digest(self):
+        return self.h.hexdigest(), self.nbytes
+
+
+def write_manifest(step_dir: str, known: Optional[dict] = None) -> str:
     """Write the content-hash manifest of a (not yet published) directory;
-    returns its path."""
+    returns its path. ``known`` ({relpath: (sha256 hex, bytes)}) gives the
+    digests of files hashed as they were written; a size that no longer
+    matches the file is hashed again."""
     manifest = {"algo": "sha256", "files": {}}
+    known = known or {}
     for rel, full in _manifest_files(step_dir):
-        manifest["files"][rel] = {"sha256": _sha256(full),
-                                  "bytes": os.path.getsize(full)}
+        size = os.path.getsize(full)
+        digest, nbytes = known.get(rel, (None, None))
+        manifest["files"][rel] = {
+            "sha256": digest if nbytes == size else _sha256(full),
+            "bytes": size}
     path = os.path.join(step_dir, MANIFEST_NAME)
     with open(path, "w") as f:
         json.dump(manifest, f)

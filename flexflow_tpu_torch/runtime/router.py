@@ -851,6 +851,9 @@ class ServingRouter:
         if not fenced:
             eng.drain()
             evac = self._evacuate_prefixes(r, deadline_t=None)
+            # a retired replica reads no weight version: its set (if a
+            # deploy gave it one) is freed with its last reader
+            eng.release_weights()
         with self._lock:
             self._retired[r] = True
             self._scale_ins += 1

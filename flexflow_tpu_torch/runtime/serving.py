@@ -55,7 +55,9 @@
   * LIFECYCLE: one engine lock around ``step`` / ``submit`` / ``stats``;
     ``submit(deadline=)`` expires queued requests as "timeout";
     ``drain`` / ``reclaim_queued`` / ``reopen``; ``swap_weights`` (in
-    place, nothing captured again); ``health`` and the lock-free ``load``;
+    place for a model's sole reader, nothing captured again; else onto the
+    version's shared weight set, captured inside the swap); ``health`` and
+    the lock-free ``load``;
     the prefix-slab handoff (``prefill_into_cache``,
     ``export_prefix_slab``, ``import_prefix_slab``: numpy page payloads in
     the JAX package's layout); ``warmup``.
@@ -1129,6 +1131,13 @@ class ServingEngine:
         # warmup() arms the retrace sentinel: a new key after it is a
         # program built mid-traffic (runtime/locks.py)
         self._programs: Dict[tuple, _Program] = {}
+        # the programs of every weight identity this engine served (the
+        # WeightSet serial, 0 for model.params): ``_programs`` is the
+        # current one's, so a swap back finds its programs again; and the
+        # programs a shared-model swap captured inside its drained window
+        self._program_sets: Dict[int, Dict[tuple, _Program]] = {
+            0: self._programs}
+        self._swap_captures = 0
         self._stream = (kernels.private_stream(self.device, self)
                         if capture and self.device.type == "cuda" else None)
         self.recompile_count = 0
@@ -1808,6 +1817,13 @@ class ServingEngine:
             # the host — the slow-replica drill (a deadline tighter than
             # <ms> expires while this request is in flight)
             if faultinject.active_plan().fire("slow", "serve"):
+                time.sleep((faultinject.active_plan().last_value or 0)
+                           / 1e3)
+            # FF_FAULT=slow(<ms>)@canary:<n>: the same stall, consumed only
+            # while this engine is a deploy's canary — the canary SLO-
+            # breach drill the RollingDeployer's soak must roll back
+            if (self.deploy_state == "canary"
+                    and faultinject.active_plan().fire("slow", "canary")):
                 time.sleep((faultinject.active_plan().last_value or 0)
                            / 1e3)
             fresh = [self._free_pages.pop() for _ in range(need)]
@@ -2831,70 +2847,168 @@ class ServingEngine:
     def swap_weights(self, params, version: str) -> Dict:
         """Hot-swap the served weights (the JAX ``swap_weights``):
         ``params`` ({op: {weight: tensor}} matching model.params, or None
-        for the construction weights) is installed IN PLACE
-        (``Generator.set_params``; a quantized tier re-quantizes into its
-        own buffers), so every captured program serves it and nothing is
-        captured again; then the prefix cache is flushed (its KV is
-        stale). The engine must hold no live or mid-prefill slot. At
-        native width the swap writes model.params, which every engine on
-        the model reads, so it is refused while another engine on the
-        model (or one using it as its draft) is alive: JAX's swap is one
-        engine's, and here it would change the others' weights mid-stream
-        and leave their caches and versions stale. FF_FAULT
-        ``swap_fail@deploy:<n>`` fails after the install: the prior
-        weights are restored and the error raised."""
+        for the construction weights) becomes what this engine serves, and
+        the prefix cache is flushed (its KV is stale). The engine must hold
+        no live or mid-prefill slot. Three ways, by who else reads the
+        weights:
+
+          * a quantized tier re-quantizes into its own buffers (private);
+          * this engine is model.params' sole reader (and no engine serves
+            ``version`` from a weight set): the weights are written into
+            model.params in place, so every captured program serves them
+            and nothing is captured (``Generator.set_params``);
+          * others read model.params (another engine, a draft user,
+            ``FFModel.generate``), or this engine already serves a weight
+            set, or others serve ``version`` from one: it moves to ``version``'s
+            per-version WeightSet, allocated once and shared with every
+            engine swapped to that version, freed with its last reader.
+            model.params is untouched. The engine re-captures its decode
+            and verify programs against the set's addresses here, inside
+            the drained window — ``stats()["swap_captures"]`` — and keeps
+            each weight identity's programs, so a swap back to weights it
+            served (``params=None``, or a version still live) captures
+            nothing.
+
+        FF_FAULT ``swap_fail@deploy:<n>`` fails after the install: the
+        prior weights are restored and the error raised."""
         with self._lock, kernels.device_section():
             if self.active.any() or self._partial:
                 raise RuntimeError(
                     "swap_weights: engine has live slots — drain() first "
                     "(a mid-stream weight change corrupts in-flight "
                     "decodes)")
-            if not self.gen.quantize:
-                self._refuse_shared_swap()
-            prev = self.gen.restore_point()
             self.deploy_state = "swapping"
             try:
-                self.gen.set_params(params)
-                if self.gen.quantize:
-                    self.gen.params()   # re-quantize once, now
-                faultinject.maybe_fail("swap_fail", "deploy")
+                if not self.gen.quantize and (
+                        self.gen._weight_set is not None
+                        or str(version) in
+                        self.gen.served.live_sets()
+                        or self._shares_model_params()):
+                    captures = self._swap_weight_set(params, version)
+                else:
+                    captures = 0
+                    self._swap_in_place(params)
             except BaseException:
-                self.gen.set_params(prev)
-                if self.gen.quantize:
-                    self.gen.params()
                 self.deploy_state = "serving"
                 raise
             self.weight_version = str(version)
-            if not self.gen.quantize:
-                self.gen.served.version = self.weight_version
+            if not self.gen.quantize and self.gen._weight_set is None:
+                self.gen.served.version = (
+                    None if params is None else self.weight_version)
             self._weight_swaps += 1
             flushed = self.flush_prefix_cache()
             self.deploy_state = "serving"
         return {"version": self.weight_version, "flushed_pages": flushed,
-                "swaps": self._weight_swaps}
+                "swaps": self._weight_swaps, "captures": captures}
 
-    def _refuse_shared_swap(self):
-        """Raise unless this engine's generators are the only ones reading
-        its model's weights (engines released by their callers are
-        collected first)."""
+    def _swap_in_place(self, params):
+        """The quantized tier's private swap, or the sole reader's write
+        into model.params; restores the prior weights on a failure."""
+        prev = self.gen.restore_point()
+        try:
+            self.gen.set_params(params)
+            if self.gen.quantize:
+                self.gen.params()   # re-quantize once, now
+            faultinject.maybe_fail("swap_fail", "deploy")
+        except BaseException:
+            self.gen.set_params(prev)
+            if self.gen.quantize:
+                self.gen.params()
+            raise
+
+    def _shares_model_params(self) -> bool:
+        """Does any Generator but this engine's own (target and draft)
+        read model.params? Engines released by their callers are
+        collected first."""
         own = {id(self.gen), id(self.draft_gen)}
         readers = self.gen.served.readers
 
         def others() -> int:   # counts, holding no reference
-            return sum(id(g) not in own for g in list(readers))
+            return sum(id(g) not in own and g._weight_set is None
+                       for g in list(readers))
 
         if others():
             gc.collect()
-        n = others()
-        if n:
-            raise RuntimeError(
-                f"swap_weights: {n} other engine generator(s) — another "
-                f"engine's, a draft's, or FFModel.generate's (kept for the "
-                f"model's life once generate() ran) — read this model's "
-                f"weights in place; a native-width swap writes model.params "
-                f"and would change their weights too. Release the engines "
-                f"first, or give each engine a model of its own (or a "
-                f"quantized weight tier, which swaps privately)")
+        return others() > 0
+
+    def _swap_weight_set(self, params, version: str) -> int:
+        """Move the target Generator to ``version``'s WeightSet (None:
+        model.params) and capture its decode and verify programs against
+        it; returns the captures. A failure before the commit puts the
+        prior weights back and frees what it allocated."""
+        gen = self.gen
+        prior = gen.use_weight_set(params, version)
+        try:
+            faultinject.maybe_fail("swap_fail", "deploy")
+        except BaseException:
+            new = gen._weight_set
+            gen._weight_set = prior
+            gen.leave_weight_set(new)
+            raise
+        gen.leave_weight_set(prior)
+        old = self._programs
+        self._purge_program_sets()
+        self._programs = self._program_sets.setdefault(gen.weights_serial,
+                                                       {})
+        captures = 0
+        with self._retrace.suspended(), torch.inference_mode():
+            for key, prog in old.items():
+                if key in self._programs:
+                    continue
+                if key[0] == "draft_propose":
+                    # the draft's weights did not change: same program
+                    self._programs[key] = prog
+                    continue
+                self._capture_for_swap(key)
+                captures += 1
+        self._swap_captures += captures
+        return captures
+
+    def _purge_program_sets(self):
+        """Drop the programs of weight sets that were freed (their graphs
+        hold addresses nothing owns any more)."""
+        live = {ws.serial for ws in self.gen.served.live_sets().values()}
+        for serial in [k for k in self._program_sets
+                       if k and k not in live
+                       and k != self.gen.weights_serial]:
+            del self._program_sets[serial]
+
+    def _capture_for_swap(self, key: tuple):
+        """Build ``key``'s program against the weights served now and run
+        it once on the idle slots (their writes land in scratch page 0):
+        on the card that first call is the CUDA-graph capture."""
+        kind, k = key
+        if kind == "decode":
+            body, inputs = self._build_decode(k)
+        else:
+            body, inputs = self._build_verify(k)
+        prog = self._programs[key] = _Program(body, inputs, self._stream)
+        write_pos, rope_pos, budget = self._slot_decode_state()
+        if kind == "decode":
+            self._load_decode(prog, write_pos, rope_pos, budget)
+        else:
+            pos = np.minimum(write_pos[:, None] + np.arange(k + 1)[None, :],
+                             (budget - 1)[:, None]).astype(np.int32)
+            self._load_slots(prog, page_table=self.page_tables,
+                             slab=np.zeros((self.slots, k + 1), np.int32),
+                             write_pos=pos, rope_pos0=rope_pos,
+                             row_len=self.row_len,
+                             prompt_pad=self.prompt_pad, temps=self.temps,
+                             top_ps=self.top_ps, top_ks=self.top_ks)
+        prog()
+
+    def release_weights(self):
+        """Leave a swapped-in WeightSet (the engine serves model.params
+        again, unflushed: call it on a retired engine) so the set is freed
+        with its last reader; drops that set's programs."""
+        with self._lock:
+            ws = self.gen._weight_set
+            if ws is None:
+                return
+            self.gen._weight_set = None
+            self.gen.leave_weight_set(ws)
+            self._programs = self._program_sets[0]
+            self._purge_program_sets()
 
     def health(self) -> Dict:
         """Liveness / readiness probe for a router: admission status and
@@ -2975,7 +3089,10 @@ class ServingEngine:
             # JAX's recompile count: flat once the keys are warm
             "recompiles": self.recompile_count,
             "sanitizer_retraces": self._retrace.hits,
-            "graph_replays": sum(p.replays for p in self._programs.values()),
+            "graph_replays": sum(p.replays for p in {
+                id(p): p for ps in self._program_sets.values()
+                for p in ps.values()}.values()),
+            "swap_captures": self._swap_captures,
             # useful slot-steps over computed ones (JAX's formula)
             "occupancy": (self._occupancy_sum
                           / max(1, self.decode_steps) / self.slots),

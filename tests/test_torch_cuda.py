@@ -53,6 +53,13 @@ the single engine's tokens; the launch counters stay exact while one
 thread launches eagerly and another captures; the fleet's f32 tokens and
 ledger equal the CPU's; with telemetry on nothing is captured after
 warmup; a hung replica is fenced and the survivor leaves no device error.
+
+Checkpoints on the card: a restore under a captured scanned step writes in
+place (no re-capture; the steps after it repeat bitwise); fit(scan_steps)
+of a dropout model resumed after a preemption draws the uninterrupted
+run's masks; an async save's pinned snapshot is the state at the save
+while the next steps run; a shared-model swap captures its decode chunk
+inside the swap only, and its swap back captures nothing.
 """
 
 import ctypes
@@ -2722,9 +2729,12 @@ def test_capture_survives_a_dead_graph_in_a_cycle(cuda):
 @pytest.mark.cuda
 def test_native_swap_refused_with_a_second_engine_on_card(no_tf32):
     """Two engines with captured decodes on one model: the first one's
-    native swap (it would write model.params under the second's graphs) is
-    refused and the second keeps its tokens; with the second released, the
-    swap serves an engine on the second weight set's tokens."""
+    native swap is no longer refused — it moves to the version's weight
+    set and captures its decode there (model.params, under the second's
+    graphs, is untouched), serving an engine on the second weight set's
+    tokens while the second engine keeps its own; the swap back captures
+    nothing. With the second released, the swap writes model.params in
+    place (no capture) and serves the same tokens."""
     _, gpu = _llama_pair(no_tf32)
     _, gpu2 = _llama_pair(no_tf32, seed=7)
     kw = dict(ENGINE_KW, prefix_cache=False)
@@ -2733,14 +2743,16 @@ def test_native_swap_refused_with_a_second_engine_on_card(no_tf32):
     sec = gpu.make_serving_engine(**kw)
     first = [r.tokens for r in eng.run(prompts, 10)]
     assert [r.tokens for r in sec.run(prompts, 10)] == first
-    with pytest.raises(RuntimeError, match="other engine"):
-        eng.swap_weights(gpu2.params, "v1")
-    assert [r.tokens for r in sec.run(prompts, 10)] == first
-    del sec
-    eng.swap_weights(gpu2.params, "v1")
     want = [r.tokens for r in
             gpu2.make_serving_engine(**kw).run(prompts, 10)]
+    assert eng.swap_weights(gpu2.params, "v1")["captures"] >= 1
+    assert [r.tokens for r in sec.run(prompts, 10)] == first
     assert [r.tokens for r in eng.run(prompts, 10)] == want != first
+    assert eng.swap_weights(None, "v0")["captures"] == 0
+    assert [r.tokens for r in eng.run(prompts, 10)] == first
+    del sec
+    assert eng.swap_weights(gpu2.params, "v1")["captures"] == 0
+    assert [r.tokens for r in eng.run(prompts, 10)] == want
     eng.swap_weights(None, "v0")
     assert [r.tokens for r in eng.run(prompts, 10)] == first
 
@@ -3105,3 +3117,177 @@ def test_hung_replica_fenced_survivor_has_no_device_error(no_tf32,
         monkeypatch.delenv("FF_FAULT", raising=False)
         faultinject.reset()
         router.close()
+
+
+# ---- checkpoints and the shared-model swap on the card ----------------------
+
+
+@pytest.mark.cuda
+def test_restore_in_place_under_step_replay(cuda, tmp_path):
+    """A checkpoint restored into a model whose scanned step is a captured
+    CUDA graph writes the same tensors in place: the replay is not rebuilt
+    or re-captured, and the steps after the restore repeat the steps after
+    the save bitwise (the same graph, the same inputs)."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+
+    ff = _small_flagship(cuda, SGDOptimizer(lr=0.05, momentum=0.9),
+                         scan_steps=2, fused_optimizer=True)
+    ff.train_scanned(2)
+    replay, graph = ff._replay, ff._replay.graph
+    assert graph is not None
+    ckpt.save_checkpoint(ff, str(tmp_path))
+    cursors = [dl.next_index for dl in ff._dataloaders]
+    after_save, _ = ff.train_scanned(2)
+    assert ckpt.restore_checkpoint(ff, str(tmp_path)) == 2
+    # the loaders' cursors ride the supervisor's meta, not the payload
+    for dl, c in zip(ff._dataloaders, cursors):
+        dl.next_index = c
+    again, _ = ff.train_scanned(2)
+    assert ff._replay is replay and ff._replay.graph is graph
+    assert torch.equal(again, after_save)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_after_resume_under_scan_steps(cuda, tmp_path,
+                                                     monkeypatch):
+    """fit(scan_steps=2) of a dropout model, preempted at step 4 and
+    resumed by a fresh model, draws the masks of the uninterrupted run:
+    the generator state after 8 steps is equal and the weights agree
+    within 1e-5 (f32; the resumed run's first step runs eagerly where the
+    uninterrupted one replays, and cuBLAS may pick other algorithms under
+    capture — a different mask would move them by ~1e-2)."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, SGDOptimizer,
+                                    SingleDataLoader)
+    from flexflow_tpu_torch.runtime import faultinject
+
+    def build(ckpt_dir=""):
+        ff = FFModel(FFConfig(batch_size=8, seed=4, scan_steps=2,
+                              checkpoint_dir=ckpt_dir, checkpoint_every=2),
+                     device=cuda)
+        x = ff.create_tensor([8, 512], name="input")
+        h = ff.dropout(ff.dense(x, 256, name="fc0"), 0.5, name="drop")
+        out = ff.dense(h, 4, name="fc")
+        ff.compile(SGDOptimizer(lr=0.05),
+                   LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+                   [MetricsType.METRICS_ACCURACY], final_tensor=out)
+        rs = np.random.RandomState(0)
+        SingleDataLoader(ff, x, rs.randn(64, 512).astype(np.float32))
+        SingleDataLoader(ff, ff.label_tensor,
+                         rs.randint(0, 4, (64, 1)).astype(np.int32))
+        return ff
+
+    ref = build()
+    ref.fit(epochs=1, verbose=False)
+    monkeypatch.setenv("FF_FAULT", "sigterm@step:4")
+    faultinject.reset()
+    a = build(str(tmp_path))
+    a.fit(epochs=1, verbose=False)
+    assert a._step_count == 4 and a.last_fit_status == "preempted"
+    monkeypatch.delenv("FF_FAULT")
+    faultinject.reset()
+    b = build(str(tmp_path))
+    b.fit(epochs=1, verbose=False)
+    assert b._step_count == 8 and b._replay is not None
+    assert torch.equal(b._generators["drop"].get_state(),
+                       ref._generators["drop"].get_state())
+    assert _max_diff(b, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_async_snapshot_consistent_with_next_step_running(cuda, tmp_path):
+    """An async save's pinned snapshot is copied on the current stream
+    before the call returns: the next step's in-place update, enqueued
+    right after, cannot reach it — the published payload equals the state
+    at the save, bitwise."""
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+
+    ff = _small_flagship(cuda, SGDOptimizer(lr=0.05, momentum=0.9),
+                         fused_optimizer=True)
+    ff._run_train_step(ff._stage_batch())
+    want = {k: v.detach().cpu().clone()
+            for k, v in ckpt.state_tensors(ff).items()}
+    ckpt.save_checkpoint(ff, str(tmp_path), async_save=True)
+    for _ in range(3):
+        ff._run_train_step(ff._stage_batch())
+    ckpt.wait_pending_saves(str(tmp_path))
+    got = ckpt.load_payload(str(tmp_path / "step_1"))
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    moved = ckpt.state_tensors(ff)
+    assert any(not torch.equal(moved[k].cpu(), v) for k, v in want.items())
+
+
+@pytest.mark.cuda
+def test_shared_swap_captures_while_drained_only(cuda):
+    """Two engines on one model: a native swap on one moves it to a
+    weight set and captures its decode chunk inside the swap; served
+    afterwards it captures nothing (recompiles flat, no sentinel record)
+    and gives a fresh engine's tokens on the new weights; the other
+    engine keeps its tokens; the swap back captures nothing."""
+    ff = _small_llama(cuda)
+    new = {op: {w: t * 1.25 for w, t in ws.items()}
+           for op, ws in ff.params.items()}
+    kw = dict(serve_slots=2, kv_page_size=64, max_seq_len=512)
+    a = ff.make_serving_engine(**kw)
+    b = ff.make_serving_engine(**kw)
+    prompts = _serve_prompts()
+    first = [r.tokens for r in a.run(prompts, 6)]
+    b_first = [r.tokens for r in b.run(prompts, 6)]
+    a.warmup(prompts, max_new_tokens=6)
+    built = a.stats()["recompiles"]
+    out = a.swap_weights(new, "v1")
+    assert out["captures"] >= 1
+    swapped = [r.tokens for r in a.run(prompts, 6)]
+    st = a.stats()
+    assert st["recompiles"] == built and st["sanitizer_retraces"] == 0
+    assert st["swap_captures"] == out["captures"]
+    fresh = _small_llama(cuda)
+    fresh.params = {op: {w: t.clone() for w, t in ws.items()}
+                    for op, ws in new.items()}
+    want = [r.tokens for r in fresh.make_serving_engine(**kw).run(
+        prompts, 6)]
+    assert swapped == want and swapped != first
+    assert [r.tokens for r in b.run(prompts, 6)] == b_first
+    assert a.swap_weights(None, "v0")["captures"] == 0
+    assert [r.tokens for r in a.run(prompts, 6)] == first
+
+
+@pytest.mark.cuda
+def test_generator_state_restored_in_place_under_replay(cuda, tmp_path):
+    """A dropout model's scanned step is a CUDA graph with the op's
+    generator registered: restoring a checkpoint in place sets that
+    generator's state back (``set_state`` on the registered generator),
+    so the replayed steps after the restore draw the masks of the steps
+    after the save — losses bitwise, generator state equal."""
+    import numpy as np
+    from flexflow_tpu_torch import (LossType, MetricsType, SGDOptimizer,
+                                    SingleDataLoader)
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+
+    ff = FFModel(FFConfig(batch_size=8, seed=4, scan_steps=2), device=cuda)
+    x = ff.create_tensor([8, 512], name="input")
+    h = ff.dropout(ff.dense(x, 256, name="fc0"), 0.5, name="drop")
+    out = ff.dense(h, 4, name="fc")
+    ff.compile(SGDOptimizer(lr=0.05),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY], final_tensor=out)
+    rs = np.random.RandomState(0)
+    SingleDataLoader(ff, x, rs.randn(32, 512).astype(np.float32))
+    SingleDataLoader(ff, ff.label_tensor,
+                     rs.randint(0, 4, (32, 1)).astype(np.int32))
+    ff.train_scanned(2)
+    graph = ff._replay.graph
+    ckpt.save_checkpoint(ff, str(tmp_path))
+    cursors = [dl.next_index for dl in ff._dataloaders]
+    after_save, _ = ff.train_scanned(2)
+    gen_after = ff._generators["drop"].get_state()
+    ckpt.restore_checkpoint(ff, str(tmp_path))
+    for dl, c in zip(ff._dataloaders, cursors):
+        dl.next_index = c
+    again, _ = ff.train_scanned(2)
+    assert ff._replay.graph is graph
+    assert torch.equal(again, after_save)
+    assert torch.equal(ff._generators["drop"].get_state(), gen_after)

@@ -18,10 +18,12 @@ JAX's engines on their einsum route. Held to JAX:
     a fresh engine on those weights, nothing built again; the swap back
     restores the first tokens; the int8-weight tier re-quantizes in place;
     refused under live slots; the ``swap_fail`` drill rolls back; at
-    native width (a swap writes model.params) refused while another engine
-    reads the model, which then keeps its tokens; an engine built while a
-    swap stands serves the swapped version; a released engine (one with a
-    host-tier publisher thread included) no longer blocks a swap;
+    native width the sole reader's swap writes model.params, and while
+    another engine reads the model the swap moves to a per-version weight
+    set instead, the other engine keeping its tokens; an engine built
+    while an in-place swap stands serves the swapped version; a released
+    engine (one with a host-tier publisher thread included) no longer
+    counts as a reader;
   * the prefix slab: ``prefill_into_cache`` / ``export_prefix_slab`` /
     ``import_prefix_slab`` round-trip bitwise between two port engines
     (native and int8 pools), a JAX-exported slab imported by the port
@@ -332,17 +334,20 @@ def _tokens(eng, prompts):
 @pytest.mark.parametrize("other", ["native", "int8", "draft"])
 def test_native_swap_refused_while_another_engine_reads(models, prompts,
                                                         other):
-    """At native width a swap writes model.params, which every engine on
-    the model reads. While a second engine on it is alive — native, on an
-    int8 weight tier, or serving another model with this one as its draft —
-    the swap is refused and both engines keep their tokens. Released, the
-    second engine no longer blocks; an engine built while the swap stands
-    serves and reports the swapped version, and blocks the swap back until
-    it is released too."""
+    """While a second engine reads the model — native, on an int8 weight
+    tier, or serving another model with this one as its draft — a native
+    swap is no longer refused: the swapped engine moves to the version's
+    weight set (captures its decode program there, inside the swap) and
+    serves a fresh engine's tokens on the new weights; model.params and
+    the second engine's tokens stay; an engine built meanwhile serves the
+    construction weights; the swap back finds its programs (no capture)
+    and the set is freed with its last reader."""
+    from flexflow_tpu_torch.runtime.generation import served_weights
+
     jff, _ = models
     tff = _port_model(_np_tree(jff.params))
-    t_new = params_from_jax(_second_weights(jff), "cpu", torch.float32,
-                            model=tff)
+    new = _second_weights(jff)
+    t_new = params_from_jax(new, "cpu", torch.float32, model=tff)
     eng = tff.make_serving_engine(**ENGINE)
     first = _tokens(eng, prompts)
     if other == "draft":
@@ -351,24 +356,29 @@ def test_native_swap_refused_while_another_engine_reads(models, prompts,
     else:
         sec = tff.make_serving_engine(**ENGINE, weight_dtype=other)
     before = _tokens(sec, prompts)
-    with pytest.raises(RuntimeError, match="other engine"):
-        eng.swap_weights(t_new, "v1")
-    assert eng.stats()["weight_version"] == "v0"
-    assert eng.stats()["weight_swaps"] == 0
-    assert _tokens(sec, prompts) == before
-    assert _tokens(eng, prompts) == first
-    del sec
-    eng.swap_weights(t_new, "v1")
+    out = eng.swap_weights(t_new, "v1")
+    assert out["captures"] >= 1
+    st = eng.stats()
+    assert st["weight_version"] == "v1" and st["weight_swaps"] == 1
+    assert st["swap_captures"] == out["captures"]
     swapped = _tokens(eng, prompts)
     assert swapped != first
+    assert swapped == _tokens(_port_model(new).make_serving_engine(**ENGINE),
+                              prompts)
+    assert eng.stats()["swap_captures"] == out["captures"]
+    assert _tokens(sec, prompts) == before
+    ref = params_from_jax(_np_tree(jff.params), "cpu", torch.float32,
+                          model=tff)
+    for op, ws in ref.items():
+        for w, t in ws.items():
+            assert torch.equal(tff.params[op][w], t), (op, w)
     late = tff.make_serving_engine(**ENGINE)
-    assert late.stats()["weight_version"] == "v1"
-    assert _tokens(late, prompts) == swapped
-    with pytest.raises(RuntimeError, match="other engine"):
-        eng.swap_weights(None, "v0")
-    del late
-    eng.swap_weights(None, "v0")
+    assert late.stats()["weight_version"] == "v0"
+    assert _tokens(late, prompts) == first
+    assert list(served_weights(tff).live_sets()) == ["v1"]
+    assert eng.swap_weights(None, "v0")["captures"] == 0
     assert _tokens(eng, prompts) == first
+    assert served_weights(tff).live_sets() == {}
 
 
 def test_int8_engine_under_a_standing_native_swap(models, prompts):
@@ -416,9 +426,11 @@ def test_released_tier_engine_does_not_block_a_swap(models, prompts):
     first = _tokens(eng, prompts)
     gone = weakref.ref(tier)
     del tier
-    eng.swap_weights(params_from_jax(_second_weights(jff), "cpu",
-                                     torch.float32, model=tff), "v1")
+    out = eng.swap_weights(params_from_jax(_second_weights(jff), "cpu",
+                                           torch.float32, model=tff), "v1")
     assert gone() is None
+    # the sole reader's swap: written into model.params, nothing captured
+    assert out["captures"] == 0 and eng.gen._weight_set is None
     publisher.join(timeout=10.0)
     assert not publisher.is_alive()
     eng.swap_weights(None, "v0")

@@ -335,7 +335,28 @@ def test_engine_rows_ride_the_bundle_and_model_dump(tmp_path):
         ff.config.flight_recorder_dir = ""
 
 
-def test_config_validation():
+def _train_slo_drill(pkg, tmp_path):
+    fr, tm = PKGS[pkg]
+    fr.configure(_cfg(pkg, tmp_path / pkg, slo_step_time_p99_s=0.05,
+                      slo_checkpoint_stall_s=1.0, slo_clear_windows=1))
+    m = fr.slo_monitor()
+    step = tm.registry().histogram("ff_train_step_seconds").labels()
+    stall = tm.registry().histogram("ff_checkpoint_stall_seconds").labels()
+    out = [m.evaluate()]
+    step.observe(0.2)
+    stall.observe(0.1)
+    out.append(m.evaluate())
+    b1 = sorted((b["slo"], b["replica"]) for b in m.breaches())
+    step.observe(0.01)
+    stall.observe(3.0)
+    out.append(m.evaluate())
+    b2 = sorted((b["slo"], b["replica"]) for b in m.breaches())
+    desc = m.describe()
+    fr.configure(_cfg(pkg, tmp_path / pkg))
+    return [_strip(e) for e in out], b1, b2, desc["specs"]
+
+
+def test_config_validation(tmp_path):
     for kw, match in ((dict(telemetry="bogus"), "telemetry"),
                       (dict(metrics_port=70000), "metrics_port"),
                       (dict(flight_keep=0), "flight_keep"),
@@ -350,9 +371,10 @@ def test_config_validation():
             FFConfig(**kw)
         with pytest.raises(ValueError, match=match):
             JConfig(**kw)
-    for knob in ("slo_step_time_p99_s", "slo_checkpoint_stall_s"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            FFConfig(**{knob: 1.0})
+    # the training SLOs are accepted and judge fit's step histogram and
+    # the supervisor's checkpoint stall as JAX's monitor does
+    assert _train_slo_drill("torch", tmp_path) == \
+        _train_slo_drill("jax", tmp_path)
     jc, tc = JConfig(), FFConfig()
     for knob in ("serve_max_queue", "serve_replica_roles",
                  "seq_parallel_shards", "preempt_deadline_s", "telemetry",

@@ -377,21 +377,31 @@ def test_non_decodable_graphs_refused_by_op_name():
 
 
 def test_swap_weights_refused_after_generate():
-    """Once generate() ran, its Generator reads model.params in place for
-    the model's life: a native swap on an engine of the model is refused,
-    naming FFModel.generate."""
+    """generate()'s Generator reads model.params for the model's life; a
+    native swap on an engine of the model then no longer refuses: the
+    engine moves to the version's weight set and serves the new weights,
+    while generate() keeps model.params' — JAX's swap leaves generate's
+    weights alone. The swap back serves the first tokens again."""
     tff = FFModel(FFConfig(batch_size=2), device="cpu")
     _, logits = llama_lm(tff, 2, kv_heads=2, **ARCH)
     tff.compile(final_tensor=logits)
     eng = tff.make_serving_engine(serve_slots=2, kv_page_size=4,
                                   max_seq_len=32, prefix_cache=False)
-    tree = {op: {w: t.clone() for w, t in ws.items()}
+    tree = {op: {w: t.clone() * 1.5 for w, t in ws.items()}
             for op, ws in tff.params.items()}
-    assert eng.swap_weights(tree, "v1")["version"] == "v1"
+    prompts = [PROMPT[i] for i in range(PROMPT.shape[0])]
+    first = [r.tokens for r in eng.run(prompts, max_new_tokens=4)]
+    assert eng.swap_weights(tree, "v1")["captures"] == 0   # sole reader
+    swapped = [r.tokens for r in eng.run(prompts, max_new_tokens=4)]
+    assert swapped != first
     eng.swap_weights(None, "v0")
-    tff.generate(PROMPT, 3)
-    with pytest.raises(RuntimeError, match="FFModel.generate"):
-        eng.swap_weights(tree, "v1")
+    want = tff.generate(PROMPT, 3)
+    out = eng.swap_weights(tree, "v1")
+    assert out["version"] == "v1" and eng.gen._weight_set is not None
+    assert [r.tokens for r in eng.run(prompts, max_new_tokens=4)] == swapped
+    np.testing.assert_array_equal(tff.generate(PROMPT, 3), want)
+    assert eng.swap_weights(None, "v0")["captures"] == 0
+    assert [r.tokens for r in eng.run(prompts, max_new_tokens=4)] == first
 
 
 # ---- the last-axis softmax (a fault the port had: it refused the graph) ---

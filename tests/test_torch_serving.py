@@ -152,7 +152,8 @@ def test_port_imports_no_jax():
         "runtime/faultinject", "runtime/serving", "runtime/generation",
         "runtime/seq2seq_generation", "runtime/router", "runtime/locks",
         "runtime/telemetry", "runtime/flightrec", "runtime/manifest",
-        "runtime/resilience")} \
+        "runtime/resilience", "runtime/checkpoint", "runtime/elastic",
+        "runtime/deploy", "runtime/autoscale", "search/machine")} \
         <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
@@ -181,7 +182,7 @@ def test_later_slice_knobs_raise(tff, knob):
     without the prefix cache, a rank below 1). The fleet's telemetry
     identity is ported with the runtime plane: it relabels the engine's
     series and trace track; the SLOs over the training step and the
-    checkpoint stall stay refused (ROADMAP item 11)."""
+    checkpoint stall are accepted and validated as JAX's."""
     if knob == "set_telemetry_identity":
         eng = tff.make_serving_engine(**ENGINE)
         eng.set_telemetry_identity(0, "decode")
@@ -190,8 +191,9 @@ def test_later_slice_knobs_raise(tff, knob):
         req = eng.submit(np.arange(1, 6, dtype=np.int32), 2)
         assert req.trace_id == "0-r0"
         for knob in ("slo_step_time_p99_s", "slo_checkpoint_stall_s"):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                FFConfig(**{knob: 1.0})
+            assert getattr(FFConfig(**{knob: 1.0}), knob) == 1.0
+            with pytest.raises(ValueError, match=knob):
+                FFConfig(**{knob: -1.0})
         return
     eng = tff.make_serving_engine(**dict(ENGINE, prefix_cache=True,
                                          **{knob: 4}))

@@ -44,8 +44,10 @@ ARCH = dict(seq_len=16, hidden=32, layers=1, heads=2, kv_heads=2,
             vocab_size=VOCAB)
 ENGINE = dict(serve_slots=2, kv_page_size=8, max_seq_len=48)
 #: stats() keys only one engine has (the port's CUDA-graph and launch
-#: ledger; JAX's kernel-tune table and page-touch counters)
-PORT_ONLY_STATS = {"decode_step_ms", "graph_replays", "spec_dispatches"}
+#: ledger and the captures a shared-model weight swap made; JAX's
+#: kernel-tune table and page-touch counters)
+PORT_ONLY_STATS = {"decode_step_ms", "graph_replays", "spec_dispatches",
+                   "swap_captures"}
 JAX_ONLY_STATS = {"kernel_tune_hits", "kernel_tune_misses",
                   "kv_effective_page_capacity", "last_pages_touched",
                   "pages_touched"}

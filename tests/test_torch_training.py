@@ -20,6 +20,8 @@ up to 128 products in other orders); weights after three steps 1e-5
 (lr 0.05 times those gradient differences).
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -186,11 +188,23 @@ def _small_port_model(**cfg):
 
 @pytest.mark.parametrize("knobs", [dict(checkpoint_dir="ckpt")],
                          ids=lambda k: next(iter(k)))
-def test_later_slice_training_knobs_raise(knobs):
+def test_later_slice_training_knobs_raise(knobs, tmp_path):
+    """``checkpoint_dir`` is ported: the training compile accepts it and
+    ``fit`` checkpoints there (the final save of a completed fit), and a
+    fresh model's fit resumes from it; the serving compile ignores it."""
+    knobs = {k: str(tmp_path / v) for k, v in knobs.items()}
+    xs, ys = _data(5, 2 * B)
+    for _ in range(2):
+        ff, x, out = _small_port_model(**knobs)
+        ff.compile(SGDOptimizer(lr=LR), final_tensor=out)
+        SingleDataLoader(ff, x, xs)
+        SingleDataLoader(ff, ff.label_tensor, ys)
+        ff.fit(epochs=1, verbose=False)
+    assert ff._step_count == 2 and ff.last_fit_status == "completed"
+    assert sorted(os.listdir(knobs["checkpoint_dir"])) == \
+        ["meta.json", "step_2", "strategy.txt"]
     ff, _, out = _small_port_model(**knobs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-        ff.compile(SGDOptimizer(), final_tensor=out)
-    ff.compile(final_tensor=out)   # serving compile ignores them
+    ff.compile(final_tensor=out)   # serving compile ignores it
 
 
 def test_flash_off_trains_through_the_einsum_route(monkeypatch):
