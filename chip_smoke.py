@@ -352,6 +352,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 the hang watchdog with its flight bundle. The "_resume"
                 and "_deploy" rows repeat phase 3's training and serving
                 rows with the resumed fit's and the deploy's launches.
+ 16. input pipeline, profiler — last. (a) ResNet-50 at phase 9's widths
+                (224 x 224, 1000 classes, batch 128, bf16, SGD 0.1) from a
+                host-resident dataset of P16_IMAGES seeded f32 images
+                (2.158 GB: over the 2 GiB default budget, so fit keeps it
+                on the host with every setting at its default), one epoch
+                of 28 steps five times from the same restored weights:
+                (i) the synchronous loop (prefetch_depth=0, native off),
+                (ii) overlap (the pipeline alone), (iii) the native loader
+                under the pipeline, (iv) the same shuffled, (v) the data
+                device-resident (budget 4 GiB) as the yardstick: images/s,
+                fit's step breakdown (host_wait fraction, h2d, dispatch,
+                device), peak memory, the idle share of 4 profiled steps
+                for (i), (ii), (v); exact update launches; the losses of
+                (i), (ii), (iii) within P16_LOSS_RTOL of each other; the
+                native library loaded and serving every batch of (iii)
+                and (iv). (c) on it: step_breakdown (device_step_ms
+                against fit's step, epilogue_ms; the state bitwise
+                unchanged), in_situ_op_summary's 5 heaviest ops and the
+                share of kernel time inside op ranges, profile_step's 5
+                heaviest, a Chrome trace written. (b) the flagship at one
+                layer from host data (device_resident_data=False): sync,
+                overlap and native losses bitwise, the cursors after fit
+                equal; a SIGTERM after step P16_PREEMPT under the overlap
+                loop saves the consumed cursors and a resumed fit is
+                bitwise the uninterrupted one; then (c)'s step_breakdown
+                on it against the update's own device time. The
+                "_pipeline" rows repeat phase 3's training rows with the
+                drill's launches, and ResNet-50's update row with (iii)'s.
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -492,10 +520,18 @@ def scaled_err(out, ref) -> float:
     return ((out.float() - ref).abs().max() / ref.abs().max()).item()
 
 
+def device_events(events):
+    """A profile's device activity — kernels, copies, sets — without the
+    op ranges (user annotations) that the training walk's
+    ``record_function`` ranges mirror onto the device's timeline."""
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def busy_ms(events) -> float:
     """Union of the device kernels' [start, end) intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type.name == "CUDA")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events(events))
     total, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -2098,7 +2134,7 @@ def train_run(torch, kernels, card: str, ff, label: str, want=None,
         else:
             step(batch)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = device_events(prof.events())
     busy = busy_ms(events) / (TRAIN_STEPS if scan else 1)
     by_class, by_name = {}, {}
     for e in events:
@@ -2955,7 +2991,7 @@ def rest_moe_serve(torch, port, kernels, card: str):
         ff.serve(prompts[:4], max_new_tokens=16, **MOE_ENGINE)
         torch.cuda.synchronize()
         pwall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = device_events(prof.events())
     busy = busy_ms(events)
     bmm = sum(getattr(e, "device_time_total", 0) or
               getattr(e, "cuda_time_total", 0)
@@ -4075,7 +4111,7 @@ def _p13_profile(torch, ff, toks, lens, card: str):
                              ProfilerActivity.CUDA]) as prof:
         _, wall = _p13_timed(torch, lambda: ff.generate(
             toks, MAX_NEW, prompt_lengths=lens))
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = device_events(prof.events())
     busy = busy_ms(events)
     by_class, by_name = {}, {}
     for e in events:
@@ -4452,7 +4488,7 @@ def _p14_fleet(torch, np, kernels, telemetry, flightrec, ff, traffic, want,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, pwall, _, _ = _p14_round(torch, router, traffic)
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    events = device_events(prof.events())
     busy = busy_ms(events)
     del prof
     say(f"phase 14 (a) profile: {len(events)} device events, device busy "
@@ -5666,6 +5702,438 @@ def _p15_autoscale(torch, np, autoscale, ff, ref, prompts, warm, card: str):
         autoscale.flightrec.slo_monitor = real
 
 
+# ------------------------- phase 16: the input pipeline and the profiler
+
+#: ResNet-50's host-resident dataset: 3584 f32 images of 3 x 224 x 224
+#: (2.158 GB, just over FFConfig's 2 GiB device_data_budget_bytes, so fit
+#: keeps it on the host with every setting at its default): 28 steps of
+#: 128 an epoch
+P16_IMAGES = 3584
+P16_SEED = 16
+#: (a)'s per-step losses of the sync, overlap and native runs against the
+#: sync run's: the same batches from the same weights, but cuDNN's
+#: convolution backward accumulates in a nondeterministic order, so runs
+#: part after the first step
+P16_LOSS_RTOL = 2e-2
+#: steps of the profiled fits whose idle share (a) prints
+P16_PROFILED_STEPS = 4
+#: (b): the flagship at one layer, 8 batches an epoch, a SIGTERM after
+#: step 5
+P16_DRILL_LAYERS = 1
+P16_DRILL_BATCHES = 8
+P16_PREEMPT = 5
+#: (a)'s runs: (label, FFConfig fields set for the run)
+P16_RUNS = (
+    ("(i) sync", dict(prefetch_depth=0, native_dataloader=False)),
+    ("(ii) overlap", dict(native_dataloader=False)),
+    ("(iii) native + overlap", dict()),
+    ("(iv) native + overlap, shuffled", dict(dataloader_shuffle=True)),
+    ("(v) device-resident", dict(device_data_budget_bytes=4 << 30)),
+)
+P16_DEFAULTS = dict(prefetch_depth=2, dispatch_ahead=2,
+                    native_dataloader=True, dataloader_shuffle=False,
+                    device_data_budget_bytes=2 << 30)
+
+
+def _p16_tensors(x, out):
+    """Every tensor under ``x`` (nested dicts), in a fixed order."""
+    if x is None:
+        return out
+    if hasattr(x, "data_ptr"):
+        out.append(x)
+    elif isinstance(x, dict):
+        for k in sorted(x, key=str):
+            _p16_tensors(x[k], out)
+    return out
+
+
+def _p16_state(ff):
+    return _p16_tensors({"p": ff.params, "o": ff.opt_state,
+                         "b": ff.bn_state}, [])
+
+
+def _p16_restore(torch, ff, snap):
+    with torch.no_grad():
+        for t, s in zip(_p16_state(ff), snap):
+            t.copy_(s)
+
+
+def _p16_recorded_fit(torch, kernels, ff, epochs: int = 1):
+    """fit() with every step's loss kept on the device; (losses, wall s,
+    launches)."""
+    losses = []
+    step = ff._run_train_step
+
+    def rec(batch, inject_nan=False):
+        loss, mets = step(batch, inject_nan)
+        losses.append(loss.reshape(1))
+        return loss, mets
+
+    ff._run_train_step = rec
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ff.fit(epochs=epochs, verbose=False)
+    finally:
+        del ff._run_train_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = [float(v) for v in torch.cat(losses)] if losses else []
+    return vals, wall, kernels.launch_counts()
+
+
+def _p16_idle(torch, ff, steps: int, b: int):
+    """The idle share of a profiled fit over ``steps`` steps after its
+    warm-up step: 1 - the union of the kernels' intervals over the window
+    from fit's warm-up barrier (the first step's loss read, ``aten::item``)
+    to the last kernel's end. The pipeline's start-up and the first step
+    stay out, as they stay out of fit's throughput."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch.runtime import profiler
+
+    keep = [dl.num_samples for dl in ff._dataloaders]
+    for dl in ff._dataloaders:
+        dl.num_samples = (steps + 1) * b
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ff.fit(epochs=1, verbose=False)
+            torch.cuda.synchronize()
+    finally:
+        for dl, n in zip(ff._dataloaders, keep):
+            dl.num_samples = n
+    events = prof.events()
+    start = min(e.time_range.end for e in events
+                if e.name in ("aten::item", "aten::_local_scalar_dense"))
+    dev = [e for e in device_events(events) if e.time_range.end > start]
+    if not dev:
+        fail("phase 16 (a): the profiled fit ran nothing on the device")
+        return math.nan, 0.0, 0.0
+    end = max(e.time_range.end for e in dev)
+    busy = profiler._union_ms((max(e.time_range.start, start),
+                               e.time_range.end) for e in dev) * 1e3
+    wall = end - start
+    return max(1 - busy / wall, 0.0), busy / 1e3, wall / 1e3
+
+
+def _p16_resnet(torch, port, kernels, card: str):
+    """(a) ResNet-50 from a host-resident dataset, five runs of one epoch
+    from the same weights; then (c) on the same model. Returns (the native
+    run's launches, the model's step ms under overlap)."""
+    import numpy as np
+    from flexflow_tpu_torch.models import resnet50
+    from flexflow_tpu_torch.runtime import native_loader, profiler
+
+    r = RESNET50
+    b = r["batch"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(P16_SEED)
+    images = rng.standard_normal((P16_IMAGES, 3, r["image"], r["image"]),
+                                 dtype=np.float32)
+    labels = rng.integers(0, r["classes"], (P16_IMAGES, 1)).astype(np.int32)
+    say(f"phase 16 (a): dataset {P16_IMAGES} images, {images.nbytes / 1e9:.3f}"
+        f" GB f32 on the host (default budget {(2 << 30) / 1e9:.3f} GB), "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ff = port.FFModel(port.FFConfig(compute_dtype="bfloat16",
+                                    master_dtype="bfloat16", seed=0,
+                                    batch_size=b), device="cuda")
+    x, logits = resnet50(ff, b, r["classes"], r["image"])
+    ff.compile(port.SGDOptimizer(lr=r["lr"]),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+    port.SingleDataLoader(ff, x, images)
+    port.SingleDataLoader(ff, ff.label_tensor, labels)
+    del images, labels
+    snap = [t.detach().clone() for t in _p16_state(ff)]
+    leaves = sum(len(ws) for ws in ff.params.values())
+    per_step = -(-leaves // kernels.FUSED_UPDATE_MAX_LEAVES)
+    steps = P16_IMAGES // b
+    res = {}
+    for label, cfg in P16_RUNS:
+        for k, v in dict(P16_DEFAULTS, **cfg).items():
+            setattr(ff.config, k, v)
+        _p16_restore(torch, ff, snap)
+        ff._reset_dataloaders()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        served = native_loader.COUNTERS["batches"]
+        fell = native_loader.COUNTERS["fallbacks"]
+        vals, wall, launches = _p16_recorded_fit(torch, kernels, ff)
+        peak = torch.cuda.max_memory_allocated()
+        bd = dict(ff.last_step_breakdown)
+        served = native_loader.COUNTERS["batches"] - served
+        if len(vals) != steps or not all(math.isfinite(v) for v in vals):
+            fail(f"phase 16 (a) {label}: losses {vals}")
+        want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "fused_add_layernorm_fwd": 0, "paged_attention_fwd": 0,
+                "paged_prefill_write": 0, "fused_update": per_step * steps}
+        if launches != want:
+            fail(f"phase 16 (a) {label}: launches {launches} != {want}")
+        native = cfg.get("native_dataloader", True) and \
+            not cfg.get("device_data_budget_bytes")
+        if native and (served != steps
+                       or native_loader.COUNTERS["fallbacks"] != fell
+                       or not native_loader._lib):
+            fail(f"phase 16 (a) {label}: the native loader served {served} "
+                 f"of {steps} batches (fallbacks "
+                 f"{native_loader.COUNTERS['fallbacks'] - fell})")
+        staged = [dl._dev_data is not None for dl in ff._dataloaders]
+        if any(staged) != label.startswith("(v)"):
+            fail(f"phase 16 (a) {label}: staged on the device {staged}")
+        step_ms = 1e3 * bd["wall_s"] / bd["steps"]
+        ips = bd["steps"] * b / bd["wall_s"]
+        res[label] = dict(vals=vals, ips=ips, step_ms=step_ms, bd=bd,
+                          peak=peak, launches=launches)
+        say(f"phase 16 (a) {label}: fit of {steps} steps in {wall:.2f} s; "
+            f"after the first: {step_ms:.2f} ms a step, {ips:.2f} images/s; "
+            f"host_wait {bd['host_wait']:.4f} s "
+            f"({100 * bd['host_wait_fraction']:.2f}% of "
+            f"{bd['wall_s']:.3f} s), h2d {bd['h2d']:.4f} s"
+            f"{' (worker)' if bd['overlap'] else ''}, dispatch "
+            f"{bd['dispatch']:.4f} s, device {bd['device']:.4f} s; peak "
+            f"{peak / 2**30:.2f} GiB; native batches {served} [{card}]")
+        if label[:4] in ("(i) ", "(ii)") or label.startswith("(v)"):
+            idle, busy, pwall = _p16_idle(torch, ff, P16_PROFILED_STEPS, b)
+            res[label]["idle"] = idle
+            say(f"phase 16 (a) {label}: a profiled fit, {P16_PROFILED_STEPS}"
+                f" steps after its first: device busy {busy:.1f} of "
+                f"{pwall:.1f} ms, idle share {idle:.3f} [{card}]")
+    ref = res["(i) sync"]["vals"]
+    for label in ("(ii) overlap", "(iii) native + overlap",
+                  "(v) device-resident"):
+        got = res[label]["vals"]
+        rel = max(abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, ref))
+        say(f"phase 16 (a) {label}: losses against (i)'s: first step "
+            f"{'equal' if got[0] == ref[0] else 'differs'}, max relative "
+            f"{rel:.3g}, bitwise {got == ref}")
+        if rel > P16_LOSS_RTOL and not label.startswith("(v)"):
+            fail(f"phase 16 (a) {label}: losses {rel:.3g} from the sync "
+                 f"run's (limit {P16_LOSS_RTOL})")
+    shuf = res["(iv) native + overlap, shuffled"]["vals"]
+    say(f"phase 16 (a): losses (i) {[round(v, 4) for v in ref[:4]]} ... "
+        f"{ref[-1]:.4f}; (iv) shuffled {[round(v, 4) for v in shuf[:4]]} "
+        f"... {shuf[-1]:.4f}")
+    yard = res["(v) device-resident"]["ips"]
+    for label, m in res.items():
+        say(f"phase 16 (a) table: {label}: {m['ips']:.2f} images/s "
+            f"({100 * m['ips'] / yard:.1f}% of (v)), {m['step_ms']:.2f} ms, "
+            f"host_wait {100 * m['bd']['host_wait_fraction']:.2f}%, idle "
+            f"{m.get('idle', float('nan')):.3f}, peak "
+            f"{m['peak'] / 2**30:.2f} GiB [{card}]")
+    # (c) reads the last batch; a copy, so the staged dataset can go
+    ff._current_batch = {k: v.clone() for k, v in ff._current_batch.items()}
+    for dl in ff._dataloaders:
+        dl.unstage()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the profiler on the model fit just trained
+    before = [t.detach().clone() for t in _p16_state(ff)]
+    bd = ff.step_breakdown(iters=5)
+    same = all(torch.equal(a, t) for a, t in zip(before, _p16_state(ff)))
+    if not same:
+        fail("phase 16 (c) ResNet-50: step_breakdown changed the model's "
+             "state")
+    del before
+    fit_ms = res["(v) device-resident"]["step_ms"]
+    say(f"phase 16 (c) ResNet-50 step_breakdown: device_step_ms "
+        f"{bd['device_step_ms']:.3f} against fit's {fit_ms:.2f} ms a step "
+        f"(resident), epilogue_ms {bd['epilogue_ms']:.4f} (fraction "
+        f"{bd['epilogue_fraction']:.4f}), compute_ms {bd['compute_ms']:.3f}, "
+        f"collective_instructions {bd['collective_instructions']}; state "
+        f"bitwise unchanged [{card}]")
+    batch = ff._current_batch
+    totals = {}
+    rows = profiler.in_situ_op_summary(ff, batch, totals=totals)
+    top = sorted(rows, key=lambda r: -(r["fwd_ms"] + r["bwd_ms"]))[:5]
+    for row in top:
+        say(f"phase 16 (c) in_situ: {row['op']}: forward "
+            f"{row['fwd_instructions']} launches {row['fwd_ms']:.3f} ms, "
+            f"backward {row['bwd_instructions']} launches "
+            f"{row['bwd_ms']:.3f} ms [{card}]")
+    share = totals["attributed_ms"] / max(totals["kernel_ms"], 1e-9)
+    say(f"phase 16 (c) in_situ: {len(rows)} ops hold "
+        f"{totals['attributed_ms']:.2f} of the profiled step's "
+        f"{totals['kernel_ms']:.2f} ms of kernel time ({100 * share:.1f}%; "
+        f"device busy {totals['device_ms']:.2f} ms) [{card}]")
+    if not rows or share <= 0:
+        fail("phase 16 (c): in_situ_op_summary attributed no device time")
+    prows = profiler.profile_step(ff, batch, iters=3)
+    for row in prows[:5]:
+        say(f"phase 16 (c) profile_step: {row['op']} ({row['type']}, "
+            f"{tuple(row['output_shape'])}): {row['ms']:.3f} ms [{card}]")
+    d = ROOT / "build" / "phase16"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    trace = d / "trace.json"
+    with profiler.torch_trace(str(trace)):
+        ff._run_train_step(batch)
+        torch.cuda.synchronize()
+    size = trace.stat().st_size if trace.is_file() else 0
+    if size == 0:
+        fail("phase 16 (c): torch_trace wrote no trace")
+    say(f"phase 16 (c): torch_trace of one step wrote {size / 1e6:.2f} MB")
+    trace.unlink()
+    launches = res["(iii) native + overlap"]["launches"]
+    del ff, snap, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _p16_flagship(torch, port, data, **cfg):
+    f = dict(FLAGSHIP, layers=P16_DRILL_LAYERS)
+    ff, x = build_flagship(port, "cuda", "bfloat16", 0, **f,
+                           device_resident_data=False, **cfg)
+    port.SingleDataLoader(ff, x, data[0])
+    port.SingleDataLoader(ff, ff.label_tensor, data[1])
+    return ff
+
+
+def _p16_drill(torch, port, kernels, card: str):
+    """(b) the flagship at one layer from host data: sync, overlap and
+    native bitwise; a SIGTERM under the overlap loop and the resume
+    bitwise the uninterrupted run, the consumed cursors saved; then (c)'s
+    step_breakdown on it. Returns the overlap run's launches."""
+    import os
+
+    import numpy as np
+    from flexflow_tpu_torch.runtime import checkpoint as ckpt
+    from flexflow_tpu_torch.runtime import faultinject
+
+    f = FLAGSHIP
+    n = f["batch"] * P16_DRILL_BATCHES
+    rs = np.random.RandomState(P16_SEED)
+    data = (rs.randn(n, f["seq"], f["hidden"]).astype(np.float32),
+            rs.randint(0, f["num_classes"], (n, 1)).astype(np.int32))
+    runs = {}
+    for label, cfg in (("sync", dict(prefetch_depth=0,
+                                     native_dataloader=False)),
+                       ("overlap", dict(native_dataloader=False)),
+                       ("native", dict())):
+        ff = _p16_flagship(torch, port, data, **cfg)
+        vals, wall, launches = _p16_recorded_fit(torch, kernels, ff)
+        runs[label] = dict(vals=vals, launches=launches,
+                           cursors=[dl.next_index for dl in ff._dataloaders],
+                           bd=dict(ff.last_step_breakdown))
+        if label == "overlap":
+            keep = ff
+        else:
+            del ff
+        gc.collect()
+    want = {"flash_attention_fwd": P16_DRILL_LAYERS * P16_DRILL_BATCHES,
+            "flash_attention_bwd": P16_DRILL_LAYERS * P16_DRILL_BATCHES,
+            "fused_add_layernorm_fwd":
+                2 * P16_DRILL_LAYERS * P16_DRILL_BATCHES,
+            "paged_attention_fwd": 0, "paged_prefill_write": 0,
+            "fused_update": P16_DRILL_BATCHES}
+    for label, m in runs.items():
+        if m["launches"] != want:
+            fail(f"phase 16 (b) {label}: launches {m['launches']} != {want}")
+    sync = runs["sync"]
+    for label in ("overlap", "native"):
+        if runs[label]["vals"] != sync["vals"]:
+            fail(f"phase 16 (b) {label}: losses {runs[label]['vals']} are "
+                 f"not bitwise the sync loop's {sync['vals']}")
+    if runs["overlap"]["cursors"] != sync["cursors"]:
+        fail(f"phase 16 (b): cursors after fit {runs['overlap']['cursors']}"
+             f" != the sync loop's {sync['cursors']}")
+    say(f"phase 16 (b): the flagship at {P16_DRILL_LAYERS} layer from host "
+        f"data, {P16_DRILL_BATCHES} steps: sync, overlap and native losses "
+        f"bitwise {[round(v, 5) for v in sync['vals']]}; cursors after fit "
+        f"{sync['cursors']} both")
+    for label, m in runs.items():
+        bd = m["bd"]
+        say(f"phase 16 (b) {label}: {1e3 * bd['wall_s'] / bd['steps']:.2f} "
+            f"ms a step after the first, host_wait "
+            f"{100 * bd['host_wait_fraction']:.2f}% [{card}]")
+    d = ROOT / "build" / "phase16" / "ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    os.environ["FF_FAULT"] = f"sigterm@step:{P16_PREEMPT}"
+    faultinject.reset()
+    try:
+        a = _p16_flagship(torch, port, data, native_dataloader=False,
+                          checkpoint_dir=str(d))
+        got_a, _, _ = _p16_recorded_fit(torch, kernels, a)
+    finally:
+        del os.environ["FF_FAULT"]
+        faultinject.reset()
+    if a.last_fit_status != "preempted" or a._step_count != P16_PREEMPT:
+        fail(f"phase 16 (b): the overlap fit did not stop preempted at "
+             f"step {P16_PREEMPT} ({a.last_fit_status}, {a._step_count})")
+    meta = ckpt.load_meta(str(d), P16_PREEMPT)
+    consumed = {dl.name: P16_PREEMPT * f["batch"] for dl in a._dataloaders}
+    if meta["dataloaders"] != consumed:
+        fail(f"phase 16 (b): the preemption checkpoint saved cursors "
+             f"{meta['dataloaders']}, not the consumed {consumed}")
+    del a
+    gc.collect()
+    b = _p16_flagship(torch, port, data, native_dataloader=False,
+                      checkpoint_dir=str(d))
+    got_b, _, _ = _p16_recorded_fit(torch, kernels, b)
+    diff = _p15_weights_equal(torch, b, keep)
+    if got_a + got_b != runs["overlap"]["vals"] or diff != 0.0:
+        fail(f"phase 16 (b): preempted + resumed losses {got_a + got_b} "
+             f"and weights (max |diff| {diff}) are not bitwise the "
+             f"uninterrupted overlap run's {runs['overlap']['vals']}")
+    say(f"phase 16 (b): SIGTERM at step {P16_PREEMPT} under the overlap "
+        f"loop saved the consumed cursors {meta['dataloaders']}; the resumed "
+        f"fit's losses and weights bitwise the uninterrupted run's")
+    del b
+    shutil.rmtree(ROOT / "build" / "phase16", ignore_errors=True)
+
+    # (c) on the flagship
+    before = [t.detach().clone() for t in _p16_state(keep)]
+    bd = keep.step_breakdown(iters=5)
+    if not all(torch.equal(x, t) for x, t in zip(before,
+                                                  _p16_state(keep))):
+        fail("phase 16 (c) flagship: step_breakdown changed the state")
+    del before
+    batch = keep._current_batch
+    _, _, grads, _ = keep.executor._loss_and_grads(
+        keep.params, batch, keep.loss_type, keep.metric_types,
+        keep._final_tensor)
+    upd = cuda_ms(lambda: keep.optimizer.update(keep.params, grads,
+                                                keep.opt_state),
+                  iters=5, warmup=1, sleep=LONG_SLEEP_CYCLES)
+    fb = runs["overlap"]["bd"]
+    say(f"phase 16 (c) flagship step_breakdown: device_step_ms "
+        f"{bd['device_step_ms']:.3f} against fit's "
+        f"{1e3 * fb['wall_s'] / fb['steps']:.2f} ms a step (overlap); "
+        f"epilogue_ms {bd['epilogue_ms']:.4f} against the update's own "
+        f"{upd:.4f} ms (CUDA events, real gradients); collective_"
+        f"instructions {bd['collective_instructions']}; state bitwise "
+        f"unchanged [{card}]")
+    launches = runs["overlap"]["launches"]
+    del keep, grads, batch, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pipeline(torch, port, kernels, card: str):
+    """Phase 16: the input pipeline and the profiler — (a) ResNet-50 from a
+    host-resident dataset in five runs, (c) the profiler on it, (b) the
+    flagship's bitwise and resume drills and (c)'s breakdown on it.
+    Returns {"pipeline": the drill's launches, "pipeline_resnet50": the
+    native run's}."""
+    t0 = time.perf_counter()
+    resnet = _p16_resnet(torch, port, kernels, card)
+    t1 = time.perf_counter()
+    drill = _p16_drill(torch, port, kernels, card)
+    say(f"phase 16: ResNet-50 {t1 - t0:.1f} s, the flagship drills "
+        f"{time.perf_counter() - t1:.1f} s, total "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"pipeline": drill, "pipeline_resnet50": resnet}
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -5788,9 +6256,26 @@ KERNEL_ROWS = {
                                    "paged_attention_fwd"),
     f"paged_prefill_write_layers{WRITE_LAYERS}_deploy": (
         "paged_prefill_write.cu", 779, "deploy", "paged_prefill_write"),
+    # phase 16: the flagship drill (one layer, host data through the
+    # pipeline) runs the training shapes of phase 7 (its rows are phase
+    # 3's, its launches the overlap fit's); ResNet-50's native run the
+    # update at its leaves
+    "flash_attention_fwd_lse_pipeline": ("flash_attention_wgmma.cu", 180,
+                                         "pipeline", "flash_attention_fwd"),
+    "flash_attention_bwd_pipeline": ("flash_attention_bwd_wgmma.cu", 335,
+                                     "pipeline", "flash_attention_bwd"),
+    "fused_add_layernorm_fwd_pipeline": ("fused_add_layernorm.cu", 461,
+                                         "pipeline",
+                                         "fused_add_layernorm_fwd"),
+    "fused_update_per_leaf_pipeline": ("fused_update.cu",
+                                       FUSED_UPDATE_REPLACES, "pipeline",
+                                       "fused_update"),
+    "fused_update_resnet50_pipeline": ("fused_update.cu",
+                                       FUSED_UPDATE_REPLACES,
+                                       "pipeline_resnet50", "fused_update"),
 }
 
-#: phase 14's and 15's rows: the row whose measurement each repeats
+#: phase 14's, 15's and 16's rows: the row whose measurement each repeats
 FLEET_ROWS = {
     "flash_attention_fwd_fleet": "flash_attention_fwd",
     "paged_attention_fwd_fleet": "paged_attention_fwd",
@@ -5804,6 +6289,11 @@ FLEET_ROWS = {
     "paged_attention_fwd_deploy": "paged_attention_fwd",
     f"paged_prefill_write_layers{WRITE_LAYERS}_deploy":
         f"paged_prefill_write_layers{WRITE_LAYERS}",
+    "flash_attention_fwd_lse_pipeline": "flash_attention_fwd_lse",
+    "flash_attention_bwd_pipeline": "flash_attention_bwd",
+    "fused_add_layernorm_fwd_pipeline": "fused_add_layernorm_fwd",
+    "fused_update_per_leaf_pipeline": "fused_update_per_leaf",
+    "fused_update_resnet50_pipeline": "fused_update_resnet50",
 }
 
 
@@ -5851,6 +6341,7 @@ def main():
     launches.update(phase_zoo_check(torch, port, kernels))
     launches.update(phase_zoo_train(torch, port, kernels, card))
     launches.update(phase_rest(torch, port, kernels, card))
+    launches.update(phase_pipeline(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name, of in FLEET_ROWS.items():

@@ -1,11 +1,12 @@
 """FFConfig: the subset of the JAX package's configuration that the serving,
-training, fault-tolerance and deploy slices read.
+training, input-pipeline, fault-tolerance and deploy slices read.
 
 Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
 other. ``not_ported`` is the error of a feature no slice has ported yet,
 naming the ROADMAP item that ports it (the multi-device checkpoint
-layouts and the elastic mesh refit, item 8).
+layouts and the elastic mesh refit, item 8; the search's simulator and
+the graph lint passes, item 10).
 """
 
 from __future__ import annotations
@@ -17,13 +18,16 @@ from flexflow_tpu_torch.ops.sampling import validate_sampling
 
 #: where the multi-device features are queued
 ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 8 (multi-device training)"
+#: where the strategy search, its simulator and the graph lint are queued
+ROADMAP_SEARCH = "ROADMAP.md queue 1, item 10 (the strategy search)"
 
 
-def not_ported(feature: str) -> NotImplementedError:
-    """The error for a feature a later slice ports."""
+def not_ported(feature: str,
+               where: str = ROADMAP_MULTI_DEVICE) -> NotImplementedError:
+    """The error for a feature a later slice ports (``where``: its
+    ROADMAP item)."""
     return NotImplementedError(f"{feature} is not ported to "
-                               f"flexflow_tpu_torch yet "
-                               f"({ROADMAP_MULTI_DEVICE})")
+                               f"flexflow_tpu_torch yet ({where})")
 
 
 @dataclasses.dataclass
@@ -70,6 +74,34 @@ class FFConfig:
     # fold each op's chain of weightless elementwise followers into one
     # FusedOp at compile (ops/fused.py apply_fusion); the math is unchanged
     perform_fusion: bool = False
+    # label value left out of token-level accuracy (its count AND its
+    # denominator) — the pad id of a padded causal-LM batch; None counts
+    # every position
+    metrics_ignore_index: Optional[int] = None
+    # per-op record_function ranges in the step (runtime/profiler.py
+    # attributes each kernel to its op); a running torch.profiler turns
+    # them on too
+    profiling: bool = False
+
+    # ---- the input pipeline (runtime/dataloader.py, native_loader.py,
+    # pipeline_loader.py) ----
+    # the native threaded gather / prefetch loader (runtime/csrc/
+    # dataloader.cc) for host-resident data; Python slicing without g++
+    native_dataloader: bool = True
+    dataloader_shuffle: bool = False  # one permutation an epoch, seeded
+    dataloader_threads: int = 2
+    dataloader_prefetch_slots: int = 3
+    # keep a dataset on the device (next_batch = a slice of one staged
+    # copy) when it fits this budget; over it, the data stays on the host
+    device_resident_data: bool = True
+    device_data_budget_bytes: int = 2 << 30
+    # fit's prefetch worker for host-resident data: batches pulled and
+    # copied to the device this many ahead of the step (0 = the
+    # synchronous loop). Device-resident data bypasses it
+    prefetch_depth: int = 2
+    # steps in flight before fit waits on the OLDEST one's completion
+    # (0 = wait on each step)
+    dispatch_ahead: int = 2
 
     # ---- fault tolerance (runtime/resilience.py, runtime/checkpoint.py) ----
     # checkpoint directory for the TrainSupervisor / fit() auto-resume;
@@ -236,6 +268,10 @@ class FFConfig:
             raise ValueError(
                 f"elastic_min_devices={self.elastic_min_devices}: "
                 f"must be >= 1")
+        if self.prefetch_depth < 0 or self.dispatch_ahead < 0:
+            raise ValueError(
+                f"prefetch_depth={self.prefetch_depth} and dispatch_ahead="
+                f"{self.dispatch_ahead} must be >= 0")
         if self.loss_scale <= 0:
             # 0 would make the guard divide by zero and classify every
             # step non-finite

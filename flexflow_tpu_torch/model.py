@@ -20,6 +20,7 @@ the card unless it is built with ``device="cpu"``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
 import time
@@ -106,6 +107,12 @@ class FFModel:
         # the last fit() ended: "completed" | "preempted"
         self._elastic = None
         self.last_fit_status: Optional[str] = None
+        # the input pipeline fit runs (runtime/pipeline_loader.py; None
+        # outside fit), the batch step_breakdown times, and fit's per-step
+        # host_wait / h2d / dispatch / device breakdown
+        self._pipeline = None
+        self._current_batch: Dict = {}
+        self.last_step_breakdown: Optional[Dict[str, float]] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -559,11 +566,11 @@ class FFModel:
     # ------------------------------------------------------------- training
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-                    v, torch.Tensor) else v).to(self.device)
-                for k, v in batch.items()}
+        """``batch`` on the model's device (``GraphExecutor.shard_batch``:
+        a tensor already there passes through)."""
+        return (self.executor or GraphExecutor(self)).shard_batch(batch)
 
-    def _stage_batch(self) -> Dict[str, torch.Tensor]:
+    def _stage_batch(self) -> Dict:
         return {dl.name: dl.next_batch() for dl in self._dataloaders}
 
     def _reset_dataloaders(self):
@@ -588,7 +595,7 @@ class FFModel:
         which needs the guard)."""
         if self.optimizer is None:
             raise RuntimeError("compile() with an optimizer first")
-        batch = self._to_device(batch)
+        batch = self.executor.shard_batch(batch)
         if self._guard is not None:
             loss, mets = self.executor.guarded_train_step(
                 self.params, self.opt_state, batch, self.optimizer,
@@ -664,25 +671,47 @@ class FFModel:
         return out
 
     def fit(self, epochs: Optional[int] = None,
-            batch_size: Optional[int] = None, verbose: bool = True):
+            batch_size: Optional[int] = None, callbacks: Sequence = (),
+            verbose: bool = True):
         """Training loop over the attached ``SingleDataLoader``s (the JAX
-        ``fit``): one step a batch, or with ``config.scan_steps`` > 0 (and
-        the scan eligible) chunks of up to ``scan_steps`` steps a dispatch
-        (``train_scanned``), the epoch's ragged tail one step at a time.
-        Prints an ``epoch N: loss=...`` line per epoch and a final
-        ``THROUGHPUT = ... samples/s`` line. The first step or chunk (and
-        any kernel build or graph capture it triggers) is kept out of the
-        throughput window, as in the JAX package.
+        ``fit``). Prints an ``epoch N: loss=...`` line per epoch and a
+        final ``THROUGHPUT = ... samples/s`` line; the first step or chunk
+        (and any kernel build or graph capture it triggers) is kept out of
+        the throughput window, as in the JAX package.
+
+        The loaders' data: staged once on the device when every loader
+        fits ``device_data_budget_bytes`` (each step then slices it there),
+        else host-resident — batches from the native threaded loader
+        (runtime/native_loader.py; shuffled under ``dataloader_shuffle``)
+        or from Python slicing. Eligibility is decided for every loader
+        before any copy, and a failed staging unstages the others. With
+        ``config.scan_steps`` > 0 over staged data, chunks of up to
+        ``scan_steps`` steps a dispatch (``train_scanned``), the epoch's
+        ragged tail one step at a time. Host-resident data runs through
+        the input pipeline when ``prefetch_depth`` > 0
+        (runtime/pipeline_loader.py: a worker copies batches to the
+        device ahead of the step), and up to ``dispatch_ahead`` steps stay
+        in flight before the loop waits on the oldest. The steps and
+        their results are those of the synchronous loop
+        (``prefetch_depth=0``). ``last_step_breakdown`` holds the
+        per-step host_wait / h2d / dispatch / device seconds.
+
+        ``callbacks``: objects with ``set_model``, ``on_train_begin``,
+        ``on_epoch_begin``, ``on_epoch_end`` (True stops training) and
+        ``on_train_end``.
 
         With ``config.checkpoint_dir`` a ``TrainSupervisor``
         (runtime/resilience.py) resumes from the newest intact checkpoint
-        (mid-epoch: the loaders' cursors are restored, not reset),
-        checkpoints every ``checkpoint_every`` steps, rewinds after
-        ``nonfinite_rewind_after`` non-finite steps and turns SIGTERM into
-        a checkpoint at the next step boundary and a stop; the epoch ends
-        there. Each per-step dispatch is a ``step-<n>`` span tree on the
-        "train" track and feeds ``ff_train_step_seconds`` (the step-time
-        SLO's histogram)."""
+        (mid-epoch: the loaders' cursors are restored, not reset; under
+        the native loader the batches already trained are discarded),
+        checkpoints every ``checkpoint_every`` steps (the CONSUMED
+        cursors while the pipeline runs), rewinds after
+        ``nonfinite_rewind_after`` non-finite steps (not under the native
+        loader, whose cursor cannot seek) and turns SIGTERM into a
+        checkpoint at the next step boundary and a stop. Each per-step
+        dispatch is a ``step-<n>`` span tree on the "train" track and
+        feeds ``ff_train_step_seconds`` (the step-time SLO's
+        histogram)."""
         from flexflow_tpu_torch.runtime import flightrec, telemetry
 
         if self.optimizer is None:
@@ -702,8 +731,27 @@ class FFModel:
                 f"dataset smaller than batch_size ("
                 f"{min(dl.num_samples for dl in self._dataloaders)} samples "
                 f"< {bs}); no full batch to train on")
+        # loader preference: staged on the device > the native threaded
+        # loader > Python slicing. A pin from an earlier fit (unstage, out
+        # of memory) is tried again once a fit
+        native_dl = None
+        for dl in self._dataloaders:
+            dl._dev_failed = False
+        staged = (all(dl.device_eligible() for dl in self._dataloaders)
+                  and all(dl._try_stage_on_device()
+                          for dl in self._dataloaders))
+        if not staged:
+            for dl in self._dataloaders:
+                dl.unstage()
+            from flexflow_tpu_torch.runtime.native_loader import \
+                group_loader_for
+
+            native_dl = group_loader_for(self)
+            if native_dl is not None:
+                num_batches = native_dl.num_batches
         chunk_max = cfg.scan_steps
-        use_scan = chunk_max > 0 and self._scan_eligible()
+        use_scan = (chunk_max > 0 and native_dl is None and staged
+                    and self._scan_eligible())
         tm_on = cfg.telemetry != "off"
         # unconditional: how telemetry="off" reaches the recorder's gate
         flightrec.configure(cfg)
@@ -711,7 +759,7 @@ class FFModel:
             telemetry.start_http_server(cfg.metrics_port)
         step_hist = (telemetry.registry().histogram(
             "ff_train_step_seconds",
-            "fit() per-step wall time (host wait + dispatch)")
+            "fit() per-step wall time (host wait + h2d + dispatch)")
             if tm_on else None)
         sup = None
         start_epoch = it0 = 0
@@ -719,6 +767,13 @@ class FFModel:
             from flexflow_tpu_torch.runtime.resilience import TrainSupervisor
 
             sup = TrainSupervisor(self)
+            if sup.rewind_after and native_dl is not None:
+                # the native loader's shuffled cursor cannot seek back, so
+                # a rewind would replay steps on the wrong batches
+                log.warning("nonfinite_rewind_after: rewind disabled under "
+                            "the native dataloader (its cursor cannot "
+                            "rewind); non-finite steps are still skipped")
+                sup.rewind_after = 0
             # poll the guard's flag a step only when a prompt rewind needs
             # it; otherwise the device skip counter reconciles at finalize
             sup.poll_nonfinite = bool(sup.rewind_after)
@@ -733,17 +788,77 @@ class FFModel:
                             "running per-step (scanned chunks bypass "
                             "injection)")
                 use_scan = False
-        t0 = time.time()
+        # the input pipeline: host-resident data only (staged data slices
+        # on the device already), not under a per-step guard poll
+        use_overlap = (not use_scan and not staged
+                       and cfg.prefetch_depth > 0
+                       and (sup is None or not sup.poll_nonfinite))
+        pipe = None
+        # the dispatch-ahead ring: one completion marker a step in flight
+        ring = collections.deque()
+        on_card = self.device.type == "cuda"
+        # per-step wall breakdown, reset at the warm-up barrier
+        bd = {"host_wait": 0.0, "h2d": 0.0, "dispatch": 0.0, "device": 0.0,
+              "steps": 0}
         warm = None
         total = 0
+
+        def note_warm():
+            # one barrier for every loop flavour: the first step's loss
+            # (compile, builds and captures stay out of the window)
+            nonlocal warm, total
+            float(self._last_loss)
+            warm = time.time()
+            total = 0
+            for k in bd:
+                bd[k] = 0 if k == "steps" else 0.0
+            if pipe is not None:
+                pipe.reset_stats()
+
+        for cb in callbacks:
+            cb.set_model(self)
+            cb.on_train_begin()
+        t0 = time.time()
         stopped = False
         try:
             for epoch in range(start_epoch, epochs):
-                self._perf = PerfMetrics()
                 # resuming mid-epoch: the cursors were just restored
-                if not (sup is not None and epoch == start_epoch
-                        and it0 > 0):
-                    self._reset_dataloaders()
+                resuming = (sup is not None and epoch == start_epoch
+                            and it0 > 0)
+                for cb in callbacks:
+                    cb.on_epoch_begin(epoch)
+                self._perf = PerfMetrics()
+                if native_dl is not None:
+                    # a new permutation an epoch; a resumed process's
+                    # fresh loader sits on its first permutation, so a
+                    # resume into epoch >= 1 resets too
+                    if epoch > start_epoch or start_epoch > 0:
+                        if pipe is not None:
+                            pipe.epoch_break(native_dl.reset)
+                        else:
+                            native_dl.reset()
+                    if resuming:
+                        # the native cursor cannot seek: discard the
+                        # batches already trained (before the pipeline
+                        # starts, so it never prefetches them)
+                        for _ in range(it0):
+                            native_dl.next_batch()
+                elif not resuming:
+                    if pipe is not None:
+                        pipe.epoch_break(self._reset_dataloaders)
+                    else:
+                        self._reset_dataloaders()
+                if use_overlap and pipe is None:
+                    from flexflow_tpu_torch.runtime.pipeline_loader import \
+                        PipelineLoader
+
+                    depth = cfg.prefetch_depth
+                    pipe = (PipelineLoader.from_native(native_dl, self,
+                                                       depth=depth)
+                            if native_dl is not None else
+                            PipelineLoader.from_loaders(self, depth=depth))
+                    pipe.start()
+                    self._pipeline = pipe
                 # (metrics, steps): device scalars for a step, (n,) stacks
                 # for a scanned chunk; converted once per epoch
                 epoch_mets = []
@@ -760,12 +875,27 @@ class FFModel:
                                 steps=n)
                     else:
                         n = 1
-                        batch = self._stage_batch()
-                        t_h = time.perf_counter()
-                        _, mets = self._run_train_step(
+                        if pipe is not None:
+                            # copied to the device by the worker: this
+                            # wait is "input not ready yet" alone
+                            batch = pipe.get()
+                            t_h = t_s = time.perf_counter()
+                        else:
+                            batch = (native_dl.next_batch()
+                                     if native_dl is not None
+                                     else self._stage_batch())
+                            t_h = time.perf_counter()
+                            batch = self.executor.shard_batch(batch)
+                            t_s = time.perf_counter()
+                        self._current_batch = batch
+                        loss, mets = self._run_train_step(
                             batch, inject_nan=(sup is not None
                                                and sup.nan_due()))
                         t_d = time.perf_counter()
+                        bd["host_wait"] += t_h - t_b
+                        bd["h2d"] += t_s - t_h
+                        bd["dispatch"] += t_d - t_s
+                        bd["steps"] += 1
                         if tm_on:
                             sid = f"step-{self._step_count}"
                             tr = telemetry.tracer()
@@ -774,18 +904,47 @@ class FFModel:
                                         step=self._step_count)
                             tr.complete("host_wait", t_b, t_h - t_b,
                                         trace_id=sid, track="train")
-                            tr.complete("dispatch", t_h, t_d - t_h,
+                            if t_s > t_h:
+                                tr.complete("h2d", t_h, t_s - t_h,
+                                            trace_id=sid, track="train")
+                            tr.complete("dispatch", t_s, t_d - t_s,
                                         trace_id=sid, track="train")
                             step_hist.observe(t_d - t_b)
                             if sup is None:
                                 flightrec.slo_monitor().maybe_evaluate()
+                        if warm is not None and pipe is not None:
+                            # dispatch-ahead: wait on the OLDEST step in
+                            # flight once more than dispatch_ahead are —
+                            # device progress, which is what the
+                            # watchdog must time
+                            if on_card:
+                                ev = torch.cuda.Event()
+                                ev.record()
+                                ring.append(ev)
+                            else:
+                                ring.append(loss)
+                            if len(ring) > cfg.dispatch_ahead:
+                                old = ring.popleft()
+                                t_w = time.perf_counter()
+                                with (sup.watchdog.arm(
+                                        f"step {self._step_count} device "
+                                        f"progress",
+                                        scale=cfg.dispatch_ahead + 1)
+                                      if sup is not None
+                                      else contextlib.nullcontext()):
+                                    if on_card:
+                                        old.synchronize()
+                                dt_w = time.perf_counter() - t_w
+                                bd["device"] += dt_w
+                                if tm_on:
+                                    telemetry.tracer().complete(
+                                        "device_wait", t_w, dt_w,
+                                        track="train")
                     epoch_mets.append((mets, n))
                     it += n
                     total += bs * n
                     if warm is None:
-                        float(self._last_loss)   # waits for the first step
-                        warm = time.time()
-                        total = 0
+                        note_warm()
                     if sup is not None:
                         after = self._step_count
                         if sup.after_step():
@@ -802,6 +961,7 @@ class FFModel:
                             it = max(it - k, 0)
                 it0 = 0
                 # the epoch-end conversion waits on every step dispatched
+                t_sync = time.perf_counter()
                 with (sup.watchdog.arm(f"epoch {epoch} metrics sync",
                                        scale=max(len(epoch_mets), 1))
                       if sup is not None else contextlib.nullcontext()):
@@ -811,6 +971,13 @@ class FFModel:
                             self._perf.update(
                                 {k: float(v[j] if v.dim() else v)
                                  for k, v in vals.items()}, bs)
+                dt_sync = time.perf_counter() - t_sync
+                bd["device"] += dt_sync
+                if tm_on:
+                    telemetry.tracer().complete(
+                        "epoch_sync", t_sync, dt_sync, track="train",
+                        epoch=epoch, steps=len(epoch_mets))
+                ring.clear()      # everything in flight just synced
                 if verbose:
                     print(f"epoch {epoch}: loss="
                           f"{float(self._last_loss):.4f} "
@@ -818,16 +985,58 @@ class FFModel:
                                               self.metric_types))
                 if stopped:   # preemption checkpoint written
                     break
+                if any(cb.on_epoch_end(epoch) for cb in callbacks):
+                    break
         finally:
+            if pipe is not None:
+                # quiesce BEFORE the supervisor's final checkpoint: the
+                # cursors go back to the consumed position
+                pipe.stop()
+                self._pipeline = None
+            if native_dl is not None:
+                native_dl.close()
             if sup is not None:
                 sup.finalize()
         self._sync()
         elapsed = time.time() - (warm or t0)
+        if bd["steps"]:
+            wall = max(elapsed, 1e-9)
+            if pipe is not None:
+                # the worker's copies overlap the steps: reported, not a
+                # part of the loop's wall
+                bd["h2d"] = pipe.stats["h2d_s"]
+            self.last_step_breakdown = dict(
+                bd, wall_s=wall, overlap=pipe is not None,
+                host_wait_fraction=min(bd["host_wait"] / wall, 1.0))
+            log.info("fit step breakdown (%d steps, overlap=%s): host_wait "
+                     "%.1f%% | h2d %.1f%%%s | dispatch %.1f%% | device "
+                     "%.1f%% of %.3fs wall", bd["steps"], pipe is not None,
+                     100 * bd["host_wait"] / wall, 100 * bd["h2d"] / wall,
+                     " (worker, overlapped)" if pipe is not None else "",
+                     100 * bd["dispatch"] / wall,
+                     100 * bd["device"] / wall, wall)
         if total and elapsed > 0 and verbose:
             print(f"epochs {epochs}, ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {total / elapsed:.2f} samples/s")
         self.last_fit_status = "preempted" if stopped else "completed"
+        for cb in callbacks:
+            cb.on_train_end()
         return self._perf
+
+    def step_breakdown(self, batch=None, iters: int = 3) -> Dict[str, float]:
+        """Per-step compute / collective / epilogue breakdown of the train
+        step (runtime/profiler.py ``step_phase_breakdown``): the full
+        step's and the optimizer update's device time, measured on clones
+        (the model's state is left bitwise as it was), and the collective
+        kernels of a profiled step. Merged into ``last_step_breakdown``
+        beside fit's host-side numbers; returns the merged dict."""
+        from flexflow_tpu_torch.runtime.profiler import step_phase_breakdown
+
+        rows = step_phase_breakdown(self, batch=batch, iters=iters)
+        merged = dict(self.last_step_breakdown or {})
+        merged.update(rows)
+        self.last_step_breakdown = merged
+        return merged
 
     def evaluate(self, batch):
         """(loss, metrics, logits) of one batch without a gradient."""

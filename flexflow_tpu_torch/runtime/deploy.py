@@ -345,7 +345,7 @@ class RollingDeployer:
                 # soak included — IS the lock's contract; nothing on
                 # the serving hot path ever takes "deploy" (rank 5,
                 # outermost)
-                time.sleep(min(0.02, self._window_s / 5))
+                time.sleep(min(0.02, self._window_s / 5))  # ffsan: allow(lock-across-blocking)
         finally:
             if eng.deploy_state == "canary":
                 eng.deploy_state = "serving"

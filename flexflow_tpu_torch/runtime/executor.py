@@ -32,8 +32,10 @@ leader's name, each of its parts that draws from its own generator.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
@@ -156,31 +158,74 @@ class GraphExecutor:
         new_state: State = {}
         vals = {t: (v.to(cdt) if bf16 and v.dtype == torch.float32 else v)
                 for t, v in input_values.items()}
+        # named op ranges for the profiler (runtime/profiler.py): under
+        # FFConfig.profiling or a running torch.profiler only, so the
+        # unprofiled step pays one check a walk
+        ranged = (self.model.config.profiling
+                  or torch._C._autograd._profiler_enabled())
         for op in self.model.ops:
             if isinstance(op, InputOp):
                 if op.outputs[0] not in vals:
                     raise ValueError(f"missing input value for {op.name}")
                 continue
-            p = resolve_tied_params(self.model, params, op.name,
-                                    params.get(op.name, {}))
-            p = {k: (w.to(cdt) if w.is_floating_point() and w.dtype != cdt
-                     else w)
-                 for k, w in p.items()}
             xs = [vals[t] for t in op.inputs]
-            kw = {"gens": gens} if isinstance(op, FusedOp) else {}
-            if op.stateful:
-                outs, new_state[op.name] = op.forward_stateful(
-                    p, state[op.name], xs, training=training, **kw)
-            elif kw:
-                outs = op.forward(p, xs, training=training, **kw)
-            elif op.needs_rng:
-                outs = op.forward(p, xs, training=training,
-                                  gen=(gens or {}).get(op.name))
+            if ranged:
+                with torch.profiler.record_function(op.name):
+                    outs, st = self.run_op(op, params, xs, training, state,
+                                           gens)
             else:
-                outs = op.forward(p, xs, training=training)
+                outs, st = self.run_op(op, params, xs, training, state, gens)
+            if st is not None:
+                new_state[op.name] = st
             for t, v in zip(op.outputs, outs):
                 vals[t] = v
         return vals, new_state
+
+    def run_op(self, op, params: Params, xs: List[torch.Tensor],
+               training: bool, state: Optional[State] = None,
+               gens: Optional[Dict[str, torch.Generator]] = None):
+        """One op of the walk on its input values ``xs``: (outputs, its
+        new state or None). Its weights (tied ones resolved) are cast to
+        the compute dtype."""
+        cdt = self.model.compute_dtype
+        p = resolve_tied_params(self.model, params, op.name,
+                                params.get(op.name, {}))
+        p = {k: (w.to(cdt) if w.is_floating_point() and w.dtype != cdt
+                 else w)
+             for k, w in p.items()}
+        kw = {"gens": gens} if isinstance(op, FusedOp) else {}
+        if op.stateful:
+            return op.forward_stateful(p, (state or {})[op.name], xs,
+                                       training=training, **kw)
+        if kw:
+            return op.forward(p, xs, training=training, **kw), None
+        if op.needs_rng:
+            return op.forward(p, xs, training=training,
+                              gen=(gens or {}).get(op.name)), None
+        return op.forward(p, xs, training=training), None
+
+    def shard_batch(self, batch, stream=None) -> Batch:
+        """Every entry of ``batch`` on the model's device (the JAX
+        ``shard_batch``). A tensor already there passes through with no
+        copy; a numpy array or a host tensor is copied — on the card from
+        pinned memory with ``non_blocking`` on ``stream`` (the current
+        stream when None), from pageable memory synchronously; on the CPU
+        it is used in place, as before."""
+        dev = self.model.device
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor) and v.device == dev:
+                out[k] = v
+                continue
+            t = v if isinstance(v, torch.Tensor) else \
+                torch.as_tensor(np.asarray(v), device="cpu")
+            if dev.type != "cuda":
+                out[k] = t.to(dev)
+                continue
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                out[k] = t.to(dev, non_blocking=t.is_pinned())
+        return out
 
     def _input_values(self, batch: Batch) -> Dict:
         return {op.outputs[0]: batch[op.name] for op in self.input_ops}
@@ -205,7 +250,8 @@ class GraphExecutor:
             for t in self.model._aux_tensors:   # MoE load-balancing losses
                 loss = loss + vals[t]
         mets = batch_metrics(loss_type, metric_types, logits.detach(),
-                             batch[label_key])
+                             batch[label_key],
+                             self.model.config.metrics_ignore_index)
         return loss, mets, logits, new_state
 
     def loss_and_metrics(self, params: Params, batch: Batch,

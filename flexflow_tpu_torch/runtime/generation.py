@@ -726,7 +726,7 @@ class Generator:
         prefill's token; an int or a device tensor) of each row's stream."""
         if rows is None:
             return None
-        return sampling.slot_keys(rows, torch.as_tensor(n).to(rows.device)
+        return sampling.slot_keys(rows, torch.as_tensor(n, device=rows.device)
                                   .expand(rows.shape[0]),
                                   sampling.TAG_TARGET)
 

@@ -12,6 +12,19 @@ import torch.nn.functional as F
 from flexflow_tpu_torch.ffconst import LossType
 
 
+def take_class(logp: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``logp[..., ids]`` with the JAX ``take_along_axis`` semantics: a
+    negative id counts from the end (-100 over a vocabulary of 128 reads
+    class 28) and an id outside [-V, V) reads NaN, where ``torch.gather``
+    would raise — so a pad label (``metrics_ignore_index``) trains as in
+    the JAX package."""
+    v = logp.shape[-1]
+    idx = torch.where(ids < 0, ids + v, ids)
+    ok = (idx >= 0) & (idx < v)
+    got = torch.gather(logp, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+    return torch.where(ok, got, torch.full_like(got, float("nan")))
+
+
 def compute_loss(loss_type: LossType, logits: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:
     """Scalar training loss. ``labels``: int class ids for sparse CE (a
@@ -23,8 +36,7 @@ def compute_loss(loss_type: LossType, logits: torch.Tensor,
         lab = labels.long()
         if lab.dim() == logits.dim():
             lab = lab[..., 0]
-        logp = F.log_softmax(logits, dim=-1)
-        return -torch.gather(logp, -1, lab[..., None])[..., 0].mean()
+        return -take_class(F.log_softmax(logits, dim=-1), lab).mean()
     if loss_type == LossType.LOSS_CATEGORICAL_CROSSENTROPY:
         return -(labels * F.log_softmax(logits, dim=-1)).sum(-1).mean()
     if loss_type == LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE:

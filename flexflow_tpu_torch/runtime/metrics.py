@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
+from flexflow_tpu_torch.runtime.loss import take_class
 
 
 @dataclasses.dataclass
@@ -74,12 +75,16 @@ def _class_ids(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def batch_metrics(loss_type: LossType, metric_types: Sequence[MetricsType],
-                  logits: torch.Tensor,
-                  labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+                  logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Per-batch metric values as device scalars. ``accuracy_total`` is
     the number of predictions (batch x positions for token-level labels),
     made on the device too (a fill, which a captured CUDA graph can hold;
-    ``torch.tensor`` would copy from the host)."""
+    ``torch.tensor`` would copy from the host). ``ignore_index``
+    (``FFConfig.metrics_ignore_index``): sparse labels equal to it leave
+    token accuracy's count and its denominator, which is then a device
+    count of the live labels."""
     out: Dict[str, torch.Tensor] = {}
     logits = logits.float()
 
@@ -90,8 +95,14 @@ def batch_metrics(loss_type: LossType, metric_types: Sequence[MetricsType],
         if m == MetricsType.METRICS_ACCURACY:
             pred = torch.argmax(logits, dim=-1)
             if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
-                out["accuracy_count"] = (pred == _class_ids(labels, logits)).sum()
-                out["accuracy_total"] = count(pred.numel())
+                ids = _class_ids(labels, logits)
+                if ignore_index is not None:
+                    live = ids != ignore_index
+                    out["accuracy_count"] = ((pred == ids) & live).sum()
+                    out["accuracy_total"] = live.sum()
+                else:
+                    out["accuracy_count"] = (pred == ids).sum()
+                    out["accuracy_total"] = count(pred.numel())
             elif loss_type == LossType.LOSS_CATEGORICAL_CROSSENTROPY:
                 out["accuracy_count"] = (pred == torch.argmax(labels, -1)).sum()
                 out["accuracy_total"] = count(pred.numel())
@@ -106,8 +117,7 @@ def batch_metrics(loss_type: LossType, metric_types: Sequence[MetricsType],
         elif m == MetricsType.METRICS_SPARSE_CATEGORICAL_CROSSENTROPY:
             logp = F.log_softmax(logits, dim=-1)
             ids = _class_ids(labels, logits)
-            out["sparse_cce_loss"] = -torch.gather(
-                logp, -1, ids[..., None]).mean()
+            out["sparse_cce_loss"] = -take_class(logp, ids).mean()
         elif m == MetricsType.METRICS_MEAN_SQUARED_ERROR:
             out["mse_loss"] = torch.square(logits - labels).mean()
         elif m == MetricsType.METRICS_ROOT_MEAN_SQUARED_ERROR:

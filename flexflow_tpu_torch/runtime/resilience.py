@@ -347,8 +347,16 @@ class TrainSupervisor:
             else faultinject.active_plan()
 
     def _extra_meta(self) -> dict:
-        meta = {"dataloaders": {dl.name: int(dl.next_index)
-                                for dl in self.model._dataloaders}}
+        # while fit's input pipeline runs, its worker has moved
+        # dl.next_index past the last trained batch: record the CONSUMED
+        # cursors (the synchronous loop's position), which the pipeline
+        # tracks a batch handed out (runtime/pipeline_loader.py)
+        pipe = getattr(self.model, "_pipeline", None)
+        cursors = pipe.consumed_cursors() if pipe is not None else None
+        if cursors is None:
+            cursors = {dl.name: int(dl.next_index)
+                       for dl in self.model._dataloaders}
+        meta = {"dataloaders": cursors}
         gs = self.model._guard_state
         if gs is not None:
             meta["loss_scale"] = float(gs["loss_scale"])

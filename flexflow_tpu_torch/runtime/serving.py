@@ -177,7 +177,7 @@ def payload_tensor(a, dtype: torch.dtype) -> torch.Tensor:
         if name is None:
             t = torch.from_numpy(a)
         else:
-            size = torch.empty((), dtype=dtype).element_size()
+            size = torch.empty((), dtype=dtype, device="cpu").element_size()
             raw_np, raw_t, raw_u = _RAW_BITS[size]
             if a.dtype.name not in (name, np.dtype(raw_u).name):
                 raise ValueError(f"page payload stored as {a.dtype}, the "
@@ -1817,6 +1817,8 @@ class ServingEngine:
             # the host — the slow-replica drill (a deadline tighter than
             # <ms> expires while this request is in flight)
             if faultinject.active_plan().fire("slow", "serve"):
+                # ffsan: allow(lock-across-blocking) — stalling this
+                # replica's tick IS the slow() drill's point
                 time.sleep((faultinject.active_plan().last_value or 0)
                            / 1e3)
             # FF_FAULT=slow(<ms>)@canary:<n>: the same stall, consumed only
@@ -1824,6 +1826,8 @@ class ServingEngine:
             # breach drill the RollingDeployer's soak must roll back
             if (self.deploy_state == "canary"
                     and faultinject.active_plan().fire("slow", "canary")):
+                # ffsan: allow(lock-across-blocking) — the stall is the
+                # injected breach itself
                 time.sleep((faultinject.active_plan().last_value or 0)
                            / 1e3)
             fresh = [self._free_pages.pop() for _ in range(need)]

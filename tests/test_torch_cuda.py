@@ -47,6 +47,11 @@ under a schedule, fused and guarded with a NaN step, against the CPU
 within 1e-5 (the key biases, whose exact gradient is zero, within Adam's
 step bound).
 
+The input pipeline on the card: its batches (pinned ring, copy stream,
+events) bitwise the sync loop's, sliced and native; a pinned buffer refilled
+only after its copy under a slow consumer; the worker's copies never in a
+concurrent capture.
+
 The serving fleet on the card: two cold replicas capture their decode
 chunks on their own threads and streams while the other prefills, with
 the single engine's tokens; the launch counters stay exact while one
@@ -3291,3 +3296,149 @@ def test_generator_state_restored_in_place_under_replay(cuda, tmp_path):
     assert ff._replay.graph is graph
     assert torch.equal(again, after_save)
     assert torch.equal(ff._generators["drop"].get_state(), gen_after)
+
+
+# ----------------------------------------------- the input pipeline
+
+
+def _pipeline_mlp(cuda, n=96, **cfg):
+    import numpy as np
+
+    from flexflow_tpu_torch import (ActiMode, LossType, MetricsType,
+                                    SGDOptimizer, SingleDataLoader)
+
+    ff = FFModel(FFConfig(batch_size=16, epochs=2, seed=3,
+                          device_resident_data=False, **cfg), device=cuda)
+    x = ff.create_tensor([16, 256], name="x")
+    t = ff.dense(x, 512, ActiMode.AC_MODE_RELU, name="fc1")
+    ff.dense(t, 8, name="out")
+    ff.compile(SGDOptimizer(lr=0.1),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY])
+    rs = np.random.RandomState(7)
+    SingleDataLoader(ff, x, rs.randn(n, 256).astype(np.float32))
+    SingleDataLoader(ff, ff.label_tensor,
+                     rs.randint(0, 8, (n, 1)).astype(np.int32))
+    return ff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [False, True], ids=["slices", "native"])
+def test_pipeline_batches_bitwise_the_sync_loop(cuda, native):
+    """On the card the pipeline's batches (pinned ring, copy stream, the
+    event handshake) are the sync loop's, and so are the losses and the
+    weights after 2 epochs."""
+    runs = []
+    for depth in (0, 2):
+        ff = _pipeline_mlp(cuda, prefetch_depth=depth,
+                           native_dataloader=native)
+        seen, losses = [], []
+        step = ff._run_train_step
+
+        def rec(batch, inject_nan=False):
+            seen.append({k: v.clone() for k, v in
+                         ff.executor.shard_batch(batch).items()})
+            loss, mets = step(batch, inject_nan)
+            losses.append(loss.reshape(1))
+            return loss, mets
+
+        ff._run_train_step = rec
+        ff.fit(verbose=False)
+        torch.cuda.synchronize()
+        runs.append((seen, torch.cat(losses), ff))
+        assert ff.last_step_breakdown["overlap"] == (depth > 0)
+    (sa, la, fa), (sb, lb, fb) = runs
+    assert len(sa) == len(sb) == 12
+    for x, y in zip(sa, sb):
+        for k in x:
+            assert x[k].device.type == "cuda" and torch.equal(x[k], y[k])
+    assert torch.equal(la, lb)
+    for op, ws in fa.params.items():
+        for w, t in ws.items():
+            assert torch.equal(t, fb.params[op][w])
+
+
+@pytest.mark.cuda
+def test_pinned_buffer_refilled_only_after_its_copy(cuda):
+    """A slow consumer at depth 1: the worker cycles the two ring buffers
+    while the step stalls the compute stream; every batch the loop gets
+    is the source's, so no refill overwrote a copy still in flight (the
+    copies wait on the copy stream; each refill waits on its buffer's
+    event)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.pipeline_loader import PipelineLoader
+
+    ff = _pipeline_mlp(cuda, n=16 * 24)
+    for dl in ff._dataloaders:
+        dl.unstage()
+    pipe = PipelineLoader.from_loaders(ff, depth=1).start()
+    data = ff._dataloaders[0].data
+    try:
+        for i in range(24):
+            got = pipe.get(timeout=60)
+            torch.cuda._sleep(20_000_000)      # a long step on the stream
+            want = torch.from_numpy(np.ascontiguousarray(
+                data[16 * i:16 * (i + 1)])).to(cuda)
+            assert torch.equal(got["x"], want), i
+    finally:
+        pipe.stop()
+
+
+@pytest.mark.cuda
+def test_pipeline_copies_stay_out_of_a_concurrent_capture(cuda):
+    """The worker's copies run in device sections on a stream of its own:
+    while another thread captures graphs (kernels.capture holds the gate
+    exclusively), the pipeline keeps delivering the right batches, every
+    capture succeeds, and each replay computes what an eager call does.
+    The consumer's own device work runs in device sections, as a serving
+    engine's does beside another engine's captures."""
+    import threading
+
+    import numpy as np
+
+    from flexflow_tpu_torch.runtime.pipeline_loader import PipelineLoader
+
+    ff = _pipeline_mlp(cuda, n=16 * 40)
+    for dl in ff._dataloaders:
+        dl.unstage()
+    data = ff._dataloaders[0].data
+    pipe = PipelineLoader.from_loaders(ff, depth=2).start()
+    a = torch.randn(256, 256, device=cuda)
+    owner = type("Owner", (), {})()
+    errors, graphs, outs = [], [], []
+
+    side = kernels.private_stream(cuda, owner)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm the body before capturing
+        a * 2 + 1
+    torch.cuda.synchronize()
+
+    def capturing():
+        try:
+            for _ in range(10):
+                g = torch.cuda.CUDAGraph()
+                out, _ = kernels.capture(g, side, lambda: a * 2 + 1)
+                graphs.append(g)
+                outs.append(out)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=capturing)
+    th.start()
+    try:
+        for i in range(40):
+            with kernels.device_section():
+                got = pipe.get(timeout=60)
+                want = torch.from_numpy(np.ascontiguousarray(
+                    data[16 * i:16 * (i + 1)])).to(cuda)
+                assert torch.equal(got["x"], want), i
+    finally:
+        th.join(timeout=120)
+        pipe.stop()
+    assert not errors, errors
+    want = a * 2 + 1
+    for g, out in zip(graphs, outs):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
