@@ -380,6 +380,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 on it against the update's own device time. The
                 "_pipeline" rows repeat phase 3's training rows with the
                 drill's launches, and ResNet-50's update row with (iii)'s.
+ 17. strategy — last. The port's launcher starts a child process (this
+                script with ``--phase17``) as one rank over NCCL, bounded
+                by P17_TIMEOUT. There the flagship at phase 7's widths
+                (bf16, fused add + LayerNorm, SGD) takes a warm-up step
+                and a fit of P17_STEPS steps on the single-device path;
+                the Megatron table (attn_i and ffn1_i on {"data": 0,
+                "model": 2}, ffn2_i on {"data": 0, "model": CONTRACT}) is
+                written by export_strategies and read back through
+                import_strategy_file by a second model of the same seed
+                on mesh {"data": 1, "model": 1} with fsdp_axis="data",
+                which trains the same way on the strategy path (DTensor
+                weights, outputs redistributed, the kernels on local
+                shards). Gated: its losses within P17_LOSS_RTOL of the
+                single-device path's (bitwise printed), its kernel
+                launches equal to that path's, and every flash, add +
+                LayerNorm and update call through the local-shard wrapper
+                (counted). Then both models, alive side by side, are
+                timed in turns (P17_ROUNDS rounds of P17_TIMED steps each,
+                the order flipped a round) and each is profiled over
+                P17_PROFILED steps, its busy and wall time from that same
+                window. Printed beside the card: step ms of both (median
+                and range over the rounds, and the paired difference),
+                their idle shares, peak memory, the rendezvous and compile
+                seconds. At world size 1 fsdp_axis="data" places nothing
+                (a one-device axis, as in JAX): FSDP's gathers and
+                reduce-scatters run only in the gloo tests. One card
+                cannot hold two NCCL ranks: the multi-rank check is the
+                CPU tests on gloo (tests/test_torch_distributed.py). The
+                "_strategy" rows repeat phase 3's training rows with its
+                launches.
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -391,8 +421,12 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
+import signal
+import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -6134,6 +6168,261 @@ def phase_pipeline(torch, port, kernels, card: str):
     return {"pipeline": drill, "pipeline_resnet50": resnet}
 
 
+# -------------------------------------------------- phase 17: strategies
+
+#: the child's bound (its build of nothing: the library is in build/)
+P17_TIMEOUT = 420
+P17_STEPS = 3
+#: the timing: rounds of P17_TIMED steps a path, the paths in turns
+#: (single, strategy, strategy, single, ...); then P17_PROFILED steps a
+#: path under the profiler
+P17_ROUNDS = 6
+P17_TIMED = 5
+P17_PROFILED = 3
+#: the strategy path at world size 1 runs the single-device path's kernels
+#: on shards equal to the whole, with one-rank collectives between them:
+#: bitwise expected; bf16 logits give a loss to ~4e-3, so that gates
+P17_LOSS_RTOL = 4e-3
+
+
+def _p17_table(port, layers: int):
+    """The Megatron table on {"data": 1, "model": 1}."""
+    from flexflow_tpu_torch.parallel import CONTRACT, ParallelConfig
+
+    mesh = {"data": 1, "model": 1}
+    table = {}
+    for i in range(layers):
+        for op in (f"attn_{i}", f"ffn1_{i}"):
+            table[op] = ParallelConfig.from_axis_map(
+                3, mesh, {"data": 0, "model": 2})
+        table[f"ffn2_{i}"] = ParallelConfig.from_axis_map(
+            3, mesh, {"data": 0, "model": CONTRACT})
+    return mesh, table
+
+
+def _p17_run(torch, port, kernels, x, y, **cfg):
+    """One flagship run in the child: build (seed 0), a warm-up step, a
+    fit of P17_STEPS steps (launch and local-shard counts from 0 just
+    before it). Returns its record and the model, which stays alive for
+    ``_p17_time``."""
+    from flexflow_tpu_torch import parallel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ff, xt = build_flagship(port, "cuda", "bfloat16", 0, **FLAGSHIP, **cfg)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    port.SingleDataLoader(ff, xt, x)
+    port.SingleDataLoader(ff, ff.label_tensor, y)
+    losses = []
+    step = ff._run_train_step
+
+    def recording(batch, inject_nan=False):
+        loss, mets = step(batch, inject_nan)
+        losses.append(loss.reshape(1))
+        return loss, mets
+
+    ff._run_train_step = recording
+    b = FLAGSHIP["batch"]
+    recording({"input": x[:b], "label": y[:b]})   # the global batch
+    ff._reset_dataloaders()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    parallel.reset_local_calls()
+    ff.fit(epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    calls = dict(parallel.LOCAL_SHARD_CALLS)
+    del ff._run_train_step
+    rec = {"losses": [float(v) for v in torch.cat(losses)],
+           "compile_s": compile_s,
+           # this run's own peak, the other model's bytes left out
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "launches": launches, "local_calls": calls,
+           "dtensor": all(parallel.is_dtensor(w) for ws in ff.params.values()
+                          for w in ws.values())}
+    return rec, ff
+
+
+def _p17_time(torch, runs: dict, batch) -> None:
+    """Step times of the models in ``runs`` ({label: (record, model)})
+    through ``_run_train_step`` on one device batch: P17_ROUNDS rounds of
+    P17_TIMED steps a model, in turns, the order flipped each round (so a
+    drift of the card's clock falls on both); each record gets its
+    per-round ms a step. Then P17_PROFILED steps a model under the
+    profiler: device busy and wall from that one window, and the idle
+    share 1 - busy / wall (the profiler's own host cost included). A
+    first step a model on ``batch`` goes untimed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    order = list(runs)
+    for rec, ff in runs.values():
+        rec["round_ms"] = []
+        ff._run_train_step(batch)    # untimed: a first step on this batch
+    for r in range(P17_ROUNDS):
+        for label in (order if r % 2 == 0 else order[::-1]):
+            rec, ff = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(P17_TIMED):
+                ff._run_train_step(batch)
+            torch.cuda.synchronize()
+            rec["round_ms"].append(
+                (time.perf_counter() - t0) * 1e3 / P17_TIMED)
+    for label in order:
+        rec, ff = runs[label]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(P17_PROFILED):
+                ff._run_train_step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rec["busy_ms"] = busy_ms(prof.events()) / P17_PROFILED
+        rec["profiled_step_ms"] = wall / P17_PROFILED
+        rec["idle_share"] = 1 - rec["busy_ms"] / rec["profiled_step_ms"]
+
+
+def _p17_child(outdir: str) -> None:
+    """Phase 17's rank (started by the port's launcher): both runs, then
+    both timed in turns; the record written to ``outdir/result.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import flexflow_tpu_torch as port
+    from flexflow_tpu_torch.ops import kernels
+
+    if not (dist.is_initialized() and dist.get_world_size() == 1
+            and dist.get_backend() == "nccl"):
+        fail("phase 17: the child must be one NCCL rank of the launcher")
+    f = FLAGSHIP
+    n = f["batch"] * P17_STEPS
+    rs = np.random.RandomState(17)
+    x = rs.randn(n, f["seq"], f["hidden"]).astype(np.float32)
+    y = rs.randint(0, f["num_classes"], (n, 1)).astype(np.int32)
+    single, ff1 = _p17_run(torch, port, kernels, x, y)
+    mesh, table = _p17_table(port, f["layers"])
+    path = os.path.join(outdir, "megatron.ff")
+    ff1.config.strategies.update(table)
+    ff1.export_strategies(path)
+    strat, ff2 = _p17_run(torch, port, kernels, x, y, mesh_shape=mesh,
+                          fsdp_axis="data", import_strategy_file=path)
+    strat["imported"] = sorted(ff2.config.strategies) == sorted(table) and \
+        all(ff2.config.strategies[k].axis_map == v.axis_map
+            for k, v in table.items())
+    strat["mesh"] = ff2.mesh_shape
+    b = f["batch"]
+    batch = {"input": torch.as_tensor(x[:b], device="cuda"),
+             "label": torch.as_tensor(y[:b], device="cuda")}
+    _p17_time(torch, {"single": (single, ff1), "strategy": (strat, ff2)},
+              batch)
+    del ff1, ff2, batch
+    res = {"single": single, "strategy": strat,
+           "rendezvous_s": float(os.environ.get("FF_RENDEZVOUS_SECONDS",
+                                                "nan")),
+           "torch": torch.__version__}
+    with open(os.path.join(outdir, "result.json"), "w") as fh:
+        json.dump(res, fh)
+    say("phase 17 child: done")
+
+
+def phase_strategy(torch, port, kernels, card: str):
+    """Phase 17: the flagship on the strategy path at world size 1, in a
+    child process the port's launcher starts over NCCL (``_p17_child``);
+    gated against the single-device path it also runs. Its fsdp_axis
+    "data" is an axis of one device, which places no weight (as in JAX),
+    so FSDP's gathers and reduce-scatters do not run here: they are
+    checked on gloo by tests/test_torch_distributed.py. Returns
+    {"strategy": the strategy fit's launches}."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    outdir = ROOT / "build" / "phase17"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port_no = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["FF_INIT_TIMEOUT_S"] = "120"
+    cmd = [sys.executable, "-m", "flexflow_tpu_torch.launcher",
+           str(ROOT / "chip_smoke.py"), "--device", "cuda",
+           "--num-processes", "1", "--process-id", "0", "--coordinator",
+           f"127.0.0.1:{port_no}", "--",
+           "--phase17", str(outdir)]
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=P17_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"phase 17: the child outlived {P17_TIMEOUT} s:\n{out[-3000:]}")
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 17: the child exited {proc.returncode}:\n"
+             f"{out[-4000:]}")
+    res = json.loads((outdir / "result.json").read_text())
+    shutil.rmtree(outdir, ignore_errors=True)
+    single, strat = res["single"], res["strategy"]
+    a, b = strat["losses"], single["losses"]
+    rel = max(abs(p - q) / abs(q) for p, q in zip(a, b))
+    say(f"strategy: torch {res['torch']}, mesh {strat['mesh']}, "
+        f"fsdp_axis data (a one-device axis: no weight placed on it), the "
+        f"Megatron table exported and imported "
+        f"({strat['imported']}), weights DTensors ({strat['dtensor']})")
+    say(f"strategy: losses {[round(v, 5) for v in a]} against the "
+        f"single-device path's {[round(v, 5) for v in b]} (warm-up first, "
+        f"same seed and batches): max relative difference {rel:.3g}, "
+        f"bitwise {a == b}")
+    for label, r in (("single-device", single), ("strategy", strat)):
+        ms = sorted(r["round_ms"])
+        say(f"strategy ({label}): step {statistics.median(ms):.2f} ms "
+            f"(median of {P17_ROUNDS} rounds of {P17_TIMED} steps, range "
+            f"{ms[0]:.2f}-{ms[-1]:.2f}); {P17_PROFILED} profiled steps: "
+            f"device busy {r['busy_ms']:.2f} ms of {r['profiled_step_ms']:.2f}"
+            f" ms a step, idle share {r['idle_share']:.3f}; peak memory "
+            f"{r['peak_gib']:.2f} GiB, compile {r['compile_s']:.1f} s "
+            f"[{card}]")
+    diff = sorted(p - q for p, q in zip(strat["round_ms"],
+                                        single["round_ms"]))
+    say(f"strategy: strategy - single-device, paired a round: median "
+        f"{statistics.median(diff):+.2f} ms a step, range "
+        f"{diff[0]:+.2f} to {diff[-1]:+.2f} [{card}]")
+    say(f"strategy: rendezvous {res['rendezvous_s']:.2f} s, the child "
+        f"{child_s:.1f} s; launches {strat['launches']}, local-shard calls "
+        f"{strat['local_calls']}")
+    if not (strat["imported"] and strat["dtensor"]):
+        fail("phase 17: the strategy table was not imported, or a weight "
+             "is not a DTensor")
+    if not all(math.isfinite(v) for v in a) or rel > P17_LOSS_RTOL:
+        fail(f"phase 17: strategy losses {a} against {b} (rtol "
+             f"{P17_LOSS_RTOL})")
+    if strat["launches"] != single["launches"]:
+        fail(f"phase 17: launches {strat['launches']} != the single-device "
+             f"path's {single['launches']}")
+    layers = FLAGSHIP["layers"]
+    want = {"flash_attention": layers * P17_STEPS,
+            "fused_add_layernorm": 2 * layers * P17_STEPS,
+            "fused_update": P17_STEPS}
+    calls = strat["local_calls"]
+    if any(calls.get(k) != v for k, v in want.items()) or \
+            strat["launches"]["flash_attention_bwd"] != layers * P17_STEPS:
+        fail(f"phase 17: local-shard calls {calls} != {want}, or flash "
+             f"backward launches {strat['launches']}")
+    say(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return {"strategy": strat["launches"]}
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -6273,6 +6562,19 @@ KERNEL_ROWS = {
     "fused_update_resnet50_pipeline": ("fused_update.cu",
                                        FUSED_UPDATE_REPLACES,
                                        "pipeline_resnet50", "fused_update"),
+    # phase 17: the strategy path at world size 1 runs phase 7's training
+    # shapes through the local-shard wrapper (its rows are phase 3's, its
+    # launches the strategy fit's)
+    "flash_attention_fwd_lse_strategy": ("flash_attention_wgmma.cu", 180,
+                                         "strategy", "flash_attention_fwd"),
+    "flash_attention_bwd_strategy": ("flash_attention_bwd_wgmma.cu", 335,
+                                     "strategy", "flash_attention_bwd"),
+    "fused_add_layernorm_fwd_strategy": ("fused_add_layernorm.cu", 461,
+                                         "strategy",
+                                         "fused_add_layernorm_fwd"),
+    "fused_update_per_leaf_strategy": ("fused_update.cu",
+                                       FUSED_UPDATE_REPLACES, "strategy",
+                                       "fused_update"),
 }
 
 #: phase 14's, 15's and 16's rows: the row whose measurement each repeats
@@ -6294,6 +6596,10 @@ FLEET_ROWS = {
     "fused_add_layernorm_fwd_pipeline": "fused_add_layernorm_fwd",
     "fused_update_per_leaf_pipeline": "fused_update_per_leaf",
     "fused_update_resnet50_pipeline": "fused_update_resnet50",
+    "flash_attention_fwd_lse_strategy": "flash_attention_fwd_lse",
+    "flash_attention_bwd_strategy": "flash_attention_bwd",
+    "fused_add_layernorm_fwd_strategy": "fused_add_layernorm_fwd",
+    "fused_update_per_leaf_strategy": "fused_update_per_leaf",
 }
 
 
@@ -6304,6 +6610,8 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase17":
+        return _p17_child(sys.argv[2])       # phase 17's rank
     if not (ROOT / "flexflow_tpu_torch" / "__init__.py").is_file():
         fail(f"run from a checkout: {ROOT} holds no flexflow_tpu_torch/")
     sys.path.insert(0, str(ROOT))
@@ -6342,6 +6650,7 @@ def main():
     launches.update(phase_zoo_train(torch, port, kernels, card))
     launches.update(phase_rest(torch, port, kernels, card))
     launches.update(phase_pipeline(torch, port, kernels, card))
+    launches.update(phase_strategy(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name, of in FLEET_ROWS.items():

@@ -5,21 +5,48 @@ Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
 other. ``not_ported`` is the error of a feature no slice has ported yet,
 naming the ROADMAP item that ports it (the multi-device checkpoint
-layouts and the elastic mesh refit, item 8; the search's simulator and
-the graph lint passes, item 10).
+layouts and the elastic mesh refit, item 8; sequence parallelism and
+the overlapped gradient sync, item 9; the search, its simulator and the
+graph lint passes, item 10).
+
+The mesh fields (``num_devices``, ``mesh_shape``, ``ici_mesh_shape``,
+``dcn_mesh_shape``, ``fsdp_axis``, ``strategies`` and the strategy files)
+follow the JAX package's with one departure: an unset ``mesh_shape``
+stays None (the JAX config fills ``{"data": num_devices}``), which is how
+the port tells the single-device path from the strategy path — a process
+alone with no ``mesh_shape`` runs without DTensors, and
+``FFModel.mesh_shape`` gives the mesh either path means.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from flexflow_tpu_torch.ops.sampling import validate_sampling
 
 #: where the multi-device features are queued
 ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 8 (multi-device training)"
+#: where sequence parallelism, pipelines and placement are queued
+ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 (parallel attention, "
+                    "pipelines and placement)")
 #: where the strategy search, its simulator and the graph lint are queued
 ROADMAP_SEARCH = "ROADMAP.md queue 1, item 10 (the strategy search)"
+
+#: fields of later items: (JAX default, the item that ports them); a
+#: value other than the default raises ``not_ported`` naming the item
+_LATER_FIELDS = {
+    "sp_mode": ("ring", ROADMAP_PARALLEL),
+    "overlap_grad_sync": (False, ROADMAP_PARALLEL),
+    "search_budget": (0, ROADMAP_SEARCH),
+    "search_alpha": (0.05, ROADMAP_SEARCH),
+    "measure_search_costs": (False, ROADMAP_SEARCH),
+    "cost_db_path": ("", ROADMAP_SEARCH),
+    "simulator_workspace_size": (2 * 1024 * 1024 * 1024, ROADMAP_SEARCH),
+    "taskgraph_file": ("", ROADMAP_SEARCH),
+    "enable_parameter_parallel": (False, ROADMAP_SEARCH),
+    "enable_attribute_parallel": (False, ROADMAP_SEARCH),
+}
 
 
 def not_ported(feature: str,
@@ -35,6 +62,46 @@ class FFConfig:
     batch_size: int = 64
     epochs: int = 1
     seed: int = 0
+    # ---- the mesh and the strategies (parallel/, runtime/executor.py) ----
+    # devices of the mesh: the product of mesh_shape, else the world size
+    # of the process group (1 without one)
+    num_devices: Optional[int] = None
+    # {axis: size}, e.g. {"data": 2, "model": 2}; None (and a world of one)
+    # = the single-device path; set, or a world of several ranks, = the
+    # strategy path (every weight a DTensor)
+    mesh_shape: Optional[Dict[str, int]] = None
+    ici_mesh_shape: Optional[Dict[str, int]] = None
+    # axis -> the number of hosts it spans (checked against the mesh; the
+    # search's two-tier machine model reads it, item 10)
+    dcn_mesh_shape: Optional[Dict[str, int]] = None
+    # FSDP / ZeRO-3: shard every weight (and its optimizer state) over
+    # this mesh axis on top of its strategy — the largest divisible dim
+    # not sharded yet; gathered at use, the gradient reduce-scattered.
+    # "" = off
+    fsdp_axis: str = ""
+    # op name -> ParallelConfig; an op without one runs data-parallel on
+    # "data" (replicated without a "data" axis)
+    strategies: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # strategy files (parallel/strategy.py, shared with the JAX package):
+    # imported at compile before the mesh is built; exported at compile
+    import_strategy_file: str = ""
+    export_strategy_file: str = ""
+    # fields of later items (see _LATER_FIELDS): JAX's defaults, any other
+    # value refused
+    sp_mode: str = "ring"
+    overlap_grad_sync: bool = False
+    search_budget: int = 0
+    search_alpha: float = 0.05
+    measure_search_costs: object = False
+    cost_db_path: str = ""
+    simulator_workspace_size: int = 2 * 1024 * 1024 * 1024
+    taskgraph_file: str = ""
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    # the graph lint over the strategy table: "off" | "warn" (the port has
+    # no lint passes: nothing to warn of) | "strict" (item 10)
+    strategy_lint: str = "warn"
+
     # "bfloat16" runs every op in bf16 (the serving default on the card);
     # "float32" is what the CPU parity tests use. Serving stores its
     # weights in this dtype.
@@ -237,6 +304,41 @@ class FFConfig:
     sanitize: str = ""
 
     def __post_init__(self):
+        for field, (default, where) in _LATER_FIELDS.items():
+            if getattr(self, field) != default:
+                raise not_ported(f"FFConfig.{field}={getattr(self, field)!r}",
+                                 where)
+        if self.strategy_lint not in ("off", "warn", "strict"):
+            raise ValueError(
+                f"strategy_lint={self.strategy_lint!r}: must be 'off', "
+                f"'warn' or 'strict'")
+        if self.strategy_lint == "strict":
+            raise not_ported("FFConfig.strategy_lint='strict'",
+                             ROADMAP_SEARCH)
+        for field in ("mesh_shape", "ici_mesh_shape", "dcn_mesh_shape"):
+            shape = getattr(self, field)
+            if shape is not None and (not isinstance(shape, dict) or any(
+                    not isinstance(v, int) or v < 1
+                    for v in shape.values())):
+                raise ValueError(f"{field}={shape!r}: must be a dict of "
+                                 f"axis name -> positive int size")
+        for field in ("ici_mesh_shape", "dcn_mesh_shape"):
+            shape = getattr(self, field)
+            if shape and self.mesh_shape is not None:
+                bad = sorted(set(shape) - set(self.mesh_shape))
+                if bad:
+                    raise ValueError(f"{field} names axes {bad} absent "
+                                     f"from mesh_shape {self.mesh_shape}")
+        if self.num_devices is None:
+            if self.mesh_shape is not None:
+                n = 1
+                for v in self.mesh_shape.values():
+                    n *= v
+                self.num_devices = n
+            else:
+                from flexflow_tpu_torch.parallel.mesh import world_size
+
+                self.num_devices = world_size()
         for field in ("compute_dtype", "master_dtype"):
             if getattr(self, field) not in ("float32", "bfloat16"):
                 raise ValueError(

@@ -16,6 +16,16 @@ graph replayed on the card); ``grad_accum_steps``, ``on_nonfinite`` (the
 divergence guard) and ``fused_optimizer`` select the step's variants as in
 the JAX package. ``predict`` is the label-free forward. The model runs on
 the card unless it is built with ``device="cpu"``.
+
+Distribution (the JAX ``compile``'s mesh and strategies): with an
+explicit ``FFConfig.mesh_shape``, or in a world of several ranks (the
+port's launcher), ``compile`` imports ``import_strategy_file``, builds the
+mesh (``self.mesh``, a DeviceMesh) and trains under each op's
+``ParallelConfig`` as DTensor placements (``runtime/executor.py``); it
+writes ``export_strategy_file``. ``fit`` / ``evaluate`` / ``predict`` then
+run on every rank with the GLOBAL batch of ``batch_size``, each rank
+holding its "data" rows, and report the global batch's loss and metrics.
+Alone and without ``mesh_shape`` the single-device path runs unchanged.
 """
 
 from __future__ import annotations
@@ -55,6 +65,9 @@ from flexflow_tpu_torch.runtime.loss import loss_type_from_name
 from flexflow_tpu_torch.runtime.metrics import PerfMetrics, metrics_from_names
 from flexflow_tpu_torch.runtime.optimizer import FusedUpdate
 from flexflow_tpu_torch.runtime.resilience import init_guard_state
+from flexflow_tpu_torch import parallel
+from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
+                                                  save_strategies_to_file)
 from flexflow_tpu_torch.tensor import Tensor
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -113,6 +126,19 @@ class FFModel:
         self._pipeline = None
         self._current_batch: Dict = {}
         self.last_step_breakdown: Optional[Dict[str, float]] = None
+        # the DeviceMesh of the strategy path (None: the single-device
+        # path), built by compile; True while fit's loaders hand each rank
+        # its own rows
+        self.mesh = None
+        self._loader_rows = False
+
+    @property
+    def mesh_shape(self) -> Optional[Dict[str, int]]:
+        """{axis: size} of the mesh the model runs on (compiled), else of
+        the one its config asks for; None on the single-device path."""
+        if self.mesh is not None:
+            return parallel.mesh_shape_dict(self.mesh)
+        return self.config.mesh_shape
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -474,7 +500,7 @@ class FFModel:
             w = tie_transform(self.params[src_op][src_w], tf)
         else:
             w = self.params[op_name][weight_name]
-        return w.detach().float().cpu().numpy()
+        return parallel.full_tensor(w.detach()).float().cpu().numpy()
 
     def set_weights(self, op_name: str, weight_name: str, value) -> None:
         """Overwrite a weight in place (its dtype and device kept); a tied
@@ -485,8 +511,19 @@ class FFModel:
                 f"{op_name}.{weight_name} is tied to {tie[0]}.{tie[1]} — "
                 f"set the source weight instead")
         w = self.params[op_name][weight_name]
+        value = torch.as_tensor(np.asarray(value)).reshape(w.shape)
         with torch.no_grad():
-            w.copy_(torch.as_tensor(np.asarray(value)).reshape(w.shape))
+            if parallel.is_dtensor(w):
+                # every rank is given the full value and keeps its slice
+                from torch.distributed.tensor import DTensor, Replicate
+
+                full = DTensor.from_local(
+                    value.to(device=self.device, dtype=w.dtype), w.device_mesh,
+                    [Replicate()] * w.device_mesh.ndim, run_check=False)
+                parallel.local(w).copy_(parallel.local(
+                    full.redistribute(w.device_mesh, w.placements)))
+            else:
+                w.copy_(value)
 
     def compile(self, optimizer=None,
                 loss_type: Union[LossType, str] =
@@ -506,6 +543,7 @@ class FFModel:
         if not self.ops:
             raise ValueError("compile() on an empty graph")
         self._final_tensor = final_tensor or self.ops[-1].outputs[0]
+        self._build_mesh(optimizer)
         if self.config.perform_fusion:
             # reference: FFModel::apply_fusion (model.cc:1538-1593)
             apply_fusion(self, protected=[self._final_tensor]
@@ -547,6 +585,11 @@ class FFModel:
                                        name="label")
         self.executor = executor
         self.params = self.executor.init_params(gen)
+        if self.mesh is not None:
+            # every rank draws the same full weights (the same generator),
+            # so each keeps its slice: the single device's weights
+            self.params = executor.distribute_params(self.params)
+            executor.batch_rows = cfg.batch_size
         self._generators = self.executor.init_generators()
         self.opt_state = optimizer.init_state(self.params)
         self._guard = self._guard_state = None
@@ -563,14 +606,58 @@ class FFModel:
                 self._guard_state = init_guard_state(cfg.loss_scale,
                                                      self.device)
 
+    def _build_mesh(self, optimizer) -> None:
+        """The strategy path's set-up, in the JAX ``compile``'s order
+        (model.py:479-507): the strategy file imported first, then the
+        mesh built — for an explicit ``mesh_shape``, or a world of
+        several ranks (then ``{"data": world}`` unless given). The
+        strategy table is exported (``export_strategy_file``) once built.
+        Serving, checkpoints and the elastic refits under a mesh are item
+        8's second part and raise ``not_ported``."""
+        from flexflow_tpu_torch.config import not_ported
+        from flexflow_tpu_torch.parallel.mesh import world_size
+
+        cfg = self.config
+        if cfg.import_strategy_file:
+            self.import_strategies(cfg.import_strategy_file)
+        self.mesh = None
+        world = world_size()
+        if cfg.mesh_shape is None and world <= 1:
+            if cfg.export_strategy_file:
+                self.export_strategies(cfg.export_strategy_file)
+            return
+        if optimizer is None:
+            raise not_ported("serving and generate under a mesh (kernels 4 "
+                             "and 5 on local kv-head shards)")
+        if cfg.checkpoint_dir:
+            raise not_ported("checkpoints under a mesh (a per-rank or DCP "
+                             "layout)")
+        self.mesh = parallel.make_mesh(cfg.mesh_shape or {"data": world},
+                                       self.device.type)
+        if cfg.export_strategy_file:
+            self.export_strategies(cfg.export_strategy_file)
+
+    def export_strategies(self, filename: str) -> None:
+        """Write ``FFConfig.strategies`` to ``filename`` (the text schema
+        both packages read; ``parallel/strategy.py``)."""
+        save_strategies_to_file(filename, self.config.strategies)
+
+    def import_strategies(self, filename: str) -> None:
+        """Read a strategy file (either package's, or the reference's)
+        into ``FFConfig.strategies``."""
+        self.config.strategies.update(load_strategies_from_file(filename))
+
     # ------------------------------------------------------------- training
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """``batch`` on the model's device (``GraphExecutor.shard_batch``:
-        a tensor already there passes through)."""
-        return (self.executor or GraphExecutor(self)).shard_batch(batch)
+        a tensor already there passes through); under a mesh, this rank's
+        rows of the global batch."""
+        ex = self.executor or GraphExecutor(self)
+        return ex.shard_batch(ex.local_batch(batch))
 
     def _stage_batch(self) -> Dict:
+        """The loaders' next batch (under a mesh, this rank's rows)."""
         return {dl.name: dl.next_batch() for dl in self._dataloaders}
 
     def _reset_dataloaders(self):
@@ -592,9 +679,13 @@ class FFModel:
         "label": array or tensor}); returns (loss, metrics) as device
         scalars. Under the divergence guard (``on_nonfinite``) the guarded
         step runs; ``inject_nan`` adds NaN to its loss (the fault hook,
-        which needs the guard)."""
+        which needs the guard). Under a mesh ``batch`` is the global batch
+        — within ``fit``, whose loaders give each rank its rows, this
+        rank's rows."""
         if self.optimizer is None:
             raise RuntimeError("compile() with an optimizer first")
+        if not self._loader_rows:
+            batch = self.executor.local_batch(batch)
         batch = self.executor.shard_batch(batch)
         if self._guard is not None:
             loss, mets = self.executor.guarded_train_step(
@@ -639,11 +730,12 @@ class FFModel:
         staged = {dl.name: dl._dev_data for dl in self._dataloaders}
         key = tuple((k, v.data_ptr(), tuple(v.shape))
                     for k, v in staged.items()) + tuple(
-            t.data_ptr() for t in self._state_leaves())
+            parallel.local(t).data_ptr() for t in self._state_leaves())
         if self._replay is None or self._replay_key != key:
             self._replay = StepReplay(self._step, staged,
                                       max(n_steps, self.config.scan_steps),
-                                      self._generators.values())
+                                      self._generators.values(),
+                                      capture=self.mesh is None)
             self._replay_key = key
         nb = min(dl.num_batches for dl in self._dataloaders)
         first = self._dataloaders[0]
@@ -725,6 +817,8 @@ class FFModel:
         if batch_size is not None:
             for dl in self._dataloaders:
                 dl.batch_size = batch_size
+        if self.mesh is not None:
+            self.executor.batch_rows = bs
         num_batches = min(dl.num_batches for dl in self._dataloaders)
         if num_batches <= 0:
             raise ValueError(
@@ -820,6 +914,7 @@ class FFModel:
             cb.on_train_begin()
         t0 = time.time()
         stopped = False
+        self._loader_rows = True
         try:
             for epoch in range(start_epoch, epochs):
                 # resuming mid-epoch: the cursors were just restored
@@ -988,6 +1083,7 @@ class FFModel:
                 if any(cb.on_epoch_end(epoch) for cb in callbacks):
                     break
         finally:
+            self._loader_rows = False
             if pipe is not None:
                 # quiesce BEFORE the supervisor's final checkpoint: the
                 # cursors go back to the consumed position
@@ -1045,7 +1141,8 @@ class FFModel:
         loss, mets, logits = self.executor.eval_step(
             self.params, self._to_device(batch), self.loss_type,
             self.metric_types, self._final_tensor)
-        return float(loss), {k: float(v) for k, v in mets.items()}, logits
+        return (float(loss), {k: float(v) for k, v in mets.items()},
+                parallel.full_tensor(logits))
 
     def predict(self, batch):
         """Label-free inference: the output of the final tensor for

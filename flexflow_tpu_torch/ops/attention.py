@@ -43,6 +43,9 @@ from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.norm import dropout
+from flexflow_tpu_torch.parallel import (is_dtensor, keep_shards,
+                                         local_shard, reduce_partial,
+                                         shard_generator)
 
 
 # ---- quantized KV-page storage (the JAX package's attention.py:67-134) ---
@@ -465,14 +468,19 @@ class MultiHeadAttention(Op):
         return qh, kh, vh
 
     def _broadcast_kv(self, kh, vh):
-        """GQA: repeat each kv head over its query group, so the dense
-        paths (and the flash backward) see plain multi-head shapes, as in
-        the JAX package."""
-        if self.num_kv_heads != self.num_heads:
-            rep = self.num_heads // self.num_kv_heads
-            kh = kh.repeat_interleave(rep, dim=2)
-            vh = vh.repeat_interleave(rep, dim=2)
-        return kh, vh
+        """GQA: repeat each kv head over its query group (as
+        ``repeat_interleave``), so the dense paths (and the flash
+        backward) see plain multi-head shapes, as in the JAX package. It
+        is built of views, which DTensor propagates on any placement."""
+        if self.num_kv_heads == self.num_heads:
+            return kh, vh
+
+        def expand(t):
+            b, s, kvh, d = t.shape
+            rep = self.num_heads // kvh
+            return t.unsqueeze(3).expand(b, s, kvh, rep, d).reshape(
+                b, s, kvh * rep, d)
+        return expand(kh), expand(vh)
 
     def _out_proj(self, params, ctx):
         """(B, S, H, Hd) x (H, Hd, D) -> (B, S, D) (the einsum
@@ -481,7 +489,8 @@ class MultiHeadAttention(Op):
         out = torch.matmul(ctx.reshape(*ctx.shape[:2], -1),
                            wo.reshape(-1, wo.shape[-1]))
         if self.bias:
-            out = out + params["bias_o"]
+            # head-sharded: a partial sum a rank, reduced before the bias
+            out = reduce_partial(out) + params["bias_o"]
         return out
 
     # ---- dense path (training, evaluation) --------------------------------
@@ -489,8 +498,27 @@ class MultiHeadAttention(Op):
     def forward(self, params, xs, *, training=False, gen=None):
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2])
         kh, vh = self._broadcast_kv(kh, vh)
-        return [self._out_proj(params, self._dense_attention(
-            qh, kh, vh, training, gen))]
+        attend = (self._sharded_attention if is_dtensor(qh)
+                  else self._dense_attention)
+        return [self._out_proj(params, attend(qh, kh, vh, training, gen))]
+
+    def _sharded_attention(self, qh, kh, vh, training, gen=None):
+        """The dense path on DTensor q / k / v (a strategy's run): each
+        rank attends its local batch rows and heads — the kernels on
+        local shards (``parallel.local_shard``), the JAX ``_flash_dense``
+        under ``shard_map`` (attention.py:808-836). q keeps its shards of
+        the batch and head dims; kv heads come broadcast to the query
+        groups (``_broadcast_kv``), so kv left replicated (GQA with a head
+        degree that does not divide the kv heads) gives each rank exactly
+        the kv heads its query heads read. Attention dropout draws from
+        the generator of this rank's shard (``parallel.shard_generator``)."""
+        pl = keep_shards(qh.placements, (0, 2))
+        use_dropout = training and self.dropout > 0.0 and gen is not None
+        g = shard_generator(gen, qh.device_mesh, pl) if use_dropout else None
+        return local_shard(
+            lambda q, k, v: self._dense_attention(q, k, v, training, g),
+            (qh, kh, vh), (pl, pl, pl),
+            "flash_attention" if not use_dropout else "attention_fallback")
 
     def _flash_ok(self, qh, kh, vh) -> bool:
         """The flash kernels take these q/k/v and the config does not turn
@@ -542,6 +570,40 @@ class MultiHeadAttention(Op):
                                            self.scale)
         return self._fallback_attention(qh, kh, vh,
                                         gen if use_dropout else None)
+
+    # ---- parallelization (the JAX hooks, attention.py:888-925) ----------
+
+    _contracted_output_dims = (2,)  # the hidden dim comes from wo
+
+    def partitionable_output_dims(self):
+        # batch, seq (ring attention, item 9), hidden (head split)
+        return [0, 1, 2]
+
+    def single_axis_dims(self):
+        return [1]
+
+    def weight_partition(self, axis_map):
+        """Hidden-dim sharding splits heads (Megatron): the head dim of
+        wq / wk / wv and wo's input side. GQA: when the head degree does
+        not divide num_kv_heads, wk / wv (and their biases) stay
+        replicated while wq / wo shard."""
+        ax = self.axes_for_dim(axis_map, 2)
+        if ax is None:
+            return super().weight_partition(axis_map)
+        kv_ax = ax
+        shape = self.model.mesh_shape
+        if self.num_kv_heads != self.num_heads and shape is not None:
+            deg = 1
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                deg *= shape.get(a, 1)
+            if self.num_kv_heads % deg != 0:
+                kv_ax = None
+        out = {"wq": (None, ax, None), "wk": (None, kv_ax, None),
+               "wv": (None, kv_ax, None), "wo": (ax, None, None)}
+        if self.bias:
+            out.update(bias_q=(ax, None), bias_k=(kv_ax, None),
+                       bias_v=(kv_ax, None), bias_o=(None,))
+        return out
 
     # ---- contiguous per-request cache (prefill) ---------------------------
 

@@ -99,6 +99,91 @@ class Op:
         shard's state this way). Default: the full-size state."""
         return self.init_state(device)
 
+    # -- parallelization metadata (the JAX ``ops/base.py`` hooks) -----------
+    #
+    # A weight's partition is a SPEC: a tuple with one entry a weight dim —
+    # None, a mesh-axis name, or a tuple of names (the JAX PartitionSpec's
+    # entries; ``parallel.spec_placements`` turns it into placements).
+
+    def partitionable_output_dims(self) -> List[int]:
+        """Output dims a strategy may partition. Default: the sample dim
+        only (the reference's conservative default)."""
+        return [0]
+
+    def single_axis_dims(self) -> List[int]:
+        """Output dims shardable over at most ONE mesh axis (attention's
+        sequence dim: the ring / Ulysses lowering names one axis)."""
+        return []
+
+    def contract_size(self) -> Optional[int]:
+        """The size of the op's weight-contraction dim when the op takes
+        CONTRACT (row-parallel) sharding, else None."""
+        return None
+
+    def expert_parallel_size(self) -> Optional[int]:
+        """The number of shardable experts when the op takes EXPERT
+        sharding, else None."""
+        return None
+
+    def pipeline_stages(self) -> int:
+        """Stacked layers the op can split into pipeline stages (STAGE);
+        0 = not pipelineable."""
+        return 0
+
+    def output_axis_map(self, axis_map: Dict[str, Optional[int]]
+                        ) -> Dict[str, Optional[int]]:
+        """The sharding the op's output has under ``axis_map``: sentinel
+        axes (CONTRACT / STAGE / EXPERT) deliver it replicated."""
+        return {ax: (d if d is not None and d >= 0 else None)
+                for ax, d in (axis_map or {}).items()}
+
+    def weight_partition(self, axis_map: Dict[str, Optional[int]]
+                         ) -> Dict[str, tuple]:
+        """{weight name: spec} under the op's output ``axis_map``.
+        Default: every weight replicated (the reference's weights under
+        data parallelism)."""
+        return {w.name: (None,) * len(w.shape) for w in self.weight_specs()}
+
+    @staticmethod
+    def axes_for_dim(axis_map: Dict[str, Optional[int]], dim: int):
+        """The mesh axes mapped to output dim ``dim``, as a spec entry:
+        None, one axis name, or a tuple."""
+        axes = [ax for ax, d in (axis_map or {}).items() if d == dim]
+        if not axes:
+            return None
+        return axes[0] if len(axes) == 1 else tuple(axes)
+
+    # output dims produced by a weight contraction (an out-channel dim):
+    # their sharding does not propagate to the inputs
+    _contracted_output_dims: Tuple[int, ...] = ()
+
+    def contract_input_dim(self, input_idx: int) -> Optional[int]:
+        """The input dim a CONTRACT axis shards for ``input_idx`` (the last
+        dim for Linear, the channel dim for Conv2D); None leaves the input
+        replicated over it."""
+        return None
+
+    def input_axis_map(self, axis_map: Dict[str, Optional[int]],
+                       input_idx: int) -> Dict[str, Optional[int]]:
+        """The sharding the op's output ``axis_map`` implies for input
+        ``input_idx``: the map truncated to the input's rank, weight-
+        contracted dims dropped, CONTRACT axes sent to
+        ``contract_input_dim``."""
+        from flexflow_tpu_torch.parallel.pconfig import CONTRACT
+
+        ndims = self.inputs[input_idx].num_dims
+        nd_out = self.outputs[0].num_dims
+        contracted = {(d % nd_out) for d in self._contracted_output_dims}
+        cdim = self.contract_input_dim(input_idx)
+        out = {}
+        for ax, d in axis_map.items():
+            if d == CONTRACT and cdim is not None:
+                out[ax] = cdim
+            else:
+                out[ax] = (d if d is not None and 0 <= d < ndims
+                           and d not in contracted else None)
+        return out
+
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"
 

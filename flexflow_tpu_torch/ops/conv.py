@@ -18,6 +18,9 @@ import torch.nn.functional as F
 from flexflow_tpu_torch.ffconst import ActiMode, OperatorType, PoolType
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.dense import apply_activation
+from flexflow_tpu_torch.parallel import (is_dtensor, keep_shards,
+                                         local_shard, reduce_partial,
+                                         sum_over)
 
 
 class Conv2D(Op):
@@ -57,11 +60,68 @@ class Conv2D(Op):
         return ws
 
     def forward(self, params, xs, *, training=False):
+        if is_dtensor(xs[0]):
+            return [apply_activation(self._sharded_conv(params, xs[0]),
+                                     self.activation)]
         y = F.conv2d(xs[0], params["kernel"],
                      params["bias"] if self.use_bias else None,
                      stride=self.stride, padding=self.padding,
                      groups=self.groups)
         return [apply_activation(y, self.activation)]
+
+    def _sharded_conv(self, params, x):
+        """The conv of a DTensor input on each rank's local batch rows:
+        out-channel sharding (the kernel split on its dim 0) gives each
+        rank its output channels; CONTRACT (the kernel split on its input
+        channels, the input on its channels) gives partial sums, reduced
+        before the bias is added. Height and width are never split."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        w = params["kernel"]
+        xp, wp, op = [], [], []
+        for px, pw in zip(x.placements, w.placements):
+            if isinstance(pw, Shard) and pw.dim == 1:       # CONTRACT
+                xp.append(Shard(1))
+                wp.append(pw)
+                op.append(Partial())
+            elif isinstance(pw, Shard) and pw.dim == 0:     # out-channels
+                xp.append(Replicate())
+                wp.append(pw)
+                op.append(Shard(1))
+            else:
+                keep = isinstance(px, Shard) and px.dim == 0
+                xp.append(Shard(0) if keep else Replicate())
+                wp.append(Replicate())
+                op.append(xp[-1])
+        y = local_shard(
+            lambda a, k: F.conv2d(a, k, None, stride=self.stride,
+                                  padding=self.padding, groups=self.groups),
+            (x, w), (xp, wp), "conv2d", out_placements=op)
+        if self.use_bias:
+            y = reduce_partial(y) + params["bias"].view(-1, 1, 1)
+        return y
+
+    _contracted_output_dims = (1,)  # the out-channel comes from the kernel
+
+    def partitionable_output_dims(self):
+        return [0, 1, 2, 3]  # sample, out-channel, H, W
+
+    def contract_size(self):
+        # row-parallel conv: the kernel split on its input channels
+        return self.in_channels if self.groups == 1 else None
+
+    def weight_partition(self, axis_map):
+        from flexflow_tpu_torch.parallel.pconfig import CONTRACT
+
+        ax = self.axes_for_dim(axis_map, 1)
+        cax = self.axes_for_dim(axis_map, CONTRACT)
+        out = {"kernel": (ax, cax, None, None)}
+        if self.use_bias:
+            out["bias"] = (ax,)
+        return out
+
+    def contract_input_dim(self, input_idx):
+        return 1  # the input channel dim
 
 
 class Pool2D(Op):
@@ -105,12 +165,23 @@ class Pool2D(Op):
             x = F.pad(x, (pw, pw, ph, ph),
                       value=-math.inf if is_max else 0.0)
             ph = pw = 0
-        if is_max:
-            y = F.max_pool2d(x, self.kernel, self.stride, (ph, pw))
+        if is_dtensor(x):
+            # window ops on each rank's local rows and channels
+            pl = keep_shards(x.placements, (0, 1))
+            y = local_shard(lambda t: self._pool(t, is_max, ph, pw), (x,),
+                            (pl,), "pool2d")
         else:
-            y = F.avg_pool2d(x, self.kernel, self.stride, (ph, pw),
-                             count_include_pad=True)
+            y = self._pool(x, is_max, ph, pw)
         return [apply_activation(y, self.activation)]
+
+    def _pool(self, x, is_max, ph, pw):
+        if is_max:
+            return F.max_pool2d(x, self.kernel, self.stride, (ph, pw))
+        return F.avg_pool2d(x, self.kernel, self.stride, (ph, pw),
+                            count_include_pad=True)
+
+    def partitionable_output_dims(self):
+        return [0, 1, 2, 3]
 
 
 class BatchNorm(Op):
@@ -157,10 +228,65 @@ class BatchNorm(Op):
         return {"mean": torch.zeros(c, dtype=torch.float32, device=device),
                 "var": torch.ones(c, dtype=torch.float32, device=device)}
 
+    def partitionable_output_dims(self):
+        # BatchNorm's statistics reduce over N, H, W only
+        return [0, 1, 2, 3]
+
+    def weight_partition(self, axis_map):
+        ax = self.axes_for_dim(axis_map, 1)
+        return {"scale": (ax,), "bias": (ax,)}
+
+    def _sharded_forward(self, params, state, x, training):
+        """BatchNorm of a DTensor input split over its batch rows: each
+        rank sums its rows and the sums (then the squared deviations from
+        the global mean) are all-reduced over the ranks holding other rows
+        — the global batch's statistics, as JAX computes them
+        (conv.py:195), while the activation stays split (DTensor's own
+        batch norm would gather it whole on every rank). The running
+        state moves identically on every rank. Channels and H / W are
+        gathered, never split."""
+        from torch.distributed.tensor import Shard
+
+        mesh = x.device_mesh
+        pl = keep_shards(x.placements, (0,))
+        rdims = [i for i, p in enumerate(pl) if isinstance(p, Shard)]
+        rep = keep_shards(params["scale"].placements, ())
+        out = {}
+
+        def run(xl, scale, bias):
+            xf = xl.float()
+            if training:
+                n = xl.shape[0] * xl.shape[2] * xl.shape[3]
+                for i in rdims:
+                    n *= mesh.size(i)
+                mean = sum_over(xf.sum(dim=(0, 2, 3)), mesh, rdims) / n
+                d = xf - mean[:, None, None]
+                var = sum_over((d * d).sum(dim=(0, 2, 3)), mesh, rdims) / n
+                out["mean"], out["var"] = mean.detach(), var.detach()
+            else:
+                mean, var = state["mean"], state["var"]
+                d = xf - mean[:, None, None]
+            inv = torch.rsqrt(var + self.eps) * scale.float()
+            return (d * inv[:, None, None]
+                    + bias.float()[:, None, None]).to(xl.dtype)
+
+        y = local_shard(run, (x, params["scale"], params["bias"]),
+                        (pl, rep, rep), "batch_norm")
+        if not training:
+            return y, state
+        m = self.momentum
+        with torch.no_grad():
+            new_state = {k: m * state[k] + (1 - m) * out[k]
+                         for k in ("mean", "var")}
+        return y, new_state
+
     def forward_stateful(self, params, state, xs, *, training=False,
                          gen=None):
         x = xs[0]
         scale, bias = params["scale"], params["bias"]
+        if is_dtensor(x):
+            y, new_state = self._sharded_forward(params, state, x, training)
+            return [torch.relu(y) if self.relu else y], new_state
         if training:
             y, mean, invstd = torch.native_batch_norm(
                 x, scale, bias, None, None, True, 0.0, self.eps)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, OperatorType
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.lora import lora_delta
+from flexflow_tpu_torch.parallel import reduce_partial
 
 
 def apply_activation(x: torch.Tensor, acti: ActiMode) -> torch.Tensor:
@@ -65,8 +66,39 @@ class Linear(Op):
             # the bias as a merged W + a @ b * scale kernel would be
             y = y + lora_delta(xs[0], *lora)
         if self.use_bias:
-            y = y + params["bias"]
+            # under CONTRACT the product is a partial sum a rank: the bias
+            # adds after the reduction, once (dense.py:106-110 in JAX)
+            y = reduce_partial(y) + params["bias"]
         return [apply_activation(y, self.activation)]
+
+    @property
+    def _contracted_output_dims(self):
+        return (self.outputs[0].num_dims - 1,)
+
+    def partitionable_output_dims(self):
+        # sample dim(s) and the out-channel (the reference's
+        # parameter-parallel dim, linear.cu:144-269)
+        return list(range(self.outputs[0].num_dims))
+
+    def contract_size(self):
+        # row-parallel: kernel sharded on in_dim, the input on its last
+        # dim (a column-parallel producer's layout), the output reduced
+        return self.in_dim
+
+    def weight_partition(self, axis_map):
+        from flexflow_tpu_torch.parallel.pconfig import CONTRACT
+
+        ax = self.axes_for_dim(axis_map, self.outputs[0].num_dims - 1)
+        cax = self.axes_for_dim(axis_map, CONTRACT)
+        out = {"kernel": (cax, ax)}
+        if self.use_bias:
+            # the bias adds after the reduction: replicated over contract
+            # axes
+            out["bias"] = (ax,)
+        return out
+
+    def contract_input_dim(self, input_idx):
+        return self.inputs[input_idx].num_dims - 1
 
 
 class Embedding(Op):
@@ -91,6 +123,24 @@ class Embedding(Op):
     def weights(self):
         return [WeightSpec("kernel", (self.num_entries, self.out_dim),
                            init="glorot", fan=(self.num_entries, self.out_dim))]
+
+    @property
+    def _contracted_output_dims(self):
+        return (self.outputs[0].num_dims - 1,)
+
+    def partitionable_output_dims(self):
+        nd = self.outputs[0].num_dims
+        return [0, nd - 1]  # sample + embedding channel (a column-split table)
+
+    def weight_partition(self, axis_map):
+        ax = self.axes_for_dim(axis_map, self.outputs[0].num_dims - 1)
+        return {"kernel": (None, ax)}
+
+    def input_axis_map(self, axis_map, input_idx):
+        # the index input has no channel dim: only sample-dim mappings
+        ndims = self.inputs[input_idx].num_dims
+        return {ax: (d if d is not None and d < ndims else None)
+                for ax, d in (axis_map or {}).items()}
 
     def forward(self, params, xs, *, training=False):
         idx = xs[0].long()
@@ -118,3 +168,6 @@ class BatchMatmul(Op):
 
     def forward(self, params, xs, *, training=False):
         return [torch.matmul(xs[0], xs[1])]
+
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims - 2))

@@ -59,6 +59,9 @@ class ElementUnary(Op):
             return [_SCALAR_FNS[self.op_type](xs[0], self.scalar)]
         return [_UNARY_FNS[self.op_type](xs[0])]
 
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims))
+
 
 class ElementBinary(Op):
     def __init__(self, model, name, inputs, op_type: OperatorType):
@@ -75,6 +78,9 @@ class ElementBinary(Op):
 
     def forward(self, params, xs, *, training=False):
         return [_BINARY_FNS[self.op_type](xs[0], xs[1])]
+
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims))
 
 
 class Cast(Op):

@@ -87,6 +87,23 @@ class FusedOp(Op):
     def weights(self):
         return self.leader.weights()
 
+    # parallelization: the group is the leader, for the strategy table
+    def weight_partition(self, axis_map):
+        return self.leader.weight_partition(axis_map)
+
+    def partitionable_output_dims(self):
+        dims = set(self.leader.partitionable_output_dims())
+        for m in self.members:
+            dims &= set(m.partitionable_output_dims())
+        return sorted(dims)
+
+    def input_axis_map(self, axis_map, input_idx):
+        return self.leader.input_axis_map(axis_map, input_idx)
+
+    @property
+    def _contracted_output_dims(self):
+        return self.leader._contracted_output_dims
+
     def __repr__(self):
         chain = "+".join(type(m).__name__ for m in self.members)
         return f"FusedOp({self.leader!r}+{chain})"
@@ -113,12 +130,15 @@ def apply_fusion(model, protected=()) -> int:
     several outputs leads no group: the group adopts its last member's
     outputs only, so the leader's others (a MoE's aux loss, a split's
     other parts) would leave the value map — the JAX function fuses such
-    a leader, and its walk then misses them. The JAX function also
-    refuses a follower whose strategy entry differs from the leader's;
-    the port has no strategy table yet (ROADMAP queue 1, item 8), so it
-    fuses as the JAX function does with an empty one."""
+    a leader, and its walk then misses them.
+
+    Strategy compatibility (the reference's identical-ParallelConfig
+    check, JAX ``fused.py:134-172``): a follower with a strategy entry of
+    its own that differs from the leader's is not folded; a folded
+    follower's entry is dropped from ``FFConfig.strategies``."""
     if model._graph_index is None:
         model._graph_index = {op.name: i for i, op in enumerate(model.ops)}
+    strategies = model.config.strategies
     protected_ids = {id(t) for t in protected}
     consumers: Dict[int, int] = {}
     for op in model.ops:
@@ -136,16 +156,21 @@ def apply_fusion(model, protected=()) -> int:
             continue
         members: List[Op] = []
         j = i + 1
+        lead_strat = strategies.get(op.name)
         while j < len(ops):
             tail_out = (members[-1] if members else op).outputs[0]
+            cand_strat = strategies.get(ops[j].name)
             if (id(tail_out) not in protected_ids
-                    and _fusable_follower(ops[j], tail_out, consumers)):
+                    and _fusable_follower(ops[j], tail_out, consumers)
+                    and (cand_strat is None or cand_strat == lead_strat)):
                 members.append(ops[j])
                 j += 1
             else:
                 break
         if members:
             new_ops.append(FusedOp(op, members))
+            for m in members:
+                strategies.pop(m.name, None)
             eliminated += len(members)
             i = j
         else:

@@ -84,6 +84,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from flexflow_tpu_torch.parallel import is_dtensor
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
@@ -266,6 +268,16 @@ def _require_cuda(name: str, *tensors: torch.Tensor):
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """Every tensor lies on the CPU (the plain version runs). A DTensor
+    raises: a kernel takes local shards only (``parallel.local_shard``),
+    and a DTensor on the CPU must never fall through to the plain
+    version."""
+    for t in tensors:
+        if type(t) is not torch.Tensor and is_dtensor(t):
+            raise TypeError(
+                "a kernel wrapper was given a DTensor: run the kernel on "
+                "local shards through flexflow_tpu_torch.parallel."
+                "local_shard")
     return all(t.is_cpu for t in tensors)
 
 

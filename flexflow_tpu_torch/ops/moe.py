@@ -189,3 +189,31 @@ class MoE(Op):
         y = (out.index_select(0, dest.reshape(-1)).reshape(k, N, D)
              * gate[..., None].to(t.dtype)).sum(dim=0)
         return y, self._aux(gates, counts.float() / N)
+
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims - 1))
+
+    def expert_parallel_size(self):
+        return self.num_experts
+
+    def weight_partition(self, axis_map):
+        """EXPERT axes shard the expert dim of w_in / w_out; without one a
+        mesh axis literally named 'expert' that divides the experts does
+        (the JAX convention). Running expert parallelism is item 9."""
+        from flexflow_tpu_torch.parallel.pconfig import EXPERT
+
+        eaxes = [ax for ax, d in (axis_map or {}).items() if d == EXPERT]
+        shape = self.model.mesh_shape or {}
+        if not eaxes and shape.get("expert", 1) > 1 \
+                and self.num_experts % shape["expert"] == 0:
+            eaxes = ["expert"]
+        e = None if not eaxes else (eaxes[0] if len(eaxes) == 1
+                                    else tuple(eaxes))
+        return {"router": (None, None), "w_in": (e, None, None),
+                "w_out": (e, None, None)}
+
+    def input_axis_map(self, axis_map, input_idx):
+        # sentinels never reach the input: it arrives replicated over them
+        ndims = self.inputs[input_idx].num_dims
+        return {ax: (d if d is not None and 0 <= d < ndims - 1 else None)
+                for ax, d in (axis_map or {}).items()}

@@ -16,6 +16,8 @@ import torch
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
+from flexflow_tpu_torch.parallel import (is_dtensor, keep_shards,
+                                         local_shard, shard_generator)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -49,6 +51,10 @@ class Softmax(Op):
     def forward(self, params, xs, *, training=False):
         return [torch.softmax(xs[0], dim=self.axis)]
 
+    def partitionable_output_dims(self):
+        nd = self.outputs[0].num_dims
+        return [i for i in range(nd) if i != self.axis % nd]
+
 
 class Dropout(Op):
     """The identity at inference and at rate 0; in training ``dropout``
@@ -69,7 +75,17 @@ class Dropout(Op):
     def forward(self, params, xs, *, training=False, gen=None):
         if not training:
             return [xs[0]]
-        return [dropout(xs[0], self.rate, gen)]
+        x = xs[0]
+        if is_dtensor(x) and self.rate > 0.0 and gen is not None:
+            # each rank masks its own shard from its shard's generator
+            pl = keep_shards(x.placements, range(x.ndim))
+            g = shard_generator(gen, x.device_mesh, pl)
+            return [local_shard(lambda t: dropout(t, self.rate, g), (x,),
+                                (pl,), "dropout")]
+        return [dropout(x, self.rate, gen)]
+
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims))
 
 
 class LayerNorm(Op):
@@ -102,6 +118,9 @@ class LayerNorm(Op):
             y = y * params["scale"] + params["bias"]
         return [y]
 
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims - 1))
+
 
 class AddLayerNorm(Op):
     """Fused residual add + LayerNorm: (s, y) = (x + r, LN(x + r)), two
@@ -133,9 +152,25 @@ class AddLayerNorm(Op):
         return [WeightSpec("scale", (self.dim,), init="one"),
                 WeightSpec("bias", (self.dim,), init="zero")]
 
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims - 1))
+
     def forward(self, params, xs, *, training=False):
         x, r = xs[0], xs[1]
-        scale, bias = params["scale"], params["bias"]
+        if is_dtensor(x):
+            # row-wise: each rank normalises its local rows (the sharded
+            # non-last dims; the last dim is never split), no collective —
+            # the JAX shard_map over norm.py:164-186
+            pl = keep_shards(x.placements, range(x.ndim - 1))
+            rep = keep_shards(params["scale"].placements, ())
+            s, y = local_shard(self._rows, (x, r, params["scale"],
+                                            params["bias"]),
+                               (pl, pl, rep, rep), "fused_add_layernorm")
+            return [s, y]
+        return self._rows(x, r, params["scale"], params["bias"])
+
+    def _rows(self, x, r, scale, bias):
+        """(x + r, LN(x + r) * scale + bias) of plain tensors."""
         x2 = x.reshape(-1, self.dim).contiguous()
         r2 = r.reshape(-1, self.dim).contiguous()
         if kernels.fused_add_layernorm_takes(x2, r2, scale, bias):
@@ -173,3 +208,6 @@ class RMSNorm(Op):
         x = xs[0]
         ms = torch.mean(torch.square(x), dim=-1, keepdim=True)
         return [x * torch.rsqrt(ms + self.eps) * params["scale"]]
+
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims - 1))

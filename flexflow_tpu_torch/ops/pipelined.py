@@ -116,3 +116,29 @@ class TransformerPipelineStack(Op):
             h = _block({k: v[i] for k, v in layers.items()}, h,
                        self.num_heads, self.causal, use_flash)
         return [h]
+
+    def pipeline_stages(self) -> int:
+        return self.num_layers
+
+    def weight_partition(self, axis_map):
+        """A STAGE axis (else a mesh axis named 'pipe' that divides the
+        layers) shards every stacked weight's layer dim (the JAX hook;
+        running the pipeline is item 9)."""
+        from flexflow_tpu_torch.parallel.pconfig import STAGE
+
+        ax = next((a for a, d in (axis_map or {}).items() if d == STAGE),
+                  None)
+        if ax is None:
+            shape = self.model.mesh_shape or {}
+            s = shape.get("pipe", 1)
+            if s <= 1 or self.num_layers % s:
+                return super().weight_partition(axis_map)
+            ax = "pipe"
+        return {w.name: (ax,) + (None,) * (len(w.shape) - 1)
+                for w in self.weight_specs()}
+
+    def partitionable_output_dims(self):
+        return [0, 1]
+
+    def single_axis_dims(self):
+        return [1]

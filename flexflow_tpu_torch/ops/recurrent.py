@@ -66,6 +66,9 @@ class _Recurrent(Op):
             return [hs[-1]]
         return [torch.stack(hs, dim=1)]
 
+    def partitionable_output_dims(self):
+        return [0]  # batch only: seq is the recurrence
+
 
 class LSTM(_Recurrent):
     op_type = OperatorType.OP_LSTM

@@ -56,6 +56,9 @@ class Transpose(Op):
     def forward(self, params, xs, *, training=False):
         return [xs[0].permute(self.perm)]
 
+    def partitionable_output_dims(self):
+        return list(range(self.outputs[0].num_dims))
+
 
 class Reverse(Op):
     op_type = OperatorType.OP_REVERSE
@@ -92,6 +95,9 @@ class Concat(Op):
     def forward(self, params, xs, *, training=False):
         return [torch.cat(xs, dim=self.axis)]
 
+    def partitionable_output_dims(self):
+        return [i for i in range(self.outputs[0].num_dims) if i != self.axis]
+
 
 class Split(Op):
     op_type = OperatorType.OP_SPLIT
@@ -115,6 +121,9 @@ class Split(Op):
 
     def forward(self, params, xs, *, training=False):
         return list(torch.split(xs[0], self.sizes, dim=self.axis))
+
+    def partitionable_output_dims(self):
+        return [i for i in range(self.outputs[0].num_dims) if i != self.axis]
 
 
 class TopK(Op):

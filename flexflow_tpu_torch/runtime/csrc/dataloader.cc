@@ -44,6 +44,10 @@ struct Loader {
   std::vector<int64_t> sample_bytes;     // bytes per sample per array
   int64_t num_samples = 0;
   int64_t batch_size = 0;
+  // the window of each batch this loader gathers: rows [row_lo, row_lo +
+  // rows) of it (a rank's share of a global batch; the whole by default)
+  int64_t row_lo = 0;
+  int64_t rows = 0;
   bool shuffle = false;
   std::mt19937_64 rng;
 
@@ -67,11 +71,11 @@ struct Loader {
 
   void fill_slot(int slot_idx, int64_t batch_index) {
     Slot& s = slots[slot_idx];
-    const int64_t start = batch_index * batch_size;
+    const int64_t start = batch_index * batch_size + row_lo;
     for (size_t a = 0; a < data.size(); ++a) {
       const int64_t sb = sample_bytes[a];
       uint8_t* dst = s.buffers[a].data();
-      for (int64_t i = 0; i < batch_size; ++i) {
+      for (int64_t i = 0; i < rows; ++i) {
         const int64_t src_idx = order[start + i];
         std::memcpy(dst + i * sb, data[a] + src_idx * sb, sb);
       }
@@ -182,12 +186,15 @@ struct Loader {
 
 extern "C" {
 
-void* ffdl_create(int num_arrays, const void** data_ptrs,
-                  const int64_t* sample_bytes, int64_t num_samples,
-                  int64_t batch_size, int shuffle, uint64_t seed,
-                  int num_slots, int num_threads) {
+// As ffdl_create, gathering rows [row_lo, row_hi) of every batch only.
+void* ffdl_create_rows(int num_arrays, const void** data_ptrs,
+                       const int64_t* sample_bytes, int64_t num_samples,
+                       int64_t batch_size, int shuffle, uint64_t seed,
+                       int num_slots, int num_threads, int64_t row_lo,
+                       int64_t row_hi) {
   if (num_arrays <= 0 || num_samples <= 0 || batch_size <= 0 ||
-      batch_size > num_samples)
+      batch_size > num_samples || row_lo < 0 || row_hi <= row_lo ||
+      row_hi > batch_size)
     return nullptr;
   Loader* L = new Loader();
   for (int a = 0; a < num_arrays; ++a) {
@@ -196,6 +203,8 @@ void* ffdl_create(int num_arrays, const void** data_ptrs,
   }
   L->num_samples = num_samples;
   L->batch_size = batch_size;
+  L->row_lo = row_lo;
+  L->rows = row_hi - row_lo;
   L->shuffle = shuffle != 0;
   L->rng.seed(seed);
   L->num_batches = num_samples / batch_size;
@@ -207,13 +216,22 @@ void* ffdl_create(int num_arrays, const void** data_ptrs,
   L->slots.resize(num_slots);
   for (int s = 0; s < num_slots; ++s) {
     for (int a = 0; a < num_arrays; ++a)
-      L->slots[s].buffers.emplace_back(batch_size * sample_bytes[a]);
+      L->slots[s].buffers.emplace_back(L->rows * sample_bytes[a]);
     L->free_slots.push(s);
   }
   if (num_threads < 1) num_threads = 1;
   for (int t = 0; t < num_threads; ++t)
     L->workers.emplace_back([L] { L->worker(); });
   return L;
+}
+
+void* ffdl_create(int num_arrays, const void** data_ptrs,
+                  const int64_t* sample_bytes, int64_t num_samples,
+                  int64_t batch_size, int shuffle, uint64_t seed,
+                  int num_slots, int num_threads) {
+  return ffdl_create_rows(num_arrays, data_ptrs, sample_bytes, num_samples,
+                          batch_size, shuffle, seed, num_slots, num_threads,
+                          0, batch_size);
 }
 
 int64_t ffdl_num_batches(void* handle) {

@@ -11,6 +11,11 @@ slices it there and ``GraphExecutor.shard_batch`` copies the batch to the
 device (``fit`` overlaps that with the step: runtime/pipeline_loader.py,
 runtime/native_loader.py). Past the end of the data both paths wrap to
 the first batch, as in the JAX package.
+
+Under a mesh each rank stages, and hands out, only the rows of every
+global batch its "data" coordinate owns (``GraphExecutor.local_rows``; the
+JAX loader stages its batches sharded over "data", dataloader.py:82-99):
+the cursors, batch counts and wrap stay the global batch's.
 """
 
 from __future__ import annotations
@@ -81,7 +86,10 @@ class SingleDataLoader:
         b, nb = self.batch_size, self.num_batches
         if nb <= 0:
             return False
+        lo, hi = self._rows()
         host = self.data[:nb * b].reshape((nb, b) + self.data.shape[1:])
+        if (lo, hi) != (0, b):
+            host = np.ascontiguousarray(host[:, lo:hi])
         try:
             self._dev_data = torch.as_tensor(host, device=self.model.device)
         except torch.OutOfMemoryError:
@@ -103,7 +111,15 @@ class SingleDataLoader:
         self.next_index = start + b
         if self._try_stage_on_device():
             return self._dev_data[(start // b) % self._dev_data.shape[0]]
-        return self.data[start:start + b]
+        lo, hi = self._rows()
+        return self.data[start + lo:start + hi]
+
+    def _rows(self):
+        """[lo, hi): this rank's rows of a batch (all of them off a
+        mesh)."""
+        ex = getattr(self.model, "executor", None)
+        return ex.local_rows(self.batch_size) if ex is not None \
+            else (0, self.batch_size)
 
 
 def attach_training_data(ffmodel, input_tensors, x, y, loss_type):

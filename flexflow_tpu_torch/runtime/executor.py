@@ -28,19 +28,41 @@ gradients sum into that leaf. An op may have several outputs (the MoE's
 second is its 0-d f32 aux loss, which a training loss adds in every step
 variant); a fused group (``ops/fused.py``) runs as one op under its
 leader's name, each of its parts that draws from its own generator.
+
+Under a mesh (``FFModel.mesh``: an explicit ``FFConfig.mesh_shape``, or a
+world of several ranks) the executor runs the strategy path, the JAX
+executor's GSPMD lowering in DTensor terms: every op's ``ParallelConfig``
+resolves to an axis map (``resolve_axis_map``; the default data-parallel
+on "data", else replicated), the weights are DTensors under their ops'
+``weight_partition`` (with ``FFConfig.fsdp_axis``, ``_with_fsdp``), gathered
+to it at use, and every op's outputs are redistributed to the placements
+of its axis map after it runs (``with_sharding_constraint``'s analog).
+Each rank holds the rows of the global batch its "data" coordinate owns;
+the loss and the metrics are the global batch's on every rank, so the
+guard's verdict and the loss scale agree everywhere. The kernels run on
+local shards (``parallel.local_shard``), and the update on each rank's
+local shards of the weights, gradients and optimizer state. Nothing of
+the single-device path changes when there is no mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import logging
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.config import ROADMAP_PARALLEL, not_ported
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.ops.base import InputOp
 from flexflow_tpu_torch.ops.fused import FusedOp
+from flexflow_tpu_torch import parallel
+from flexflow_tpu_torch.parallel.pconfig import (CONTRACT, EXPERT, STAGE,
+                                                 ParallelConfig)
 from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import batch_metrics
@@ -48,6 +70,8 @@ from flexflow_tpu_torch.runtime.metrics import batch_metrics
 Params = Dict[str, Dict[str, torch.Tensor]]
 Batch = Dict[str, torch.Tensor]
 State = Dict[str, Dict[str, torch.Tensor]]
+
+log = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
 
@@ -104,10 +128,298 @@ def drawing_ops(model):
                 yield (index[part.name] if index else idx), part
 
 
+def resolve_axis_map(pc: ParallelConfig, mesh_shape: Dict[str, int],
+                     ndims: int) -> Dict[str, Optional[int]]:
+    """The axis map of ``pc`` on a mesh of ``mesh_shape`` for an op whose
+    output has ``ndims`` dims (the JAX ``resolve_axis_map``,
+    executor.py:33-127): an explicit map is checked against the mesh (an
+    axis absent from it, or a dim outside the op's rank, raises; degrees
+    recorded for other axis sizes warn and run at the new ones); a
+    degrees-only strategy (a reference-written file) is mapped greedily —
+    each partitioned dim takes unused mesh axes whose sizes multiply to
+    its degree, the sample dim preferring "data"."""
+    if pc.axis_map is not None:
+        missing = [ax for ax, d in pc.axis_map.items()
+                   if d is not None and ax not in mesh_shape]
+        if missing:
+            raise ValueError(
+                f"strategy axis_map references mesh axes {missing} absent "
+                f"from this mesh {mesh_shape} — the strategy was "
+                f"produced for a different mesh; regenerate it or rename "
+                f"the mesh axes")
+        bad = {ax: d for ax, d in pc.axis_map.items()
+               if d is not None and d not in (CONTRACT, STAGE, EXPERT)
+               and not (0 <= d < ndims)}
+        if bad:
+            raise ValueError(
+                f"strategy axis_map entries {bad} map mesh axes to tensor "
+                f"dims outside this op's rank {ndims} (valid: 0..{ndims - 1} "
+                f"or the CONTRACT/STAGE/EXPERT sentinels) — the @axismap "
+                f"record is corrupt or was written for a different operator")
+        if pc.dims:
+            expect = ParallelConfig.from_axis_map(ndims, mesh_shape,
+                                                  pc.axis_map).dims
+            if tuple(expect) != tuple(pc.dims):
+                log.warning(
+                    "strategy axis_map on this mesh gives degrees %s but "
+                    "the strategy recorded %s — the mesh axis sizes "
+                    "changed since it was written; executing at the NEW "
+                    "degrees", tuple(expect), tuple(pc.dims))
+        return pc.axis_map
+    remaining = dict(mesh_shape)
+    axis_map: Dict[str, Optional[int]] = {}
+    # a degree list one longer than the output rank carries a trailing
+    # CONTRACT degree (the reference's replica dim, linear.cu:171-192)
+    targets = list(range(min(ndims, len(pc.dims))))
+    if len(pc.dims) == ndims + 1 and pc.dims[ndims] > 1:
+        targets.append(ndims)
+    for d in sorted(targets, key=lambda d: (d != 0,)):  # sample dim first
+        deg = pc.dims[d]
+        logical = CONTRACT if d == ndims else d
+        if deg == 1:
+            continue
+        prefs = (["data"] if d == 0 else []) + list(remaining.keys())
+        single = [ax for ax in prefs if remaining.get(ax) == deg]
+        if single:
+            axis_map[single[0]] = logical
+            del remaining[single[0]]
+            continue
+        found = None
+        axes = list(remaining.keys())
+        for r in range(2, len(axes) + 1):
+            for combo in itertools.combinations(axes, r):
+                if math.prod(remaining[ax] for ax in combo) == deg:
+                    found = combo
+                    break
+            if found:
+                break
+        if not found:
+            raise ValueError(
+                f"strategy degree {deg} on dim {d} not expressible as a "
+                f"product of unused mesh axes (mesh {mesh_shape}, "
+                f"remaining {remaining})")
+        for ax in found:
+            axis_map[ax] = logical
+            del remaining[ax]
+    return axis_map
+
+
+def _with_fsdp(spec: tuple, shape, axis: str, axis_size: int) -> tuple:
+    """FSDP on a weight's spec (``FFConfig.fsdp_axis``; the JAX
+    ``_with_fsdp``, executor.py:709-735): its LARGEST still-unsharded dim
+    that ``axis_size`` divides is sharded over ``axis`` too (on top of any
+    strategy sharding: 2-D weight sharding). Unchanged when the strategy
+    already spent the axis on the weight, when nothing divides, or when
+    the axis has one device."""
+    if shape is None or axis_size <= 1:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None:
+                used.add(a)
+    if axis in used:
+        return spec
+    best = None
+    for d, e in enumerate(entries):
+        if e is None and shape[d] % axis_size == 0:
+            if best is None or shape[d] > shape[best]:
+                best = d
+    if best is None:
+        return spec
+    entries[best] = axis
+    return tuple(entries)
+
+
+def spec_placements(spec: tuple, mesh, shape) -> list:
+    """The DTensor placements of a weight of ``shape`` under ``spec`` (one
+    entry a dim: None, a mesh-axis name or a tuple of names) on ``mesh``.
+    A dim the product of its axes' sizes does not divide stays unsharded
+    (the JAX ``shard_entries`` rule): DTensor would shard it unevenly."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = parallel.mesh_shape_dict(mesh)
+    by_axis = {}
+    for d, e in enumerate(spec):
+        axes = e if isinstance(e, tuple) else ((e,) if e else ())
+        if axes and shape[d] % math.prod(sizes[a] for a in axes) == 0:
+            for a in axes:
+                by_axis[a] = d
+    return [Shard(by_axis[n]) if n in by_axis else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def _refuse_later_strategies(op, am: Dict[str, Optional[int]],
+                             mesh_shape: Dict[str, int]) -> None:
+    """Strategies of item 9 raise ``not_ported`` naming it instead of
+    running: a STAGE (pipeline) or EXPERT axis of more than one device,
+    and an attention (or pipelined stack) whose sequence dim is sharded
+    (ring / Ulysses attention)."""
+    for ax, d in am.items():
+        if mesh_shape.get(ax, 1) <= 1:
+            continue
+        if d in (STAGE, EXPERT):
+            raise not_ported(
+                f"{op.name}: the {'STAGE' if d == STAGE else 'EXPERT'} "
+                f"strategy on mesh axis {ax!r}", ROADMAP_PARALLEL)
+        if d is not None and d in op.single_axis_dims():
+            raise not_ported(
+                f"{op.name}: sharding its sequence dim over {ax!r} (ring / "
+                f"Ulysses attention)", ROADMAP_PARALLEL)
+
+
+def _zeros(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``w``'s shape and device in ``dtype`` (a DTensor's: its
+    placements)."""
+    if parallel.is_dtensor(w):
+        return torch.zeros_like(w, dtype=dtype)
+    return torch.zeros(w.shape, device=w.device, dtype=dtype)
+
+
 class GraphExecutor:
+    # the global row count of the batch the walk runs (the strategy path:
+    # each rank holds its rows of it); 0: the config's batch size
+    batch_rows: int = 0
+
     def __init__(self, model):
         self.model = model
         self.input_ops = [op for op in model.ops if isinstance(op, InputOp)]
+        # the strategy path: the mesh, each op's axis map, and the
+        # placements of the weights (stored, and at use)
+        self.mesh = getattr(model, "mesh", None)
+        self._op_axis_maps: Dict[str, Dict[str, Optional[int]]] = {}
+        if self.mesh is not None:
+            self.mesh_shape = parallel.mesh_shape_dict(self.mesh)
+            self._resolve_strategies()
+            self._compute_placements = self._param_placements(fsdp=False)
+            self._store_placements = self._param_placements(fsdp=True)
+
+    # ---- strategies (the strategy path) ---------------------------------------
+
+    def _resolve_strategies(self) -> None:
+        """Every op's axis map (the JAX ``_resolve_strategies``): its
+        ``FFConfig.strategies`` entry, else data-parallel on "data"
+        (replicated without a "data" axis)."""
+        strategies = self.model.config.strategies
+        for op in self.model.ops:
+            if isinstance(op, InputOp):
+                continue
+            nd = op.outputs[0].num_dims
+            pc = strategies.get(op.name)
+            if pc is None:
+                pc = ParallelConfig.data_parallel(
+                    nd, self.mesh_shape.get("data", 1))
+                if "data" not in self.mesh_shape:
+                    pc = ParallelConfig.replicated(nd)
+            am = resolve_axis_map(pc, self.mesh_shape, nd)
+            _refuse_later_strategies(op, am, self.mesh_shape)
+            self._op_axis_maps[op.name] = am
+
+    def op_axis_map(self, op) -> Dict[str, Optional[int]]:
+        return self._op_axis_maps.get(op.name, {})
+
+    def op_output_placements(self, op, shape) -> list:
+        """The placements an op's output of ``shape`` is redistributed to
+        (the JAX ``op_output_sharding``)."""
+        return parallel.placements_for(self.mesh, self.op_axis_map(op),
+                                       shape)
+
+    def weight_specs(self, fsdp: bool = True) -> Dict[str, Dict[str, tuple]]:
+        """{op: {weight: spec}}: each op's ``weight_partition`` under its
+        axis map, with ``fsdp_axis`` applied (the JAX
+        ``param_shardings``'s specs). A ``fsdp_axis`` that is not a mesh
+        axis raises."""
+        axis = self.model.config.fsdp_axis if fsdp else ""
+        if axis and axis not in self.mesh_shape:
+            raise ValueError(f"fsdp_axis={axis!r} is not a mesh axis "
+                             f"(mesh {self.mesh_shape})")
+        out: Dict[str, Dict[str, tuple]] = {}
+        for op in self.model.ops:
+            specs = op.weight_specs()
+            if not specs:
+                continue
+            shapes = {w.name: tuple(w.shape) for w in specs}
+            wp = op.weight_partition(self.op_axis_map(op))
+            out[op.name] = {
+                name: (_with_fsdp(sp, shapes.get(name), axis,
+                                  self.mesh_shape.get(axis, 1))
+                       if axis else sp)
+                for name, sp in wp.items()}
+        return out
+
+    def _param_placements(self, fsdp: bool) -> Dict[str, Dict[str, list]]:
+        shapes = {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()}
+                  for op in self.model.ops if op.weight_specs()}
+        return {op: {w: spec_placements(sp, self.mesh, shapes[op][w])
+                     for w, sp in ws.items()}
+                for op, ws in self.weight_specs(fsdp).items()}
+
+    def distribute_params(self, params: Params) -> Params:
+        """Full weights (the same on every rank) as DTensors under their
+        stored placements: each rank keeps its slice, no collective."""
+        from torch.distributed.tensor import DTensor, Replicate
+
+        rep = [Replicate()] * self.mesh.ndim
+        out = {}
+        for op, ws in params.items():
+            pl = self._store_placements[op]
+            out[op] = {k: DTensor.from_local(w, self.mesh, rep,
+                                             run_check=False).redistribute(
+                self.mesh, pl[k]).detach() for k, w in ws.items()}
+        return out
+
+    def data_dims(self) -> List[int]:
+        """The mesh dims the batch rows are split over: "data"."""
+        names = self.mesh.mesh_dim_names
+        return [names.index("data")] if "data" in names else []
+
+    def batch_split(self, rows: int) -> bool:
+        """Whether a global batch of ``rows`` is split over "data" (the
+        axis divides it; the JAX ``input_sharding``), else replicated."""
+        dd = self.data_dims()
+        return bool(dd) and rows % self.mesh.size(dd[0]) == 0
+
+    def input_placements(self, split: bool) -> list:
+        """A batch entry's placements: its rows over "data" when
+        ``split``, else replicated."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        dd = self.data_dims() if split else []
+        return [Shard(0) if i in dd else Replicate()
+                for i in range(self.mesh.ndim)]
+
+    def local_rows(self, rows: int) -> Tuple[int, int]:
+        """[lo, hi): the rows of a global batch of ``rows`` this rank
+        holds (all of them off a mesh, or when "data" does not divide
+        them)."""
+        if self.mesh is None or not self.batch_split(rows):
+            return 0, rows
+        dd = self.data_dims()[0]
+        n = self.mesh.size(dd)
+        c = self.mesh.get_coordinate()[dd]
+        return c * rows // n, (c + 1) * rows // n
+
+    def local_batch(self, batch) -> Dict:
+        """This rank's rows of a global batch (the batch itself off a
+        mesh); the global batch's row count becomes ``batch_rows``."""
+        if self.mesh is None:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            v = v if hasattr(v, "shape") else np.asarray(v)
+            self.batch_rows = v.shape[0]
+            lo, hi = self.local_rows(v.shape[0])
+            out[k] = v[lo:hi]
+        return out
+
+    def _split(self) -> bool:
+        return self.batch_split(self.batch_rows
+                                or self.model.config.batch_size)
+
+    def _batch_degree(self) -> int:
+        """The ranks the batch rows are split over (1: replicated)."""
+        return self.mesh.size(self.data_dims()[0]) if self._split() else 1
 
     # ---- parameters ----------------------------------------------------------
 
@@ -151,35 +463,81 @@ class GraphExecutor:
         the new state of every stateful op). With a bf16 compute dtype, f32
         inputs are cast to bf16; every floating weight (tied ones resolved
         from their source) is cast to the compute dtype, the state never.
-        ``gens`` (training) hands each drawing op its generator."""
+        ``gens`` (training) hands each drawing op its generator.
+
+        On the strategy path (``self.mesh``) the inputs (this rank's rows)
+        become DTensors, every op runs on DTensors (plain tensors mixed
+        in, such as RoPE tables and masks, count as replicated), and each
+        output is redistributed to its op's placements
+        (``_constrain_outputs``)."""
         cdt = self.model.compute_dtype
         bf16 = cdt == torch.bfloat16
         state = state or {}
         new_state: State = {}
         vals = {t: (v.to(cdt) if bf16 and v.dtype == torch.float32 else v)
                 for t, v in input_values.items()}
+        sharded = self.mesh is not None
+        replicate = contextlib.nullcontext()
+        if sharded:
+            from torch.distributed.tensor import DTensor
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            pl = self.input_placements(self._split())
+            vals = {t: DTensor.from_local(v, self.mesh, pl, run_check=False)
+                    for t, v in vals.items()}
+            replicate = implicit_replication()
         # named op ranges for the profiler (runtime/profiler.py): under
         # FFConfig.profiling or a running torch.profiler only, so the
         # unprofiled step pays one check a walk
         ranged = (self.model.config.profiling
                   or torch._C._autograd._profiler_enabled())
-        for op in self.model.ops:
-            if isinstance(op, InputOp):
-                if op.outputs[0] not in vals:
-                    raise ValueError(f"missing input value for {op.name}")
-                continue
-            xs = [vals[t] for t in op.inputs]
-            if ranged:
-                with torch.profiler.record_function(op.name):
+        with replicate:
+            for op in self.model.ops:
+                if isinstance(op, InputOp):
+                    if op.outputs[0] not in vals:
+                        raise ValueError(f"missing input value for "
+                                         f"{op.name}")
+                    continue
+                xs = [vals[t] for t in op.inputs]
+                if ranged:
+                    with torch.profiler.record_function(op.name):
+                        outs, st = self.run_op(op, params, xs, training,
+                                               state, gens)
+                else:
                     outs, st = self.run_op(op, params, xs, training, state,
                                            gens)
-            else:
-                outs, st = self.run_op(op, params, xs, training, state, gens)
-            if st is not None:
-                new_state[op.name] = st
-            for t, v in zip(op.outputs, outs):
-                vals[t] = v
+                if st is not None:
+                    new_state[op.name] = st
+                if sharded:
+                    outs = self._constrain_outputs(op, outs)
+                for t, v in zip(op.outputs, outs):
+                    vals[t] = v
         return vals, new_state
+
+    def _constrain_outputs(self, op, outs) -> list:
+        """``op``'s outputs redistributed to its placements (the JAX
+        ``with_sharding_constraint``). An output of the primary output's
+        rank that a dim of the axis map lies outside raises (the JAX
+        executor's rank check, executor.py:325-335)."""
+        am = self.op_axis_map(op)
+        top = max([d for d in am.values() if d is not None and d >= 0],
+                  default=-1)
+        res = []
+        for i, (t, v) in enumerate(zip(op.outputs, outs)):
+            if parallel.is_dtensor(v) and v.dim() == t.num_dims:
+                if top < v.dim():
+                    want = self.op_output_placements(op, v.shape)
+                    if list(v.placements) != want:
+                        v = v.redistribute(self.mesh, want)
+                elif i == 0:
+                    raise ValueError(
+                        f"sharding constraint for {op.name!r} shards dim "
+                        f"{top} but its output is rank {v.dim()} — the "
+                        f"strategy entry does not match this op's output; "
+                        f"fix or regenerate the strategy file")
+            res.append(v)
+        return res
 
     def run_op(self, op, params: Params, xs: List[torch.Tensor],
                training: bool, state: Optional[State] = None,
@@ -193,6 +551,13 @@ class GraphExecutor:
         p = {k: (w.to(cdt) if w.is_floating_point() and w.dtype != cdt
                  else w)
              for k, w in p.items()}
+        if self.mesh is not None:
+            # gathered to the strategy's layout at use (FSDP: the
+            # all-gather, its backward the gradient's reduce-scatter)
+            want = self._compute_placements.get(op.name, {})
+            p = {k: (w.redistribute(self.mesh, want[k])
+                     if k in want and list(w.placements) != want[k] else w)
+                 for k, w in p.items()}
         kw = {"gens": gens} if isinstance(op, FusedOp) else {}
         if op.stateful:
             return op.forward_stateful(p, (state or {})[op.name], xs,
@@ -245,6 +610,10 @@ class GraphExecutor:
             state=self.model.bn_state,
             gens=self.model._generators if training else None)
         logits = vals[final_tensor]
+        if self.mesh is not None:
+            return self._global_loss(logits, vals, batch[label_key],
+                                     loss_type, metric_types, training) + (
+                new_state,)
         loss = compute_loss(loss_type, logits, batch[label_key])
         if training:
             for t in self.model._aux_tensors:   # MoE load-balancing losses
@@ -253,6 +622,45 @@ class GraphExecutor:
                              batch[label_key],
                              self.model.config.metrics_ignore_index)
         return loss, mets, logits, new_state
+
+    def _global_loss(self, logits, vals, labels, loss_type: LossType,
+                     metric_types: Sequence[MetricsType], training: bool):
+        """(loss, metrics, logits) of the global batch on every rank (the
+        strategy path). The logits are brought to the batch's layout
+        (rows over "data", replicated elsewhere); each rank's loss over
+        its rows, scaled by its share of them, is summed over the ranks
+        holding other rows — the global batch's mean, every loss being a
+        mean over rows of equal count a rank. Count metrics
+        (``*_count`` / ``*_total``) sum over those ranks, the means
+        average, and ``rmse_loss`` averages its square (the mean squared
+        error) and takes the root of the global mean. The logits come back
+        as the DTensor."""
+        import torch.distributed as dist
+
+        deg = self._batch_degree()
+        dd = self.data_dims() if deg > 1 else []
+        rows = logits.redistribute(self.mesh, self.input_placements(deg > 1))
+        mine = rows.to_local()
+        loss = compute_loss(loss_type, mine, labels)
+        if deg > 1:
+            loss = parallel.sum_over(loss / deg, self.mesh, dd, root=True)
+        if training:
+            for t in self.model._aux_tensors:
+                loss = loss + parallel.full_tensor(vals[t])
+        mets = batch_metrics(loss_type, metric_types, mine.detach(), labels,
+                             self.model.config.metrics_ignore_index)
+        if deg > 1 and mets:
+            keys = sorted(mets)
+            flat = torch.stack([mets[k].double() ** 2 if k == "rmse_loss"
+                                else mets[k].double() for k in keys])
+            for i in dd:
+                dist.all_reduce(flat, group=self.mesh.get_group(i))
+            glob = {k: (flat[j] if k.endswith(("_count", "_total"))
+                        else flat[j] / deg) for j, k in enumerate(keys)}
+            if "rmse_loss" in glob:
+                glob["rmse_loss"] = glob["rmse_loss"].sqrt()
+            mets = {k: v.to(mets[k].dtype) for k, v in glob.items()}
+        return loss, mets, logits
 
     def loss_and_metrics(self, params: Params, batch: Batch,
                          loss_type: LossType,
@@ -301,6 +709,14 @@ class GraphExecutor:
         target = loss if scale is None else loss * scale
         flat = iter(torch.autograd.grad(target, leaves))
         grads = {op: {k: next(flat) for k in ws} for op, ws in params.items()}
+        if self.mesh is not None:
+            # partial sums over the ranks reduced into the weights'
+            # layout (an all-reduce, or FSDP's reduce-scatter)
+            grads = {op: {k: (g.redistribute(self.mesh, params[op][k]
+                                             .placements)
+                              if parallel.is_dtensor(g) else g)
+                          for k, g in ws.items()}
+                     for op, ws in grads.items()}
         return loss.detach(), mets, grads, new_state
 
     def _accum_loss_and_grads(self, params: Params, batch: Batch, accum: int,
@@ -321,9 +737,8 @@ class GraphExecutor:
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
         wide = (torch.bfloat16, torch.float16)
-        acc = {op: {k: torch.zeros(w.shape, device=w.device,
-                                   dtype=torch.float32 if w.dtype in wide
-                                   else w.dtype)
+        acc = {op: {k: _zeros(w, torch.float32 if w.dtype in wide
+                              else w.dtype)
                     for k, w in ws.items()} for op, ws in params.items()}
         losses, all_mets = [], []
         for i in range(accum):
@@ -361,8 +776,31 @@ class GraphExecutor:
             loss, mets, grads, new_state = self._loss_and_grads(
                 params, batch, *args)
             self.commit_state(new_state)
-        optimizer.update(params, grads, opt_state)
+        self._update(optimizer, params, grads, opt_state)
         return loss, mets
+
+    def _mixing(self):
+        """On the strategy path, a context in which plain tensors mixed
+        with DTensors count as replicated."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+
+    def _update(self, optimizer, params: Params, grads: Params, opt_state,
+                finite: Optional[torch.Tensor] = None) -> None:
+        """The optimizer's in-place update; on the strategy path on each
+        rank's local shards of the weights, gradients and state (the
+        update is elementwise: the numbers are the single device's)."""
+        if self.mesh is None:
+            optimizer.update(params, grads, opt_state, finite=finite)
+            return
+        optimizer.update(parallel.local_tree(params),
+                         parallel.local_tree(grads),
+                         parallel.local_tree(opt_state), finite=finite)
+        parallel.note_local_call("fused_update")
 
     def guarded_train_step(self, params: Params, opt_state, batch: Batch,
                            optimizer, loss_type: LossType,
@@ -389,14 +827,17 @@ class GraphExecutor:
             params, batch, loss_type, metric_types, final_tensor,
             scale=scale, inject_nan=inject_nan)
         inv = 1.0 / scale
-        grads = {op: {k: g * inv.to(g.dtype) for k, g in ws.items()}
-                 for op, ws in grads.items()}
+        with self._mixing():
+            grads = {op: {k: g * inv.to(g.dtype) for k, g in ws.items()}
+                     for op, ws in grads.items()}
         gnorm_sq = torch.zeros((), dtype=torch.float32, device=scale.device)
         for ws in grads.values():
             for g in ws.values():
-                gnorm_sq = gnorm_sq + torch.sum(torch.square(g.float()))
+                # a DTensor's sum is the global one (every rank alike)
+                gnorm_sq = gnorm_sq + parallel.full_tensor(
+                    torch.sum(torch.square(g.float())))
         finite = torch.isfinite(loss) & torch.isfinite(gnorm_sq)
-        optimizer.update(params, grads, opt_state, finite=finite)
+        self._update(optimizer, params, grads, opt_state, finite)
         self.commit_state(new_state, finite)
         bad = ~finite
         zero = torch.zeros_like(gstate["bad_streak"])
@@ -439,7 +880,7 @@ class GraphExecutor:
         finals = final_tensors or [self.model.ops[-1].outputs[0]]
         vals, _ = self.apply_graph(params, self._input_values(batch),
                                    training=False, state=self.model.bn_state)
-        return [vals[t] for t in finals]
+        return [parallel.full_tensor(vals[t]) for t in finals]
 
 
 class StepReplay:
@@ -466,11 +907,16 @@ class StepReplay:
     repeat the captured step's masks. Launch counters do not tick on a
     replay, so each replay adds the launches its capture recorded (and the
     capture, which launches nothing, takes back what it counted). On the
-    CPU the same step runs as a plain loop."""
+    CPU — and under a mesh, uncaptured (``capture=False``) — the same step
+    runs as a plain loop."""
 
     def __init__(self, step_fn, staged: Dict[str, torch.Tensor],
-                 capacity: int, generators: Sequence[torch.Generator] = ()):
+                 capacity: int, generators: Sequence[torch.Generator] = (),
+                 capture: bool = True):
         self.step_fn = step_fn          # batch -> (loss, metrics)
+        # False (a step under a mesh, whose collectives a graph would have
+        # to capture too): every step runs eagerly, on the card as well
+        self.capture = capture
         self.generators = list(generators)
         self.staged = staged
         self.nb = min(v.shape[0] for v in staged.values())
@@ -538,7 +984,8 @@ class StepReplay:
             k = min(n - done, self.capacity)
             self.slot.zero_()
             i = 0
-            if self.device.type == "cuda" and self.graph is None:
+            if (self.capture and self.device.type == "cuda"
+                    and self.graph is None):
                 self._capture()
                 i = 1
             for _ in range(i, k):

@@ -99,6 +99,9 @@ def load_lib():
             ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
+        lib.ffdl_create_rows.restype = ctypes.c_void_p
+        lib.ffdl_create_rows.argtypes = lib.ffdl_create.argtypes + [
+            ctypes.c_int64, ctypes.c_int64]
         lib.ffdl_num_batches.restype = ctypes.c_int64
         lib.ffdl_num_batches.argtypes = [ctypes.c_void_p]
         lib.ffdl_next.restype = ctypes.c_int
@@ -118,7 +121,11 @@ class NativeBatchLoader:
 
     def __init__(self, arrays: Sequence[Tuple[str, np.ndarray]],
                  batch_size: int, shuffle: bool = False, seed: int = 0,
-                 prefetch_slots: int = 3, num_threads: int = 2):
+                 prefetch_slots: int = 3, num_threads: int = 2,
+                 rows: Optional[Tuple[int, int]] = None):
+        """``rows`` ([lo, hi)): gather only those rows of every batch (a
+        rank's share of the global batch under a mesh); batch indices,
+        epochs and the shuffle are the whole batch's."""
         lib = load_lib()
         if lib is None:
             raise RuntimeError("native dataloader unavailable (no g++?)")
@@ -132,9 +139,11 @@ class NativeBatchLoader:
             raise ValueError(f"arrays disagree on num_samples: {ns}")
         self.num_samples = ns.pop()
         self.batch_size = batch_size
+        lo, hi = rows if rows is not None else (0, batch_size)
+        self.rows = hi - lo
         self.sample_shapes = [a.shape[1:] for a in self.arrays]
         self.dtypes = [a.dtype for a in self.arrays]
-        self._nbytes = [batch_size * int(np.prod(s, dtype=np.int64))
+        self._nbytes = [self.rows * int(np.prod(s, dtype=np.int64))
                         * d.itemsize
                         for s, d in zip(self.sample_shapes, self.dtypes)]
         n = len(self.arrays)
@@ -143,9 +152,9 @@ class NativeBatchLoader:
         sbytes = (ctypes.c_int64 * n)(
             *[int(np.prod(s, dtype=np.int64)) * d.itemsize
               for s, d in zip(self.sample_shapes, self.dtypes)])
-        self._h = lib.ffdl_create(
+        self._h = lib.ffdl_create_rows(
             n, ptrs, sbytes, self.num_samples, batch_size,
-            1 if shuffle else 0, seed, prefetch_slots, num_threads)
+            1 if shuffle else 0, seed, prefetch_slots, num_threads, lo, hi)
         if not self._h:
             raise RuntimeError("ffdl_create failed (batch_size > "
                                "num_samples?)")
@@ -154,7 +163,7 @@ class NativeBatchLoader:
 
     def batch_shapes(self) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
         """{name: (batch shape, numpy dtype)} of every stream."""
-        return {n: ((self.batch_size,) + tuple(s), d) for n, s, d in
+        return {n: ((self.rows,) + tuple(s), d) for n, s, d in
                 zip(self.names, self.sample_shapes, self.dtypes)}
 
     def reset(self):
@@ -176,7 +185,7 @@ class NativeBatchLoader:
             for i, name in enumerate(self.names):
                 ptr = self._lib.ffdl_buffer(self._h, slot, i)
                 buf = (ctypes.c_char * self._nbytes[i]).from_address(ptr)
-                shape = (self.batch_size,) + tuple(self.sample_shapes[i])
+                shape = (self.rows,) + tuple(self.sample_shapes[i])
                 if out is None:
                     res[name] = np.frombuffer(buf, dtype=self.dtypes[i]) \
                         .reshape(shape).copy()
@@ -218,12 +227,15 @@ def group_loader_for(model) -> Optional[NativeBatchLoader]:
     if len(sizes) != 1 or len(ns) != 1:
         return None
     try:
+        bs = sizes.pop()
+        ex = model.executor
         return NativeBatchLoader(
             [(dl.name, dl.data[:dl.num_samples])
              for dl in model._dataloaders],
-            batch_size=sizes.pop(), shuffle=cfg.dataloader_shuffle,
+            batch_size=bs, shuffle=cfg.dataloader_shuffle,
             seed=cfg.seed, prefetch_slots=cfg.dataloader_prefetch_slots,
-            num_threads=cfg.dataloader_threads)
+            num_threads=cfg.dataloader_threads,
+            rows=ex.local_rows(bs) if ex is not None else None)
     except (RuntimeError, ValueError) as e:
         COUNTERS["fallbacks"] += 1
         log.warning("native_dataloader=True but the native loader is "

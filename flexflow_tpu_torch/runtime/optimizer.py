@@ -20,6 +20,11 @@ replays it as it ran (``FFModel.train_scanned``).
 ``update`` takes an optional 0-dim bool tensor ``finite`` (the divergence
 guard's verdict): when false, weights and state keep their bits.
 
+Under a mesh the weights and the per-leaf state are DTensors of the same
+placements (FSDP divides both by the axis size); the executor hands the
+update each rank's local shards, so the kernel and its arithmetic are the
+single device's.
+
 On the card both optimizers update through one kernel,
 ``kernels.fused_update`` (``csrc/fused_update.cu``): the per-leaf
 ``Optimizer`` passes its state tensors leaf by leaf, ``FusedUpdate`` its
@@ -37,6 +42,7 @@ import torch
 
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.kernels import UpdateRule
+from flexflow_tpu_torch.parallel import local_tree
 from flexflow_tpu_torch.runtime.schedule import resolve
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -99,7 +105,7 @@ class Optimizer:
         if "v" not in state:
             state["v"] = None
         state["t"] = torch.zeros((), dtype=torch.int32,
-                                 device=_device(params))
+                                 device=_device(local_tree(params)))
         return state
 
     def moment_names(self) -> tuple:
@@ -217,6 +223,10 @@ class FusedUpdate(Optimizer):
         return self.inner.lr_of(t)
 
     def init_state(self, params: Tree) -> Dict:
+        """Flat state vectors of each dtype bucket; under a mesh of this
+        rank's local shards (the flat cross-mesh layout of the JAX
+        ``ShardedFusedUpdate`` is item 9's)."""
+        params = local_tree(params)
         state = {}
         for n in self.moment_names():
             state[n] = {dt: torch.zeros(

@@ -24,6 +24,10 @@ class Tensor:
     owner_idx: int = 0
     name: str = ""
 
+    @property
+    def num_dims(self) -> int:
+        return len(self.dims)
+
     def __hash__(self):
         return id(self)
 

@@ -65,6 +65,12 @@ of a dropout model resumed after a preemption draws the uninterrupted
 run's masks; an async save's pinned snapshot is the state at the save
 while the next steps run; a shared-model swap captures its decode chunk
 inside the swap only, and its swap back captures nothing.
+
+The strategy path on the card (a process group of one rank over NCCL):
+the flagship under the Megatron strategy (with fsdp_axis="data", which
+places nothing on a one-device axis) equals the single-device path (f32,
+1e-5) with its kernel launches, each reached through the local-shard
+wrapper; a kernel wrapper refuses a DTensor.
 """
 
 import ctypes
@@ -3442,3 +3448,111 @@ def test_pipeline_copies_stay_out_of_a_concurrent_capture(cuda):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# ------------------------------------------- the strategy path (item 8)
+
+
+@pytest.fixture
+def world_of_one(no_tf32):
+    """A process group of one rank over NCCL (``parallel.make_mesh`` makes
+    it) for the strategy path on this card, left at the end."""
+    import torch.distributed as dist
+
+    yield no_tf32
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _strategy_flagship(device, mesh_shape=None, strategies=None,
+                       fsdp_axis=""):
+    from flexflow_tpu_torch import LossType, MetricsType, SGDOptimizer
+    from flexflow_tpu_torch.models import build_encoder_classifier
+
+    cfg = FFConfig(batch_size=4, seed=5, use_fused_ln=True,
+                   mesh_shape=mesh_shape, fsdp_axis=fsdp_axis)
+    cfg.strategies.update(strategies or {})
+    ff = FFModel(cfg, device=device)
+    build_encoder_classifier(ff, 4, 64, 256, 2, 4, num_classes=16)
+    ff.compile(SGDOptimizer(lr=0.05, momentum=0.9),
+               LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.METRICS_ACCURACY])
+    return ff
+
+
+@pytest.mark.cuda
+def test_strategy_path_world_of_one_equals_the_single_device(world_of_one):
+    """The flagship (f32, 2 layers of 4 heads of 64) under the Megatron
+    strategy on a mesh {"data": 1, "model": 1}, fsdp_axis="data" set (it
+    places nothing on a one-device axis, as in JAX: FSDP's gathers run
+    only in the gloo tests, tests/test_torch_distributed.py): its
+    params are DTensors, its kernels run through the local-shard wrapper
+    (counted), and three SGD steps give the single-device path's losses
+    and weights within 1e-5 and its kernel launches exactly."""
+    import numpy as np
+
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.parallel import CONTRACT, ParallelConfig
+
+    mesh = {"data": 1, "model": 1}
+    table = {}
+    for i in range(2):
+        for op in (f"attn_{i}", f"ffn1_{i}"):
+            table[op] = ParallelConfig.from_axis_map(
+                3, mesh, {"data": 0, "model": 2})
+        table[f"ffn2_{i}"] = ParallelConfig.from_axis_map(
+            3, mesh, {"data": 0, "model": CONTRACT})
+    rs = np.random.RandomState(0)
+    batches = [{"input": rs.randn(4, 64, 256).astype(np.float32),
+                "label": rs.randint(0, 16, (4, 1)).astype(np.int32)}
+               for _ in range(3)]
+    runs = {}
+    for name, kw in (("single", {}),
+                     ("strategy", dict(mesh_shape=mesh, strategies=table,
+                                       fsdp_axis="data"))):
+        ff = _strategy_flagship(world_of_one, **kw)
+        kernels.reset_launch_counts()
+        parallel.reset_local_calls()
+        losses = [float(ff._run_train_step(b)[0]) for b in batches]
+        torch.cuda.synchronize()
+        runs[name] = (ff, losses, kernels.launch_counts(),
+                      dict(parallel.LOCAL_SHARD_CALLS))
+    (sf, sl, sk, _), (tf, tl, tk, calls) = runs["single"], runs["strategy"]
+    assert tf.mesh is not None and sf.mesh is None
+    assert all(parallel.is_dtensor(w) for ws in tf.params.values()
+               for w in ws.values())
+    np.testing.assert_allclose(tl, sl, rtol=1e-5, atol=1e-5)
+    for op, ws in sf.params.items():
+        for k in ws:
+            np.testing.assert_allclose(tf.get_weights(op, k),
+                                       sf.get_weights(op, k),
+                                       rtol=1e-5, atol=1e-5)
+    assert tk == sk and tk["flash_attention_fwd"] == 6
+    assert tk["flash_attention_bwd"] == 6
+    assert tk["fused_add_layernorm_fwd"] == 12 and tk["fused_update"] == 3
+    assert calls["flash_attention"] == 6
+    assert calls["fused_add_layernorm"] == 12 and calls["fused_update"] == 3
+
+
+@pytest.mark.cuda
+def test_dtensor_given_to_a_kernel_wrapper_raises(world_of_one):
+    """A kernel wrapper refuses a DTensor, on the card as on the CPU: a
+    kernel takes local shards only (never a silent plain version)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from flexflow_tpu_torch import parallel
+
+    mesh = parallel.make_mesh({"data": 1}, "cuda")
+    q = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
+    dq = distribute_tensor(q, mesh, [Replicate()])
+    with pytest.raises(TypeError, match="local_shard"):
+        kernels.flash_attention_fwd(dq, dq, dq, False, 0.125)
+    x = distribute_tensor(torch.randn(8, 256, device="cuda"), mesh,
+                          [Replicate()])
+    w = distribute_tensor(torch.ones(256, device="cuda"), mesh, [Replicate()])
+    with pytest.raises(TypeError, match="local_shard"):
+        kernels.fused_add_layernorm_fwd(x, x, w, w, 1e-5)
+    before = kernels.launch_counts()
+    out = kernels.flash_attention_fwd(q, q, q, False, 0.125)
+    assert kernels.launch_counts()["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1 and out.is_cuda

@@ -139,8 +139,9 @@ def test_port_imports_no_jax():
     # the training slice's modules, the zoo slice's, the MoE / recurrent
     # / pipelined / fusion slice's, the serving engine's (LoRA, the
     # fault-injection copy), generation's and the fleet's with its runtime
-    # plane (router, locks, telemetry, flight recorder) are among those
-    # scanned, and the port's scripts
+    # plane (router, locks, telemetry, flight recorder), the distribution
+    # package (parallel/) and the launcher are among those scanned, and
+    # the port's scripts
     assert {f"flexflow_tpu_torch/{m}.py" for m in (
         "runtime/executor", "runtime/optimizer", "runtime/loss",
         "runtime/metrics", "runtime/dataloader", "models/transformer",
@@ -153,7 +154,9 @@ def test_port_imports_no_jax():
         "runtime/seq2seq_generation", "runtime/router", "runtime/locks",
         "runtime/telemetry", "runtime/flightrec", "runtime/manifest",
         "runtime/resilience", "runtime/checkpoint", "runtime/elastic",
-        "runtime/deploy", "runtime/autoscale", "search/machine")} \
+        "runtime/deploy", "runtime/autoscale", "search/machine",
+        "parallel/__init__", "parallel/pconfig", "parallel/strategy",
+        "parallel/mesh", "launcher")} \
         <= names
     assert "scripts/torch_serve_profile.py" in names
     bad = []
