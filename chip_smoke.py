@@ -338,8 +338,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 scaling in (the survivors inherit the retiree's prefixes;
                 PlacementAdvisor's price under the H100 model), then
                 remove_replica under a burst resubmits its queued
-                requests. (a) the flagship at full width (bf16, fused
-                momentum SGD): fit of P15_STEPS steps uninterrupted, then
+                requests. (a) the flagship at full width and
+                P15_RESUME_LAYERS of its 6 layers (bf16, fused momentum
+                SGD): fit of P15_STEPS steps uninterrupted, then
                 with checkpoint_every=2, async, keep 2, sigterm after step
                 P15_PREEMPT (stops preempted), and a fresh model's fit
                 resuming it: losses and weights bitwise the uninterrupted
@@ -409,6 +410,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 cannot hold two NCCL ranks: the multi-rank check is the
                 CPU tests on gloo (tests/test_torch_distributed.py). The
                 "_strategy" rows repeat phase 3's training rows with its
+                launches.
+
+ 18. tp — last. Two gloo ranks sharing the card (the port's launcher,
+                ``--phase18 pair``) and then a world of one over NCCL
+                (``--phase18 one``), each bounded by P18_TIMEOUT. (a) In
+                the world of one: phase 6's Llama-3-8B (32 layers, bf16,
+                seed 0) serves phase 6's prompts on the single-device path
+                and again on {"data": 1, "model": 1} under the Megatron
+                head table (attention, gate and up split over "model",
+                down CONTRACT), both engines uncaptured and without the
+                prefix cache: tokens and generate (2 prompts x
+                P18_GEN_NEW) bitwise, launches equal, every kernel 1, 4
+                and 5 call through the local-shard path; decode step,
+                TTFT, idle share of a profiled serve and peak memory of
+                both. (b) On the pair, {"data": 1, "model": 2} at
+                P18_LAYERS layers: each rank 16 q heads and 4 kv heads;
+                both ranks' tokens bitwise each other's, the first tokens
+                the single-device engine's at that depth (rank 0 serves
+                it after), greedy agreement >= P18_AGREE, each rank's pool
+                half the single one; an int8 pool too. (c) The flagship at
+                one layer under phase 17's Megatron table trains
+                P18_CKPT_STEPS steps on the pair, both ranks save, and
+                P18_CKPT_MORE more steps; the world of one restores it on
+                {"data": 1} (every state tensor bitwise the payload) and
+                its next losses are within P18_CKPT_RTOL. The "_tp" rows
+                time kernels 1, 4 and 5 at (b)'s local-shard shapes, the
+                "_tp1" rows repeat phase 3's serving rows with (a)'s
                 launches.
 
 The last two lines of standard output are a JSON object
@@ -689,6 +717,7 @@ def phase_kernels(torch, port, kernels):
     rows.update(moe_serve_kernel_rows(torch, kernels, g))
     rows.update(decode_feature_kernel_rows(torch, kernels, g))
     rows.update(generation_kernel_rows(torch, kernels, g))
+    rows.update(tp_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
@@ -4962,6 +4991,9 @@ def phase_fleet(torch, kernels, ff, prompts, card: str):
 #: phase 15 (a): the flagship's fit with checkpoints — P15_STEPS steps, a
 #: checkpoint every 2 (async, keep 2), preempted after step P15_PREEMPT
 P15_STEPS = 8
+#: (a)'s resume cases at this depth of the flagship (cut from 6 so the
+#: whole script stays under ~1000 s with phase 18)
+P15_RESUME_LAYERS = 3
 P15_PREEMPT = 5
 #: momentum 0.9 multiplies the step ~10x: phase 7's lr / 10 keeps the
 #: random-data losses from running away
@@ -5099,7 +5131,7 @@ def _p15_resume_case(torch, port, kernels, ckpt, faultinject, telemetry,
 
     tag = f"scan_steps={scan}" if scan else "per-step"
     cfg = dict(scan_steps=scan) if scan else {}
-    ref = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **cfg)
+    ref = _p15_flagship(torch, port, P15_RESUME_LAYERS, *data, **cfg)
     ends_ref, ends_a = ([], []) if not scan else (None, None)
     want, wall_ref = _p15_fit(torch, ref, card, tag + " uninterrupted",
                               ends_ref)
@@ -5109,7 +5141,7 @@ def _p15_resume_case(torch, port, kernels, ckpt, faultinject, telemetry,
     os.environ["FF_FAULT"] = f"sigterm@step:{P15_PREEMPT}"
     faultinject.reset()
     telemetry.tracer().reset()
-    a = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **ck)
+    a = _p15_flagship(torch, port, P15_RESUME_LAYERS, *data, **ck)
     got_a, wall_a = _p15_fit(torch, a, card, tag + " preempted", ends_a)
     del os.environ["FF_FAULT"]
     faultinject.reset()
@@ -5126,7 +5158,7 @@ def _p15_resume_case(torch, port, kernels, ckpt, faultinject, telemetry,
     del a
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    b = _p15_flagship(torch, port, FLAGSHIP["layers"], *data, **ck)
+    b = _p15_flagship(torch, port, P15_RESUME_LAYERS, *data, **ck)
     telemetry.tracer().reset()
     kernels.reset_launch_counts()
     got_b, wall_b = _p15_fit(torch, b, card, tag + " resumed")
@@ -6185,11 +6217,11 @@ P17_PROFILED = 3
 P17_LOSS_RTOL = 4e-3
 
 
-def _p17_table(port, layers: int):
-    """The Megatron table on {"data": 1, "model": 1}."""
+def _p17_table(port, layers: int, mesh=None):
+    """The Megatron table on {"data": 1, "model": 1}, or ``mesh``."""
     from flexflow_tpu_torch.parallel import CONTRACT, ParallelConfig
 
-    mesh = {"data": 1, "model": 1}
+    mesh = mesh or {"data": 1, "model": 1}
     table = {}
     for i in range(layers):
         for op in (f"attn_{i}", f"ffn1_{i}"):
@@ -6423,6 +6455,517 @@ def phase_strategy(torch, port, kernels, card: str):
     return {"strategy": strat["launches"]}
 
 
+# -------------------------------------------------- phase 18: TP serving
+
+#: each child's bound (the kernels are built: the library is in build/)
+P18_TIMEOUT = 420
+#: (b)'s depth: Llama-3-8B's widths at 8 of its 32 layers
+P18_LAYERS = 8
+#: generate's new tokens in (a), a row of 2 prompts
+P18_GEN_NEW = 16
+#: (b) against the single-device engine at its depth: the first tokens
+#: equal, then greedy agreement at least this. Each rank's row-parallel
+#: product is rounded to bf16 and the two are summed in bf16, where the
+#: single device rounds the whole sum once, so near-tied logits of random
+#: weights flip and a stream parts from there on (0.8125 over 6 x 32
+#: tokens in the first run); a wrong head or pool mapping garbles every
+#: token after the first, far below this floor
+P18_AGREE = 0.5
+#: the timed and the profiled serves of (a): their first prompts and new
+#: tokens (a warm engine; the first serve, every prompt, gives the tokens)
+P18_TIMED = (3, 16)
+P18_PROFILED = (2, 8)
+#: (b)'s int8 pool serves this many new tokens (its first tokens and
+#: agreement are reported; the native pool's 32 gate)
+P18_INT8_NEW = 8
+#: (c): steps before the save, and after it (the losses compared)
+P18_CKPT_STEPS = 3
+P18_CKPT_MORE = 2
+#: (c)'s losses: a world of one against two ranks of bf16 sums
+P18_CKPT_RTOL = 4e-3
+#: the engine of phase 18: phase 6's, without the prefix cache, so a run
+#: repeated on one engine does the same work
+P18_ENGINE = dict(ENGINE, prefix_cache=False)
+
+
+def _p18_llama_table(mesh, layers: int):
+    """The Megatron head table of a llama_lm: attention and the gate / up
+    projections split on their hidden dim over "model", the down
+    projection row-parallel (CONTRACT)."""
+    from flexflow_tpu_torch.parallel import CONTRACT, ParallelConfig
+
+    table = {}
+    for i in range(layers):
+        for op in (f"attn_{i}", f"ffn_gate_{i}", f"ffn_up_{i}"):
+            table[op] = ParallelConfig.from_axis_map(
+                3, mesh, {"data": 0, "model": 2})
+        table[f"ffn_down_{i}"] = ParallelConfig.from_axis_map(
+            3, mesh, {"data": 0, "model": CONTRACT})
+    return table
+
+
+def _p18_build(FFConfig, FFModel, llama_lm, arch, mesh=None):
+    """phase 6's Llama (seed 0, bf16) at ``arch``, under ``mesh`` and the
+    head table, or on the single-device path."""
+    if mesh is None:
+        return build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16",
+                           0, **arch)
+    cfg = FFConfig(batch_size=ENGINE["serve_slots"], compute_dtype="bfloat16",
+                   seed=0, mesh_shape=dict(mesh))
+    cfg.strategies.update(_p18_llama_table(mesh, arch["layers"]))
+    ff = FFModel(cfg, device="cuda")
+    _, logits = llama_lm(ff, ENGINE["serve_slots"],
+                         seq_len=ENGINE["max_seq_len"], **arch)
+    ff.compile(final_tensor=logits)
+    return ff
+
+
+def _p18_prompts():
+    import numpy as np
+
+    rs = np.random.RandomState(0)        # phase 6's prompts
+    return [rs.randint(0, LLAMA3_8B["vocab_size"], size=n).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def _p18_serve(torch, kernels, eng, prompts, new: int = MAX_NEW):
+    """One run() with the launch and local-shard counts set to 0 just
+    before: tokens, wall, TTFTs, the decode steps and their seconds (the
+    engine's counters, unwound), launches and local-shard calls."""
+    from flexflow_tpu_torch import parallel
+
+    before = eng.stats()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    parallel.reset_local_calls()
+    t0 = time.perf_counter()
+    reqs = eng.run(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    steps = st["decode_steps"] - before["decode_steps"]
+    step_ms = ((st["decode_step_ms"] * st["decode_steps"]
+                - before["decode_step_ms"] * before["decode_steps"])
+               / max(1, steps))
+    ttfts = sorted(r.ttft * 1e3 for r in reqs)
+    return {"tokens": [[int(t) for t in r.tokens] for r in reqs],
+            "done": all(r.state == "done" for r in reqs), "wall_s": wall,
+            "ttft_p50_ms": ttfts[len(ttfts) // 2],
+            "ttft_max_ms": ttfts[-1], "decode_steps": steps,
+            "decode_step_ms": step_ms,
+            "launches": kernels.launch_counts(),
+            "local_calls": dict(parallel.LOCAL_SHARD_CALLS),
+            "pool_bytes": st["kv_pool_bytes"],
+            "kv_heads_local": st.get("kv_heads_local")}
+
+
+def _p18_profiled(torch, eng, prompts):
+    """The idle share of a short warm serve (P18_PROFILED: prompts, new
+    tokens) under the profiler: device busy over the window's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, new = P18_PROFILED
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(prompts[:n], max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    return {"profiled_wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1 - busy / wall}
+
+
+def _p18_one_engine(torch, kernels, ff, prompts, label: str):
+    """(a) for one model: a first serve of every prompt (the tokens and
+    launches; kernels and DTensor's caches warm), a timed serve of
+    P18_TIMED, a profiled one of P18_PROFILED, generate on 2 prompts; the
+    peak memory from the model's build on."""
+    from flexflow_tpu_torch.runtime.generation import Generator
+
+    import numpy as np
+
+    eng = ff.make_serving_engine(**P18_ENGINE, capture=False)
+    rec = _p18_serve(torch, kernels, eng, prompts)
+    n, new = P18_TIMED
+    timed = _p18_serve(torch, kernels, eng, prompts[:n], new)
+    rec["timed_tokens_equal"] = timed["tokens"] == [
+        t[:new] for t in rec["tokens"][:n]]
+    rec["first_wall_s"] = rec["wall_s"]
+    rec["first_decode_steps"] = rec["decode_steps"]
+    rec.update({k: timed[k] for k in ("wall_s", "ttft_p50_ms",
+                                      "ttft_max_ms", "decode_steps",
+                                      "decode_step_ms")})
+    rec.update(_p18_profiled(torch, eng, prompts))
+    del eng
+    n = min(len(p) for p in prompts)
+    batch = np.stack([p[:n] for p in prompts[:2]])
+    gen = Generator(ff, capture=False)
+    rec["generate"] = gen(batch, P18_GEN_NEW).tolist()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
+
+
+def _p18_ckpt_data():
+    import numpy as np
+
+    f = FLAGSHIP
+    rs = np.random.RandomState(18)
+    n = P18_CKPT_STEPS + P18_CKPT_MORE
+    return [{"input": rs.randn(f["batch"], f["seq"], f["hidden"])
+             .astype(np.float32),
+             "label": rs.randint(0, f["num_classes"], (f["batch"], 1))
+             .astype(np.int32)} for _ in range(n)]
+
+
+def _p18_flagship(port, mesh):
+    """The flagship at one layer (phase 16's drill) on ``mesh``: under
+    phase 17's Megatron table where the mesh has a "model" axis."""
+    table = _p17_table(port, 1, mesh)[1] if "model" in mesh else {}
+    ff, _ = build_flagship(port, "cuda", "bfloat16", 0,
+                           **dict(FLAGSHIP, layers=1),
+                           mesh_shape=dict(mesh), strategies=table)
+    return ff
+
+
+def _p18_ckpt_pair(torch, port, outdir: str) -> dict:
+    """(c) on the two ranks: the flagship at one layer under phase 17's
+    Megatron table on {"data": 1, "model": 2}, P18_CKPT_STEPS steps, a
+    save from both ranks (its seconds and bytes), then P18_CKPT_MORE
+    more steps (the uninterrupted run's losses)."""
+    from flexflow_tpu_torch.runtime.checkpoint import (PAYLOAD_NAME,
+                                                       save_checkpoint)
+
+    data = _p18_ckpt_data()
+    ff = _p18_flagship(port, {"data": 1, "model": 2})
+    losses = [float(ff._run_train_step(b)[0])
+              for b in data[:P18_CKPT_STEPS]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(ff, os.path.join(outdir, "ckpt"),
+                           step=P18_CKPT_STEPS)
+    save_s = time.perf_counter() - t0
+    more = [float(ff._run_train_step(b)[0]) for b in data[P18_CKPT_STEPS:]]
+    return {"losses": losses, "after": more, "save_s": save_s,
+            "bytes": os.path.getsize(os.path.join(path, PAYLOAD_NAME))}
+
+
+def _p18_ckpt_restore(torch, port, outdir: str) -> dict:
+    """(c) at world size 1: the flagship on {"data": 1} restores the two
+    ranks' checkpoint (every state tensor bitwise the payload) and takes
+    the P18_CKPT_MORE steps after it."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.runtime.checkpoint import (load_payload,
+                                                       restore_checkpoint,
+                                                       state_tensors)
+
+    data = _p18_ckpt_data()
+    ff = _p18_flagship(port, {"data": 1})
+    d = os.path.join(outdir, "ckpt")
+    restore_checkpoint(ff, d, step=P18_CKPT_STEPS)
+    saved = load_payload(os.path.join(d, f"step_{P18_CKPT_STEPS}"))
+    live = state_tensors(ff)
+    bitwise = set(saved) >= set(live) and all(
+        torch.equal(parallel.full_tensor(t).cpu(), saved[k])
+        for k, t in live.items())
+    after = [float(ff._run_train_step(b)[0])
+             for b in data[P18_CKPT_STEPS:]]
+    return {"bitwise": bitwise, "entries": len(live), "after": after}
+
+
+def _p18_child(role: str, outdir: str) -> None:
+    """Phase 18's ranks (started by the port's launcher). "pair": each of
+    two gloo ranks sharing the card serves (b) and trains / saves (c);
+    "one": a world of one over NCCL serves (a), the single-device engine
+    at (b)'s depth (a model without a mesh needs a world of one: across
+    ranks it would take {"data": world}), and restores (c). Each rank
+    writes ``outdir/<role>.<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import flexflow_tpu_torch as port
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import llama_lm
+    from flexflow_tpu_torch.ops import kernels
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+
+    def mark(what):
+        say(f"phase 18 {role} rank {rank}: {what} at "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    want = ("gloo", 2) if role == "pair" else ("nccl", 1)
+    if (dist.get_backend(), world) != want:
+        fail(f"phase 18 {role}: needs {want[1]} {want[0]} rank(s)")
+    prompts = _p18_prompts()
+    res = {"torch": torch.__version__}
+    if role == "pair":
+        arch = dict(LLAMA3_8B, layers=P18_LAYERS)
+        ff = _p18_build(FFConfig, FFModel, llama_lm, arch,
+                        {"data": 1, "model": 2})
+        mark("built")
+        for tag, kw, new in _P18_POOLS:
+            eng = ff.make_serving_engine(**P18_ENGINE, **kw, capture=False)
+            res[tag] = _p18_serve(torch, kernels, eng, prompts, new)
+            mark(f"served {tag}")
+            del eng
+        del ff
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["ckpt"] = _p18_ckpt_pair(torch, port, outdir)
+        mark("trained and saved")
+    else:
+        arch = LLAMA3_8B
+        for label, mesh in (("single", None),
+                            ("mesh", {"data": 1, "model": 1})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ff = _p18_build(FFConfig, FFModel, llama_lm, arch, mesh)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            res[label] = _p18_one_engine(torch, kernels, ff, prompts, label)
+            res[label]["build_s"] = build_s
+            mark(f"served {label}")
+            del ff
+        gc.collect()
+        torch.cuda.empty_cache()
+        ff = _p18_build(FFConfig, FFModel, llama_lm,
+                        dict(LLAMA3_8B, layers=P18_LAYERS))
+        for tag, kw, new in _P18_POOLS:
+            eng = ff.make_serving_engine(**P18_ENGINE, **kw, capture=False)
+            res[f"single{P18_LAYERS}_{tag}"] = _p18_serve(
+                torch, kernels, eng, prompts, new)
+            del eng
+        del ff
+        mark(f"served single-device at {P18_LAYERS} layers")
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["ckpt"] = _p18_ckpt_restore(torch, port, outdir)
+        mark("restored")
+    with open(os.path.join(outdir, f"{role}.{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    say(f"phase 18 {role} rank {rank}: done")
+
+
+#: (b)'s pools: (tag, engine arguments, new tokens)
+_P18_POOLS = (("native", {}, MAX_NEW),
+              ("int8", dict(kv_cache_dtype="int8"), P18_INT8_NEW))
+
+
+def _p18_launch(outdir: Path, role: str, world: int) -> float:
+    """Start ``role``'s ranks through the port's launcher (gloo for the
+    pair, NCCL for one) and wait for them, bounded by P18_TIMEOUT; fails
+    unless each exits 0. Each rank writes to a log file of its own (a
+    pipe read one rank at a time would block the other rank's writes, and
+    with them its collectives). Returns the seconds they took."""
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port_no = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["FF_INIT_TIMEOUT_S"] = "300"
+    env["PYTHONFAULTHANDLER"] = "1"     # a rank's crash names its frame
+    logs = [open(outdir / f"{role}.{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.launcher",
+         str(ROOT / "chip_smoke.py"),
+         "--device", "cpu" if role == "pair" else "cuda",
+         "--num-processes", str(world), "--process-id", str(r),
+         "--coordinator", f"127.0.0.1:{port_no}", "--",
+         "--phase18", role, str(outdir)],
+        cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(world)]
+    late = False
+    try:
+        for p in procs:
+            left = P18_TIMEOUT - (time.perf_counter() - t0)
+            p.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for f in logs:
+        f.close()
+    outs = [(outdir / f"{role}.{r}.log").read_text() for r in range(world)]
+    if late:
+        fail(f"phase 18 {role}: a rank outlived {P18_TIMEOUT} s:\n"
+             + "\n".join(f"rank {r}:\n{o[-3000:]}"
+                         for r, o in enumerate(outs)))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 18 {role}: rank {r} exited {p.returncode}:\n"
+                 f"{out[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _agreement(a, b) -> float:
+    """The share of positions at which two lists of token streams hold
+    the same token."""
+    pairs = [(x, y) for s, t in zip(a, b) for x, y in zip(s, t)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
+
+
+def _parting(a, b) -> list:
+    """Each stream pair's first position that differs (its length where
+    none does)."""
+    return [next((i for i, (x, y) in enumerate(zip(s, t)) if x != y),
+                 len(s)) for s, t in zip(a, b)]
+
+
+def phase_tp(torch, port, kernels, card: str):
+    """Phase 18: a tensor-parallel Llama serves and generates through
+    kernels 1, 4 and 5 on its ranks' head shards, and a checkpoint saved by
+    two ranks restores in a world of one. (b) and (c) first, on two gloo
+    ranks sharing the card; then (a) and (c)'s restore in a world of one
+    over NCCL. Returns {"tp": (b)'s native serve's launches on rank 0,
+    "tp1": (a)'s mesh serve's}."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    outdir = ROOT / "build" / "phase18"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    pair_s = _p18_launch(outdir, "pair", 2)
+    one_s = _p18_launch(outdir, "one", 1)
+    pair = [json.loads((outdir / f"pair.{r}.json").read_text())
+            for r in range(2)]
+    one = json.loads((outdir / "one.0.json").read_text())
+    shutil.rmtree(outdir, ignore_errors=True)
+    layers = LLAMA3_8B["layers"]
+
+    # (a) world size 1 over NCCL
+    s, m = one["single"], one["mesh"]
+    if not (s["done"] and m["done"]):
+        fail("phase 18 (a): a request did not finish with finite logits")
+    for label, r in (("single-device", s), ("mesh", m)):
+        say(f"phase 18 (a) {label}: a warm serve of {P18_TIMED[0]} prompts "
+            f"x {P18_TIMED[1]} tokens: decode step {r['decode_step_ms']:.2f}"
+            f" ms over {r['decode_steps']} steps of {ENGINE['serve_slots']} "
+            f"slots, TTFT p50 {r['ttft_p50_ms']:.1f} ms (max "
+            f"{r['ttft_max_ms']:.1f}), {r['wall_s']:.2f} s (the first serve,"
+            f" every prompt x {MAX_NEW}: {r['first_wall_s']:.2f} s); "
+            f"profiled serve of "
+            f"{P18_PROFILED[0]} prompts x {P18_PROFILED[1]} tokens: busy "
+            f"{r['busy_ms']:.1f} of {r['profiled_wall_ms']:.1f} ms, idle "
+            f"share {r['idle_share']:.3f}; peak memory {r['peak_gib']:.2f} "
+            f"GiB; built in {r['build_s']:.1f} s [{card}]")
+    say(f"phase 18 (a): mesh - single-device decode step "
+        f"{m['decode_step_ms'] - s['decode_step_ms']:+.2f} ms (DTensor's "
+        f"host cost, uncaptured both) [{card}]")
+    if not (m["tokens"] == s["tokens"] and m["timed_tokens_equal"]
+            and s["timed_tokens_equal"]):
+        fail("phase 18 (a): the mesh engine's greedy tokens are not bitwise "
+             "the single-device engine's")
+    if m["generate"] != s["generate"]:
+        fail("phase 18 (a): the mesh model's generate differs from the "
+             "single-device one's")
+    la, calls = m["launches"], m["local_calls"]
+    want = {"flash_attention_fwd": layers * len(PROMPT_LENS),
+            "paged_prefill_write": len(PROMPT_LENS),
+            "paged_attention_fwd": layers * m["first_decode_steps"]}
+    if la != s["launches"] or any(la[k] != v for k, v in want.items()):
+        fail(f"phase 18 (a): launches {la} != the single-device path's "
+             f"{s['launches']} or {want}")
+    for k, w in (("flash_attention_fwd", "flash_attention_fwd"),
+                 ("paged_attention_fwd", "paged_attention_fwd"),
+                 ("paged_prefill_write_layers", "paged_prefill_write")):
+        if calls.get(k) != la[w]:
+            fail(f"phase 18 (a): {k} through local_shard {calls.get(k)} "
+                 f"times, launched {la[w]}")
+    say(f"phase 18 (a): tokens and generate ({P18_GEN_NEW} new tokens, 2 "
+        f"prompts) bitwise the single-device engine's; launches {la}, "
+        f"local-shard calls {calls}")
+
+    # (b) two gloo ranks sharing the card, against the single-device
+    # engine at their depth (served in the world of one)
+    r0, r1 = pair
+    single = one[f"single{P18_LAYERS}_native"]
+    for tag in ("native", "int8"):
+        ref_rec = one[f"single{P18_LAYERS}_{tag}"]
+        if not (r0[tag]["done"] and r1[tag]["done"]):
+            fail(f"phase 18 (b) {tag}: a request did not finish")
+        if r0[tag]["tokens"] != r1[tag]["tokens"]:
+            fail(f"phase 18 (b) {tag}: the two ranks' tokens differ")
+        ref = ref_rec["tokens"]
+        agree = _agreement(r0[tag]["tokens"], ref)
+        first = [t[0] for t in r0[tag]["tokens"]] == [t[0] for t in ref]
+        say(f"phase 18 (b) {tag}: both ranks' tokens bitwise each other's; "
+            f"first tokens equal to the single-device engine's at "
+            f"{P18_LAYERS} layers: {first}; greedy agreement "
+            f"{agree:.4f} over {len(ref[0])} tokens x {len(PROMPT_LENS)} "
+            f"prompts, each stream's first differing position "
+            f"{_parting(r0[tag]['tokens'], ref)}; decode step {r0[tag]['decode_step_ms']:.2f} ms "
+            f"(single-device {ref_rec['decode_step_ms']:.2f} ms), TTFT p50 "
+            f"{r0[tag]['ttft_p50_ms']:.1f} ms (single-device "
+            f"{ref_rec['ttft_p50_ms']:.1f}), pool {r0[tag]['pool_bytes']} "
+            f"bytes a rank (single {ref_rec['pool_bytes']}) [{card}]")
+        if not first or (tag == "native" and agree < P18_AGREE):
+            fail(f"phase 18 (b) {tag}: first tokens {first}, agreement "
+                 f"{agree} (limit {P18_AGREE})")
+        if 2 * r0[tag]["pool_bytes"] != ref_rec["pool_bytes"]:
+            fail(f"phase 18 (b) {tag}: a rank's pool is not half the "
+                 f"single-device one")
+    la, calls = r0["native"]["launches"], r0["native"]["local_calls"]
+    want = {"flash_attention_fwd": P18_LAYERS * len(PROMPT_LENS),
+            "paged_prefill_write": len(PROMPT_LENS),
+            "paged_attention_fwd": P18_LAYERS * r0["native"]["decode_steps"]}
+    if any(la[k] != v for k, v in want.items()) or any(
+            calls.get(k) != la[w] for k, w in (
+                ("flash_attention_fwd", "flash_attention_fwd"),
+                ("paged_attention_fwd", "paged_attention_fwd"),
+                ("paged_prefill_write_layers", "paged_prefill_write"))):
+        fail(f"phase 18 (b): launches {la} / local-shard calls {calls} != "
+             f"{want}")
+    say(f"phase 18 (b): rank 0 launches {la}, local-shard calls {calls}; "
+        f"single-device decode step {single['decode_step_ms']:.2f} ms")
+
+    # (c) the checkpoint round trip
+    c0, c1, cr = r0["ckpt"], r1["ckpt"], one["ckpt"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cr["after"], c0["after"]))
+    say(f"phase 18 (c): two ranks' losses {c0['losses']} then "
+        f"{c0['after']}; the save {c0['save_s']:.2f} s, {c0['bytes']} bytes;"
+        f" restored at world size 1 onto {{'data': 1}}: {cr['entries']} "
+        f"entries bitwise {cr['bitwise']}, next losses {cr['after']} "
+        f"(max relative difference {rel:.3g}) [{card}]")
+    if c0["losses"] != c1["losses"] or c0["after"] != c1["after"]:
+        fail("phase 18 (c): the two ranks' losses differ")
+    if not cr["bitwise"] or rel > P18_CKPT_RTOL:
+        fail(f"phase 18 (c): restore bitwise {cr['bitwise']}, losses "
+             f"{cr['after']} against {c0['after']} (rtol {P18_CKPT_RTOL})")
+    say(f"phase 18: the pair {pair_s:.1f} s, the world of one {one_s:.1f} "
+        f"s, total {time.perf_counter() - t0:.1f} s")
+    return {"tp": r0["native"]["launches"], "tp1": m["launches"]}
+
+
+def tp_kernel_rows(torch, kernels, g):
+    """Kernels 1, 4 and 5 at phase 18 (b)'s local-shard shapes: a rank of
+    {"data": 1, "model": 2} holds 16 of Llama-3-8B's 32 q heads and 4 of
+    its 8 kv heads: the prefill's flash forward at q (1, 512, 16, 128), a
+    decode step's paged attention over a (pages, 128, 4, 128) pool, and
+    the prefill write of (b)'s 8 layers of 4 kv heads in one launch."""
+    h, kvh = LLAMA3_8B["heads"] // 2, LLAMA3_8B["kv_heads"] // 2
+    rows = {"flash_attention_fwd_tp": flash_serve_row(torch, kernels, g, h,
+                                                      kvh, 128)}
+    rows.update(paged_attention_rows(
+        torch, kernels, g, (("paged_attention_fwd_tp", "bf16", False),),
+        dict(heads=h, kv_heads=kvh, d=128, pages=8,
+             lens=([500, 620, 530, 690], [512, 640, 544, 704],
+                   [600, 660, 560, 720]))))
+    rows.update(prefill_write_rows(
+        torch, kernels, g, pools=(("", "bf16"),), layer_counts=(P18_LAYERS,),
+        tag_suffix="_tp", kvh=kvh, d=128))
+    return rows
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -6575,6 +7118,22 @@ KERNEL_ROWS = {
     "fused_update_per_leaf_strategy": ("fused_update.cu",
                                        FUSED_UPDATE_REPLACES, "strategy",
                                        "fused_update"),
+    # phase 18: (b)'s local-shard shapes (16 q heads over 4 kv heads a
+    # rank, 8 layers), their launches rank 0's TP serve's; (a) at world
+    # size 1 runs phase 3's serving shapes through the local-shard path
+    # (its rows are phase 3's, its launches the mesh serve's)
+    "flash_attention_fwd_tp": ("flash_attention_wgmma.cu", 180, "tp",
+                               "flash_attention_fwd"),
+    "paged_attention_fwd_tp": ("paged_attention.cu", 689, "tp",
+                               "paged_attention_fwd"),
+    f"paged_prefill_write_layers{P18_LAYERS}_tp": (
+        "paged_prefill_write.cu", 779, "tp", "paged_prefill_write"),
+    "flash_attention_fwd_tp1": ("flash_attention_wgmma.cu", 180, "tp1",
+                                "flash_attention_fwd"),
+    "paged_attention_fwd_tp1": ("paged_attention.cu", 689, "tp1",
+                                "paged_attention_fwd"),
+    f"paged_prefill_write_layers{WRITE_LAYERS}_tp1": (
+        "paged_prefill_write.cu", 779, "tp1", "paged_prefill_write"),
 }
 
 #: phase 14's, 15's and 16's rows: the row whose measurement each repeats
@@ -6600,6 +7159,10 @@ FLEET_ROWS = {
     "flash_attention_bwd_strategy": "flash_attention_bwd",
     "fused_add_layernorm_fwd_strategy": "fused_add_layernorm_fwd",
     "fused_update_per_leaf_strategy": "fused_update_per_leaf",
+    "flash_attention_fwd_tp1": "flash_attention_fwd",
+    "paged_attention_fwd_tp1": "paged_attention_fwd",
+    f"paged_prefill_write_layers{WRITE_LAYERS}_tp1":
+        f"paged_prefill_write_layers{WRITE_LAYERS}",
 }
 
 
@@ -6612,6 +7175,8 @@ def main():
         fail("no CUDA device: this script runs the port on the card")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase17":
         return _p17_child(sys.argv[2])       # phase 17's rank
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase18":
+        return _p18_child(sys.argv[2], sys.argv[3])   # phase 18's ranks
     if not (ROOT / "flexflow_tpu_torch" / "__init__.py").is_file():
         fail(f"run from a checkout: {ROOT} holds no flexflow_tpu_torch/")
     sys.path.insert(0, str(ROOT))
@@ -6651,6 +7216,7 @@ def main():
     launches.update(phase_rest(torch, port, kernels, card))
     launches.update(phase_pipeline(torch, port, kernels, card))
     launches.update(phase_strategy(torch, port, kernels, card))
+    launches.update(phase_tp(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name, of in FLEET_ROWS.items():

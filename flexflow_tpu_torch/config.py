@@ -26,7 +26,8 @@ from typing import Dict, List, Optional
 from flexflow_tpu_torch.ops.sampling import validate_sampling
 
 #: where the multi-device features are queued
-ROADMAP_MULTI_DEVICE = "ROADMAP.md queue 1, item 8 (multi-device training)"
+ROADMAP_MULTI_DEVICE = ("ROADMAP.md queue 1, item 8 (multi-device training "
+                        "and serving)")
 #: where sequence parallelism, pipelines and placement are queued
 ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 (parallel attention, "
                     "pipelines and placement)")

@@ -27,12 +27,17 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
     ``device``. With ``model`` (a port FFModel) the names and shapes are
     checked against its graph first: a missing, extra or misshapen weight
     raises ``ValueError``. A tied model's destination weight has no leaf in
-    either package (``FFModel.tie_weights``)."""
+    either package (``FFModel.tie_weights``). A ``model`` under a mesh
+    gets DTensors under its weights' placements: each rank keeps its
+    slice of JAX's whole arrays."""
     if model is not None:
         _check_against(params, model.weight_shapes())
-    return {op: {w: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    tree = {op: {w: torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for w, a in ws.items()}
             for op, ws in params.items()}
+    if model is not None and getattr(model, "mesh", None) is not None:
+        tree = model.executor.distribute_params(tree)
+    return tree
 
 
 def state_from_jax(state: Dict[str, Dict[str, np.ndarray]],
@@ -67,16 +72,40 @@ def _tensor_from_np(a: np.ndarray, device) -> torch.Tensor:
 
 
 def pool_from_jax(pool: Dict[str, Dict[str, np.ndarray]],
-                  device: Union[str, torch.device]
+                  device: Union[str, torch.device], model=None
                   ) -> Dict[str, Dict[str, torch.Tensor]]:
     """A JAX serving engine's paged pool ({op: {"k", "v"[, "k_scale",
     "v_scale"]: array}}, or one op's dict) -> the port's, bitwise: int8,
     f32 and bf16 payloads and f32 scales keep their dtype, fp8
-    (float8_e4m3fn) crosses through a uint8 view of its bytes."""
+    (float8_e4m3fn) crosses through a uint8 view of its bytes. With a
+    ``model`` under a mesh (the whole pool's dict by op) each op's pool
+    keeps this rank's kv heads (``MultiHeadAttention.head_layout``: its
+    slice, or the group-1 layout's one kv head a local q head) — the kv
+    head axis of the pages and of the scales."""
     if any(isinstance(v, dict) for v in pool.values()):
-        return {op: pool_from_jax(c, device) for op, c in pool.items()}
+        ops = ({op.name: op for op in model.ops}
+               if model is not None and getattr(model, "mesh", None)
+               is not None else {})
+        out = {op: pool_from_jax(c, device) for op, c in pool.items()}
+        for name, op in ops.items():
+            if name in out:
+                sel = list(op.head_layout().kv_heads)
+                out[name] = {k: _kv_heads(t, sel) for k, t in
+                             out[name].items()}
+        return out
     return {name: _tensor_from_np(np.asarray(a), device)
             for name, a in pool.items()}
+
+
+def _kv_heads(t: torch.Tensor, sel) -> torch.Tensor:
+    """The kv heads ``sel`` of a pool array: axis 2 of (pages, page_size,
+    KVH, D) pages, axis 1 of (pages, KVH) scales (through a byte view:
+    fp8 pages have no index kernel everywhere)."""
+    axis = 2 if t.dim() == 4 else 1
+    idx = torch.tensor(sel, device=t.device)
+    if t.element_size() == 1:
+        return t.view(torch.uint8).index_select(axis, idx).view(t.dtype)
+    return t.index_select(axis, idx)
 
 
 def _check_against(params, expected: Dict[str, Dict[str, tuple]]):

@@ -19,7 +19,8 @@ The launcher:
     ``FF_RENDEZVOUS_SECONDS``) and leaves the group when it ends.
 
 ``--elastic`` and the ``shrink(<k>)@resume`` fault (``FF_FAULT``) raise
-``not_ported``: the elastic refits are the second part of ROADMAP item 8.
+``not_ported``: fewer surviving ranks need the cost model's ranked mesh
+refit (ROADMAP item 10).
 
 Usage: python -m flexflow_tpu_torch.launcher script.py [--num-processes N]
        [--process-id I] [--coordinator host:port] [--device cuda|cpu]
@@ -74,19 +75,23 @@ def main(argv=None):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda: NCCL, one card a rank (LOCAL_RANK); cpu: gloo")
     p.add_argument("--elastic", action="store_true",
-                   help="not ported (ROADMAP item 8, part 2)")
+                   help="not ported (ROADMAP item 10: the surviving "
+                        "ranks need the ranked mesh refit)")
     args, rest = p.parse_known_args(argv)
     if rest and rest[0] == "--":
         rest = rest[1:]
 
-    from flexflow_tpu_torch.config import not_ported
+    from flexflow_tpu_torch.config import ROADMAP_SEARCH, not_ported
     from flexflow_tpu_torch.runtime import faultinject
 
     if args.elastic or os.environ.get("FF_ELASTIC", "") not in ("", "0"):
-        raise not_ported("the elastic relaunch (launcher --elastic)")
+        # the surviving ranks leave the config's mesh unbuildable: the
+        # ranked refit picks the next one
+        raise not_ported("the elastic relaunch (launcher --elastic)",
+                         ROADMAP_SEARCH)
     if faultinject.active_plan().fire("shrink", "resume"):
         raise not_ported("the shrink@resume drill (a mesh refit onto fewer "
-                         "devices)")
+                         "devices)", ROADMAP_SEARCH)
 
     rank, world, local, host, port = _world_from(args, p)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),

@@ -513,17 +513,8 @@ class FFModel:
         w = self.params[op_name][weight_name]
         value = torch.as_tensor(np.asarray(value)).reshape(w.shape)
         with torch.no_grad():
-            if parallel.is_dtensor(w):
-                # every rank is given the full value and keeps its slice
-                from torch.distributed.tensor import DTensor, Replicate
-
-                full = DTensor.from_local(
-                    value.to(device=self.device, dtype=w.dtype), w.device_mesh,
-                    [Replicate()] * w.device_mesh.ndim, run_check=False)
-                parallel.local(w).copy_(parallel.local(
-                    full.redistribute(w.device_mesh, w.placements)))
-            else:
-                w.copy_(value)
+            # every rank is given the full value and keeps its slice
+            parallel.copy_full_into(w, value)
 
     def compile(self, optimizer=None,
                 loss_type: Union[LossType, str] =
@@ -559,17 +550,13 @@ class FFModel:
                           for w in op.weight_specs()
                           if (op.name, w.name) not in self._tied}
                 for op in self.ops if op.weight_specs()}
+            if self.mesh is not None:
+                # the served weights under their placements: each rank
+                # keeps its slice of the same full draw
+                self.executor = executor
+                self.params = executor.distribute_params(self.params)
             return
         cfg = self.config
-        # elastic recovery (runtime/elastic.py): with a checkpoint_dir,
-        # compare the newest intact checkpoint's topology with this
-        # process's before anything is built
-        self._elastic = None
-        if cfg.checkpoint_dir:
-            from flexflow_tpu_torch.runtime.elastic import \
-                apply_elastic_policy
-
-            self._elastic = apply_elastic_policy(self)
         if cfg.fused_optimizer:
             optimizer = FusedUpdate(optimizer)
         self.optimizer = optimizer
@@ -612,26 +599,27 @@ class FFModel:
         mesh built — for an explicit ``mesh_shape``, or a world of
         several ranks (then ``{"data": world}`` unless given). The
         strategy table is exported (``export_strategy_file``) once built.
-        Serving, checkpoints and the elastic refits under a mesh are item
-        8's second part and raise ``not_ported``."""
-        from flexflow_tpu_torch.config import not_ported
+        With an optimizer and a ``checkpoint_dir`` the elastic policy runs
+        between the two (runtime/elastic.py), as in JAX: a resume onto
+        another mesh re-derives the saved table on it. A compile without
+        an optimizer (serving) builds the same mesh."""
         from flexflow_tpu_torch.parallel.mesh import world_size
 
         cfg = self.config
         if cfg.import_strategy_file:
             self.import_strategies(cfg.import_strategy_file)
         self.mesh = None
+        self._elastic = None
+        if optimizer is not None and cfg.checkpoint_dir:
+            from flexflow_tpu_torch.runtime.elastic import \
+                apply_elastic_policy
+
+            self._elastic = apply_elastic_policy(self)
         world = world_size()
         if cfg.mesh_shape is None and world <= 1:
             if cfg.export_strategy_file:
                 self.export_strategies(cfg.export_strategy_file)
             return
-        if optimizer is None:
-            raise not_ported("serving and generate under a mesh (kernels 4 "
-                             "and 5 on local kv-head shards)")
-        if cfg.checkpoint_dir:
-            raise not_ported("checkpoints under a mesh (a per-rank or DCP "
-                             "layout)")
         self.mesh = parallel.make_mesh(cfg.mesh_shape or {"data": world},
                                        self.device.type)
         if cfg.export_strategy_file:

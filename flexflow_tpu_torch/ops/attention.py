@@ -43,9 +43,10 @@ from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.norm import dropout
-from flexflow_tpu_torch.parallel import (is_dtensor, keep_shards,
-                                         local_shard, reduce_partial,
-                                         shard_generator)
+from flexflow_tpu_torch.parallel import (head_layout, is_dtensor,
+                                         keep_shards, local_shard,
+                                         note_local_call, reduce_partial,
+                                         rows_matmul, shard_generator)
 
 
 # ---- quantized KV-page storage (the JAX package's attention.py:67-134) ---
@@ -352,7 +353,7 @@ def _raw_bits(t: torch.Tensor) -> torch.Tensor:
 def _head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, H, Hd) -> (B, S, H, Hd): one matrix product (the
     einsum "bsd,dhk->bshk")."""
-    y = torch.matmul(x, w.reshape(w.shape[0], -1))
+    y = rows_matmul(x, w.reshape(w.shape[0], -1))
     return y.view(*x.shape[:-1], w.shape[1], w.shape[2])
 
 
@@ -361,6 +362,19 @@ def _head_proj_by_position(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     own, a decode step's (``verify_as_decode``)."""
     return torch.cat([_head_proj(x[:, i:i + 1].contiguous(), w)
                       for i in range(x.shape[1])], dim=1)
+
+
+def _WHOLE(ctx):
+    """``_local_heads``'s ``back`` without a mesh: the context as it
+    is."""
+    return ctx
+
+
+def _noted(back, kernel: str) -> None:
+    """Count a kernel wrapper's call on a rank's heads
+    (``LOCAL_SHARD_CALLS``): under a mesh only."""
+    if back is not _WHOLE:
+        note_local_call(kernel)
 
 
 class MultiHeadAttention(Op):
@@ -467,17 +481,20 @@ class MultiHeadAttention(Op):
                 kh = _apply_rope(kh, self.rope_theta, tables=rope)
         return qh, kh, vh
 
-    def _broadcast_kv(self, kh, vh):
+    def _broadcast_kv(self, kh, vh, heads: int = 0):
         """GQA: repeat each kv head over its query group (as
         ``repeat_interleave``), so the dense paths (and the flash
         backward) see plain multi-head shapes, as in the JAX package. It
-        is built of views, which DTensor propagates on any placement."""
-        if self.num_kv_heads == self.num_heads:
+        is built of views, which DTensor propagates on any placement.
+        ``heads``: the query heads to reach (a rank's local heads on a
+        serving pass; default all)."""
+        heads = heads or self.num_heads
+        if kh.shape[2] == heads:
             return kh, vh
 
         def expand(t):
             b, s, kvh, d = t.shape
-            rep = self.num_heads // kvh
+            rep = heads // kvh
             return t.unsqueeze(3).expand(b, s, kvh, rep, d).reshape(
                 b, s, kvh * rep, d)
         return expand(kh), expand(vh)
@@ -486,7 +503,7 @@ class MultiHeadAttention(Op):
         """(B, S, H, Hd) x (H, Hd, D) -> (B, S, D) (the einsum
         "bqhk,hkd->bqd")."""
         wo = params["wo"]
-        out = torch.matmul(ctx.reshape(*ctx.shape[:2], -1),
+        out = rows_matmul(ctx.reshape(*ctx.shape[:2], -1),
                            wo.reshape(-1, wo.shape[-1]))
         if self.bias:
             # head-sharded: a partial sum a rank, reduced before the bias
@@ -605,15 +622,74 @@ class MultiHeadAttention(Op):
                        bias_v=(kv_ax, None), bias_o=(None,))
         return out
 
+    # ---- a serving pass under a mesh (ROADMAP item 8, part 2) -------------
+
+    def head_layout(self):
+        """The heads this rank holds on a serving pass
+        (``parallel.head_layout`` under the model's mesh and this op's
+        axis map; every head without a mesh), made once a mesh."""
+        mesh = getattr(self.model, "mesh", None)
+        got = self.__dict__.get("_layout")
+        if got is None or got[0] is not mesh:
+            am = (self.model.executor.op_axis_map(self)
+                  if mesh is not None else None)
+            got = self._layout = (mesh, head_layout(self, mesh, am))
+        return got[1]
+
+    def _local_heads(self, qh, kh, vh):
+        """A serving pass's projections as the plain tensors the kernels
+        and the KV caches take. Under a mesh q / k / v are DTensors: q
+        keeps this rank's heads (its head shards, the JAX ``shard_map``
+        around a kernel), k / v the kv heads of its ``head_layout`` —
+        their local shards, or, replicated, the heads its q heads read.
+        Returns (q, k, v, back): ``back`` wraps the local context again as
+        a head-sharded DTensor, so ``wo``'s row-parallel product reduces
+        its partial sums; without a mesh, ``_WHOLE``. None entries pass as
+        None."""
+        lead = qh if qh is not None else kh
+        if not is_dtensor(lead):
+            return qh, kh, vh, _WHOLE
+        from torch.distributed.tensor import DTensor
+
+        lay = self.head_layout()
+        mesh = lead.device_mesh
+
+        def loc(t):
+            pl = keep_shards(t.placements, (2,))
+            if list(t.placements) != pl:
+                t = t.redistribute(mesh, pl)
+            return t.to_local(), pl
+
+        q_pl = None
+        if qh is not None:
+            qh, q_pl = loc(qh)
+            if qh.shape[2] != lay.q_heads:
+                raise ValueError(
+                    f"{self.name}: {qh.shape[2]} local q heads, its head "
+                    f"layout holds {lay.q_heads} (q placements {q_pl})")
+        if kh is not None:
+            kh, vh = loc(kh)[0], loc(vh)[0]
+            if lay.kv_select is not None:
+                sel = torch.tensor(lay.kv_select, device=kh.device)
+                kh, vh = kh.index_select(2, sel), vh.index_select(2, sel)
+
+        def back(ctx):
+            return DTensor.from_local(ctx, mesh, q_pl, run_check=False)
+
+        return qh, kh, vh, back
+
     # ---- contiguous per-request cache (prefill) ---------------------------
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
                    device: torch.device):
+        """Empty contiguous k / v caches of ``batch`` rows and ``max_len``
+        positions over this rank's kv heads (``head_layout``)."""
+        kvh = len(self.head_layout().kv_heads)
         return {
-            "k": torch.zeros((batch, max_len, self.num_kv_heads,
-                              self.qk_head_dim), dtype=dtype, device=device),
-            "v": torch.zeros((batch, max_len, self.num_kv_heads,
-                              self.v_head_dim), dtype=dtype, device=device),
+            "k": torch.zeros((batch, max_len, kvh, self.qk_head_dim),
+                             dtype=dtype, device=device),
+            "v": torch.zeros((batch, max_len, kvh, self.v_head_dim),
+                             dtype=dtype, device=device),
         }
 
     def prefill_forward(self, params, xs, cache, rope=None):
@@ -625,6 +701,7 @@ class MultiHeadAttention(Op):
         ``rope_tables`` of positions 0..S-1, if the caller holds them."""
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
                                        rope=rope)
+        qh, kh, vh, back = self._local_heads(qh, kh, vh)
         s = qh.shape[1]
         cache["k"][:, :s] = kh
         cache["v"][:, :s] = vh
@@ -632,9 +709,11 @@ class MultiHeadAttention(Op):
         if self._flash_ok(qh, kh, vh):
             ctx = kernels.flash_attention_fwd(qh, kh, vh, self.causal,
                                               self.scale)
+            _noted(back, "flash_attention_fwd")
         else:
-            ctx = self._fallback_attention(qh, *self._broadcast_kv(kh, vh))
-        return self._out_proj(params, ctx), cache
+            ctx = self._fallback_attention(
+                qh, *self._broadcast_kv(kh, vh, qh.shape[2]))
+        return self._out_proj(params, back(ctx)), cache
 
     def chunk_forward(self, params, xs, cache, start: int, rope=None):
         """Prefill a (B, C) slab of prompt positions [start, start + C):
@@ -646,6 +725,7 @@ class MultiHeadAttention(Op):
         ``rope_tables`` of positions start .. start + C - 1."""
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
                                        rope_offset=start, rope=rope)
+        qh, kh, vh, back = self._local_heads(qh, kh, vh)
         c = qh.shape[1]
         end = start + c
         cache["k"][:, start:end] = kh
@@ -656,7 +736,8 @@ class MultiHeadAttention(Op):
         ctx = kernels.grouped_cache_attention(
             qh, cache["k"][:, :end], cache["v"][:, :end],
             live[None, None, None], self.scale)
-        return self._out_proj(params, ctx), cache
+        _noted(back, "grouped_cache_attention")
+        return self._out_proj(params, back(ctx)), cache
 
     def query_forward(self, params, xs, cache, rope_pos, row_lengths,
                       rope=None):
@@ -668,12 +749,14 @@ class MultiHeadAttention(Op):
         qh, _, _ = self._project_qkv(params, xs[0], xs[1], xs[2],
                                      rope_offset=rope_pos, rope=rope,
                                      parts="q")
+        qh, _, _, back = self._local_heads(qh, None, None)
         idx = torch.arange(cache["k"].shape[1], device=qh.device)
         live = idx[None, :] < row_lengths[:, None]
         ctx = kernels.grouped_cache_attention(
             qh, cache["k"], cache["v"], live[:, None, None, None, :],
             self.scale)
-        return self._out_proj(params, ctx), cache
+        _noted(back, "grouped_cache_attention")
+        return self._out_proj(params, back(ctx)), cache
 
     def decode_forward(self, params, xs, cache, pos: torch.Tensor,
                        rope_pos: Optional[torch.Tensor] = None,
@@ -695,6 +778,7 @@ class MultiHeadAttention(Op):
         qh, kh, vh = self._project_qkv(
             params, xs[0], xs[1], xs[2],
             rope_offset=pos if rope_pos is None else rope_pos, rope=rope)
+        qh, kh, vh, back = self._local_heads(qh, kh, vh)
         slot = pos.reshape(1)
         cache["k"].index_copy_(1, slot, kh.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot, vh.to(cache["v"].dtype))
@@ -707,7 +791,8 @@ class MultiHeadAttention(Op):
         ctx = kernels.grouped_cache_attention(
             qh, cache["k"], cache["v"], live[:, None, None, None, :],
             self.scale)
-        return self._out_proj(params, ctx), cache
+        _noted(back, "grouped_cache_attention")
+        return self._out_proj(params, back(ctx)), cache
 
     def encode_kv(self, params, enc):
         """Cross-attention's static k/v (the JAX ``encode_kv``,
@@ -740,18 +825,21 @@ class MultiHeadAttention(Op):
         scratch page. ``kv_dtype`` (FFConfig.kv_cache_dtype) picks the
         storage: None / 'native' stores ``dtype``, 'bf16' bfloat16, 'int8'
         / 'fp8' the quantized payload plus ``k_scale`` / ``v_scale``
-        (num_pages, KVH) f32 planes riding the same page ids."""
+        (num_pages, KVH) f32 planes riding the same page ids. Under a mesh
+        the pool holds this rank's kv heads (``head_layout``), plain
+        tensors: KVH is their count."""
         sdtype, qmax = kv_storage_dtype(kv_dtype)
         store = sdtype if sdtype is not None else dtype
+        kvh = len(self.head_layout().kv_heads)
         pool = {
-            "k": torch.zeros((num_pages, page_size, self.num_kv_heads,
-                              self.qk_head_dim), dtype=store, device=device),
-            "v": torch.zeros((num_pages, page_size, self.num_kv_heads,
-                              self.v_head_dim), dtype=store, device=device),
+            "k": torch.zeros((num_pages, page_size, kvh, self.qk_head_dim),
+                             dtype=store, device=device),
+            "v": torch.zeros((num_pages, page_size, kvh, self.v_head_dim),
+                             dtype=store, device=device),
         }
         if qmax is not None:
             for name in ("k_scale", "v_scale"):
-                pool[name] = torch.zeros((num_pages, self.num_kv_heads),
+                pool[name] = torch.zeros((num_pages, kvh),
                                          dtype=torch.float32, device=device)
         return pool
 
@@ -863,13 +951,15 @@ class MultiHeadAttention(Op):
         (``paged_slot``)."""
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
                                        rope_offset=rope_pos, rope=rope)
+        qh, kh, vh, back = self._local_heads(qh, kh, vh)
         if slot is None:
             slot = paged_slot(page_table, write_pos, cache["k"].shape[1])
         cache = self._paged_append(cache, kh[:, 0], vh[:, 0], *slot)
         ctx = self._paged_attention_ctx(qh, cache, page_table,
                                         write_pos[:, None], row_len,
                                         prompt_pad)
-        return self._out_proj(params, ctx), cache
+        _noted(back, "paged_attention_fwd")
+        return self._out_proj(params, back(ctx)), cache
 
     def paged_verify_forward(self, params, xs, cache, page_table, write_pos,
                              rope_pos0, row_len, prompt_pad, rope=None,
@@ -894,6 +984,7 @@ class MultiHeadAttention(Op):
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2],
                                        rope_offset=rope_pos0, rope=rope,
                                        kv_by_position=as_decode)
+        qh, kh, vh, back = self._local_heads(qh, kh, vh)
         if slot is None:
             slot = paged_slot(page_table, write_pos, cache["k"].shape[1])
         page_ids, offs = slot
@@ -910,4 +1001,5 @@ class MultiHeadAttention(Op):
         ctx = self._paged_attention_ctx(qh, cache, page_table, write_pos,
                                         row_len, prompt_pad,
                                         decode_splits=as_decode)
-        return self._out_proj(params, ctx), cache
+        _noted(back, "paged_attention_fwd")
+        return self._out_proj(params, back(ctx)), cache

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from flexflow_tpu_torch.ffconst import ActiMode, AggrMode, DataType, OperatorType
 from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.lora import lora_delta
-from flexflow_tpu_torch.parallel import reduce_partial
+from flexflow_tpu_torch.parallel import reduce_partial, rows_matmul
 
 
 def apply_activation(x: torch.Tensor, acti: ActiMode) -> torch.Tensor:
@@ -60,7 +60,7 @@ class Linear(Op):
         return ws
 
     def forward(self, params, xs, *, training=False, lora=None):
-        y = torch.matmul(xs[0], params["kernel"])
+        y = rows_matmul(xs[0], params["kernel"])
         if lora is not None:
             # the gathered per-row LoRA delta (ops/lora.py), added before
             # the bias as a merged W + a @ b * scale kernel would be

@@ -33,9 +33,11 @@ _SCALAR_FNS = {
 
 _BINARY_FNS = {
     OperatorType.OP_EW_ADD: torch.add,
-    OperatorType.OP_EW_SUB: torch.subtract,
-    OperatorType.OP_EW_MUL: torch.multiply,
-    OperatorType.OP_EW_DIV: torch.divide,
+    # the ops themselves, not their aliases: DTensor caches the sharding of
+    # aten.sub / mul / div, and re-propagated the aliases at every call
+    OperatorType.OP_EW_SUB: torch.sub,
+    OperatorType.OP_EW_MUL: torch.mul,
+    OperatorType.OP_EW_DIV: torch.div,
     OperatorType.OP_EW_MAX: torch.maximum,
     OperatorType.OP_EW_MIN: torch.minimum,
 }

@@ -15,7 +15,7 @@ from __future__ import annotations
 import collections
 import threading
 import weakref
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -245,3 +245,113 @@ def full_tensor(t):
     """The global value of a DTensor on every rank; any other value as it
     is."""
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., K) @ ``w`` (K, N): ``torch.matmul``, but on DTensors as
+    ``torch.mm`` of the flattened rows, the view back after — the product
+    ``matmul`` itself folds to, so the same kernel and bits. DTensor caches
+    mm's sharding; in torch 2.11 it re-propagated ``aten.matmul`` through
+    fake tensors at every call (~3 ms a call on the card's host, most of a
+    mesh engine's decode step)."""
+    if not (is_dtensor(x) or is_dtensor(w)) or x.dim() < 2:
+        return torch.matmul(x, w)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+
+def replicate(t, mesh):
+    """A plain tensor, the same on every rank, as a DTensor replicated over
+    ``mesh`` (no collective)."""
+    from torch.distributed.tensor import Replicate
+
+    return _dtensor_cls().from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+
+
+def local_slice(shape, mesh, placements) -> Tuple[slice, ...]:
+    """The slices of a global tensor of ``shape`` that this rank holds
+    under ``placements`` (DTensor's own chunking; a Partial or Replicate
+    dim whole)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    lshape, off = compute_local_shape_and_global_offset(
+        tuple(shape), mesh, list(placements))
+    return tuple(slice(o, o + n) for o, n in zip(off, lshape))
+
+
+def copy_full_into(dst: torch.Tensor, full: torch.Tensor) -> None:
+    """Write the global value ``full`` (a plain tensor on any device, the
+    same on every rank) into ``dst`` in place: a DTensor takes its own
+    slice into its local shard — no collective, so a memory-mapped
+    checkpoint entry is read only where this rank needs it —, a plain
+    tensor the whole."""
+    if not is_dtensor(dst):
+        dst.copy_(full)
+        return
+    sl = local_slice(dst.shape, dst.device_mesh, dst.placements)
+    dst._local_tensor.copy_(full[sl])
+
+
+class HeadLayout(NamedTuple):
+    """The attention heads one rank holds on a serving pass (``head_layout``):
+    its q heads ``[q_start, q_start + q_heads)``, the global kv head of
+    each kv head its KV caches and pool hold, the indices of those in its
+    k / v projection's local heads (None: all of them, in order) and the
+    query heads a pooled kv head serves (``group``: kernel 4 maps local q
+    head h to pooled kv head h // group)."""
+
+    q_start: int
+    q_heads: int
+    kv_heads: Tuple[int, ...]
+    kv_select: Optional[Tuple[int, ...]]
+    group: int
+
+    @property
+    def duplicated(self) -> int:
+        """kv heads the pool holds more than once (the group-1 layout)."""
+        return len(self.kv_heads) - len(set(self.kv_heads))
+
+
+def head_layout(op, mesh=None, axis_map=None) -> HeadLayout:
+    """Which q and kv heads of attention op ``op`` a rank holds under
+    ``axis_map`` on ``mesh``, read from the op's ``weight_partition`` (the
+    placements of ``wq`` and ``wk``; JAX's GSPMD gives each shard the same
+    heads). Three cases:
+
+      * kv heads split with the q heads (the head degree divides
+        ``num_kv_heads``): the rank's kv heads, the group unchanged;
+      * kv replicated (GQA, the degree does not divide ``num_kv_heads``)
+        and the local q heads lining up with whole kv groups (kv heads |
+        degree, or whole groups a rank): just the kv heads they read;
+      * otherwise (a group straddles two ranks): one kv head a local q
+        head, group 1 — the kernels' h // group mapping stays right, at
+        the cost of the duplicated heads' bytes.
+
+    Without a mesh: every head."""
+    h, kvh = op.num_heads, op.num_kv_heads
+    g = h // kvh
+    if mesh is None:
+        return HeadLayout(0, h, tuple(range(kvh)), None, g)
+    from flexflow_tpu_torch.runtime.executor import spec_placements
+
+    wp = op.weight_partition(axis_map or {})
+
+    def heads(name, n):
+        shape = (1, n, 1)
+        spec = wp.get(name, (None, None, None))
+        sl = local_slice(shape, mesh, spec_placements(spec, mesh, shape))
+        return sl[1].start, sl[1].stop - sl[1].start
+
+    q0, qn = heads("wq", h)
+    k0, kn = heads("wk", kvh)
+    if kn < kvh:                      # kv heads split with the q heads
+        return HeadLayout(q0, qn, tuple(range(k0, k0 + kn)), None, qn // kn)
+    if qn % g == 0 and q0 % g == 0:   # whole groups
+        kv = tuple(range(q0 // g, (q0 + qn) // g))
+        return HeadLayout(q0, qn, kv, None if len(kv) == kvh else kv, g)
+    if g % qn == 0:                   # within one group
+        return HeadLayout(q0, qn, (q0 // g,), (q0 // g,), qn)
+    kv = tuple(i // g for i in range(q0, q0 + qn))
+    return HeadLayout(q0, qn, kv, kv, 1)

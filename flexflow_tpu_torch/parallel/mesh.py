@@ -65,8 +65,64 @@ def make_mesh(shape: Dict[str, int], device_type: str = "cpu"):
             f"(ROADMAP item 9, placement)")
     if not axes:
         axes, sizes = ["data"], [1]
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        route_gloo_cuda_collectives()
     return DeviceMesh(device_type, torch.arange(n).reshape(sizes),
                       mesh_dim_names=tuple(axes))
+
+
+def _group_of(group):
+    """The ProcessGroup of a functional collective's ``group`` argument:
+    (mesh, mesh dim), a one-dim mesh, or a group."""
+    if isinstance(group, tuple):
+        mesh, dim = group
+        return mesh.get_group(dim)
+    if hasattr(group, "get_group"):
+        return group.get_group()
+    return group
+
+
+def _all_gather_c10d(x, gather_dim, group, tag=""):
+    pg = _group_of(group)
+    n = dist.get_world_size(pg)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=pg)
+    if gather_dim != 0:
+        out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+    return out
+
+
+def _reduce_scatter_c10d(x, reduceOp, scatter_dim, group, tag=""):
+    pg = _group_of(group)
+    n = dist.get_world_size(pg)
+    # the chunks along scatter_dim stacked on dim 0, c10d's scatter dim
+    chunks = torch.chunk(x, n, dim=scatter_dim)
+    out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
+    dist.reduce_scatter_tensor(
+        out, torch.cat([c.contiguous() for c in chunks], dim=0),
+        op=getattr(dist.ReduceOp, str(reduceOp).upper()), group=pg)
+    return out
+
+
+def route_gloo_cuda_collectives() -> None:
+    """Ranks on gloo holding CUDA tensors (two ranks sharing one card,
+    which NCCL refuses): DTensor's gathers and reduce-scatters go through
+    torch's functional collectives, whose wait crashed (a segmentation
+    fault in ``wait_tensor``) on gloo's CUDA path in torch 2.11 while
+    c10d's ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` and the
+    functional all-reduce worked. Route those two through c10d,
+    synchronously. Installed once by ``make_mesh`` for a CUDA mesh on
+    gloo; NCCL meshes never take it."""
+    import torch.distributed._functional_collectives as funcol
+
+    if getattr(funcol, "_ff_routed", False):
+        return
+    for name in ("all_gather_tensor", "all_gather_single"):
+        if hasattr(funcol, name):
+            setattr(funcol, name, _all_gather_c10d)
+    funcol.reduce_scatter_tensor = _reduce_scatter_c10d
+    funcol._ff_routed = True
 
 
 def default_mesh(num_devices: Optional[int] = None,

@@ -39,9 +39,21 @@ with at most one snapshot in flight (backpressure, which also caps the
 pinned memory); ``wait_pending_saves`` quiesces it and re-raises the
 first failure. A synchronous save copies to pageable host memory.
 
-One process, one device: a checkpoint records ``num_devices`` 1 and no
-mesh. Multi-process saves and the sharded-fused optimizer layout are
-refused (ROADMAP item 8).
+Under a mesh (``FFModel.mesh``, one rank a device; the JAX
+``_save_multihost``) every rank calls ``save_checkpoint``: each DTensor —
+weights, and optimizer state sharded by FSDP — is made whole
+(``full_tensor``, a collective) on the calling thread, and rank 0 alone
+writes the one ``state.pt``, between two barriers (JAX's ``ff_ckpt_clean``
+/ ``ff_ckpt_done``). An async save gathers on the training thread into
+rank 0's pinned snapshot and publishes on rank 0's publisher thread; no
+collective ever runs there (the ranks' collective order would part), so
+the second barrier waits in ``wait_pending_saves``, which every rank
+calls. The meta records ``mesh_shape``, ``num_devices``,
+``process_count`` and ``multihost`` under JAX's keys, and ``strategy.txt``
+the model's strategy table. A restore reads ``state.pt`` memory-mapped on
+every rank and copies each rank's slice into its live shards
+(``parallel.copy_full_into``): a checkpoint restores onto any mesh, or
+none. The sharded-fused optimizer layout is ROADMAP item 9's.
 """
 
 from __future__ import annotations
@@ -57,7 +69,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from flexflow_tpu_torch.config import not_ported
+from flexflow_tpu_torch import parallel
+from flexflow_tpu_torch.config import ROADMAP_PARALLEL, not_ported
 from flexflow_tpu_torch.runtime import faultinject, locks
 from flexflow_tpu_torch.runtime.manifest import (MANIFEST_NAME,
                                                  CheckpointCorruptError,
@@ -234,26 +247,34 @@ def state_tensors(model) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _host_snapshot(model, pinned: bool):
+def _host_snapshot(model, pinned: bool, writer: bool = True):
     """(payload, event): every state tensor copied to host memory and the
     generators' states. ``pinned`` (an async save on the card): non-
     blocking copies into pinned buffers on the current stream — the
     next step's in-place update queues behind them — and the event the
     publisher waits on before serializing. Otherwise blocking copies into
     pageable memory (the CPU's copies are clones: the model updates its
-    tensors in place)."""
+    tensors in place). A DTensor is made whole first, on every rank (a
+    collective); only the ``writer`` keeps the copies (the others return
+    an empty payload)."""
     live = state_tensors(model)
     out: Dict[str, torch.Tensor] = {}
     event = None
-    cuda = any(t.is_cuda for t in live.values())
+    cuda = False
     with torch.no_grad():
         for name, t in live.items():
+            t = parallel.full_tensor(t)
+            if not writer:
+                continue
+            cuda = cuda or t.is_cuda
             if t.is_cuda and pinned:
                 buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 buf.copy_(t, non_blocking=True)
                 out[name] = buf
             else:
                 out[name] = t.detach().to("cpu", copy=True)
+    if not writer:
+        return out, None
     if cuda and pinned:
         event = torch.cuda.Event()
         event.record()
@@ -262,17 +283,32 @@ def _host_snapshot(model, pinned: bool):
     return out, event
 
 
+def _world() -> int:
+    from flexflow_tpu_torch.parallel.mesh import world_size
+
+    return world_size()
+
+
+def _barrier() -> None:
+    """All ranks meet (a no-op in a world of one)."""
+    if _world() > 1:
+        torch.distributed.barrier()
+
+
 def _build_meta(model, step: int, *, with_opt: bool) -> dict:
-    """Per-step ff_meta.json: the JAX package's keys (one process, one
-    device, no mesh) and the generators the payload holds in place of
-    JAX's ``rng_key``."""
+    """Per-step ff_meta.json: the JAX package's keys — the mesh (None
+    without one), its devices, the processes — and the generators the
+    payload holds in place of JAX's ``rng_key``."""
+    mesh = getattr(model, "mesh", None)
+    world = _world()
     meta = {"step": int(step),
-            "mesh_shape": None,
-            "num_devices": 1,
-            "process_count": 1,
+            "mesh_shape": (parallel.mesh_shape_dict(mesh)
+                           if mesh is not None else None),
+            "num_devices": int(mesh.size()) if mesh is not None else 1,
+            "process_count": world,
             "batch_size": int(model.config.batch_size),
             "grad_accum_steps": int(model.config.grad_accum_steps),
-            "multihost": False,
+            "multihost": world > 1,
             "loss_type": model.loss_type.name if model.loss_type else None,
             "generators": sorted(getattr(model, "_generators", {}))}
     if with_opt:
@@ -280,11 +316,11 @@ def _build_meta(model, step: int, *, with_opt: bool) -> dict:
     return meta
 
 
-def _refuse_multiprocess():
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise not_ported("multi-process (sharded) checkpoint saves")
+#: directories an async save across ranks was submitted to: its second
+#: barrier waits in ``wait_pending_saves``
+_RANKED_PENDING: set = set()
+#: the meta entry carrying the model's strategy table to the publisher
+_STRATEGIES = "_strategies"
 
 
 def save_checkpoint(model, directory: str, step: Optional[int] = None,
@@ -296,30 +332,44 @@ def save_checkpoint(model, directory: str, step: Optional[int] = None,
     ``keep`` prunes all but the newest ``keep`` steps after a successful
     publish (never the last intact one). ``async_save``: snapshot now,
     publish on the background thread (module docstring). Saving a step
-    twice overwrites it."""
-    _refuse_multiprocess()
+    twice overwrites it. Across ranks every rank calls it (module
+    docstring); rank 0 writes."""
     directory = os.path.abspath(directory)
     step = int(step if step is not None else model._step_count)
     meta = _build_meta(model, step, with_opt=model.opt_state is not None)
     if extra_meta:
         meta.update(extra_meta)
+    # the strategy table rides to the publisher beside the meta; the
+    # finalize writes it to strategy.txt and keeps it out of the JSON
+    meta[_STRATEGIES] = dict(model.config.strategies)
     path = os.path.join(directory, f"step_{step}")
+    ranked = _world() > 1
+    writer = not ranked or torch.distributed.get_rank() == 0
     if async_save:
         # backpressure: each queued save holds a full host snapshot, so a
         # publisher slower than the save cadence slows the caller down —
         # at most one snapshot in flight plus the one being submitted
-        _SAVER.wait_below(directory, 1)
-        state, event = _host_snapshot(model, pinned=True)
+        if writer:
+            _SAVER.wait_below(directory, 1)
+        _barrier()                              # ff_ckpt_clean
+        state, event = _host_snapshot(model, pinned=True, writer=writer)
+        if ranked:
+            _RANKED_PENDING.add(directory)
+        if writer:
+            def publish():
+                if event is not None:
+                    event.synchronize()
+                _publish_step(directory, step, state, meta, keep)
 
-        def publish():
-            if event is not None:
-                event.synchronize()
-            _publish_step(directory, step, state, meta, keep)
-
-        _SAVER.submit(directory, step, publish)
+            _SAVER.submit(directory, step, publish)
         return path
-    state, _ = _host_snapshot(model, pinned=False)
-    _publish_step(directory, step, state, meta, keep)
+    _barrier()                                  # ff_ckpt_clean
+    state, _ = _host_snapshot(model, pinned=False, writer=writer)
+    try:
+        if writer:
+            _publish_step(directory, step, state, meta, keep)
+    finally:
+        _barrier()                              # ff_ckpt_done
     return path
 
 
@@ -364,22 +414,26 @@ def _no_zip_crc():
     return config.patch({"save.compute_crc32": False})
 
 
-def _write_strategy(path: str):
-    """The reference text schema's strategy table: empty (one device —
-    every op runs whole)."""
-    with open(path, "w") as f:
-        f.write("0\n")
+def _write_strategy(path: str, strategies: Optional[dict]):
+    """The model's strategy table in the reference text schema (empty:
+    every op runs whole or data-parallel), which an elastic resume
+    re-derives on its mesh."""
+    from flexflow_tpu_torch.parallel.strategy import save_strategies_to_file
+
+    save_strategies_to_file(path, strategies or {})
 
 
 def _finalize_step_dir(directory: str, step: int, meta: dict,
                        keep: Optional[int], known: Optional[dict] = None):
     """Meta + strategy + manifest into the tmp dir, the publish rename, the
     top-level mirrors, the corruption drill, and retention."""
+    meta = dict(meta)
+    strategies = meta.pop(_STRATEGIES, None)
     path = os.path.join(directory, f"step_{step}")
     tmp = os.path.join(directory, f".tmp-step_{step}")
     with open(os.path.join(tmp, "ff_meta.json"), "w") as f:
         json.dump(meta, f)
-    _write_strategy(os.path.join(tmp, "strategy.txt"))
+    _write_strategy(os.path.join(tmp, "strategy.txt"), strategies)
     # the manifest is the LAST write into tmp: it covers every other file
     write_manifest(tmp, known)
     if os.path.exists(path):
@@ -391,7 +445,7 @@ def _finalize_step_dir(directory: str, step: int, meta: dict,
         json.dump(meta, f)
     os.replace(mtmp, os.path.join(directory, "meta.json"))
     stmp = os.path.join(directory, f".strategy.txt.tmp-{os.getpid()}")
-    _write_strategy(stmp)
+    _write_strategy(stmp, strategies)
     os.replace(stmp, os.path.join(directory, "strategy.txt"))
     if faultinject.active_plan().fire("corrupt_ckpt", "save"):
         # damage the just-published payload before retention runs, so the
@@ -522,8 +576,18 @@ _SAVER = _AsyncSaver()
 
 def wait_pending_saves(directory: Optional[str] = None):
     """Block until every pending async save (to ``directory``, or anywhere)
-    has published, then re-raise the first failure among them."""
-    _SAVER.wait(os.path.abspath(directory) if directory else None)
+    has published, then re-raise the first failure among them. After an
+    async save across ranks every rank calls it: rank 0 waits for its
+    publisher, then all meet (the save's second barrier, on this
+    thread)."""
+    d = os.path.abspath(directory) if directory else None
+    try:
+        _SAVER.wait(d)
+    finally:
+        hit = {p for p in _RANKED_PENDING if d is None or p == d}
+        if hit:
+            _RANKED_PENDING.difference_update(hit)
+            _barrier()                          # ff_ckpt_done
 
 
 def pending_saves(directory: Optional[str] = None) -> int:
@@ -600,8 +664,9 @@ def load_payload(step_dir: str) -> Dict[str, torch.Tensor]:
 
 def _copy_group(live: Dict[str, torch.Tensor], saved, prefix: str,
                 what: str):
-    """Copy every live tensor under ``prefix`` from the payload, in place;
-    a missing entry or a shape mismatch refuses."""
+    """Copy every live tensor under ``prefix`` from the payload, in place
+    (a DTensor its own slice: ``parallel.copy_full_into``); a missing
+    entry or a shape mismatch refuses."""
     with torch.no_grad():
         for name, t in live.items():
             if not name.startswith(prefix + "/"):
@@ -613,14 +678,15 @@ def _copy_group(live: Dict[str, torch.Tensor], saved, prefix: str,
                 raise ValueError(
                     f"checkpoint entry {name!r} is {tuple(src.shape)}, the "
                     f"model's is {tuple(t.shape)}")
-            t.copy_(src)
+            parallel.copy_full_into(t, src)
 
 
 def _restore_into(model, directory: str, step: int) -> int:
     meta = load_meta(directory, step)
     saved_layout = meta.get("opt_layout")
     if saved_layout == "sharded_fused":
-        raise not_ported("the sharded-fused optimizer checkpoint layout")
+        raise not_ported("the sharded-fused optimizer checkpoint layout "
+                         "(ShardedFusedUpdate)", ROADMAP_PARALLEL)
     if saved_layout is not None and model.optimizer is not None \
             and saved_layout != _opt_layout(model):
         raise ValueError(

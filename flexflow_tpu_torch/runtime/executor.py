@@ -477,16 +477,13 @@ class GraphExecutor:
         vals = {t: (v.to(cdt) if bf16 and v.dtype == torch.float32 else v)
                 for t, v in input_values.items()}
         sharded = self.mesh is not None
-        replicate = contextlib.nullcontext()
+        replicate = self.replicating()
         if sharded:
             from torch.distributed.tensor import DTensor
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
 
             pl = self.input_placements(self._split())
             vals = {t: DTensor.from_local(v, self.mesh, pl, run_check=False)
                     for t, v in vals.items()}
-            replicate = implicit_replication()
         # named op ranges for the profiler (runtime/profiler.py): under
         # FFConfig.profiling or a running torch.profiler only, so the
         # unprofiled step pays one check a walk
@@ -515,6 +512,16 @@ class GraphExecutor:
                     vals[t] = v
         return vals, new_state
 
+    def replicating(self):
+        """Under a mesh, DTensor's ``implicit_replication`` (a plain
+        tensor meeting a DTensor counts as replicated); else nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+
     def _constrain_outputs(self, op, outs) -> list:
         """``op``'s outputs redistributed to its placements (the JAX
         ``with_sharding_constraint``). An output of the primary output's
@@ -539,6 +546,28 @@ class GraphExecutor:
             res.append(v)
         return res
 
+    def constrain_serving(self, op, outs) -> list:
+        """A serving walk's ``_constrain_outputs``: ``op``'s outputs
+        redistributed to its placements with the batch dim (the slots,
+        which every rank serves) left whole — its axis map without the
+        entries on dim 0. Without it DTensor's propagation picks the
+        activations' layouts from its cost model, which may shard the
+        positions over "model" and gather the heads back before
+        attention. A Partial output (a row-parallel product) is reduced by
+        an all-reduce first, the shards then taken locally: the sums are
+        the reduce-scatter's, and gloo's CUDA path has the all-reduce."""
+        am = {ax: d for ax, d in self.op_axis_map(op).items() if d != 0}
+        res = []
+        for t, v in zip(op.outputs, outs):
+            if parallel.is_dtensor(v) and v.dim() == t.num_dims:
+                want = parallel.placements_for(self.mesh, am, v.shape)
+                if list(v.placements) != want:
+                    v = parallel.reduce_partial(v)
+                if list(v.placements) != want:
+                    v = v.redistribute(self.mesh, want)
+            res.append(v)
+        return res
+
     def run_op(self, op, params: Params, xs: List[torch.Tensor],
                training: bool, state: Optional[State] = None,
                gens: Optional[Dict[str, torch.Generator]] = None):
@@ -552,12 +581,7 @@ class GraphExecutor:
                  else w)
              for k, w in p.items()}
         if self.mesh is not None:
-            # gathered to the strategy's layout at use (FSDP: the
-            # all-gather, its backward the gradient's reduce-scatter)
-            want = self._compute_placements.get(op.name, {})
-            p = {k: (w.redistribute(self.mesh, want[k])
-                     if k in want and list(w.placements) != want[k] else w)
-                 for k, w in p.items()}
+            p = self.at_compute(op.name, p)
         kw = {"gens": gens} if isinstance(op, FusedOp) else {}
         if op.stateful:
             return op.forward_stateful(p, (state or {})[op.name], xs,
@@ -568,6 +592,15 @@ class GraphExecutor:
             return op.forward(p, xs, training=training,
                               gen=(gens or {}).get(op.name)), None
         return op.forward(p, xs, training=training), None
+
+    def at_compute(self, op_name: str, p: Dict) -> Dict:
+        """An op's weights ``p`` gathered to the strategy's layout at use
+        (FSDP: the all-gather, its backward the gradient's
+        reduce-scatter); those already there as they are."""
+        want = self._compute_placements.get(op_name, {})
+        return {k: (w.redistribute(self.mesh, want[k])
+                    if k in want and list(w.placements) != want[k] else w)
+                for k, w in p.items()}
 
     def shard_batch(self, batch, stream=None) -> Batch:
         """Every entry of ``batch`` on the model's device (the JAX
@@ -707,7 +740,10 @@ class GraphExecutor:
         if inject_nan:
             loss = loss + float("nan")
         target = loss if scale is None else loss * scale
-        flat = iter(torch.autograd.grad(target, leaves))
+        # the backward meets the plain tensors the forward mixed in (RoPE
+        # tables, masks) again: as replicated, as in the forward
+        with self.replicating():
+            flat = iter(torch.autograd.grad(target, leaves))
         grads = {op: {k: next(flat) for k in ws} for op, ws in params.items()}
         if self.mesh is not None:
             # partial sums over the ranks reduced into the weights'

@@ -51,6 +51,8 @@ import numpy as np
 
 import torch
 
+from flexflow_tpu_torch import parallel
+from flexflow_tpu_torch.config import not_ported
 from flexflow_tpu_torch.ffconst import DataType, OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops import sampling
@@ -193,8 +195,26 @@ def _leaf_addresses(tree) -> tuple:
         if isinstance(x, dict):
             todo.extend(x[k] for k in sorted(x))
         elif isinstance(x, torch.Tensor):
-            out.append(x.data_ptr())
+            out.append(parallel.local(x).data_ptr())
     return tuple(out)
+
+
+def _last_positions(x, s_full: int, row_lengths):
+    """A prefill tail's input at each row's last valid position: column
+    ``row_lengths`` - 1 of each row (the last column when None) of an
+    activation spanning the ``s_full`` positions; any other value as it
+    is. A DTensor is taken whole first (an activation past the last
+    attention op is replicated already) and comes back replicated."""
+    if not (x.dim() >= 2 and x.shape[1] == s_full):
+        return x
+    mesh = x.device_mesh if parallel.is_dtensor(x) else None
+    t = parallel.full_tensor(x)
+    if row_lengths is None:
+        t = t[:, -1:]
+    else:
+        t = t[torch.arange(t.shape[0], device=t.device),
+              row_lengths.long() - 1][:, None]
+    return t if mesh is None else parallel.replicate(t, mesh)
 
 
 def _top_k_stable(x: torch.Tensor, k: int):
@@ -256,8 +276,10 @@ class _Loop:
         from flexflow_tpu_torch.runtime.serving import _Program
 
         dev = generator.model.device
+        # under a mesh the step's collectives stay uncaptured
         stream = (_side_stream(dev)
-                  if dev.type == "cuda" and generator.capture else None)
+                  if dev.type == "cuda" and generator.capture
+                  and generator.model.mesh is None else None)
         self.state = state
         self.step = _Program(step, state, stream)
         self.addresses = addresses
@@ -281,6 +303,11 @@ class Generator:
         if quantize not in (None, "int8", "fp8"):
             raise ValueError(f"quantize={quantize!r}: must be 'int8' or "
                              f"'fp8' (or None)")
+        if quantize and getattr(model, "mesh", None) is not None:
+            raise not_ported("weight-only quantized serving and generate "
+                             "under a mesh (per-channel scales of a "
+                             "row-parallel shard are not the whole "
+                             "weight's)")
         self.model = model
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -558,7 +585,16 @@ class Generator:
 
     # ---- graph walks -------------------------------------------------------
 
-    def _walk(self, params, tokens, caches, last_only=False,
+    def _walk(self, *args, **kw):
+        """The graph walk (``_walk_on``); under the model's mesh inside
+        DTensor's ``implicit_replication`` (plain tensors mixed in — RoPE
+        tables, masks, positions — count as replicated)."""
+        if self.model.mesh is None:
+            return self._walk_on(*args, **kw)
+        with self.model.executor.replicating():
+            return self._walk_on(*args, **kw)
+
+    def _walk_on(self, params, tokens, caches, last_only=False,
               row_lengths=None, paged: Optional[Dict] = None,
               chunk_start: Optional[int] = None, skip_tail: bool = False,
               gather_last: bool = False, lora: Optional[Dict] = None,
@@ -583,8 +619,20 @@ class Generator:
         lm_head never sees the pad positions and no (B, S, V) logits are
         made. ``lora`` ({"pool", "pages"}: the adapter pool and each row's
         page) adds each row's gathered LoRA delta to every targeted Linear
-        (the JAX walk, generation.py:356-365)."""
+        (the JAX walk, generation.py:356-365).
+
+        Under the model's mesh (JAX's walk runs under it through jit,
+        generation.py:23-25) the tokens enter as a replicated DTensor, each
+        op's weights at their compute placements (an FSDP shard gathered)
+        and each output at its axis map's placements
+        (``executor.constrain_serving``); attention runs its kernels on
+        this rank's heads, its caches and pool plain local tensors; the
+        final tensor comes back whole (``full_tensor``, GSPMD's gather of
+        the logits), so every rank samples the same tokens."""
+        mesh = self.model.mesh
         s_full = tokens.shape[1]
+        if mesh is not None:
+            tokens = parallel.replicate(tokens, mesh)
         vals = {self.token_input.outputs[0]: tokens}
         new_caches = {}
         cdtype = self._compute_dtype()
@@ -615,23 +663,12 @@ class Generator:
             xs = [vals[t] for t in op.inputs]
             if (last_only and paged is None and pos is None
                     and idx > self._last_attn_idx and s_full > 1):
-                if row_lengths is None:
-                    xs = [x[:, -1:] if (x.dim() >= 2
-                                        and x.shape[1] == s_full) else x
-                          for x in xs]
-                else:
-                    last = (row_lengths.long() - 1)
-
-                    def take_last(x):
-                        if not (x.dim() >= 2 and x.shape[1] == s_full):
-                            return x
-                        return x[torch.arange(x.shape[0], device=x.device),
-                                 last][:, None]
-
-                    xs = [take_last(x) for x in xs]
+                xs = [_last_positions(x, s_full, row_lengths) for x in xs]
             p, looked_up = self._op_params(op, params, xs, cdtype)
             if cdtype != torch.float32:
                 p = _to_compute(p, cdtype)
+            if mesh is not None:
+                p = self.model.executor.at_compute(op.name, p)
             if isinstance(op, MultiHeadAttention):
                 cache = caches[op.name]
                 # an op rotating other angles derives its own tables
@@ -673,9 +710,12 @@ class Generator:
                     lora["pool"], op.name, lora["pages"]))
             else:
                 outs = op.forward(p, xs)
+            if mesh is not None:
+                outs = self.model.executor.constrain_serving(op, outs)
             for i, t in enumerate(op.outputs):
                 vals[t] = outs[i]
-        return vals[self.model._final_tensor], new_caches
+        return parallel.full_tensor(vals[self.model._final_tensor]), \
+            new_caches
 
     def _prefill(self, params, tokens, caches, row_lengths,
                  prefill_chunk: int = 0, lora: Optional[Dict] = None):

@@ -425,15 +425,24 @@ class TrainSupervisor:
         self._last_saved_step = step
 
     def _check_topology(self, step: int):
-        """A checkpoint saved on more devices than this process has: the
-        compile-time hook (runtime/elastic.py) normally refused it
-        already; enforce it for a supervisor pointed elsewhere too."""
+        """The elastic policy at resume time (the JAX ``_check_topology``):
+        the compile-time hook (runtime/elastic.py) normally applied it
+        already, but a supervisor pointed at a directory the config did
+        not name skips that path — so its refusals hold here too, and a
+        resume across a topology change (the restore copies each rank's
+        slice of the saved tensors) counts in ``elastic_resumes``."""
         from flexflow_tpu_torch.runtime.checkpoint import load_meta
         from flexflow_tpu_torch.runtime.elastic import check_saved_topology
 
-        check_saved_topology(self.model.config,
-                             load_meta(self.directory, step), step,
-                             self.directory)
+        m = self.model
+        if check_saved_topology(m.config, load_meta(self.directory, step),
+                                step, self.directory,
+                                m.mesh_shape if m.mesh is not None
+                                else None):
+            COUNTERS["elastic_resumes"] += 1
+            log.warning("supervisor: resuming step %d across a topology "
+                        "change onto mesh %s (policy %s)", step,
+                        m.mesh_shape, m.config.on_topology_change)
 
     def resume(self) -> int:
         """Restore the newest INTACT checkpoint (0 = fresh start); a
@@ -585,8 +594,13 @@ class TrainSupervisor:
         step_no = model._step_count + 1
         inject = self.nan_due()
         hang = self._fault_plan().at_step("hang", step_no)
-        loss, _ = model._run_train_step(model._stage_batch(),
-                                        inject_nan=inject)
+        # the loaders stage this rank's rows (under a mesh), as in fit
+        prior, model._loader_rows = model._loader_rows, True
+        try:
+            loss, _ = model._run_train_step(model._stage_batch(),
+                                            inject_nan=inject)
+        finally:
+            model._loader_rows = prior
         with self.watchdog.arm(f"train step {step_no}"):
             if hang and self.watchdog.timeout_s > 0:
                 # the host-side hang drill: block past the watchdog so its

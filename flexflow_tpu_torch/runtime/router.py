@@ -74,6 +74,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from flexflow_tpu_torch.config import ROADMAP_PARALLEL, not_ported
 from flexflow_tpu_torch.ops import sampling as sampling_ops
 from flexflow_tpu_torch.runtime import faultinject, flightrec, locks, telemetry
 from flexflow_tpu_torch.runtime.serving import RadixPrefixCache, version_ns
@@ -204,6 +205,9 @@ class ServingRouter:
         if health_timeout_s <= 0:
             raise ValueError(
                 f"health_timeout_s={health_timeout_s}: must be > 0")
+        if getattr(model, "mesh", None) is not None:
+            raise not_ported("a fleet of replicas under a mesh (a sub-mesh "
+                             "a replica)", ROADMAP_PARALLEL)
         cfg = model.config
         # adopt FFConfig.sanitize before the replica engines (and
         # this router's own lock) are created — lock proxying is

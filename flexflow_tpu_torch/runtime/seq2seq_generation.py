@@ -24,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from flexflow_tpu_torch.config import not_ported
 from flexflow_tpu_torch.ffconst import DataType, OperatorType
 from flexflow_tpu_torch.ops.attention import MultiHeadAttention
 from flexflow_tpu_torch.ops.base import InputOp
@@ -49,6 +50,8 @@ class Seq2SeqGenerator:
 
     def __init__(self, model, temperature: float = 0.0, top_k: int = 0,
                  eos_id: Optional[int] = None, pad_id: int = 0):
+        if getattr(model, "mesh", None) is not None:
+            raise not_ported("generate_seq2seq under a mesh (part 3)")
         self.model = model
         self.temperature = float(temperature)
         self.top_k = int(top_k)

@@ -104,6 +104,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flexflow_tpu_torch import parallel
+from flexflow_tpu_torch.config import not_ported
 from flexflow_tpu_torch.ffconst import OperatorType
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops import lora as lora_ops
@@ -883,7 +885,18 @@ class ServingEngine:
     ``capture=False`` is for comparisons only: on the card the decode-side
     programs then run their bodies uncaptured — the same kernels, launched
     from the host each step — as the reference a test holds the CUDA
-    graphs against. Serving leaves it on."""
+    graphs against. Serving leaves it on.
+
+    Under the model's mesh (the JAX engine commits its pool to the mesh,
+    serving.py:1066-1080) every rank builds the engine and runs the same
+    scheduler on the same submissions (SPMD, as JAX's controllers do):
+    the walks run each op on DTensors and attention's kernels on the
+    rank's heads, the pool holds its kv heads (plain local tensors,
+    ``MultiHeadAttention.head_layout``), the logits come back whole, and
+    every rank samples the same tokens. The decode-side programs run
+    uncaptured there (a step with collectives is not captured). Not under
+    a mesh yet (ROADMAP item 8, part 3): speculation, LoRA pools, the host
+    tier, weight-only quantization and ``swap_weights``."""
 
     def __init__(self, model, serve_slots: Optional[int] = None,
                  kv_page_size: Optional[int] = None,
@@ -990,6 +1003,12 @@ class ServingEngine:
         self._kv_dtype_arg = (None if kv_raw in (None, "", "native")
                               else kv_raw)
         quantize = None if wd == "native" else wd
+        self.mesh = model.mesh
+        if self.mesh is not None:
+            self._refuse_under_mesh(
+                cfg, quantize=quantize, speculate_k=speculate_k,
+                host_kv_pages=host_kv_pages,
+                adapter_pool_pages=adapter_pool_pages)
 
         self.gen = Generator(model, quantize=quantize)
         self.eos_id = eos_id
@@ -1139,7 +1158,8 @@ class ServingEngine:
             0: self._programs}
         self._swap_captures = 0
         self._stream = (kernels.private_stream(self.device, self)
-                        if capture and self.device.type == "cuda" else None)
+                        if capture and self.device.type == "cuda"
+                        and self.mesh is None else None)
         self.recompile_count = 0
         self._retrace = locks.RetraceSentinel()
         # ONE engine lock around every queue / slot / counter mutation, so
@@ -1198,6 +1218,41 @@ class ServingEngine:
             flightrec.hbm_ledger().add_source(self._hbm_source)
             flightrec.slo_monitor().add_source(self._slo_source)
             flightrec.register_health_source(self._health_probe)
+
+    @staticmethod
+    def _refuse_under_mesh(cfg, **knobs):
+        """The engine's features that a mesh does not serve yet raise
+        ``not_ported`` (ROADMAP item 8, part 3), each by its knob (the
+        argument, else the config's value)."""
+        def val(name, cfg_name):
+            v = knobs.get(name)
+            return v if v is not None else getattr(cfg, cfg_name)
+
+        for what, on in (
+                ("weight-only quantized serving", knobs["quantize"]),
+                ("speculative decoding",
+                 int(val("speculate_k", "serve_speculate_k") or 0) > 0),
+                ("the host KV tier",
+                 int(val("host_kv_pages", "host_kv_pages") or 0) > 0),
+                ("LoRA adapter pools",
+                 int(val("adapter_pool_pages", "serve_adapter_pool_pages")
+                     or 0) > 0)):
+            if on:
+                raise not_ported(f"{what} under a mesh (part 3)")
+
+    def _mesh_stats(self) -> Dict:
+        """Under a mesh: the mesh, and the kv heads this rank's pool holds
+        across the attention ops — local, and of those held twice (the
+        group-1 layout of a GQA group split across ranks) with the pool
+        bytes the duplicates take."""
+        lays = [op.head_layout() for op in self.gen.attn_ops]
+        dup = sum(lay.duplicated for lay in lays)
+        held = sum(len(lay.kv_heads) for lay in lays)
+        return {"mesh": parallel.mesh_shape_dict(self.mesh),
+                "kv_heads_local": held,
+                "kv_heads_duplicated": dup,
+                "kv_duplicated_bytes": (self._pool_bytes * dup // held
+                                        if held else 0)}
 
     def _init_pool(self, gen):
         return {op.name: op.init_paged_cache(self.num_pages, self.page_size,
@@ -1585,6 +1640,9 @@ class ServingEngine:
             [caches[op.name]["k"][:, p0:] for op in ops],
             [caches[op.name]["v"][:, p0:] for op in ops], pages,
             scales["k_scale"], scales["v_scale"])
+        if self.mesh is not None:
+            # the caches and the pool hold this rank's kv heads
+            parallel.note_local_call("paged_prefill_write_layers")
 
     def _new_caches(self, gen, bucket: int):
         return {op.name: op.init_cache(1, bucket, gen._compute_dtype(),
@@ -2875,6 +2933,8 @@ class ServingEngine:
 
         FF_FAULT ``swap_fail@deploy:<n>`` fails after the install: the
         prior weights are restored and the error raised."""
+        if self.mesh is not None:
+            raise not_ported("swap_weights under a mesh (part 3)")
         with self._lock, kernels.device_section():
             if self.active.any() or self._partial:
                 raise RuntimeError(
@@ -3189,4 +3249,5 @@ class ServingEngine:
             "requests_by_adapter": dict(self._adapter_requests),
             "kernel_launches": {k: now[k] - self._launch_base[k]
                                 for k in now},
+            **(self._mesh_stats() if self.mesh is not None else {}),
         }

@@ -468,7 +468,7 @@ def test_conv_channel_and_contract_split_over_model(results):
 def test_launcher_refuses_elastic_and_checks_its_flags():
     from flexflow_tpu_torch import launcher
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         launcher.main([WORKER, "--elastic", "--device", "cpu"])
     with pytest.raises(SystemExit):
         launcher.main([WORKER, "--num-processes", "2", "--device", "cpu"])

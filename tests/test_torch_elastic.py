@@ -1,16 +1,19 @@
 """The port's elastic resume policy (``runtime/elastic.py``) against the
-JAX package's, for what one device can meet.
+JAX package's, in one process.
 
-The compile-time hook reads only a checkpoint's ``ff_meta.json`` and its
-manifest, whose formats the packages share, so the port's hook is held on
-directories the JAX package writes: a one-device checkpoint resumes as it
-is (the same decision as JAX's), a four-device one is refused under
-"abort" (JAX refuses its two-device resume the same way) and below
-``elastic_min_devices``, and under the refit policies raises
-``NotImplementedError`` naming ROADMAP item 8 (where JAX refits its mesh).
-``mesh_candidates`` and the config validation equal JAX's; the
-``shrink@resume`` drill is refused; a same-topology restart adopts the
-saved accumulation factor in both packages.
+The compile-time hook reads only a checkpoint's ``ff_meta.json``, its
+manifest and its strategy table, whose formats the packages share, so the
+port's hook is held on directories the JAX package writes: a one-device
+checkpoint resumes as it is (the same decision as JAX's), a four-device
+one refits onto this process's one device under "resume_resharded" (the
+same decision as JAX's onto ``{"data": 1}``: grad accumulation scaled to
+keep the global batch), and is refused under "abort" (JAX refuses its
+two-device resume the same way) and below ``elastic_min_devices``;
+"research" raises ``NotImplementedError`` naming ROADMAP item 10 (the cost
+model), as does the ``shrink@resume`` drill. ``mesh_candidates`` and the
+config validation equal JAX's; a same-topology restart adopts the saved
+accumulation factor in both packages. Resumes across ranks:
+``tests/test_torch_mesh_checkpoint.py``.
 """
 
 import os
@@ -178,13 +181,26 @@ def test_more_devices_abort_and_min_devices(tmp_path):
 
 @pytest.mark.parametrize("policy", ["resume_resharded", "research"])
 def test_refit_policies_name_item_8(tmp_path, policy):
+    """A checkpoint of four devices resumed in one process:
+    "resume_resharded" refits as JAX does onto {"data": 1} (the same
+    decision: changed, grad_accum_steps 1 -> 4, the global batch kept);
+    "research" re-searches with the cost model, ROADMAP item 10 — from
+    the compile hook and from a supervisor pointed there by hand."""
     jd = tmp_path / "jax4"
     JSupervisor(_jax(jd, mesh={"data": 4}), str(jd)).run(2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    if policy == "resume_resharded":
+        jff = _jax(jd, mesh={"data": 1})
+        tff = _port(jd, policy=policy)
+        assert tff._elastic.changed
+        assert _decision(tff._elastic) == _decision(jff._elastic)
+        assert tff.config.grad_accum_steps == \
+            jff.config.grad_accum_steps == 4
+        return
+    with pytest.raises(NotImplementedError, match="item 10"):
         _port(jd, policy=policy)
     # a supervisor pointed there by hand refuses the same way
     ff = _port(tmp_path / "empty", policy=policy)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         TrainSupervisor(ff, str(jd)).resume()
 
 
@@ -193,7 +209,7 @@ def test_shrink_drill_refused(tmp_path, monkeypatch):
     TrainSupervisor(_port(td), str(td)).run(2)
     monkeypatch.setenv("FF_FAULT", "shrink(2)@resume:1")
     faultinject.reset()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         _port(td)
     assert os.path.isdir(td / "step_2")
 
