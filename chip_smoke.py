@@ -438,6 +438,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 time kernels 1, 4 and 5 at (b)'s local-shard shapes, the
                 "_tp1" rows repeat phase 3's serving rows with (a)'s
                 launches.
+ 19. sp / pp — last. First, in this process, the single-device
+                references: (a) / (b)'s Llama (Llama-3-8B widths at 2 of
+                its 32 layers, bf16, seed 19, SGD P19_LR) over one
+                sequence of P19_SEQ = 8192 tokens and (c)'s gpt_pipelined
+                (GPT-2-small widths, 12 layers, batch 8, seq 1024), each
+                P19_STEPS steps through fit, then freed. Then two gloo
+                ranks sharing the card (``--phase19``, bounded by
+                P19_TIMEOUT): (a) the Llama under {"seq": 2} on every op,
+                ring attention: each rank's q (1, 4096, 32, 128) at
+                kernels 1 and 2; exactly L causal launches of each a step
+                on each rank (its own shard) and L full ones on rank 1
+                (rank 0's past shard), none on rank 0 (its future shard);
+                (b) the same under sp_mode="ulysses": L a step at (1,
+                8192, 16, 128); (c) gpt_pipelined under {"pipe": 2}, 4
+                microbatches (GPipe, its backward through the kept
+                graphs): 6 layers a stage, 24 launches of each a step a
+                rank at (2, 1024, 12, 64); then one pipeline_train_1f1b
+                step over the rank's stage in f32 against GPipe's
+                gradients (P19_SCHEDULE_TOL) with each schedule's peak
+                memory. Every loss within P19_RTOL of the single device's,
+                and the logits of a predict before and after the fit
+                against the single device's (P19_PROBE_*: every position's
+                logsumexp, and rows of logits on both halves of the
+                sequence); step ms, peak memory and the transport's
+                bytes (point to point staged through host memory on gloo)
+                printed. The
+                "_ring" / "_ring_full" / "_ulysses" / "_pipe" rows time
+                kernels 1 and 2 at those shapes (the ring's backward
+                given its delta).
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -718,6 +747,7 @@ def phase_kernels(torch, port, kernels):
     rows.update(decode_feature_kernel_rows(torch, kernels, g))
     rows.update(generation_kernel_rows(torch, kernels, g))
     rows.update(tp_kernel_rows(torch, kernels, g))
+    rows.update(sp_pp_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
@@ -1127,13 +1157,15 @@ def training_kernel_rows(torch, kernels, g):
 
 
 def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
-                        entry_check: bool = False, causal: bool = False):
+                        entry_check: bool = False, causal: bool = False,
+                        given_delta: bool = False):
     """The rows ``flash_attention_fwd_lse<suffix>`` and
     ``flash_attention_bwd<suffix>`` at q/k/v (b, s, h, d) bf16, non-causal
     or ``causal`` (a training step's shapes), with SDPA and its backward as
     yardsticks; ``entry_check`` also holds the backward with a caller's
-    delta and an lse cotangent. A causal row's operations count the (q,
-    k) pairs on and below the diagonal."""
+    delta and an lse cotangent; ``given_delta``: the backward row is given
+    its delta, as a ring step's is (the delta kernel skipped). A causal
+    row's operations count the (q, k) pairs on and below the diagonal."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -1171,9 +1203,14 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
         bound=bound(2 * 4 * n_qkv + 4 * lse.numel(), 4 * b * h * pairs * d),
         shape=shape + ", lse (B,H,S) f32")
 
-    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    dl = {}
+    if given_delta:
+        dl["delta"] = (do.float() * o.float()).sum(-1).transpose(
+            1, 2).contiguous()
+    grads = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal, scale,
+                                        **dl)
     refs = kernels.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                             scale)
+                                             scale, **dl)
     torch.cuda.synchronize()
     err = max(scaled_err(a, r) for a, r in zip(grads, refs))
     if not err <= BWD_TOL:
@@ -1187,16 +1224,17 @@ def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
     rows["flash_attention_bwd" + suffix] = dict(
         err=err,
         ms=cuda_ms(lambda: kernels.flash_attention_bwd(
-            q, k, v, o, lse, do, causal, scale)),
+            q, k, v, o, lse, do, causal, scale, **dl)),
         plain_ms=cuda_ms(lambda: kernels.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal, scale)),
+            q, k, v, o, lse, do, causal, scale, **dl)),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
             lib_out, leaves, lib_do, retain_graph=True)),
         library="F.scaled_dot_product_attention backward",
         # q, k, v, o, dO read, dq, dk, dv written; the five products
         bound=bound(2 * 8 * n_qkv + 4 * lse.numel(),
                     10 * b * h * pairs * d),
-        shape=shape + ", o/dO/lse -> dq/dk/dv")
+        shape=shape + ", o/dO/lse" + (" + delta" if dl else "")
+        + " -> dq/dk/dv")
 
     if not entry_check:
         return rows
@@ -6966,6 +7004,568 @@ def tp_kernel_rows(torch, kernels, g):
     return rows
 
 
+# ---- phase 19: sequence and pipeline parallelism on two gloo ranks ------
+
+P19_TIMEOUT = 600
+#: (a) / (b)'s model: Llama-3-8B's widths at 2 of its 32 layers (depth
+#: cut: each rank holds every weight, replicated over "seq", beside its
+#: gradients, and the parent's single-device reference runs first)
+P19_LLAMA = dict(LLAMA3_8B, layers=2)
+#: one sequence of 8192 tokens (4096 a rank), 3 SGD steps
+P19_SEQ = 8192
+P19_STEPS = 3
+P19_LR = 0.01
+#: the losses of the two ranks against the single-device run (bf16),
+#: relative, every step (measured at most 3.15e-6)
+P19_RTOL = 1e-4
+#: the logits of a predict on the first batch, before and after the fit,
+#: against the single device's: every position's logsumexp, and the first
+#: P19_PROBE_VOCAB logits at P19_PROBE_AT of the sequence in every row
+#: (both halves: a ring that drops a shard or misweights a merge moves
+#: them)
+P19_PROBE_AT = (0.0, 0.25, 0.5, 0.75, 1.0)
+P19_PROBE_VOCAB = 4096
+#: limits: the logsumexp's largest difference (nats), the rows' largest
+#: difference as a share of their largest value (measured at most 4.91e-4
+#: and 1.57e-2, after the fit; bf16 weights)
+P19_PROBE_TOL = (5e-3, 5e-2)
+#: (c): gpt_pipelined at GPT-2-small widths, batch 8, 4 microbatches over
+#: {"pipe": 2}, 3 SGD steps
+P19_GPT = dict(GPT2_SMALL, batch=8)
+P19_MICRO = 4
+#: (c)'s 1F1B step against GPipe's gradients (f32, TF32 off): the stage
+#: grads within this share of their largest value
+P19_SCHEDULE_TOL = 1e-4
+
+
+def _p19_data(np, vocab: int, rows: int, seq: int, seed: int):
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, vocab, (rows, seq)).astype(np.int32),
+            rs.randint(0, vocab, (rows, seq)).astype(np.int32))
+
+
+def _p19_llama(port, mesh=None, sp_mode: str = "ring"):
+    """(a) / (b)'s Llama (seed 19, bf16 weights and compute, SGD), under
+    ``mesh`` with {"seq": 1} on every op, or on the single-device path."""
+    from flexflow_tpu_torch.models import llama_lm
+    from flexflow_tpu_torch.parallel import ParallelConfig
+
+    cfg = port.FFConfig(batch_size=1, seed=19, compute_dtype="bfloat16",
+                        master_dtype="bfloat16", sp_mode=sp_mode,
+                        mesh_shape=dict(mesh) if mesh else None)
+    ff = port.FFModel(cfg, device="cuda")
+    x, logits = llama_lm(ff, 1, seq_len=P19_SEQ, **P19_LLAMA)
+    if mesh:
+        for op in ff.ops:
+            if op.inputs:
+                cfg.strategies[op.name] = ParallelConfig.from_axis_map(
+                    op.outputs[0].num_dims, mesh, {"seq": 1})
+    ff.compile(port.SGDOptimizer(lr=P19_LR),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+    return ff, x
+
+
+def _p19_gpt(port, mesh=None):
+    """(c)'s gpt_pipelined (seed 19, bf16, SGD), under ``mesh`` or on the
+    single-device path."""
+    from flexflow_tpu_torch.models import gpt_pipelined
+
+    g = P19_GPT
+    cfg = port.FFConfig(batch_size=g["batch"], seed=19,
+                        compute_dtype="bfloat16", master_dtype="bfloat16",
+                        mesh_shape=dict(mesh) if mesh else None)
+    ff = port.FFModel(cfg, device="cuda")
+    x, logits = gpt_pipelined(ff, g["batch"], seq_len=g["seq"],
+                              hidden=g["hidden"], layers=g["layers"],
+                              heads=g["heads"], vocab_size=g["vocab"],
+                              num_microbatches=P19_MICRO)
+    ff.compile(port.SGDOptimizer(lr=P19_LR),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+    return ff, x
+
+
+def _p19_probe(torch, ff, x, tokens) -> dict:
+    """The logits of a predict on ``tokens`` that the probe holds: every
+    position's logsumexp (f32) and the first P19_PROBE_VOCAB logits at
+    P19_PROBE_AT of the sequence in every row, as lists."""
+    with torch.no_grad():
+        lg = ff.predict({x.owner_op.name: tokens})
+        seq = lg.shape[1]
+        lse = torch.cat([torch.logsumexp(c.float(), -1)
+                         for c in lg.split(1024, dim=1)], dim=1)
+        pos = [min(int(f * seq), seq - 1) for f in P19_PROBE_AT]
+        rows = lg[:, pos, :P19_PROBE_VOCAB].float()
+        out = {"lse": lse.cpu().tolist(), "rows": rows.cpu().tolist(),
+               "pos": pos}
+    del lg
+    return out
+
+
+def _p19_fit(torch, port, kernels, ff, x, data, shapes=None) -> dict:
+    """P19_STEPS SGD steps through ``fit`` over the data's batches: the
+    losses, each step's ms (host clock to a synchronize), the launches
+    and local-shard calls of the fit (counts from 0 just before it), the
+    transport's bytes, peak memory, the probe's logits before and after
+    the fit (``_p19_probe`` on the first batch), and with ``shapes`` the
+    q shapes each flash kernel saw and its launches by mask (causal or
+    full)."""
+    from flexflow_tpu_torch import parallel
+
+    port.SingleDataLoader(ff, x, data[0])
+    port.SingleDataLoader(ff, ff.label_tensor, data[1])
+    losses, ms = [], []
+    step = ff._run_train_step
+
+    def recording(batch, inject_nan=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mets = step(batch, inject_nan)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return loss, mets
+
+    # the q shapes each flash wrapper checks before it launches (the
+    # check is a module function the wrappers look up at each call)
+    seen = {"flash_attention_fwd": set(), "flash_attention_bwd": set()}
+    masks = {}
+    check = kernels._check_attention
+
+    def spy(name, q, k, v, causal, *a):
+        seen[name].add(tuple(q.shape))
+        key = f"{name}/{'causal' if causal else 'full'}"
+        masks[key] = masks.get(key, 0) + 1
+        return check(name, q, k, v, causal, *a)
+
+    rows = ff.config.batch_size
+    probe = {"before": _p19_probe(torch, ff, x, data[0][:rows])}
+
+    if shapes:
+        kernels._check_attention = spy
+    ff._run_train_step = recording
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    parallel.reset_local_calls()
+    parallel.reset_transport_stats()
+    try:
+        ff.fit(epochs=1, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ff._run_train_step
+        kernels._check_attention = check
+    rec = {"losses": losses, "step_ms": ms,
+           "launches": kernels.launch_counts(),
+           "local_calls": dict(parallel.LOCAL_SHARD_CALLS),
+           "transport": parallel.transport_stats(),
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "q_fwd": sorted(seen["flash_attention_fwd"]),
+           "q_bwd": sorted(seen["flash_attention_bwd"]), "masks": masks}
+    probe["after"] = _p19_probe(torch, ff, x, data[0][:rows])
+    rec["probe"] = probe
+    return rec
+
+
+def _p19_single(torch, port, kernels, card: str) -> dict:
+    """The references in this process before the ranks start: (a) / (b)'s
+    Llama and (c)'s gpt_pipelined on the single-device path, each freed
+    after its fit."""
+    import numpy as np
+
+    out = {}
+    for key, build, data in (
+            ("llama", lambda: _p19_llama(port),
+             _p19_data(np, P19_LLAMA["vocab_size"], P19_STEPS, P19_SEQ, 19)),
+            ("gpt", lambda: _p19_gpt(port),
+             _p19_data(np, P19_GPT["vocab"], P19_STEPS * P19_GPT["batch"],
+                       P19_GPT["seq"], 20))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ff, x = build()
+        rec = _p19_fit(torch, port, kernels, ff, x, data)
+        rec["s"] = time.perf_counter() - t0
+        out[key] = rec
+        say(f"phase 19 single-device {key}: losses {rec['losses']}, steps "
+            f"{[round(m, 2) for m in rec['step_ms']]} ms, peak "
+            f"{rec['peak_gib']:.2f} GiB, launches {rec['launches']}, "
+            f"{rec['s']:.1f} s [{card}]")
+        del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p19_schedules(torch, port, ff) -> dict:
+    """(c)'s 1F1B step against GPipe over the rank's stage of the
+    pipelined stack (its 6 blocks, f32 copies, TF32 off): a mean-squared
+    loss through a (768, 16) head on 8 rows of (1024, 768) activations,
+    4 microbatches; each schedule's stage gradients, launches and peak
+    memory."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.ops.pipelined import _layers
+    from flexflow_tpu_torch.parallel.pipeline import (pipeline,
+                                                      pipeline_train_1f1b)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = ff.mesh
+    axis = parallel.mesh_axis(mesh, "pipe")
+    g = P19_GPT
+    heads = g["heads"]
+    stacked = {k: parallel.full_tensor(w.detach()).float().reshape(
+        axis.size, -1, *w.shape[1:]) for k, w in ff.params["blocks"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    x = torch.randn(g["batch"], g["seq"], g["hidden"], device="cuda",
+                    generator=gen)
+    lab = torch.randn(g["batch"], g["seq"], 16, device="cuda", generator=gen)
+    wo = torch.randn(g["hidden"], 16, device="cuda", generator=gen) * 0.05
+
+    def stage_fn(p, h):
+        return _layers(p, h, heads, True, True)
+
+    def loss_fn(y, lb, hp):
+        return ((y @ hp["wo"] - lb) ** 2).mean()
+
+    out = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    y = pipeline(stage_fn, leaves, x, mesh, num_microbatches=P19_MICRO)
+    ym, lm = (t.reshape(P19_MICRO, -1, *t.shape[1:]) for t in (y, lab))
+    torch.stack([loss_fn(ym[j], lm[j], {"wo": wo})
+                 for j in range(P19_MICRO)]).mean().backward()
+    torch.cuda.synchronize()
+    gp = {k: v.grad[axis.index] * P19_MICRO for k, v in leaves.items()}
+    out["gpipe"] = {"peak_gib": (torch.cuda.max_memory_allocated() - base)
+                    / 2**30, "launches": kernels.launch_counts()}
+    del leaves, y, ym
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss, g1, _, _ = pipeline_train_1f1b(stage_fn, loss_fn, stacked, x, lab,
+                                         mesh, num_microbatches=P19_MICRO,
+                                         head_params={"wo": wo})
+    torch.cuda.synchronize()
+    out["1f1b"] = {"peak_gib": (torch.cuda.max_memory_allocated() - base)
+                   / 2**30, "launches": kernels.launch_counts(),
+                   "loss": float(loss)}
+    out["grad_err"] = max(
+        ((g1[k][axis.index] - gp[k]).abs().max()
+         / gp[k].abs().max().clamp_min(1e-30)).item()
+        for k in gp if gp[k].abs().max() > 0)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def _p19_child(outdir: str) -> None:
+    """Phase 19's ranks (two gloo ranks sharing the card, started by the
+    port's launcher): (a) the Llama under {"seq": 2}, ring attention; (b)
+    the same under Ulysses; (c) gpt_pipelined under {"pipe": 2}, then one
+    1F1B step against GPipe. Each rank writes ``outdir/pair.<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import flexflow_tpu_torch as port
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.ops import kernels
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if (dist.get_backend(), world) != ("gloo", 2):
+        fail("phase 19: needs 2 gloo ranks")
+    t0 = time.perf_counter()
+    res = {}
+    llama_data = _p19_data(np, P19_LLAMA["vocab_size"], P19_STEPS, P19_SEQ,
+                           19)
+    for mode in ("ring", "ulysses"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ff, x = _p19_llama(port, {"seq": 2}, mode)
+        rec = _p19_fit(torch, port, kernels, ff, x, llama_data, shapes=True)
+        rec["s"] = time.perf_counter() - t1
+        res[mode] = rec
+        say(f"phase 19 rank {rank}: {mode} done at "
+            f"{time.perf_counter() - t0:.1f} s")
+        del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ff, x = _p19_gpt(port, {"pipe": 2})
+    g = P19_GPT
+    rec = _p19_fit(torch, port, kernels, ff, x,
+                   _p19_data(np, g["vocab"], P19_STEPS * g["batch"], g["seq"],
+                             20), shapes=True)
+    rec["stage_layers"] = int(parallel.local(
+        ff.params["blocks"]["w1"]).shape[0])
+    rec["s"] = time.perf_counter() - t1
+    rec["schedules"] = _p19_schedules(torch, port, ff)
+    res["pipe"] = rec
+    say(f"phase 19 rank {rank}: pipe done at {time.perf_counter() - t0:.1f} "
+        f"s")
+    with open(os.path.join(outdir, f"pair.{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def _p19_launch(outdir: Path) -> float:
+    """Start phase 19's two gloo ranks through the port's launcher and
+    wait for them, bounded by P19_TIMEOUT; fails unless each exits 0.
+    Returns the seconds they took."""
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port_no = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["FF_INIT_TIMEOUT_S"] = "300"
+    env["PYTHONFAULTHANDLER"] = "1"
+    logs = [open(outdir / f"pair.{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.launcher",
+         str(ROOT / "chip_smoke.py"), "--device", "cpu",
+         "--num-processes", "2", "--process-id", str(r),
+         "--coordinator", f"127.0.0.1:{port_no}", "--",
+         "--phase19", str(outdir)],
+        cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(2)]
+    late = False
+    try:
+        for p in procs:
+            left = P19_TIMEOUT - (time.perf_counter() - t0)
+            p.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        # SIGABRT first: a rank outliving its bound writes its stacks to
+        # its log (PYTHONFAULTHANDLER)
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGABRT)
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for f in logs:
+        f.close()
+    outs = [(outdir / f"pair.{r}.log").read_text() for r in range(2)]
+    if late:
+        fail(f"phase 19: a rank outlived {P19_TIMEOUT} s:\n"
+             + "\n".join(f"rank {r}:\n{o[-3000:]}"
+                         for r, o in enumerate(outs)))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"phase 19: rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _p19_losses(tag: str, got, want, card: str) -> None:
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    say(f"phase 19 {tag}: losses {got} against the single device's {want}:"
+        f" relative differences {[f'{r:.3g}' for r in rel]} (limit "
+        f"{P19_RTOL} each) [{card}]")
+    if not (len(got) == len(want) == P19_STEPS and all(
+            math.isfinite(v) for v in got) and max(rel) <= P19_RTOL):
+        fail(f"phase 19 {tag}: losses {got} against {want}")
+
+
+def _p19_logits(tag: str, got: dict, want: dict, card: str) -> None:
+    """The probe's logits (``_p19_probe``) against the single device's,
+    before and after the fit, within P19_PROBE_TOL."""
+    import numpy as np
+
+    for when in ("before", "after"):
+        g, w = got[when], want[when]
+        lse_g, lse_w = np.asarray(g["lse"]), np.asarray(w["lse"])
+        rows_g, rows_w = np.asarray(g["rows"]), np.asarray(w["rows"])
+        if lse_g.shape != lse_w.shape or rows_g.shape != rows_w.shape:
+            fail(f"phase 19 {tag}: logits {lse_g.shape} / {rows_g.shape}, "
+                 f"want {lse_w.shape} / {rows_w.shape}")
+        lse_err = float(np.abs(lse_g - lse_w).max())
+        rows_err = float(np.abs(rows_g - rows_w).max()
+                         / np.abs(rows_w).max())
+        say(f"phase 19 {tag}: logits {when} the fit against the single "
+            f"device's: logsumexp of {lse_w.size} positions within "
+            f"{lse_err:.3g} nats, {rows_w.shape} logits at positions "
+            f"{w['pos']} within {rows_err:.3g} of their largest (limits "
+            f"{P19_PROBE_TOL[0]} / {P19_PROBE_TOL[1]}) [{card}]")
+        if not (np.isfinite(lse_g).all() and np.isfinite(rows_g).all()
+                and lse_err <= P19_PROBE_TOL[0]
+                and rows_err <= P19_PROBE_TOL[1]):
+            fail(f"phase 19 {tag}: logits {when} the fit off the single "
+                 f"device's ({lse_err}, {rows_err})")
+
+
+def _p19_say_run(tag: str, r: int, rec: dict, card: str) -> None:
+    t = rec["transport"]
+    say(f"phase 19 {tag} rank {r}: steps "
+        f"{[round(m, 1) for m in rec['step_ms']]} ms, peak "
+        f"{rec['peak_gib']:.2f} GiB, transport {t['p2p_bytes']} B point to "
+        f"point + {t['all_to_all_bytes']} B all-to-all + "
+        f"{t['reduce_bytes']} B reduce / gather / broadcast, "
+        f"{t['staged_bytes']} B in "
+        f"{t['staged_calls']} point-to-point calls staged through host "
+        f"memory (gloo); "
+        f"launches {rec['launches']}, local-shard calls "
+        f"{rec['local_calls']}; q at kernel 1 {rec['q_fwd']}, at kernel 2 "
+        f"{rec['q_bwd']} [{card}]")
+
+
+def phase_sp_pp(torch, port, kernels, card: str):
+    """Phase 19: ring and Ulysses sequence parallelism run kernels 1 and
+    2 on each rank's sequence shard, and the pipelined stack runs GPipe
+    (and a 1F1B step) over a pipe axis, on two gloo ranks sharing the
+    card, each against the single-device run of the same model in this
+    process. Returns {"ring": rank 1's causal launches (its own shard),
+    "ring_full": its full ones (the past shard), "ring0": rank 0's,
+    "ulysses", "pipe": rank 0's}."""
+    t0 = time.perf_counter()
+    single = _p19_single(torch, port, kernels, card)
+    outdir = ROOT / "build" / "phase19"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    pair_s = _p19_launch(outdir)
+    recs = [json.loads((outdir / f"pair.{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(outdir, ignore_errors=True)
+    L = P19_LLAMA["layers"]
+    h, kvh = P19_LLAMA["heads"], P19_LLAMA["kv_heads"]
+    d = P19_LLAMA["hidden"] // h
+    half = P19_SEQ // 2
+
+    # (a) ring: rank 0 attends its own shard (causal), never its future
+    # one; rank 1 its own and rank 0's (full)
+    for r, rec in enumerate(recs):
+        a = rec["ring"]
+        _p19_say_run("(a) ring", r, a, card)
+        _p19_losses(f"(a) ring rank {r}", a["losses"],
+                    single["llama"]["losses"], card)
+        _p19_logits(f"(a) ring rank {r}", a["probe"],
+                    single["llama"]["probe"], card)
+        n = L * P19_STEPS
+        la = a["launches"]
+        if (la["flash_attention_fwd"], la["flash_attention_bwd"]) != (
+                n * (r + 1), n * (r + 1)):
+            fail(f"phase 19 (a) rank {r}: launches {la}, want {n * (r + 1)}"
+                 f" of kernels 1 and 2 ({L} layers x {P19_STEPS} steps x "
+                 f"{r + 1} shards)")
+        # causal on the rank's own shard, full on rank 1's past one
+        want_masks = {f"{k}/{m}": c for k in ("flash_attention_fwd",
+                                              "flash_attention_bwd")
+                      for m, c in (("causal", n), ("full", n * r)) if c}
+        if a["masks"] != want_masks:
+            fail(f"phase 19 (a) rank {r}: launches by mask {a['masks']}, "
+                 f"want {want_masks}")
+        want_q = [[1, half, h, d]]
+        if a["q_fwd"] != want_q or a["q_bwd"] != want_q:
+            fail(f"phase 19 (a) rank {r}: q at the kernels {a['q_fwd']} / "
+                 f"{a['q_bwd']}, want {want_q}")
+        if a["local_calls"].get("ring_attention") != L * P19_STEPS:
+            fail(f"phase 19 (a) rank {r}: ring calls {a['local_calls']}")
+        if a["transport"]["p2p_bytes"] <= 0:
+            fail(f"phase 19 (a) rank {r}: no ring transfer counted")
+    if recs[0]["ring"]["losses"] != recs[1]["ring"]["losses"]:
+        fail("phase 19 (a): the two ranks' losses differ")
+
+    # (b) Ulysses: each rank attends the whole sequence on half the heads
+    for r, rec in enumerate(recs):
+        b = rec["ulysses"]
+        _p19_say_run("(b) ulysses", r, b, card)
+        _p19_losses(f"(b) ulysses rank {r}", b["losses"],
+                    single["llama"]["losses"], card)
+        _p19_logits(f"(b) ulysses rank {r}", b["probe"],
+                    single["llama"]["probe"], card)
+        n = L * P19_STEPS
+        la = b["launches"]
+        want_q = [[1, P19_SEQ, h // 2, d]]
+        if (la["flash_attention_fwd"], la["flash_attention_bwd"]) != (n, n) \
+                or b["q_fwd"] != want_q or b["q_bwd"] != want_q:
+            fail(f"phase 19 (b) rank {r}: launches {la} (want {n} each), q "
+                 f"{b['q_fwd']} / {b['q_bwd']} (want {want_q})")
+        if b["transport"]["all_to_all_bytes"] <= 0:
+            fail(f"phase 19 (b) rank {r}: no all-to-all counted")
+
+    # (c) GPipe over {"pipe": 2}, then the 1F1B step
+    g = P19_GPT
+    per = g["layers"] // 2
+    for r, rec in enumerate(recs):
+        c = rec["pipe"]
+        _p19_say_run("(c) pipe", r, c, card)
+        _p19_losses(f"(c) pipe rank {r}", c["losses"],
+                    single["gpt"]["losses"], card)
+        _p19_logits(f"(c) pipe rank {r}", c["probe"],
+                    single["gpt"]["probe"], card)
+        n = per * P19_MICRO * P19_STEPS
+        la = c["launches"]
+        mb = [[g["batch"] // P19_MICRO, g["seq"], g["heads"],
+               g["hidden"] // g["heads"]]]
+        if (la["flash_attention_fwd"], la["flash_attention_bwd"]) != (n, n) \
+                or c["stage_layers"] != per or c["q_fwd"] != mb \
+                or c["q_bwd"] != mb:
+            fail(f"phase 19 (c) rank {r}: launches {la} (want {n} each: "
+                 f"{per} layers x {P19_MICRO} microbatches x {P19_STEPS} "
+                 f"steps), {c['stage_layers']} layers a stage (want {per}),"
+                 f" q {c['q_fwd']} / {c['q_bwd']} (want {mb})")
+        s = c["schedules"]
+        say(f"phase 19 (c) rank {r}: one step of each schedule, f32, "
+            f"{P19_MICRO} microbatches: GPipe peak "
+            f"{s['gpipe']['peak_gib']:.3f} GiB, launches "
+            f"{s['gpipe']['launches']['flash_attention_fwd']} / "
+            f"{s['gpipe']['launches']['flash_attention_bwd']}; 1F1B peak "
+            f"{s['1f1b']['peak_gib']:.3f} GiB, launches "
+            f"{s['1f1b']['launches']['flash_attention_fwd']} / "
+            f"{s['1f1b']['launches']['flash_attention_bwd']} (its backward "
+            f"recomputes the stage); stage gradients 1F1B vs GPipe: "
+            f"{s['grad_err']:.3g} of their largest (limit "
+            f"{P19_SCHEDULE_TOL}) [{card}]")
+        if not s["grad_err"] <= P19_SCHEDULE_TOL:
+            fail(f"phase 19 (c) rank {r}: 1F1B's stage gradients "
+                 f"{s['grad_err']} from GPipe's")
+    say(f"phase 19: the pair {pair_s:.1f} s, total "
+        f"{time.perf_counter() - t0:.1f} s")
+    # rank 1's launches split by mask: the "_ring" rows' (its own shard,
+    # causal) and the "_ring_full" rows' (rank 0's past shard)
+    m1 = recs[1]["ring"]["masks"]
+    kinds = ("flash_attention_fwd", "flash_attention_bwd")
+    return {"ring": {k: m1.get(f"{k}/causal", 0) for k in kinds},
+            "ring_full": {k: m1.get(f"{k}/full", 0) for k in kinds},
+            "ring0": recs[0]["ring"]["launches"],
+            "ulysses": recs[0]["ulysses"]["launches"],
+            "pipe": recs[0]["pipe"]["launches"]}
+
+
+def sp_pp_kernel_rows(torch, kernels, g):
+    """Kernels 1 and 2 at phase 19's local shapes, bf16: a ring step of
+    (a) — q / k / v (1, 4096, 32, 128), causal on the rank's own shard and
+    full on a past one, the backward given its delta as the ring gives
+    it —, (b)'s Ulysses attention (1, 8192, 16, 128) causal, and (c)'s
+    GPipe microbatch (2, 1024, 12, 64) causal."""
+    h = P19_LLAMA["heads"]
+    d = P19_LLAMA["hidden"] // h
+    rows = flash_training_rows(torch, kernels, g, 1, P19_SEQ // 2, h, d,
+                               "_ring", causal=True, given_delta=True)
+    rows.update(flash_training_rows(torch, kernels, g, 1, P19_SEQ // 2, h, d,
+                                    "_ring_full", given_delta=True))
+    rows.update(flash_training_rows(torch, kernels, g, 1, P19_SEQ, h // 2, d,
+                                    "_ulysses", causal=True))
+    gp = P19_GPT
+    rows.update(flash_training_rows(
+        torch, kernels, g, gp["batch"] // P19_MICRO, gp["seq"], gp["heads"],
+        gp["hidden"] // gp["heads"], "_pipe", causal=True))
+    return rows
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -7134,6 +7734,26 @@ KERNEL_ROWS = {
                                 "paged_attention_fwd"),
     f"paged_prefill_write_layers{WRITE_LAYERS}_tp1": (
         "paged_prefill_write.cu", 779, "tp1", "paged_prefill_write"),
+    # phase 19: a ring step's shapes (the rank's own shard causal, a past
+    # one full; each row's launches rank 1's at its mask, the rank that
+    # attends both), Ulysses' whole sequence on half the heads and GPipe's
+    # microbatch (rank 0's)
+    "flash_attention_fwd_lse_ring": ("flash_attention_wgmma.cu", 180,
+                                     "ring", "flash_attention_fwd"),
+    "flash_attention_bwd_ring": ("flash_attention_bwd_wgmma.cu", 335, "ring",
+                                 "flash_attention_bwd"),
+    "flash_attention_fwd_lse_ring_full": ("flash_attention_wgmma.cu", 180,
+                                          "ring_full", "flash_attention_fwd"),
+    "flash_attention_bwd_ring_full": ("flash_attention_bwd_wgmma.cu", 335,
+                                      "ring_full", "flash_attention_bwd"),
+    "flash_attention_fwd_lse_ulysses": ("flash_attention_wgmma.cu", 180,
+                                        "ulysses", "flash_attention_fwd"),
+    "flash_attention_bwd_ulysses": ("flash_attention_bwd_wgmma.cu", 335,
+                                    "ulysses", "flash_attention_bwd"),
+    "flash_attention_fwd_lse_pipe": ("flash_attention_wgmma.cu", 180,
+                                     "pipe", "flash_attention_fwd"),
+    "flash_attention_bwd_pipe": ("flash_attention_bwd_wgmma.cu", 335, "pipe",
+                                 "flash_attention_bwd"),
 }
 
 #: phase 14's, 15's and 16's rows: the row whose measurement each repeats
@@ -7177,6 +7797,8 @@ def main():
         return _p17_child(sys.argv[2])       # phase 17's rank
     if len(sys.argv) == 4 and sys.argv[1] == "--phase18":
         return _p18_child(sys.argv[2], sys.argv[3])   # phase 18's ranks
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase19":
+        return _p19_child(sys.argv[2])       # phase 19's ranks
     if not (ROOT / "flexflow_tpu_torch" / "__init__.py").is_file():
         fail(f"run from a checkout: {ROOT} holds no flexflow_tpu_torch/")
     sys.path.insert(0, str(ROOT))
@@ -7217,6 +7839,7 @@ def main():
     launches.update(phase_pipeline(torch, port, kernels, card))
     launches.update(phase_strategy(torch, port, kernels, card))
     launches.update(phase_tp(torch, port, kernels, card))
+    launches.update(phase_sp_pp(torch, port, kernels, card))
     say(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name, of in FLEET_ROWS.items():

@@ -5,8 +5,8 @@ Field names, defaults and validation follow the JAX package's
 ``config.py``, so a config written for one package means the same in the
 other. ``not_ported`` is the error of a feature no slice has ported yet,
 naming the ROADMAP item that ports it (the multi-device checkpoint
-layouts and the elastic mesh refit, item 8; sequence parallelism and
-the overlapped gradient sync, item 9; the search, its simulator and the
+layouts and the elastic mesh refit, item 8; the overlapped gradient
+sync, item 9 part 2; the search, its simulator and the
 graph lint passes, item 10).
 
 The mesh fields (``num_devices``, ``mesh_shape``, ``ici_mesh_shape``,
@@ -28,16 +28,20 @@ from flexflow_tpu_torch.ops.sampling import validate_sampling
 #: where the multi-device features are queued
 ROADMAP_MULTI_DEVICE = ("ROADMAP.md queue 1, item 8 (multi-device training "
                         "and serving)")
-#: where sequence parallelism, pipelines and placement are queued
-ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 (parallel attention, "
-                    "pipelines and placement)")
+#: where placement, expert parallelism and the sharded optimizer state
+#: are queued (sequence parallelism and the pipelines are ported)
+ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 part 2 (placement, expert "
+                    "parallelism and sharded optimizer state)")
 #: where the strategy search, its simulator and the graph lint are queued
 ROADMAP_SEARCH = "ROADMAP.md queue 1, item 10 (the strategy search)"
+
+#: the sequence-parallel lowerings of an attention whose sequence dim a
+#: strategy shards (``FFConfig.sp_mode``)
+SP_MODES = ("ring", "ulysses")
 
 #: fields of later items: (JAX default, the item that ports them); a
 #: value other than the default raises ``not_ported`` naming the item
 _LATER_FIELDS = {
-    "sp_mode": ("ring", ROADMAP_PARALLEL),
     "overlap_grad_sync": (False, ROADMAP_PARALLEL),
     "search_budget": (0, ROADMAP_SEARCH),
     "search_alpha": (0.05, ROADMAP_SEARCH),
@@ -87,9 +91,11 @@ class FFConfig:
     # imported at compile before the mesh is built; exported at compile
     import_strategy_file: str = ""
     export_strategy_file: str = ""
+    # the lowering of an attention whose sequence dim a strategy shards:
+    # "ring" (parallel/ring_attention.py) or "ulysses"
+    sp_mode: str = "ring"
     # fields of later items (see _LATER_FIELDS): JAX's defaults, any other
     # value refused
-    sp_mode: str = "ring"
     overlap_grad_sync: bool = False
     search_budget: int = 0
     search_alpha: float = 0.05
@@ -309,6 +315,9 @@ class FFConfig:
             if getattr(self, field) != default:
                 raise not_ported(f"FFConfig.{field}={getattr(self, field)!r}",
                                  where)
+        if self.sp_mode not in SP_MODES:
+            raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got "
+                             f"{self.sp_mode!r}")
         if self.strategy_lint not in ("off", "warn", "strict"):
             raise ValueError(
                 f"strategy_lint={self.strategy_lint!r}: must be 'off', "

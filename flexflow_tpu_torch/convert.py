@@ -29,7 +29,8 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
     raises ``ValueError``. A tied model's destination weight has no leaf in
     either package (``FFModel.tie_weights``). A ``model`` under a mesh
     gets DTensors under its weights' placements: each rank keeps its
-    slice of JAX's whole arrays."""
+    slice of JAX's whole arrays (its stage's layers of a stacked weight
+    under a STAGE axis, the whole of a weight replicated over "seq")."""
     if model is not None:
         _check_against(params, model.weight_shapes())
     tree = {op: {w: torch.tensor(np.asarray(a), dtype=dtype, device=device)

@@ -25,6 +25,11 @@ ops with autograd: the einsum branch, or past ``BLOCKWISE_SEQ_THRESHOLD``
 positions with equal head dims the blockwise online-softmax scan
 (``blockwise_attention``).
 
+Under a strategy that shards the sequence dim, ``forward`` lowers to ring
+or Ulysses attention over that mesh axis (``FFConfig.sp_mode``;
+``parallel/ring_attention.py``): kernels 1 and 2 on each rank's shard of
+the sequence, the RoPE tables built for the rank's own positions.
+
 A prefix-cache hit prefills its tail with ``chunk_forward`` and scores its
 last token with ``query_forward``: the grouped einsum attention, as in the
 JAX package (no kernel there either). The pool is updated in place (the
@@ -45,8 +50,10 @@ from flexflow_tpu_torch.ops.base import Op, WeightSpec
 from flexflow_tpu_torch.ops.norm import dropout
 from flexflow_tpu_torch.parallel import (head_layout, is_dtensor,
                                          keep_shards, local_shard,
-                                         note_local_call, reduce_partial,
-                                         rows_matmul, shard_generator)
+                                         local_slice, mesh_axis,
+                                         mesh_shape_dict, note_local_call,
+                                         reduce_partial, rows_matmul,
+                                         shard_entries, shard_generator)
 
 
 # ---- quantized KV-page storage (the JAX package's attention.py:67-134) ---
@@ -472,6 +479,8 @@ class MultiHeadAttention(Op):
                 vh = vh + params["bias_v"]
         if self.rope:
             x = q if qh is not None else k
+            if rope is None and is_dtensor(x):
+                rope = self._sharded_rope(x, rope_offset)
             if rope is None:
                 rope = rope_tables(self.rope_theta, x.shape[1],
                                    self.qk_head_dim, rope_offset, x.device)
@@ -480,6 +489,27 @@ class MultiHeadAttention(Op):
             if kh is not None:
                 kh = _apply_rope(kh, self.rope_theta, tables=rope)
         return qh, kh, vh
+
+    def _sharded_rope(self, x, offset: int):
+        """The ``rope_tables`` of a DTensor ``x`` whose sequence dim is
+        sharded: each rank computes the angles of its own global positions
+        only, wrapped as a DTensor split like ``x``'s positions (a plain
+        table of the whole length would meet the shards as a replicated
+        value, and no rank holds the sequence). None when the positions
+        are not split."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = x.device_mesh
+        pl = [Shard(1) if p.is_shard(1) else Replicate()
+              for p in x.placements]
+        if not any(p.is_shard() for p in pl):
+            return None
+        pos = local_slice(x.shape, mesh, pl)[1]
+        tables = rope_tables(self.rope_theta, pos.stop - pos.start,
+                             self.qk_head_dim, offset + pos.start,
+                             x.to_local().device)
+        return tuple(DTensor.from_local(t, mesh, pl, run_check=False)
+                     for t in tables)
 
     def _broadcast_kv(self, kh, vh, heads: int = 0):
         """GQA: repeat each kv head over its query group (as
@@ -515,9 +545,75 @@ class MultiHeadAttention(Op):
     def forward(self, params, xs, *, training=False, gen=None):
         qh, kh, vh = self._project_qkv(params, xs[0], xs[1], xs[2])
         kh, vh = self._broadcast_kv(kh, vh)
-        attend = (self._sharded_attention if is_dtensor(qh)
-                  else self._dense_attention)
-        return [self._out_proj(params, attend(qh, kh, vh, training, gen))]
+        if not is_dtensor(qh):
+            ctx = self._dense_attention(qh, kh, vh, training, gen)
+        else:
+            seq = self._seq_axes(qh.device_mesh)
+            ctx = (self._sp_attention(qh, kh, vh, seq, training, gen) if seq
+                   else self._sharded_attention(qh, kh, vh, training, gen))
+        return [self._out_proj(params, ctx)]
+
+    def _seq_axes(self, mesh) -> List[str]:
+        """The mesh axes of more than one device this op's axis map sends
+        to the sequence dim (the JAX forward's ``seq_axes``)."""
+        sizes = mesh_shape_dict(mesh)
+        am = self.model.executor.op_axis_map(self)
+        return [ax for ax, d in am.items() if d == 1 and sizes.get(ax, 1) > 1]
+
+    def _sp_attention(self, qh, kh, vh, seq_axes, training, gen=None):
+        """Sequence-parallel attention (the JAX ``_sp_attention``,
+        attention.py:838-885): ring attention (``FFConfig.sp_mode``
+        "ring") or Ulysses over the one mesh axis that shards the
+        sequence dim, on each rank's local shards (``parallel.
+        local_shard``): its positions, and its batch rows and heads where
+        the axis map splits those too (each degrading alone when it does
+        not divide, as on the dense path). Attention dropout draws inside
+        the recurrence from the generator of this rank's shard
+        (``parallel.shard_generator``), one seed a call, folded per ring
+        step or key block."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        from flexflow_tpu_torch.parallel.ring_attention import (
+            ring_attention, ulysses_attention)
+
+        mode = self.model.config.sp_mode
+        if len(seq_axes) > 1:
+            raise ValueError(
+                f"sequence dim sharded over multiple mesh axes {seq_axes}; "
+                f"ring/ulysses attention needs a single 'seq' axis — merge "
+                f"them in the mesh or adjust the strategy")
+        mesh = qh.device_mesh
+        seq = seq_axes[0]
+        axis = mesh_axis(mesh, seq)
+        if qh.shape[1] % axis.size or kh.shape[1] % axis.size:
+            raise ValueError(
+                f"{self.name}: sequence lengths {qh.shape[1]} / "
+                f"{kh.shape[1]} not divisible by the {seq!r} axis's "
+                f"{axis.size} devices")
+        ent = shard_entries(mesh_shape_dict(mesh),
+                            self.model.executor.op_axis_map(self), qh.shape,
+                            (0, 2))
+        pl = [Shard(1) if n == seq else Shard(0) if n in ent[0]
+              else Shard(2) if n in ent[2] else Replicate()
+              for n in mesh.mesh_dim_names]
+        use_dropout = training and self.dropout > 0.0 and gen is not None
+        g = shard_generator(gen, mesh, pl) if use_dropout else None
+        rate = self.dropout if use_dropout else 0.0
+        cfg = getattr(self.model, "config", None)
+        flash = None if getattr(cfg, "use_flash_attention", True) else False
+        fn = ring_attention if mode == "ring" else ulysses_attention
+
+        def attend(q, k, v):
+            seed = None
+            if g is not None:
+                seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (),
+                                     dtype=torch.int64, device=q.device,
+                                     generator=g)
+            return fn(q, k, v, axis, self.causal, self.scale, rate, seed,
+                      use_flash=flash)
+
+        return local_shard(attend, (qh, kh, vh), (pl, pl, pl),
+                           f"{mode}_attention")
 
     def _sharded_attention(self, qh, kh, vh, training, gen=None):
         """The dense path on DTensor q / k / v (a strategy's run): each
@@ -593,7 +689,7 @@ class MultiHeadAttention(Op):
     _contracted_output_dims = (2,)  # the hidden dim comes from wo
 
     def partitionable_output_dims(self):
-        # batch, seq (ring attention, item 9), hidden (head split)
+        # batch, seq (ring / Ulysses attention), hidden (head split)
         return [0, 1, 2]
 
     def single_axis_dims(self):

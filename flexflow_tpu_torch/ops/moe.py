@@ -199,7 +199,7 @@ class MoE(Op):
     def weight_partition(self, axis_map):
         """EXPERT axes shard the expert dim of w_in / w_out; without one a
         mesh axis literally named 'expert' that divides the experts does
-        (the JAX convention). Running expert parallelism is item 9."""
+        (the JAX convention). Running expert parallelism is item 9 part 2."""
         from flexflow_tpu_torch.parallel.pconfig import EXPERT
 
         eaxes = [ax for ax, d in (axis_map or {}).items() if d == EXPERT]

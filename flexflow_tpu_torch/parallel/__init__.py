@@ -19,8 +19,9 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from flexflow_tpu_torch.parallel.mesh import (default_mesh,  # noqa: F401
-                                              make_mesh, mesh_shape_dict)
+from flexflow_tpu_torch.parallel.mesh import (MeshAxis,  # noqa: F401
+                                              default_mesh, make_mesh,
+                                              mesh_axis, mesh_shape_dict)
 from flexflow_tpu_torch.parallel.pconfig import (CONTRACT,  # noqa: F401
                                                  EXPERT, STAGE,
                                                  ParallelConfig)
@@ -253,11 +254,48 @@ def rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``matmul`` itself folds to, so the same kernel and bits. DTensor caches
     mm's sharding; in torch 2.11 it re-propagated ``aten.matmul`` through
     fake tensors at every call (~3 ms a call on the card's host, most of a
-    mesh engine's decode step)."""
+    mesh engine's decode step). A DTensor ``x`` sharded on a dim between
+    the first and the last (a sequence-parallel activation) multiplies
+    each rank's rows locally (``_local_rows_matmul``): flattening would
+    need DTensor to gather that dim first."""
     if not (is_dtensor(x) or is_dtensor(w)) or x.dim() < 2:
         return torch.matmul(x, w)
+    if is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.dim() - 1
+                             for p in x.placements):
+        y = _local_rows_matmul(x, w)
+        if y is not None:
+            return y
     y = torch.mm(x.reshape(-1, x.shape[-1]), w)
     return y.view(*x.shape[:-1], w.shape[-1])
+
+
+def _local_rows_matmul(x, w):
+    """``x @ w`` on each rank's local shards, for the layouts whose
+    product needs no collective: per mesh dim, rows of ``x`` split (``w``
+    replicated), ``w`` split on its columns (``x`` replicated: the output
+    split on its last dim), both split on the contraction (a partial sum),
+    or neither. None for any other layout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last = x.dim() - 1
+    wpl = (w.placements if is_dtensor(w)
+           else [Replicate()] * x.device_mesh.ndim)
+    out = []
+    for px, pw in zip(x.placements, wpl):
+        if px.is_shard() and px.dim < last and pw.is_replicate():
+            out.append(px)
+        elif px.is_replicate() and pw.is_replicate():
+            out.append(Replicate())
+        elif px.is_replicate() and pw.is_shard(1):
+            out.append(Shard(last))
+        elif px.is_shard(last) and pw.is_shard(0):
+            out.append(Partial())
+        else:
+            return None
+    return local_shard(torch.matmul, (x, w),
+                       (list(x.placements),
+                        list(wpl) if is_dtensor(w) else None),
+                       "rows_matmul", out_placements=out)
 
 
 def replicate(t, mesh):
@@ -355,3 +393,213 @@ def head_layout(op, mesh=None, axis_map=None) -> HeadLayout:
         return HeadLayout(q0, qn, (q0 // g,), (q0 // g,), qn)
     kv = tuple(i // g for i in range(q0, q0 + qn))
     return HeadLayout(q0, qn, kv, kv, 1)
+
+
+# ---- per-axis collectives (ring / Ulysses attention and the pipeline
+# schedules) -------------------------------------------------
+#
+# c10d's point-to-point, all-to-all, all-reduce, all-gather and broadcast
+# over one mesh axis's group (the JAX package's ``lax.ppermute``,
+# ``lax.all_to_all`` and ``lax.psum`` inside ``shard_map``), the first two
+# with their gradients. They go through c10d, never
+# ``torch.distributed._functional_collectives`` (whose wait crashed on
+# gloo's CUDA path, ``mesh.route_gloo_cuda_collectives``). gloo takes CUDA
+# tensors in its collectives but refuses them point to point ("writev:
+# Bad address", ranks sharing one card, which NCCL refuses): there
+# ``exchange`` stages them through pinned host buffers — chosen from the
+# group's backend, and counted (``transport_stats``); an NCCL group sends
+# device tensors.
+
+#: bytes this process sent point to point (``exchange``), by all-to-all
+#: and by the axis all-reduce / all-gather / broadcast, and of the
+#: point-to-point ones
+#: those staged through host memory and the calls that staged them
+TRANSPORT: Dict[str, int] = collections.Counter()
+
+
+def transport_stats() -> Dict[str, int]:
+    """{"p2p_bytes", "all_to_all_bytes", "reduce_bytes", "staged_bytes",
+    "staged_calls"} since the last ``reset_transport_stats``."""
+    with _CALLS_LOCK:
+        return {k: int(TRANSPORT[k]) for k in
+                ("p2p_bytes", "all_to_all_bytes", "reduce_bytes",
+                 "staged_bytes", "staged_calls")}
+
+
+def reset_transport_stats() -> None:
+    with _CALLS_LOCK:
+        TRANSPORT.clear()
+
+
+def _note_transport(kind: str, nbytes: int, staged: bool = False) -> None:
+    with _CALLS_LOCK:
+        TRANSPORT[kind] += nbytes
+        if staged:
+            TRANSPORT["staged_bytes"] += nbytes
+            TRANSPORT["staged_calls"] += 1
+
+
+def host_staged(axis: MeshAxis, device: torch.device) -> bool:
+    """Whether point-to-point transfers of tensors on ``device`` cross
+    ``axis`` through host memory: CUDA tensors in a gloo group."""
+    import torch.distributed as dist
+
+    return device.type == "cuda" and dist.get_backend(axis.group) == "gloo"
+
+
+def exchange(axis: MeshAxis, sends: Sequence[Tuple[int, torch.Tensor]],
+             recvs: Sequence[Tuple[int, torch.Tensor]]) -> list:
+    """One round of point-to-point transfers over ``axis``: each
+    (index, tensor) of ``sends`` goes to the rank at that index of the
+    axis, and each (index, like) of ``recvs`` receives a tensor of
+    ``like``'s shape, dtype and device from that index — all posted at
+    once (``batch_isend_irecv``), so the order of the ranks' calls cannot
+    deadlock, and each peer's messages pair in the order they are listed.
+    A transfer to this rank itself is a copy. Returns the received
+    tensors in ``recvs``'s order. Every wait is bounded by the group's
+    timeout."""
+    import torch.distributed as dist
+
+    out = [None] * len(recvs)
+    own = [t for i, t in sends if i % axis.size == axis.index]
+    ops, landing = [], []
+    for i, t in sends:
+        if i % axis.size == axis.index:
+            continue
+        staged = host_staged(axis, t.device)
+        if staged:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+        else:
+            buf = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, buf, axis.peer(i), axis.group))
+        _note_transport("p2p_bytes", t.numel() * t.element_size(), staged)
+    for j, (i, like) in enumerate(recvs):
+        if i % axis.size == axis.index:
+            out[j] = own.pop(0).clone()
+            continue
+        buf = (torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+               if host_staged(axis, like.device) else torch.empty_like(
+                   like, memory_format=torch.contiguous_format))
+        ops.append(dist.P2POp(dist.irecv, buf, axis.peer(i), axis.group))
+        landing.append((j, buf, like.device))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    for j, buf, dev in landing:
+        out[j] = buf.to(dev)
+    return out
+
+
+def permute(xs: Sequence[torch.Tensor], axis: MeshAxis,
+            perm: Sequence[Tuple[int, int]]) -> list:
+    """``lax.ppermute`` of each tensor of ``xs`` over ``axis`` (no
+    gradient): ``perm`` lists (source, destination) indices; a rank no
+    source sends to gets zeros."""
+    me = axis.index
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    got = exchange(axis, [(d, x) for d in dst for x in xs],
+                   [(s, x) for s in src for x in xs])
+    if not src:
+        return [torch.zeros_like(x) for x in xs]
+    return got
+
+
+class _PPermute(torch.autograd.Function):
+    """``permute`` with its gradient: the cotangents travel the inverse
+    permutation."""
+
+    @staticmethod
+    def forward(ctx, axis, perm, *xs):
+        ctx.axis, ctx.perm = axis, tuple(perm)
+        return tuple(permute(xs, axis, perm))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        inv = [(d, s) for s, d in ctx.perm]
+        return (None, None) + tuple(permute(gs, ctx.axis, inv))
+
+
+def ppermute(xs, axis: MeshAxis, perm: Sequence[Tuple[int, int]]):
+    """Differentiable ``lax.ppermute`` of a tensor or a tuple of tensors
+    (one round of transfers for all of them) over ``axis``."""
+    single = isinstance(xs, torch.Tensor)
+    out = _PPermute.apply(axis, perm, *((xs,) if single else xs))
+    return out[0] if single else out
+
+
+def _all_to_all(x: torch.Tensor, axis: MeshAxis, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = axis.size
+    if n == 1:
+        return x
+    inp = torch.stack(torch.chunk(x, n, dim=split_dim)).contiguous()
+    _note_transport("all_to_all_bytes", inp.numel() * inp.element_size())
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=axis.group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split_dim, concat_dim):
+        ctx.args = (axis, split_dim, concat_dim)
+        return _all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, split_dim, concat_dim = ctx.args
+        return (_all_to_all(g.contiguous(), axis, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis: MeshAxis, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Differentiable ``lax.all_to_all(x, axis, split_dim, concat_dim,
+    tiled=True)``: ``x`` splits into ``axis.size`` chunks along
+    ``split_dim``, chunk i goes to index i, and the chunks received are
+    concatenated along ``concat_dim`` in index order
+    (``all_to_all_single``). Its gradient is the inverse swap."""
+    return _AllToAll.apply(x, axis, split_dim, concat_dim)
+
+
+def axis_all_reduce(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` (``lax.psum``; no gradient), on
+    every rank of it."""
+    import torch.distributed as dist
+
+    if axis.size == 1:
+        return x
+    buf = x.contiguous().clone()
+    _note_transport("reduce_bytes", buf.numel() * buf.element_size())
+    dist.all_reduce(buf, group=axis.group)
+    return buf
+
+
+def axis_broadcast(x: torch.Tensor, axis: MeshAxis, src: int) -> torch.Tensor:
+    """The index ``src``'s ``x`` on every rank of ``axis``, written into
+    ``x`` (contiguous) on the others (no gradient)."""
+    import torch.distributed as dist
+
+    if axis.size == 1:
+        return x
+    _note_transport("reduce_bytes", x.numel() * x.element_size())
+    dist.broadcast(x, src=axis.peer(src), group=axis.group)
+    return x
+
+
+def axis_all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated on dim 0 in index
+    order (no gradient)."""
+    import torch.distributed as dist
+
+    if axis.size == 1:
+        return x
+    buf = x.contiguous()
+    _note_transport("reduce_bytes", buf.numel() * buf.element_size())
+    out = buf.new_empty((axis.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, buf, group=axis.group)
+    return out

@@ -18,7 +18,7 @@ axes that talk most ('model', 'seq') join the nearest ranks.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,7 +47,7 @@ def make_mesh(shape: Dict[str, int], device_type: str = "cpu"):
     (names outside it after, sorted). It needs as many ranks as its
     devices: a mesh larger than the world raises, as the JAX ``make_mesh``
     does for missing devices; one smaller than the world (a rank subset)
-    raises too — subsets come with placement (ROADMAP item 9)."""
+    raises too — subsets come with placement (ROADMAP item 9 part 2)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     axes = [a for a in AXIS_ORDER if a in shape and shape[a] > 0]
@@ -62,11 +62,17 @@ def make_mesh(shape: Dict[str, int], device_type: str = "cpu"):
         raise ValueError(
             f"mesh {shape} uses {n} of the {have} ranks of this process "
             f"group; a mesh over a subset of the ranks is not ported "
-            f"(ROADMAP item 9, placement)")
+            f"(ROADMAP item 9 part 2, placement)")
     if not axes:
         axes, sizes = ["data"], [1]
-    if device_type == "cuda" and dist.get_backend() == "gloo":
-        route_gloo_cuda_collectives()
+    if device_type == "cuda":
+        # DeviceMesh sets an uninitialised CUDA context to the card of
+        # LOCAL_RANK; gloo ranks sharing one card (LOCAL_RANK 1 of one
+        # card) would then die there while the others wait in new_group.
+        # The context is the current device's (the launcher's choice).
+        torch.cuda.init()
+        if dist.get_backend() == "gloo":
+            route_gloo_cuda_collectives()
     return DeviceMesh(device_type, torch.arange(n).reshape(sizes),
                       mesh_dim_names=tuple(axes))
 
@@ -133,3 +139,28 @@ def default_mesh(num_devices: Optional[int] = None,
 
 def mesh_shape_dict(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+class MeshAxis(NamedTuple):
+    """One axis of a mesh as this rank sees it (JAX's ``axis_name`` inside
+    ``shard_map``): the process group of the ranks that differ from this
+    one on that axis only, this rank's index on it (``lax.axis_index``),
+    its size, and the global rank of each index (a c10d peer)."""
+
+    name: str
+    group: object
+    index: int
+    size: int
+    ranks: Tuple[int, ...]
+
+    def peer(self, index: int) -> int:
+        return self.ranks[index % self.size]
+
+
+def mesh_axis(mesh, name: str) -> MeshAxis:
+    """The ``MeshAxis`` of axis ``name`` of ``mesh`` for this rank
+    (``DeviceMesh.get_group``)."""
+    group = mesh.get_group(name)
+    return MeshAxis(name, group, mesh.get_local_rank(name),
+                    mesh.size(mesh.mesh_dim_names.index(name)),
+                    tuple(dist.get_process_group_ranks(group)))

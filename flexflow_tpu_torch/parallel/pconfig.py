@@ -74,7 +74,7 @@ class ParallelConfig:
     @staticmethod
     def host(ndims: int) -> "ParallelConfig":
         """Host (CPU) placement, degree 1 (the reference's heterogeneous
-        DLRM embeddings). The port records it; running it is item 9's
+        DLRM embeddings). The port records it; running it is item 9 part 2's
         placement executor."""
         return ParallelConfig(dims=(1,) * ndims, device_ids=(0,),
                               axis_map={}, device_type="CPU")

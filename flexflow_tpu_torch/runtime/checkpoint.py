@@ -53,7 +53,7 @@ calls. The meta records ``mesh_shape``, ``num_devices``,
 the model's strategy table. A restore reads ``state.pt`` memory-mapped on
 every rank and copies each rank's slice into its live shards
 (``parallel.copy_full_into``): a checkpoint restores onto any mesh, or
-none. The sharded-fused optimizer layout is ROADMAP item 9's.
+none. The sharded-fused optimizer layout is ROADMAP item 9 part 2's.
 """
 
 from __future__ import annotations

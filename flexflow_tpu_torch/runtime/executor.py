@@ -37,9 +37,13 @@ on "data", else replicated), the weights are DTensors under their ops'
 ``weight_partition`` (with ``FFConfig.fsdp_axis``, ``_with_fsdp``), gathered
 to it at use, and every op's outputs are redistributed to the placements
 of its axis map after it runs (``with_sharding_constraint``'s analog).
-Each rank holds the rows of the global batch its "data" coordinate owns;
-the loss and the metrics are the global batch's on every rank, so the
-guard's verdict and the loss scale agree everywhere. The kernels run on
+Each rank holds the rows of the global batch its "data" coordinate owns
+(and, where a strategy shards the sequence dim, its positions: attention
+lowers to ring or Ulysses attention, ``parallel/ring_attention.py``; a
+STAGE axis runs the pipelined stack's GPipe schedule,
+``parallel/pipeline.py``); the loss and the metrics are the global
+batch's on every rank, so the guard's verdict and the loss scale agree
+everywhere. The kernels run on
 local shards (``parallel.local_shard``), and the update on each rank's
 local shards of the weights, gradients and optimizer state. Nothing of
 the single-device path changes when there is no mesh.
@@ -252,21 +256,14 @@ def spec_placements(spec: tuple, mesh, shape) -> list:
 
 def _refuse_later_strategies(op, am: Dict[str, Optional[int]],
                              mesh_shape: Dict[str, int]) -> None:
-    """Strategies of item 9 raise ``not_ported`` naming it instead of
-    running: a STAGE (pipeline) or EXPERT axis of more than one device,
-    and an attention (or pipelined stack) whose sequence dim is sharded
-    (ring / Ulysses attention)."""
+    """Strategies of item 9 part 2 raise ``not_ported`` naming it instead
+    of running: an EXPERT axis of more than one device. (A STAGE axis runs
+    the pipelined stack's GPipe schedule, a sharded sequence dim ring or
+    Ulysses attention.)"""
     for ax, d in am.items():
-        if mesh_shape.get(ax, 1) <= 1:
-            continue
-        if d in (STAGE, EXPERT):
-            raise not_ported(
-                f"{op.name}: the {'STAGE' if d == STAGE else 'EXPERT'} "
-                f"strategy on mesh axis {ax!r}", ROADMAP_PARALLEL)
-        if d is not None and d in op.single_axis_dims():
-            raise not_ported(
-                f"{op.name}: sharding its sequence dim over {ax!r} (ring / "
-                f"Ulysses attention)", ROADMAP_PARALLEL)
+        if d == EXPERT and mesh_shape.get(ax, 1) > 1:
+            raise not_ported(f"{op.name}: the EXPERT strategy on mesh axis "
+                             f"{ax!r}", ROADMAP_PARALLEL)
 
 
 def _zeros(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -660,36 +657,54 @@ class GraphExecutor:
                      metric_types: Sequence[MetricsType], training: bool):
         """(loss, metrics, logits) of the global batch on every rank (the
         strategy path). The logits are brought to the batch's layout
-        (rows over "data", replicated elsewhere); each rank's loss over
-        its rows, scaled by its share of them, is summed over the ranks
-        holding other rows — the global batch's mean, every loss being a
-        mean over rows of equal count a rank. Count metrics
-        (``*_count`` / ``*_total``) sum over those ranks, the means
-        average, and ``rmse_loss`` averages its square (the mean squared
-        error) and takes the root of the global mean. The logits come back
-        as the DTensor."""
+        (rows over "data", replicated elsewhere), keeping a sharded
+        sequence dim of per-position logits (a sequence-parallel LM's:
+        each rank then holds its positions, and takes its labels' slice);
+        each rank's loss over its rows and positions, scaled by its share
+        of them, is summed over the ranks holding others — the global
+        batch's mean over every position, as JAX's GSPMD computes it,
+        every loss being a mean over rows (and positions) of equal count a
+        rank (``LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE`` sums its positions:
+        scaled by the row share only). Count metrics (``*_count`` /
+        ``*_total``) sum over those ranks, the means average, and
+        ``rmse_loss`` averages its square (the mean squared error) and
+        takes the root of the global mean. The logits come back as the
+        DTensor."""
         import torch.distributed as dist
+        from torch.distributed.tensor import Shard
 
         deg = self._batch_degree()
         dd = self.data_dims() if deg > 1 else []
-        rows = logits.redistribute(self.mesh, self.input_placements(deg > 1))
+        pl = self.input_placements(deg > 1)
+        seq = [i for i, p in enumerate(logits.placements)
+               if i not in dd and logits.dim() >= 3 and p.is_shard(1)]
+        for i in seq:
+            pl[i] = Shard(1)
+        rows = logits.redistribute(self.mesh, pl)
         mine = rows.to_local()
+        if seq:
+            positions = parallel.local_slice(logits.shape, self.mesh, pl)[1]
+            labels = labels[:, positions]
+        ranks = deg * math.prod(self.mesh.size(i) for i in seq)
+        over = sorted(dd + seq)
         loss = compute_loss(loss_type, mine, labels)
-        if deg > 1:
-            loss = parallel.sum_over(loss / deg, self.mesh, dd, root=True)
+        if ranks > 1:
+            share = (deg if loss_type ==
+                     LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE else ranks)
+            loss = parallel.sum_over(loss / share, self.mesh, over, root=True)
         if training:
             for t in self.model._aux_tensors:
                 loss = loss + parallel.full_tensor(vals[t])
         mets = batch_metrics(loss_type, metric_types, mine.detach(), labels,
                              self.model.config.metrics_ignore_index)
-        if deg > 1 and mets:
+        if ranks > 1 and mets:
             keys = sorted(mets)
             flat = torch.stack([mets[k].double() ** 2 if k == "rmse_loss"
                                 else mets[k].double() for k in keys])
-            for i in dd:
+            for i in over:
                 dist.all_reduce(flat, group=self.mesh.get_group(i))
             glob = {k: (flat[j] if k.endswith(("_count", "_total"))
-                        else flat[j] / deg) for j, k in enumerate(keys)}
+                        else flat[j] / ranks) for j, k in enumerate(keys)}
             if "rmse_loss" in glob:
                 glob["rmse_loss"] = glob["rmse_loss"].sqrt()
             mets = {k: v.to(mets[k].dtype) for k, v in glob.items()}

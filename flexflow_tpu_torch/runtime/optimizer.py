@@ -225,7 +225,7 @@ class FusedUpdate(Optimizer):
     def init_state(self, params: Tree) -> Dict:
         """Flat state vectors of each dtype bucket; under a mesh of this
         rank's local shards (the flat cross-mesh layout of the JAX
-        ``ShardedFusedUpdate`` is item 9's)."""
+        ``ShardedFusedUpdate`` is item 9 part 2's)."""
         params = local_tree(params)
         state = {}
         for n in self.moment_names():

@@ -71,10 +71,24 @@ the flagship under the Megatron strategy (with fsdp_axis="data", which
 places nothing on a one-device axis) equals the single-device path (f32,
 1e-5) with its kernel launches, each reached through the local-shard
 wrapper; a kernel wrapper refuses a DTensor.
+
+Sequence and pipeline parallelism on the card (two gloo ranks sharing it,
+``tests/torch_sp_worker.py`` / ``tests/torch_pp_worker.py`` through the
+port's launcher; NCCL puts no two ranks of a communicator on one card):
+the ring through kernels 1 and 2 against the torch-op ring on the same
+CUDA shards (f32 within 1e-5 of the output, gradients within 1e-4 of
+their largest value; bf16 within 2e-2 of each), the exact launches on
+each rank — none for a causal ring's future shard —, Ulysses with its
+all-to-alls between the gloo ranks (the ring's point-to-point transfers
+staged through host memory, counted), a head dim the kernels refuse
+raising in the ring rather than running it in torch ops, and a
+checkpoint of a stage-sharded stack saved by two ranks restored bitwise
+into one process.
 """
 
 import ctypes
 import math
+import os
 
 import pytest
 import torch
@@ -3556,3 +3570,170 @@ def test_dtensor_given_to_a_kernel_wrapper_raises(world_of_one):
     out = kernels.flash_attention_fwd(q, q, q, False, 0.125)
     assert kernels.launch_counts()["flash_attention_fwd"] == \
         before["flash_attention_fwd"] + 1 and out.is_cuda
+
+
+# ---- sequence and pipeline parallelism across two gloo ranks -----------
+
+
+def _two_ranks(tmp_path, worker: str, scenarios, data, marker: str):
+    """Start two gloo ranks of ``tests/<worker>`` on ``scenarios`` and
+    ``data`` and return each scenario's records."""
+    import json
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_ranks
+
+    d = str(tmp_path)
+    np.savez(os.path.join(d, "data.npz"), **data)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump({"scenarios": scenarios}, f)
+    procs = torch_ranks.spawn(os.path.join(torch_ranks.REPO, "tests",
+                                           worker), d, 2)
+    try:
+        torch_ranks.wait(procs, marker, 240)
+    finally:
+        torch_ranks.kill(procs)
+    return {sc["name"]: [dict(np.load(os.path.join(d, f"{sc['name']}.{r}"
+                                                      f".npz")))
+                         for r in range(2)] for sc in scenarios}, d
+
+
+@pytest.fixture(scope="module")
+def sp_card(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: two gloo ranks share the card")
+    import numpy as np
+
+    rs = np.random.RandomState(19)
+    data = {n: rs.randn(1, 512, 4, 128).astype(np.float32)
+            for n in ("cq", "ck", "cv", "cdo")}
+    recs, _ = _two_ranks(tmp_path_factory.mktemp("sp_card"),
+                         "torch_sp_worker.py",
+                         [dict(name="card", mode="card", world=2)], data,
+                         "TORCH-SP")
+    return recs["card"]
+
+
+def _scaled(got, want, tol):
+    import numpy as np
+
+    assert np.abs(got - want).max() <= tol * np.abs(want).max() + 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_on_card_matches_plain_ring(sp_card, dtype, causal):
+    """The ring through kernels 1 and 2 on each rank's CUDA shard of q / k
+    / v (1, 256, 4, 128) equals the torch-op ring on the same shards,
+    forward and gradients."""
+    import numpy as np
+
+    key = f"{dtype}/{int(causal)}"
+    for rec in sp_card:
+        if dtype == "f32":
+            np.testing.assert_allclose(rec[f"ring/{key}/out"],
+                                       rec[f"plain/{key}/out"], rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            _scaled(rec[f"ring/{key}/out"], rec[f"plain/{key}/out"], 2e-2)
+        for g in ("dq", "dk", "dv"):
+            _scaled(rec[f"ring/{key}/{g}"], rec[f"plain/{key}/{g}"],
+                    1e-4 if dtype == "f32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_launch_counts_per_rank(sp_card, causal):
+    """Exact launches on each rank of a ring of 2: kernel 1 and kernel 2
+    once a visiting shard it attends — a causal ring's rank 0 never
+    launches for its future shard —; the torch-op ring launches none;
+    Ulysses once each."""
+    for r, rec in enumerate(sp_card):
+        for dtype in ("f32", "bf16"):
+            key = f"{dtype}/{int(causal)}"
+            n = 1 if causal and r == 0 else 2
+            assert rec[f"ring/{key}/launches"].tolist() == [n, n]
+            assert rec[f"plain/{key}/launches"].tolist() == [0, 0]
+            assert rec[f"ulysses/{key}/launches"].tolist() == [1, 1]
+
+
+@pytest.mark.cuda
+def test_ring_refused_head_dim_raises_on_card(sp_card):
+    """A head dim the kernels are not built for (96, bf16) under a ring of
+    2 raises ``ValueError`` in kernel 1's wrapper on each rank: the ring
+    does not fall back to the torch-op ring, and launches nothing."""
+    for rec in sp_card:
+        assert rec["refused/hd96"].tolist() == [1, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ulysses_all_to_all_on_card(sp_card, causal):
+    """Ulysses' all-to-alls move CUDA tensors between the gloo ranks
+    (gloo copies them through the host itself; the ring's point-to-point
+    transfers stage through pinned host memory, counted): its output and
+    gradients equal the torch-op ring's."""
+    key = f"f32/{int(causal)}"
+    for rec in sp_card:
+        for g in ("out", "dq", "dk", "dv"):
+            _scaled(rec[f"ulysses/{key}/{g}"], rec[f"plain/{key}/{g}"], 1e-4)
+        p2p, a2a, staged = rec["transport"].tolist()
+        assert p2p > 0 and a2a > 0 and staged > 0
+
+
+@pytest.mark.cuda
+def test_stage_sharded_checkpoint_from_two_card_ranks(tmp_path, cuda):
+    """The pipelined stack under {"pipe": 2} on the card (GPipe over two
+    gloo ranks) takes 2 momentum-SGD steps and saves from both ranks; one
+    process restores it on the card bitwise, and its next step's loss is
+    the ranks' own."""
+    import numpy as np
+
+    sys_path = os.path.dirname(os.path.abspath(__file__))
+    import sys
+
+    sys.path.insert(0, sys_path)
+    import torch_pp_worker as pp
+
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.runtime.checkpoint import (load_payload,
+                                                       restore_checkpoint,
+                                                       state_tensors)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = pp.STACK
+    rs = np.random.RandomState(4)
+    ff, _ = pp.stack_model(device="cuda")
+    data = {f"stack/{op}.{w}": ff.get_weights(op, w)
+            for op, ws in ff.params.items() for w in ws}
+    data["sx"] = rs.randn(s["batch"], s["seq"], s["hidden"]).astype(
+        np.float32)
+    data["sy"] = rs.randint(0, s["classes"], (s["batch"], s["seq"])).astype(
+        np.int32)
+    del ff
+    recs, d = _two_ranks(tmp_path, "torch_pp_worker.py",
+                         [dict(name="ckpt_save", mode="ckpt_save",
+                               mesh={"pipe": 2}, world=2, device="cuda")],
+                         data, "TORCH-PP")
+    saved = recs["ckpt_save"]
+    assert [r["local"].tolist() for r in saved] == [[4, 64, 256]] * 2
+    ff, _ = pp.stack_model(momentum=0.9, device="cuda")
+    ckpt = os.path.join(d, "ckpt")
+    restore_checkpoint(ff, ckpt, step=2)
+    payload = load_payload(os.path.join(ckpt, "step_2"))
+    live = state_tensors(ff)
+    assert set(payload) >= set(live)
+    for k, t in live.items():
+        assert torch.equal(parallel.full_tensor(t).cpu(), payload[k]), k
+    for key, w in saved[0].items():
+        if key.startswith("weight/"):
+            np.testing.assert_array_equal(
+                ff.get_weights(*key[len("weight/"):].split(".", 1)), w)
+    loss = float(ff._run_train_step({"x": data["sx"],
+                                     "label": data["sy"]})[0])
+    np.testing.assert_allclose(loss, float(saved[0]["loss_after"]),
+                               rtol=1e-4)

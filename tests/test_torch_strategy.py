@@ -410,8 +410,9 @@ def test_config_fields_and_refusals():
     # unset: the JAX config fills {"data": n}; the port keeps None (the
     # single-device path) and counts the world's ranks
     assert FFConfig().mesh_shape is None and FFConfig().num_devices == 1
-    for kw, where in ((dict(sp_mode="ulysses"), "item 9"),
-                      (dict(overlap_grad_sync=True), "item 9"),
+    # sp_mode is ported (ring / Ulysses attention): both lowerings build
+    assert FFConfig(sp_mode="ulysses").sp_mode == "ulysses"
+    for kw, where in ((dict(overlap_grad_sync=True), "item 9"),
                       (dict(search_budget=10), "item 10"),
                       (dict(measure_search_costs="measure"), "item 10"),
                       (dict(cost_db_path="x.db"), "item 10"),
@@ -426,14 +427,19 @@ def test_config_fields_and_refusals():
 
 
 def test_sequence_stage_and_expert_strategies_refused():
-    """A strategy of item 9 raises not_ported naming it, before running;
+    """An EXPERT strategy (item 9 part 2) raises not_ported naming item 9,
+    before running; a sharded sequence dim (ring / Ulysses attention) and
+    a STAGE axis (the stack's GPipe schedule) pass to the running path;
     the same axes of one device are no parallelism and pass."""
-    for kind, am, mesh in (("mha", {"data": 0, "seq": 1},
-                            {"data": 1, "seq": 2}),
-                           ("moe", {"expert": -4}, {"expert": 2}),
-                           ("stack", {"pipe": -3}, {"pipe": 2})):
+    for kind, am, mesh, refused in (
+            ("mha", {"data": 0, "seq": 1}, {"data": 1, "seq": 2}, False),
+            ("moe", {"expert": -4}, {"expert": 2}, True),
+            ("stack", {"pipe": -3}, {"pipe": 2}, False)):
         _, op = _graph("port", mesh, kind)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        if refused:
+            with pytest.raises(NotImplementedError, match="item 9"):
+                texec._refuse_later_strategies(op, am, mesh)
+        else:
             texec._refuse_later_strategies(op, am, mesh)
         texec._refuse_later_strategies(op, am, {k: 1 for k in mesh})
 

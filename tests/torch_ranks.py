@@ -26,6 +26,10 @@ def spawn(worker: str, d: str, world: int, *args):
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     env["FF_INIT_TIMEOUT_S"] = "120"
+    # a rank's output reaches its log as it is written, and a rank killed
+    # for outliving its bound dumps its Python stacks there (kill)
+    env["PYTHONUNBUFFERED"] = "1"
+    env["PYTHONFAULTHANDLER"] = "1"
     env.pop("FF_FAULT", None)
     tag = "-".join(["ranks", str(world)] + [str(a) for a in args])
     procs = []
@@ -42,10 +46,18 @@ def spawn(worker: str, d: str, world: int, *args):
 
 
 def kill(procs) -> None:
-    for p, log in procs:
-        if p.poll() is None:
+    """End every rank still running: SIGABRT first, so each writes its
+    stacks to its log (PYTHONFAULTHANDLER), then SIGKILL."""
+    live = [p for p, _ in procs if p.poll() is None]
+    for p in live:
+        os.killpg(p.pid, signal.SIGABRT)
+    for p in live:
+        try:
+            p.wait(timeout=5)
+        except subprocess.TimeoutExpired:
             os.killpg(p.pid, signal.SIGKILL)
             p.wait()
+    for _, log in procs:
         log.close()
 
 
@@ -59,8 +71,10 @@ def wait(procs, marker: str, timeout: float) -> None:
         pass
     finally:
         kill(procs)
+    bad = []
     for r, (p, log) in enumerate(procs):
         with open(log.name) as f:
             out = f.read()
-        assert p.returncode == 0 and marker in out, \
-            f"rank {r} failed (rc {p.returncode}):\n{out[-4000:]}"
+        if p.returncode != 0 or marker not in out:
+            bad.append(f"rank {r} failed (rc {p.returncode}):\n{out[-3000:]}")
+    assert not bad, "\n".join(bad)
