@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line). After
+each one the script prints ``phase <n>: <s> s (total <s> s)``, and before
+the kernels line one ``phases (s): {...}`` line of every phase's seconds:
 
   1. card     — print the card's name and power limit (nvidia-smi).
-  2. build    — compile the eight CUDA sources from flexflow_tpu_torch/csrc
+  2. build    — compile the eleven CUDA sources from flexflow_tpu_torch/csrc
                 with nvcc (sm_90a), one process each, all started together,
                 and print the build time and ptxas's registers and spills;
                 count each flash and paged-attention kernel's HGMMA
@@ -18,8 +20,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 bf16 flash attention (forward and backward) runs on the
                 tensor cores (wgmma, tiles by TMA: flash_attention_wgmma.cu,
                 flash_attention_bwd_wgmma.cu), f32 on the CUDA-core kernels
-                (flash_attention.cu, flash_attention_bwd.cu); the dtype
-                alone chooses.
+                (flash_attention.cu, flash_attention_bwd.cu), and so does
+                bf16 at head dims 80, 96 and 256: the dtype and the head
+                dim choose.
   3. kernels  — hold each kernel against its plain PyTorch version on the
                 card, in bf16 (so the flash rows run the tensor-core
                 kernels), at the shapes the Llama-3-8B serving path and the
@@ -230,8 +233,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 queued, reclaim_queued(), reopen() (phase 6's tokens);
                 health() polled from another thread meanwhile, its keys and
                 load()'s JAX's; a request past its deadline retires with
-                no launch; swap_weights to a second seeded model's
-                weights on a native and an int8-weight engine (the tokens
+                no launch; on Llama-3-8B's widths at CUT_LAYERS (seed 0,
+                its engine's tokens the reference), swap_weights to a
+                second seeded model's weights on a native and an
+                int8-weight engine (the tokens
                 of an engine on that second model, no capture added) and
                 back (the first tokens), refused under a live slot; at
                 native width beside another engine on the model the swap
@@ -311,13 +316,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 P14_TM_PAIRS interleaved pairs. Peak memory and the phase's
                 seconds. The JSON line's "_fleet" rows repeat phase 3's
                 serving rows with the cold fleet run's launches.
- 15. checkpoints and deploys — (b)-(d) right after 14 on phase 6's
-                Llama-3-8B, (a) right after 7. Free disk under build/ is
+ 15. checkpoints and deploys — (b)-(d) right after 14 on a model of
+                phase 6's widths at CUT_LAYERS = 4 of its 32 layers (seed
+                0; its single engine's tokens the reference), (a) right
+                after 7. Free disk under build/ is
                 printed and a shortfall fails; every file goes under
                 build/phase15/ and is removed at the end. (b) the seed-12
                 model at the same widths gives the reference tokens (a
                 single engine, generate()), is published through
-                WeightArtifactRegistry (one ~16 GB artifact: publish,
+                WeightArtifactRegistry (one ~5.6 GB artifact: publish,
                 verify GB/s), and a 1-layer model's artifact is torn by
                 corrupt_ckpt@publish. A two-replica fleet (warmed, started)
                 then: refuses the torn version with no replica touched;
@@ -352,7 +359,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 nan_loss rewind, the corrupt newest step's fallback and
                 the hang watchdog with its flight bundle. The "_resume"
                 and "_deploy" rows repeat phase 3's training and serving
-                rows with the resumed fit's and the deploy's launches.
+                rows with the resumed fit's and the deploy's launches (the
+                deploy's prefill write: phase 3's CUT_LAYERS-layer row).
  16. input pipeline, profiler — last. (a) ResNet-50 at phase 9's widths
                 (224 x 224, 1000 classes, batch 128, bf16, SGD 0.1) from a
                 host-resident dataset of P16_IMAGES seeded f32 images
@@ -415,7 +423,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
  18. tp — last. Two gloo ranks sharing the card (the port's launcher,
                 ``--phase18 pair``) and then a world of one over NCCL
                 (``--phase18 one``), each bounded by P18_TIMEOUT. (a) In
-                the world of one: phase 6's Llama-3-8B (32 layers, bf16,
+                the world of one: Llama-3-8B's widths at CUT_LAYERS (bf16,
                 seed 0) serves phase 6's prompts on the single-device path
                 and again on {"data": 1, "model": 1} under the Megatron
                 head table (attention, gate and up split over "model",
@@ -439,7 +447,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 "_tp1" rows repeat phase 3's serving rows with (a)'s
                 launches.
  19. sp / pp — last. First, in this process, the single-device
-                references: (a) / (b)'s Llama (Llama-3-8B widths at 2 of
+                references: (a) / (b)'s Llama (Llama-3-8B widths at 1 of
                 its 32 layers, bf16, seed 19, SGD P19_LR) over one
                 sequence of P19_SEQ = 8192 tokens and (c)'s gpt_pipelined
                 (GPT-2-small widths, 12 layers, batch 8, seq 1024), each
@@ -467,6 +475,46 @@ Phases, each fatal on failure (non-zero exit, no result line):
                 "_ring" / "_ring_full" / "_ulysses" / "_pipe" rows time
                 kernels 1 and 2 at those shapes (the ring's backward
                 given its delta).
+ 20. zero1 / ep — last. First, in this process, the single-device
+                references (each P20_STEPS steps through fit, then freed):
+                phase 7's flagship at 2 of its 6 layers, seed 20, bf16
+                over f32 master weights (P20_MASTER), under momentum SGD
+                with grad_accum_steps P20_ACCUM and under fused Adam;
+                phase 10's GLaM-width MoE LM at 2 of its 12 layers (one
+                MoE layer of 64 experts). Then two gloo ranks
+                sharing the card (``--phase20``, one launch bounded by
+                P20_TIMEOUT): (a) the flagship under {"data": 2} with
+                overlap_grad_sync (Zero1Update: gradients reduce-scattered
+                into the data-scattered buckets, the update on each rank's
+                half, one all-gather a weight): its optimizer state half
+                the single device's within a leaf's padding, exactly
+                L x P20_ACCUM x P20_STEPS launches of kernels 1 and 2, twice
+                that of kernel 3 and one fused update a step a rank; (b)
+                the flagship under {"data": 1, "model": 2} with phase 17's
+                Megatron table and fused Adam (ShardedFusedUpdate: the flat
+                state sharded across the mesh): exact launches, then a
+                ``sharded_fused`` checkpoint saved by both ranks, restored
+                into fresh models (every state tensor bitwise) and refused
+                by the per-leaf layout; (c) the MoE LM under {"data": 1,
+                "expert": 2}: "auto" takes the dense dispatch, the tokens
+                travel by all-to-all (bytes counted), exact launches of
+                kernels 1 and 2; (d) ring attention over {"seq": 2} at head
+                dims 80, 96 and 256 (Phi-2's, Phi-3-mini's and Gemma-7B's
+                heads; the CUDA-core kernels) against the torch-op ring on
+                the same shards (P20_RING_TOL), two launches of each kernel
+                a rank. Every part's losses within P20_RTOL of the single
+                device's, every step ((b)'s within P20_TP_RTOL: bf16
+                partial sums and Adam's sign-like steps); (a)'s and (b)'s
+                change of the weights over the fit within P20_DW_TOL of
+                the single device's, relative (a no-op update reads 1);
+                step ms, the idle share of one
+                profiled step, peak memory and the transport's bytes
+                beside the single device's (two ranks sharing one card
+                through host memory: nothing of NCCL or NVLink). Phase 3
+                holds kernels 1 and 2 at (d)'s shapes ("_hd80" / "_hd96" /
+                "_hd256" rows); phase 20 times its own rows at the ranks'
+                shapes ("_zero1", "_sharded_fused"; "_ep" repeats phase 3's
+                "_moe_lm" rows).
 
 The last two lines of standard output are a JSON object
 describing each kernel and the result line {"ok": true, "device": {...}}.
@@ -474,6 +522,7 @@ describing each kernel and the result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import gc
 import itertools
 import json
@@ -533,6 +582,18 @@ TRAIN_LR = 0.01
 
 LLAMA3_8B = dict(hidden=4096, layers=32, heads=32, kv_heads=8,
                  ffn_hidden=14336, vocab_size=128256, rope_theta=500000.0)
+#: phase 12's weight swaps, phase 15 (b)-(d)'s model (its own, seed 0) and
+#: phase 18 (a)'s: Llama-3-8B's widths at 4 of its 32 layers, a depth cut
+#: for the script's time limit (the artifact, its publish, verify, swaps
+#: and restore, the fleets' steps all scale with the layers). Their checks
+#: hold a path against the same path on the same weights (an engine against
+#: an engine, the world-of-one mesh against the single device), so the cut
+#: leaves them exact. Phase 6's
+#: model keeps its 32 layers: phase 11 holds the chunked prefill's greedy
+#: tokens to phase 6's, a path of other arithmetic (the chunks' tails run
+#: the grouped einsum), and at 8 layers prompt 4 parted at its 11th token
+CUT_LAYERS = 4
+LLAMA_CUT = dict(LLAMA3_8B, layers=CUT_LAYERS)
 PROMPT_LENS = (13, 37, 90, 200, 512, 700)
 MAX_NEW = 32
 # pow2 buckets, but 768 for the 700-token prompt: its pow2 bucket (1024)
@@ -654,7 +715,11 @@ def phase_card() -> str:
     return line
 
 
-def phase_build(kernels):
+def phase_build(kernels, wait_sass: bool = True):
+    """Build the kernels and print ptxas's registers and spills; then the
+    SASS check (``sass_counts``), or with ``wait_sass`` False start its
+    cuobjdump and return it for ``sass_counts`` to finish (main runs it
+    beside phase 3)."""
     t0 = time.perf_counter()
     try:
         kernels.LIBRARY.get()
@@ -668,7 +733,22 @@ def phase_build(kernels):
                 say("  ptxas " + kernel_name(ln))
             elif "registers" in ln or "spill" in ln or ln.startswith("=="):
                 say("  ptxas " + ln.strip())
-    sass_counts(kernels)
+    proc = sass_start(kernels)
+    if not wait_sass:
+        return proc
+    sass_counts(kernels, proc)
+
+
+def sass_start(kernels):
+    """Start ``cuobjdump -sass`` on the built library, its listing into
+    ``sass.txt`` beside the library; killed at exit if still running."""
+    tool = Path(kernels._find_nvcc()).parent / "cuobjdump"
+    with open(kernels.LIBRARY.path.parent / "sass.txt", "w") as fh:
+        proc = subprocess.Popen([str(tool), "-sass",
+                                 str(kernels.LIBRARY.path)], stdout=fh,
+                                stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
 
 
 def kernel_name(mangled: str) -> str:
@@ -678,7 +758,7 @@ def kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{m.group(2)}>" if m else mangled.strip()
 
 
-def sass_counts(kernels):
+def sass_counts(kernels, proc):
     """Count the tensor-core (HGMMA, HMMA), TMA-load (UTMALDG) and cp.async
     (LDGSTS) instructions of each flash and paged-attention kernel in the
     built library (cuobjdump -sass); fail unless every tensor-core flash
@@ -687,13 +767,16 @@ def sass_counts(kernels):
     (paged_attn_mma_kernel) holds HMMA, and every fused-update kernel
     16-byte global loads and stores (LDG / STG .128)."""
     ops = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "LDG.128", "STG.128")
-    tool = Path(kernels._find_nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", str(kernels.LIBRARY.path)],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        fail(f"cuobjdump exited {out.returncode}: {out.stderr.strip()}")
+    try:
+        _, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("cuobjdump ran past 300 s")
+    if proc.returncode != 0:
+        fail(f"cuobjdump exited {proc.returncode}: {err.strip()}")
     counts, cur = {}, None
-    for ln in out.stdout.splitlines():
+    listing = (kernels.LIBRARY.path.parent / "sass.txt").read_text()
+    for ln in listing.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = kernel_name(m.group(1)) if any(
@@ -742,34 +825,44 @@ def phase_kernels(torch, port, kernels):
         torch, kernels, g, LLAMA3_8B["heads"], LLAMA3_8B["kv_heads"], 128)}
     rows.update(paged_attention_rows(torch, kernels, g))
     rows.update(prefill_write_rows(torch, kernels, g))
+    # phase 15 (b)-(d)'s and 18 (a)'s model: CUT_LAYERS in one launch
+    rows.update(prefill_write_rows(torch, kernels, g, pools=(("", "bf16"),),
+                                   layer_counts=(CUT_LAYERS,)))
     rows.update(training_kernel_rows(torch, kernels, g))
     rows.update(moe_serve_kernel_rows(torch, kernels, g))
     rows.update(decode_feature_kernel_rows(torch, kernels, g))
     rows.update(generation_kernel_rows(torch, kernels, g))
     rows.update(tp_kernel_rows(torch, kernels, g))
     rows.update(sp_pp_kernel_rows(torch, kernels, g))
+    rows.update(head_dim_kernel_rows(torch, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g))
     rows.update(fused_update_rows(torch, port, kernels, g,
                                   resnet50_leaf_shapes(port),
                                   RESNET_UPDATE_ROWS, "ResNet-50's leaves"))
     for name, r in rows.items():
-        say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}: "
-            f"{100 * r['bound'][0] / r['ms']:.1f}% of bound"
-            + (f", {r['library']} {r['library_ms']:.4f} ms: "
-               f"{r['ms'] / r['library_ms']:.2f}x its time"
-               if r["library_ms"] else "")
-            + (f", a device copy of the same bytes {r['copy_ms']:.4f} ms: "
-               f"{r['ms'] / r['copy_ms']:.2f}x its time"
-               if r.get("copy_ms") else "")
-            + (f", the per-leaf torch formula {r['per_leaf_ms']:.4f} ms: "
-               f"{r['ms'] / r['per_leaf_ms']:.2f}x its time"
-               if r.get("per_leaf_ms") else "")
-            + (f", {100 * r['vector_share']:.4f}% of the bytes on the "
-               f"vector path, counted on the card" if "vector_share" in r
-               else "") + ")")
+        say_row(name, r)
     return rows
+
+
+def say_row(name: str, r: dict) -> None:
+    """One kernel row's line: its shape, error, times, share of its bound
+    and ratios to the yardsticks."""
+    say(f"kernel {name}: {r['shape']}: max abs err {r['err']:.3g}, "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms by {r['bound'][1]}: "
+        f"{100 * r['bound'][0] / r['ms']:.1f}% of bound"
+        + (f", {r['library']} {r['library_ms']:.4f} ms: "
+           f"{r['ms'] / r['library_ms']:.2f}x its time"
+           if r["library_ms"] else "")
+        + (f", a device copy of the same bytes {r['copy_ms']:.4f} ms: "
+           f"{r['ms'] / r['copy_ms']:.2f}x its time"
+           if r.get("copy_ms") else "")
+        + (f", the per-leaf torch formula {r['per_leaf_ms']:.4f} ms: "
+           f"{r['ms'] / r['per_leaf_ms']:.2f}x its time"
+           if r.get("per_leaf_ms") else "")
+        + (f", {100 * r['vector_share']:.4f}% of the bytes on the "
+           f"vector path, counted on the card" if "vector_share" in r
+           else "") + ")")
 
 
 #: paged-attention rows: (row name, pool, long context)
@@ -1107,8 +1200,6 @@ def training_kernel_rows(torch, kernels, g):
     the flagship's training shapes (bf16, non-causal attention), and the
     flash rows again at BERT-base's (phase 9) and, causal, at the MoE
     LM's (phase 10); errors scaled to the output's magnitude."""
-    import torch.nn.functional as F
-
     h = FLAGSHIP["heads"]
     rows = flash_training_rows(torch, kernels, g, FLAGSHIP["batch"],
                                FLAGSHIP["seq"], h, FLAGSHIP["hidden"] // h,
@@ -1121,11 +1212,20 @@ def training_kernel_rows(torch, kernels, g):
     rows.update(flash_training_rows(
         torch, kernels, g, GLAM["batch"], GLAM["seq"], GLAM["heads"],
         GLAM["hidden"] // GLAM["heads"], "_moe_lm", causal=True))
+    rows.update(add_layernorm_row(torch, kernels, g,
+                                  FLAGSHIP["batch"] * FLAGSHIP["seq"],
+                                  FLAGSHIP["hidden"]))
+    return rows
+
+
+def add_layernorm_row(torch, kernels, g, n: int, dm: int,
+                      suffix: str = "") -> dict:
+    """The row ``fused_add_layernorm_fwd<suffix>`` at x / r (n, dm) bf16
+    with the f32 statistics; x + r then F.layer_norm as the yardstick."""
+    import torch.nn.functional as F
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    b, s = FLAGSHIP["batch"], FLAGSHIP["seq"]
-    n, dm = b * s, FLAGSHIP["hidden"]
     x, r = (torch.randn(n, dm, device=dev, generator=g).to(bf16)
             for _ in range(2))
     sc = (torch.rand(dm, device=dev, generator=g) + 0.5).to(bf16)
@@ -1140,7 +1240,7 @@ def training_kernel_rows(torch, kernels, g):
         fail(f"fused_add_layernorm_fwd disagrees with its plain version: "
              f"sum bitwise {torch.equal(got[0], ref[0])}, scaled err {err} "
              f"(limit {SCALED_TOL}), stats {stats_err} (limit 1e-5)")
-    rows["fused_add_layernorm_fwd"] = dict(
+    return {"fused_add_layernorm_fwd" + suffix: dict(
         err=err,
         ms=cuda_ms(lambda: kernels.fused_add_layernorm_fwd(x, r, sc, bi,
                                                            1e-5)),
@@ -1152,8 +1252,7 @@ def training_kernel_rows(torch, kernels, g):
         # ~9 f32 operations an element on the CUDA cores
         bound=bound(2 * 4 * n * dm + 2 * 2 * dm + 4 * 2 * n, 9 * n * dm,
                     F32_FLOP_PER_S),
-        shape=f"x/r ({n},{dm}) bf16 with stats")
-    return rows
+        shape=f"x/r ({n},{dm}) bf16 with stats")}
 
 
 def flash_training_rows(torch, kernels, g, b, s, h, d, suffix: str,
@@ -1357,18 +1456,19 @@ def flagship_leaf_shapes(port):
     return [s for ws in ff.weight_shapes().values() for s in ws.values()]
 
 
-def update_case(torch, g, rule, shapes, form="flat"):
-    """bf16 weights ~N(0, 1), grads ~N(0, 1e-4), state: momentum ~N(0,
-    1e-4), Adam's m ~N(0, 1e-4) and v its square's scale; flat (a vector a
-    moment) or per leaf (a tensor of each weight's shape a moment)."""
-    bf16 = torch.bfloat16
-    ps = [torch.randn(s, device="cuda", generator=g).to(bf16) for s in shapes]
-    gs = [torch.randn(s, device="cuda", generator=g).mul_(1e-2).to(bf16)
+def update_case(torch, g, rule, shapes, form="flat", dtype=None):
+    """Weights ~N(0, 1), grads ~N(0, 1e-4), state: momentum ~N(0, 1e-4),
+    Adam's m ~N(0, 1e-4) and v its square's scale, all bf16 (or
+    ``dtype``); the state flat (a vector a moment) or per leaf (a tensor of
+    each weight's shape a moment)."""
+    dt = dtype or torch.bfloat16
+    ps = [torch.randn(s, device="cuda", generator=g).to(dt) for s in shapes]
+    gs = [torch.randn(s, device="cuda", generator=g).mul_(1e-2).to(dt)
           for s in shapes]
     total = sum(p.numel() for p in ps)
     ms = []
     for i in range(rule.n_moments):
-        m = torch.empty(total, dtype=bf16, device="cuda")
+        m = torch.empty(total, dtype=dt, device="cuda")
         for lo in range(0, total, PLAIN_CHUNK):
             x = torch.randn(min(PLAIN_CHUNK, total - lo), device="cuda",
                             generator=g).mul_(1e-2)
@@ -1420,7 +1520,8 @@ def resnet50_leaf_shapes(port):
 
 
 def fused_update_rows(torch, port, kernels, g, shapes=None,
-                      cases=UPDATE_ROWS, where="the flagship's bucket"):
+                      cases=UPDATE_ROWS, where="the flagship's bucket",
+                      dtype=None):
     """The fused update at the flagship's bucket (1.21 B bf16 weights in
     its ~100 leaves), SGD, SGD with momentum and Adam on flat state (as
     FusedUpdate keeps it), and SGD (no state) and Adam on per-leaf state
@@ -1435,10 +1536,11 @@ def fused_update_rows(torch, port, kernels, g, shapes=None,
 
     shapes = shapes or flagship_leaf_shapes(port)
     n = sum(math.prod(s) for s in shapes)
+    storage = "f32" if dtype == torch.float32 else "bf16"
     rows = {}
     for name, kw, form, bytes_per, ops_per in cases:
         rule = kernels.UpdateRule(**kw)
-        ps, gs, ms = update_case(torch, g, rule, shapes, form)
+        ps, gs, ms = update_case(torch, g, rule, shapes, form, dtype)
         if rule.kind == "adam":
             lr = port.AdamOptimizer(alpha=1e-3).lr_of(
                 torch.zeros((), dtype=torch.int32, device="cuda"))
@@ -1477,7 +1579,9 @@ def fused_update_rows(torch, port, kernels, g, shapes=None,
         per_leaf(*ref)
         plain(*pln)
         torch.cuda.synchronize()
-        bits = lambda ts: [t.view(torch.int16) for t in ts]  # noqa: E731
+        bits = lambda ts: [t.view(  # noqa: E731
+            torch.int16 if t.element_size() == 2 else torch.int32)
+            for t in ts]
         for tag, (rp, rm) in (("the per-leaf torch formula", ref),
                               ("its plain version", pln)):
             if not all(torch.equal(a, b) for a, b in
@@ -1523,10 +1627,10 @@ def fused_update_rows(torch, port, kernels, g, shapes=None,
             plain_ms=cuda_ms(lambda: plain(ps, ms), iters=3, warmup=1),
             library_ms=cuda_ms(foreach, iters=3, warmup=1,
                                sleep=LONG_SLEEP_CYCLES),
-            library="torch._foreach_* of the formula (bf16 storage)",
+            library=f"torch._foreach_* of the formula ({storage} storage)",
             vector_share=counted / n,
             bound=bound(nbytes, ops_per * n, F32_FLOP_PER_S),
-            shape=f"{len(shapes)} leaves, {n / 1e9:.3f} B bf16 elements, "
+            shape=f"{len(shapes)} leaves, {n / 1e9:.3f} B {storage} elements, "
                   f"{rule.kind}" + (" momentum" if rule.momentum else "")
                   + (", no state" if not ms else
                      f", {form.replace('_', '-')} state")
@@ -1701,15 +1805,18 @@ def check_routes(torch, FFConfig, FFModel, kernels):
 
 
 def build_flagship(port, device, dtype: str, seed: int, batch, seq, hidden,
-                   layers, heads, ffn_mult, num_classes, opt=None, **cfg):
+                   layers, heads, ffn_mult, num_classes, opt=None,
+                   master=None, **cfg):
     """The flagship encoder classifier (models/transformer.py), fused add +
     LayerNorm, compiled for training (SGD unless ``opt``), sparse
     cross-entropy and accuracy as __graft_entry__.py compiles the JAX
-    one; ``cfg``: more FFConfig fields."""
+    one; weights stored in ``dtype`` (or ``master``); ``cfg``: more
+    FFConfig fields."""
     from flexflow_tpu_torch.models import build_encoder_classifier
 
     ff = port.FFModel(port.FFConfig(batch_size=batch, seed=seed,
-                                    compute_dtype=dtype, master_dtype=dtype,
+                                    compute_dtype=dtype,
+                                    master_dtype=master or dtype,
                                     use_fused_ln=True, **cfg), device=device)
     x, out = build_encoder_classifier(ff, batch, seq, hidden, layers, heads,
                                       ffn_mult, num_classes)
@@ -3862,22 +3969,29 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
         "'timeout' with no kernel launched")
     del eng
 
-    # ---- weight swaps under captured decode. The second weight set is a
-    # second model of the same graph from its own seed; the witness of a
-    # swap to it is an engine on that model, which reads those tensors
-    # directly (not the swapped engine's model.params).
+    # ---- weight swaps under captured decode, on Llama-3-8B's widths at
+    # CUT_LAYERS (seed 0; its engine's tokens the reference). The second
+    # weight set is a second model of the same graph from its own seed; the
+    # witness of a swap to it is an engine on that model, which reads those
+    # tensors directly (not the swapped engine's model.params).
     gc.collect()
     torch.cuda.empty_cache()
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models import llama_lm
 
-    ff2 = build_llama(FFConfig, FFModel, llama_lm, ff.device,
-                      ff.config.compute_dtype, 12, **LLAMA3_8B)
+    served, dtype = ff, ff.config.compute_dtype
+    ff = build_llama(FFConfig, FFModel, llama_lm, served.device, dtype, 0,
+                     **LLAMA_CUT)
+    ff2 = build_llama(FFConfig, FFModel, llama_lm, served.device, dtype, 12,
+                      **LLAMA_CUT)
+    eng = ff.make_serving_engine(**ENGINE)
+    ref = [list(r.tokens) for r in eng.run(prompts, max_new_tokens=MAX_NEW)]
+    del eng
     new = ff2.params
     eng_n = ff.make_serving_engine(**P11_ENGINE)
     n1 = _p12_round(torch, kernels, eng_n, prompts, "swap, native before")
-    same("swap: native engine before the swap vs phase 6", n1["tokens"],
-         ref)
+    same("swap: native engine before the swap vs its model's engine",
+         n1["tokens"], ref)
     eng_n.submit(prompts[0], MAX_NEW)
     eng_n.step()
     try:
@@ -3894,7 +4008,7 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
     other = ff.make_serving_engine(**P11_ENGINE)
     shared = eng_n.swap_weights(new, "v1")
     o1 = _p12_round(torch, kernels, other, prompts, "swap, other engine")
-    same("swap to a weight set: the model's other engine vs phase 6",
+    same("swap to a weight set: the model's other engine vs its first",
          o1["tokens"], ref)
     s2 = _p12_round(torch, kernels, eng_n, prompts, "swap, weight set")
     back = eng_n.swap_weights(None, "v0")
@@ -3924,7 +4038,7 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
     torch.cuda.synchronize()
     t_back = time.perf_counter() - t0
     n3 = _p12_round(torch, kernels, eng_n, prompts, "swap, native back")
-    same("swap back: native vs phase 6", n3["tokens"], ref)
+    same("swap back: native vs before the swap", n3["tokens"], ref)
     added_n = eng_n.stats()["recompiles"] - caps_n
     out["swap"] = n2["launches"]
     del eng_n
@@ -3957,12 +4071,12 @@ def _p12_lifecycle(torch, kernels, ff, ref, prompts, card: str, same, out):
         f"second engine kept its tokens [{card}]")
     if added != (0, 0):
         fail(f"phase 12 (swap): captures added across the swaps {added}")
-    del eng_q, new, ff2
+    del eng_q, new, ff2, ff
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- warmup, then the same prompts build nothing
-    eng = ff.make_serving_engine(**ENGINE)
+    eng = served.make_serving_engine(**ENGINE)
     t0 = time.perf_counter()
     w = eng.warmup(prompts, max_new_tokens=MAX_NEW)
     t_w = time.perf_counter() - t0
@@ -4405,6 +4519,9 @@ P14_PREEMPT_MS = 5000
 P14_REJECT_S = 1e-3
 #: telemetry on / off pairs for the cost measurement (medians)
 P14_TM_PAIRS = 3
+#: the profiled round's new tokens a stream (cut from MAX_NEW: the trace's
+#: processing grows with its events, ~28 s for the 260706 of a full round)
+P14_PROFILE_NEW = 8
 
 
 def _p14_traffic(np, prompts):
@@ -4588,11 +4705,13 @@ def _p14_fleet(torch, np, kernels, telemetry, flightrec, ff, traffic, want,
         e.flush_prefix_cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, pwall, _, _ = _p14_round(torch, router, traffic)
+        _, pwall, _, _ = _p14_round(torch, router, traffic,
+                                    max_new=P14_PROFILE_NEW)
     events = device_events(prof.events())
     busy = busy_ms(events)
     del prof
-    say(f"phase 14 (a) profile: {len(events)} device events, device busy "
+    say(f"phase 14 (a) profile ({P14_PROFILE_NEW} new tokens a stream): "
+        f"{len(events)} device events, device busy "
         f"{busy:.1f} ms of {pwall * 1e3:.1f} ms under the profiler: idle "
         f"share {max(1 - busy / (pwall * 1e3), 0):.3f} [{card}]")
 
@@ -5029,9 +5148,9 @@ def phase_fleet(torch, kernels, ff, prompts, card: str):
 #: phase 15 (a): the flagship's fit with checkpoints — P15_STEPS steps, a
 #: checkpoint every 2 (async, keep 2), preempted after step P15_PREEMPT
 P15_STEPS = 8
-#: (a)'s resume cases at this depth of the flagship (cut from 6 so the
-#: whole script stays under ~1000 s with phase 18)
-P15_RESUME_LAYERS = 3
+#: (a)'s resume cases at this depth of the flagship (cut from 6, then 3,
+#: so that the whole script stays inside its time limit)
+P15_RESUME_LAYERS = 1
 P15_PREEMPT = 5
 #: momentum 0.9 multiplies the step ~10x: phase 7's lr / 10 keeps the
 #: random-data losses from running away
@@ -5050,9 +5169,11 @@ P15_SCAN_LOSS_RTOL = 2e-2
 P15_SLO_WINDOW_S = 3.0
 P15_TTFT_SLO_S = 1.5
 P15_CANARY_STALL_MS = 2500
-#: free disk the phase needs under build/ (the 16 GB artifact, a small
-#: drill artifact, the flagship's checkpoints)
-P15_DISK_BYTES = 24 * 2**30
+#: free disk the phase needs under build/ (the artifact at CUT_LAYERS, the
+#: one-layer drill artifact and the flight bundles of (b); the flagship's
+#: checkpoints of (a)), with room: each part prints what it left on disk
+#: before it removes build/phase15
+P15_DISK_BYTES = 12 * 2**30
 #: the published version of the seed-12 model, and of the torn drill one
 P15_VERSION_STEP = 12
 P15_TORN_STEP = 11
@@ -5076,6 +5197,18 @@ def _p15_disk(card: str):
     if free < P15_DISK_BYTES:
         fail(f"phase 15: {free / 2**30:.1f} GiB free under {base}, the "
              f"phase writes up to {P15_DISK_BYTES / 2**30:.0f} GiB")
+
+
+def _p15_cleanup(tag: str, card: str) -> None:
+    """Print the bytes under build/phase15 (what the part wrote and
+    kept), then remove it."""
+    d = ROOT / "build" / "phase15"
+    n = sum(f.stat().st_size for f in d.rglob("*") if f.is_file()) \
+        if d.is_dir() else 0
+    say(f"phase 15 {tag}: {n / 2**30:.2f} GiB on disk under {d} at its end "
+        f"(P15_DISK_BYTES {P15_DISK_BYTES / 2**30:.0f} GiB), removed "
+        f"[{card}]")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 def _p15_nbytes(ckpt, ff) -> int:
@@ -5396,7 +5529,7 @@ def phase_resilience(torch, port, kernels, card: str):
     gc.collect()
     _p15_drills(torch, port, ckpt, faultinject, resilience, flightrec,
                 data, card)
-    shutil.rmtree(ROOT / "build" / "phase15", ignore_errors=True)
+    _p15_cleanup("(a)", card)
     gc.collect()
     torch.cuda.empty_cache()
     say(f"phase 15 (a): per-step case {t1 - t_start:.1f} s, scan case "
@@ -5471,7 +5604,7 @@ def _p15_reference(torch, FFConfig, FFModel, llama_lm, prompts, gen_tokens,
     generate()'s on ``gen_tokens``; returns (model, tokens, generated)."""
     t0 = time.perf_counter()
     ff12 = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16",
-                       P15_VERSION_STEP, **LLAMA3_8B)
+                       P15_VERSION_STEP, **LLAMA_CUT)
     eng = ff12.make_serving_engine(**ENGINE)
     reqs = eng.run(prompts, max_new_tokens=MAX_NEW)
     if any(r.state != "done" for r in reqs):
@@ -5571,9 +5704,10 @@ def _p15_deploy_drills(torch, faultinject, RollingDeployer, router, reg, pub,
         f"done [{card}]")
 
 
-def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
-                 prompts, card: str):
-    """Phase 15 (b)-(d) on phase 6's Llama-3-8B: a rolling deploy of the
+def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, prompts,
+                 card: str):
+    """Phase 15 (b)-(d) on Llama-3-8B's widths at CUT_LAYERS (seed 0, its
+    single engine's tokens the reference): a rolling deploy of the
     seed-12 model onto a two-replica fleet under live traffic with its
     drills, restore-then-generate, the autoscaler. Returns {"deploy": the
     clean deploy's launches (its traffic and the check after it)}."""
@@ -5590,6 +5724,11 @@ def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
     gc.collect()
     torch.cuda.empty_cache()
     gen_tokens = np.stack([np.asarray(p[:64]) for p in prompts[2:6]])
+    ff = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16", 0,
+                     **LLAMA_CUT)
+    eng = ff.make_serving_engine(**ENGINE)
+    ref = [list(r.tokens) for r in eng.run(prompts, max_new_tokens=MAX_NEW)]
+    del eng
     ff12, want12, gen12 = _p15_reference(torch, FFConfig, FFModel, llama_lm,
                                          prompts, gen_tokens, card)
     reg = WeightArtifactRegistry(str(_p15_dir("registry")))
@@ -5689,7 +5828,7 @@ def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
     t_c0 = time.perf_counter()
     # (c) restore the artifact into a fresh model, then generate
     fresh = build_llama(FFConfig, FFModel, llama_lm, "cuda", "bfloat16", 99,
-                        **LLAMA3_8B)
+                        **LLAMA_CUT)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     checkpoint.restore_checkpoint(fresh, reg.watch_dir,
@@ -5708,9 +5847,12 @@ def phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels, ff, ref,
     del fresh
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(ROOT / "build" / "phase15", ignore_errors=True)
+    _p15_cleanup("(b)-(c)", card)
     t_d0 = time.perf_counter()
     _p15_autoscale(torch, np, autoscale, ff, ref, prompts, warm, card)
+    del ff
+    gc.collect()
+    torch.cuda.empty_cache()
     say(f"phase 15 (b)-(d): seed-12 reference + publish "
         f"{t_b0 - t_start:.1f} s, drills {t_b1 - t_b0:.1f} s, deploy + "
         f"check {t_c0 - t_b1:.1f} s, (c) {t_d0 - t_c0:.1f} s, (d) "
@@ -5753,7 +5895,7 @@ def _p15_autoscale(torch, np, autoscale, ff, ref, prompts, warm, card: str):
         reqs = router.run(prompts, max_new_tokens=MAX_NEW, timeout=600)
         if [list(r.tokens) for r in reqs] != ref:
             fail("phase 15 (d): the scaled-out fleet's tokens differ from "
-                 "phase 6's")
+                 "the single engine's")
         mon.rows = []
         for want in (None, "scale_in"):
             t0 = time.perf_counter()
@@ -6246,8 +6388,8 @@ P17_STEPS = 3
 #: the timing: rounds of P17_TIMED steps a path, the paths in turns
 #: (single, strategy, strategy, single, ...); then P17_PROFILED steps a
 #: path under the profiler
-P17_ROUNDS = 6
-P17_TIMED = 5
+P17_ROUNDS = 3
+P17_TIMED = 3
 P17_PROFILED = 3
 #: the strategy path at world size 1 runs the single-device path's kernels
 #: on shards equal to the whole, with one-rank collectives between them:
@@ -6497,8 +6639,9 @@ def phase_strategy(torch, port, kernels, card: str):
 
 #: each child's bound (the kernels are built: the library is in build/)
 P18_TIMEOUT = 420
-#: (b)'s depth: Llama-3-8B's widths at 8 of its 32 layers
-P18_LAYERS = 8
+#: (b)'s depth: Llama-3-8B's widths at 4 of its 32 layers (the pair and
+#: its single-device reference alike)
+P18_LAYERS = 4
 #: generate's new tokens in (a), a row of 2 prompts
 P18_GEN_NEW = 16
 #: (b) against the single-device engine at its depth: the first tokens
@@ -6756,7 +6899,7 @@ def _p18_child(role: str, outdir: str) -> None:
         res["ckpt"] = _p18_ckpt_pair(torch, port, outdir)
         mark("trained and saved")
     else:
-        arch = LLAMA3_8B
+        arch = LLAMA_CUT
         for label, mesh in (("single", None),
                             ("mesh", {"data": 1, "model": 1})):
             gc.collect()
@@ -6878,7 +7021,7 @@ def phase_tp(torch, port, kernels, card: str):
             for r in range(2)]
     one = json.loads((outdir / "one.0.json").read_text())
     shutil.rmtree(outdir, ignore_errors=True)
-    layers = LLAMA3_8B["layers"]
+    layers = CUT_LAYERS
 
     # (a) world size 1 over NCCL
     s, m = one["single"], one["mesh"]
@@ -6989,7 +7132,8 @@ def tp_kernel_rows(torch, kernels, g):
     {"data": 1, "model": 2} holds 16 of Llama-3-8B's 32 q heads and 4 of
     its 8 kv heads: the prefill's flash forward at q (1, 512, 16, 128), a
     decode step's paged attention over a (pages, 128, 4, 128) pool, and
-    the prefill write of (b)'s 8 layers of 4 kv heads in one launch."""
+    the prefill write of (b)'s P18_LAYERS layers of 4 kv heads in one
+    launch."""
     h, kvh = LLAMA3_8B["heads"] // 2, LLAMA3_8B["kv_heads"] // 2
     rows = {"flash_attention_fwd_tp": flash_serve_row(torch, kernels, g, h,
                                                       kvh, 128)}
@@ -7007,13 +7151,13 @@ def tp_kernel_rows(torch, kernels, g):
 # ---- phase 19: sequence and pipeline parallelism on two gloo ranks ------
 
 P19_TIMEOUT = 600
-#: (a) / (b)'s model: Llama-3-8B's widths at 2 of its 32 layers (depth
+#: (a) / (b)'s model: Llama-3-8B's widths at 1 of its 32 layers (depth
 #: cut: each rank holds every weight, replicated over "seq", beside its
 #: gradients, and the parent's single-device reference runs first)
-P19_LLAMA = dict(LLAMA3_8B, layers=2)
+P19_LLAMA = dict(LLAMA3_8B, layers=1)
 #: one sequence of 8192 tokens (4096 a rank), 3 SGD steps
 P19_SEQ = 8192
-P19_STEPS = 3
+P19_STEPS = 2
 P19_LR = 0.01
 #: the losses of the two ranks against the single-device run (bf16),
 #: relative, every step (measured at most 3.15e-6)
@@ -7318,56 +7462,8 @@ def _p19_child(outdir: str) -> None:
 
 
 def _p19_launch(outdir: Path) -> float:
-    """Start phase 19's two gloo ranks through the port's launcher and
-    wait for them, bounded by P19_TIMEOUT; fails unless each exits 0.
-    Returns the seconds they took."""
-    t0 = time.perf_counter()
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port_no = sk.getsockname()[1]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    env["FF_INIT_TIMEOUT_S"] = "300"
-    env["PYTHONFAULTHANDLER"] = "1"
-    logs = [open(outdir / f"pair.{r}.log", "w") for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "flexflow_tpu_torch.launcher",
-         str(ROOT / "chip_smoke.py"), "--device", "cpu",
-         "--num-processes", "2", "--process-id", str(r),
-         "--coordinator", f"127.0.0.1:{port_no}", "--",
-         "--phase19", str(outdir)],
-        cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT,
-        start_new_session=True) for r in range(2)]
-    late = False
-    try:
-        for p in procs:
-            left = P19_TIMEOUT - (time.perf_counter() - t0)
-            p.wait(timeout=max(1.0, left))
-    except subprocess.TimeoutExpired:
-        late = True
-    finally:
-        # SIGABRT first: a rank outliving its bound writes its stacks to
-        # its log (PYTHONFAULTHANDLER)
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGABRT)
-        for p in procs:
-            try:
-                p.wait(timeout=5)
-            except subprocess.TimeoutExpired:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    for f in logs:
-        f.close()
-    outs = [(outdir / f"pair.{r}.log").read_text() for r in range(2)]
-    if late:
-        fail(f"phase 19: a rank outlived {P19_TIMEOUT} s:\n"
-             + "\n".join(f"rank {r}:\n{o[-3000:]}"
-                         for r, o in enumerate(outs)))
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            fail(f"phase 19: rank {r} exited {p.returncode}:\n{out[-4000:]}")
-    return time.perf_counter() - t0
+    """Start phase 19's two gloo ranks (bounded by P19_TIMEOUT)."""
+    return _pair_launch(outdir, "--phase19", P19_TIMEOUT, "phase 19")
 
 
 def _p19_losses(tag: str, got, want, card: str) -> None:
@@ -7566,6 +7662,671 @@ def sp_pp_kernel_rows(torch, kernels, g):
     return rows
 
 
+# ---- phase 20: sharded optimizer state and expert parallelism ----------
+
+P20_TIMEOUT = 420
+#: (a) / (b)'s model: phase 7's flagship at 2 of its 6 layers (depth cut:
+#: the single-device reference runs first, and each rank holds its share
+#: of the weights beside the reference's freed ones)
+P20_FLAGSHIP = dict(FLAGSHIP, layers=2)
+P20_STEPS = 3
+#: (a) and (b)'s master weights, under bf16 compute: f32, so every update
+#: lands (a bf16 weight near 1e-2 rounds a step of 1e-5 away, and a fit
+#: that changed nothing would still match the single device's losses)
+P20_MASTER = "float32"
+#: (a): grad_accum_steps, SGD with this momentum at phase 15's lr (phase
+#: 7's / 10: at phase 7's the random-data losses run away)
+P20_ACCUM = 2
+P20_MOMENTUM = 0.9
+#: (b): Adam's step size (each weight moves by about this a step; at 1e-4
+#: the random-data losses ran 3.11 -> 25.93 -> 13.62)
+P20_ALPHA = 1e-5
+#: (c)'s model: phase 10's GLaM-width MoE LM at 2 of its 12 layers (its
+#: one MoE layer of 64 experts)
+P20_GLAM = dict(GLAM, layers=2)
+#: (a)'s and (c)'s losses on both ranks against the single device's,
+#: relative, every step (bf16; phase 19's limit)
+P20_RTOL = 1e-4
+#: (b)'s losses, relative, every step. A tensor-parallel rank rounds its
+#: row-parallel product's partial sum to bf16 before the two are added,
+#: where the single device rounds the whole sum once (the JAX package's
+#: arithmetic, ``preferred_element_type=x.dtype``): 1.4e-4 off before any
+#: update on the H100. Adam's first steps are about alpha times each
+#: gradient's sign, so a near-zero gradient whose sign that rounding flips
+#: moves its weight by 2 alpha the other way: 9.7e-5 and 2.3e-4 off after
+#: the first and second updates. Twice the largest reading; an update that
+#: changes no weight reads 0.23 and 0.081 there (PERF.md)
+P20_TP_RTOL = 5e-4
+#: (a)'s and (b)'s weights: each rank's change of its f32 master weights
+#: over the fit against the single device's change of the same elements,
+#: ||dw - dw_single|| / ||dw_single|| over all the weights it holds, at
+#: most this (an update that changes nothing reads 1, a change unrelated
+#: to the single device's about 1.4). On the H100 (a) reads 0.0033 and (b)
+#: 0.021 (the sign flips above); the limit about five times (b)'s
+#: (PERF.md)
+P20_DW_TOL = 0.1
+#: (d): ring attention over two ranks (non-causal, one sequence of
+#: P20_RING_SEQ tokens) at the head dims kernels 1 and 2 take past 32 / 64
+#: / 128, with the attention widths of Phi-2 (32 heads of 80), Phi-3-mini
+#: (32 of 96) and Gemma-7B (16 of 256); bf16, against the torch-op ring on
+#: the same shards within P20_RING_TOL of the largest value (phase 3's
+#: backward limit)
+P20_RING = ((80, 32), (96, 32), (256, 16))
+P20_RING_SEQ = 4096
+P20_RING_TOL = BWD_TOL
+
+
+def _p20_flag_data(np):
+    f = P20_FLAGSHIP
+    rs = np.random.RandomState(20)
+    n = P20_STEPS * f["batch"]
+    return (rs.randn(n, f["seq"], f["hidden"]).astype(np.float32),
+            rs.randint(0, f["num_classes"], (n, 1)).astype(np.int32))
+
+
+def _p20_glam_data(np):
+    g = P20_GLAM
+    rs = np.random.RandomState(21)
+    n = P20_STEPS * g["batch"]
+    return (rs.randint(0, g["vocab"], (n, g["seq"])).astype(np.int32),
+            rs.randint(0, g["vocab"], (n, g["seq"], 1)).astype(np.int32))
+
+
+def _p20_flagship(port, part: str, mesh=None):
+    """(a)'s ("zero1") or (b)'s ("sharded_fused", and "per_leaf": (b)
+    without the fused update) flagship, seed 20, bf16 over f32 master
+    weights (P20_MASTER): (a) SGD with momentum under grad accumulation
+    and, on a mesh, overlap_grad_sync; (b) Adam under phase 17's Megatron
+    table on a mesh with a "model" axis."""
+    if part == "zero1":
+        opt = port.SGDOptimizer(lr=P15_LR, momentum=P20_MOMENTUM)
+        cfg = dict(grad_accum_steps=P20_ACCUM, overlap_grad_sync=bool(mesh))
+    else:
+        opt = port.AdamOptimizer(alpha=P20_ALPHA)
+        cfg = dict(fused_optimizer=part == "sharded_fused")
+        if mesh:
+            cfg["strategies"] = _p17_table(port, P20_FLAGSHIP["layers"],
+                                           mesh)[1]
+    return build_flagship(port, "cuda", "bfloat16", 20, **P20_FLAGSHIP,
+                          opt=opt, mesh_shape=dict(mesh) if mesh else None,
+                          master=P20_MASTER, **cfg)
+
+
+def _p20_glam(port, mesh=None):
+    """(c)'s GLaM-width MoE LM (seed 0, bf16, SGD), under ``mesh`` or on
+    the single-device path."""
+    from flexflow_tpu_torch.models import gpt_lm
+
+    g = P20_GLAM
+    ff = port.FFModel(_bf16_config(port, g["batch"],
+                                   mesh_shape=dict(mesh) if mesh else None),
+                      device="cuda")
+    tok, logits = gpt_lm(ff, g["batch"], g["seq"], g["hidden"], g["layers"],
+                         g["heads"], g["vocab"], moe_every=g["moe_every"],
+                         num_experts=g["experts"])
+    ff.compile(port.SGDOptimizer(lr=g["lr"]),
+               port.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+               [port.MetricsType.METRICS_ACCURACY], final_tensor=logits)
+    return ff, tok
+
+
+def _p20_state_bytes(ff):
+    """(this rank's optimizer-state bytes, the state's whole bytes), the
+    step counter left out."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.runtime.checkpoint import state_tensors
+
+    loc = whole = 0
+    for name, t in state_tensors(ff).items():
+        if name.startswith("opt_state/") and t.dim() > 0:
+            loc += parallel.local(t).numel() * t.element_size()
+            whole += t.numel() * t.element_size()
+    return loc, whole
+
+
+def _p20_masters(ff) -> dict:
+    """{op: {weight: a copy of this rank's f32 master weight}}."""
+    from flexflow_tpu_torch import parallel
+
+    return {op: {w: parallel.local(t).detach().float().clone()
+                 for w, t in ws.items()} for op, ws in ff.params.items()}
+
+
+def _p20_dw_err(torch, ff, moved: dict, path: Path) -> dict:
+    """(a)'s / (b)'s weights on a rank: its change of every weight it
+    holds over the fit (``moved``) against the single device's change of
+    the same elements (``path``: the whole change of every weight):
+    ||dw - dw_single|| / ||dw_single|| over them all, and the weight that
+    differs most."""
+    from flexflow_tpu_torch import parallel
+
+    ref = torch.load(path, mmap=True, map_location="cpu")
+    num = den = 0.0
+    worst = (0.0, "")
+    for op, ws in moved.items():
+        for w, dw in ws.items():
+            t, r = ff.params[op][w], ref[op][w]
+            if parallel.is_dtensor(t):
+                r = r[parallel.local_slice(r.shape, t.device_mesh,
+                                           t.placements)]
+            r = r.to(dw.device, torch.float32)
+            n, d = float((dw - r).square().sum()), float(r.square().sum())
+            num, den = num + n, den + d
+            if d > 0:
+                worst = max(worst, ((n / d) ** 0.5, f"{op}/{w}"))
+    return {"rel": (num / den) ** 0.5 if den else float("inf"),
+            "worst": list(worst), "norm": den ** 0.5}
+
+
+def _p20_fit(torch, port, kernels, ff, x, data, moved=None) -> dict:
+    """P20_STEPS steps through ``fit``: the losses, each step's ms (host
+    clock to a synchronize), launches and local-shard calls (from 0 just
+    before the fit), the transport's bytes, peak memory over the fit, the
+    optimizer state's bytes, and the idle share of one more profiled step
+    on the first batch. ``moved`` (``_p20_masters`` before the fit) becomes
+    each weight's change over the fit, in place."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flexflow_tpu_torch import parallel
+
+    port.SingleDataLoader(ff, x, data[0])
+    port.SingleDataLoader(ff, ff.label_tensor, data[1])
+    losses, ms = [], []
+    step = ff._run_train_step
+
+    def recording(batch, inject_nan=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, mets = step(batch, inject_nan)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return loss, mets
+
+    ff._run_train_step = recording
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    parallel.reset_local_calls()
+    parallel.reset_transport_stats()
+    try:
+        ff.fit(epochs=1, verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        del ff._run_train_step
+    if moved is not None:
+        for op, ws in moved.items():
+            for w, t in ws.items():
+                t.sub_(parallel.local(ff.params[op][w]).float()).neg_()
+    rec = {"losses": losses, "step_ms": ms,
+           "launches": kernels.launch_counts(),
+           "local_calls": dict(parallel.LOCAL_SHARD_CALLS),
+           "transport": parallel.transport_stats(),
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "opt_bytes": _p20_state_bytes(ff)}
+    b = ff.config.batch_size
+    batch = {x.owner_op.name: data[0][:b], "label": data[1][:b]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ff._run_train_step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rec["idle"] = max(0.0, 1 - busy_ms(prof.events()) / wall)
+    rec["profiled_ms"] = wall
+    return rec
+
+
+def _p20_single(torch, port, kernels, card: str, outdir: Path) -> dict:
+    """The single-device references in this process before the ranks
+    start, each freed after its fit: (a)'s and (b)'s flagship and (c)'s
+    MoE LM. (a)'s and (b)'s change of every weight over the fit goes to
+    ``outdir/dw_<part>.pt`` (bf16, whole), for the ranks."""
+    import numpy as np
+
+    flag, glam = _p20_flag_data(np), _p20_glam_data(np)
+    out = {}
+    for key, build, data in (
+            ("zero1", lambda: _p20_flagship(port, "zero1"), flag),
+            ("sharded_fused", lambda: _p20_flagship(port, "sharded_fused"),
+             flag),
+            ("ep", lambda: _p20_glam(port), glam)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ff, x = build()
+        moved = None if key == "ep" else _p20_masters(ff)
+        rec = _p20_fit(torch, port, kernels, ff, x, data, moved)
+        if moved is not None:
+            torch.save({op: {w: t.to("cpu", torch.bfloat16)
+                             for w, t in ws.items()}
+                        for op, ws in moved.items()},
+                       outdir / f"dw_{key}.pt")
+            rec["dw_norm"] = math.sqrt(sum(
+                float(t.square().sum()) for ws in moved.values()
+                for t in ws.values()))
+            del moved
+        rec["s"] = time.perf_counter() - t0
+        out[key] = rec
+        say(f"phase 20 single-device {key}: losses {rec['losses']}, steps "
+            f"{[round(m, 2) for m in rec['step_ms']]} ms, idle share "
+            f"{rec['idle']:.3f}, peak {rec['peak_gib']:.2f} GiB, optimizer "
+            f"state {rec['opt_bytes'][0]} B, weights moved by "
+            f"{rec.get('dw_norm', 0.0):.4g} (L2 over all), launches "
+            f"{rec['launches']}, {rec['s']:.1f} s [{card}]")
+        del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p20_sharded_ckpt(torch, port, ff, outdir: str) -> dict:
+    """(b)'s checkpoint: a save from both ranks (the sharded-fused layout),
+    a restore into fresh models on the same mesh — every state tensor,
+    made whole, bitwise the saved model's — and a restore into the
+    per-leaf layout, which must raise."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.runtime.checkpoint import (load_meta,
+                                                       restore_checkpoint,
+                                                       save_checkpoint,
+                                                       state_tensors)
+
+    mesh = {"data": 1, "model": 2}
+    d = os.path.join(outdir, "ckpt_b")
+    t0 = time.perf_counter()
+    save_checkpoint(ff, d, step=P20_STEPS)
+    save_s = time.perf_counter() - t0
+    saved = {k: parallel.full_tensor(t).clone()
+             for k, t in state_tensors(ff).items()}
+    fresh = _p20_flagship(port, "sharded_fused", mesh)[0]
+    t0 = time.perf_counter()
+    restore_checkpoint(fresh, d, step=P20_STEPS)
+    restore_s = time.perf_counter() - t0
+    live = {k: parallel.full_tensor(t) for k, t in
+            state_tensors(fresh).items()}
+    bitwise = set(live) == set(saved) and all(
+        torch.equal(live[k], saved[k]) for k in saved)
+    del fresh, live, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_leaf = _p20_flagship(port, "per_leaf", mesh)[0]
+    try:
+        restore_checkpoint(per_leaf, d, step=P20_STEPS)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    del per_leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layout": load_meta(d)["opt_layout"], "bitwise": bitwise,
+            "refused": refused, "save_s": save_s, "restore_s": restore_s}
+
+
+def _p20_ring(torch, kernels) -> dict:
+    """(d): for each head dim of P20_RING, one ring-attention call over
+    {"seq": 2} through kernels 1 and 2 and one through the torch-op ring
+    on the same bf16 shards (the same seeded q / k / v / dO on both
+    ranks); the largest scaled difference of the output and gradients,
+    and the kernels' launches (from 0 just before the call)."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = parallel.make_mesh({"seq": 2}, "cuda")
+    axis = parallel.mesh_axis(mesh, "seq")
+    s = P20_RING_SEQ // axis.size
+    pos = slice(axis.index * s, (axis.index + 1) * s)
+    out = {}
+    for d, h in P20_RING:
+        g = torch.Generator(device="cuda").manual_seed(d)
+        full = [torch.randn(1, P20_RING_SEQ, h, d, device="cuda",
+                            generator=g) for _ in range(4)]
+
+        def run(**kw):
+            leaves = [t[:, pos].to(torch.bfloat16).requires_grad_()
+                      for t in full[:3]]
+            kernels.reset_launch_counts()
+            o = ring_attention(*leaves, axis, causal=False, **kw)
+            (o.float() * full[3][:, pos]).sum().backward()
+            torch.cuda.synchronize()
+            return ([o.detach()] + [x.grad for x in leaves],
+                    kernels.launch_counts())
+
+        got, la = run()
+        ref, _ = run(use_flash=False)
+        out[str(d)] = {"err": max(scaled_err(a, b) for a, b in zip(got, ref)),
+                       "launches": la, "q": [1, s, h, d]}
+        del full, got, ref
+    return out
+
+
+def _p20_child(outdir: str) -> None:
+    """Phase 20's ranks (two gloo ranks sharing the card, started by the
+    port's launcher): (a) the flagship under {"data": 2} with
+    overlap_grad_sync (ZeRO-1); (b) under {"data": 1, "model": 2} with the
+    Megatron table and fused Adam (ShardedFusedUpdate), then its
+    checkpoint; (c) the MoE LM under {"data": 1, "expert": 2}; (d) ring
+    attention at head dims 80, 96 and 256. Each rank writes
+    ``outdir/pair.<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    import flexflow_tpu_torch as port
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.ops import kernels
+    from flexflow_tpu_torch.runtime.optimizer import (ShardedFusedUpdate,
+                                                      Zero1Update)
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if (dist.get_backend(), world) != ("gloo", 2):
+        fail("phase 20: needs 2 gloo ranks")
+    t0 = time.perf_counter()
+    res = {}
+    flag = _p20_flag_data(np)
+    for part, mesh in (("zero1", {"data": 2}),
+                       ("sharded_fused", {"data": 1, "model": 2})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ff, x = _p20_flagship(port, part, mesh)
+        moved = _p20_masters(ff)
+        rec = _p20_fit(torch, port, kernels, ff, x, flag, moved)
+        rec["dw"] = _p20_dw_err(torch, ff, moved,
+                                Path(outdir) / f"dw_{part}.pt")
+        del moved
+        rec["wrapper"] = (isinstance(ff.optimizer, Zero1Update)
+                          if part == "zero1" else
+                          isinstance(ff.optimizer, ShardedFusedUpdate))
+        # the update's operands on this rank: ZeRO-1's shards (its state
+        # tensors' shapes) or the weights' local shards
+        if part == "zero1":
+            rec["leaves"] = [list(parallel.local(t).shape) for ws in
+                             ff.opt_state["v"].values() for t in ws.values()]
+        else:
+            rec["leaves"] = [list(parallel.local(w).shape)
+                             for ws in ff.params.values()
+                             for w in ws.values()]
+            rec["ckpt"] = _p20_sharded_ckpt(torch, port, ff, outdir)
+        rec["s"] = time.perf_counter() - t1
+        res[part] = rec
+        say(f"phase 20 rank {rank}: {part} done at "
+            f"{time.perf_counter() - t0:.1f} s")
+        del ff
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ff, tok = _p20_glam(port, {"data": 1, "expert": 2})
+    moe = ff.get_op_by_name("moe_1")
+    rec = _p20_fit(torch, port, kernels, ff, tok, _p20_glam_data(np))
+    rec["dense"] = not moe._use_sort_dispatch()
+    rec["s"] = time.perf_counter() - t1
+    res["ep"] = rec
+    say(f"phase 20 rank {rank}: ep done at {time.perf_counter() - t0:.1f} s")
+    del ff, moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["ring"] = _p20_ring(torch, kernels)
+    say(f"phase 20 rank {rank}: ring done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(outdir, f"pair.{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def _pair_launch(outdir: Path, flag: str, timeout: float, tag: str) -> float:
+    """Start two gloo ranks of this script's ``flag`` child through the
+    port's launcher and wait for them, bounded by ``timeout``; fails
+    unless each exits 0, printing each rank's log's tail. Returns the
+    seconds they took."""
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port_no = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["FF_INIT_TIMEOUT_S"] = "300"
+    env["PYTHONFAULTHANDLER"] = "1"
+    logs = [open(outdir / f"pair.{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "flexflow_tpu_torch.launcher",
+         str(ROOT / "chip_smoke.py"), "--device", "cpu",
+         "--num-processes", "2", "--process-id", str(r),
+         "--coordinator", f"127.0.0.1:{port_no}", "--", flag, str(outdir)],
+        cwd=str(ROOT), env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(2)]
+    late = False
+    try:
+        for p in procs:
+            left = timeout - (time.perf_counter() - t0)
+            p.wait(timeout=max(1.0, left))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        # SIGABRT first: a rank outliving its bound writes its stacks to
+        # its log (PYTHONFAULTHANDLER)
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGABRT)
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for f in logs:
+        f.close()
+    outs = [(outdir / f"pair.{r}.log").read_text() for r in range(2)]
+    if late:
+        fail(f"{tag}: a rank outlived {timeout} s:\n"
+             + "\n".join(f"rank {r}:\n{o[-3000:]}"
+                         for r, o in enumerate(outs)))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{tag}: rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def _p20_losses(bad: list, tag: str, got, want, card: str,
+                tol: float = P20_RTOL) -> None:
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    say(f"phase 20 {tag}: losses {got} against the single device's {want}:"
+        f" relative differences {[f'{r:.3g}' for r in rel]} (limit "
+        f"{tol} each) [{card}]")
+    if not (len(got) == len(want) == P20_STEPS and all(
+            math.isfinite(v) for v in got) and max(rel) <= tol):
+        bad.append(f"{tag}: losses {got} against {want}")
+
+
+def _p20_weights(bad: list, tag: str, dw: dict, single: dict,
+                 card: str) -> None:
+    say(f"phase 20 {tag}: the weights' change over the fit against the "
+        f"single device's: {dw['rel']:.4g} relative (limit {P20_DW_TOL}; "
+        f"an update that changed nothing reads 1), the rank's part "
+        f"{dw['norm']:.4g} of the single device's whole "
+        f"{single['dw_norm']:.4g} (L2); the weight farthest off "
+        f"{dw['worst'][1]} at "
+        f"{dw['worst'][0]:.3g} [{card}]")
+    if not dw["rel"] <= P20_DW_TOL:
+        bad.append(f"{tag}: weights {dw['rel']} off")
+
+
+def _p20_launches(bad: list, tag: str, got: dict, want: dict) -> None:
+    if any(got.get(k, 0) != n for k, n in want.items()):
+        bad.append(f"{tag}: launches {got}, want {want}")
+
+
+def _p20_say(tag: str, r: int, rec: dict, single: dict, card: str) -> None:
+    t = rec["transport"]
+    say(f"phase 20 {tag} rank {r}: steps "
+        f"{[round(m, 1) for m in rec['step_ms']]} ms against the single "
+        f"device's {[round(m, 1) for m in single['step_ms']]}; idle share "
+        f"{rec['idle']:.3f} against {single['idle']:.3f} (one profiled "
+        f"step); peak {rec['peak_gib']:.2f} GiB against "
+        f"{single['peak_gib']:.2f}; optimizer state {rec['opt_bytes'][0]} B "
+        f"on this rank of {rec['opt_bytes'][1]} B (single device "
+        f"{single['opt_bytes'][0]} B); transport: reduce-scatter "
+        f"{t['reduce_scatter_bytes']} B, all-gather {t['all_gather_bytes']}"
+        f" B, all-to-all {t['all_to_all_bytes']} B, all-reduce / gather / "
+        f"broadcast {t['reduce_bytes']} B (two gloo ranks sharing one card "
+        f"through host memory: these times say nothing of NCCL or NVLink); "
+        f"launches {rec['launches']}, local-shard calls "
+        f"{rec['local_calls']} [{card}]")
+
+
+def phase_zero1_ep(torch, port, kernels, card: str):
+    """Phase 20: sharded optimizer state and expert parallelism on two
+    gloo ranks sharing the card, each part against the single-device run
+    of the same model and data in this process. Returns {"zero1",
+    "sharded_fused", "ep": rank 0's launches, "hd80" / "hd96" / "hd256":
+    (d)'s} and the rows of the update kernel at the ranks' operands and of
+    the flash kernels at (a)'s and (b)'s local shapes."""
+    t0 = time.perf_counter()
+    outdir = ROOT / "build" / "phase20"
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    single = _p20_single(torch, port, kernels, card, outdir)
+    pair_s = _pair_launch(outdir, "--phase20", P20_TIMEOUT, "phase 20")
+    recs = [json.loads((outdir / f"pair.{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(outdir, ignore_errors=True)
+    f = P20_FLAGSHIP
+    L = f["layers"]
+    # every part's checks run and print before any failure ends the phase
+    bad = []
+
+    # (a) ZeRO-1: each data rank 2 rows a microbatch, P20_ACCUM
+    # microbatches a step; the update on the rank's half of every weight
+    sa = single["zero1"]
+    for r, rec in enumerate(recs):
+        a = rec["zero1"]
+        _p20_say("(a) zero1", r, a, sa, card)
+        _p20_losses(bad, f"(a) zero1 rank {r}", a["losses"], sa["losses"],
+                    card)
+        _p20_weights(bad, f"(a) zero1 rank {r}", a["dw"], sa, card)
+        if not a["wrapper"]:
+            bad.append(f"(a) rank {r}: the update is not Zero1Update")
+        n = L * P20_ACCUM * P20_STEPS
+        _p20_launches(bad, f"(a) rank {r}", a["launches"], {
+            "flash_attention_fwd": n, "flash_attention_bwd": n,
+            "fused_add_layernorm_fwd": 2 * n, "fused_update": P20_STEPS})
+        local, whole = a["opt_bytes"]
+        # a row of the largest leaf's largest dim, f32 state
+        slack = max(math.prod(s) // max(s) for s in a["leaves"]) * 4
+        if whole != sa["opt_bytes"][0] or \
+                abs(local - whole / 2) > slack:
+            bad.append(f"(a) rank {r}: optimizer state {local} B on the "
+                 f"rank, {whole} B whole; the single device's "
+                 f"{sa['opt_bytes'][0]} B (half within {slack} B)")
+        t = a["transport"]
+        if t["reduce_scatter_bytes"] <= 0 or t["all_gather_bytes"] <= 0:
+            bad.append(f"(a) rank {r}: no reduce-scatter / all-gather "
+                 f"counted: {t}")
+
+    # (b) ShardedFusedUpdate: each rank 16 of the 32 heads and half of
+    # each column / row-parallel weight; the checkpoint
+    sb = single["sharded_fused"]
+    for r, rec in enumerate(recs):
+        b = rec["sharded_fused"]
+        _p20_say("(b) sharded_fused", r, b, sb, card)
+        _p20_losses(bad, f"(b) sharded_fused rank {r}", b["losses"],
+                    sb["losses"], card, P20_TP_RTOL)
+        _p20_weights(bad, f"(b) sharded_fused rank {r}", b["dw"], sb, card)
+        if not b["wrapper"]:
+            bad.append(f"(b) rank {r}: the update is not "
+                 f"ShardedFusedUpdate")
+        n = L * P20_STEPS
+        _p20_launches(bad, f"(b) rank {r}", b["launches"], {
+            "flash_attention_fwd": n, "flash_attention_bwd": n,
+            "fused_add_layernorm_fwd": 2 * n, "fused_update": P20_STEPS})
+        c = b["ckpt"]
+        say(f"phase 20 (b) rank {r}: checkpoint layout {c['layout']!r}, "
+            f"saved by both ranks in {c['save_s']:.2f} s, restored into "
+            f"fresh models in {c['restore_s']:.2f} s, bitwise "
+            f"{c['bitwise']}; into the per-leaf layout: "
+            f"{c['refused'][:100]!r} [{card}]")
+        if c["layout"] != "sharded_fused" or not c["bitwise"] or \
+                "'sharded_fused' layout" not in c["refused"]:
+            bad.append(f"(b) rank {r}: checkpoint {c}")
+
+    # (c) expert parallelism: the dense dispatch, tokens by all-to-all
+    sc = single["ep"]
+    for r, rec in enumerate(recs):
+        e = rec["ep"]
+        _p20_say("(c) ep", r, e, sc, card)
+        _p20_losses(bad, f"(c) ep rank {r}", e["losses"], sc["losses"], card)
+        n = P20_GLAM["layers"] * P20_STEPS
+        _p20_launches(bad, f"(c) rank {r}", e["launches"], {
+            "flash_attention_fwd": n, "flash_attention_bwd": n})
+        if not e["dense"] or e["transport"]["all_to_all_bytes"] <= 0:
+            bad.append(f"(c) rank {r}: dense dispatch {e['dense']}, "
+                 f"all-to-all {e['transport']['all_to_all_bytes']} B")
+
+    # (d) the ring at head dims 80, 96, 256: each rank attends both
+    # shards, non-causal
+    out = {"zero1": recs[0]["zero1"]["launches"],
+           "sharded_fused": recs[0]["sharded_fused"]["launches"],
+           "ep": recs[0]["ep"]["launches"]}
+    for d, h in P20_RING:
+        for r, rec in enumerate(recs):
+            g = rec["ring"][str(d)]
+            say(f"phase 20 (d) ring at head dim {d} rank {r}: q {g['q']} at "
+                f"kernels 1 and 2, bf16; output and gradients within "
+                f"{g['err']:.3g} of the torch-op ring's (limit "
+                f"{P20_RING_TOL}); launches {g['launches']} [{card}]")
+            if g["err"] > P20_RING_TOL:
+                bad.append(f"(d) head dim {d} rank {r}: {g['err']}")
+            _p20_launches(bad, f"(d) head dim {d} rank {r}", g["launches"], {
+                "flash_attention_fwd": 2, "flash_attention_bwd": 2})
+        out[f"hd{d}"] = recs[1]["ring"][str(d)]["launches"]
+    if bad:
+        fail("phase 20: " + "; ".join(bad))
+
+    # the rows at the ranks' shapes: (a)'s microbatch of 2 rows and its
+    # update on the shards (f32 weights, gradients and state), (b)'s 16
+    # heads and its fused Adam on the local shards
+    g = torch.Generator(device="cuda").manual_seed(20)
+    h, d = f["heads"], f["hidden"] // f["heads"]
+    per_micro = f["batch"] // 2 // P20_ACCUM
+    rows = flash_training_rows(torch, kernels, g, per_micro, f["seq"], h, d,
+                               "_zero1")
+    rows.update(add_layernorm_row(torch, kernels, g, per_micro * f["seq"],
+                                  f["hidden"], "_zero1"))
+    rows.update(flash_training_rows(torch, kernels, g, f["batch"], f["seq"],
+                                    h // 2, d, "_sharded_fused"))
+    rows.update(fused_update_rows(
+        torch, port, kernels, g, [tuple(s) for s in recs[0]["zero1"]
+                                  ["leaves"]],
+        (("fused_update_momentum_zero1", dict(kind="sgd",
+                                              momentum=P20_MOMENTUM),
+          "per_leaf", 20, 4),), "a ZeRO-1 rank's shards",
+        dtype=torch.float32))
+    rows.update(fused_update_rows(
+        torch, port, kernels, g, [tuple(s) for s in recs[0]["sharded_fused"]
+                                  ["leaves"]],
+        (("fused_update_adam_sharded_fused", dict(kind="adam"), "flat", 28,
+          12),), "a tensor-parallel rank's local shards",
+        dtype=torch.float32))
+    for name, r in rows.items():
+        say_row(name, r)
+    say(f"phase 20: the pair {pair_s:.1f} s, total "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out, rows
+
+
+def head_dim_kernel_rows(torch, kernels, g):
+    """Kernels 1 and 2 at phase 20 (d)'s ring shards, bf16: q / k / v (1,
+    P20_RING_SEQ / 2, h, d) non-causal at head dims 80, 96 and 256 (the
+    CUDA-core kernels), the backward given its delta as a ring step's
+    is."""
+    rows = {}
+    for d, h in P20_RING:
+        rows.update(flash_training_rows(torch, kernels, g, 1,
+                                        P20_RING_SEQ // 2, h, d, f"_hd{d}",
+                                        given_delta=True))
+    return rows
+
+
 FUSED_UPDATE_REPLACES = "flexflow_tpu/runtime/optimizer.py:40"
 #: the JSON line's rows: name -> (source, what it replaces (a line of
 #: flexflow_tpu/ops/pallas_kernels.py, or a file:line), the main path whose
@@ -7686,7 +8447,7 @@ KERNEL_ROWS = {
                                    "deploy", "flash_attention_fwd"),
     "paged_attention_fwd_deploy": ("paged_attention.cu", 689, "deploy",
                                    "paged_attention_fwd"),
-    f"paged_prefill_write_layers{WRITE_LAYERS}_deploy": (
+    f"paged_prefill_write_layers{CUT_LAYERS}": (
         "paged_prefill_write.cu", 779, "deploy", "paged_prefill_write"),
     # phase 16: the flagship drill (one layer, host data through the
     # pipeline) runs the training shapes of phase 7 (its rows are phase
@@ -7719,8 +8480,8 @@ KERNEL_ROWS = {
                                        FUSED_UPDATE_REPLACES, "strategy",
                                        "fused_update"),
     # phase 18: (b)'s local-shard shapes (16 q heads over 4 kv heads a
-    # rank, 8 layers), their launches rank 0's TP serve's; (a) at world
-    # size 1 runs phase 3's serving shapes through the local-shard path
+    # rank, P18_LAYERS layers), their launches rank 0's TP serve's; (a) at
+    # world size 1 runs phase 3's serving shapes through the local-shard path
     # (its rows are phase 3's, its launches the mesh serve's)
     "flash_attention_fwd_tp": ("flash_attention_wgmma.cu", 180, "tp",
                                "flash_attention_fwd"),
@@ -7732,7 +8493,7 @@ KERNEL_ROWS = {
                                 "flash_attention_fwd"),
     "paged_attention_fwd_tp1": ("paged_attention.cu", 689, "tp1",
                                 "paged_attention_fwd"),
-    f"paged_prefill_write_layers{WRITE_LAYERS}_tp1": (
+    f"paged_prefill_write_layers{CUT_LAYERS}_tp1": (
         "paged_prefill_write.cu", 779, "tp1", "paged_prefill_write"),
     # phase 19: a ring step's shapes (the rank's own shard causal, a past
     # one full; each row's launches rank 1's at its mask, the rank that
@@ -7754,6 +8515,39 @@ KERNEL_ROWS = {
                                      "pipe", "flash_attention_fwd"),
     "flash_attention_bwd_pipe": ("flash_attention_bwd_wgmma.cu", 335, "pipe",
                                  "flash_attention_bwd"),
+    # phase 20: (a)'s microbatch and ZeRO-1 update, (b)'s 16 heads and
+    # fused Adam on a rank's local shards (rank 0's launches); (d)'s ring
+    # at head dims 80, 96, 256 on the CUDA-core kernels (rank 1's)
+    "flash_attention_fwd_lse_zero1": ("flash_attention_wgmma.cu", 180,
+                                      "zero1", "flash_attention_fwd"),
+    "flash_attention_bwd_zero1": ("flash_attention_bwd_wgmma.cu", 335,
+                                  "zero1", "flash_attention_bwd"),
+    "fused_add_layernorm_fwd_zero1": ("fused_add_layernorm.cu", 461, "zero1",
+                                      "fused_add_layernorm_fwd"),
+    "fused_update_momentum_zero1": ("fused_update.cu", FUSED_UPDATE_REPLACES,
+                                    "zero1", "fused_update"),
+    "flash_attention_fwd_lse_sharded_fused": (
+        "flash_attention_wgmma.cu", 180, "sharded_fused",
+        "flash_attention_fwd"),
+    "flash_attention_bwd_sharded_fused": (
+        "flash_attention_bwd_wgmma.cu", 335, "sharded_fused",
+        "flash_attention_bwd"),
+    "fused_add_layernorm_fwd_sharded_fused": (
+        "fused_add_layernorm.cu", 461, "sharded_fused",
+        "fused_add_layernorm_fwd"),
+    "fused_update_adam_sharded_fused": (
+        "fused_update.cu", FUSED_UPDATE_REPLACES, "sharded_fused",
+        "fused_update"),
+    "flash_attention_fwd_lse_ep": ("flash_attention_wgmma.cu", 180, "ep",
+                                   "flash_attention_fwd"),
+    "flash_attention_bwd_ep": ("flash_attention_bwd_wgmma.cu", 335, "ep",
+                               "flash_attention_bwd"),
+    **{f"flash_attention_fwd_lse_hd{d}": ("flash_attention.cu", 180,
+                                          f"hd{d}", "flash_attention_fwd")
+       for d, _ in P20_RING},
+    **{f"flash_attention_bwd_hd{d}": ("flash_attention_bwd.cu", 335,
+                                      f"hd{d}", "flash_attention_bwd")
+       for d, _ in P20_RING},
 }
 
 #: phase 14's, 15's and 16's rows: the row whose measurement each repeats
@@ -7768,8 +8562,6 @@ FLEET_ROWS = {
     "fused_update_momentum_resume": "fused_update_momentum",
     "flash_attention_fwd_deploy": "flash_attention_fwd",
     "paged_attention_fwd_deploy": "paged_attention_fwd",
-    f"paged_prefill_write_layers{WRITE_LAYERS}_deploy":
-        f"paged_prefill_write_layers{WRITE_LAYERS}",
     "flash_attention_fwd_lse_pipeline": "flash_attention_fwd_lse",
     "flash_attention_bwd_pipeline": "flash_attention_bwd",
     "fused_add_layernorm_fwd_pipeline": "fused_add_layernorm_fwd",
@@ -7781,9 +8573,30 @@ FLEET_ROWS = {
     "fused_update_per_leaf_strategy": "fused_update_per_leaf",
     "flash_attention_fwd_tp1": "flash_attention_fwd",
     "paged_attention_fwd_tp1": "paged_attention_fwd",
-    f"paged_prefill_write_layers{WRITE_LAYERS}_tp1":
-        f"paged_prefill_write_layers{WRITE_LAYERS}",
+    f"paged_prefill_write_layers{CUT_LAYERS}_tp1":
+        f"paged_prefill_write_layers{CUT_LAYERS}",
+    # phase 20: (b)'s add + LayerNorm runs whole on each rank (phase 3's
+    # shape); (c)'s ranks attend the whole batch (phase 10's shape)
+    "fused_add_layernorm_fwd_sharded_fused": "fused_add_layernorm_fwd",
+    "flash_attention_fwd_lse_ep": "flash_attention_fwd_lse_moe_lm",
+    "flash_attention_bwd_ep": "flash_attention_bwd_moe_lm",
 }
+
+
+#: seconds of each phase this run, by its number (printed as each ends
+#: and in one line before the kernels line)
+PHASE_SECONDS: dict = {}
+
+
+def timed(n: str, t_start: float, fn, *args):
+    """Run phase ``n`` (``fn(*args)``) and print its seconds and the
+    script's total so far."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    now = time.perf_counter()
+    PHASE_SECONDS[n] = round(now - t0, 1)
+    say(f"phase {n}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
+    return out
 
 
 def main():
@@ -7799,6 +8612,8 @@ def main():
         return _p18_child(sys.argv[2], sys.argv[3])   # phase 18's ranks
     if len(sys.argv) == 3 and sys.argv[1] == "--phase19":
         return _p19_child(sys.argv[2])       # phase 19's ranks
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase20":
+        return _p20_child(sys.argv[2])       # phase 20's ranks
     if not (ROOT / "flexflow_tpu_torch" / "__init__.py").is_file():
         fail(f"run from a checkout: {ROOT} holds no flexflow_tpu_torch/")
     sys.path.insert(0, str(ROOT))
@@ -7808,39 +8623,61 @@ def main():
     from flexflow_tpu_torch.ops import kernels
 
     t_start = time.perf_counter()
-    card = phase_card()
-    phase_build(kernels)
-    rows = phase_kernels(torch, port, kernels)
-    launches = phase_check(torch, FFConfig, FFModel, llama_lm, kernels)
-    checked = phase_train_check(torch, port, kernels)
+    card = timed("1", t_start, phase_card)
+    sass = timed("2", t_start, phase_build, kernels, False)
+    # the SASS listing (~20 s of one core) runs beside phase 3's rows
+    rows = timed("3", t_start, lambda: (
+        phase_kernels(torch, port, kernels), sass_counts(kernels, sass))[0])
+    launches = timed("4", t_start, phase_check, torch, FFConfig, FFModel,
+                     llama_lm, kernels)
+    checked = timed("5", t_start, phase_train_check, torch, port, kernels)
     launches["train_check_fused"] = checked["fused SGD with momentum"]
     launches["train_check_adam"] = checked["Adam under WarmupCosine"]
-    launches["serve"], ff, outs = phase_serve(torch, FFConfig, FFModel,
-                                              llama_lm, kernels, card)
-    launches.update(phase_serve_quantized(torch, ff, kernels, card))
+    launches["serve"], ff, outs = timed("6", t_start, phase_serve, torch,
+                                        FFConfig, FFModel, llama_lm, kernels,
+                                        card)
+    launches.update(timed("6b", t_start, phase_serve_quantized, torch, ff,
+                          kernels, card))
     ref = [list(o[n:]) for o, n in zip(outs, PROMPT_LENS)]
     prompts = [o[:n] for o, n in zip(outs, PROMPT_LENS)]
-    p11, step_ms_p11 = phase_decode_features(
-        torch, FFConfig, FFModel, llama_lm, kernels, ff, ref, prompts, card)
+    p11, step_ms_p11 = timed("11", t_start, phase_decode_features, torch,
+                             FFConfig, FFModel, llama_lm, kernels, ff, ref,
+                             prompts, card)
     launches.update(p11)
-    launches.update(phase_serving_rest(torch, kernels, ff, ref, prompts,
-                                       step_ms_p11, card))
-    launches.update(phase_generate(torch, FFConfig, FFModel, llama_lm,
-                                   kernels, ff, ref, prompts, card))
-    launches.update(phase_fleet(torch, kernels, ff, prompts, card))
-    launches.update(phase_deploy(torch, FFConfig, FFModel, llama_lm, kernels,
-                                 ff, ref, prompts, card))
+    launches.update(timed("12", t_start, phase_serving_rest, torch, kernels,
+                          ff, ref, prompts, step_ms_p11, card))
+    launches.update(timed("13", t_start, phase_generate, torch, FFConfig,
+                          FFModel, llama_lm, kernels, ff, ref, prompts,
+                          card))
+    launches.update(timed("14", t_start, phase_fleet, torch, kernels, ff,
+                          prompts, card))
+    launches.update(timed("15b-d", t_start, phase_deploy, torch, FFConfig,
+                          FFModel, llama_lm, kernels, prompts, card))
     del ff, outs
-    launches.update(phase_train(torch, port, kernels, card))
-    launches.update(phase_resilience(torch, port, kernels, card))
-    launches.update(phase_zoo_check(torch, port, kernels))
-    launches.update(phase_zoo_train(torch, port, kernels, card))
-    launches.update(phase_rest(torch, port, kernels, card))
-    launches.update(phase_pipeline(torch, port, kernels, card))
-    launches.update(phase_strategy(torch, port, kernels, card))
-    launches.update(phase_tp(torch, port, kernels, card))
-    launches.update(phase_sp_pp(torch, port, kernels, card))
+    launches.update(timed("7", t_start, phase_train, torch, port, kernels,
+                          card))
+    launches.update(timed("15a", t_start, phase_resilience, torch, port,
+                          kernels, card))
+    launches.update(timed("8", t_start, phase_zoo_check, torch, port,
+                          kernels))
+    launches.update(timed("9", t_start, phase_zoo_train, torch, port,
+                          kernels, card))
+    launches.update(timed("10", t_start, phase_rest, torch, port, kernels,
+                          card))
+    launches.update(timed("16", t_start, phase_pipeline, torch, port,
+                          kernels, card))
+    launches.update(timed("17", t_start, phase_strategy, torch, port,
+                          kernels, card))
+    launches.update(timed("18", t_start, phase_tp, torch, port, kernels,
+                          card))
+    launches.update(timed("19", t_start, phase_sp_pp, torch, port, kernels,
+                          card))
+    p20, p20_rows = timed("20", t_start, phase_zero1_ep, torch, port,
+                          kernels, card)
+    launches.update(p20)
+    rows.update(p20_rows)
     say(f"total: {time.perf_counter() - t_start:.1f} s")
+    say(f"phases (s): {json.dumps(PHASE_SECONDS)}")
 
     for name, of in FLEET_ROWS.items():
         rows[name] = rows[of]

@@ -28,10 +28,11 @@ from flexflow_tpu_torch.ops.sampling import validate_sampling
 #: where the multi-device features are queued
 ROADMAP_MULTI_DEVICE = ("ROADMAP.md queue 1, item 8 (multi-device training "
                         "and serving)")
-#: where placement, expert parallelism and the sharded optimizer state
-#: are queued (sequence parallelism and the pipelines are ported)
-ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 part 2 (placement, expert "
-                    "parallelism and sharded optimizer state)")
+#: where placement, a mesh over a subset of the ranks and a fleet under a
+#: mesh are queued (sequence and expert parallelism, the pipelines and the
+#: sharded optimizer state are ported)
+ROADMAP_PARALLEL = ("ROADMAP.md queue 1, item 9 part 2 (placement, a mesh "
+                    "over a subset of the ranks, a fleet under a mesh)")
 #: where the strategy search, its simulator and the graph lint are queued
 ROADMAP_SEARCH = "ROADMAP.md queue 1, item 10 (the strategy search)"
 
@@ -42,7 +43,6 @@ SP_MODES = ("ring", "ulysses")
 #: fields of later items: (JAX default, the item that ports them); a
 #: value other than the default raises ``not_ported`` naming the item
 _LATER_FIELDS = {
-    "overlap_grad_sync": (False, ROADMAP_PARALLEL),
     "search_budget": (0, ROADMAP_SEARCH),
     "search_alpha": (0.05, ROADMAP_SEARCH),
     "measure_search_costs": (False, ROADMAP_SEARCH),
@@ -94,9 +94,14 @@ class FFConfig:
     # the lowering of an attention whose sequence dim a strategy shards:
     # "ring" (parallel/ring_attention.py) or "ulysses"
     sp_mode: str = "ring"
+    # ZeRO-1 (runtime/optimizer.py Zero1Update): under grad accumulation
+    # each microbatch's gradients reduce-scatter into the data-scattered
+    # layout (executor.grad_scatter_shardings), and the update runs on each
+    # data rank's shard of the weights and the state, then one all-gather a
+    # weight; a no-op without a "data" axis > 1
+    overlap_grad_sync: bool = False
     # fields of later items (see _LATER_FIELDS): JAX's defaults, any other
     # value refused
-    overlap_grad_sync: bool = False
     search_budget: int = 0
     search_alpha: float = 0.05
     measure_search_costs: object = False

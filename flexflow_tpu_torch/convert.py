@@ -56,6 +56,55 @@ def state_from_jax(state: Dict[str, Dict[str, np.ndarray]],
             for op, ws in state.items()}
 
 
+def opt_state_from_jax(state: Dict, model) -> None:
+    """Write a JAX model's optimizer state (``ff.opt_state``, leaves as
+    numpy) into the port ``model``'s live state in place, each rank its
+    own slice (``parallel.copy_full_into``): the per-leaf layout —
+    ZeRO-1's too, whose shards each data rank takes from the whole
+    moment —, the fused flat buckets, and the sharded-fused flat vector.
+    JAX flattens a bucket in sorted (op, weight) order (its pytree's), a
+    sharded-fused one per device in mesh order; the port walks the
+    weights in graph order, so a flat vector is cut into leaves by JAX's
+    order and joined in the port's. The step counter ``t`` comes too."""
+    from flexflow_tpu_torch import parallel
+    from flexflow_tpu_torch.runtime.checkpoint import _opt_layout
+
+    layout = _opt_layout(model)
+    live = model.opt_state
+    local = parallel.local_tree(model.params)
+    devices = model.mesh.size() if layout == "sharded_fused" else 1
+    sizes = {op: {w: (parallel.local(t).numel() if layout == "sharded_fused"
+                      else t.numel()) for w, t in ws.items()}
+             for op, ws in model.params.items()}
+    with torch.no_grad():
+        parallel.copy_full_into(live["t"], torch.as_tensor(
+            np.asarray(state["t"])).to(live["t"].dtype))
+        for name in model.optimizer.moment_names():
+            src = state[name]
+            if layout == "per_leaf":
+                for op, ws in live[name].items():
+                    for w, t in ws.items():
+                        parallel.copy_full_into(
+                            t, _tensor_from_np(np.asarray(src[op][w]),
+                                               "cpu").to(t.dtype))
+                continue
+            for dt, t in live[name].items():
+                keys = [(op, w) for op, ws in local.items()
+                        for w, v in ws.items() if v.dtype == dt]
+                flat = _tensor_from_np(
+                    np.asarray(src[str(dt).replace("torch.", "")]), "cpu")
+                per = sum(sizes[op][w] for op, w in keys)
+                parts = []
+                for i in range(devices):
+                    chunk, off = flat[i * per:(i + 1) * per], 0
+                    leaves = {}
+                    for op, w in sorted(keys):
+                        leaves[op, w] = chunk[off:off + sizes[op][w]]
+                        off += sizes[op][w]
+                    parts += [leaves[k] for k in keys]
+                parallel.copy_full_into(t, torch.cat(parts).to(t.dtype))
+
+
 #: numpy dtypes of the JAX package that torch cannot take directly (they
 #: come from ml_dtypes), by name -> (same-width integer view, torch dtype)
 _BIT_VIEWS = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),

@@ -33,6 +33,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import logging
+import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -63,7 +64,9 @@ from flexflow_tpu_torch.runtime.executor import (GraphExecutor, StepReplay,
 from flexflow_tpu_torch.runtime.initializer import init_weight
 from flexflow_tpu_torch.runtime.loss import loss_type_from_name
 from flexflow_tpu_torch.runtime.metrics import PerfMetrics, metrics_from_names
-from flexflow_tpu_torch.runtime.optimizer import FusedUpdate
+from flexflow_tpu_torch.runtime.optimizer import (FusedUpdate,
+                                                  ShardedFusedUpdate,
+                                                  Zero1Update)
 from flexflow_tpu_torch.runtime.resilience import init_guard_state
 from flexflow_tpu_torch import parallel
 from flexflow_tpu_torch.parallel.strategy import (load_strategies_from_file,
@@ -295,8 +298,9 @@ class FFModel:
             dispatch: str = "auto", name: Optional[str] = None) -> Tensor:
         """Mixture-of-experts FFN. Returns the main output; the
         load-balancing aux loss (the op's second output) is folded into
-        the training loss. dispatch: "auto" (sort-based: the experts are
-        not mesh-sharded in the port) | "dense" | "sort"."""
+        the training loss. dispatch: "auto" (dense, through all-to-alls,
+        when an "expert" mesh axis splits the experts, else sort-based) |
+        "dense" | "sort"."""
         outs = self._add(MoE(self, self._name("moe", name), [input],
                              num_experts, hidden_dim, k, capacity_factor,
                              dispatch=dispatch))
@@ -492,15 +496,17 @@ class FFModel:
 
     def get_weights(self, op_name: str,
                     weight_name: str = "kernel") -> np.ndarray:
-        """A weight as a numpy array (a tied one read through its
-        source and transform)."""
+        """A weight as a numpy array of its own (a tied one read through
+        its source and transform): a copy, so later in-place updates of
+        the weight leave it as it was, as the JAX package's immutable
+        arrays do."""
         tie = self._tied.get((op_name, weight_name))
         if tie is not None:
             src_op, src_w, tf = tie
             w = tie_transform(self.params[src_op][src_w], tf)
         else:
             w = self.params[op_name][weight_name]
-        return parallel.full_tensor(w.detach()).float().cpu().numpy()
+        return parallel.full_tensor(w.detach()).float().cpu().numpy().copy()
 
     def set_weights(self, op_name: str, weight_name: str, value) -> None:
         """Overwrite a weight in place (its dtype and device kept); a tied
@@ -557,9 +563,6 @@ class FFModel:
                 self.params = executor.distribute_params(self.params)
             return
         cfg = self.config
-        if cfg.fused_optimizer:
-            optimizer = FusedUpdate(optimizer)
-        self.optimizer = optimizer
         self.loss_type = loss_type_from_name(loss_type)
         self.metric_types = metrics_from_names(metrics)
         self.comp_mode = comp_mode
@@ -577,6 +580,12 @@ class FFModel:
             # so each keeps its slice: the single device's weights
             self.params = executor.distribute_params(self.params)
             executor.batch_rows = cfg.batch_size
+        # the JAX compile's order (model.py:625-628): fuse, then ZeRO-1
+        if cfg.fused_optimizer:
+            optimizer = self._maybe_fuse_optimizer(optimizer)
+        if cfg.overlap_grad_sync:
+            optimizer = self._maybe_shard_optimizer(optimizer)
+        self.optimizer = optimizer
         self._generators = self.executor.init_generators()
         self.opt_state = optimizer.init_state(self.params)
         self._guard = self._guard_state = None
@@ -592,6 +601,66 @@ class FFModel:
                                    cfg.loss_scale_growth_interval}
                 self._guard_state = init_guard_state(cfg.loss_scale,
                                                      self.device)
+
+    def _maybe_fuse_optimizer(self, opt):
+        """``FFConfig.fused_optimizer`` (the JAX ``_maybe_fuse_optimizer``):
+        weights replicated everywhere (one device, pure data parallelism)
+        take ``FusedUpdate``; a strategy that shards weights (TP / FSDP)
+        takes ``ShardedFusedUpdate``, which flattens each rank's local
+        shards. A weight whose sharded dim its mesh axes do not divide
+        keeps the per-leaf update (logged, the weight named), as in JAX.
+        (Placement's fall-back comes with placement, ROADMAP item 9 part
+        2.)"""
+        if self.mesh is None or self.mesh.size() <= 1:
+            return FusedUpdate(opt)
+        all_specs = self.executor.weight_specs()
+        specs = {op: {w: all_specs[op][w] for w in ws}
+                 for op, ws in self.params.items()}
+        if not any(e is not None for ws in specs.values()
+                   for sp in ws.values() for e in sp):
+            return FusedUpdate(opt)
+        sizes = parallel.mesh_shape_dict(self.mesh)
+        for op, ws in specs.items():
+            for w, sp in ws.items():
+                shape = self.params[op][w].shape
+                for d, e in enumerate(sp):
+                    axes = e if isinstance(e, tuple) else ((e,) if e else ())
+                    k = math.prod(sizes[a] for a in axes)
+                    if shape[d] % k:
+                        log.warning(
+                            "fused_optimizer: weight %s/%s: leaf dim %d not "
+                            "divisible by mesh extent %d for spec %s — "
+                            "using the per-leaf update", op, w, shape[d], k,
+                            sp)
+                        return opt
+        return ShardedFusedUpdate(opt, self.mesh, specs)
+
+    def _maybe_shard_optimizer(self, opt):
+        """``FFConfig.overlap_grad_sync`` (the JAX
+        ``_maybe_shard_optimizer``): the ZeRO-1 update (``Zero1Update``)
+        over the data-scattered layout the executor reduce-scatters the
+        gradients into. Falls back, the reason logged, under a fused
+        optimizer (its flat state keeps its own layout; the gradient
+        buckets still apply) and on a mesh with no "data" axis > 1.
+        (Placement's fall-back comes with placement, ROADMAP item 9 part
+        2.)"""
+        if isinstance(opt, FusedUpdate):
+            log.warning(
+                "overlap_grad_sync: fused_optimizer already stores flat "
+                "state in its own layout — skipping the ZeRO-1 wrap (the "
+                "gradient buckets still apply)")
+            return opt
+        ex = self.executor
+        scatter = ex.grad_scatter_shardings() if self.mesh is not None \
+            else {}
+        if not scatter:
+            log.info("overlap_grad_sync: no data axis > 1 on mesh %s — "
+                     "nothing to scatter over", self.config.mesh_shape)
+            return opt
+        return Zero1Update(
+            opt, {op: {w: ex.grad_placements(op, w) for w in ws}
+                  for op, ws in scatter.items()},
+            ex._store_placements, self.mesh)
 
     def _build_mesh(self, optimizer) -> None:
         """The strategy path's set-up, in the JAX ``compile``'s order

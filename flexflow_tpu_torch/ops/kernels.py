@@ -88,11 +88,14 @@ from flexflow_tpu_torch.parallel import is_dtensor
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_wgmma.cu",
-           "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
+SOURCES = ("flash_attention.cu", "flash_attention_wide.cu",
+           "flash_attention_wgmma.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_wide.cu", "flash_attention_bwd_wide_bf16.cu",
+           "flash_attention_bwd_wgmma.cu",
            "fused_add_layernorm.cu", "paged_attention.cu",
            "paged_prefill_write.cu", "fused_update.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "flash_attention_simt.cuh",
+           "flash_attention_bwd_simt.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: where the library is built: ``build/`` beside the package (listed in
@@ -105,8 +108,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
-# head dims the kernels are instantiated for (csrc launch_d switches)
-HEAD_DIMS = (32, 64, 128)
+# head dims the flash kernels (1, 2) are instantiated for (csrc launch_d
+# switches; bf16 at 80, 96 and 256 runs the CUDA-core kernels) and those the
+# paged attention kernel (4) is
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+PAGED_HEAD_DIMS = (32, 64, 128)
 
 
 # ---------------------------------------------------------------- build
@@ -911,9 +917,9 @@ def paged_attention_fwd(q, k_pages, v_pages, page_table, write_pos, row_len,
         raise ValueError(f"{name}: pool shapes {tuple(k_pages.shape)}, "
                          f"{tuple(v_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if d not in HEAD_DIMS or h % kvh:
-        raise ValueError(f"{name}: head dim {d} (supported {HEAD_DIMS}) or "
-                         f"heads {h} not a multiple of kv heads {kvh}")
+    if d not in PAGED_HEAD_DIMS or h % kvh:
+        raise ValueError(f"{name}: head dim {d} (supported {PAGED_HEAD_DIMS})"
+                         f" or heads {h} not a multiple of kv heads {kvh}")
     if any(t.dtype != torch.int32 for t in ints) \
             or page_table.shape != (b, pps) or write_pos.shape != (b, s) \
             or row_len.shape != (b,) or prompt_pad.shape != (b,):

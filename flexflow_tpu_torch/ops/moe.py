@@ -10,11 +10,26 @@ dispatch lowerings, selected by ``FFModel.moe(dispatch=...)``:
     first, in token order), ordered by expert with a stable sort, so the
     capacity drops are the dense path's; O(N * k) routing state.
 
-"auto" takes the sort path whenever the experts are not sharded over a
-mesh axis, which on one device is always. Both share the router (logits
-in the input's dtype, softmax in f32) and agree when capacity does not
-bind. The second output is the load-balancing aux loss (Shazeer et al.),
-a 0-d f32 tensor the executor adds to the training loss.
+"auto" takes the sort path unless the mesh has an "expert" axis of more
+than one rank that divides the experts (the JAX rule), which on one
+device is never. Both share the router (logits in the input's dtype,
+softmax in f32) and agree when capacity does not bind. The second output
+is the load-balancing aux loss (Shazeer et al.), a 0-d f32 tensor the
+executor adds to the training loss.
+
+Expert parallelism (an EXPERT strategy axis, or a mesh axis named
+"expert"): ``weight_partition`` shards ``w_in`` / ``w_out`` on the expert
+dim, and the dense dispatch runs as GShard's all-to-alls
+(``_forward_expert_parallel``). Every rank routes every token (the
+capacity slots are the global batch's, as JAX's one program computes
+them), then owns 1/R of the token rows (R the mesh's ranks): it
+dispatches its rows' slots for every expert, ``parallel.all_to_all``
+carries each expert rank its experts' slots (summed over the sources:
+one token a slot, so the sum is exact), the rank runs its experts, and a
+second all-to-all carries each row's combined outputs (f32 partials) back
+to the rank that owns it. Gradients of the replicated values (the input,
+the router, the routing) are partial sums over the ranks; the aux loss,
+computed alike everywhere, sends 1/R of its gradient from each.
 
 Where the JAX sort path scatter-adds (``.at[].add``), the port keeps the
 result a pure function of its inputs, run to run: every kept assignment
@@ -31,6 +46,7 @@ expert products are ``torch.bmm`` (cuBLAS on the card).
 
 from __future__ import annotations
 
+import math
 from typing import List
 
 import torch
@@ -90,9 +106,13 @@ class MoE(Op):
         ]
 
     def _use_sort_dispatch(self) -> bool:
-        # "auto": dense pays off only when the experts shard over a mesh
-        # axis (its einsums lower to all-to-alls); the port has no mesh yet
-        return self.dispatch != "dense"
+        if self.dispatch != "auto":
+            return self.dispatch == "sort"
+        # dense pays off only when the experts shard over an "expert" axis
+        # (its all-to-alls); the same condition as weight_partition's
+        shape = self.model.mesh_shape or {}
+        return not (shape.get("expert", 1) > 1
+                    and self.num_experts % shape["expert"] == 0)
 
     def forward(self, params, xs, *, training=False, capacity=None):
         """[y, aux]. ``capacity`` overrides the build-time capacity: the
@@ -100,8 +120,11 @@ class MoE(Op):
         N — a token never picks an expert twice, so no assignment drops
         and no row's output depends on another's."""
         x = xs[0]
-        t = x.reshape(-1, self.dim)                          # (N, D)
         C = capacity if capacity is not None else self.capacity
+        edim = self._expert_dim(params)
+        if edim is not None and not self._use_sort_dispatch():
+            return self._forward_expert_parallel(params, x, C, edim)
+        t = x.reshape(-1, self.dim)                          # (N, D)
         logits = t @ params["router"]                        # (N, E)
         gates = torch.softmax(logits.float(), dim=-1)
         if self._use_sort_dispatch():
@@ -110,6 +133,18 @@ class MoE(Op):
             y, aux = self._forward_dense(params, t, gates, C)
         return [y.reshape(x.shape), aux]
 
+    @staticmethod
+    def _expert_dim(params):
+        """The one mesh dim ``w_in``'s experts are split over (a DTensor's
+        Shard(0)), else None."""
+        from flexflow_tpu_torch import parallel
+
+        w = params["w_in"]
+        if not parallel.is_dtensor(w):
+            return None
+        dims = [i for i, p in enumerate(w.placements) if p.is_shard(0)]
+        return dims[0] if len(dims) == 1 else None
+
     def _aux(self, gates, ce):
         """E * sum(mean gate * mean assignment), weighted."""
         E = self.num_experts
@@ -117,15 +152,95 @@ class MoE(Op):
                                                * (ce / self.k))
 
     def _forward_dense(self, params, t, gates, C):
-        N = t.shape[0]
+        combine, ce = self._dense_routing(gates, C)
+        dispatch = (combine > 0).to(t.dtype)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch, t)
+        expert_out = expert_ffn(expert_in, params["w_in"], params["w_out"])
+        y = torch.einsum("nec,ecd->nd", combine.to(t.dtype), expert_out)
+        return y, self._aux(gates, ce)
+
+    def _forward_expert_parallel(self, params, x, C, edim):
+        """The dense dispatch with the experts split over mesh dim
+        ``edim`` (see the module's docstring): [y, aux] as DTensors, y
+        replicated."""
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+
+        from flexflow_tpu_torch import parallel
+
+        mesh = x.device_mesh
+        nd = mesh.ndim
+        axis = parallel.mesh_axis(mesh, mesh.mesh_dim_names[edim])
+        n, E, D = axis.size, self.num_experts, self.dim
+        el = E // n
+        part = [Partial()] * nd
+        rep = [Replicate()] * nd
+        t = x.redistribute(mesh, rep).to_local(
+            grad_placements=part).reshape(-1, D)
+        router = params["router"].redistribute(mesh, rep).to_local(
+            grad_placements=part)
+        w_in, w_out = (params[k].to_local(grad_placements=[
+            p if p.is_shard() else Partial() for p in params[k].placements])
+            for k in ("w_in", "w_out"))
+        gates = torch.softmax((t @ router).float(), dim=-1)
+        combine, ce = self._dense_routing(gates, C)
+        # every rank routes every token; each owns r rows of the padded
+        # batch, in DTensor's order of [Shard(0)] * nd
+        N, R = t.shape[0], mesh.size()
+        r = -(-N // R)
+        pad = r * R - N
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad, D))])
+            combine = torch.cat([combine, combine.new_zeros(
+                (pad,) + combine.shape[1:])])
+        coord = mesh.get_coordinate()
+        sizes = [mesh.size(i) for i in range(nd)]
+        index = sum(c * math.prod(sizes[i + 1:]) for i, c in enumerate(coord))
+        stride = math.prod(sizes[edim + 1:])
+        me = coord[edim]
+
+        def rows(j):
+            lo = (index + (j - me) * stride) * r
+            return slice(lo, lo + r)
+
+        # tokens to their experts' ranks: this rank's rows' slots of every
+        # expert, each rank's experts received from every source
+        mine = rows(me)
+        send = torch.einsum("nec,nd->ecd",
+                            (combine[mine] > 0).to(t.dtype), t[mine])
+        expert_in = parallel.all_to_all(send, axis, 0, 0).reshape(
+            n, el, C, D).sum(0)
+        out = expert_ffn(expert_in, w_in, w_out).float()
+        # and back: each group rank's rows combined from this rank's
+        # experts (f32 partials), summed where the rows live
+        local_e = slice(me * el, (me + 1) * el)
+        parts = torch.cat([torch.einsum("nec,ecd->nd",
+                                        combine[rows(j), local_e], out)
+                           for j in range(n)])
+        y = parallel.all_to_all(parts, axis, 0, 0).reshape(n, r, D).sum(0)
+        y = DTensor.from_local(y.to(t.dtype), mesh, [Shard(0)] * nd,
+                               run_check=False, shape=(r * R, D),
+                               stride=(D, 1)).redistribute(mesh, rep)
+        y = y[:N].reshape(x.shape)
+        # the aux loss, computed alike on every rank, sends 1/R of its
+        # gradient from each (its value unchanged)
+        aux = self._aux(gates, ce)
+        aux = aux.detach() + (aux - aux.detach()) / R
+        return [y, DTensor.from_local(aux, mesh, rep, run_check=False)]
+
+    def _dense_routing(self, gates, C):
+        """GShard's top-k routing with capacity: (combine (N, E, C) f32 —
+        each kept assignment's renormalized gate at its expert slot —,
+        the fraction of tokens each expert got, summed over rounds)."""
+        N = gates.shape[0]
         E = self.num_experts
-        combine = torch.zeros((N, E, C), dtype=torch.float32,
-                              device=t.device)
+        dev = gates.device
+        combine = torch.zeros((N, E, C), dtype=torch.float32, device=dev)
         remaining = gates
-        ce = torch.zeros((E,), dtype=torch.float32, device=t.device)
+        ce = torch.zeros((E,), dtype=torch.float32, device=dev)
         # carried across rounds: round r's assignments take the slots after
         # round r-1's (C slots an expert in all)
-        slots_used = torch.zeros((E,), dtype=torch.float32, device=t.device)
+        slots_used = torch.zeros((E,), dtype=torch.float32, device=dev)
         for _ in range(self.k):
             onehot = _one_hot(torch.argmax(remaining, dim=-1), E)
             ce = ce + onehot.mean(dim=0)
@@ -142,11 +257,7 @@ class MoE(Op):
         denom = combine.sum(dim=(1, 2), keepdim=True)
         combine = torch.where(denom > 0, combine / denom.clamp_min(1e-9),
                               combine)
-        dispatch = (combine > 0).to(t.dtype)
-        expert_in = torch.einsum("nec,nd->ecd", dispatch, t)
-        expert_out = expert_ffn(expert_in, params["w_in"], params["w_out"])
-        y = torch.einsum("nec,ecd->nd", combine.to(t.dtype), expert_out)
-        return y, self._aux(gates, ce)
+        return combine, ce
 
     def _forward_sort(self, params, t, gates, C):
         N, D = t.shape
@@ -199,7 +310,7 @@ class MoE(Op):
     def weight_partition(self, axis_map):
         """EXPERT axes shard the expert dim of w_in / w_out; without one a
         mesh axis literally named 'expert' that divides the experts does
-        (the JAX convention). Running expert parallelism is item 9 part 2."""
+        (the JAX convention)."""
         from flexflow_tpu_torch.parallel.pconfig import EXPERT
 
         eaxes = [ax for ax, d in (axis_map or {}).items() if d == EXPERT]

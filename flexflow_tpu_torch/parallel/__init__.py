@@ -418,11 +418,17 @@ TRANSPORT: Dict[str, int] = collections.Counter()
 
 
 def transport_stats() -> Dict[str, int]:
-    """{"p2p_bytes", "all_to_all_bytes", "reduce_bytes", "staged_bytes",
-    "staged_calls"} since the last ``reset_transport_stats``."""
+    """{"p2p_bytes", "all_to_all_bytes", "reduce_bytes",
+    "reduce_scatter_bytes", "all_gather_bytes", "staged_bytes",
+    "staged_calls"} since the last ``reset_transport_stats``. The
+    reduce-scatters are the gradients' into a Shard placement (FSDP's,
+    and ZeRO-1's buckets, ``executor._reduce_grad``), counted at the
+    global tensor's bytes; the all-gathers ZeRO-1's updated shards
+    (``optimizer.Zero1Update``), at the bytes a rank sends."""
     with _CALLS_LOCK:
         return {k: int(TRANSPORT[k]) for k in
                 ("p2p_bytes", "all_to_all_bytes", "reduce_bytes",
+                 "reduce_scatter_bytes", "all_gather_bytes",
                  "staged_bytes", "staged_calls")}
 
 
@@ -431,7 +437,9 @@ def reset_transport_stats() -> None:
         TRANSPORT.clear()
 
 
-def _note_transport(kind: str, nbytes: int, staged: bool = False) -> None:
+def note_transport(kind: str, nbytes: int, staged: bool = False) -> None:
+    """Add ``nbytes`` to the ``kind`` entry of ``transport_stats`` (and,
+    ``staged``, to the bytes and calls staged through host memory)."""
     with _CALLS_LOCK:
         TRANSPORT[kind] += nbytes
         if staged:
@@ -473,7 +481,7 @@ def exchange(axis: MeshAxis, sends: Sequence[Tuple[int, torch.Tensor]],
         else:
             buf = t.contiguous()
         ops.append(dist.P2POp(dist.isend, buf, axis.peer(i), axis.group))
-        _note_transport("p2p_bytes", t.numel() * t.element_size(), staged)
+        note_transport("p2p_bytes", t.numel() * t.element_size(), staged)
     for j, (i, like) in enumerate(recvs):
         if i % axis.size == axis.index:
             out[j] = own.pop(0).clone()
@@ -537,7 +545,7 @@ def _all_to_all(x: torch.Tensor, axis: MeshAxis, split_dim: int,
     if n == 1:
         return x
     inp = torch.stack(torch.chunk(x, n, dim=split_dim)).contiguous()
-    _note_transport("all_to_all_bytes", inp.numel() * inp.element_size())
+    note_transport("all_to_all_bytes", inp.numel() * inp.element_size())
     out = torch.empty_like(inp)
     dist.all_to_all_single(out, inp, group=axis.group)
     return torch.cat(out.unbind(0), dim=concat_dim)
@@ -574,7 +582,7 @@ def axis_all_reduce(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     if axis.size == 1:
         return x
     buf = x.contiguous().clone()
-    _note_transport("reduce_bytes", buf.numel() * buf.element_size())
+    note_transport("reduce_bytes", buf.numel() * buf.element_size())
     dist.all_reduce(buf, group=axis.group)
     return buf
 
@@ -586,7 +594,7 @@ def axis_broadcast(x: torch.Tensor, axis: MeshAxis, src: int) -> torch.Tensor:
 
     if axis.size == 1:
         return x
-    _note_transport("reduce_bytes", x.numel() * x.element_size())
+    note_transport("reduce_bytes", x.numel() * x.element_size())
     dist.broadcast(x, src=axis.peer(src), group=axis.group)
     return x
 
@@ -599,7 +607,7 @@ def axis_all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     if axis.size == 1:
         return x
     buf = x.contiguous()
-    _note_transport("reduce_bytes", buf.numel() * buf.element_size())
+    note_transport("reduce_bytes", buf.numel() * buf.element_size())
     out = buf.new_empty((axis.size * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, buf, group=axis.group)
     return out

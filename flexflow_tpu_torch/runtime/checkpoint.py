@@ -15,8 +15,9 @@ a step whose manifest no longer verifies. Save and load run under
 
 The payload is one ``state.pt`` written by ``torch.save``: a flat dict of
 CPU tensors named ``params/<op>/<weight>``, ``opt_state/<moment>/...``
-(the per-leaf or the fused flat-bucket layout, named by ``opt_layout`` in
-the meta), ``bn_state/<op>/<stat>``, ``guard/<field>`` and
+(the per-leaf, the fused flat-bucket or the sharded-fused layout — the
+ranks' local buckets in mesh order —, named by ``opt_layout`` in the meta,
+which for the last also records the weights' specs), ``bn_state/<op>/<stat>``, ``guard/<field>`` and
 ``generators/<op>`` (each drawing op's ``torch.Generator`` state as a
 ByteTensor), read back with ``torch.load(weights_only=True)``. bf16 has
 no numpy dtype, so the payload is not numpy, and there is no orbax: the
@@ -70,7 +71,6 @@ from typing import Dict, List, Optional
 import torch
 
 from flexflow_tpu_torch import parallel
-from flexflow_tpu_torch.config import ROADMAP_PARALLEL, not_ported
 from flexflow_tpu_torch.runtime import faultinject, locks
 from flexflow_tpu_torch.runtime.manifest import (MANIFEST_NAME,
                                                  CheckpointCorruptError,
@@ -215,12 +215,26 @@ def _inject_corruption(step_dir: str):
 
 def _opt_layout(model) -> str:
     """The optimizer state's layout: flat per-dtype buckets under the
-    fused update, per leaf otherwise. A checkpoint of one layout cannot
-    restore into the other."""
-    from flexflow_tpu_torch.runtime.optimizer import FusedUpdate
+    fused update ("fused"), the ranks' local buckets flat across the mesh
+    under ``ShardedFusedUpdate`` ("sharded_fused"), per leaf otherwise
+    (ZeRO-1's state too). A checkpoint of one layout cannot restore into
+    another."""
+    from flexflow_tpu_torch.runtime.optimizer import (FusedUpdate,
+                                                      ShardedFusedUpdate)
 
-    return "fused" if isinstance(model.optimizer, FusedUpdate) \
-        else "per_leaf"
+    opt = model.optimizer
+    if isinstance(opt, ShardedFusedUpdate):
+        return "sharded_fused"
+    return "fused" if isinstance(opt, FusedUpdate) else "per_leaf"
+
+
+def _sharded_fused_shardings(model) -> Dict[str, Dict[str, str]]:
+    """The weights' specs a sharded-fused flat vector's element order
+    follows (with the mesh): recorded so that a restore onto other specs
+    is refused instead of scrambling the moments (the JAX
+    ``_sharded_fused_shardings``)."""
+    return {op: {w: str(tuple(spec)) for w, spec in ws.items()}
+            for op, ws in model.optimizer.specs.items()}
 
 
 def _flatten(prefix: str, tree, out: Dict[str, torch.Tensor]):
@@ -313,6 +327,8 @@ def _build_meta(model, step: int, *, with_opt: bool) -> dict:
             "generators": sorted(getattr(model, "_generators", {}))}
     if with_opt:
         meta["opt_layout"] = _opt_layout(model)
+        if meta["opt_layout"] == "sharded_fused":
+            meta["opt_state_shardings"] = _sharded_fused_shardings(model)
     return meta
 
 
@@ -684,17 +700,31 @@ def _copy_group(live: Dict[str, torch.Tensor], saved, prefix: str,
 def _restore_into(model, directory: str, step: int) -> int:
     meta = load_meta(directory, step)
     saved_layout = meta.get("opt_layout")
-    if saved_layout == "sharded_fused":
-        raise not_ported("the sharded-fused optimizer checkpoint layout "
-                         "(ShardedFusedUpdate)", ROADMAP_PARALLEL)
-    if saved_layout is not None and model.optimizer is not None \
-            and saved_layout != _opt_layout(model):
-        raise ValueError(
-            f"checkpoint at {directory} stores optimizer state in the "
-            f"{saved_layout!r} layout but this model uses "
-            f"{_opt_layout(model)!r} (FFConfig.fused_optimizer determines "
-            f"the layout). Re-compile with a matching fused_optimizer "
-            f"setting to restore.")
+    if saved_layout is not None and model.optimizer is not None:
+        if saved_layout != _opt_layout(model):
+            raise ValueError(
+                f"checkpoint at {directory} stores optimizer state in the "
+                f"{saved_layout!r} layout but this model uses "
+                f"{_opt_layout(model)!r} (FFConfig.fused_optimizer and the "
+                f"sharding strategy determine the layout). Re-compile with "
+                f"a matching fused_optimizer setting to restore.")
+        if saved_layout == "sharded_fused":
+            # the flat vector's element order follows the mesh (in axis
+            # order) and the weights' specs: another topology would
+            # scramble the moments
+            mesh = parallel.mesh_shape_dict(model.mesh)
+            saved_sh = meta.get("opt_state_shardings")
+            if (list((meta.get("mesh_shape") or {}).items())
+                    != list(mesh.items())
+                    or (saved_sh is not None
+                        and saved_sh != _sharded_fused_shardings(model))):
+                raise ValueError(
+                    f"checkpoint at {directory} stores sharded-fused "
+                    f"optimizer state for mesh {meta.get('mesh_shape')} "
+                    f"with different parameter shardings — the flat state "
+                    f"layout is topology-dependent. Re-compile with the "
+                    f"saved mesh/strategy, or restore weights only "
+                    f"(optimizer=None) and start the optimizer fresh.")
     saved = load_payload(os.path.join(directory, f"step_{step}"))
     live = state_tensors(model)
     _copy_group(live, saved, "params", "weight")

@@ -60,7 +60,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from flexflow_tpu_torch.config import ROADMAP_PARALLEL, not_ported
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.ops.base import InputOp
 from flexflow_tpu_torch.ops.fused import FusedOp
@@ -254,18 +253,6 @@ def spec_placements(spec: tuple, mesh, shape) -> list:
             for n in mesh.mesh_dim_names]
 
 
-def _refuse_later_strategies(op, am: Dict[str, Optional[int]],
-                             mesh_shape: Dict[str, int]) -> None:
-    """Strategies of item 9 part 2 raise ``not_ported`` naming it instead
-    of running: an EXPERT axis of more than one device. (A STAGE axis runs
-    the pipelined stack's GPipe schedule, a sharded sequence dim ring or
-    Ulysses attention.)"""
-    for ax, d in am.items():
-        if d == EXPERT and mesh_shape.get(ax, 1) > 1:
-            raise not_ported(f"{op.name}: the EXPERT strategy on mesh axis "
-                             f"{ax!r}", ROADMAP_PARALLEL)
-
-
 def _zeros(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Zeros of ``w``'s shape and device in ``dtype`` (a DTensor's: its
     placements)."""
@@ -289,8 +276,15 @@ class GraphExecutor:
         if self.mesh is not None:
             self.mesh_shape = parallel.mesh_shape_dict(self.mesh)
             self._resolve_strategies()
-            self._compute_placements = self._param_placements(fsdp=False)
-            self._store_placements = self._param_placements(fsdp=True)
+            self._compute_placements = self._placements(
+                self.weight_specs(fsdp=False))
+            self._store_placements = self._placements(self.weight_specs())
+            # the gradients' layout: the data-scattered buckets under
+            # overlap_grad_sync (ZeRO-1), else the weights' own
+            scatter = (self.grad_scatter_shardings()
+                       if model.config.overlap_grad_sync else {})
+            self._grad_placements = (self._placements(scatter) if scatter
+                                     else self._store_placements)
 
     # ---- strategies (the strategy path) ---------------------------------------
 
@@ -309,9 +303,8 @@ class GraphExecutor:
                     nd, self.mesh_shape.get("data", 1))
                 if "data" not in self.mesh_shape:
                     pc = ParallelConfig.replicated(nd)
-            am = resolve_axis_map(pc, self.mesh_shape, nd)
-            _refuse_later_strategies(op, am, self.mesh_shape)
-            self._op_axis_maps[op.name] = am
+            self._op_axis_maps[op.name] = resolve_axis_map(
+                pc, self.mesh_shape, nd)
 
     def op_axis_map(self, op) -> Dict[str, Optional[int]]:
         return self._op_axis_maps.get(op.name, {})
@@ -345,12 +338,38 @@ class GraphExecutor:
                 for name, sp in wp.items()}
         return out
 
-    def _param_placements(self, fsdp: bool) -> Dict[str, Dict[str, list]]:
-        shapes = {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()}
-                  for op in self.model.ops if op.weight_specs()}
+    def grad_scatter_shardings(self) -> Dict[str, Dict[str, tuple]]:
+        """The ZeRO-1 layout (``FFConfig.overlap_grad_sync``; the JAX
+        ``grad_scatter_shardings``): each weight's spec with ``fsdp_axis``
+        applied and its largest still-unsharded dim that the "data" axis
+        divides split over "data" too — the bucket each microbatch's
+        gradients reduce-scatter into and the layout the ZeRO-1 update
+        runs in. A weight "data" cannot divide, or that FSDP already
+        shards over it, keeps its spec (the plain all-reduce path). {}
+        without a "data" axis > 1."""
+        n = self.mesh_shape.get("data", 0)
+        if n <= 1:
+            return {}
+        shapes = self._weight_shapes()
+        return {op: {w: _with_fsdp(sp, shapes[op][w], "data", n)
+                     for w, sp in ws.items()}
+                for op, ws in self.weight_specs().items()}
+
+    def grad_placements(self, op: str, w: str) -> list:
+        """The placements a weight's gradient is reduced into: the ZeRO-1
+        bucket under ``overlap_grad_sync``, else the weight's own."""
+        return self._grad_placements[op][w]
+
+    def _weight_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        return {op.name: {w.name: tuple(w.shape) for w in op.weight_specs()}
+                for op in self.model.ops if op.weight_specs()}
+
+    def _placements(self, specs) -> Dict[str, Dict[str, list]]:
+        """{op: {weight: placements}} of {op: {weight: spec}}."""
+        shapes = self._weight_shapes()
         return {op: {w: spec_placements(sp, self.mesh, shapes[op][w])
                      for w, sp in ws.items()}
-                for op, ws in self.weight_specs(fsdp).items()}
+                for op, ws in specs.items()}
 
     def distribute_params(self, params: Params) -> Params:
         """Full weights (the same on every rank) as DTensors under their
@@ -740,12 +759,16 @@ class GraphExecutor:
                         loss_type: LossType,
                         metric_types: Sequence[MetricsType], final_tensor,
                         scale: Optional[torch.Tensor] = None,
-                        inject_nan: bool = False
+                        inject_nan: bool = False,
+                        wide: Optional[Dict] = None
                         ) -> Tuple[torch.Tensor, Dict, Params, State]:
         """(loss, metrics, grads, new state) of one training batch; the
         state is not committed. With ``scale`` (a 0-dim f32 tensor) the
         gradient is taken of loss * scale; ``inject_nan`` adds NaN to the
-        loss (the guard's fault hook)."""
+        loss (the guard's fault hook). ``wide`` ({op: {weight: dtype}},
+        the accumulators' dtypes under grad accumulation): on the strategy
+        path each gradient is cast to it before it is reduced over the
+        ranks, as JAX reduces its f32 accumulation carry."""
         leaves: List[torch.Tensor] = [w for ws in params.values()
                                       for w in ws.values()]
         for w in leaves:
@@ -761,14 +784,29 @@ class GraphExecutor:
             flat = iter(torch.autograd.grad(target, leaves))
         grads = {op: {k: next(flat) for k in ws} for op, ws in params.items()}
         if self.mesh is not None:
-            # partial sums over the ranks reduced into the weights'
-            # layout (an all-reduce, or FSDP's reduce-scatter)
-            grads = {op: {k: (g.redistribute(self.mesh, params[op][k]
-                                             .placements)
+            # partial sums over the ranks reduced into the weights' layout
+            # (an all-reduce, or FSDP's reduce-scatter), or under
+            # overlap_grad_sync into the data-scattered buckets (a
+            # reduce-scatter)
+            grads = {op: {k: (self._reduce_grad(
+                g if wide is None else g.to(wide[op][k]), op, k)
                               if parallel.is_dtensor(g) else g)
                           for k, g in ws.items()}
                      for op, ws in grads.items()}
         return loss.detach(), mets, grads, new_state
+
+    def _reduce_grad(self, g, op: str, k: str):
+        """``g`` redistributed to its gradient placements; a
+        reduce-scatter's bytes (a Partial reduced into a Shard on "data")
+        counted in ``parallel.transport_stats()["reduce_scatter_bytes"]``."""
+        want = self._grad_placements[op][k]
+        if list(g.placements) == list(want):
+            return g
+        if any(p.is_partial() and w.is_shard()
+               for p, w in zip(g.placements, want)):
+            parallel.note_transport("reduce_scatter_bytes",
+                                    g.numel() * g.element_size())
+        return g.redistribute(self.mesh, want)
 
     def _accum_loss_and_grads(self, params: Params, batch: Batch, accum: int,
                               *args) -> Tuple[torch.Tensor, Dict, Params]:
@@ -779,7 +817,10 @@ class GraphExecutor:
         microbatch's activation memory. The loss is the microbatches'
         mean; ``*_count`` / ``*_total`` metrics sum, the others average.
         Each microbatch's state is committed before the next runs (the
-        carry of the JAX scan)."""
+        carry of the JAX scan). On the strategy path each microbatch's
+        gradients are reduced over the ranks in the carry's dtype (f32
+        for bf16 weights), into the ZeRO-1 buckets under
+        ``overlap_grad_sync``."""
         for k, v in batch.items():
             if v.shape[0] % accum:
                 raise ValueError(
@@ -788,13 +829,16 @@ class GraphExecutor:
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
         wide = (torch.bfloat16, torch.float16)
-        acc = {op: {k: _zeros(w, torch.float32 if w.dtype in wide
-                              else w.dtype)
+        acc = {op: {k: self._grad_zeros(op, k, w, torch.float32
+                                        if w.dtype in wide else w.dtype)
                     for k, w in ws.items()} for op, ws in params.items()}
         losses, all_mets = [], []
+        dtypes = {op: {k: a.dtype for k, a in ws.items()}
+                  for op, ws in acc.items()}
         for i in range(accum):
             loss, mets, grads, new_state = self._loss_and_grads(
-                params, {k: v[i] for k, v in micro.items()}, *args)
+                params, {k: v[i] for k, v in micro.items()}, *args,
+                wide=dtypes)
             self.commit_state(new_state)
             for op, ws in acc.items():
                 for k, a in ws.items():
@@ -809,6 +853,18 @@ class GraphExecutor:
                     else torch.stack([m[k] for m in all_mets]).mean())
                 for k in all_mets[0]}
         return torch.stack(losses).mean(), mets, grads
+
+    def _grad_zeros(self, op: str, k: str, w: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """An accumulator of ``w``'s gradient: zeros in ``dtype`` under
+        the gradient's placements (the ZeRO-1 bucket: each data rank holds
+        its 1/N of it)."""
+        z = _zeros(w, dtype)
+        if self.mesh is None or not parallel.is_dtensor(z):
+            return z
+        want = self._grad_placements[op][k]
+        return z if list(z.placements) == list(want) \
+            else z.redistribute(self.mesh, want)
 
     def train_step(self, params: Params, opt_state, batch: Batch, optimizer,
                    loss_type: LossType, metric_types: Sequence[MetricsType],
@@ -848,9 +904,23 @@ class GraphExecutor:
         if self.mesh is None:
             optimizer.update(params, grads, opt_state, finite=finite)
             return
-        optimizer.update(parallel.local_tree(params),
-                         parallel.local_tree(grads),
-                         parallel.local_tree(opt_state), finite=finite)
+        if getattr(optimizer, "takes_dtensors", False):
+            # ZeRO-1: the update takes its shards itself
+            optimizer.update(params, grads, opt_state, finite=finite)
+        else:
+            # gradients left in the data-scattered buckets (overlap_grad_sync
+            # under an optimizer that keeps its own layout) gathered back to
+            # the weights' layout first
+            grads = {op: {k: (g.redistribute(self.mesh,
+                                             params[op][k].placements)
+                              if parallel.is_dtensor(g) and list(
+                                  g.placements) != list(
+                                      params[op][k].placements) else g)
+                          for k, g in ws.items()}
+                     for op, ws in grads.items()}
+            optimizer.update(parallel.local_tree(params),
+                             parallel.local_tree(grads),
+                             parallel.local_tree(opt_state), finite=finite)
         parallel.note_local_call("fused_update")
 
     def guarded_train_step(self, params: Params, opt_state, batch: Batch,

@@ -23,7 +23,13 @@ guard's verdict): when false, weights and state keep their bits.
 Under a mesh the weights and the per-leaf state are DTensors of the same
 placements (FSDP divides both by the axis size); the executor hands the
 update each rank's local shards, so the kernel and its arithmetic are the
-single device's.
+single device's. Two wrappers shard the state further (the JAX
+package's): ``Zero1Update`` (``FFConfig.overlap_grad_sync``) keeps the
+per-leaf state in the data-scattered ZeRO-1 layout and updates each data
+rank's 1/N of every weight, then all-gathers it; ``ShardedFusedUpdate``
+(``fused_optimizer`` under a strategy that shards weights) flattens each
+rank's local shards a dtype bucket at a time, its flat state one vector
+sharded across the whole mesh.
 
 On the card both optimizers update through one kernel,
 ``kernels.fused_update`` (``csrc/fused_update.cu``): the per-leaf
@@ -42,7 +48,7 @@ import torch
 
 from flexflow_tpu_torch.ops import kernels
 from flexflow_tpu_torch.ops.kernels import UpdateRule
-from flexflow_tpu_torch.parallel import local_tree
+from flexflow_tpu_torch.parallel import local, local_tree, note_transport
 from flexflow_tpu_torch.runtime.schedule import resolve
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -223,9 +229,9 @@ class FusedUpdate(Optimizer):
         return self.inner.lr_of(t)
 
     def init_state(self, params: Tree) -> Dict:
-        """Flat state vectors of each dtype bucket; under a mesh of this
-        rank's local shards (the flat cross-mesh layout of the JAX
-        ``ShardedFusedUpdate`` is item 9 part 2's)."""
+        """Flat state vectors of each dtype bucket (under a mesh of
+        replicated weights, pure data parallelism, every rank's whole
+        copy)."""
         params = local_tree(params)
         state = {}
         for n in self.moment_names():
@@ -250,3 +256,115 @@ class FusedUpdate(Optimizer):
                 [grads[op][k] for op, k in keys],
                 [state[n][dt] for n in names], lr, finite)
         _advance(state["t"], finite)
+
+
+class ShardedFusedUpdate(FusedUpdate):
+    """``FusedUpdate`` under a strategy that shards weights (TP / FSDP;
+    the JAX package's ``ShardedFusedUpdate``): each rank flattens its
+    local shards a dtype bucket at a time and runs the same update on them
+    (``kernels.fused_update`` on the card, through the executor's local
+    trees), with no collective — gradients arrive reduced. Replicated
+    leaves are updated alike on every rank.
+
+    The state is flat across the mesh: a bucket's vector is a DTensor of
+    (local bucket size x ranks) elements, ``Shard(0)`` over every mesh
+    dim in mesh order (JAX's ``P(tuple(axis_names))``), so each rank
+    stores its own bucket and a checkpoint holds the ranks' buckets in
+    mesh order. The layout depends on the mesh and the weights' specs
+    (``specs``), which a checkpoint records (``sharded_fused``)."""
+
+    def __init__(self, inner: Optimizer, mesh, specs: Dict[str, Dict]):
+        super().__init__(inner)
+        self.mesh = mesh
+        self.specs = specs
+
+    def init_state(self, params: Tree) -> Dict:
+        from torch.distributed.tensor import DTensor, Shard
+
+        state = super().init_state(params)
+        n = self.mesh.size()
+        for name in self.moment_names():
+            state[name] = {
+                dt: DTensor.from_local(v, self.mesh,
+                                       [Shard(0)] * self.mesh.ndim,
+                                       run_check=False,
+                                       shape=(v.numel() * n,),
+                                       stride=(1,))
+                for dt, v in state[name].items()}
+        return state
+
+
+class Zero1Update(Optimizer):
+    """The ZeRO-1 update (``FFConfig.overlap_grad_sync``; the JAX
+    package's ``Zero1Update``) around a per-leaf optimizer.
+
+    ``scatter`` and ``gather`` are {op: {weight: placements}}: the
+    data-scattered bucket of each weight (``executor.grad_scatter_
+    shardings``), in which the gradients arrive reduce-scattered, and the
+    weight's own. The state is created in the scatter layout, so a data
+    rank stores 1/N of it. ``update`` takes DTensors (``takes_dtensors``):
+    each rank's shard of every weight (a local slice of the replicated
+    weight, no collective) is updated with its gradient and state shards
+    by the inner optimizer — on the card ``kernels.fused_update``, one
+    launch a dtype bucket — and then gathered back into the weight, one
+    all-gather a weight (none for a weight whose two layouts agree, FSDP's
+    ZeRO-3 case, updated in place). The numbers are the per-leaf update's
+    (elementwise; a shard's elements are the same operands), and the
+    state's tree is the per-leaf one, so a checkpoint restores with
+    ``overlap_grad_sync`` on or off."""
+
+    takes_dtensors = True
+
+    def __init__(self, inner: Optimizer, scatter: Dict, gather: Dict, mesh):
+        self.inner = inner
+        self.rule = inner.rule
+        self.scatter = scatter
+        self.gather = gather
+        self.mesh = mesh
+
+    def __getattr__(self, name):
+        if name == "inner":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def lr_of(self, t):
+        return self.inner.lr_of(t)
+
+    def _to_scatter(self, op: str, k: str, t):
+        want = self.scatter[op][k]
+        return t if list(t.placements) == list(want) \
+            else t.redistribute(self.mesh, want)
+
+    def init_state(self, params: Tree) -> Dict:
+        state = self.inner.init_state(params)
+        for n in self.moment_names():
+            state[n] = {op: {k: self._to_scatter(op, k, m)
+                             for k, m in ws.items()}
+                        for op, ws in state[n].items()}
+        return state
+
+    @torch.no_grad()
+    def update(self, params: Tree, grads: Tree, state,
+               finite: Optional[torch.Tensor] = None) -> None:
+        from torch.distributed.tensor import DTensor
+
+        shards = {op: {k: local(self._to_scatter(op, k, w))
+                       for k, w in ws.items()}
+                  for op, ws in params.items()}
+        grad_shards = {op: {k: local(self._to_scatter(op, k, g))
+                            for k, g in ws.items()}
+                       for op, ws in grads.items()}
+        self.inner.update(shards, grad_shards, local_tree(state), finite)
+        for op, ws in params.items():
+            for k, w in ws.items():
+                want = self.scatter[op][k]
+                if list(w.placements) == list(want):
+                    continue        # updated in place
+                shard = shards[op][k]
+                note_transport("all_gather_bytes",
+                               shard.numel() * shard.element_size())
+                full = DTensor.from_local(
+                    shard, self.mesh, want, run_check=False,
+                    shape=w.shape, stride=w.stride()).redistribute(
+                        self.mesh, w.placements)
+                local(w).copy_(local(full))

@@ -125,6 +125,9 @@ GPU_FLASH = [
     (2, 65, 65, 4, 1, 32, False),      # non-causal, MQA
     (1, 512, 512, 32, 8, 128, True),   # the Llama-3-8B prefill shape
     (4, 1, 1, 4, 4, 64, True),         # a one-token prompt's prefill
+    (2, 100, 100, 4, 2, 80, True),     # head dims 80, 96, 256 (bf16: the
+    (1, 37, 129, 4, 4, 96, True),      # CUDA-core kernel)
+    (1, 130, 130, 2, 2, 256, False),
 ]
 
 
@@ -239,6 +242,9 @@ GPU_FLASH_BWD = [
     (1, 37, 129, 8, 128, True),      # sk > sq: bottom-right offset
     (2, 65, 65, 4, 32, False),       # non-causal, ragged
     (8, 512, 512, 32, 128, False),   # the flagship training shape
+    (2, 100, 100, 4, 80, True),      # head dims 80, 96, 256 (bf16: the
+    (1, 37, 129, 4, 96, True),       # CUDA-core kernels)
+    (1, 130, 130, 2, 256, False),
 ]
 
 
@@ -3663,11 +3669,19 @@ def test_ring_launch_counts_per_rank(sp_card, causal):
 
 @pytest.mark.cuda
 def test_ring_refused_head_dim_raises_on_card(sp_card):
-    """A head dim the kernels are not built for (96, bf16) under a ring of
-    2 raises ``ValueError`` in kernel 1's wrapper on each rank: the ring
-    does not fall back to the torch-op ring, and launches nothing."""
-    for rec in sp_card:
-        assert rec["refused/hd96"].tolist() == [1, 0, 0]
+    """Head dim 96 (bf16), which the ring refused before kernels 1 and 2
+    were built for it (fault 10), under a causal ring of 2: each rank
+    launches kernel 1 and kernel 2 once a shard it attends (rank 0 once,
+    rank 1 twice), and the output and gradients equal the torch-op ring's
+    on the same shards (bf16: 2e-2 of the largest). A head dim the kernels
+    are not built for (48) still raises ``ValueError`` in kernel 1's
+    wrapper on each rank: no fall-back to the torch-op ring, no launch."""
+    for r, rec in enumerate(sp_card):
+        assert rec["refused/hd48"].tolist() == [1, 0, 0]
+        n = 1 if r == 0 else 2
+        assert rec["hd96/launches"].tolist() == [n, n]
+        for g in ("out", "dq", "dk", "dv"):
+            _scaled(rec[f"hd96/ring/{g}"], rec[f"hd96/plain/{g}"], 2e-2)
 
 
 @pytest.mark.cuda

@@ -43,6 +43,11 @@ FLASH_CASES = {
     "non_causal": (2, 32, 32, 2, 2, 16, False),
     "sk_gt_sq_offset": (1, 16, 48, 2, 2, 16, True),
     "gqa": (2, 32, 32, 4, 2, 16, True),
+    # the head dims kernels 1 and 2 take past 32 / 64 / 128 (bf16 on the
+    # CUDA-core kernels): the Pallas blocks keep the head dim whole
+    "head_dim_80": (1, 32, 32, 2, 2, 80, True),
+    "head_dim_96": (1, 32, 48, 2, 2, 96, False),
+    "head_dim_256": (1, 16, 32, 2, 2, 256, True),
 }
 
 
@@ -132,10 +137,14 @@ def _bwd_extras(q, do, jo, mode):
 
 
 @pytest.mark.parametrize("mode", ["dlse", "delta", "delta_dlse"])
-@pytest.mark.parametrize("case", list(MHA_CASES))
+@pytest.mark.parametrize("case", [c for c in MHA_CASES
+                                  if not c.startswith("head_dim")
+                                  or c == "head_dim_96"])
 def test_flash_bwd_delta_and_dlse_match_pallas(case, mode):
     """The backward's ``delta`` / ``dlse`` entry against the Pallas
-    backward's ``delta_precomputed`` / ``dlse`` (interpret mode)."""
+    backward's ``delta_precomputed`` / ``dlse`` (interpret mode); of the
+    head dims past 32 / 64 / 128, 96 (the ring's entry at Phi-3-mini's
+    heads; the others share its code)."""
     q, k, v, do, causal, scale = _mha_inputs(case)
     b, sq, h, d = q.shape
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))

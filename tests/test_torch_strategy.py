@@ -412,8 +412,10 @@ def test_config_fields_and_refusals():
     assert FFConfig().mesh_shape is None and FFConfig().num_devices == 1
     # sp_mode is ported (ring / Ulysses attention): both lowerings build
     assert FFConfig(sp_mode="ulysses").sp_mode == "ulysses"
-    for kw, where in ((dict(overlap_grad_sync=True), "item 9"),
-                      (dict(search_budget=10), "item 10"),
+    # overlap_grad_sync is ported (ZeRO-1, tests/test_torch_zero1.py)
+    assert FFConfig(overlap_grad_sync=True).overlap_grad_sync is True
+    assert JConfig(overlap_grad_sync=True).overlap_grad_sync is True
+    for kw, where in ((dict(search_budget=10), "item 10"),
                       (dict(measure_search_costs="measure"), "item 10"),
                       (dict(cost_db_path="x.db"), "item 10"),
                       (dict(strategy_lint="strict"), "item 10")):
@@ -427,21 +429,28 @@ def test_config_fields_and_refusals():
 
 
 def test_sequence_stage_and_expert_strategies_refused():
-    """An EXPERT strategy (item 9 part 2) raises not_ported naming item 9,
-    before running; a sharded sequence dim (ring / Ulysses attention) and
-    a STAGE axis (the stack's GPipe schedule) pass to the running path;
-    the same axes of one device are no parallelism and pass."""
-    for kind, am, mesh, refused in (
-            ("mha", {"data": 0, "seq": 1}, {"data": 1, "seq": 2}, False),
-            ("moe", {"expert": -4}, {"expert": 2}, True),
-            ("stack", {"pipe": -3}, {"pipe": 2}, False)):
+    """None of these strategies is refused any more: a sharded sequence
+    dim (ring / Ulysses attention), a STAGE axis (the stack's GPipe
+    schedule) and an EXPERT axis (the MoE's all-to-all dispatch,
+    tests/test_torch_expert_parallel.py) resolve to the same axis map as
+    in JAX; the EXPERT axis shards the experts of w_in / w_out and "auto"
+    takes the dense dispatch, as JAX's op does."""
+    for kind, am, mesh in (
+            ("mha", {"data": 0, "seq": 1}, {"data": 1, "seq": 2}),
+            ("moe", {"expert": -4}, {"expert": 2}),
+            ("stack", {"pipe": -3}, {"pipe": 2})):
         _, op = _graph("port", mesh, kind)
-        if refused:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                texec._refuse_later_strategies(op, am, mesh)
-        else:
-            texec._refuse_later_strategies(op, am, mesh)
-        texec._refuse_later_strategies(op, am, {k: 1 for k in mesh})
+        jff, jop = _graph("jax", mesh, kind)
+        nd = op.outputs[0].num_dims
+        got = texec.resolve_axis_map(
+            tpc.ParallelConfig.from_axis_map(nd, mesh, am), mesh, nd)
+        want = jexec.resolve_axis_map(
+            jpc.ParallelConfig.from_axis_map(nd, mesh, am), mesh, nd)
+        assert got == want
+        if kind == "moe":
+            assert op.weight_partition(got)["w_in"] == ("expert", None, None)
+            assert not op._use_sort_dispatch()
+            assert not jop._use_sort_dispatch()
 
 
 # --------------------------------------------------------------- fusion
